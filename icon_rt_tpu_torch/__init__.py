@@ -1,0 +1,27 @@
+"""icon_rt_tpu_torch — the PyTorch/CUDA port of icon_rt_tpu.
+
+The same ICON direct-volume renderer (Woodcock tracking of scalar fields on
+triangular prism columns, progressive accumulation, transfer-function
+classification), written against PyTorch tensors with its hot device loops
+as kernels written by hand for NVIDIA Hopper (sm_90a):
+
+  K1+K4  ops/fast.py    track_f32      CUDA C++ (csrc/track_f32.cu)
+  K5a    ops/fast.py    classify_bake  Triton
+  K5b    models/accel.py max_opacity   Triton
+  K6     ops/order.py   chord_keys     Triton
+
+Every kernel has a plain-PyTorch version in the same module.  A wrapper
+launches its kernel for a CUDA tensor and runs the plain version for a CPU
+tensor; anything else raises.  This package never imports jax or
+icon_rt_tpu (the JAX reference package beside it).
+
+Layer map (bottom-up), mirroring icon_rt_tpu:
+  utils/     — LCG, color, PNG, host vector math, native host module loader
+  data/      — .ic IO + synthetic icosphere scenes
+  models/    — cells, transfer function, locator, radial bands
+  ops/       — camera, ray ordering, launch params, the fast tracker
+  pipeline/  — frame loop, CLI flags, .xf IO, TF editor
+  app.py     — the icon_rt application (apps/icon_rt_torch.py)
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,287 @@
+"""icon_rt — the ICON direct-volume renderer application, PyTorch/CUDA port.
+
+Same CLI as apps/icon_rt.py (ref: icon_rt/hostCode.cu:703-968):
+  positional <file>.ic, --num-cells N, --lat-range lo:hi, --lon-range lo:hi,
+  -mode M, plus the common pipeline flags (--bgcolor --sample-limit --xf
+  -win/--win/--size -fovy --camera), and:
+  --synthetic SUBDIV[:LAYERS]  render a generated icosphere field (no .ic)
+  --samples N                  progressive samples per launch (default 8)
+  -o PATH                      output PNG name (default icon_rt.png)
+  --device DEV                 torch device (default cuda; cpu runs the
+                               kernels' plain PyTorch versions)
+
+This port renders the default path: the fast radial-band raygen with the
+locator sampler on the f32 tier.  Flags that select anything else raise
+NotImplementedError naming the ROADMAP item that will port them.
+
+Batch behavior matches the reference: renders --sample-limit progressive
+frames, writes the PNG, prints FPS.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+
+#: flags and values this port does not render yet -> the ROADMAP item
+_NOT_PORTED = {
+    ("--raygen", "accel"): "ROADMAP Queue 1 item 7 (reference-parity tier)",
+    ("--raygen", "ae"): "ROADMAP Queue 1 item 7 (reference-parity tier)",
+    ("--sampler", "brute"): "ROADMAP Queue 1 item 7 (reference-parity tier)",
+    ("--sampler", "wedge"): "ROADMAP Queue 1 item 8 (unstructured elements)",
+    ("-mode", "2"): "ROADMAP Queue 1 item 8 (unstructured elements)",
+    ("--quantized", None): "ROADMAP Queue 1 item 3 (quantized tier)",
+    ("--march", None): "ROADMAP Queue 1 item 4 (deterministic march)",
+    ("--preview", None): "ROADMAP Queue 1 item 5 (preview tier)",
+    ("--samples", "auto"): "ROADMAP Queue 1 item 5 (auto samples)",
+}
+
+
+def _not_ported(flag, value=None):
+    item = _NOT_PORTED.get((flag, value)) or _NOT_PORTED.get((flag, None))
+    shown = flag if value is None else f"{flag} {value}"
+    raise NotImplementedError(f"{shown} is not ported to icon_rt_tpu_torch "
+                              f"yet: {item}")
+
+
+def parse_app_args(argv):
+    cfg = {
+        "filepath": None, "num_cells": -1,
+        "lat_range": None, "lon_range": None,
+        "synthetic": None, "out": "icon_rt", "bands": 64,
+        "samples": 8, "device": "cuda",
+    }
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if not a.startswith("-") and a.endswith(".ic"):
+            cfg["filepath"] = a
+        elif a == "--num-cells":
+            cfg["num_cells"] = int(argv[i + 1]); i += 1
+        elif a == "--lat-range":
+            lo, hi = argv[i + 1].split(":")
+            cfg["lat_range"] = (float(lo), float(hi)); i += 1
+        elif a == "--lon-range":
+            lo, hi = argv[i + 1].split(":")
+            cfg["lon_range"] = (float(lo), float(hi)); i += 1
+        elif a == "-mode":
+            # reference sampler modes (ref: Params.h:29-31): 0 = user geom,
+            # 1 = triangles (both: analytic column sampling), 2 = cuBQL
+            if argv[i + 1] == "2":
+                _not_ported("-mode", "2")
+            i += 1
+        elif a == "--synthetic":
+            s = argv[i + 1].split(":")
+            cfg["synthetic"] = (int(s[0]), int(s[1]) if len(s) > 1 else 8)
+            i += 1
+        elif a == "--raygen":
+            if argv[i + 1] != "fast":
+                _not_ported("--raygen", argv[i + 1])
+            i += 1
+        elif a == "--accel-mode":
+            i += 1      # selects the parity raygens' accel: no effect here
+        elif a == "--sampler":
+            if argv[i + 1] != "locator":
+                _not_ported("--sampler", argv[i + 1])
+            i += 1
+        elif a == "-o":
+            cfg["out"] = argv[i + 1].removesuffix(".png"); i += 1
+        elif a in ("--quantized", "--march", "--preview"):
+            _not_ported(a)
+        elif a in ("--finemap", "--no-finemap"):
+            pass    # the fine map serves the quantized tier only
+        elif a == "--samples":
+            if argv[i + 1] == "auto":
+                _not_ported("--samples", "auto")
+            cfg["samples"] = max(1, int(argv[i + 1])); i += 1
+        elif a == "--device":
+            cfg["device"] = argv[i + 1]; i += 1
+        i += 1
+    return cfg
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--help" in argv or "-h" in argv:
+        print(__doc__)
+        return 0
+    pl = build(argv)
+    if pl is None:
+        return 1
+    # render loop (ref: hostCode.cu:931-965)
+    while True:
+        pl.launch()
+        if not pl.is_running():
+            break
+    pl.present()
+    return 0
+
+
+def _device(name: str):
+    import torch
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: CUDA is not available here "
+                           "(use --device cpu for the plain PyTorch path)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device {name}: only cuda and cpu are supported")
+    return dev
+
+
+def build(argv):
+    """Construct the fully wired Pipeline (render fn, TF handler) without
+    running the frame loop."""
+    cfg = parse_app_args(argv)
+    dev = _device(cfg["device"])
+
+    from .data import icfile, synthetic
+    from .models.cells import build_cells, compute_stats
+    from .models.locator import build_locator
+    from .models.shells import build_radial_bands, update_band_majorants
+    from .models.transfunc import DEFAULT_COLORS
+    from .ops.camera import Camera
+    from .ops.fast import pack_cells, render_frame_fast
+    from .ops.order import inverse_order, pixel_order
+    from .ops.render import alloc_frame, make_launch_params
+    from .pipeline.pipeline import Pipeline, TransfuncState
+
+    # -- dataset (ref: hostCode.cu:717-808) ---------------------------------
+    if cfg["synthetic"] is not None:
+        subdiv, layers = cfg["synthetic"]
+        ds = synthetic.icosphere(subdivisions=subdiv, num_layers=layers)
+    else:
+        if not cfg["filepath"]:
+            print("Usage: icon_rt <file.ic> | --synthetic SUBDIV[:LAYERS]",
+                  file=sys.stderr)
+            return None
+        ds = icfile.read_ic(cfg["filepath"], cfg["num_cells"]
+                            if cfg["num_cells"] >= 0 else None)
+        ds = ds.crop(cfg["lat_range"], cfg["lon_range"])
+    print(f"cells: {ds.num_cells}")
+    stats = compute_stats(ds)
+
+    cells = build_cells(ds, device=dev)
+    locator = build_locator(ds, device=dev)
+
+    pl = Pipeline(argv, name=cfg["out"])
+    pl.set_frame(512, 512)
+
+    cam = Camera()
+    cam.set_aspect(pl.width / pl.height)
+    cam.view_all(stats.world_bounds_lo, stats.world_bounds_hi)
+    pl.set_camera(cam)
+
+    if not pl.transfunc_valid():
+        vr = stats.data_range
+        if not (vr[0] < vr[1]):
+            vr = np.array([0.0, 1.0], np.float32)
+        pl.set_transfunc(TransfuncState(DEFAULT_COLORS, tuple(vr)))
+
+    # value histogram for the TFE overlay (ref: alpha_editor.cpp:209-234)
+    if pl.tfe is not None and ds.num_cells:
+        mask = (np.arange(ds.value.shape[1])[None, :]
+                < ds.num_layers[:, None])
+        counts, _ = np.histogram(ds.value[mask], bins=64,
+                                 range=tuple(stats.data_range)
+                                 if stats.data_range[0] < stats.data_range[1]
+                                 else (0.0, 1.0))
+        pl.tfe.set_histogram(counts)
+
+    # unit distance slider scaled to shell magnitude (ref: hostCode.cu:838-841)
+    magnitude = np.floor(np.log10(stats.spherical_bounds_lo[0]))
+    scale = 10.0 ** (magnitude - 3)
+    state = {"unit_distance": 1.0 * scale}
+    pl.ui_param("Unit distance", lambda: state["unit_distance"],
+                lambda v: state.__setitem__("unit_distance", v),
+                minf=0.01 * scale, maxf=5.0 * scale)
+
+    def set_opacity(v):
+        """Live opacity-scale slider (the reference's opacityScale,
+        ref: tfe.cpp:29-50), routed through the TFE dirty flags."""
+        if pl.tfe is not None:
+            pl.tfe.set_opacity_scale(float(v))
+        elif pl.transfunc is not None:
+            pl.transfunc.opacity = float(v)
+            on_tf_update(pl.transfunc, pl.tf_index)
+
+    pl.ui_param("Opacity scale", lambda: (pl.tfe.get_opacity_scale()
+                                          if pl.tfe is not None else
+                                          (pl.transfunc.opacity
+                                           if pl.transfunc else 1.0)),
+                set_opacity, minf=0.0, maxf=10.0)
+
+    # -- radial bands and baked rows: built on first use, refreshed on every
+    # TF edit (ref: hostCode.cu:878-909) -----------------------------------
+    device = {}
+    struct = {"bands": None, "packed": None}
+
+    def get_bands():
+        if struct["bands"] is None:
+            struct["bands"] = update_band_majorants(
+                build_radial_bands(ds, cfg["bands"], device=dev),
+                device["tf"].values, device["tf"].value_range)
+        return struct["bands"]
+
+    def get_packed():
+        if struct["packed"] is None:
+            struct["packed"] = pack_cells(cells, device["tf"])
+        return struct["packed"]
+
+    def on_tf_update(tf_state, index):
+        """TF-edit handler: new device LUT, band majorants (K5b) and baked
+        rows (K5a).  Every edit re-runs the full bake; the scale-only
+        re-bake of the JAX package is not ported yet."""
+        device["tf"] = tf_state.to_device(device=dev)
+        if struct["bands"] is not None:
+            struct["bands"] = update_band_majorants(
+                struct["bands"], device["tf"].values,
+                device["tf"].value_range)
+        if struct["packed"] is not None:
+            struct["packed"] = pack_cells(cells, device["tf"])
+
+    pl.set_transfunc_update_handler(on_tf_update)
+    on_tf_update(pl.transfunc, 0)
+
+    W, H = pl.width, pl.height
+    frame = {"perm": None, "inv": None, "n_active": None}
+    frame["accum"], frame["fb"] = alloc_frame(W, H, device=dev)
+
+    def render(frame_id):
+        # samples per launch, clamped so batch mode honors --sample-limit
+        want = cfg["samples"]
+        spl = max(1, min(want, pl.sample_limit - frame_id
+                         if not pl.interactive else want))
+        pl.samples_per_launch = spl
+        if frame_id == 0:
+            frame["accum"], frame["fb"] = alloc_frame(W, H, device=dev)
+        lp = make_launch_params(
+            cam.basis(W, H), stats.world_bounds_lo, stats.world_bounds_hi,
+            ambient_color=(1.0, 1.0, 1.0), ambient_radiance=1.0,
+            unit_distance=state["unit_distance"], accum_id=frame_id,
+            device=dev)
+        if frame["perm"] is None or frame_id == 0:
+            # re-sort rays by expected cost on camera change (K6)
+            p, n_cov = pixel_order(lp, stats.spherical_bounds_lo[0],
+                                   stats.spherical_bounds_hi[0], W, H)
+            frame["inv"] = inverse_order(p).cpu().numpy()
+            frame["perm"] = p
+            frame["n_active"] = n_cov
+        render_frame_fast(cells, get_packed(), locator, get_bands(), lp,
+                          frame["accum"], frame["fb"], width=W, height=H,
+                          pixel_perm=frame["perm"],
+                          n_active=frame["n_active"], samples=spl)
+        return frame["fb"]
+
+    pl.set_render_fn(render)
+
+    def present_fn(fb, w, h):
+        # the fast path renders in ray-sorted order; unpermute on the host
+        pl.write_frame(fb[frame["inv"]])
+    pl.present_fn = present_fn
+    # the wired state, for drivers that measure the path (chip_smoke.py)
+    pl.frame = frame
+    pl.scene = {"cells": cells, "locator": locator, "stats": stats,
+                "camera": cam, "get_bands": get_bands,
+                "get_packed": get_packed, "tf": lambda: device["tf"],
+                "unit_distance": lambda: state["unit_distance"]}
+    return pl

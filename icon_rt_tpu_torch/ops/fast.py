@@ -1,0 +1,659 @@
+"""The fast raygen: radial-band Woodcock tracking with a per-lane column cache.
+
+Every pixel lane traces delta-tracking samples against the piecewise-
+constant radial majorant bands (models/shells.py): band crossings are
+closed-form sphere intersections, and a tentative collision inside one of
+the lane's two cached columns is classified by pure arithmetic (plane tests
+plus an ascending-first-match layer select against per-layer heights and
+PRE-CLASSIFIED alpha baked at TF-edit time).  Only when a sample leaves
+both cached columns does the lane query the locator, and the first column
+a lane ever enters stays pinned in slot 0, so in-lane sample restarts land
+back in cache.  The estimator is standard delta tracking with a
+conservative majorant: unbiased, so converged images match the
+reference-parity raygens.
+
+Kernels of this module (each beside its plain-PyTorch version):
+
+  K1+K4 `track_f32` (CUDA C++, csrc/track_f32.cu) — one thread per lane
+        runs its pixel's `samples` samples to completion and writes the
+        running average, sRGB and RGBA8 pack.  Plain version:
+        `_render_frame_fast_torch`, a lock-step loop over the lanes with
+        the same per-lane order of operations and RNG draws.
+  K5a   `classify_bake` (Triton) — the TF-edit bake of per-(cell, layer)
+        heights, classified alpha and RGB.  Plain version:
+        `_profile_rows_torch` / `_classify_channels_torch`.
+
+The JAX package's TPU scheduling (batched refresh phases, compacted
+services, `steps_per_refresh`, `chunk`, `outer_unroll`, `refresh_compact`,
+`service_cap`) only decides WHEN each lane's work runs and is pinned to the
+per-lane semantics implemented here, so it is not ported.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..data.icfile import MAX_LAYERS
+from ..models.cells import Cells
+from ..models.locator import Locator
+from ..models.shells import RadialBands
+from ..models.transfunc import Transfunc
+from ..utils.lcg import lcg_init, lcg_next
+from .render import _finalize
+
+F32 = torch.float32
+PROF_W = MAX_LAYERS * 2   # heights (32) + classified alpha (32)
+TEST_W = 16
+RGB_W = MAX_LAYERS * 3
+
+#: per-sample step cap of a lane (the JAX loop's max_outer=16384 outer
+#: iterations x 8 steps); a lane that reaches it ends its sample without a
+#: collision.  No lane of the tests or of chip_smoke.py comes near it.
+MAX_STEPS = 16384 * 8
+
+#: kernel launches of K1 (track_f32) and K5a (classify_bake); the wrappers
+#: count only launches of the CUDA/Triton kernels
+launches = {"track_f32": 0, "classify_bake": 0}
+
+tl = None          # triton.language, bound on first K5a launch
+_CLASSIFY_KERNEL = None
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CU_SRC = os.path.join(_PKG_DIR, "csrc", "track_f32.cu")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_TRACK = {"lib": None, "seconds": None, "log": ""}
+
+
+class PackedCells(NamedTuple):
+    """Per-cell rows, split hot/cold.
+
+    test: (N, 16) f32 — 3 side planes (nx,ny,nz,w)x3, h_bot, h_top,
+          float(num_layers), pad.
+    prof: (N, 64) f32 — per-layer ceiling heights h[1..32] (inf-padded past
+          num_layers) then the CLASSIFIED per-layer ALPHA (h[32] | A[32]).
+    rgb:  (N, 96) f32 — classified per-layer RGB planar (R|G|B), read once
+          per finished sample at shade time.
+    """
+    test: torch.Tensor
+    prof: torch.Tensor
+    rgb: torch.Tensor
+
+
+def pack_test_rows(cells: Cells) -> torch.Tensor:
+    n = cells.num_cells
+    rows = torch.zeros((n, TEST_W), dtype=F32, device=cells.planes.device)
+    rows[:, 0:12] = cells.planes.reshape(n, 12)
+    rows[:, 12] = cells.h_bot
+    rows[:, 13] = cells.h_top
+    rows[:, 14] = cells.num_layers.to(F32)
+    return rows
+
+
+# ===========================================================================
+# K5a: the TF-edit bake
+# ===========================================================================
+
+def _classify_channels_torch(values, tf: Transfunc):
+    """postClassify (ref: deviceCode.cu:127-135) per channel over (N, 32)
+    values; returns [R, G, B, A] each (N, 32).  The reference's asymmetric
+    lerp scales only the second LUT sample's alpha by the opacity scale."""
+    size = tf.size
+    vn = (values - tf.value_range[0]) \
+        / (tf.value_range[1] - tf.value_range[0])
+    vs = vn * float(size)
+    idx = vs.to(torch.int32)
+    frac = vs - idx.to(F32)
+    i1 = torch.clamp(idx, 0, size - 1).long()
+    i2 = torch.clamp(idx + 1, 0, size - 1).long()
+    one = torch.ones((), dtype=F32, device=values.device)
+    outs = []
+    for c in range(4):
+        lut_c = tf.values[:, c]
+        scale = tf.opacity_scale.to(F32) if c == 3 else one
+        outs.append(lut_c[i1] * frac + lut_c[i2] * (1.0 - frac) * scale)
+    return outs
+
+
+def _profile_rows_torch(height, value, num_layers, tf: Transfunc):
+    """Plain-PyTorch K5a: (prof (N, 64), rgb (N, 96)) — see PackedCells."""
+    heights_hi = torch.cat([height[:, 1:], height[:, -1:]], dim=1)
+    k = torch.arange(1, MAX_LAYERS + 1, device=height.device)
+    valid = k[None, :] <= num_layers[:, None]
+    heights_hi = torch.where(valid, heights_hi, float("inf"))
+    rr, gg, bb, aa = _classify_channels_torch(value, tf)
+    prof = torch.cat([heights_hi, aa], dim=1)
+    rgb = torch.cat([rr, gg, bb], dim=1)
+    return prof, rgb
+
+
+def _classify_kernel(height_ptr, value_ptr, nl_ptr, lut_ptr, tfr_ptr,
+                     scale_ptr, prof_ptr, rgb_ptr, n_elem, S,
+                     BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    msk = i < n_elem
+    n = i // 32
+    k = i - n * 32
+    v0 = tl.load(tfr_ptr)
+    v1 = tl.load(tfr_ptr + 1)
+    scale = tl.load(scale_ptr)
+    val = tl.load(value_ptr + i, mask=msk, other=0.0)
+    vn = tl.math.div_rn(val - v0, v1 - v0)
+    vs = vn * S.to(tl.float32)
+    idx = vs.to(tl.int32)
+    frac = vs - idx.to(tl.float32)
+    i1 = tl.minimum(tl.maximum(idx, 0), S - 1)
+    i2 = tl.minimum(tl.maximum(idx + 1, 0), S - 1)
+    w2 = 1.0 - frac
+    r = tl.load(lut_ptr + i1 * 4, mask=msk) * frac \
+        + tl.load(lut_ptr + i2 * 4, mask=msk) * w2
+    g = tl.load(lut_ptr + i1 * 4 + 1, mask=msk) * frac \
+        + tl.load(lut_ptr + i2 * 4 + 1, mask=msk) * w2
+    b = tl.load(lut_ptr + i1 * 4 + 2, mask=msk) * frac \
+        + tl.load(lut_ptr + i2 * 4 + 2, mask=msk) * w2
+    a = tl.load(lut_ptr + i1 * 4 + 3, mask=msk) * frac \
+        + tl.load(lut_ptr + i2 * 4 + 3, mask=msk) * w2 * scale
+    nl = tl.load(nl_ptr + n, mask=msk, other=0)
+    h = tl.load(height_ptr + n * 32 + tl.minimum(k + 1, 31), mask=msk)
+    h = tl.where(k + 1 <= nl, h, float("inf"))
+    tl.store(prof_ptr + n * 64 + k, h, mask=msk)
+    tl.store(prof_ptr + n * 64 + 32 + k, a, mask=msk)
+    tl.store(rgb_ptr + n * 96 + k, r, mask=msk)
+    tl.store(rgb_ptr + n * 96 + 32 + k, g, mask=msk)
+    tl.store(rgb_ptr + n * 96 + 64 + k, b, mask=msk)
+
+
+def classify_bake(cells: Cells, tf: Transfunc):
+    """K5a wrapper: (prof (N, 64), rgb (N, 96)) from the cells' heights and
+    values and the transfer function.  The Triton kernel runs for CUDA
+    tensors, the plain version for CPU tensors; anything else raises.
+
+    Replaces the XLA-fused icon_rt_tpu/ops/fast.py `pack_profile_rows`
+    and `_classify_channels`.  Kernel design: one elementwise pass over the
+    (N, 32) (cell, layer) grid; each element reads its value, height, the
+    cell's layer count and two LUT rows, and writes one prof height, one
+    alpha and three RGB entries.  Bound by device-memory traffic (256 bytes read and 640
+    written per cell); the 4.8 KB LUT stays in L1/L2, so the TPU's one-hot
+    compare-sum over the 300 levels is replaced by plain cached loads."""
+    global _CLASSIFY_KERNEL, tl
+    height, value, nl = cells.height, cells.value, cells.num_layers
+    dev = height.device
+    n = height.shape[0]
+    for name, x, shape, dt in (
+            ("height", height, (n, MAX_LAYERS), F32),
+            ("value", value, (n, MAX_LAYERS), F32),
+            ("num_layers", nl, (n,), torch.int32),
+            ("tf.values", tf.values, (tf.size, 4), F32),
+            ("tf.value_range", tf.value_range, (2,), F32),
+            ("tf.opacity_scale", tf.opacity_scale, (), F32)):
+        if tuple(x.shape) != shape or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"classify_bake: {name} must be a contiguous "
+                             f"{dt} tensor of shape {shape}")
+        if x.device != dev:
+            raise ValueError("classify_bake: tensors on different devices")
+    if dev.type == "cpu":
+        return _profile_rows_torch(height, value, nl, tf)
+    if dev.type != "cuda":
+        raise ValueError(f"classify_bake: unsupported device {dev}")
+    if _CLASSIFY_KERNEL is None:
+        import triton
+        import triton.language as tl
+        _CLASSIFY_KERNEL = triton.jit(_classify_kernel)
+    prof = torch.empty((n, PROF_W), dtype=F32, device=dev)
+    rgb = torch.empty((n, RGB_W), dtype=F32, device=dev)
+    n_elem = n * MAX_LAYERS
+    block = 1024
+    if n_elem:
+        _CLASSIFY_KERNEL[(-(-n_elem // block),)](
+            height, value, nl, tf.values, tf.value_range, tf.opacity_scale,
+            prof, rgb, n_elem, tf.size, BLOCK=block, enable_fp_fusion=False)
+        launches["classify_bake"] += 1
+    return prof, rgb
+
+
+def pack_cells(cells: Cells, tf: Transfunc) -> PackedCells:
+    """Test rows plus the K5a bake of heights and classified per-layer RGBA;
+    the bake re-runs on TF edits (ref: hostCode.cu:878-909)."""
+    prof, rgb = classify_bake(cells, tf)
+    return PackedCells(test=pack_test_rows(cells), prof=prof, rgb=rgb)
+
+
+# ===========================================================================
+# K1+K4 plain version: lock-step per-lane tracking
+# ===========================================================================
+
+def _r_of(t, od, oo):
+    return torch.sqrt(torch.clamp(oo + 2.0 * t * od + t * t, min=1e-30))
+
+
+def _band_of(r, edges, nb: int):
+    return torch.clamp((edges[None, :] < r[:, None]).sum(1) - 1, 0, nb - 1)
+
+
+def _band_exit_from(t, r_lo, r_hi, shi, od, oo):
+    """Closed-form t where the ray leaves the band with the given edge
+    radii, capped at shi.  Returns (t_exit, crossed_inner_edge)."""
+    disc_in = od * od - oo + r_lo * r_lo
+    t_in = -od - torch.sqrt(torch.clamp(disc_in, min=0.0))
+    disc_out = od * od - oo + r_hi * r_hi
+    t_out = -od + torch.sqrt(torch.clamp(disc_out, min=0.0))
+    use_in = (t < -od) & (disc_in > 0.0) & (t_in > t)
+    return torch.minimum(torch.where(use_in, t_in, t_out), shi), use_in
+
+
+def _inside(rows, px, py, pz, r):
+    """Radial + 3 side-plane containment against (M, 16) test rows."""
+    ev1 = rows[:, 0] * px + rows[:, 1] * py + rows[:, 2] * pz - rows[:, 3]
+    ev2 = rows[:, 4] * px + rows[:, 5] * py + rows[:, 6] * pz - rows[:, 7]
+    ev3 = rows[:, 8] * px + rows[:, 9] * py + rows[:, 10] * pz - rows[:, 11]
+    return ((r >= rows[:, 12]) & (r <= rows[:, 13])
+            & (ev1 <= 0.0) & (ev2 <= 0.0) & (ev3 <= 0.0))
+
+
+def _layer_pick(heights, table_rows, r):
+    """Value of the layer containing r: heights ascend and are inf-padded,
+    so the layer is #(h < r); index 32 (above the top) gives 0."""
+    layer = (r[:, None] > heights).sum(1)
+    got = table_rows.gather(1, torch.clamp(layer, max=MAX_LAYERS - 1)[:, None])
+    return torch.where(layer < MAX_LAYERS, got[:, 0], 0.0)
+
+
+def _locate_torch(loc: Locator, dims, test, px, py, pz, r):
+    """Locator query on (M,) points: bin row, then the FIRST candidate (in
+    bin order) whose column contains the point.  Returns (cid, hit)."""
+    n_lat, n_lon = dims
+    lat = torch.asin(torch.clamp(pz / r, -1.0, 1.0))
+    lon = torch.atan2(py, px)
+    bl = torch.clamp(((lat - loc.lat_lo) / (loc.lat_hi - loc.lat_lo)
+                      * float(n_lat)).to(torch.int32), 0, n_lat - 1)
+    bo = torch.clamp(((lon - loc.lon_lo) / (loc.lon_hi - loc.lon_lo)
+                      * float(n_lon)).to(torch.int32), 0, n_lon - 1)
+    cand = loc.bins[(bl * n_lon + bo).long()]             # (M, K)
+    safe = torch.clamp(cand, min=0).long()
+    rows = test[safe]                                     # (M, K, 16)
+    ev = [rows[..., 4 * j] * px[:, None] + rows[..., 4 * j + 1] * py[:, None]
+          + rows[..., 4 * j + 2] * pz[:, None] - rows[..., 4 * j + 3]
+          for j in range(3)]
+    inside = ((cand >= 0) & (r[:, None] >= rows[..., 12])
+              & (r[:, None] <= rows[..., 13])
+              & (ev[0] <= 0.0) & (ev[1] <= 0.0) & (ev[2] <= 0.0))
+    slot = torch.argmax(inside.to(torch.int32), dim=1)
+    return safe.gather(1, slot[:, None])[:, 0], inside.any(1)
+
+
+def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
+                             bands: RadialBands, lp, pix, accum, fb,
+                             width: int, height: int, samples: int,
+                             preserve_cache: bool):
+    """Plain-PyTorch K1+K4 over the lanes of `pix` (pixel ids); updates
+    accum (L, 4) and fb (L,) in place.
+
+    All lanes advance in lock step, one tracking step per iteration: a
+    step draws the flight uniform xi; an overshoot (or a zero majorant)
+    advances to the next band or shell segment; otherwise the point is
+    tested against the two cached columns (MRU slot wins ties) and, on a
+    miss, located and filled into the cache (slot 0 pinned to the lane's
+    first column); a point inside the volume then draws the acceptance
+    uniform.  Samples run one after another per lane, the cache carried
+    over when preserve_cache is set.  This is the per-lane order of
+    csrc/track_f32.cu and of icon_rt_tpu/ops/fast.py `step_core`."""
+    dev = pix.device
+    L = pix.shape[0]
+    nb = bands.max_opacities.shape[0]
+    edges, majors = bands.edges, bands.max_opacities
+    dims = (int(loc.dims[0]), int(loc.dims[1]))
+    xs = torch.remainder(pix, width).to(torch.int64)
+    ys = torch.div(pix, width, rounding_mode="floor").to(torch.int64)
+    ox, oy, oz = lp.cam_org[0], lp.cam_org[1], lp.cam_org[2]
+    oo = ox * ox + oy * oy + oz * oz
+    ud = lp.unit_distance
+    amb = lp.ambient_color * lp.ambient_radiance
+    zero = torch.zeros((), dtype=F32, device=dev)
+    r_in, r_out = edges[0], edges[nb]
+
+    acc, pixels = accum.clone(), fb.clone()
+    new_test = lambda: torch.zeros((L, TEST_W), dtype=F32, device=dev)
+    new_i = lambda: torch.zeros(L, dtype=torch.int64, device=dev)
+    new_b = lambda: torch.zeros(L, dtype=torch.bool, device=dev)
+    c_test = [new_test(), new_test()]
+    c_cid = [new_i(), new_i()]
+    c_valid = [new_b(), new_b()]
+    c_mru = new_b()
+
+    for samp in range(samples):
+        if not preserve_cache:
+            c_test = [new_test(), new_test()]
+            c_cid = [new_i(), new_i()]
+            c_valid = [new_b(), new_b()]
+            c_mru = new_b()
+        # -- ray setup: jittered pinhole ray, shell clip, first band --------
+        aid = lp.accum_id.to(torch.int64) + samp
+        seed0 = ((aid & 0xFFFFFFFF) * (width * height) + xs) & 0xFFFFFFFF
+        rng = lcg_init(seed0, ys)
+        rng, jx = lcg_next(rng)
+        rng, jy = lcg_next(rng)
+        u = xs.to(F32) + 0.5 + jx
+        v = ys.to(F32) + 0.5 + jy
+        dx = lp.cam_dir00[0] + u * lp.cam_du[0] + v * lp.cam_dv[0]
+        dy = lp.cam_dir00[1] + u * lp.cam_du[1] + v * lp.cam_dv[1]
+        dz = lp.cam_dir00[2] + u * lp.cam_du[2] + v * lp.cam_dv[2]
+        inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+        dx, dy, dz = dx * inv, dy * inv, dz * inv
+        dx = torch.where(torch.abs(dx) < 1e-5, 1e-5, dx)
+        dy = torch.where(torch.abs(dy) < 1e-5, 1e-5, dy)
+        dz = torch.where(torch.abs(dz) < 1e-5, 1e-5, dz)
+        od = ox * dx + oy * dy + oz * dz
+
+        def sphere_ts(radius):
+            disc = od * od - oo + radius * radius
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            return disc > 0.0, -od - sq, -od + sq
+
+        hit_o, to0, to1 = sphere_ts(r_out)
+        hit_i, ti0, ti1 = sphere_ts(r_in)
+        outer_only = hit_o & ~hit_i
+        s0_lo = torch.clamp(to0, min=0.0)
+        s0_hi = torch.where(outer_only, to1, ti0)
+        s1_lo = torch.clamp(torch.where(outer_only, float("inf"), ti1),
+                            min=0.0)
+        s1_hi = torch.where(outer_only, float("-inf"), to1)
+        wrote = hit_o & (to1 > 0.0)
+        s0_bad = s0_hi <= s0_lo
+        t = torch.where(s0_bad, s1_lo, s0_lo)
+        seg_hi = torch.where(s0_bad, s1_hi, s0_hi)
+        si = s0_bad.clone()
+        band = _band_of(_r_of(t, od, oo), edges, nb)
+        seg_end, was_in = _band_exit_from(t, edges[band], edges[band + 1],
+                                          seg_hi, od, oo)
+        m = majors[band]
+        done = ~(wrote & (seg_hi > t))
+        alpha = torch.zeros(L, dtype=F32, device=dev)
+
+        # -- tracking: one step per iteration for every unfinished lane -----
+        act = torch.nonzero(~done).squeeze(1)
+        steps = 0
+        while act.numel() and steps < MAX_STEPS:
+            steps += 1
+            m_a = m[act]
+            has_m = m_a > 0.0
+            rng_a = rng[act]
+            rng_n, xi = lcg_next(rng_a)
+            rng_a = torch.where(has_m, rng_n, rng_a)
+            t_new = t[act] - torch.log(1.0 - xi) / (m_a / ud)
+            samp_m = has_m & ~(t_new > seg_end[act])
+
+            # sample point: cached columns, else locate and fill
+            b = act[samp_m]
+            if b.numel():
+                tb = t_new[samp_m]
+                t[b] = tb
+                px = ox + dx[b] * tb
+                py = oy + dy[b] * tb
+                pz = oz + dz[b] * tb
+                r = _r_of(tb, od[b], oo)
+                v0b = c_valid[0][b]
+                in0 = v0b & _inside(c_test[0][b], px, py, pz, r)
+                in1 = c_valid[1][b] & _inside(c_test[1][b], px, py, pz, r)
+                in_cache = in0 | in1
+                mru_b = c_mru[b]
+                use1 = torch.where(mru_b, in1, in1 & ~in0)
+                mru_b = torch.where(in_cache, use1, mru_b)
+                hit_vol = in_cache.clone()
+                mi = torch.nonzero(~in_cache).squeeze(1)
+                if mi.numel():
+                    cid, hit = _locate_torch(loc, dims, packed.test, px[mi],
+                                             py[mi], pz[mi], r[mi])
+                    hi, cid = mi[hit], cid[hit]
+                    into1 = v0b[hi]
+                    for slot, sel in ((0, ~into1), (1, into1)):
+                        lanes = b[hi[sel]]
+                        c_test[slot][lanes] = packed.test[cid[sel]]
+                        c_cid[slot][lanes] = cid[sel]
+                        c_valid[slot][lanes] = True
+                    mru_b[hi] = into1
+                    hit_vol[hi] = True
+                c_mru[b] = mru_b
+                hv = torch.nonzero(hit_vol).squeeze(1)
+                rng_b = rng_a[samp_m]
+                if hv.numel():
+                    lanes = b[hv]
+                    cid = torch.where(mru_b[hv], c_cid[1][lanes],
+                                      c_cid[0][lanes])
+                    prow = packed.prof[cid]
+                    aa_v = _layer_pick(prow[:, :MAX_LAYERS],
+                                       prow[:, MAX_LAYERS:], r[hv])
+                    rng_v, uu = lcg_next(rng_b[hv])
+                    rng_b[hv] = rng_v
+                    hit = aa_v >= uu * m_a[samp_m][hv]
+                    alpha[lanes[hit]] = aa_v[hit]
+                    done[lanes[hit]] = True
+                rng_a[samp_m] = rng_b
+            rng[act] = rng_a
+
+            # overshoot / zero majorant: advance to the next band or segment
+            c = act[~samp_m]
+            if c.numel():
+                t_adv = seg_end[c]
+                at_end = t_adv >= seg_hi[c]
+                band_n = band[c] + torch.where(was_in[c], -1, 1)
+                to_seg1 = at_end & ~si[c] & (s1_hi[c] > s1_lo[c])
+                t_adv = torch.where(to_seg1, s1_lo[c], t_adv)
+                band_n = torch.where(
+                    to_seg1, _band_of(_r_of(t_adv, od[c], oo), edges, nb),
+                    band_n)
+                shi_n = torch.where(to_seg1, s1_hi[c], seg_hi[c])
+                band_n = torch.clamp(band_n, 0, nb - 1)
+                se, win = _band_exit_from(t_adv, edges[band_n],
+                                          edges[band_n + 1], shi_n, od[c], oo)
+                t[c] = t_adv
+                seg_end[c] = se
+                seg_hi[c] = shi_n
+                band[c] = band_n
+                was_in[c] = win
+                m[c] = majors[band_n]
+                si[c] = si[c] | to_seg1
+                done[c] = done[c] | (at_end & ~to_seg1)
+            act = act[~done[act]]
+
+        # -- shade the accepted sample and accumulate (K4) -------------------
+        cr = torch.zeros(L, dtype=F32, device=dev)
+        cg, cb = cr.clone(), cr.clone()
+        g = torch.nonzero(alpha > 0.0).squeeze(1)
+        if g.numel():
+            cid = torch.where(c_mru[g], c_cid[1][g], c_cid[0][g])
+            hh = packed.prof[cid, :MAX_LAYERS]
+            rgb = packed.rgb[cid]
+            r = _r_of(t[g], od[g], oo)
+            for ch, out in enumerate((cr, cg, cb)):
+                out[g] = _layer_pick(
+                    hh, rgb[:, ch * MAX_LAYERS:(ch + 1) * MAX_LAYERS],
+                    r) * amb[ch]
+        ca = torch.where(alpha > 0.0, 1.0, zero)
+        # fb is repacked after every sample; a lane's last write packs its
+        # final accum, as the kernel's single pack at the end does
+        acc, pixels = _finalize(wrote, torch.stack([cr, cg, cb, ca], dim=1),
+                                acc, pixels, lp.accum_id + samp)
+
+    accum.copy_(acc)
+    fb.copy_(pixels)
+
+
+# ===========================================================================
+# K1+K4 kernel: build, bind, launch
+# ===========================================================================
+
+class _TrackParams(ctypes.Structure):
+    """Mirror of `TrackParams` in csrc/track_f32.cu (same field order)."""
+    _fields_ = [
+        ("test", ctypes.c_void_p), ("prof", ctypes.c_void_p),
+        ("rgb", ctypes.c_void_p), ("bins", ctypes.c_void_p),
+        ("edges", ctypes.c_void_p), ("majors", ctypes.c_void_p),
+        ("pix", ctypes.c_void_p), ("accum", ctypes.c_void_p),
+        ("fb", ctypes.c_void_p),
+        ("cam", ctypes.c_float * 12), ("amb", ctypes.c_float * 3),
+        ("amb_rad", ctypes.c_float), ("ud", ctypes.c_float),
+        ("lat_lo", ctypes.c_float), ("lat_hi", ctypes.c_float),
+        ("lon_lo", ctypes.c_float), ("lon_hi", ctypes.c_float),
+        ("n_lat", ctypes.c_int), ("n_lon", ctypes.c_int),
+        ("k_cap", ctypes.c_int), ("nb", ctypes.c_int),
+        ("n_lanes", ctypes.c_int), ("width", ctypes.c_int),
+        ("height", ctypes.c_int), ("accum_id", ctypes.c_int),
+        ("samples", ctypes.c_int), ("preserve_cache", ctypes.c_int),
+        ("max_steps", ctypes.c_int),
+    ]
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    return "nvcc"
+
+
+def build_track_f32():
+    """Compile csrc/track_f32.cu with nvcc for sm_90a into _build/ (once per
+    process; rebuilt when the source is newer) and bind its C entry point.
+    Returns the ctypes library; the build's seconds and ptxas report are
+    kept in `track_build_info()`."""
+    if _TRACK["lib"] is not None:
+        return _TRACK["lib"]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, "libtrack_f32.so")
+    t0 = time.perf_counter()
+    if not os.path.exists(so) \
+            or os.path.getmtime(so) < os.path.getmtime(_CU_SRC):
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
+               "-Xcompiler", "-fPIC", "-o", tmp, _CU_SRC]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, so)
+        _TRACK["log"] = res.stderr
+    lib = ctypes.CDLL(so)
+    lib.track_f32_launch.argtypes = [ctypes.POINTER(_TrackParams),
+                                     ctypes.c_void_p]
+    lib.track_f32_launch.restype = ctypes.c_int
+    _TRACK["seconds"] = time.perf_counter() - t0
+    _TRACK["lib"] = lib
+    return lib
+
+
+def track_build_info() -> dict:
+    """{'seconds': build+load time of K1, 'log': nvcc/ptxas report}."""
+    return {"seconds": _TRACK["seconds"], "log": _TRACK["log"]}
+
+
+def _check(name, x, dtype, shape, device):
+    if x.dtype != dtype or not x.is_contiguous() or x.device != device:
+        raise ValueError(f"track_f32: {name} must be a contiguous {dtype} "
+                         f"tensor on {device}")
+    if len(shape) != x.dim() or any(s is not None and s != d
+                                    for s, d in zip(shape, x.shape)):
+        raise ValueError(f"track_f32: {name} has shape {tuple(x.shape)}, "
+                         f"expected {shape}")
+
+
+def track_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
+              pix, accum, fb, *, width: int, height: int, samples: int = 1,
+              preserve_cache: bool = True):
+    """K1+K4 wrapper: trace `samples` progressive samples for the lanes of
+    `pix` ((L,) int32 pixel ids) and update accum (L, 4) f32 and fb (L,)
+    int32 IN PLACE.  CUDA tensors launch csrc/track_f32.cu; CPU tensors run
+    `_render_frame_fast_torch`; anything else raises."""
+    dev = pix.device
+    n = packed.test.shape[0]
+    nb = bands.max_opacities.shape[0]
+    L = pix.shape[0]
+    _check("packed.test", packed.test, F32, (n, TEST_W), dev)
+    _check("packed.prof", packed.prof, F32, (n, PROF_W), dev)
+    _check("packed.rgb", packed.rgb, F32, (n, RGB_W), dev)
+    _check("loc.bins", loc.bins, torch.int32, (None, None), dev)
+    _check("bands.edges", bands.edges, F32, (nb + 1,), dev)
+    _check("bands.max_opacities", bands.max_opacities, F32, (nb,), dev)
+    _check("pix", pix, torch.int32, (L,), dev)
+    _check("accum", accum, F32, (L, 4), dev)
+    _check("fb", fb, torch.int32, (L,), dev)
+    if samples < 1:
+        raise ValueError("track_f32: samples must be >= 1")
+    if dev.type == "cpu":
+        _render_frame_fast_torch(packed, loc, bands, lp, pix, accum, fb,
+                                 width, height, samples, preserve_cache)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"track_f32: unsupported device {dev}")
+    lib = build_track_f32()
+    host = torch.cat([
+        lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv, lp.ambient_color,
+        lp.ambient_radiance.reshape(1), lp.unit_distance.reshape(1),
+        torch.stack([loc.lat_lo, loc.lat_hi, loc.lon_lo, loc.lon_hi]),
+    ]).to(F32).tolist()
+    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    if loc.bins.shape[0] != n_lat * n_lon:
+        raise ValueError("track_f32: loc.bins rows != n_lat * n_lon")
+    p = _TrackParams(
+        test=packed.test.data_ptr(), prof=packed.prof.data_ptr(),
+        rgb=packed.rgb.data_ptr(), bins=loc.bins.data_ptr(),
+        edges=bands.edges.data_ptr(), majors=bands.max_opacities.data_ptr(),
+        pix=pix.data_ptr(), accum=accum.data_ptr(), fb=fb.data_ptr(),
+        cam=(ctypes.c_float * 12)(*host[0:12]),
+        amb=(ctypes.c_float * 3)(*host[12:15]),
+        amb_rad=host[15], ud=host[16],
+        lat_lo=host[17], lat_hi=host[18], lon_lo=host[19], lon_hi=host[20],
+        n_lat=n_lat, n_lon=n_lon, k_cap=loc.bins.shape[1], nb=nb,
+        n_lanes=L, width=width, height=height,
+        accum_id=int(lp.accum_id), samples=samples,
+        preserve_cache=int(bool(preserve_cache)), max_steps=MAX_STEPS)
+    err = lib.track_f32_launch(ctypes.byref(p),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"track_f32: kernel launch failed "
+                           f"(cudaError {err})")
+    launches["track_f32"] += 1
+
+
+# ===========================================================================
+# Frame driver
+# ===========================================================================
+
+def render_frame_fast(cells: Cells, packed: PackedCells, loc: Locator,
+                      bands: RadialBands, lp, accum, fb, *,
+                      width: int, height: int, pixel_perm=None,
+                      n_active: int | None = None, samples: int = 1,
+                      preserve_cache: bool = True):
+    """Full-frame progressive step on the fast path.
+
+    pixel_perm: optional (H*W,) int32 permutation (ops/order.pixel_order);
+    when given, lane i renders pixel pixel_perm[i] and accum/fb are in
+    PERMUTED order — unpermute with the inverse at present time.
+
+    n_active: optional count of covered positions (with pixel_perm): only
+    the first n_active lanes are traced; the tail's accum/fb pass through
+    untouched (those rays never write, deviceCode.cu:294).
+
+    samples: progressive samples per call; lp.accum_id is the FIRST sample
+    id.  With preserve_cache=False the result equals `samples` sequential
+    samples=1 calls bit for bit; the default keeps each lane's column cache
+    across its samples (outputs can then differ only on f32 boundary ties
+    between adjacent columns).
+
+    accum (P, 4) f32 and fb (P,) int32 are updated IN PLACE (the JAX
+    version donates them) and returned."""
+    total = width * height
+    if pixel_perm is None:
+        pix = torch.arange(total, dtype=torch.int32, device=accum.device)
+        n_proc = total
+    else:
+        pix = pixel_perm.to(torch.int32)
+        n_proc = total if n_active is None else \
+            min(total, max(int(n_active), 1))
+    track_f32(packed, loc, bands, lp, pix[:n_proc].contiguous(),
+              accum[:n_proc], fb[:n_proc], width=width, height=height,
+              samples=samples, preserve_cache=preserve_cache)
+    return accum, fb

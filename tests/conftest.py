@@ -26,3 +26,9 @@ os.environ.setdefault("JAX_ENABLE_X64", "0")
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA/Triton "
+        "kernels); skips where torch.cuda.is_available() is false")

@@ -1,0 +1,109 @@
+"""PyTorch port, the application: icon_rt_tpu_torch.app against
+apps/icon_rt.py on the same arguments, and the flags it does not port."""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "apps"))
+
+import icon_rt  # noqa: E402
+
+from icon_rt_tpu.utils.png import read_png  # noqa: E402
+from icon_rt_tpu_torch import app  # noqa: E402
+from test_torch_fast import FB_MISMATCH_BOUND  # noqa: E402
+
+torch.set_num_threads(1)
+
+ARGS = ["--synthetic", "3:8", "--size", "64", "64", "--sample-limit", "4"]
+
+
+def test_torch_app_matches_jax_app(tmp_path):
+    """Both apps render 4 samples in one launch (default --samples 8,
+    clamped to --sample-limit) and write their PNG; the images agree per
+    pixel within the fast tracker's bound (test_torch_fast.py)."""
+    out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    assert app.main(["--device", "cpu", *ARGS, "-o", out_t]) == 0
+    assert icon_rt.main([*ARGS, "-o", out_j]) == 0
+    img_t, img_j = read_png(out_t + ".png"), read_png(out_j + ".png")
+    assert img_t.shape == img_j.shape == (64, 64, 4)
+    differ = (img_t != img_j).any(axis=-1)
+    assert differ.sum() <= FB_MISMATCH_BOUND, differ.sum()
+    # not blank: rendered pixels differ from the --bgcolor canvas
+    assert (img_t[..., :3] != img_t[0, 0, :3]).any(axis=-1).sum() > 50
+
+
+def test_torch_app_build_runs_and_counts_frames(tmp_path):
+    pl = app.build(["--device", "cpu", *ARGS[:5], "--sample-limit", "5",
+                    "--samples", "2", "-o", str(tmp_path / "x")])
+    launches = 0
+    while True:
+        pl.launch()
+        launches += 1
+        if not pl.is_running():
+            break
+    assert launches == 3            # 2 + 2 + 1 samples
+    assert pl.frame_id == 5
+    fb = pl.frame["fb"]
+    assert fb.dtype == torch.int32 and fb.shape == (64 * 64,)
+    pl.present()
+    assert os.path.exists(str(tmp_path / "x.png"))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--raygen", "accel"], ["--raygen", "ae"], ["--sampler", "brute"],
+    ["--sampler", "wedge"], ["-mode", "2"], ["--quantized"], ["--march"],
+    ["--preview", "4"], ["--samples", "auto"]])
+def test_torch_app_out_of_slice_flags_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        app.build(["--device", "cpu", *ARGS, *flags])
+
+
+def test_torch_app_cuda_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: --device cuda is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        app.build(["--device", "cuda", *ARGS])
+
+
+def test_torch_app_help_and_missing_input(capsys):
+    assert app.main(["--help"]) == 0
+    assert "--device" in capsys.readouterr().out
+    assert app.main(["--device", "cpu"]) == 1
+
+
+def test_torch_app_tf_edit_rebakes(tmp_path):
+    """An opacity-scale edit goes through the TFE dirty flags, resets the
+    accumulation and re-runs the full bake (K5a) and the band majorants
+    (K5b) against the edited transfer function."""
+    from icon_rt_tpu_torch.models.accel import compute_max_opacities_torch
+    from icon_rt_tpu_torch.ops.fast import _profile_rows_torch
+    pl = app.build(["--device", "cpu", *ARGS, "-o", str(tmp_path / "e")])
+    pl.launch()
+    pl.set_ui_param("Opacity scale", 0.3)
+    assert not pl.is_running() or pl.frame_id == 0
+    s = pl.scene
+    tf = s["tf"]()
+    assert float(tf.opacity_scale) == pytest.approx(0.3)
+    c = s["cells"]
+    prof, rgb = _profile_rows_torch(c.height, c.value, c.num_layers, tf)
+    packed, bands = s["get_packed"](), s["get_bands"]()
+    assert torch.equal(packed.prof, prof) and torch.equal(packed.rgb, rgb)
+    assert torch.equal(bands.max_opacities, compute_max_opacities_torch(
+        bands.value_ranges, tf.values, tf.value_range))
+
+
+def test_torch_app_xf_file(tmp_path):
+    """--xf loads a byte-compatible .xf transfer function (an opaque red
+    LUT): the rendered globe is red."""
+    from icon_rt_tpu_torch.pipeline.xf import save_xf
+    xf = str(tmp_path / "t.xf")
+    lut = np.tile(np.array([[1, 0, 0, 1.0]], np.float32), (8, 1))
+    assert save_xf(xf, 1.0, (0.0, 1.0), (0.0, 1.0), lut)
+    out = str(tmp_path / "red")
+    assert app.main(["--device", "cpu", *ARGS, "--xf", xf, "-o", out]) == 0
+    img = read_png(out + ".png")
+    hit = (img[..., 0] > 200) & (img[..., 1] < 60) & (img[..., 2] < 60)
+    assert hit.sum() > 50
