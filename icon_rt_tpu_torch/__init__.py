@@ -5,10 +5,15 @@ triangular prism columns, progressive accumulation, transfer-function
 classification), written against PyTorch tensors with its hot device loops
 as kernels written by hand for NVIDIA Hopper (sm_90a):
 
-  K1+K4  ops/fast.py    track_f32      CUDA C++ (csrc/track_f32.cu)
-  K5a    ops/fast.py    classify_bake  Triton
-  K5b    models/accel.py max_opacity   Triton
-  K6     ops/order.py   chord_keys     Triton
+  K1+K4  ops/fast.py       track_f32      CUDA C++ (csrc/track_f32.cu)
+  K2     ops/fastq.py      track_q        CUDA C++ (csrc/track_q.cu)
+  K5a    ops/fast.py       classify_bake  Triton
+  K5b    models/accel.py   max_opacity    Triton
+  K5c-q  models/qcells.py  bake_lookup, bake_patch   Triton
+  K6     ops/order.py      chord_keys     Triton
+  K7-fm  models/finemap.py build_finemap  CUDA C++ (csrc/finemap.cu)
+
+K1 and K2 share the per-lane tracking machine of csrc/track_common.cuh.
 
 Every kernel has a plain-PyTorch version in the same module.  A wrapper
 launches its kernel for a CUDA tensor and runs the plain version for a CPU
@@ -17,9 +22,11 @@ icon_rt_tpu (the JAX reference package beside it).
 
 Layer map (bottom-up), mirroring icon_rt_tpu:
   utils/     — LCG, color, PNG, host vector math, native host module loader
-  data/      — .ic IO + synthetic icosphere scenes
-  models/    — cells, transfer function, locator, radial bands
-  ops/       — camera, ray ordering, launch params, the fast tracker
+  data/      — .ic IO, synthetic icosphere scenes, the fine-map cache
+  models/    — cells, quantized cells, transfer function, locator (dense
+               and CSR), fine map, radial bands
+  ops/       — camera, ray ordering, launch params, the fast trackers
+               (f32 and quantized tiers)
   pipeline/  — frame loop, CLI flags, .xf IO, TF editor
   app.py     — the icon_rt application (apps/icon_rt_torch.py)
 """

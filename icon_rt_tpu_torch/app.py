@@ -9,16 +9,22 @@ Same CLI as apps/icon_rt.py (ref: icon_rt/hostCode.cu:703-968):
   -o PATH                      output PNG name (default icon_rt.png)
   --device DEV                 torch device (default cuda; cpu runs the
                                kernels' plain PyTorch versions)
+  --quantized                  the quantized storage tier (u8 values and
+                               alpha, u16-grid heights, CSR-binned locator)
+  --finemap / --no-finemap     the quantized tier's two-stage fine-map
+                               locate (default on; cached per dataset)
 
-This port renders the default path: the fast radial-band raygen with the
-locator sampler on the f32 tier.  Flags that select anything else raise
-NotImplementedError naming the ROADMAP item that will port them.
+This port renders the fast radial-band raygen with the locator sampler on
+the f32 tier and, with --quantized, on the quantized tier.  Flags that
+select anything else raise NotImplementedError naming the ROADMAP item
+that will port them.
 
 Batch behavior matches the reference: renders --sample-limit progressive
 frames, writes the PNG, prints FPS.
 """
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -30,7 +36,6 @@ _NOT_PORTED = {
     ("--sampler", "brute"): "ROADMAP Queue 1 item 7 (reference-parity tier)",
     ("--sampler", "wedge"): "ROADMAP Queue 1 item 8 (unstructured elements)",
     ("-mode", "2"): "ROADMAP Queue 1 item 8 (unstructured elements)",
-    ("--quantized", None): "ROADMAP Queue 1 item 3 (quantized tier)",
     ("--march", None): "ROADMAP Queue 1 item 4 (deterministic march)",
     ("--preview", None): "ROADMAP Queue 1 item 5 (preview tier)",
     ("--samples", "auto"): "ROADMAP Queue 1 item 5 (auto samples)",
@@ -49,7 +54,8 @@ def parse_app_args(argv):
         "filepath": None, "num_cells": -1,
         "lat_range": None, "lon_range": None,
         "synthetic": None, "out": "icon_rt", "bands": 64,
-        "samples": 8, "device": "cuda",
+        "samples": 8, "device": "cuda", "quantized": False,
+        "finemap": True,
     }
     i = 0
     while i < len(argv):
@@ -86,10 +92,12 @@ def parse_app_args(argv):
             i += 1
         elif a == "-o":
             cfg["out"] = argv[i + 1].removesuffix(".png"); i += 1
-        elif a in ("--quantized", "--march", "--preview"):
-            _not_ported(a)
+        elif a == "--quantized":
+            cfg["quantized"] = True
         elif a in ("--finemap", "--no-finemap"):
-            pass    # the fine map serves the quantized tier only
+            cfg["finemap"] = a == "--finemap"
+        elif a in ("--march", "--preview"):
+            _not_ported(a)
         elif a == "--samples":
             if argv[i + 1] == "auto":
                 _not_ported("--samples", "auto")
@@ -141,6 +149,7 @@ def build(argv):
     from .models.transfunc import DEFAULT_COLORS
     from .ops.camera import Camera
     from .ops.fast import pack_cells, render_frame_fast
+    from .ops.fastq import render_frame_fast_q
     from .ops.order import inverse_order, pixel_order
     from .ops.render import alloc_frame, make_launch_params
     from .pipeline.pipeline import Pipeline, TransfuncState
@@ -160,8 +169,11 @@ def build(argv):
     print(f"cells: {ds.num_cells}")
     stats = compute_stats(ds)
 
-    cells = build_cells(ds, device=dev)
-    locator = build_locator(ds, device=dev)
+    # the f32 tier's tables; the quantized tier builds its own in get_q
+    cells = locator = None
+    if not cfg["quantized"]:
+        cells = build_cells(ds, device=dev)
+        locator = build_locator(ds, device=dev)
 
     pl = Pipeline(argv, name=cfg["out"])
     pl.set_frame(512, 512)
@@ -213,7 +225,8 @@ def build(argv):
     # -- radial bands and baked rows: built on first use, refreshed on every
     # TF edit (ref: hostCode.cu:878-909) -----------------------------------
     device = {}
-    struct = {"bands": None, "packed": None}
+    struct = {"bands": None, "packed": None, "q": None, "loc_q": None,
+              "q_tf": None, "fm": None}
 
     def get_bands():
         if struct["bands"] is None:
@@ -227,10 +240,44 @@ def build(argv):
             struct["packed"] = pack_cells(cells, device["tf"])
         return struct["packed"]
 
+    def get_q():
+        """Quantized tier (--quantized): cells, the CSR-binned locator and
+        (with --finemap) the fine map, built on first use; the u8 alpha
+        table re-bakes (K5c-q) only when the device TF changed.  The bands
+        stay those of the unquantized dataset (get_bands), as in the JAX
+        app.  Returns (q, locator, k_cap)."""
+        from .data.bigscene import build_finemap_cached
+        from .models.locator import build_locator_csr, densify_csr
+        from .models.qcells import (bake_alpha_q, quantize_cells,
+                                    quantize_dataset_values)
+        if struct["q"] is None:
+            ds_q, lo, hi = quantize_dataset_values(ds)
+            struct["q"] = quantize_cells(ds_q, value_range=(lo, hi),
+                                         device=dev)
+            csr, k_cap = build_locator_csr(ds_q)
+            struct["loc_q"] = (densify_csr(csr, k_cap, device=dev), k_cap)
+            if cfg["finemap"]:
+                if cfg["synthetic"] is not None:
+                    key = "app_s%d_l%d" % cfg["synthetic"]
+                else:
+                    st = os.stat(cfg["filepath"])
+                    key = "app_%s_%d_%d" % (
+                        os.path.basename(cfg["filepath"]).removesuffix(".ic"),
+                        st.st_size, int(st.st_mtime))
+                struct["fm"] = build_finemap_cached(
+                    struct["loc_q"][0], struct["q"].test12, factor=2,
+                    cache_key=key)
+        if struct["q_tf"] is not device["tf"]:
+            struct["q"] = bake_alpha_q(struct["q"], device["tf"])
+            struct["q_tf"] = device["tf"]
+        return (struct["q"], *struct["loc_q"])
+
     def on_tf_update(tf_state, index):
         """TF-edit handler: new device LUT, band majorants (K5b) and baked
-        rows (K5a).  Every edit re-runs the full bake; the scale-only
-        re-bake of the JAX package is not ported yet."""
+        rows (K5a) of the f32 tier.  Every edit re-runs the full bake; the
+        scale-only re-bake of the JAX package is not ported yet.  The
+        quantized tier re-bakes its alpha table in get_q at the next
+        launch."""
         device["tf"] = tf_state.to_device(device=dev)
         if struct["bands"] is not None:
             struct["bands"] = update_band_majorants(
@@ -266,10 +313,18 @@ def build(argv):
             frame["inv"] = inverse_order(p).cpu().numpy()
             frame["perm"] = p
             frame["n_active"] = n_cov
-        render_frame_fast(cells, get_packed(), locator, get_bands(), lp,
-                          frame["accum"], frame["fb"], width=W, height=H,
-                          pixel_perm=frame["perm"],
-                          n_active=frame["n_active"], samples=spl)
+        if cfg["quantized"]:
+            q, loc_q, _ = get_q()
+            render_frame_fast_q(q, loc_q, get_bands(), device["tf"], lp,
+                                frame["accum"], frame["fb"], width=W,
+                                height=H, pixel_perm=frame["perm"],
+                                n_active=frame["n_active"], samples=spl,
+                                finemap=struct["fm"])
+        else:
+            render_frame_fast(cells, get_packed(), locator, get_bands(), lp,
+                              frame["accum"], frame["fb"], width=W,
+                              height=H, pixel_perm=frame["perm"],
+                              n_active=frame["n_active"], samples=spl)
         return frame["fb"]
 
     pl.set_render_fn(render)
@@ -282,6 +337,7 @@ def build(argv):
     pl.frame = frame
     pl.scene = {"cells": cells, "locator": locator, "stats": stats,
                 "camera": cam, "get_bands": get_bands,
-                "get_packed": get_packed, "tf": lambda: device["tf"],
+                "get_packed": get_packed, "get_q": get_q,
+                "fm": lambda: struct["fm"], "tf": lambda: device["tf"],
                 "unit_distance": lambda: state["unit_distance"]}
     return pl

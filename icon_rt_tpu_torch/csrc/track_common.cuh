@@ -1,0 +1,294 @@
+// The Woodcock tracking machine shared by the fast tiers' kernels:
+// K1+K4 `track_f32` (csrc/track_f32.cu) and K2 `track_q` (csrc/track_q.cu).
+//
+// One thread per pixel lane runs the pixel's `samples` samples to
+// completion and writes its accum/fb entries once.  This computes, per
+// lane, exactly what the JAX tracking machine (icon_rt_tpu/ops/fast.py
+// `step_core`, `_init_lanes`, `batch_loop`) computes; the TPU's batched
+// refresh/pending/EVAL phases collapse into straight-line code because a
+// cache miss locates inline.  Per lane the draw order is unchanged: the
+// flight uniform xi, then -- only for a point inside the volume, after the
+// cached or inline locate -- the acceptance uniform.  The rules that decide
+// bit-equality are kept: slot 0 is pinned to the lane's first column ever
+// entered and later fills go to slot 1; when both slots contain a point the
+// MRU slot wins; after a fill the evaluation reads the filled (MRU) slot;
+// direction components with |d| < 1e-5 become +1e-5; the seed is
+// (accum_id + samp) * W * H + x with u32 wrap-around.
+//
+// A storage tier plugs in as a `Tier` type with
+//   struct Col;                                    // a cached column
+//   bool  inside(const Col&, px, py, pz, r) const; // containment test
+//   int   locate(px, py, pz, r, Col& out) const;   // cell id or -1
+//   float alpha(int cid, float r) const;           // classified alpha
+//   void  shade(int cid, float r, float& r, float& g, float& b) const;
+// Built with -fmad=false and without --use_fast_math: every operation
+// rounds on its own, as in eager PyTorch.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+// Mirror of `_TrackCommon` in ops/fast.py (same field order).
+struct TrackCommon {
+  const float* edges;    // (nb + 1,) band radii
+  const float* majors;   // (nb,) band majorants
+  const int32_t* pix;    // (n_lanes,) pixel id of each lane
+  float* accum;          // (n_lanes, 4) in/out
+  int32_t* fb;           // (n_lanes,) in/out, u32 bits
+  float cam[12];         // org | dir00 | du | dv
+  float amb[3];
+  float amb_rad;
+  float ud;
+  int nb, n_lanes, width, height, accum_id, samples, preserve_cache,
+      max_steps;
+};
+
+namespace track {
+
+__device__ __forceinline__ uint32_t lcg_init(uint32_t v0, uint32_t v1) {
+  uint32_t s0 = 0;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    s0 += 0x9E3779B9u;
+    v0 += ((v1 << 4) + 0xA341316Cu) ^ (v1 + s0) ^ ((v1 >> 5) + 0xC8013EA4u);
+    v1 += ((v0 << 4) + 0xAD90777Du) ^ (v0 + s0) ^ ((v0 >> 5) + 0x7E95761Eu);
+  }
+  return v0;
+}
+
+__device__ __forceinline__ float lcg_next(uint32_t& state) {
+  state = 1664525u * state + 1013904223u;
+  return static_cast<float>(static_cast<int>(state & 0x00FFFFFFu)) *
+         (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float r_of(float t, float od, float oo) {
+  return sqrtf(fmaxf(oo + 2.0f * t * od + t * t, 1e-30f));
+}
+
+__device__ __forceinline__ int band_of(const float* edges, int nb, float r) {
+  int c = 0;
+  for (int k = 0; k <= nb; ++k) c += (__ldg(edges + k) < r) ? 1 : 0;
+  return min(max(c - 1, 0), nb - 1);
+}
+
+// Closed-form t where the ray leaves the band [r_lo, r_hi], capped at shi;
+// use_in tells whether it leaves through the inner edge.
+__device__ __forceinline__ float band_exit(float t, float r_lo, float r_hi,
+                                           float shi, float od, float oo,
+                                           bool& use_in) {
+  const float disc_in = od * od - oo + r_lo * r_lo;
+  const float t_in = -od - sqrtf(fmaxf(disc_in, 0.0f));
+  const float disc_out = od * od - oo + r_hi * r_hi;
+  const float t_out = -od + sqrtf(fmaxf(disc_out, 0.0f));
+  use_in = (t < -od) && (disc_in > 0.0f) && (t_in > t);
+  return fminf(use_in ? t_in : t_out, shi);
+}
+
+// Bin of an angle a (latitude or longitude) on an axis of n bins over
+// [lo, hi], clamped (the locator and fine-map binning).
+__device__ __forceinline__ int grid_bin(float a, float lo, float hi, int n) {
+  const int b = static_cast<int>((a - lo) / (hi - lo) *
+                                 static_cast<float>(n));
+  return min(max(b, 0), n - 1);
+}
+
+__device__ __forceinline__ float linear_to_srgb(float x) {
+  return x <= 0.0031308f
+             ? 12.92f * x
+             : 1.055f * powf(x, static_cast<float>(1.0 / 2.4)) - 0.055f;
+}
+
+__device__ __forceinline__ uint32_t make_8bit(float f) {
+  const int i = static_cast<int>(f * 256.0f);
+  return static_cast<uint32_t>(min(max(i, 0), 255));
+}
+
+// One lane: `samples` progressive samples of pixel p.pix[lane], then the
+// K4 epilogue (accumulate lerp, sRGB, RGBA8 pack).
+template <class Tier>
+__device__ __forceinline__ void track_lane(const TrackCommon& p,
+                                           const Tier& T, int lane) {
+  using Col = typename Tier::Col;
+  const int pixel = p.pix[lane];
+  const int x = pixel % p.width;
+  const int y = pixel / p.width;
+  const float ox = p.cam[0], oy = p.cam[1], oz = p.cam[2];
+  const float oo = ox * ox + oy * oy + oz * oz;
+  const float amb_r = p.amb[0] * p.amb_rad;
+  const float amb_g = p.amb[1] * p.amb_rad;
+  const float amb_b = p.amb[2] * p.amb_rad;
+  const int nb = p.nb;
+  const float r_in = __ldg(p.edges);
+  const float r_out = __ldg(p.edges + nb);
+  const float inf = __int_as_float(0x7f800000);
+
+  float ar = p.accum[lane * 4 + 0], ag = p.accum[lane * 4 + 1];
+  float ab = p.accum[lane * 4 + 2], aa = p.accum[lane * 4 + 3];
+  bool wany = false;
+
+  // two-slot column cache (registers); slot 0 pinned to the first column
+  Col col0, col1;
+  int cid0 = 0, cid1 = 0;
+  bool valid0 = false, valid1 = false;
+  int mru = 0;
+
+  for (int samp = 0; samp < p.samples; ++samp) {
+    if (!p.preserve_cache) {
+      valid0 = valid1 = false;
+      mru = 0;
+    }
+    // -- ray setup: jittered pinhole ray (ref: deviceCode.cu:36-49) -------
+    const uint32_t aid = static_cast<uint32_t>(p.accum_id + samp);
+    uint32_t rng = lcg_init(
+        aid * static_cast<uint32_t>(p.width * p.height) +
+            static_cast<uint32_t>(x),
+        static_cast<uint32_t>(y));
+    const float jx = lcg_next(rng);
+    const float jy = lcg_next(rng);
+    const float u = static_cast<float>(x) + 0.5f + jx;
+    const float v = static_cast<float>(y) + 0.5f + jy;
+    float dx = p.cam[3] + u * p.cam[6] + v * p.cam[9];
+    float dy = p.cam[4] + u * p.cam[7] + v * p.cam[10];
+    float dz = p.cam[5] + u * p.cam[8] + v * p.cam[11];
+    const float inv = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+    dx = dx * inv;
+    dy = dy * inv;
+    dz = dz * inv;
+    if (fabsf(dx) < 1e-5f) dx = 1e-5f;
+    if (fabsf(dy) < 1e-5f) dy = 1e-5f;
+    if (fabsf(dz) < 1e-5f) dz = 1e-5f;
+    const float od = ox * dx + oy * dy + oz * dz;
+
+    // -- clip to the shell: up to two segments, t >= 0 ---------------------
+    const float disc_o = od * od - oo + r_out * r_out;
+    const float sq_o = sqrtf(fmaxf(disc_o, 0.0f));
+    const float to0 = -od - sq_o, to1 = -od + sq_o;
+    const float disc_i = od * od - oo + r_in * r_in;
+    const float sq_i = sqrtf(fmaxf(disc_i, 0.0f));
+    const float ti0 = -od - sq_i, ti1 = -od + sq_i;
+    const bool hit_o = disc_o > 0.0f, hit_i = disc_i > 0.0f;
+    const bool outer_only = hit_o && !hit_i;
+    const float s0_lo = fmaxf(to0, 0.0f);
+    const float s0_hi = outer_only ? to1 : ti0;
+    const float s1_lo = fmaxf(outer_only ? inf : ti1, 0.0f);
+    const float s1_hi = outer_only ? -inf : to1;
+    const bool wrote = hit_o && (to1 > 0.0f);
+    const bool s0_bad = s0_hi <= s0_lo;
+    float t = s0_bad ? s1_lo : s0_lo;
+    float seg_hi = s0_bad ? s1_hi : s0_hi;
+    int si = s0_bad ? 1 : 0;
+    int band = band_of(p.edges, nb, r_of(t, od, oo));
+    bool was_in;
+    float seg_end = band_exit(t, __ldg(p.edges + band),
+                              __ldg(p.edges + band + 1), seg_hi, od, oo,
+                              was_in);
+    float m = __ldg(p.majors + band);
+    bool done = !(wrote && seg_hi > t);
+    float alpha = 0.0f;
+
+    // -- delta tracking ----------------------------------------------------
+    // max_steps (ops/fast.py MAX_STEPS, the JAX loop's 16384 x 8 cap) ends
+    // a sample without a collision; no lane of the tests or of
+    // chip_smoke.py comes near it.
+    for (int step = 0; !done && step < p.max_steps; ++step) {
+      if (m > 0.0f) {
+        const float xi = lcg_next(rng);
+        const float t_new = t - logf(1.0f - xi) / (m / p.ud);
+        if (!(t_new > seg_end)) {
+          // tentative collision at t_new
+          t = t_new;
+          const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
+          const float r = r_of(t, od, oo);
+          const bool in0 = valid0 && T.inside(col0, px, py, pz, r);
+          const bool in1 = valid1 && T.inside(col1, px, py, pz, r);
+          bool hit_vol = true;
+          if (in0 || in1) {
+            mru = mru ? (in1 ? 1 : 0) : ((in1 && !in0) ? 1 : 0);
+          } else {
+            Col col;
+            const int c = T.locate(px, py, pz, r, col);
+            if (c < 0) {
+              hit_vol = false;
+            } else if (!valid0) {
+              col0 = col;
+              cid0 = c;
+              valid0 = true;
+              mru = 0;
+            } else {
+              col1 = col;
+              cid1 = c;
+              valid1 = true;
+              mru = 1;
+            }
+          }
+          if (hit_vol) {
+            const float a = T.alpha(mru ? cid1 : cid0, r);
+            const float uu = lcg_next(rng);
+            if (a >= uu * m) {
+              alpha = a;
+              done = true;
+            }
+          }
+          continue;
+        }
+      }
+      // overshoot or zero majorant: advance to the next band or segment
+      float t_adv = seg_end;
+      const bool at_seg_end = t_adv >= seg_hi;
+      int band_n = band + (was_in ? -1 : 1);
+      const bool to_seg1 = at_seg_end && si == 0 && s1_hi > s1_lo;
+      float shi_n = seg_hi;
+      if (to_seg1) {
+        t_adv = s1_lo;
+        band_n = band_of(p.edges, nb, r_of(t_adv, od, oo));
+        shi_n = s1_hi;
+      }
+      band_n = min(max(band_n, 0), nb - 1);
+      seg_end = band_exit(t_adv, __ldg(p.edges + band_n),
+                          __ldg(p.edges + band_n + 1), shi_n, od, oo,
+                          was_in);
+      t = t_adv;
+      band = band_n;
+      m = __ldg(p.majors + band_n);
+      if (to_seg1) {
+        seg_hi = shi_n;
+        si = 1;
+      }
+      if (at_seg_end && !to_seg1) done = true;
+    }
+
+    // -- shade (ref: deviceCode.cu:333-340) and accumulate (:267-274) -------
+    float cr = 0.0f, cg = 0.0f, cb = 0.0f, ca = 0.0f;
+    if (alpha > 0.0f) {
+      T.shade(mru ? cid1 : cid0, r_of(t, od, oo), cr, cg, cb);
+      cr = cr * amb_r;
+      cg = cg * amb_g;
+      cb = cb * amb_b;
+      ca = 1.0f;
+    }
+    if (wrote) {
+      const float sc =
+          1.0f / (static_cast<float>(p.accum_id + samp) + 1.0f);
+      ar = sc * cr + (1.0f - sc) * ar;
+      ag = sc * cg + (1.0f - sc) * ag;
+      ab = sc * cb + (1.0f - sc) * ab;
+      aa = sc * ca + (1.0f - sc) * aa;
+      wany = true;
+    }
+  }
+
+  p.accum[lane * 4 + 0] = ar;
+  p.accum[lane * 4 + 1] = ag;
+  p.accum[lane * 4 + 2] = ab;
+  p.accum[lane * 4 + 3] = aa;
+  if (wany) {
+    const uint32_t packed = make_8bit(linear_to_srgb(ar)) |
+                            (make_8bit(linear_to_srgb(ag)) << 8) |
+                            (make_8bit(linear_to_srgb(ab)) << 16) |
+                            (make_8bit(aa) << 24);
+    p.fb[lane] = static_cast<int32_t>(packed);
+  }
+}
+
+}  // namespace track

@@ -5,6 +5,11 @@ same field names) whose leaves `np.asarray` accepts, and builds this
 package's NamedTuple on `device`.  The tests hand both packages the same
 scene and tables through these; nothing here imports jax — the caller
 passes the objects in.
+
+The JAX quantized tier stores its gather tables in the 128-lane row
+layout of icon_rt_tpu/utils/layout.py `pack_table`: logical (N, W) rows as
+(N/f, f*W'), W' = W or the next power of two that divides 128.  This
+package keeps them unpacked; `_unpack_table` is that layout's inverse.
 """
 from __future__ import annotations
 
@@ -13,7 +18,9 @@ import torch
 
 from .data.icfile import ICDataset
 from .models.cells import Cells
+from .models.finemap import FineMap
 from .models.locator import Locator
+from .models.qcells import QuantizedCells
 from .models.shells import RadialBands
 from .models.transfunc import Transfunc
 from .ops.fast import PackedCells
@@ -61,3 +68,64 @@ def packed_cells(p, device="cpu") -> PackedCells:
 
 def launch_params(lp, device="cpu") -> LaunchParams:
     return _convert(lp, LaunchParams, device)
+
+
+def _unpack_table(x, w: int, n: int | None = None) -> np.ndarray:
+    """(N/f, f*W') packed rows -> (N, w) (the same bytes minus slot
+    padding), trimmed to n rows when given.  A slot is w wide when it
+    divides the row (tables packed at their true width), else the next
+    power of two (aligned slots)."""
+    x = np.asarray(x)
+    minor = x.shape[-1]
+    wa = w
+    if minor % w:
+        wa = 1
+        while wa < w:
+            wa *= 2
+        if minor % wa:
+            raise ValueError(f"row width {minor} fits no packing of {w}")
+    out = x.reshape(-1, wa)[:, :w]
+    return np.ascontiguousarray(out[:n] if n is not None else out)
+
+
+def quantized_cells(q, device="cpu", n: int | None = None) -> QuantizedCells:
+    """A JAX QuantizedCells (packed test12/value_q/alpha_q, h_frac (1, Lm)
+    u16 or (N, Lm) f32) as this package's unpacked tables, trimmed to n
+    cells (default: the fewest rows any packed table holds; the rest are
+    all-zero pack padding no locator row names)."""
+    hf = np.asarray(q.h_frac)
+    lm = hf.shape[1]
+    t12 = _unpack_table(q.test12, 12)
+    vq = _unpack_table(q.value_q, lm)
+    aq = _unpack_table(q.alpha_q, lm)
+    n = min(len(t12), len(vq), len(aq)) if n is None else n
+    t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
+    f32 = lambda v: torch.tensor(float(np.float32(v)), dtype=torch.float32,
+                                 device=device)
+    tab = getattr(q, "alpha_tab", None)
+    return QuantizedCells(
+        test12=t(t12[:n]), h_frac=t(hf.astype(np.float32)),
+        value_q=t(vq[:n]), alpha_q=t(aq[:n]),
+        value_lo=f32(q.value_lo), value_hi=f32(q.value_hi),
+        alpha_max=f32(q.alpha_max),
+        alpha_tab=None if tab is None else np.asarray(tab, np.uint8).copy())
+
+
+def locator_packed(loc, k_cap: int, device="cpu") -> Locator:
+    """A JAX Locator whose bins are pack_table'd at their true width
+    (models/locator.py `densify_csr`) as this package's (n_bins, k_cap)
+    Locator."""
+    n_lat, n_lon = (int(v) for v in np.asarray(loc.dims))
+    bins = _unpack_table(loc.bins, k_cap, n_lat * n_lon).astype(np.int32)
+    return locator(loc._replace(bins=bins), device)
+
+
+def finemap(fm, device="cpu") -> FineMap:
+    """A JAX FineMap (pairs packed 32 bins per 128-byte row) as this
+    package's unpacked (n_fine, 4) u8 slots."""
+    f_lat, f_lon = (int(v) for v in np.asarray(fm.dims))
+    slots = _unpack_table(fm.pairs, 4, f_lat * f_lon)
+    return FineMap(slots=to_tensor(slots, device),
+                   **{f: to_tensor(getattr(fm, f), device)
+                      for f in ("lat_lo", "lat_hi", "lon_lo", "lon_hi",
+                                "dims")})

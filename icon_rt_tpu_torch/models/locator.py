@@ -42,6 +42,19 @@ class Locator(NamedTuple):
         return self.bins.shape[1]
 
 
+class LocatorCSR(NamedTuple):
+    """Compressed grid-of-lists on the host (numpy): bin b's candidates are
+    items[starts[b] : starts[b] + counts[b]], in cell-id order."""
+    starts: np.ndarray     # (n_bins,) i32
+    counts: np.ndarray     # (n_bins,) i32
+    items: np.ndarray      # (M,) i32 cell ids
+    lat_lo: float
+    lat_hi: float
+    lon_lo: float
+    lon_hi: float
+    dims: tuple            # (n_lat, n_lon)
+
+
 def _edge_extrema(lat: np.ndarray, lon: np.ndarray,
                   chunk: int = 1 << 22, use_native: bool = True):
     """Per-cell (lat_min, lat_max, extra_lons, pole) accounting for
@@ -211,6 +224,15 @@ def _bbox_entries(ds: ICDataset, n_lat: int, n_lon: int,
     return np.stack([b, cell], axis=1)
 
 
+def _window(ds: ICDataset, pad: float):
+    """(lat_lo, lat_hi, lon_lo, lon_hi) of the cell centres, padded; the
+    whole sphere for an empty dataset."""
+    if not ds.num_cells:
+        return -np.pi / 2, np.pi / 2, -np.pi, np.pi
+    return (float(ds.lat.min()) - pad, float(ds.lat.max()) + pad,
+            float(ds.lon.min()) - pad, float(ds.lon.max()) + pad)
+
+
 def build_locator(ds: ICDataset, dims: tuple[int, int] | None = None,
                   pad: float = 1e-4, use_native: bool = True,
                   device="cpu") -> Locator:
@@ -227,11 +249,7 @@ def build_locator(ds: ICDataset, dims: tuple[int, int] | None = None,
         side = max(1, int(np.sqrt(max(n, 1) * 2)))
         dims = (side, side)
     n_lat, n_lon = dims
-
-    lat_lo = float(ds.lat.min()) - pad if n else -np.pi / 2
-    lat_hi = float(ds.lat.max()) + pad if n else np.pi / 2
-    lon_lo = float(ds.lon.min()) - pad if n else -np.pi
-    lon_hi = float(ds.lon.max()) + pad if n else np.pi
+    lat_lo, lat_hi, lon_lo, lon_hi = _window(ds, pad)
 
     bins = None
     if use_native and n:
@@ -263,3 +281,47 @@ def build_locator(ds: ICDataset, dims: tuple[int, int] | None = None,
         lon_lo=f32(lon_lo), lon_hi=f32(lon_hi),
         dims=torch.tensor([n_lat, n_lon], dtype=torch.int32, device=device),
     )
+
+
+def build_locator_csr(ds: ICDataset) -> tuple[LocatorCSR, int]:
+    """CSR locator of the quantized tier; returns (locator, k_cap), k_cap
+    the largest bin occupancy.  The resolution is sqrt(N/2) per axis (a
+    few candidates per bin).  Host numpy, binned by the same
+    `_bbox_entries` as build_locator."""
+    n_lat = n_lon = max(1, int(np.sqrt(max(ds.num_cells, 1) / 2)))
+    lat_lo, lat_hi, lon_lo, lon_hi = _window(ds, 1e-4)
+
+    all_e = _bbox_entries(ds, n_lat, n_lon, lat_lo, lat_hi, lon_lo, lon_hi)
+    n_bins = n_lat * n_lon
+    counts = np.bincount(all_e[:, 0], minlength=n_bins).astype(np.int64)
+    starts = np.zeros(n_bins, np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    k_cap = int(counts.max()) if len(all_e) else 1
+    items = all_e[:, 1].astype(np.int32) if len(all_e) \
+        else np.zeros((1,), np.int32)
+    return LocatorCSR(starts=starts.astype(np.int32),
+                      counts=counts.astype(np.int32), items=items,
+                      lat_lo=lat_lo, lat_hi=lat_hi, lon_lo=lon_lo,
+                      lon_hi=lon_hi, dims=(n_lat, n_lon)), k_cap
+
+
+def densify_csr(loc: LocatorCSR, k_cap: int, device="cpu") -> Locator:
+    """CSR -> dense (n_bins, k_cap) Locator, -1 padded, candidates in the
+    CSR's cell-id order (host numpy: a repeat of the row starts and one
+    scatter into the padded table)."""
+    starts = loc.starts.astype(np.int64)
+    counts = loc.counts.astype(np.int64)
+    n_bins = starts.shape[0]
+    bins = np.full((n_bins, k_cap), -1, np.int32)
+    if loc.items.shape[0] and counts.sum() > 0:
+        pos = np.repeat(starts, counts)
+        binid = np.repeat(np.arange(n_bins, dtype=np.int64), counts)
+        slot = np.arange(pos.shape[0], dtype=np.int64) - pos
+        ok = slot < k_cap
+        bins[binid[ok], slot[ok]] = loc.items[:pos.shape[0]][ok]
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    return Locator(bins=torch.from_numpy(bins).to(device),
+                   lat_lo=f32(loc.lat_lo), lat_hi=f32(loc.lat_hi),
+                   lon_lo=f32(loc.lon_lo), lon_hi=f32(loc.lon_hi),
+                   dims=torch.tensor(loc.dims, dtype=torch.int32,
+                                     device=device))

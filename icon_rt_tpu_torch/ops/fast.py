@@ -14,11 +14,13 @@ reference-parity raygens.
 
 Kernels of this module (each beside its plain-PyTorch version):
 
-  K1+K4 `track_f32` (CUDA C++, csrc/track_f32.cu) — one thread per lane
-        runs its pixel's `samples` samples to completion and writes the
-        running average, sRGB and RGBA8 pack.  Plain version:
-        `_render_frame_fast_torch`, a lock-step loop over the lanes with
-        the same per-lane order of operations and RNG draws.
+  K1+K4 `track_f32` (CUDA C++, csrc/track_f32.cu on the machine of
+        csrc/track_common.cuh) — one thread per lane runs its pixel's
+        `samples` samples to completion and writes the running average,
+        sRGB and RGBA8 pack.  Plain version: `_render_frame_fast_torch`,
+        the lock-step loop `_track_torch` over the lanes with the same
+        per-lane order of operations and RNG draws; the quantized tier
+        (ops/fastq.py) runs the same loop on its own storage tier.
   K5a   `classify_bake` (Triton) — the TF-edit bake of per-(cell, layer)
         heights, classified alpha and RGB.  Plain version:
         `_profile_rows_torch` / `_classify_channels_torch`.
@@ -31,9 +33,6 @@ per-lane semantics implemented here, so it is not ported.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import time
 from typing import NamedTuple
 
 import torch
@@ -43,6 +42,7 @@ from ..models.cells import Cells
 from ..models.locator import Locator
 from ..models.shells import RadialBands
 from ..models.transfunc import Transfunc
+from ..utils import cuda_build
 from ..utils.lcg import lcg_init, lcg_next
 from .render import _finalize
 
@@ -63,10 +63,6 @@ launches = {"track_f32": 0, "classify_bake": 0}
 tl = None          # triton.language, bound on first K5a launch
 _CLASSIFY_KERNEL = None
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CU_SRC = os.path.join(_PKG_DIR, "csrc", "track_f32.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_TRACK = {"lib": None, "seconds": None, "log": ""}
 
 
 class PackedCells(NamedTuple):
@@ -262,19 +258,12 @@ def _layer_pick(heights, table_rows, r):
     return torch.where(layer < MAX_LAYERS, got[:, 0], 0.0)
 
 
-def _locate_torch(loc: Locator, dims, test, px, py, pz, r):
-    """Locator query on (M,) points: bin row, then the FIRST candidate (in
-    bin order) whose column contains the point.  Returns (cid, hit)."""
-    n_lat, n_lon = dims
-    lat = torch.asin(torch.clamp(pz / r, -1.0, 1.0))
-    lon = torch.atan2(py, px)
-    bl = torch.clamp(((lat - loc.lat_lo) / (loc.lat_hi - loc.lat_lo)
-                      * float(n_lat)).to(torch.int32), 0, n_lat - 1)
-    bo = torch.clamp(((lon - loc.lon_lo) / (loc.lon_hi - loc.lon_lo)
-                      * float(n_lon)).to(torch.int32), 0, n_lon - 1)
-    cand = loc.bins[(bl * n_lon + bo).long()]             # (M, K)
+def _first_inside(rows_fn, cand, px, py, pz, r):
+    """The FIRST candidate (in row order) of the (M, K) cell ids `cand`
+    (-1 = empty) whose column contains the point; rows_fn maps cell ids to
+    (..., 16) test rows.  Returns (cid, hit)."""
     safe = torch.clamp(cand, min=0).long()
-    rows = test[safe]                                     # (M, K, 16)
+    rows = rows_fn(safe)                                  # (M, K, 16)
     ev = [rows[..., 4 * j] * px[:, None] + rows[..., 4 * j + 1] * py[:, None]
           + rows[..., 4 * j + 2] * pz[:, None] - rows[..., 4 * j + 3]
           for j in range(3)]
@@ -285,12 +274,54 @@ def _locate_torch(loc: Locator, dims, test, px, py, pz, r):
     return safe.gather(1, slot[:, None])[:, 0], inside.any(1)
 
 
-def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
-                             bands: RadialBands, lp, pix, accum, fb,
-                             width: int, height: int, samples: int,
-                             preserve_cache: bool):
-    """Plain-PyTorch K1+K4 over the lanes of `pix` (pixel ids); updates
-    accum (L, 4) and fb (L,) in place.
+def _grid_bin(a, lo, hi, n: int):
+    """Clamped bin of angles a on an axis of n bins over [lo, hi]."""
+    return torch.clamp(((a - lo) / (hi - lo) * float(n)).to(torch.int32),
+                       0, n - 1)
+
+
+def _locate_torch(loc: Locator, dims, rows_fn, px, py, pz, r):
+    """Locator query on (M,) points: bin row, then the first candidate (in
+    bin order) whose column contains the point.  Returns (cid, hit)."""
+    n_lat, n_lon = dims
+    lat = torch.asin(torch.clamp(pz / r, -1.0, 1.0))
+    lon = torch.atan2(py, px)
+    bid = _grid_bin(lat, loc.lat_lo, loc.lat_hi, n_lat) * n_lon \
+        + _grid_bin(lon, loc.lon_lo, loc.lon_hi, n_lon)
+    return _first_inside(rows_fn, loc.bins[bid.long()], px, py, pz, r)
+
+
+class _F32Tier:
+    """The f32 storage tier of the plain tracker: (N, 16) test rows,
+    heights and classified alpha in `prof`, baked RGB in `rgb`."""
+
+    def __init__(self, packed: PackedCells, loc: Locator):
+        self.packed, self.loc = packed, loc
+        self.dims = tuple(int(d) for d in loc.dims.tolist())
+
+    def test_rows(self, cid):
+        return self.packed.test[cid]
+
+    def locate(self, px, py, pz, r):
+        return _locate_torch(self.loc, self.dims, self.test_rows, px, py, pz,
+                             r)
+
+    def alpha(self, cid, r):
+        prow = self.packed.prof[cid]
+        return _layer_pick(prow[:, :MAX_LAYERS], prow[:, MAX_LAYERS:], r)
+
+    def shade(self, cid, r):
+        hh = self.packed.prof[cid, :MAX_LAYERS]
+        rgb = self.packed.rgb[cid]
+        return [_layer_pick(hh, rgb[:, ch * MAX_LAYERS:(ch + 1) * MAX_LAYERS],
+                            r) for ch in range(3)]
+
+
+def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
+                 height: int, samples: int, preserve_cache: bool):
+    """Plain-PyTorch tracking machine over the lanes of `pix` (pixel ids)
+    for a storage tier (`_F32Tier`, ops/fastq.py `_QTier`); updates accum
+    (L, 4) and fb (L,) in place.
 
     All lanes advance in lock step, one tracking step per iteration: a
     step draws the flight uniform xi; an overshoot (or a zero majorant)
@@ -300,12 +331,14 @@ def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
     first column); a point inside the volume then draws the acceptance
     uniform.  Samples run one after another per lane, the cache carried
     over when preserve_cache is set.  This is the per-lane order of
-    csrc/track_f32.cu and of icon_rt_tpu/ops/fast.py `step_core`."""
+    csrc/track_common.cuh and of icon_rt_tpu/ops/fast.py `step_core`.
+
+    The tier gives test_rows(cid) -> (M, 16), locate(px, py, pz, r) ->
+    (cid, hit), alpha(cid, r) -> (M,) and shade(cid, r) -> [R, G, B]."""
     dev = pix.device
     L = pix.shape[0]
     nb = bands.max_opacities.shape[0]
     edges, majors = bands.edges, bands.max_opacities
-    dims = (int(loc.dims[0]), int(loc.dims[1]))
     xs = torch.remainder(pix, width).to(torch.int64)
     ys = torch.div(pix, width, rounding_mode="floor").to(torch.int64)
     ox, oy, oz = lp.cam_org[0], lp.cam_org[1], lp.cam_org[2]
@@ -405,13 +438,12 @@ def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
                 hit_vol = in_cache.clone()
                 mi = torch.nonzero(~in_cache).squeeze(1)
                 if mi.numel():
-                    cid, hit = _locate_torch(loc, dims, packed.test, px[mi],
-                                             py[mi], pz[mi], r[mi])
+                    cid, hit = tier.locate(px[mi], py[mi], pz[mi], r[mi])
                     hi, cid = mi[hit], cid[hit]
                     into1 = v0b[hi]
                     for slot, sel in ((0, ~into1), (1, into1)):
                         lanes = b[hi[sel]]
-                        c_test[slot][lanes] = packed.test[cid[sel]]
+                        c_test[slot][lanes] = tier.test_rows(cid[sel])
                         c_cid[slot][lanes] = cid[sel]
                         c_valid[slot][lanes] = True
                     mru_b[hi] = into1
@@ -423,9 +455,7 @@ def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
                     lanes = b[hv]
                     cid = torch.where(mru_b[hv], c_cid[1][lanes],
                                       c_cid[0][lanes])
-                    prow = packed.prof[cid]
-                    aa_v = _layer_pick(prow[:, :MAX_LAYERS],
-                                       prow[:, MAX_LAYERS:], r[hv])
+                    aa_v = tier.alpha(cid, r[hv])
                     rng_v, uu = lcg_next(rng_b[hv])
                     rng_b[hv] = rng_v
                     hit = aa_v >= uu * m_a[samp_m][hv]
@@ -465,13 +495,9 @@ def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
         g = torch.nonzero(alpha > 0.0).squeeze(1)
         if g.numel():
             cid = torch.where(c_mru[g], c_cid[1][g], c_cid[0][g])
-            hh = packed.prof[cid, :MAX_LAYERS]
-            rgb = packed.rgb[cid]
-            r = _r_of(t[g], od[g], oo)
+            rgb = tier.shade(cid, _r_of(t[g], od[g], oo))
             for ch, out in enumerate((cr, cg, cb)):
-                out[g] = _layer_pick(
-                    hh, rgb[:, ch * MAX_LAYERS:(ch + 1) * MAX_LAYERS],
-                    r) * amb[ch]
+                out[g] = rgb[ch] * amb[ch]
         ca = torch.where(alpha > 0.0, 1.0, zero)
         # fb is repacked after every sample; a lane's last write packs its
         # final accum, as the kernel's single pack at the end does
@@ -482,81 +508,87 @@ def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
     fb.copy_(pixels)
 
 
+def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
+                             bands: RadialBands, lp, pix, accum, fb,
+                             width: int, height: int, samples: int,
+                             preserve_cache: bool):
+    """Plain-PyTorch K1+K4 over the lanes of `pix` (pixel ids): the
+    tracking machine `_track_torch` on the f32 tier."""
+    _track_torch(_F32Tier(packed, loc), bands, lp, pix, accum, fb, width,
+                 height, samples, preserve_cache)
+
+
 # ===========================================================================
 # K1+K4 kernel: build, bind, launch
 # ===========================================================================
 
-class _TrackParams(ctypes.Structure):
-    """Mirror of `TrackParams` in csrc/track_f32.cu (same field order)."""
+class _TrackCommon(ctypes.Structure):
+    """Mirror of `TrackCommon` in csrc/track_common.cuh (same field order)."""
     _fields_ = [
-        ("test", ctypes.c_void_p), ("prof", ctypes.c_void_p),
-        ("rgb", ctypes.c_void_p), ("bins", ctypes.c_void_p),
         ("edges", ctypes.c_void_p), ("majors", ctypes.c_void_p),
         ("pix", ctypes.c_void_p), ("accum", ctypes.c_void_p),
         ("fb", ctypes.c_void_p),
         ("cam", ctypes.c_float * 12), ("amb", ctypes.c_float * 3),
         ("amb_rad", ctypes.c_float), ("ud", ctypes.c_float),
-        ("lat_lo", ctypes.c_float), ("lat_hi", ctypes.c_float),
-        ("lon_lo", ctypes.c_float), ("lon_hi", ctypes.c_float),
-        ("n_lat", ctypes.c_int), ("n_lon", ctypes.c_int),
-        ("k_cap", ctypes.c_int), ("nb", ctypes.c_int),
-        ("n_lanes", ctypes.c_int), ("width", ctypes.c_int),
-        ("height", ctypes.c_int), ("accum_id", ctypes.c_int),
-        ("samples", ctypes.c_int), ("preserve_cache", ctypes.c_int),
-        ("max_steps", ctypes.c_int),
+        ("nb", ctypes.c_int), ("n_lanes", ctypes.c_int),
+        ("width", ctypes.c_int), ("height", ctypes.c_int),
+        ("accum_id", ctypes.c_int), ("samples", ctypes.c_int),
+        ("preserve_cache", ctypes.c_int), ("max_steps", ctypes.c_int),
     ]
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("NVCC"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    return "nvcc"
+def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
+                 height: int, samples: int,
+                 preserve_cache: bool) -> _TrackCommon:
+    """The tier-independent launch arguments of K1 and K2 (one host read
+    of the launch scalars)."""
+    host = torch.cat([
+        lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv, lp.ambient_color,
+        lp.ambient_radiance.reshape(1), lp.unit_distance.reshape(1),
+    ]).to(F32).tolist()
+    return _TrackCommon(
+        edges=bands.edges.data_ptr(), majors=bands.max_opacities.data_ptr(),
+        pix=pix.data_ptr(), accum=accum.data_ptr(), fb=fb.data_ptr(),
+        cam=(ctypes.c_float * 12)(*host[0:12]),
+        amb=(ctypes.c_float * 3)(*host[12:15]),
+        amb_rad=host[15], ud=host[16], nb=bands.max_opacities.shape[0],
+        n_lanes=pix.shape[0], width=width, height=height,
+        accum_id=int(lp.accum_id), samples=samples,
+        preserve_cache=int(bool(preserve_cache)), max_steps=MAX_STEPS)
+
+
+class _TrackParams(ctypes.Structure):
+    """Mirror of `TrackParams` in csrc/track_f32.cu (same field order)."""
+    _fields_ = [
+        ("c", _TrackCommon),
+        ("test", ctypes.c_void_p), ("prof", ctypes.c_void_p),
+        ("rgb", ctypes.c_void_p), ("bins", ctypes.c_void_p),
+        ("lat_lo", ctypes.c_float), ("lat_hi", ctypes.c_float),
+        ("lon_lo", ctypes.c_float), ("lon_hi", ctypes.c_float),
+        ("n_lat", ctypes.c_int), ("n_lon", ctypes.c_int),
+        ("k_cap", ctypes.c_int),
+    ]
 
 
 def build_track_f32():
-    """Compile csrc/track_f32.cu with nvcc for sm_90a into _build/ (once per
-    process; rebuilt when the source is newer) and bind its C entry point.
-    Returns the ctypes library; the build's seconds and ptxas report are
-    kept in `track_build_info()`."""
-    if _TRACK["lib"] is not None:
-        return _TRACK["lib"]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, "libtrack_f32.so")
-    t0 = time.perf_counter()
-    if not os.path.exists(so) \
-            or os.path.getmtime(so) < os.path.getmtime(_CU_SRC):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-               "-Xcompiler", "-fPIC", "-o", tmp, _CU_SRC]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
-        _TRACK["log"] = res.stderr
-    lib = ctypes.CDLL(so)
+    """Compile csrc/track_f32.cu for sm_90a (utils/cuda_build.py) and bind
+    its C entry point; returns the ctypes library."""
+    lib = cuda_build.build("track_f32")
     lib.track_f32_launch.argtypes = [ctypes.POINTER(_TrackParams),
                                      ctypes.c_void_p]
     lib.track_f32_launch.restype = ctypes.c_int
-    _TRACK["seconds"] = time.perf_counter() - t0
-    _TRACK["lib"] = lib
     return lib
 
 
-def track_build_info() -> dict:
-    """{'seconds': build+load time of K1, 'log': nvcc/ptxas report}."""
-    return {"seconds": _TRACK["seconds"], "log": _TRACK["log"]}
-
-
-def _check(name, x, dtype, shape, device):
+def _check(name, x, dtype, shape, device, fn="track_f32"):
+    """Raise ValueError unless x is a contiguous `dtype` tensor on `device`
+    of `shape` (None = any size)."""
     if x.dtype != dtype or not x.is_contiguous() or x.device != device:
-        raise ValueError(f"track_f32: {name} must be a contiguous {dtype} "
+        raise ValueError(f"{fn}: {name} must be a contiguous {dtype} "
                          f"tensor on {device}")
     if len(shape) != x.dim() or any(s is not None and s != d
                                     for s, d in zip(shape, x.shape)):
-        raise ValueError(f"track_f32: {name} has shape {tuple(x.shape)}, "
+        raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, "
                          f"expected {shape}")
 
 
@@ -589,32 +621,20 @@ def track_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
     if dev.type != "cuda":
         raise ValueError(f"track_f32: unsupported device {dev}")
     lib = build_track_f32()
-    host = torch.cat([
-        lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv, lp.ambient_color,
-        lp.ambient_radiance.reshape(1), lp.unit_distance.reshape(1),
-        torch.stack([loc.lat_lo, loc.lat_hi, loc.lon_lo, loc.lon_hi]),
-    ]).to(F32).tolist()
     n_lat, n_lon = (int(d) for d in loc.dims.tolist())
     if loc.bins.shape[0] != n_lat * n_lon:
         raise ValueError("track_f32: loc.bins rows != n_lat * n_lon")
+    win = torch.stack([loc.lat_lo, loc.lat_hi, loc.lon_lo,
+                       loc.lon_hi]).to(F32).tolist()
     p = _TrackParams(
+        c=track_common(bands, lp, pix, accum, fb, width=width, height=height,
+                       samples=samples, preserve_cache=preserve_cache),
         test=packed.test.data_ptr(), prof=packed.prof.data_ptr(),
         rgb=packed.rgb.data_ptr(), bins=loc.bins.data_ptr(),
-        edges=bands.edges.data_ptr(), majors=bands.max_opacities.data_ptr(),
-        pix=pix.data_ptr(), accum=accum.data_ptr(), fb=fb.data_ptr(),
-        cam=(ctypes.c_float * 12)(*host[0:12]),
-        amb=(ctypes.c_float * 3)(*host[12:15]),
-        amb_rad=host[15], ud=host[16],
-        lat_lo=host[17], lat_hi=host[18], lon_lo=host[19], lon_hi=host[20],
-        n_lat=n_lat, n_lon=n_lon, k_cap=loc.bins.shape[1], nb=nb,
-        n_lanes=L, width=width, height=height,
-        accum_id=int(lp.accum_id), samples=samples,
-        preserve_cache=int(bool(preserve_cache)), max_steps=MAX_STEPS)
-    err = lib.track_f32_launch(ctypes.byref(p),
-                               torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"track_f32: kernel launch failed "
-                           f"(cudaError {err})")
+        lat_lo=win[0], lat_hi=win[1], lon_lo=win[2], lon_hi=win[3],
+        n_lat=n_lat, n_lon=n_lon, k_cap=loc.bins.shape[1])
+    cuda_build.check("track_f32", lib.track_f32_launch(
+        ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches["track_f32"] += 1
 
 

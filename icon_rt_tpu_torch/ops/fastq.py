@@ -1,0 +1,274 @@
+"""Quantized fast raygen — the tracker of the quantized storage tier.
+
+The same Woodcock tracking machine as ops/fast.py (radial bands, two-slot
+column cache, in-lane sample restarts), on models/qcells.QuantizedCells:
+a cache miss locates through the fine map first (models/finemap.py) and
+falls back to the full coarse query, the u8/u16 tables are dequantized at
+the point of use, and the accepted sample's dequantized value is
+classified through the LIVE transfer function at shade time, so a TF edit
+re-bakes only alpha_q (models/qcells.bake_alpha_q).
+
+Kernel of this module:
+
+  K2 `track_q` (CUDA C++, csrc/track_q.cu + csrc/track_common.cuh) — one
+     thread per lane, as K1.  Plain version: `_render_frame_fast_q_torch`,
+     the lock-step machine of ops/fast.py `_track_torch` on `_QTier`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..models.finemap import FineMap, K_CAND, slots_to_cells
+from ..models.locator import Locator
+from ..models.qcells import QuantizedCells
+from ..models.shells import RadialBands
+from ..models.transfunc import Transfunc, post_classify
+from ..utils import cuda_build
+from .fast import (F32, _check, _first_inside, _grid_bin,
+                   _locate_torch, _TrackCommon, _track_torch, track_common)
+
+#: K2 kernel launches (the wrapper counts only CUDA launches)
+launches = 0
+
+
+# ===========================================================================
+# K2 plain version
+# ===========================================================================
+
+class _QTier:
+    """The quantized storage tier of the plain tracker (ops/fast.py
+    `_track_torch`): cached test rows are the 12-float storage rows laid
+    out as the f32 tier's 16-float rows (w = 0); heights, alpha and values
+    are dequantized from the cell id, in the order of
+    icon_rt_tpu/ops/fastq.py `_test_and_fill`."""
+
+    def __init__(self, q: QuantizedCells, loc: Locator, tf: Transfunc,
+                 fm: FineMap | None):
+        self.q, self.loc, self.tf, self.fm = q, loc, tf, fm
+        self.dims = tuple(int(d) for d in loc.dims.tolist())
+        t = q.test12
+        z = torch.zeros_like(t[:, :1])
+        self.test16 = torch.cat([t[:, 0:3], z, t[:, 3:6], z, t[:, 6:9], z,
+                                 t[:, 9:12], z], dim=1)
+        one = torch.ones((), dtype=F32, device=t.device)
+        self.inv65535 = one * np.float32(1.0 / 65535.0)
+        # divided by a tensor: PyTorch's CUDA division by a Python scalar
+        # multiplies by its reciprocal, which rounds differently
+        self.a_scale = q.alpha_max / (one * 255.0)
+        self.v_scale = (q.value_hi - q.value_lo) / (one * 255.0)
+
+    def test_rows(self, cid):
+        return self.test16[cid]
+
+    def locate(self, px, py, pz, r):
+        """Fine map first (the first of the fine bin's 4 candidates whose
+        column contains the point), then the full coarse query for the
+        misses: the two-stage locate, per lane."""
+        cid = torch.zeros(px.shape[0], dtype=torch.int64, device=px.device)
+        hit = torch.zeros(px.shape[0], dtype=torch.bool, device=px.device)
+        if self.fm is not None:
+            f_lat, f_lon = (int(d) for d in self.fm.dims.tolist())
+            lat = torch.asin(torch.clamp(pz / r, -1.0, 1.0))
+            lon = torch.atan2(py, px)
+            fbid = _grid_bin(lat, self.fm.lat_lo, self.fm.lat_hi, f_lat) \
+                * f_lon + _grid_bin(lon, self.fm.lon_lo, self.fm.lon_hi,
+                                    f_lon)
+            fbid = fbid.long()
+            cand = slots_to_cells(self.fm, self.loc, fbid, self.fm.slots[fbid])
+            cid, hit = _first_inside(self.test_rows, cand, px, py, pz, r)
+        miss = torch.nonzero(~hit).squeeze(1)
+        if miss.numel():
+            c2, h2 = _locate_torch(self.loc, self.dims, self.test_rows,
+                                   px[miss], py[miss], pz[miss], r[miss])
+            cid[miss] = c2
+            hit[miss] = h2
+        return cid, hit
+
+    def _layer(self, cid, r):
+        """(layer of r, dequantized rows) of columns cid: the layer is
+        #(h < r) over the Lm ceilings, +inf past num_layers."""
+        q = self.q
+        t = q.test12[cid]
+        h_bot, h_top = t[:, 9], t[:, 10]
+        nl = t[:, 11].to(torch.int32)
+        hf = q.h_frac[torch.clamp(cid, max=q.h_frac.shape[0] - 1)]
+        heights = h_bot[:, None] + hf * ((h_top - h_bot)[:, None]
+                                         * self.inv65535)
+        k1 = torch.arange(1, q.lm + 1, device=cid.device)
+        heights = torch.where(k1[None, :] <= nl[:, None], heights,
+                              float("inf"))
+        layer = (r[:, None] > heights).sum(1)
+        return layer, torch.clamp(layer, max=q.lm - 1)[:, None]
+
+    def alpha(self, cid, r):
+        layer, idx = self._layer(cid, r)
+        aa = self.q.alpha_q[cid].gather(1, idx)[:, 0].to(F32) * self.a_scale
+        return torch.where(layer < self.q.lm, aa, 0.0)
+
+    def shade(self, cid, r):
+        q = self.q
+        layer, idx = self._layer(cid, r)
+        vv = q.value_lo + q.value_q[cid].gather(1, idx)[:, 0].to(F32) \
+            * self.v_scale
+        v = torch.where(layer < q.lm, vv, 0.0)
+        rgba = post_classify(self.tf, v)
+        return [rgba[:, 0], rgba[:, 1], rgba[:, 2]]
+
+
+def _render_frame_fast_q_torch(q: QuantizedCells, loc: Locator,
+                               bands: RadialBands, tf: Transfunc, lp, pix,
+                               accum, fb, width: int, height: int,
+                               samples: int, preserve_cache: bool,
+                               fm: FineMap | None):
+    """Plain-PyTorch K2 over the lanes of `pix`: the tracking machine
+    `_track_torch` on the quantized tier; updates accum and fb in place."""
+    _track_torch(_QTier(q, loc, tf, fm), bands, lp, pix, accum, fb, width,
+                 height, samples, preserve_cache)
+
+
+# ===========================================================================
+# K2 kernel: build, bind, launch
+# ===========================================================================
+
+class _TrackQParams(ctypes.Structure):
+    """Mirror of `TrackQParams` in csrc/track_q.cu (same field order)."""
+    _fields_ = [
+        ("c", _TrackCommon),
+        ("test12", ctypes.c_void_p), ("hfrac", ctypes.c_void_p),
+        ("vq", ctypes.c_void_p), ("aq", ctypes.c_void_p),
+        ("bins", ctypes.c_void_p), ("fslots", ctypes.c_void_p),
+        ("lut", ctypes.c_void_p),
+        ("value_lo", ctypes.c_float), ("value_hi", ctypes.c_float),
+        ("alpha_max", ctypes.c_float), ("tf_lo", ctypes.c_float),
+        ("tf_hi", ctypes.c_float),
+        ("lat_lo", ctypes.c_float), ("lat_hi", ctypes.c_float),
+        ("lon_lo", ctypes.c_float), ("lon_hi", ctypes.c_float),
+        ("f_lat_lo", ctypes.c_float), ("f_lat_hi", ctypes.c_float),
+        ("f_lon_lo", ctypes.c_float), ("f_lon_hi", ctypes.c_float),
+        ("hf_stride", ctypes.c_int), ("lm", ctypes.c_int),
+        ("lut_size", ctypes.c_int),
+        ("n_lat", ctypes.c_int), ("n_lon", ctypes.c_int),
+        ("k_cap", ctypes.c_int),
+        ("f_lat", ctypes.c_int), ("f_lon", ctypes.c_int),
+        ("factor", ctypes.c_int), ("use_fine", ctypes.c_int),
+    ]
+
+
+def build_track_q():
+    """Compile csrc/track_q.cu for sm_90a (utils/cuda_build.py) and bind
+    its C entry point; returns the ctypes library."""
+    lib = cuda_build.build("track_q")
+    lib.track_q_launch.argtypes = [ctypes.POINTER(_TrackQParams),
+                                   ctypes.c_void_p]
+    lib.track_q_launch.restype = ctypes.c_int
+    return lib
+
+
+def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
+            tf: Transfunc, lp, pix, accum, fb, *, width: int, height: int,
+            samples: int = 1, preserve_cache: bool = True,
+            finemap: FineMap | None = None):
+    """K2 wrapper: trace `samples` progressive samples for the lanes of
+    `pix` ((L,) int32 pixel ids) on the quantized tier and update accum
+    (L, 4) f32 and fb (L,) int32 IN PLACE.  With `finemap` a cache miss
+    locates through the fine map first.  CUDA tensors launch
+    csrc/track_q.cu; CPU tensors run `_render_frame_fast_q_torch`;
+    anything else raises."""
+    global launches
+    dev = pix.device
+    n, lm = q.num_cells, q.lm
+    nb = bands.max_opacities.shape[0]
+    L = pix.shape[0]
+    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    k_cap = loc.bins.shape[1]
+    ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev,
+                                           fn="track_q")
+    ck("q.test12", q.test12, F32, (n, 12))
+    ck("q.h_frac", q.h_frac, F32, (None, lm))
+    if q.h_frac.shape[0] not in (1, n):
+        raise ValueError("track_q: q.h_frac must have 1 or N rows")
+    ck("q.value_q", q.value_q, torch.uint8, (n, lm))
+    ck("q.alpha_q", q.alpha_q, torch.uint8, (n, lm))
+    for name in ("value_lo", "value_hi", "alpha_max"):
+        ck(f"q.{name}", getattr(q, name), F32, ())
+    ck("loc.bins", loc.bins, torch.int32, (n_lat * n_lon, k_cap))
+    ck("bands.edges", bands.edges, F32, (nb + 1,))
+    ck("bands.max_opacities", bands.max_opacities, F32, (nb,))
+    ck("tf.values", tf.values, F32, (tf.size, 4))
+    ck("tf.value_range", tf.value_range, F32, (2,))
+    ck("pix", pix, torch.int32, (L,))
+    ck("accum", accum, F32, (L, 4))
+    ck("fb", fb, torch.int32, (L,))
+    f_lat = f_lon = factor = 0
+    if finemap is not None:
+        f_lat, f_lon = (int(d) for d in finemap.dims.tolist())
+        ck("finemap.slots", finemap.slots, torch.uint8,
+           (f_lat * f_lon, K_CAND))
+        factor = f_lat // n_lat
+        if factor < 1 or f_lat != factor * n_lat or f_lon != factor * n_lon:
+            raise ValueError("track_q: the fine map must refine the "
+                             "locator's grid by an integer factor")
+    if samples < 1:
+        raise ValueError("track_q: samples must be >= 1")
+    if dev.type == "cpu":
+        _render_frame_fast_q_torch(q, loc, bands, tf, lp, pix, accum, fb,
+                                   width, height, samples, preserve_cache,
+                                   finemap)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"track_q: unsupported device {dev}")
+    lib = build_track_q()
+    fm = finemap if finemap is not None else loc
+    host = torch.stack([
+        q.value_lo, q.value_hi, q.alpha_max, tf.value_range[0],
+        tf.value_range[1], loc.lat_lo, loc.lat_hi, loc.lon_lo, loc.lon_hi,
+        fm.lat_lo, fm.lat_hi, fm.lon_lo, fm.lon_hi]).to(F32).tolist()
+    p = _TrackQParams(
+        c=track_common(bands, lp, pix, accum, fb, width=width, height=height,
+                       samples=samples, preserve_cache=preserve_cache),
+        test12=q.test12.data_ptr(), hfrac=q.h_frac.data_ptr(),
+        vq=q.value_q.data_ptr(), aq=q.alpha_q.data_ptr(),
+        bins=loc.bins.data_ptr(),
+        fslots=finemap.slots.data_ptr() if finemap is not None else None,
+        lut=tf.values.data_ptr(), value_lo=host[0], value_hi=host[1],
+        alpha_max=host[2], tf_lo=host[3], tf_hi=host[4], lat_lo=host[5],
+        lat_hi=host[6], lon_lo=host[7], lon_hi=host[8], f_lat_lo=host[9],
+        f_lat_hi=host[10], f_lon_lo=host[11], f_lon_hi=host[12],
+        hf_stride=0 if q.h_frac.shape[0] == 1 else lm, lm=lm,
+        lut_size=tf.size, n_lat=n_lat, n_lon=n_lon, k_cap=k_cap,
+        f_lat=f_lat, f_lon=f_lon, factor=factor,
+        use_fine=int(finemap is not None))
+    cuda_build.check("track_q", lib.track_q_launch(
+        ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
+    launches += 1
+
+
+# ===========================================================================
+# Frame driver
+# ===========================================================================
+
+def render_frame_fast_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
+                        tf: Transfunc, lp, accum, fb, *, width: int,
+                        height: int, pixel_perm=None,
+                        n_active: int | None = None, samples: int = 1,
+                        preserve_cache: bool = True,
+                        finemap: FineMap | None = None):
+    """Full-frame progressive step on the quantized tier — the peer of
+    ops/fast.render_frame_fast (same pixel_perm / n_active / samples /
+    preserve_cache contract); `finemap` turns the two-stage locate on.
+    accum (P, 4) f32 and fb (P,) int32 are updated IN PLACE and returned."""
+    total = width * height
+    if pixel_perm is None:
+        pix = torch.arange(total, dtype=torch.int32, device=accum.device)
+        n_proc = total
+    else:
+        pix = pixel_perm.to(torch.int32)
+        n_proc = total if n_active is None else \
+            min(total, max(int(n_active), 1))
+    track_q(q, loc, bands, tf, lp, pix[:n_proc].contiguous(),
+            accum[:n_proc], fb[:n_proc], width=width, height=height,
+            samples=samples, preserve_cache=preserve_cache, finemap=finemap)
+    return accum, fb

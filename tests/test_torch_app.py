@@ -14,6 +14,7 @@ import icon_rt  # noqa: E402
 from icon_rt_tpu.utils.png import read_png  # noqa: E402
 from icon_rt_tpu_torch import app  # noqa: E402
 from test_torch_fast import FB_MISMATCH_BOUND  # noqa: E402
+from test_torch_fastq import APP_TF_MISMATCH_BOUND  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -54,11 +55,77 @@ def test_torch_app_build_runs_and_counts_frames(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--raygen", "accel"], ["--raygen", "ae"], ["--sampler", "brute"],
-    ["--sampler", "wedge"], ["-mode", "2"], ["--quantized"], ["--march"],
+    ["--sampler", "wedge"], ["-mode", "2"], ["--march"],
     ["--preview", "4"], ["--samples", "auto"]])
 def test_torch_app_out_of_slice_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         app.build(["--device", "cpu", *ARGS, *flags])
+
+
+def _run_loop(pl):
+    """The launch / is_running loop of apps/icon_rt.py; returns the number
+    of launches."""
+    launches = 0
+    while True:
+        pl.launch()
+        launches += 1
+        if not pl.is_running():
+            return launches
+
+
+@pytest.fixture
+def caches(tmp_path, monkeypatch):
+    """Both packages' fine-map caches in an empty directory of the test."""
+    from icon_rt_tpu.data import bigscene as jbigscene
+    from icon_rt_tpu_torch.data import bigscene
+    monkeypatch.setattr(jbigscene, "_CACHE_DIR", str(tmp_path / "jax"))
+    monkeypatch.setattr(bigscene, "CACHE_DIR", str(tmp_path / "torch"))
+    return tmp_path
+
+
+def test_torch_app_quantized_matches_jax_app(caches):
+    """--quantized (fine map on by default): the launch / is_running /
+    present loop renders 4 samples in one launch, builds and caches the fine
+    map, and the PNG agrees with the JAX app's per pixel within the quantized
+    tracker's bound for the app's TF range (test_torch_fastq.py; measured
+    here: 0 of 4096 pixels)."""
+    out_t, out_j = str(caches / "tq"), str(caches / "jq")
+    pl = app.build(["--device", "cpu", *ARGS, "--quantized", "-o", out_t])
+    assert _run_loop(pl) == 1
+    pl.present()
+    q, loc, k_cap = pl.scene["get_q"]()
+    assert q.value_q.dtype == torch.uint8 and loc.bins.shape[1] == k_cap
+    assert pl.scene["fm"]() is not None and pl.scene["cells"] is None
+    assert (caches / "torch" / "fmap_app_s3_l8_f2.npz").exists()
+    assert icon_rt.main([*ARGS, "--quantized", "-o", out_j]) == 0
+    img_t, img_j = read_png(out_t + ".png"), read_png(out_j + ".png")
+    assert img_t.shape == img_j.shape == (64, 64, 4)
+    differ = (img_t != img_j).any(axis=-1)
+    assert differ.sum() <= APP_TF_MISMATCH_BOUND, differ.sum()
+    assert (img_t[..., :3] != img_t[0, 0, :3]).any(axis=-1).sum() > 50
+
+
+def test_torch_app_quantized_no_finemap_same_image(caches):
+    """--no-finemap renders the same framebuffer, bit for bit, as the
+    default two-stage locate (and builds no fine map); a TF edit re-bakes
+    the alpha table against the edited transfer function."""
+    from icon_rt_tpu_torch.models.qcells import _classify_alpha_table
+    fbs = []
+    for flag in ("--finemap", "--no-finemap"):
+        pl = app.build(["--device", "cpu", *ARGS, "--quantized", flag,
+                        "-o", str(caches / "x")])
+        _run_loop(pl)
+        assert (pl.scene["fm"]() is None) == (flag == "--no-finemap")
+        fbs.append(pl.frame["fb"].clone())
+    assert torch.equal(fbs[0], fbs[1])
+    pl.set_ui_param("Opacity scale", 0.3)
+    pl.is_running()
+    q, _, _ = pl.scene["get_q"]()
+    tab = _classify_alpha_table(pl.scene["tf"](), q.value_lo, q.value_hi)
+    want = torch.floor(tab / torch.clamp(tab.max(), min=1e-8) * 255.0)
+    assert np.array_equal(q.alpha_tab, want.to(torch.uint8).numpy())
+    assert torch.equal(q.alpha_q, torch.from_numpy(q.alpha_tab)[
+        q.value_q.long()])
 
 
 def test_torch_app_cuda_device_raises_without_gpu():

@@ -1,5 +1,5 @@
-"""PyTorch port, the kernels on the card: K1+K4, K5a, K5b and K6 against
-their plain PyTorch versions on the same CUDA inputs.  Marked `cuda`: they
+"""PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q
+and K7-fm against their plain PyTorch versions on the same CUDA inputs.  Marked `cuda`: they
 skip where no GPU is present (CUDA and Triton kernels have no CPU mode).
 On a GPU machine:  python -m pytest tests/test_torch_kernels_cuda.py"""
 import numpy as np
@@ -13,7 +13,9 @@ from icon_rt_tpu_torch.models.locator import build_locator
 from icon_rt_tpu_torch.models.shells import (build_radial_bands,
                                              update_band_majorants)
 from icon_rt_tpu_torch.models.transfunc import make_transfunc
-from icon_rt_tpu_torch.ops import fast, order
+from icon_rt_tpu_torch.models import finemap, qcells
+from icon_rt_tpu_torch.models.locator import build_locator_csr, densify_csr
+from icon_rt_tpu_torch.ops import fast, fastq, order
 from icon_rt_tpu_torch.ops.camera import Camera
 from icon_rt_tpu_torch.ops.render import alloc_frame, make_launch_params
 
@@ -131,3 +133,71 @@ def test_cuda_track_f32_samples_n_equals_sequential(scene):
     fast.track_f32(*tabs, lp, pix, a2[:n], f2[:n], width=96, height=96,
                    samples=4, preserve_cache=False)
     assert torch.equal(a1, a2) and torch.equal(f1, f2)
+
+
+@pytest.fixture(scope="module")
+def qscene(dev, scene):
+    """The quantized tier of the same icosphere, as the app builds it."""
+    ds_q, lo, hi = qcells.quantize_dataset_values(synthetic.icosphere(4, 8))
+    q = qcells.quantize_cells(ds_q, value_range=(lo, hi), device=dev)
+    q = qcells.bake_alpha_q(q, scene["tf"])
+    csr, k_cap = build_locator_csr(ds_q)
+    loc = densify_csr(csr, k_cap, device=dev)
+    return dict(q=q, loc=loc, fm=finemap.build_finemap(loc, q.test12))
+
+
+def test_cuda_build_finemap_matches_plain(qscene):
+    """K7-fm: the u8 slots exactly equal to the plain version's."""
+    before = finemap.launches
+    fm = qscene["fm"]
+    slots = finemap.finemap_slots(qscene["loc"], qscene["q"].test12)
+    assert finemap.launches == before + 1
+    want = finemap._build_finemap_torch(qscene["loc"], qscene["q"].test12)
+    assert torch.equal(slots, want) and torch.equal(fm.slots, want)
+
+
+@pytest.mark.parametrize("patch", [False, True], ids=["lookup", "patch"])
+def test_cuda_bake_alpha_q_matches_plain(qscene, dev, patch):
+    """K5c-q: u8 tables exactly equal to the plain versions' (full lookup
+    over random tables; patch of 32 levels, 5 of them real)."""
+    rng = np.random.default_rng(1)
+    vq = qscene["q"].value_q
+    if patch:
+        lev = np.full(32, -1, np.int32)
+        lev[:5] = rng.choice(256, 5, replace=False)
+        args = (vq, qscene["q"].alpha_q, torch.from_numpy(lev).to(dev),
+                torch.from_numpy(rng.integers(0, 256, 32, dtype=np.uint8)
+                                 ).to(dev))
+        got, want = qcells.bake_patch(*args), qcells._bake_patch_torch(*args)
+    else:
+        tab = torch.from_numpy(rng.integers(0, 256, 256, dtype=np.uint8)
+                               ).to(dev)
+        got, want = qcells.bake_lookup(vq, tab), \
+            qcells._bake_lookup_torch(vq, tab)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("use_fm", [True, False],
+                         ids=["finemap", "no_finemap"])
+@pytest.mark.parametrize("preserve_cache", [True, False])
+def test_cuda_track_q_matches_plain(scene, qscene, use_fm, preserve_cache):
+    """K2: fb identical on >= 99.9% of lanes, accum within 1e-6."""
+    n = scene["n_cov"]
+    pix = scene["perm"][:n].contiguous()
+    fm = qscene["fm"] if use_fm else None
+    outs = []
+    for kernel in (True, False):
+        acc, fb = alloc_frame(96, 96, device=pix.device)
+        args = (qscene["q"], qscene["loc"], scene["bands"], scene["tf"],
+                scene["lp"], pix, acc[:n], fb[:n])
+        if kernel:
+            fastq.track_q(*args, width=96, height=96, samples=4,
+                          preserve_cache=preserve_cache, finemap=fm)
+        else:
+            fastq._render_frame_fast_q_torch(*args, 96, 96, 4,
+                                             preserve_cache, fm)
+        torch.cuda.synchronize()
+        outs.append((acc, fb))
+    (ak, fk), (ap, fp) = outs
+    assert (fk == fp).float().mean() >= 0.999
+    assert float((ak - ap).abs().max()) <= 1e-6
