@@ -7,9 +7,10 @@ Phases (each prints lines starting with its tag; any failure raises and the
 script exits non-zero without printing a result):
 
   env     the card's name and power limit; there is no CPU fallback
-  build   the nvcc builds of K1 (csrc/track_f32.cu), K2 (csrc/track_q.cu)
-          and K7-fm (csrc/finemap.cu), started together, and the first
-          Triton compile of K5a, K5b, K6 and K5c-q, with their seconds
+  build   the nvcc builds of K1 (csrc/track_f32.cu), K2 (csrc/track_q.cu),
+          K7-fm (csrc/finemap.cu) and K3 (csrc/march.cu), started together,
+          and the first Triton compile of K5a, K5b, K6, K5c-q and K5c-f32,
+          with their seconds and the ptxas register/spill lines
   check   every kernel against its plain PyTorch version on the card, at
           subdiv 5 x 16 layers, 256x256, closeup camera:
             K1  samples=4, both preserve_cache settings: fb identical on
@@ -20,6 +21,11 @@ script exits non-zero without printing a result):
                 and off: fb identical on >= 99.9%, accum <= 1e-6
             K5c-q full lookup and <= 32-level patch: u8 tables exact
             K7-fm slots exact
+  check m the march's kernels at the same shape, accum_id 0 and 3:
+            K3-f32, K3-q (fine map on and off): fb identical on >= 99.9%,
+                accum <= 1e-6; K3-q fine map on against off: accum <= 1e-4
+            K5c-f32 parts and apply exact; a scale-only edit's prof against
+                a full K5a bake at the new scale: its ULP printed, <= 1
   main    the app's main path (icon_rt_tpu_torch.app.build, then the
           launch / is_running / present loop of apps/icon_rt.py) at subdiv
           8 x 16 layers, 1920x1080, 16 samples (8 per launch), closeup
@@ -34,9 +40,24 @@ script exits non-zero without printing a result):
           >= 0.5; on to 128 samples for the steady launch; then one
           opacity-scale edit, one <= 32-level curve edit and one full
           curve edit, each timed up to the next launch's fb on the host
+  main m  the app's --march path at the same scale and camera, 8 launches
+          of one converged pass each, then one opacity-scale edit (K5c-f32)
+          timed to the next converged frame on the host; the counters of
+          K3-f32, K5a, K5c-f32, K5b and K6 are zeroed before the build and
+          read after the edit (K1 must read 0); the image must cover >= 0.5
+  main mq the same with --quantized (no fine map, as apps/icon_rt.py): K3-q,
+          K5c-q, K5b and K6 (K2 must read 0); an opacity-scale and a curve
+          edit, each timed to the next converged frame
+  bench m bench.py's r2b8m_closeup call: the quantized march with a fine map
+          built by K7-fm; one pass timed, held against the pass without the
+          fine map (accum <= 1e-4)
+  rmse_q  bench.py `_rmse_q_vs_f32` on the card: both marches through their
+          kernels, subdiv 8 x 16, 480x270, value-quantized scene
   time    each kernel against its plain version at the main paths' shapes
           and launch arguments (same tolerances as `check`), both timed
-          with CUDA events
+          with CUDA events; beside them the least time the card could take
+          (bound) and, where one PyTorch call computes the same function,
+          that call's time
   profile one steady launch of each main path under torch.profiler:
           device time by kernel and the device's idle share of the
           launch's wall time
@@ -62,9 +83,45 @@ SMOKE_SUB, SMOKE_LAYERS, SMOKE_W = 5, 16, 256
 MAIN_SUB, MAIN_LAYERS, MAIN_W, MAIN_H = 8, 16, 1920, 1080
 MAIN_LIMIT, MAIN_SPL = 16, 8
 STEADY_LIMIT = 128          # the main path continued to 16 launches in all
-ACCUM_TOL = 1e-6            # K1/K2 accum max-abs-diff against the plain version
-CU_SOURCES = ("track_f32", "track_q", "finemap")   # csrc/*.cu
+MARCH_LIMIT = 8             # the march paths: 8 launches of one pass each
+RMSE_W, RMSE_H = 480, 270   # bench.py `_rmse_q_vs_f32` frame
+ACCUM_TOL = 1e-6            # K1/K2/K3 accum max-abs-diff, kernel vs plain
+FINEMAP_TOL = 1e-4          # K3-q fine map on vs off (tests/test_march.py:366)
+#: share of lanes that may differ by more than FINEMAP_TOL between the
+#: quantized march with and without the fine map: the q tier's unnormalised
+#: plane equations (|n| ~ 1e9) make a point just past a shared face lie in
+#: both columns in f32, and the two locates may return either one first.
+#: A re-located previous column costs an eps step (ops/march.py
+#: `_column_exit`); with JAX's column exit it integrated on to its far face
+#: (26 of 64,667 lanes at the check scene, up to 0.024).  Measured with the
+#: port's exit on the CPU: 7 of 64,667 lanes, up to 3.4e-3
+#: (scripts/torch_march_vs_jax.py tie --tf default).
+FINEMAP_SHARE = 1e-3
+CU_SOURCES = ("track_f32", "track_q", "finemap", "march")   # csrc/*.cu
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+# The bound of a kernel is the larger of its bytes over the H100's memory
+# rate and its f32 operations over the card's f32 rate (NVIDIA's published
+# peaks of the H100 SXM: 3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+# cores).  For the trackers and the march
+# the bytes are each lane's pix, accum and fb once, the data of the
+# distinct columns the run located and the distinct locator-bin rows it
+# read; the operations are per event counts of the kernels' arithmetic.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+LANE_BYTES = 40             # pix read, accum read and written, fb written
+#: per distinct located column: bytes of its test data, and bytes per layer
+#: of the per-layer entries the kernel reads (K1: height + alpha; K3-f32:
+#: height, alpha, RGB; the quantized tier: u8 alpha and value, the heights
+#: from one shared row)
+ROW_BYTES = {"track_f32": (56, 8), "track_q": (44, 2), "march_f32": (56, 20),
+             "march_q": (44, 2)}
+#: f32 operations per event: a Woodcock evaluation (position, radius, three
+#: plane tests, layer select, draws), a locate (asin, atan2, binning, one
+#: candidate test), a layer of a march crossing (two sphere crossings, the
+#: overlap, the depth, two exponentials, the colour), a crossing's column
+#: exit, and per candidate of a gap skip
+FLOPS = {"eval": 40, "locate": 60, "layer": 20, "cross": 60, "skip_cand": 50}
 
 
 def nvidia_smi() -> str:
@@ -117,6 +174,77 @@ def time_cuda(fn, reps: int, warmup: int = 1) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms on the card, "bytes" or "operations")."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+class CountingTier:
+    """A plain tracker/march tier that records what a run's data needs, for
+    the bounds: the columns it located, the coarse bins it queried and the
+    number of locates, Woodcock evaluations and march crossings.  Counting
+    adds no device sync to the plain run it wraps."""
+
+    def __init__(self, tier):
+        self._tier = tier
+        self.cids, self.bins = [], []
+        self.n = {"locate": 0, "eval": 0, "cross": 0}
+
+    def __getattr__(self, name):
+        return getattr(self._tier, name)
+
+    def locate(self, px, py, pz, r, return_rows=False):
+        import torch
+        from icon_rt_tpu_torch.ops.fast import _grid_bin
+        out = self._tier.locate(px, py, pz, r, return_rows)
+        self.cids.append(torch.where(out[1], out[0], -1))
+        loc, (n_lat, n_lon) = self._tier.loc, self._tier.dims
+        lat = torch.asin(torch.clamp(pz / r, -1.0, 1.0))
+        lon = torch.atan2(py, px)
+        self.bins.append(_grid_bin(lat, loc.lat_lo, loc.lat_hi, n_lat) * n_lon
+                         + _grid_bin(lon, loc.lon_lo, loc.lon_hi, n_lon))
+        self.n["locate"] += px.shape[0]
+        return out
+
+    def alpha(self, cid, r):
+        self.n["eval"] += cid.shape[0]
+        return self._tier.alpha(cid, r)
+
+    def march_prof(self, cid):
+        self.n["cross"] += cid.shape[0]
+        return self._tier.march_prof(cid)
+
+    def bound(self, kernel, n_lanes, nl_of_cells):
+        """(ms, by) of `kernel` (a ROW_BYTES key) for this run's data;
+        nl_of_cells maps cell ids to their layer counts."""
+        import torch
+        cids = torch.cat(self.cids) if self.cids else torch.zeros(0)
+        cells = torch.unique(cids[cids >= 0])
+        nl = int(nl_of_cells(cells).sum()) if cells.numel() else 0
+        n_bins = int(torch.unique(torch.cat(self.bins)).numel()) \
+            if self.bins else 0
+        k_cap = self._tier.loc.bins.shape[1]
+        per_cell, per_layer = ROW_BYTES[kernel]
+        nbytes = (LANE_BYTES * n_lanes + per_cell * cells.numel()
+                  + per_layer * nl + 4 * k_cap * n_bins)
+        n = self.n
+        if kernel.startswith("march"):
+            nl_mean = nl / max(cells.numel(), 1)
+            flops = (n["locate"] * FLOPS["locate"]
+                     + n["cross"] * (FLOPS["cross"]
+                                     + 2 * nl_mean * FLOPS["layer"])
+                     + (n["locate"] - n["cross"]) * k_cap
+                     * FLOPS["skip_cand"])
+        else:
+            flops = n["eval"] * FLOPS["eval"] + n["locate"] * FLOPS["locate"]
+        print(f"bound {kernel}: {n_lanes} lanes, {cells.numel()} distinct "
+              f"columns ({nl} layers), {n_bins} bins, events {n}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP")
+        return bound(nbytes, flops)
 
 
 class Scene:
@@ -233,23 +361,25 @@ def check_kernels(dev, sub=SMOKE_SUB, layers=SMOKE_LAYERS, size=SMOKE_W):
 def compare_track_q(tabs, lp, pix, acc_n, width, height, samples,
                     preserve, fm, label):
     """K2 and its plain version on the same lanes; returns (max abs err of
-    accum, the plain version's ms), raises past the tolerances (fb
-    identical on >= 99.9%, accum <= ACCUM_TOL)."""
+    accum, the plain version's ms, its CountingTier), raises past the
+    tolerances (fb identical on >= 99.9%, accum <= ACCUM_TOL)."""
     import torch
-    from icon_rt_tpu_torch.ops import fastq
+    from icon_rt_tpu_torch.ops import fast, fastq
     from icon_rt_tpu_torch.ops.render import alloc_frame
+    q, loc, bands, tf = tabs
+    tier = CountingTier(fastq._QTier(q, loc, tf, fm))
     outs = []
     for kernel in (True, False):
         acc, fb = alloc_frame(width, height, device=pix.device)
-        args = (*tabs, lp, pix, acc[:acc_n], fb[:acc_n])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if kernel:
-            fastq.track_q(*args, width=width, height=height, samples=samples,
+            fastq.track_q(*tabs, lp, pix, acc[:acc_n], fb[:acc_n],
+                          width=width, height=height, samples=samples,
                           preserve_cache=preserve, finemap=fm)
-        else:
-            fastq._render_frame_fast_q_torch(*args, width, height, samples,
-                                             preserve, fm)
+        else:   # _render_frame_fast_q_torch, through the counting tier
+            fast._track_torch(tier, bands, lp, pix, acc[:acc_n], fb[:acc_n],
+                              width, height, samples, preserve)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         outs.append((acc, fb))
@@ -262,7 +392,7 @@ def compare_track_q(tabs, lp, pix, acc_n, width, height, samples,
           f"{err:.3e}")
     if same < 0.999 or not err <= ACCUM_TOL:
         raise AssertionError("K2 disagrees with its plain version")
-    return err, plain_ms
+    return err, plain_ms, tier
 
 
 def bake_inputs(q, tf, dev):
@@ -315,7 +445,8 @@ def check_finemap(loc, test12, label):
 
 def check_q_kernels(sc, dev):
     """The quantized tier's kernels against their plain versions on the
-    check scene (built as the app's get_q builds it)."""
+    check scene (built as the app's get_q builds it).  Returns (errs,
+    (q, locator, fine map))."""
     from icon_rt_tpu_torch.models.finemap import build_finemap
     from icon_rt_tpu_torch.models.locator import (build_locator_csr,
                                                   densify_csr)
@@ -336,33 +467,179 @@ def check_q_kernels(sc, dev):
         compare_track_q((q, loc, sc.bands, sc.tf), sc.lp, pix, n, size,
                         size, 4, preserve, f, "check q")[0]
         for preserve in (True, False) for f in (fm, None))
+    return errs, (q, loc, fm)
+
+
+def compare_march(label, run, width, height, n, dev):
+    """A K3 wrapper (run(acc, fb, kernel=True)) and its plain version
+    (kernel=False) on the same lanes; returns (max abs err of accum, the
+    plain version's ms, the kernel's accum), raises past the tolerances
+    (fb identical on >= 99.9%, accum <= ACCUM_TOL)."""
+    import torch
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    outs, plain_ms = [], 0.0
+    for kernel in (True, False):
+        acc, fb = alloc_frame(width, height, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(acc[:n], fb[:n], kernel)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        outs.append((acc, fb))
+    (ak, fk), (ap, fp) = outs
+    same = float((fk == fp).float().mean())
+    err = float((ak - ap).abs().max())
+    print(f"{label}: fb identical on {same:.6f} of {width * height} pixels, "
+          f"accum max abs diff {err:.3e}")
+    if same < 0.999 or not err <= ACCUM_TOL:
+        raise AssertionError(f"{label}: the kernel disagrees with its plain "
+                             f"version")
+    return err, plain_ms, ak
+
+
+def march_runs(packed, loc, bands, lp, pix, width, height, qtabs=None,
+               fm=None, counter=None):
+    """run(acc, fb, kernel) of K3 on the f32 tier (qtabs None) or the
+    quantized tier (qtabs = (q, loc_q, tf)); the plain version goes through
+    `counter` (a callable wrapping the plain tier) when given."""
+    from icon_rt_tpu_torch.ops import march
+    from icon_rt_tpu_torch.ops.fast import _F32Tier
+    from icon_rt_tpu_torch.ops.fastq import _QTier
+    wrap = counter or (lambda t: t)
+    kw = dict(width=width, height=height)
+    if qtabs is None:
+        def run(acc, fb, kernel):
+            if kernel:
+                march.march_f32(packed, loc, bands, lp, pix, acc, fb, **kw)
+            else:
+                march._march_frame_torch(
+                    wrap(_F32Tier(packed, loc)), bands, lp, pix, acc, fb,
+                    width, height)
+    else:
+        q, loc_q, tf = qtabs
+
+        def run(acc, fb, kernel):
+            if kernel:
+                march.march_q(q, loc_q, bands, tf, lp, pix, acc, fb,
+                              finemap=fm, **kw)
+            else:
+                march._march_frame_torch(
+                    wrap(_QTier(q, loc_q, tf, fm)), bands, lp, pix, acc, fb,
+                    width, height)
+    return run
+
+
+def check_opacity_scale(cells, packed, tf, label):
+    """K5c-f32 parts and apply against their plain versions (exact), and a
+    scale-only edit's prof against a full K5a bake at the new scale (ULP
+    printed, <= 1).  Returns max abs err (0 when exact)."""
+    import torch
+    from icon_rt_tpu_torch.ops import fast
+    tf2 = tf._replace(opacity_scale=torch.full_like(tf.opacity_scale, 0.37))
+    parts_k = fast.pack_alpha_scale_parts(cells, tf2)
+    parts_p = fast._alpha_scale_parts_torch(cells.value, tf2)
+    prof_k = fast.apply_opacity_scale(packed._replace(
+        prof=packed.prof.clone()), parts_k, tf2.opacity_scale).prof
+    prof_p = packed.prof.clone()
+    fast._apply_opacity_scale_torch(prof_p, *parts_p, tf2.opacity_scale)
+    exact = (torch.equal(parts_k[0], parts_p[0])
+             and torch.equal(parts_k[1], parts_p[1]))
+    exact_apply = torch.equal(prof_k, prof_p)
+    full = fast.classify_bake(cells, tf2)[0]
+    u = ulp_diff(prof_k, full)
+    err = max(float((parts_k[0] - parts_p[0]).abs().max()),
+              float((parts_k[1] - parts_p[1]).abs().max()),
+              float((prof_k - prof_p).nan_to_num(posinf=0.0).abs().max()))
+    print(f"{label} K5c-f32 parts at {tuple(cells.value.shape)}: exact "
+          f"{exact}; apply exact {exact_apply}; scale-only edit vs full K5a "
+          f"bake: max {u} ULP")
+    if not (exact and exact_apply) or u > 1:
+        raise AssertionError("K5c-f32 differs from its plain version or "
+                             "from the full bake")
+    return err
+
+
+def finemap_agreement(acc_on, acc_off, n, label):
+    """The quantized march with the fine map against without over the n
+    traced lanes: raises unless >= 1 - FINEMAP_SHARE of them agree within
+    FINEMAP_TOL (see FINEMAP_SHARE)."""
+    d = (acc_on[:n] - acc_off[:n]).abs().amax(dim=1)
+    far = int((d > FINEMAP_TOL).sum())
+    print(f"{label}: K3-q fine map on vs off: {far} of {n} lanes differ by "
+          f"more than {FINEMAP_TOL} (max {float(d.max()):.3e}; allowed "
+          f"share {FINEMAP_SHARE})")
+    if far > FINEMAP_SHARE * n:
+        raise AssertionError("K3-q with the fine map differs from without")
+
+
+def check_march(sc, qtabs, dev):
+    """K3 on both tiers and K5c-f32 against their plain versions on the
+    check scene, accum_id 0 and 3."""
+    import torch
+    q, loc_q, fm = qtabs
+    n, size = sc.n_cov, sc.width
+    pix = sc.perm[:n].contiguous()
+    errs = {"march_f32": 0.0, "march_q": 0.0}
+    for aid in (0, 3):
+        lp = sc.lp._replace(accum_id=torch.tensor(aid, dtype=torch.int32,
+                                                  device=dev))
+        errs["march_f32"] = max(errs["march_f32"], compare_march(
+            f"check m K3 march_f32 accum_id={aid}",
+            march_runs(sc.packed, sc.loc, sc.bands, lp, pix, size, size),
+            size, size, n, dev)[0])
+        acc = {}
+        for f in (fm, None):
+            tag = "on" if f is not None else "off"
+            e, _, acc[tag] = compare_march(
+                f"check m K3 march_q finemap={tag} accum_id={aid}",
+                march_runs(None, None, sc.bands, lp, pix, size, size,
+                           qtabs=(q, loc_q, sc.tf), fm=f),
+                size, size, n, dev)
+            errs["march_q"] = max(errs["march_q"], e)
+        finemap_agreement(acc["on"], acc["off"], n,
+                          f"check m accum_id={aid}")
+    errs["opacity_scale"] = check_opacity_scale(sc.cells, sc.packed, sc.tf,
+                                                "check m")
     return errs
 
 
 def zero_counters():
     """Every kernel launch counter of the port to 0."""
     from icon_rt_tpu_torch.models import accel, finemap, qcells
-    from icon_rt_tpu_torch.ops import fast, fastq, order
+    from icon_rt_tpu_torch.ops import fast, fastq, march, order
     accel.launches = order.launches = 0
     fastq.launches = finemap.launches = 0
-    for d in (fast.launches, qcells.launches):
+    for d in (fast.launches, qcells.launches, march.launches):
         for k in d:
             d[k] = 0
 
 
-def read_counters(quantized):
-    """{kernel name: launches} of the kernels a main path runs."""
+def read_counters(quantized, marching):
+    """({kernel name: launches} of the kernels a main path runs, {kernel
+    name: launches} of the trackers it must not run)."""
     from icon_rt_tpu_torch.models import accel, finemap, qcells
-    from icon_rt_tpu_torch.ops import fast, fastq, order
+    from icon_rt_tpu_torch.ops import fast, fastq, march, order
     counts = {"max_opacity": accel.launches, "chord_keys": order.launches}
     if quantized:
-        counts.update(track_q=fastq.launches,
-                      bake_alpha_q=sum(qcells.launches.values()),
-                      build_finemap=finemap.launches)
+        counts["bake_alpha_q"] = sum(qcells.launches.values())
     else:
-        counts.update(track_f32=fast.launches["track_f32"],
-                      classify_bake=fast.launches["classify_bake"])
-    return counts
+        counts["classify_bake"] = fast.launches["classify_bake"]
+    absent = {}
+    if marching:
+        tracker = "track_q" if quantized else "track_f32"
+        absent[tracker] = fastq.launches if quantized \
+            else fast.launches["track_f32"]
+        if quantized:
+            counts["march_q"] = march.launches["march_q"]
+        else:
+            counts["march_f32"] = march.launches["march_f32"]
+            counts["opacity_scale"] = (fast.launches["alpha_scale_parts"]
+                                       + fast.launches["apply_opacity_scale"])
+    elif quantized:
+        counts.update(track_q=fastq.launches, build_finemap=finemap.launches)
+    else:
+        counts["track_f32"] = fast.launches["track_f32"]
+    return counts, absent
 
 
 def run_loop(pl, launch_ms):
@@ -383,29 +660,36 @@ def run_loop(pl, launch_ms):
             return
 
 
-def main_path(dev, quantized=False):
+def main_path(dev, quantized=False, marching=False):
     """Run the app's main path (the f32 tier, or --quantized with the fine
-    map built into an empty cache) with zeroed launch counters; returns
-    (pipeline, counts, metrics)."""
+    map built into an empty cache; with `marching` the --march path and its
+    TF edits) with zeroed launch counters; returns (pipeline, counts,
+    metrics)."""
     import torch
     from icon_rt_tpu_torch import app
     from icon_rt_tpu_torch.data import synthetic
     from icon_rt_tpu_torch.models.cells import compute_stats
 
-    tag = "main q" if quantized else "main"
+    tag = "main " + ("m" if marching else "") + ("q" if quantized else "")
+    tag = tag.rstrip()
     stats = compute_stats(synthetic.icosphere(MAIN_SUB, MAIN_LAYERS))
     cam = closeup_camera(stats, MAIN_W, MAIN_H)
     pose = [*cam.position, *cam.get_poi(), *cam.up_vector]
     os.makedirs(OUT_DIR, exist_ok=True)
-    name = "chip_smoke_q" if quantized else "chip_smoke"
+    name = "chip_smoke" + ("_m" if marching else "") \
+        + ("_q" if quantized else "")
     argv = ["--device", dev.type, "--synthetic",
             f"{MAIN_SUB}:{MAIN_LAYERS}", "--size", str(MAIN_W), str(MAIN_H),
-            "--sample-limit", str(MAIN_LIMIT), "--samples", str(MAIN_SPL),
+            "--sample-limit", str(MARCH_LIMIT if marching else MAIN_LIMIT),
+            "--samples", str(MAIN_SPL),
             "--camera", *[repr(float(v)) for v in pose],
             "-fovy", repr(float(cam.get_fovy_degrees())),
             "-o", os.path.join(OUT_DIR, name)]
     if quantized:
         argv.append("--quantized")
+    if marching:
+        argv.append("--march")
+    spl = 1 if marching else MAIN_SPL
 
     zero_counters()
     t0 = time.perf_counter()
@@ -417,23 +701,13 @@ def main_path(dev, quantized=False):
     t1 = time.perf_counter()
     pl.present()
     present_s = time.perf_counter() - t1
-    counts = read_counters(quantized)
-    tracker = "track_q" if quantized else "track_f32"
-    what = ("scene; the quantized tables, CSR locator and fine map are "
-            "built by the first launch" if quantized
-            else "scene, locator, tables on the card")
+    what = ("scene; the quantized tables and CSR locator are built by the "
+            "first launch" if quantized else
+            "scene, locator, tables on the card")
     print(f"{tag} build {build_s:.3f} s ({what}); launches "
           f"{n_launch}, ms per launch {[round(x, 3) for x in launch_ms]} "
-          f"(the first also bakes and orders the rays"
-          f"{' and builds the fine map' if quantized else ''}); present "
+          f"(the first also bakes and orders the rays); present "
           f"{present_s:.3f} s")
-    print(f"{tag} launch counts {json.dumps(counts)}")
-    for k, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"{tag} path did not launch {k}")
-    if counts[tracker] != n_launch:
-        raise AssertionError(f"{tracker} launched {counts[tracker]} times "
-                             f"in {n_launch} launches")
 
     frame = pl.frame
     acc = frame["accum"]
@@ -448,21 +722,103 @@ def main_path(dev, quantized=False):
     if covered < 0.5:
         raise AssertionError(f"image covers only {covered:.3f} of the frame")
 
-    # the same loop on to STEADY_LIMIT samples; every launch but the first
-    # (which orders the rays and bakes the tables) is a steady one
-    pl.sample_limit = STEADY_LIMIT
-    run_loop(pl, launch_ms)
-    steady = np.array(launch_ms[1:])
+    edit_ms = {}
+    if marching:
+        # the TF edits belong to the path: each launches the march again
+        edit_ms = march_tf_edits(pl, tag, quantized)
+        n_launch += len(edit_ms)
+    counts, absent = read_counters(quantized, marching)
+    print(f"{tag} launch counts {json.dumps(counts)}"
+          + (f"; must not run {json.dumps(absent)}" if absent else ""))
+    for k, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"{tag} path did not launch {k}")
+    for k, c in absent.items():
+        if c != 0:
+            raise AssertionError(f"{tag} path launched {k} {c} times")
+    tracker = ("march_q" if quantized else "march_f32") if marching \
+        else ("track_q" if quantized else "track_f32")
+    if counts[tracker] != n_launch:
+        raise AssertionError(f"{tracker} launched {counts[tracker]} times "
+                             f"in {n_launch} launches")
+
+    # every launch but the first (which orders the rays and bakes the
+    # tables) is a steady one; the Woodcock paths run on to STEADY_LIMIT
+    if not marching:
+        pl.sample_limit = STEADY_LIMIT
+        run_loop(pl, launch_ms)
+    steady = np.array(launch_ms[1:MARCH_LIMIT if marching else None])
     med = float(np.median(steady))
-    mray = MAIN_W * MAIN_H * MAIN_SPL / (med * 1e-3) / 1e6
-    print(f"{tag} steady launches {len(steady)} ({MAIN_SPL} samples each, "
-          f"to {STEADY_LIMIT} samples): ms per launch median {med:.3f}, "
-          f"min {steady.min():.3f}, max {steady.max():.3f}; all "
-          f"{[round(x, 3) for x in launch_ms]}")
-    print(f"{tag} end-to-end full-frame rate {mray:.3f} Mray/s (median "
-          f"launch wall time, fb copied to the host)")
+    mray = MAIN_W * MAIN_H * spl / (med * 1e-3) / 1e6
+    print(f"{tag} steady launches {len(steady)} ({spl} "
+          f"{'converged pass' if marching else 'samples'} each): ms per "
+          f"launch median {med:.3f}, min {steady.min():.3f}, max "
+          f"{steady.max():.3f}; all {[round(x, 3) for x in launch_ms]}")
+    print(f"{tag} end-to-end full-frame rate {mray:.3f} Mray/s"
+          + (f", {1e3 / med:.3f} converged frames/s" if marching else "")
+          + " (median launch wall time, fb copied to the host)")
     return pl, counts, {"build_s": build_s, "launch_ms": launch_ms,
-                        "mray_s": mray, "covered": covered}
+                        "mray_s": mray, "covered": covered,
+                        "edit_ms": edit_ms}
+
+
+def timed_edit(pl, tag, label, edit):
+    """ms from a TF edit to the next launch's fb on the host."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    edit()
+    pl.launch()
+    np.asarray(pl._last_fb.cpu())
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"{tag} TF edit {label}: {ms:.3f} ms to the next launch's fb on "
+          f"the host")
+    return ms
+
+
+def set_opacity(pl, v):
+    pl.tfe.set_opacity_scale(v)
+    pl.is_running()          # the loop's TF-editor harvest fires the edit
+
+
+def set_lut(pl, lut):
+    tf = pl.transfunc
+    tf.set_lut(lut)
+    pl.transfunc_update_handler(tf, pl.tf_index)
+    pl.reset_accumulation()
+
+
+def march_tf_edits(pl, tag, quantized):
+    """TF edits on a march path, each timed to the next converged frame on
+    the host: an opacity-scale edit (K5c-f32 on the f32 tier, K5c-q on the
+    quantized tier), on the quantized tier a curve edit, and then the edit
+    back to the path's transfer function, so that the phases after it
+    measure the main path's state."""
+    from icon_rt_tpu_torch.ops import fast
+    lut0, scale0 = pl.transfunc.get_lut(), pl.tfe.get_opacity_scale()
+    before = dict(fast.launches)
+    out = {"opacity": timed_edit(pl, tag, "opacity scale 1.0 -> 0.5",
+                                 lambda: set_opacity(pl, 0.5))}
+    ran = {k: fast.launches[k] - before[k]
+           for k in ("alpha_scale_parts", "apply_opacity_scale",
+                     "classify_bake")}
+    print(f"{tag} TF edit opacity scale: K5c-f32/K5a launches {ran}")
+    if not quantized and (ran["apply_opacity_scale"] != 1
+                          or ran["classify_bake"] != 0):
+        raise AssertionError("the opacity-scale edit did not take the "
+                             "scale-only re-bake")
+    if quantized:
+        lut = lut0.copy()
+        lut[: lut.shape[0] // 2, 3] = 0.0
+        out["curve"] = timed_edit(pl, tag, "curve, lower half transparent",
+                                  lambda: set_lut(pl, lut))
+
+    def restore():
+        if quantized:
+            set_lut(pl, lut0)
+        set_opacity(pl, scale0)
+    out["restore"] = timed_edit(pl, tag, "back to the path's TF", restore)
+    return out
 
 
 def tf_edits(pl):
@@ -498,17 +854,8 @@ def tf_edits(pl):
             raise AssertionError(f"TF edit {label} did not run {want}")
         return ms
 
-    def set_lut(lut):
-        tf = pl.transfunc
-        tf.set_lut(lut)
-        pl.transfunc_update_handler(tf, pl.tf_index)
-        pl.reset_accumulation()
-
-    def set_opacity():
-        pl.tfe.set_opacity_scale(0.5)
-        pl.is_running()          # the loop's TF-editor harvest fires the edit
-
-    out = {"opacity": timed("opacity scale 1.0 -> 0.5", set_opacity, None)}
+    out = {"opacity": timed("opacity scale 1.0 -> 0.5",
+                            lambda: set_opacity(pl, 0.5), None)}
     base = pl.transfunc.get_lut()
     narrow = None
     for k in range(base.shape[0] // 2, base.shape[0]):
@@ -520,26 +867,29 @@ def tf_edits(pl):
     if narrow is None:
         raise AssertionError("no single-entry curve edit changes <= 32 "
                              "alpha levels")
-    out["curve_patch"] = timed("curve, <= 32 levels", lambda: set_lut(narrow),
-                               "bake_patch")
+    out["curve_patch"] = timed("curve, <= 32 levels",
+                               lambda: set_lut(pl, narrow), "bake_patch")
     wide = base.copy()
     wide[: base.shape[0] // 2, 3] = 0.0
     out["curve_full"] = timed("curve, lower half transparent",
-                              lambda: set_lut(wide), "bake_lookup")
+                              lambda: set_lut(pl, wide), "bake_lookup")
     if not bool(torch.isfinite(pl.frame["accum"]).all()):
         raise AssertionError("accum not finite after the TF edits")
     return out
 
 
 def kernel_row(rows, counts, errs, name, route, source, replaces, ms,
-               plain_ms, **extra):
+               plain_ms, bnd, library_ms=None, **extra):
     """Append one entry of the {"kernels": [...]} line and print its
-    times."""
+    times; bnd is (bound ms, "bytes" or "operations")."""
     rows.append(dict(name=name, route=route, source=source,
                      replaces=replaces, launches=counts[name],
                      max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                     **extra))
-    print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                     bound_ms=bnd[0], bound_by=bnd[1],
+                     library_ms=library_ms, **extra))
+    lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
+    print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}){lib}")
 
 
 def time_kernels(pl, errs, counts):
@@ -550,7 +900,7 @@ def time_kernels(pl, errs, counts):
     from icon_rt_tpu_torch.ops import fast
     from icon_rt_tpu_torch.ops.order import (_camera_vector,
                                              _chord_keys_torch, chord_keys)
-    from icon_rt_tpu_torch.ops.render import alloc_frame, make_launch_params
+    from icon_rt_tpu_torch.ops.render import alloc_frame
 
     s = pl.scene
     cells, loc, stats = s["cells"], s["locator"], s["stats"]
@@ -558,9 +908,7 @@ def time_kernels(pl, errs, counts):
     frame = pl.frame
     W, H = MAIN_W, MAIN_H
     dev = cells.height.device
-    lp = make_launch_params(s["camera"].basis(W, H), stats.world_bounds_lo,
-                            stats.world_bounds_hi,
-                            unit_distance=s["unit_distance"](), device=dev)
+    lp = launch_params(pl)
     n = frame["n_active"]
     pix = frame["perm"][:n].contiguous()
     rows = []
@@ -575,10 +923,12 @@ def time_kernels(pl, errs, counts):
     fast.track_f32(packed, loc, bands, lp, pix, acc_k[:n], fb_k[:n],
                    width=W, height=H, samples=MAIN_SPL, preserve_cache=True)
     acc_p, fb_p = alloc_frame(W, H, device=dev)
+    tier = CountingTier(fast._F32Tier(packed, loc))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fast._render_frame_fast_torch(packed, loc, bands, lp, pix, acc_p[:n],
-                                  fb_p[:n], W, H, MAIN_SPL, True)
+    # _render_frame_fast_torch, through the counting tier
+    fast._track_torch(tier, bands, lp, pix, acc_p[:n], fb_p[:n], W, H,
+                      MAIN_SPL, True)
     torch.cuda.synchronize()
     p8 = (time.perf_counter() - t0) * 1e3
     same = float((fb_k == fb_p).float().mean())
@@ -592,8 +942,10 @@ def time_kernels(pl, errs, counts):
     print(f"time K1 kernel rate {W * H * MAIN_SPL / (k8 * 1e-3) / 1e6:.3f} "
           f"Mray/s full frame ({MAIN_SPL} samples, {k8:.3f} ms, no host "
           f"copy)")
+    nl_f32 = lambda c: packed.test[c, 14]
     row("track_f32", "cuda", "icon_rt_tpu_torch/csrc/track_f32.cu",
-        "icon_rt_tpu/ops/fast.py:451", k8, p8, samples=MAIN_SPL)
+        "icon_rt_tpu/ops/fast.py:451", k8, p8,
+        tier.bound("track_f32", n, nl_f32), samples=MAIN_SPL)
 
     args = (cells.height, cells.value, cells.num_layers, tf)
     prof_k, rgb_k = fast.classify_bake(cells, tf)
@@ -609,8 +961,12 @@ def time_kernels(pl, errs, counts):
     del prof_k, rgb_k, prof_p, rgb_p
     kb = time_cuda(lambda: fast.classify_bake(cells, tf), reps=10)
     pb = time_cuda(lambda: fast._profile_rows_torch(*args), reps=3)
+    N = cells.height.shape[0]
+    # reads height, value (N, 32) and num_layers, writes prof (N, 64) and
+    # rgb (N, 96); ~25 operations per (cell, layer)
     row("classify_bake", "triton", "icon_rt_tpu_torch/ops/fast.py",
-        "icon_rt_tpu/ops/fast.py:115", kb, pb)
+        "icon_rt_tpu/ops/fast.py:115", kb, pb,
+        bound(N * (32 * 4 * 2 + 4 + (64 + 96) * 4), N * 32 * 25))
 
     mo_args = (bands.value_ranges, tf.values, tf.value_range)
     if not torch.equal(max_opacity(*mo_args),
@@ -619,8 +975,12 @@ def time_kernels(pl, errs, counts):
                              "main shape")
     km = time_cuda(lambda: max_opacity(*mo_args), reps=50)
     pm = time_cuda(lambda: compute_max_opacities_torch(*mo_args), reps=20)
+    nb, S = bands.value_ranges.shape[0], tf.size
+    # reads the (nb, 2) ranges and the (S, 4) LUT, writes (nb,); at most S
+    # compares per band
     row("max_opacity", "triton", "icon_rt_tpu_torch/models/accel.py",
-        "icon_rt_tpu/models/accel.py:201", km, pm)
+        "icon_rt_tpu/models/accel.py:201", km, pm,
+        bound(nb * 8 + S * 16 + nb * 4, nb * S))
 
     cam = _camera_vector(lp)
     r_in, r_out = stats.spherical_bounds_lo[0], stats.spherical_bounds_hi[0]
@@ -636,8 +996,9 @@ def time_kernels(pl, errs, counts):
         raise AssertionError("K6 disagrees with its plain version at 1080p")
     errs["chord_keys"] = max(errs["chord_keys"],
                              float((keys_k[fin] - keys_p[fin]).abs().max()))
+    # writes one f32 key per pixel; ~30 operations per pixel
     row("chord_keys", "triton", "icon_rt_tpu_torch/ops/order.py",
-        "icon_rt_tpu/ops/order.py:23", kk, pk)
+        "icon_rt_tpu/ops/order.py:23", kk, pk, bound(W * H * 4, W * H * 30))
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
     return rows
@@ -650,16 +1011,14 @@ def time_q_kernels(pl, errs, counts):
     1,310,720 x 16 value table, K7-fm over the subdiv-8 locator."""
     from icon_rt_tpu_torch.models import finemap, qcells
     from icon_rt_tpu_torch.ops import fastq
-    from icon_rt_tpu_torch.ops.render import alloc_frame, make_launch_params
+    from icon_rt_tpu_torch.ops.render import alloc_frame
 
     s = pl.scene
     q, loc, k_cap = s["get_q"]()
-    fm, bands, tf, stats = s["fm"](), s["get_bands"](), s["tf"](), s["stats"]
+    fm, bands, tf = s["fm"](), s["get_bands"](), s["tf"]()
     W, H = MAIN_W, MAIN_H
     dev = q.test12.device
-    lp = make_launch_params(s["camera"].basis(W, H), stats.world_bounds_lo,
-                            stats.world_bounds_hi,
-                            unit_distance=s["unit_distance"](), device=dev)
+    lp = launch_params(pl)
     n = pl.frame["n_active"]
     pix = pl.frame["perm"][:n].contiguous()
     tabs = (q, loc, bands, tf)
@@ -672,18 +1031,19 @@ def time_q_kernels(pl, errs, counts):
         kms[f is not None] = time_cuda(lambda: fastq.track_q(
             *tabs, lp, pix, acc[:n], fb[:n], width=W, height=H,
             samples=MAIN_SPL, preserve_cache=True, finemap=f), reps=3)
-    plain_ms = {}
+    plain_ms, tiers = {}, {}
     for f in (fm, None):
-        err, plain_ms[f is not None] = compare_track_q(
+        err, plain_ms[f is not None], tiers[f is not None] = compare_track_q(
             tabs, lp, pix, n, W, H, MAIN_SPL, True, f, "time 1080p")
         errs["track_q"] = max(errs["track_q"], err)
+    nl_q = lambda c: q.test12[c, 11]
     print(f"time K2 kernel rate {W * H * MAIN_SPL / (kms[True] * 1e-3) / 1e6:.3f}"
           f" Mray/s full frame ({MAIN_SPL} samples, fine map on, "
           f"{kms[True]:.3f} ms; off {kms[False]:.3f} ms; no host copy)")
     row("track_q", "cuda", "icon_rt_tpu_torch/csrc/track_q.cu",
         "icon_rt_tpu/ops/fastq.py:80", kms[True], plain_ms[True],
-        samples=MAIN_SPL, ms_no_finemap=kms[False],
-        plain_ms_no_finemap=plain_ms[False])
+        tiers[True].bound("track_q", n, nl_q), samples=MAIN_SPL,
+        ms_no_finemap=kms[False], plain_ms_no_finemap=plain_ms[False])
 
     errs["bake_alpha_q"] = max(errs["bake_alpha_q"],
                                check_bakes(q, tf, dev, "time main shape"))
@@ -695,55 +1055,281 @@ def time_q_kernels(pl, errs, counts):
                                              new), reps=20)
     pp = time_cuda(lambda: qcells._bake_patch_torch(q.value_q, q.alpha_q,
                                                     lev, new), reps=3)
+    lib = time_cuda(lambda: q_tab[q.value_q.int()], reps=20)
     print(f"time K5c-q bake_patch: kernel {kp:.4f} ms, plain {pp:.4f} ms")
+    # the lookup reads value_q and the 256-entry table, writes alpha_q; the
+    # library call is the index tab[value_q] (with its cast to int32)
     row("bake_alpha_q", "triton", "icon_rt_tpu_torch/models/qcells.py",
-        "icon_rt_tpu/models/qcells.py:266", kb, pb, patch_ms=kp,
-        patch_plain_ms=pp)
+        "icon_rt_tpu/models/qcells.py:266", kb, pb,
+        bound(2 * q.value_q.numel() + 256, q.value_q.numel()),
+        library_ms=lib, patch_ms=kp, patch_plain_ms=pp)
 
     errs["build_finemap"] = max(errs["build_finemap"], check_finemap(
         loc, q.test12, "time main shape"))
     kf = time_cuda(lambda: finemap.finemap_slots(loc, q.test12), reps=5)
     pf = time_cuda(lambda: finemap._build_finemap_torch(loc, q.test12),
                    reps=1)
+    F = int(fm.slots.shape[0])
+    # reads the locator rows and the test rows, writes 4 u8 slots per fine
+    # bin; at least one containment test (~20 operations) per sub-center
     row("build_finemap", "cuda", "icon_rt_tpu_torch/csrc/finemap.cu",
         "icon_rt_tpu/models/finemap.py:174", kf, pf,
-        fine_bins=int(fm.slots.shape[0]), k_cap=k_cap)
+        bound(loc.bins.numel() * 4 + q.test12.numel() * 4 + F * 4,
+              4 * F * 20), fine_bins=F, k_cap=k_cap)
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
     return rows
 
 
-def profile_launch(pl, quantized=False):
-    """One steady main-path launch (8 samples, fb copied to the host) under
+def launch_params(pl):
+    """The launch parameters of a main path's pipeline at accum_id 0."""
+    from icon_rt_tpu_torch.ops.render import make_launch_params
+    s = pl.scene
+    return make_launch_params(s["camera"].basis(MAIN_W, MAIN_H),
+                              s["stats"].world_bounds_lo,
+                              s["stats"].world_bounds_hi,
+                              unit_distance=s["unit_distance"](),
+                              device=pl.frame["accum"].device)
+
+
+def bench_march(pl_mq):
+    """bench.py's r2b8m_closeup call (bench.py:523-531): the quantized march
+    with the fine map, built by K7-fm into the emptied cache; one pass
+    timed to its fb on the host, and held against the pass without the
+    fine map (accum <= FINEMAP_TOL).  Returns the fine map."""
+    import torch
+    from icon_rt_tpu_torch.data.bigscene import build_finemap_cached
+    from icon_rt_tpu_torch.ops.march import render_frame_march_q
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    s, frame = pl_mq.scene, pl_mq.frame
+    q, loc, _ = s["get_q"]()
+    bands, tf = s["get_bands"](), s["tf"]()
+    lp = launch_params(pl_mq)
+    dev = q.test12.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fm = build_finemap_cached(loc, q.test12, factor=2,
+                              cache_key=f"chip_smoke_s{MAIN_SUB}")
+    torch.cuda.synchronize()
+    fm_ms = (time.perf_counter() - t0) * 1e3
+    kw = dict(width=MAIN_W, height=MAIN_H, pixel_perm=frame["perm"],
+              n_active=frame["n_active"])
+    out = {}
+    for f in (None, fm, fm):          # the first fine-map pass warms up
+        acc, fb = alloc_frame(MAIN_W, MAIN_H, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_frame_march_q(q, loc, bands, tf, lp, acc, fb, finemap=f, **kw)
+        fb_host = fb.cpu().numpy().view(np.uint32)
+        out[f is not None] = (acc, (time.perf_counter() - t0) * 1e3, fb_host)
+    acc_on, ms, fb_host = out[True]
+    covered = float(((fb_host >> 24) > 0).mean())
+    print(f"bench m r2b8m_closeup: fine map built in {fm_ms:.3f} ms "
+          f"({fm.slots.shape[0]} fine bins); one converged pass with the "
+          f"fine map {ms:.3f} ms to its fb on the host (without "
+          f"{out[False][1]:.3f} ms, the first call); covered {covered:.4f}")
+    finemap_agreement(acc_on, out[False][0], frame["n_active"], "bench m")
+    return fm
+
+
+def time_march_kernels(pl_m, pl_mq, fm, errs, counts_m, counts_mq):
+    """K3 (f32; quantized with the fine map off, as the app, and on, as the
+    bench row) and K5c-f32 against their plain versions at the march
+    paths' shapes; torch.addcmul(A, B, s) as the library call of the
+    K5c-f32 apply."""
+    import torch
+    from icon_rt_tpu_torch.ops import fast
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    W, H = MAIN_W, MAIN_H
+    rows = []
+
+    # -- K3 on the f32 tier --------------------------------------------------
+    s, frame = pl_m.scene, pl_m.frame
+    packed, loc, bands, tf = (s["get_packed"](), s["locator"],
+                              s["get_bands"](), s["tf"]())
+    lp = launch_params(pl_m)
+    n = frame["n_active"]
+    pix = frame["perm"][:n].contiguous()
+    dev = pix.device
+    acc, fb = alloc_frame(W, H, device=dev)
+    km = time_cuda(lambda: march_runs(packed, loc, bands, lp, pix, W, H)(
+        acc[:n], fb[:n], True), reps=5)
+    tiers = []
+    counter = lambda t: tiers.append(CountingTier(t)) or tiers[-1]
+    err, pm, _ = compare_march(
+        "time 1080p K3 march_f32",
+        march_runs(packed, loc, bands, lp, pix, W, H, counter=counter),
+        W, H, n, dev)
+    errs["march_f32"] = max(errs["march_f32"], err)
+    print(f"time K3 march_f32 kernel rate {W * H / (km * 1e-3) / 1e6:.3f} "
+          f"Mray/s full frame, {1e3 / km:.3f} converged frames/s ({km:.3f} "
+          f"ms, no host copy)")
+    kernel_row(rows, counts_m, errs, "march_f32", "cuda",
+               "icon_rt_tpu_torch/csrc/march.cu",
+               "icon_rt_tpu/ops/march.py:301", km, pm,
+               tiers[-1].bound("march_f32", n, lambda c: packed.test[c, 14]))
+
+    # -- K5c-f32 --------------------------------------------------------------
+    cells = s["cells"]
+    errs["opacity_scale"] = max(errs["opacity_scale"], check_opacity_scale(
+        cells, packed, tf, "time main shape"))
+    parts = fast.pack_alpha_scale_parts(cells, tf)
+    kparts = time_cuda(lambda: fast.pack_alpha_scale_parts(cells, tf),
+                       reps=10)
+    pparts = time_cuda(lambda: fast._alpha_scale_parts_torch(cells.value,
+                                                             tf), reps=3)
+    scale = tf.opacity_scale
+    tgt = packed._replace(prof=packed.prof.clone())
+    kapply = time_cuda(lambda: fast.apply_opacity_scale(tgt, parts, scale),
+                       reps=20)
+    papply = time_cuda(lambda: fast._apply_opacity_scale_torch(
+        tgt.prof, *parts, scale), reps=5)
+    lib = time_cuda(lambda: torch.addcmul(parts[0], parts[1], scale),
+                    reps=20)
+    N = cells.value.shape[0]
+    pb = bound(3 * N * 32 * 4, 2 * N * 32)     # parts: value in, A and B out
+    print(f"time K5c-f32 alpha_scale_parts: kernel {kparts:.4f} ms, plain "
+          f"{pparts:.4f} ms, bound {pb[0]:.4f} ms ({pb[1]})")
+    # the apply reads A and B and writes the alpha half of prof
+    kernel_row(rows, counts_m, errs, "opacity_scale", "triton",
+               "icon_rt_tpu_torch/ops/fast.py",
+               "icon_rt_tpu/ops/fast.py:246", kapply, papply,
+               bound(3 * N * 32 * 4, 2 * N * 32), library_ms=lib,
+               parts_ms=kparts, parts_plain_ms=pparts, parts_bound_ms=pb[0])
+    del parts, tgt
+
+    # -- K3 on the quantized tier ---------------------------------------------
+    s, frame = pl_mq.scene, pl_mq.frame
+    q, loc_q, _ = s["get_q"]()
+    bands, tf = s["get_bands"](), s["tf"]()
+    lp = launch_params(pl_mq)
+    n = frame["n_active"]
+    pix = frame["perm"][:n].contiguous()
+    kms, pms, accs, qtiers = {}, {}, {}, {}
+    for f in (None, fm):
+        on = f is not None
+        kms[on] = time_cuda(lambda: march_runs(
+            None, None, bands, lp, pix, W, H, qtabs=(q, loc_q, tf), fm=f)(
+            acc[:n], fb[:n], True), reps=5)
+        tiers = []
+        err, pms[on], accs[on] = compare_march(
+            f"time 1080p K3 march_q finemap={'on' if on else 'off'}",
+            march_runs(None, None, bands, lp, pix, W, H,
+                       qtabs=(q, loc_q, tf), fm=f, counter=counter),
+            W, H, n, dev)
+        qtiers[on] = tiers[-1]
+        errs["march_q"] = max(errs["march_q"], err)
+    finemap_agreement(accs[True], accs[False], n, "time 1080p")
+    print(f"time K3 march_q kernel rate "
+          f"{W * H / (kms[False] * 1e-3) / 1e6:.3f} Mray/s full frame "
+          f"without the fine map ({kms[False]:.3f} ms), "
+          f"{W * H / (kms[True] * 1e-3) / 1e6:.3f} with ({kms[True]:.3f} ms)")
+    kernel_row(rows, counts_mq, errs, "march_q", "cuda",
+               "icon_rt_tpu_torch/csrc/march.cu",
+               "icon_rt_tpu/ops/march.py:449", kms[False], pms[False],
+               qtiers[False].bound("march_q", n, lambda c: q.test12[c, 11]),
+               ms_finemap=kms[True], plain_ms_finemap=pms[True])
+    for r in rows:
+        r["max_abs_err"] = errs[r["name"]]
+    return rows
+
+
+def rmse_q(dev):
+    """bench.py `_rmse_q_vs_f32` on the card: the march on the f32 and the
+    quantized tier of the same value-quantized scene (subdiv 8 x 16,
+    480x270, closeup camera, accum_id 0), both through their kernels; the
+    RMSE of accum over the pixels both cover."""
+    import torch
+    from icon_rt_tpu_torch.data import synthetic
+    from icon_rt_tpu_torch.models.cells import build_cells, compute_stats
+    from icon_rt_tpu_torch.models.locator import (build_locator,
+                                                  build_locator_csr,
+                                                  densify_csr)
+    from icon_rt_tpu_torch.models.qcells import (bake_alpha_q,
+                                                 quantize_cells,
+                                                 quantize_dataset_values)
+    from icon_rt_tpu_torch.models.shells import (build_radial_bands,
+                                                 update_band_majorants)
+    from icon_rt_tpu_torch.models.transfunc import make_transfunc
+    from icon_rt_tpu_torch.ops import march
+    from icon_rt_tpu_torch.ops.fast import pack_cells
+    from icon_rt_tpu_torch.ops.order import pixel_order
+    from icon_rt_tpu_torch.ops.render import alloc_frame, make_launch_params
+    t0 = time.perf_counter()
+    W, H = RMSE_W, RMSE_H
+    ds_q, lo, hi = quantize_dataset_values(
+        synthetic.icosphere(MAIN_SUB, MAIN_LAYERS))
+    stats = compute_stats(ds_q)
+    tf = make_transfunc(value_range=tuple(stats.data_range), device=dev)
+    bands = update_band_majorants(build_radial_bands(ds_q, 64, device=dev),
+                                  tf.values, tf.value_range)
+    cam = closeup_camera(stats, W, H)
+    ud = 10.0 ** (np.floor(np.log10(stats.spherical_bounds_lo[0])) - 3)
+    lp = make_launch_params(cam.basis(W, H), stats.world_bounds_lo,
+                            stats.world_bounds_hi, unit_distance=ud,
+                            device=dev)
+    perm, n_active = pixel_order(lp, stats.spherical_bounds_lo[0],
+                                 stats.spherical_bounds_hi[0], W, H)
+    kw = dict(width=W, height=H, pixel_perm=perm, n_active=n_active)
+    before = dict(march.launches)
+    cells = build_cells(ds_q, device=dev)
+    accum_f, _ = march.render_frame_march(
+        cells, pack_cells(cells, tf), build_locator(ds_q, device=dev), bands,
+        lp, *alloc_frame(W, H, device=dev), **kw)
+    del cells
+    q = bake_alpha_q(quantize_cells(ds_q, value_range=(lo, hi), device=dev),
+                     tf)
+    csr, k_cap = build_locator_csr(ds_q)
+    accum_q, _ = march.render_frame_march_q(
+        q, densify_csr(csr, k_cap, device=dev), bands, tf, lp,
+        *alloc_frame(W, H, device=dev), **kw)
+    ran = {k: march.launches[k] - before[k] for k in before}
+    af, aq = accum_f.cpu().numpy(), accum_q.cpu().numpy()
+    both = (af[:, 3] > 0) & (aq[:, 3] > 0)
+    rmse = float(np.sqrt(np.mean((af[both] - aq[both]) ** 2))) \
+        if both.any() else float("nan")
+    print(f"rmse_q {rmse:.6f} (march_q vs march_f32 accum over the "
+          f"{int(both.sum())} pixels both cover of {W}x{H}; subdiv "
+          f"{MAIN_SUB} x {MAIN_LAYERS}; K3 launches {ran}; "
+          f"{time.perf_counter() - t0:.1f} s; docs/ROUND5.md:116 records "
+          f"0.0016 for this scene)")
+    if ran != {"march_f32": 1, "march_q": 1} or not np.isfinite(rmse):
+        raise AssertionError("rmse_q did not run both marches' kernels")
+    return rmse
+
+
+def profile_launch(pl, quantized=False, marching=False):
+    """One steady main-path launch (fb copied to the host) under
     torch.profiler: device time by kernel and the device's idle share of
     the launch's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from icon_rt_tpu_torch.ops.fast import render_frame_fast
     from icon_rt_tpu_torch.ops.fastq import render_frame_fast_q
-    from icon_rt_tpu_torch.ops.render import make_launch_params
+    from icon_rt_tpu_torch.ops.march import (render_frame_march,
+                                             render_frame_march_q)
 
     s, frame = pl.scene, pl.frame
-    stats = s["stats"]
-    lp = make_launch_params(s["camera"].basis(MAIN_W, MAIN_H),
-                            stats.world_bounds_lo, stats.world_bounds_hi,
-                            unit_distance=s["unit_distance"](),
-                            device=frame["accum"].device)
+    lp = launch_params(pl)
     kw = dict(width=MAIN_W, height=MAIN_H, pixel_perm=frame["perm"],
-              n_active=frame["n_active"], samples=MAIN_SPL)
+              n_active=frame["n_active"])
+    out = (frame["accum"], frame["fb"])
     if quantized:
         q, loc, _ = s["get_q"]()
         tables = (q, loc, s["get_bands"](), s["tf"]())
-
-        def render():
-            render_frame_fast_q(*tables, lp, frame["accum"], frame["fb"],
-                                finemap=s["fm"](), **kw)
+        if marching:
+            render = lambda: render_frame_march_q(*tables, lp, *out, **kw)
+        else:
+            render = lambda: render_frame_fast_q(
+                *tables, lp, *out, finemap=s["fm"](), samples=MAIN_SPL, **kw)
     else:
         tables = (s["cells"], s["get_packed"](), s["locator"],
                   s["get_bands"]())
-
-        def render():
-            render_frame_fast(*tables, lp, frame["accum"], frame["fb"], **kw)
+        if marching:
+            render = lambda: render_frame_march(*tables, lp, *out, **kw)
+        else:
+            render = lambda: render_frame_fast(*tables, lp, *out,
+                                               samples=MAIN_SPL, **kw)
 
     def launch():
         render()
@@ -772,9 +1358,10 @@ def profile_launch(pl, quantized=False):
             end = b
     top = ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in
                     sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
-    print(f"profile steady {'quantized ' if quantized else ''}launch: wall "
-          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
-          f"{1 - busy / wall:.3f}; {top}")
+    what = ("march " if marching else "") + ("quantized " if quantized
+                                             else "")
+    print(f"profile steady {what}launch: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; {top}")
     if not 0.0 < busy <= wall:
         raise AssertionError(f"device busy {busy:.3f} ms is not within the "
                              f"launch's wall time {wall:.3f} ms")
@@ -786,11 +1373,13 @@ def build_all():
     from icon_rt_tpu_torch.models.finemap import build_finemap_kernel
     from icon_rt_tpu_torch.ops.fast import build_track_f32
     from icon_rt_tpu_torch.ops.fastq import build_track_q
+    from icon_rt_tpu_torch.ops.march import build_march
     from icon_rt_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(CU_SOURCES)) as ex:
         for f in [ex.submit(b) for b in (build_track_f32, build_track_q,
-                                          build_finemap_kernel)]:
+                                          build_finemap_kernel,
+                                          build_march)]:
             f.result()
     for name in CU_SOURCES:
         info = cuda_build.info(name)
@@ -817,8 +1406,10 @@ def main() -> int:
     build_all()
     t1 = time.perf_counter()
     errs, sc = check_kernels(dev)   # first Triton compiles happen in here
-    errs.update(check_q_kernels(sc, dev))
-    del sc
+    q_errs, qtabs = check_q_kernels(sc, dev)
+    errs.update(q_errs)
+    errs.update(check_march(sc, qtabs, dev))
+    del sc, qtabs
     print(f"build+check Triton compiles and checks "
           f"{time.perf_counter() - t1:.2f} s")
 
@@ -828,7 +1419,7 @@ def main() -> int:
     del pl
     torch.cuda.empty_cache()
 
-    # the quantized path builds its fine map into an empty cache (K7-fm)
+    # the quantized paths build their fine map into an empty cache (K7-fm)
     bigscene.CACHE_DIR = tempfile.mkdtemp(
         prefix="chip_smoke_fmap_", dir=os.path.dirname(bigscene.CACHE_DIR))
     try:
@@ -836,8 +1427,21 @@ def main() -> int:
         rows += time_q_kernels(pl_q, errs, counts_q)
         profile_launch(pl_q, quantized=True)
         tf_edits(pl_q)
+        del pl_q
+        torch.cuda.empty_cache()
+
+        pl_m, counts_m, _ = main_path(dev, marching=True)
+        pl_mq, counts_mq, _ = main_path(dev, quantized=True, marching=True)
+        fm = bench_march(pl_mq)
+        rows += time_march_kernels(pl_m, pl_mq, fm, errs, counts_m,
+                                   counts_mq)
+        profile_launch(pl_m, marching=True)
+        profile_launch(pl_mq, quantized=True, marching=True)
+        del pl_m, pl_mq, fm
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(bigscene.CACHE_DIR, ignore_errors=True)
+    rmse_q(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": rows}))

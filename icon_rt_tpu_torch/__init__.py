@@ -7,13 +7,18 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
 
   K1+K4  ops/fast.py       track_f32      CUDA C++ (csrc/track_f32.cu)
   K2     ops/fastq.py      track_q        CUDA C++ (csrc/track_q.cu)
+  K3     ops/march.py      march_f32, march_q        CUDA C++ (csrc/march.cu)
   K5a    ops/fast.py       classify_bake  Triton
   K5b    models/accel.py   max_opacity    Triton
   K5c-q  models/qcells.py  bake_lookup, bake_patch   Triton
+  K5c-f32 ops/fast.py      pack_alpha_scale_parts, apply_opacity_scale  Triton
   K6     ops/order.py      chord_keys     Triton
   K7-fm  models/finemap.py build_finemap  CUDA C++ (csrc/finemap.cu)
 
-K1 and K2 share the per-lane tracking machine of csrc/track_common.cuh.
+K1, K2 and K3 share the lane setup of csrc/track_common.cuh and the storage
+tiers of csrc/tier_f32.cuh and csrc/tier_q.cuh; K1 and K2 also share its
+Woodcock tracking machine.  K3 is the deterministic march (the app's
+--march).
 
 Every kernel has a plain-PyTorch version in the same module.  A wrapper
 launches its kernel for a CUDA tensor and runs the plain version for a CPU
@@ -26,7 +31,7 @@ Layer map (bottom-up), mirroring icon_rt_tpu:
   models/    — cells, quantized cells, transfer function, locator (dense
                and CSR), fine map, radial bands
   ops/       — camera, ray ordering, launch params, the fast trackers
-               (f32 and quantized tiers)
+               (f32 and quantized tiers) and the march
   pipeline/  — frame loop, CLI flags, .xf IO, TF editor
   app.py     — the icon_rt application (apps/icon_rt_torch.py)
 """

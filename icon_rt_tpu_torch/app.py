@@ -13,9 +13,15 @@ Same CLI as apps/icon_rt.py (ref: icon_rt/hostCode.cu:703-968):
                                alpha, u16-grid heights, CSR-binned locator)
   --finemap / --no-finemap     the quantized tier's two-stage fine-map
                                locate (default on; cached per dataset)
+  --march                      the deterministic transmittance march: one
+                               converged pass per launch instead of
+                               Woodcock samples (K3; without the fine map
+                               on the quantized tier, as apps/icon_rt.py)
 
 This port renders the fast radial-band raygen with the locator sampler on
-the f32 tier and, with --quantized, on the quantized tier.  Flags that
+the f32 tier and, with --quantized, on the quantized tier, by Woodcock
+tracking (K1, K2) or, with --march, by the march (K3).  An opacity-scale
+edit of the f32 tier re-bakes only the alpha half (K5c-f32).  Flags that
 select anything else raise NotImplementedError naming the ROADMAP item
 that will port them.
 
@@ -36,7 +42,6 @@ _NOT_PORTED = {
     ("--sampler", "brute"): "ROADMAP Queue 1 item 7 (reference-parity tier)",
     ("--sampler", "wedge"): "ROADMAP Queue 1 item 8 (unstructured elements)",
     ("-mode", "2"): "ROADMAP Queue 1 item 8 (unstructured elements)",
-    ("--march", None): "ROADMAP Queue 1 item 4 (deterministic march)",
     ("--preview", None): "ROADMAP Queue 1 item 5 (preview tier)",
     ("--samples", "auto"): "ROADMAP Queue 1 item 5 (auto samples)",
 }
@@ -55,7 +60,7 @@ def parse_app_args(argv):
         "lat_range": None, "lon_range": None,
         "synthetic": None, "out": "icon_rt", "bands": 64,
         "samples": 8, "device": "cuda", "quantized": False,
-        "finemap": True,
+        "finemap": True, "march": False,
     }
     i = 0
     while i < len(argv):
@@ -96,7 +101,9 @@ def parse_app_args(argv):
             cfg["quantized"] = True
         elif a in ("--finemap", "--no-finemap"):
             cfg["finemap"] = a == "--finemap"
-        elif a in ("--march", "--preview"):
+        elif a == "--march":
+            cfg["march"] = True
+        elif a == "--preview":
             _not_ported(a)
         elif a == "--samples":
             if argv[i + 1] == "auto":
@@ -148,8 +155,10 @@ def build(argv):
     from .models.shells import build_radial_bands, update_band_majorants
     from .models.transfunc import DEFAULT_COLORS
     from .ops.camera import Camera
-    from .ops.fast import pack_cells, render_frame_fast
+    from .ops.fast import (apply_opacity_scale, pack_alpha_scale_parts,
+                           pack_cells, render_frame_fast)
     from .ops.fastq import render_frame_fast_q
+    from .ops.march import render_frame_march, render_frame_march_q
     from .ops.order import inverse_order, pixel_order
     from .ops.render import alloc_frame, make_launch_params
     from .pipeline.pipeline import Pipeline, TransfuncState
@@ -226,7 +235,7 @@ def build(argv):
     # TF edit (ref: hostCode.cu:878-909) -----------------------------------
     device = {}
     struct = {"bands": None, "packed": None, "q": None, "loc_q": None,
-              "q_tf": None, "fm": None}
+              "q_tf": None, "fm": None, "alpha_parts": None}
 
     def get_bands():
         if struct["bands"] is None:
@@ -242,10 +251,10 @@ def build(argv):
 
     def get_q():
         """Quantized tier (--quantized): cells, the CSR-binned locator and
-        (with --finemap) the fine map, built on first use; the u8 alpha
-        table re-bakes (K5c-q) only when the device TF changed.  The bands
-        stay those of the unquantized dataset (get_bands), as in the JAX
-        app.  Returns (q, locator, k_cap)."""
+        (with --finemap, not --march) the fine map, built on first use; the
+        u8 alpha table re-bakes (K5c-q) only when the device TF changed.
+        The bands stay those of the unquantized dataset (get_bands), as in
+        the JAX app.  Returns (q, locator, k_cap)."""
         from .data.bigscene import build_finemap_cached
         from .models.locator import build_locator_csr, densify_csr
         from .models.qcells import (bake_alpha_q, quantize_cells,
@@ -256,7 +265,9 @@ def build(argv):
                                          device=dev)
             csr, k_cap = build_locator_csr(ds_q)
             struct["loc_q"] = (densify_csr(csr, k_cap, device=dev), k_cap)
-            if cfg["finemap"]:
+            if cfg["finemap"] and not cfg["march"]:
+                # the quantized march renders without the fine map
+                # (apps/icon_rt.py:489-493), so it is not built for it
                 if cfg["synthetic"] is not None:
                     key = "app_s%d_l%d" % cfg["synthetic"]
                 else:
@@ -274,17 +285,32 @@ def build(argv):
 
     def on_tf_update(tf_state, index):
         """TF-edit handler: new device LUT, band majorants (K5b) and baked
-        rows (K5a) of the f32 tier.  Every edit re-runs the full bake; the
-        scale-only re-bake of the JAX package is not ported yet.  The
-        quantized tier re-bakes its alpha table in get_q at the next
-        launch."""
+        rows of the f32 tier.  An edit that changes only the opacity scale
+        (LUT and ranges as before) re-derives the baked alpha from parts
+        baked once per LUT and range (K5c-f32, apps/icon_rt.py:334-374);
+        any other edit re-runs the full bake (K5a).  The quantized tier
+        re-bakes its alpha table in get_q at the next launch."""
+        sig = (tf_state.lut.tobytes(), tf_state.value_range.tobytes(),
+               tf_state.rel_range.tobytes())
+        scale_only = device.get("tf_sig") == sig
+        device["tf_sig"] = sig
         device["tf"] = tf_state.to_device(device=dev)
         if struct["bands"] is not None:
             struct["bands"] = update_band_majorants(
                 struct["bands"], device["tf"].values,
                 device["tf"].value_range)
+        if not scale_only:
+            struct["alpha_parts"] = None   # parts are baked per LUT + range
         if struct["packed"] is not None:
-            struct["packed"] = pack_cells(cells, device["tf"])
+            if scale_only:
+                if struct["alpha_parts"] is None:
+                    struct["alpha_parts"] = pack_alpha_scale_parts(
+                        cells, device["tf"])
+                struct["packed"] = apply_opacity_scale(
+                    struct["packed"], struct["alpha_parts"],
+                    device["tf"].opacity_scale)
+            else:
+                struct["packed"] = pack_cells(cells, device["tf"])
 
     pl.set_transfunc_update_handler(on_tf_update)
     on_tf_update(pl.transfunc, 0)
@@ -313,7 +339,20 @@ def build(argv):
             frame["inv"] = inverse_order(p).cpu().numpy()
             frame["perm"] = p
             frame["n_active"] = n_cov
-        if cfg["quantized"]:
+        if cfg["march"]:
+            # one converged pass per launch (apps/icon_rt.py:480-500); the
+            # quantized march runs without the fine map, as there
+            pl.samples_per_launch = 1
+            kw = dict(width=W, height=H, pixel_perm=frame["perm"],
+                      n_active=frame["n_active"])
+            if cfg["quantized"]:
+                q, loc_q, _ = get_q()
+                render_frame_march_q(q, loc_q, get_bands(), device["tf"], lp,
+                                     frame["accum"], frame["fb"], **kw)
+            else:
+                render_frame_march(cells, get_packed(), locator, get_bands(),
+                                   lp, frame["accum"], frame["fb"], **kw)
+        elif cfg["quantized"]:
             q, loc_q, _ = get_q()
             render_frame_fast_q(q, loc_q, get_bands(), device["tf"], lp,
                                 frame["accum"], frame["fb"], width=W,

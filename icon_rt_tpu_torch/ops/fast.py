@@ -24,6 +24,13 @@ Kernels of this module (each beside its plain-PyTorch version):
   K5a   `classify_bake` (Triton) — the TF-edit bake of per-(cell, layer)
         heights, classified alpha and RGB.  Plain version:
         `_profile_rows_torch` / `_classify_channels_torch`.
+  K5c-f32 `pack_alpha_scale_parts` and `apply_opacity_scale` (Triton) —
+        the scale-only opacity re-bake: alpha = A + B * scale, equal to a
+        full K5a bake bit for bit.  Plain versions:
+        `_alpha_scale_parts_torch`, `_apply_opacity_scale_torch`.
+
+The lane setup `_init_lanes` and the tiers' locate are shared with the
+march (ops/march.py).
 
 The JAX package's TPU scheduling (batched refresh phases, compacted
 services, `steps_per_refresh`, `chunk`, `outer_unroll`, `refresh_compact`,
@@ -56,12 +63,26 @@ RGB_W = MAX_LAYERS * 3
 #: collision.  No lane of the tests or of chip_smoke.py comes near it.
 MAX_STEPS = 16384 * 8
 
-#: kernel launches of K1 (track_f32) and K5a (classify_bake); the wrappers
+#: kernel launches of K1 (track_f32), K5a (classify_bake) and the two
+#: K5c-f32 kernels (alpha_scale_parts, apply_opacity_scale); the wrappers
 #: count only launches of the CUDA/Triton kernels
-launches = {"track_f32": 0, "classify_bake": 0}
+launches = {"track_f32": 0, "classify_bake": 0, "alpha_scale_parts": 0,
+            "apply_opacity_scale": 0}
 
-tl = None          # triton.language, bound on first K5a launch
-_CLASSIFY_KERNEL = None
+tl = None          # triton.language, bound on the first Triton launch
+_JITTED: dict = {}
+
+
+def _jit(fn):
+    """triton.jit(fn), compiled on first use (never at import: the CPU
+    tests import this module and have no triton)."""
+    global tl
+    if fn.__name__ not in _JITTED:
+        import triton
+        import triton.language as tl_mod
+        tl = tl_mod
+        _JITTED[fn.__name__] = triton.jit(fn)
+    return _JITTED[fn.__name__]
 
 
 
@@ -175,7 +196,6 @@ def classify_bake(cells: Cells, tf: Transfunc):
     alpha and three RGB entries.  Bound by device-memory traffic (256 bytes read and 640
     written per cell); the 4.8 KB LUT stays in L1/L2, so the TPU's one-hot
     compare-sum over the 300 levels is replaced by plain cached loads."""
-    global _CLASSIFY_KERNEL, tl
     height, value, nl = cells.height, cells.value, cells.num_layers
     dev = height.device
     n = height.shape[0]
@@ -195,16 +215,12 @@ def classify_bake(cells: Cells, tf: Transfunc):
         return _profile_rows_torch(height, value, nl, tf)
     if dev.type != "cuda":
         raise ValueError(f"classify_bake: unsupported device {dev}")
-    if _CLASSIFY_KERNEL is None:
-        import triton
-        import triton.language as tl
-        _CLASSIFY_KERNEL = triton.jit(_classify_kernel)
     prof = torch.empty((n, PROF_W), dtype=F32, device=dev)
     rgb = torch.empty((n, RGB_W), dtype=F32, device=dev)
     n_elem = n * MAX_LAYERS
     block = 1024
     if n_elem:
-        _CLASSIFY_KERNEL[(-(-n_elem // block),)](
+        _jit(_classify_kernel)[(-(-n_elem // block),)](
             height, value, nl, tf.values, tf.value_range, tf.opacity_scale,
             prof, rgb, n_elem, tf.size, BLOCK=block, enable_fp_fusion=False)
         launches["classify_bake"] += 1
@@ -216,6 +232,131 @@ def pack_cells(cells: Cells, tf: Transfunc) -> PackedCells:
     the bake re-runs on TF edits (ref: hostCode.cu:878-909)."""
     prof, rgb = classify_bake(cells, tf)
     return PackedCells(test=pack_test_rows(cells), prof=prof, rgb=rgb)
+
+
+# ===========================================================================
+# K5c-f32: the scale-only opacity re-bake
+# ===========================================================================
+
+def _alpha_scale_parts_torch(values, tf: Transfunc):
+    """Plain K5c-f32 parts: (A, B), each (N, 32), with K5a's baked alpha
+    == A + B * opacity_scale bit for bit -- the postClassify alpha
+    a1 * frac + a2 * (1 - frac) * scale is affine in the scale, and
+    `_classify_channels_torch` rounds it in this order."""
+    size = tf.size
+    vn = (values - tf.value_range[0]) \
+        / (tf.value_range[1] - tf.value_range[0])
+    vs = vn * float(size)
+    idx = vs.to(torch.int32)
+    frac = vs - idx.to(F32)
+    lut_a = tf.values[:, 3]
+    a1 = lut_a[torch.clamp(idx, 0, size - 1).long()]
+    a2 = lut_a[torch.clamp(idx + 1, 0, size - 1).long()]
+    return a1 * frac, a2 * (1.0 - frac)
+
+
+def _apply_opacity_scale_torch(prof, a, b, scale):
+    """Plain K5c-f32 apply: prof[:, 32:] = A + B * scale, in place."""
+    prof[:, MAX_LAYERS:] = a + b * scale
+
+
+def _alpha_parts_kernel(value_ptr, lut_ptr, tfr_ptr, a_ptr, b_ptr, n_elem,
+                        S, BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    msk = i < n_elem
+    v0 = tl.load(tfr_ptr)
+    v1 = tl.load(tfr_ptr + 1)
+    val = tl.load(value_ptr + i, mask=msk, other=0.0)
+    vn = tl.math.div_rn(val - v0, v1 - v0)
+    vs = vn * S.to(tl.float32)
+    idx = vs.to(tl.int32)
+    frac = vs - idx.to(tl.float32)
+    i1 = tl.minimum(tl.maximum(idx, 0), S - 1)
+    i2 = tl.minimum(tl.maximum(idx + 1, 0), S - 1)
+    tl.store(a_ptr + i, tl.load(lut_ptr + i1 * 4 + 3, mask=msk) * frac,
+             mask=msk)
+    tl.store(b_ptr + i, tl.load(lut_ptr + i2 * 4 + 3, mask=msk)
+             * (1.0 - frac), mask=msk)
+
+
+def _apply_scale_kernel(a_ptr, b_ptr, scale_ptr, prof_ptr, n_elem,
+                        BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    msk = i < n_elem
+    n = i // 32
+    k = i - n * 32
+    s = tl.load(scale_ptr)
+    a = tl.load(a_ptr + i, mask=msk, other=0.0)
+    b = tl.load(b_ptr + i, mask=msk, other=0.0)
+    tl.store(prof_ptr + n * 64 + 32 + k, a + b * s, mask=msk)
+
+
+def pack_alpha_scale_parts(cells: Cells, tf: Transfunc):
+    """K5c-f32 parts wrapper: (A, B), each (N, 32) f32, baked once per LUT
+    and value range, so that any later opacity-scale edit is
+    `apply_opacity_scale` instead of a full K5a bake.  The Triton kernel
+    runs for CUDA tensors, the plain version for CPU tensors; anything else
+    raises.
+
+    Replaces the XLA-fused icon_rt_tpu/ops/fast.py `pack_alpha_scale_parts`.
+    Kernel design: one elementwise pass over the (N, 32) grid, the alpha
+    channel of K5a's arithmetic split at the scale; bound by device memory
+    (128 bytes read and 256 written per cell), the LUT stays in L1/L2."""
+    value = cells.value
+    dev = value.device
+    n = value.shape[0]
+    for name, x, shape in (("value", value, (n, MAX_LAYERS)),
+                           ("tf.values", tf.values, (tf.size, 4)),
+                           ("tf.value_range", tf.value_range, (2,))):
+        _check(name, x, F32, shape, dev, fn="pack_alpha_scale_parts")
+    if dev.type == "cpu":
+        return _alpha_scale_parts_torch(value, tf)
+    if dev.type != "cuda":
+        raise ValueError(f"pack_alpha_scale_parts: unsupported device {dev}")
+    a = torch.empty((n, MAX_LAYERS), dtype=F32, device=dev)
+    b = torch.empty_like(a)
+    n_elem, block = n * MAX_LAYERS, 1024
+    if n_elem:
+        _jit(_alpha_parts_kernel)[(-(-n_elem // block),)](
+            value, tf.values, tf.value_range, a, b, n_elem, tf.size,
+            BLOCK=block, enable_fp_fusion=False)
+        launches["alpha_scale_parts"] += 1
+    return a, b
+
+
+def apply_opacity_scale(packed: PackedCells, parts, scale) -> PackedCells:
+    """K5c-f32 apply wrapper: re-derive the classified-alpha half of
+    packed.prof for the opacity scale `scale` ((), f32 tensor) from
+    `pack_alpha_scale_parts`, IN PLACE (the JAX version returns a new
+    PackedCells; updating the half saves a 335 MB copy at subdiv 8).  RGB
+    and heights do not depend on the scale.  Returns `packed`.
+
+    Replaces the XLA-fused icon_rt_tpu/ops/fast.py `apply_opacity_scale`.
+    Kernel design: one elementwise pass, alpha = A + B * scale rounded as
+    two operations (no FMA), so the result equals a full K5a bake bit for
+    bit; bound by device memory (256 bytes read and 128 written per
+    cell)."""
+    a, b = parts
+    prof = packed.prof
+    dev = prof.device
+    n = prof.shape[0]
+    ck = lambda name, x, shape: _check(name, x, F32, shape, dev,
+                                       fn="apply_opacity_scale")
+    ck("packed.prof", prof, (n, PROF_W))
+    ck("A", a, (n, MAX_LAYERS))
+    ck("B", b, (n, MAX_LAYERS))
+    ck("scale", scale, ())
+    if dev.type == "cpu":
+        _apply_opacity_scale_torch(prof, a, b, scale)
+        return packed
+    if dev.type != "cuda":
+        raise ValueError(f"apply_opacity_scale: unsupported device {dev}")
+    n_elem, block = n * MAX_LAYERS, 1024
+    if n_elem:
+        _jit(_apply_scale_kernel)[(-(-n_elem // block),)](
+            a, b, scale, prof, n_elem, BLOCK=block, enable_fp_fusion=False)
+        launches["apply_opacity_scale"] += 1
+    return packed
 
 
 # ===========================================================================
@@ -241,6 +382,85 @@ def _band_exit_from(t, r_lo, r_hi, shi, od, oo):
     return torch.minimum(torch.where(use_in, t_in, t_out), shi), use_in
 
 
+def _select_band(arr, b):
+    """arr[b] per lane (JAX selects with a one-hot sum, which is exact)."""
+    return arr[b]
+
+
+def _band_exit(t, b, shi, od, oo, edges):
+    """Band exit looked up by band index."""
+    return _band_exit_from(t, edges[b], edges[b + 1], shi, od, oo)
+
+
+class _Lanes(NamedTuple):
+    """Per-lane ray constants and start state (`_init_lanes`)."""
+    dx: torch.Tensor         # unit direction (tiny components -> 1e-5)
+    dy: torch.Tensor
+    dz: torch.Tensor
+    od: torch.Tensor         # dot(org, dir)
+    rng: torch.Tensor        # LCG state after the two jitter draws
+    t: torch.Tensor          # start of the first non-empty shell segment
+    seg_hi: torch.Tensor     # its end
+    si: torch.Tensor         # bool: the lane starts in segment 1
+    s1_lo: torch.Tensor      # the second shell segment
+    s1_hi: torch.Tensor
+    wrote: torch.Tensor      # bool: the ray meets the shell ahead
+    band: torch.Tensor       # first band
+    seg_end: torch.Tensor    # its exit
+    was_in: torch.Tensor     # bool: the exit is through the inner edge
+    m: torch.Tensor          # its majorant
+    done: torch.Tensor       # bool: nothing to trace
+
+
+def _init_lanes(lp, xs, ys, width: int, height: int, edges, majors, oo,
+                nb: int, aid) -> _Lanes:
+    """Ray setup of sample `aid` ((), int64) of the pixels (xs, ys): the
+    jittered pinhole ray (ref: deviceCode.cu:36-49), its clip to the shell
+    (up to two segments, t >= 0) and the first band -- icon_rt_tpu/ops/
+    fast.py `_raygen_soa` and `_init_lanes`, and csrc/track_common.cuh
+    `init_lane`."""
+    ox, oy, oz = lp.cam_org[0], lp.cam_org[1], lp.cam_org[2]
+    seed0 = ((aid & 0xFFFFFFFF) * (width * height) + xs) & 0xFFFFFFFF
+    rng = lcg_init(seed0, ys)
+    rng, jx = lcg_next(rng)
+    rng, jy = lcg_next(rng)
+    u = xs.to(F32) + 0.5 + jx
+    v = ys.to(F32) + 0.5 + jy
+    dx = lp.cam_dir00[0] + u * lp.cam_du[0] + v * lp.cam_dv[0]
+    dy = lp.cam_dir00[1] + u * lp.cam_du[1] + v * lp.cam_dv[1]
+    dz = lp.cam_dir00[2] + u * lp.cam_du[2] + v * lp.cam_dv[2]
+    inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+    dx, dy, dz = dx * inv, dy * inv, dz * inv
+    dx = torch.where(torch.abs(dx) < 1e-5, 1e-5, dx)
+    dy = torch.where(torch.abs(dy) < 1e-5, 1e-5, dy)
+    dz = torch.where(torch.abs(dz) < 1e-5, 1e-5, dz)
+    od = ox * dx + oy * dy + oz * dz
+
+    def sphere_ts(radius):
+        disc = od * od - oo + radius * radius
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        return disc > 0.0, -od - sq, -od + sq
+
+    hit_o, to0, to1 = sphere_ts(edges[nb])
+    hit_i, ti0, ti1 = sphere_ts(edges[0])
+    outer_only = hit_o & ~hit_i
+    s0_lo = torch.clamp(to0, min=0.0)
+    s0_hi = torch.where(outer_only, to1, ti0)
+    s1_lo = torch.clamp(torch.where(outer_only, float("inf"), ti1), min=0.0)
+    s1_hi = torch.where(outer_only, float("-inf"), to1)
+    wrote = hit_o & (to1 > 0.0)
+    s0_bad = s0_hi <= s0_lo
+    t = torch.where(s0_bad, s1_lo, s0_lo)
+    seg_hi = torch.where(s0_bad, s1_hi, s0_hi)
+    band = _band_of(_r_of(t, od, oo), edges, nb)
+    seg_end, was_in = _band_exit(t, band, seg_hi, od, oo, edges)
+    return _Lanes(dx=dx, dy=dy, dz=dz, od=od, rng=rng, t=t, seg_hi=seg_hi,
+                  si=s0_bad.clone(), s1_lo=s1_lo, s1_hi=s1_hi, wrote=wrote,
+                  band=band, seg_end=seg_end, was_in=was_in,
+                  m=_select_band(majors, band),
+                  done=~(wrote & (seg_hi > t)))
+
+
 def _inside(rows, px, py, pz, r):
     """Radial + 3 side-plane containment against (M, 16) test rows."""
     ev1 = rows[:, 0] * px + rows[:, 1] * py + rows[:, 2] * pz - rows[:, 3]
@@ -258,20 +478,23 @@ def _layer_pick(heights, table_rows, r):
     return torch.where(layer < MAX_LAYERS, got[:, 0], 0.0)
 
 
-def _first_inside(rows_fn, cand, px, py, pz, r):
+def _first_inside(rows_fn, cand, px, py, pz, r, return_rows: bool = False):
     """The FIRST candidate (in row order) of the (M, K) cell ids `cand`
     (-1 = empty) whose column contains the point; rows_fn maps cell ids to
-    (..., 16) test rows.  Returns (cid, hit)."""
+    (..., 16) test rows.  Returns (cid, hit), and with return_rows also the
+    candidates' (M, K, 16) rows and their validity."""
     safe = torch.clamp(cand, min=0).long()
     rows = rows_fn(safe)                                  # (M, K, 16)
     ev = [rows[..., 4 * j] * px[:, None] + rows[..., 4 * j + 1] * py[:, None]
           + rows[..., 4 * j + 2] * pz[:, None] - rows[..., 4 * j + 3]
           for j in range(3)]
-    inside = ((cand >= 0) & (r[:, None] >= rows[..., 12])
+    valid = cand >= 0
+    inside = (valid & (r[:, None] >= rows[..., 12])
               & (r[:, None] <= rows[..., 13])
               & (ev[0] <= 0.0) & (ev[1] <= 0.0) & (ev[2] <= 0.0))
     slot = torch.argmax(inside.to(torch.int32), dim=1)
-    return safe.gather(1, slot[:, None])[:, 0], inside.any(1)
+    cid, hit = safe.gather(1, slot[:, None])[:, 0], inside.any(1)
+    return (cid, hit, rows, valid) if return_rows else (cid, hit)
 
 
 def _grid_bin(a, lo, hi, n: int):
@@ -280,20 +503,31 @@ def _grid_bin(a, lo, hi, n: int):
                        0, n - 1)
 
 
-def _locate_torch(loc: Locator, dims, rows_fn, px, py, pz, r):
+def _locate_torch(loc: Locator, dims, rows_fn, px, py, pz, r,
+                  return_rows: bool = False):
     """Locator query on (M,) points: bin row, then the first candidate (in
-    bin order) whose column contains the point.  Returns (cid, hit)."""
+    bin order) whose column contains the point.  Returns (cid, hit), and
+    with return_rows also the bin's (M, K, 16) candidate rows, their
+    validity and the bin (bl, bo) -- JAX's `return_rows=True`, for the
+    march's gap skip."""
     n_lat, n_lon = dims
     lat = torch.asin(torch.clamp(pz / r, -1.0, 1.0))
     lon = torch.atan2(py, px)
-    bid = _grid_bin(lat, loc.lat_lo, loc.lat_hi, n_lat) * n_lon \
-        + _grid_bin(lon, loc.lon_lo, loc.lon_hi, n_lon)
-    return _first_inside(rows_fn, loc.bins[bid.long()], px, py, pz, r)
+    bl = _grid_bin(lat, loc.lat_lo, loc.lat_hi, n_lat)
+    bo = _grid_bin(lon, loc.lon_lo, loc.lon_hi, n_lon)
+    out = _first_inside(rows_fn, loc.bins[(bl * n_lon + bo).long()], px, py,
+                        pz, r, return_rows)
+    return (*out, bl, bo) if return_rows else out
 
 
 class _F32Tier:
-    """The f32 storage tier of the plain tracker: (N, 16) test rows,
-    heights and classified alpha in `prof`, baked RGB in `rgb`."""
+    """The f32 storage tier of the plain tracker and march: (N, 16) test
+    rows, heights and classified alpha in `prof`, baked RGB in `rgb`."""
+
+    #: candidate rows are 16 wide, with the plane offsets w at 3/7/11
+    w_cols = True
+    #: layers of a march prof row
+    ml = MAX_LAYERS
 
     def __init__(self, packed: PackedCells, loc: Locator):
         self.packed, self.loc = packed, loc
@@ -302,9 +536,21 @@ class _F32Tier:
     def test_rows(self, cid):
         return self.packed.test[cid]
 
-    def locate(self, px, py, pz, r):
+    def locate(self, px, py, pz, r, return_rows: bool = False):
+        """(cid, hit); with return_rows also (rows, valid, bl, bo) of the
+        point's bin (`_locate_torch`)."""
         return _locate_torch(self.loc, self.dims, self.test_rows, px, py, pz,
-                             r)
+                             r, return_rows)
+
+    def march_prof(self, cid):
+        """(M, 64) ceilings | classified alpha of columns cid."""
+        return self.packed.prof[cid]
+
+    def march_colors(self, cid, prof):
+        """Per-layer classified (R, G, B), each (M, 32), of columns cid."""
+        rows = self.packed.rgb[cid]
+        return rows[:, :MAX_LAYERS], rows[:, MAX_LAYERS:2 * MAX_LAYERS], \
+            rows[:, 2 * MAX_LAYERS:]
 
     def alpha(self, cid, r):
         prow = self.packed.prof[cid]
@@ -346,7 +592,6 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
     ud = lp.unit_distance
     amb = lp.ambient_color * lp.ambient_radiance
     zero = torch.zeros((), dtype=F32, device=dev)
-    r_in, r_out = edges[0], edges[nb]
 
     acc, pixels = accum.clone(), fb.clone()
     new_test = lambda: torch.zeros((L, TEST_W), dtype=F32, device=dev)
@@ -364,46 +609,13 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
             c_valid = [new_b(), new_b()]
             c_mru = new_b()
         # -- ray setup: jittered pinhole ray, shell clip, first band --------
-        aid = lp.accum_id.to(torch.int64) + samp
-        seed0 = ((aid & 0xFFFFFFFF) * (width * height) + xs) & 0xFFFFFFFF
-        rng = lcg_init(seed0, ys)
-        rng, jx = lcg_next(rng)
-        rng, jy = lcg_next(rng)
-        u = xs.to(F32) + 0.5 + jx
-        v = ys.to(F32) + 0.5 + jy
-        dx = lp.cam_dir00[0] + u * lp.cam_du[0] + v * lp.cam_dv[0]
-        dy = lp.cam_dir00[1] + u * lp.cam_du[1] + v * lp.cam_dv[1]
-        dz = lp.cam_dir00[2] + u * lp.cam_du[2] + v * lp.cam_dv[2]
-        inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
-        dx, dy, dz = dx * inv, dy * inv, dz * inv
-        dx = torch.where(torch.abs(dx) < 1e-5, 1e-5, dx)
-        dy = torch.where(torch.abs(dy) < 1e-5, 1e-5, dy)
-        dz = torch.where(torch.abs(dz) < 1e-5, 1e-5, dz)
-        od = ox * dx + oy * dy + oz * dz
-
-        def sphere_ts(radius):
-            disc = od * od - oo + radius * radius
-            sq = torch.sqrt(torch.clamp(disc, min=0.0))
-            return disc > 0.0, -od - sq, -od + sq
-
-        hit_o, to0, to1 = sphere_ts(r_out)
-        hit_i, ti0, ti1 = sphere_ts(r_in)
-        outer_only = hit_o & ~hit_i
-        s0_lo = torch.clamp(to0, min=0.0)
-        s0_hi = torch.where(outer_only, to1, ti0)
-        s1_lo = torch.clamp(torch.where(outer_only, float("inf"), ti1),
-                            min=0.0)
-        s1_hi = torch.where(outer_only, float("-inf"), to1)
-        wrote = hit_o & (to1 > 0.0)
-        s0_bad = s0_hi <= s0_lo
-        t = torch.where(s0_bad, s1_lo, s0_lo)
-        seg_hi = torch.where(s0_bad, s1_hi, s0_hi)
-        si = s0_bad.clone()
-        band = _band_of(_r_of(t, od, oo), edges, nb)
-        seg_end, was_in = _band_exit_from(t, edges[band], edges[band + 1],
-                                          seg_hi, od, oo)
-        m = majors[band]
-        done = ~(wrote & (seg_hi > t))
+        ln = _init_lanes(lp, xs, ys, width, height, edges, majors, oo, nb,
+                         lp.accum_id.to(torch.int64) + samp)
+        dx, dy, dz, od, rng = ln.dx, ln.dy, ln.dz, ln.od, ln.rng
+        t, seg_hi, si, s1_lo, s1_hi = (ln.t, ln.seg_hi, ln.si, ln.s1_lo,
+                                       ln.s1_hi)
+        band, seg_end, was_in, m = ln.band, ln.seg_end, ln.was_in, ln.m
+        wrote, done = ln.wrote, ln.done
         alpha = torch.zeros(L, dtype=F32, device=dev)
 
         # -- tracking: one step per iteration for every unfinished lane -----
@@ -540,8 +752,8 @@ class _TrackCommon(ctypes.Structure):
 def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
                  height: int, samples: int,
                  preserve_cache: bool) -> _TrackCommon:
-    """The tier-independent launch arguments of K1 and K2 (one host read
-    of the launch scalars)."""
+    """The tier-independent launch arguments of K1, K2 and K3 (one host
+    read of the launch scalars)."""
     host = torch.cat([
         lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv, lp.ambient_color,
         lp.ambient_radiance.reshape(1), lp.unit_distance.reshape(1),
@@ -558,7 +770,7 @@ def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
 
 
 class _TrackParams(ctypes.Structure):
-    """Mirror of `TrackParams` in csrc/track_f32.cu (same field order)."""
+    """Mirror of `TrackParams` in csrc/tier_f32.cuh (same field order)."""
     _fields_ = [
         ("c", _TrackCommon),
         ("test", ctypes.c_void_p), ("prof", ctypes.c_void_p),
@@ -568,6 +780,21 @@ class _TrackParams(ctypes.Structure):
         ("n_lat", ctypes.c_int), ("n_lon", ctypes.c_int),
         ("k_cap", ctypes.c_int),
     ]
+
+
+def track_params(packed: PackedCells, loc: Locator,
+                 c: _TrackCommon) -> _TrackParams:
+    """The f32 tier's launch arguments of K1 and K3 (csrc/tier_f32.cuh)."""
+    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    if loc.bins.shape[0] != n_lat * n_lon:
+        raise ValueError("loc.bins rows != n_lat * n_lon")
+    win = torch.stack([loc.lat_lo, loc.lat_hi, loc.lon_lo,
+                       loc.lon_hi]).to(F32).tolist()
+    return _TrackParams(
+        c=c, test=packed.test.data_ptr(), prof=packed.prof.data_ptr(),
+        rgb=packed.rgb.data_ptr(), bins=loc.bins.data_ptr(),
+        lat_lo=win[0], lat_hi=win[1], lon_lo=win[2], lon_hi=win[3],
+        n_lat=n_lat, n_lon=n_lon, k_cap=loc.bins.shape[1])
 
 
 def build_track_f32():
@@ -621,18 +848,9 @@ def track_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
     if dev.type != "cuda":
         raise ValueError(f"track_f32: unsupported device {dev}")
     lib = build_track_f32()
-    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
-    if loc.bins.shape[0] != n_lat * n_lon:
-        raise ValueError("track_f32: loc.bins rows != n_lat * n_lon")
-    win = torch.stack([loc.lat_lo, loc.lat_hi, loc.lon_lo,
-                       loc.lon_hi]).to(F32).tolist()
-    p = _TrackParams(
-        c=track_common(bands, lp, pix, accum, fb, width=width, height=height,
-                       samples=samples, preserve_cache=preserve_cache),
-        test=packed.test.data_ptr(), prof=packed.prof.data_ptr(),
-        rgb=packed.rgb.data_ptr(), bins=loc.bins.data_ptr(),
-        lat_lo=win[0], lat_hi=win[1], lon_lo=win[2], lon_hi=win[3],
-        n_lat=n_lat, n_lon=n_lon, k_cap=loc.bins.shape[1])
+    p = track_params(packed, loc, track_common(
+        bands, lp, pix, accum, fb, width=width, height=height,
+        samples=samples, preserve_cache=preserve_cache))
     cuda_build.check("track_f32", lib.track_f32_launch(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches["track_f32"] += 1

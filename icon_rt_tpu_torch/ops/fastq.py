@@ -17,6 +17,7 @@ Kernel of this module:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -40,35 +41,46 @@ launches = 0
 
 class _QTier:
     """The quantized storage tier of the plain tracker (ops/fast.py
-    `_track_torch`): cached test rows are the 12-float storage rows laid
-    out as the f32 tier's 16-float rows (w = 0); heights, alpha and values
-    are dequantized from the cell id, in the order of
-    icon_rt_tpu/ops/fastq.py `_test_and_fill`."""
+    `_track_torch`) and march (ops/march.py `_march_torch`): cached test
+    rows are the 12-float storage rows laid out as the f32 tier's 16-float
+    rows (w = 0); heights, alpha and values are dequantized from the cell
+    id, in the order of icon_rt_tpu/ops/fastq.py `_test_and_fill`."""
+
+    #: the march's candidate rows are the 12-float storage rows (w = 0)
+    w_cols = False
 
     def __init__(self, q: QuantizedCells, loc: Locator, tf: Transfunc,
                  fm: FineMap | None):
         self.q, self.loc, self.tf, self.fm = q, loc, tf, fm
+        self.ml = q.lm
         self.dims = tuple(int(d) for d in loc.dims.tolist())
-        t = q.test12
-        z = torch.zeros_like(t[:, :1])
-        self.test16 = torch.cat([t[:, 0:3], z, t[:, 3:6], z, t[:, 6:9], z,
-                                 t[:, 9:12], z], dim=1)
-        one = torch.ones((), dtype=F32, device=t.device)
+        one = torch.ones((), dtype=F32, device=q.test12.device)
         self.inv65535 = one * np.float32(1.0 / 65535.0)
         # divided by a tensor: PyTorch's CUDA division by a Python scalar
         # multiplies by its reciprocal, which rounds differently
         self.a_scale = q.alpha_max / (one * 255.0)
         self.v_scale = (q.value_hi - q.value_lo) / (one * 255.0)
 
+    @functools.cached_property
+    def test16(self):
+        t = self.q.test12
+        z = torch.zeros_like(t[:, :1])
+        return torch.cat([t[:, 0:3], z, t[:, 3:6], z, t[:, 6:9], z,
+                          t[:, 9:12], z], dim=1)
+
     def test_rows(self, cid):
         return self.test16[cid]
 
-    def locate(self, px, py, pz, r):
+    def locate(self, px, py, pz, r, return_rows: bool = False):
         """Fine map first (the first of the fine bin's 4 candidates whose
         column contains the point), then the full coarse query for the
-        misses: the two-stage locate, per lane."""
-        cid = torch.zeros(px.shape[0], dtype=torch.int64, device=px.device)
-        hit = torch.zeros(px.shape[0], dtype=torch.bool, device=px.device)
+        misses: the two-stage locate, per lane.  Returns (cid, hit); with
+        return_rows also the coarse bin's (M, K, 12) storage rows, their
+        validity and the bin (bl, bo), filled for the lanes that ran the
+        full query (the others are hits and need no gap skip)."""
+        M, dev = px.shape[0], px.device
+        cid = torch.zeros(M, dtype=torch.int64, device=dev)
+        hit = torch.zeros(M, dtype=torch.bool, device=dev)
         if self.fm is not None:
             f_lat, f_lon = (int(d) for d in self.fm.dims.tolist())
             lat = torch.asin(torch.clamp(pz / r, -1.0, 1.0))
@@ -80,16 +92,28 @@ class _QTier:
             cand = slots_to_cells(self.fm, self.loc, fbid, self.fm.slots[fbid])
             cid, hit = _first_inside(self.test_rows, cand, px, py, pz, r)
         miss = torch.nonzero(~hit).squeeze(1)
+        if return_rows:
+            k_cap = self.loc.bins.shape[1]
+            rows = torch.zeros((M, k_cap, 12), dtype=F32, device=dev)
+            valid = torch.zeros((M, k_cap), dtype=torch.bool, device=dev)
+            bl = torch.zeros(M, dtype=torch.int32, device=dev)
+            bo = torch.zeros_like(bl)
         if miss.numel():
-            c2, h2 = _locate_torch(self.loc, self.dims, self.test_rows,
-                                   px[miss], py[miss], pz[miss], r[miss])
-            cid[miss] = c2
-            hit[miss] = h2
-        return cid, hit
+            out = _locate_torch(self.loc, self.dims, self.test_rows,
+                                px[miss], py[miss], pz[miss], r[miss],
+                                return_rows)
+            cid[miss] = out[0]
+            hit[miss] = out[1]
+            if return_rows:
+                rows[miss] = out[2][..., _STORAGE_COLS]
+                valid[miss] = out[3]
+                bl[miss] = out[4]
+                bo[miss] = out[5]
+        return (cid, hit, rows, valid, bl, bo) if return_rows else (cid, hit)
 
-    def _layer(self, cid, r):
-        """(layer of r, dequantized rows) of columns cid: the layer is
-        #(h < r) over the Lm ceilings, +inf past num_layers."""
+    def _heights(self, cid):
+        """(M, Lm) dequantized ceilings of columns cid, +inf past their
+        num_layers."""
         q = self.q
         t = q.test12[cid]
         h_bot, h_top = t[:, 9], t[:, 10]
@@ -98,24 +122,67 @@ class _QTier:
         heights = h_bot[:, None] + hf * ((h_top - h_bot)[:, None]
                                          * self.inv65535)
         k1 = torch.arange(1, q.lm + 1, device=cid.device)
-        heights = torch.where(k1[None, :] <= nl[:, None], heights,
-                              float("inf"))
-        layer = (r[:, None] > heights).sum(1)
-        return layer, torch.clamp(layer, max=q.lm - 1)[:, None]
+        return torch.where(k1[None, :] <= nl[:, None], heights,
+                           float("inf"))
+
+    def _layer(self, cid, r):
+        """(layer of r, its clamped index) in columns cid: the layer is
+        #(h < r) over the Lm ceilings; Lm means above the top layer."""
+        layer = (r[:, None] > self._heights(cid)).sum(1)
+        return layer, torch.clamp(layer, max=self.q.lm - 1)[:, None]
+
+    def _alphas(self, cid):
+        return self.q.alpha_q[cid].to(F32) * self.a_scale
+
+    def _values(self, cid):
+        return self.q.value_lo + self.q.value_q[cid].to(F32) * self.v_scale
 
     def alpha(self, cid, r):
         layer, idx = self._layer(cid, r)
-        aa = self.q.alpha_q[cid].gather(1, idx)[:, 0].to(F32) * self.a_scale
+        aa = self._alphas(cid).gather(1, idx)[:, 0]
         return torch.where(layer < self.q.lm, aa, 0.0)
 
     def shade(self, cid, r):
-        q = self.q
         layer, idx = self._layer(cid, r)
-        vv = q.value_lo + q.value_q[cid].gather(1, idx)[:, 0].to(F32) \
-            * self.v_scale
-        v = torch.where(layer < q.lm, vv, 0.0)
+        vv = self._values(cid).gather(1, idx)[:, 0]
+        v = torch.where(layer < self.q.lm, vv, 0.0)
         rgba = post_classify(self.tf, v)
         return [rgba[:, 0], rgba[:, 1], rgba[:, 2]]
+
+    def march_prof(self, cid):
+        """(M, 3 Lm) dequantized ceilings | alpha | values of columns cid
+        (JAX's cached h|A|V rows)."""
+        return torch.cat([self._heights(cid), self._alphas(cid),
+                          self._values(cid)], dim=1)
+
+    def march_colors(self, cid, prof):
+        """Per-layer (R, G, B), each (M, Lm): a layer's value re-quantized
+        to its u8 code (icon_rt_tpu/ops/march.py:478-482, in that
+        expression order) and looked up in `code_table`."""
+        lm, q = self.q.lm, self.q
+        code = torch.clamp(torch.round((prof[:, 2 * lm:] - q.value_lo)
+                                       * self.inv_span), 0, 255).long()
+        rgba = self.code_table[code]                    # (M, Lm, 4)
+        return rgba[..., 0], rgba[..., 1], rgba[..., 2]
+
+    @functools.cached_property
+    def inv_span(self):
+        """255 / max(value_hi - value_lo, 1e-30), divided as a tensor."""
+        one = torch.ones((), dtype=F32, device=self.q.value_lo.device)
+        return (one * 255.0) / torch.clamp(self.q.value_hi - self.q.value_lo,
+                                           min=1e-30)
+
+    @functools.cached_property
+    def code_table(self):
+        """(256, 4) RGBA of every dequantized u8 value code through the live
+        TF (icon_rt_tpu/ops/march.py `_vq_rgb_table`): 256 postClassify
+        evaluations per march call, so TF edits need no extra bake."""
+        codes = torch.arange(256, dtype=F32, device=self.q.value_lo.device)
+        return post_classify(self.tf, self.q.value_lo + codes * self.v_scale)
+
+
+#: the 12 storage columns of a (..., 16) expanded test row (w dropped)
+_STORAGE_COLS = [0, 1, 2, 4, 5, 6, 8, 9, 10, 12, 13, 14]
 
 
 def _render_frame_fast_q_torch(q: QuantizedCells, loc: Locator,
@@ -134,7 +201,7 @@ def _render_frame_fast_q_torch(q: QuantizedCells, loc: Locator,
 # ===========================================================================
 
 class _TrackQParams(ctypes.Structure):
-    """Mirror of `TrackQParams` in csrc/track_q.cu (same field order)."""
+    """Mirror of `TrackQParams` in csrc/tier_q.cuh (same field order)."""
     _fields_ = [
         ("c", _TrackCommon),
         ("test12", ctypes.c_void_p), ("hfrac", ctypes.c_void_p),
@@ -167,6 +234,64 @@ def build_track_q():
     return lib
 
 
+def check_q_tables(fn, q: QuantizedCells, loc: Locator, tf: Transfunc,
+                   finemap: FineMap | None, dev):
+    """Raise ValueError unless the quantized tier's tables are what K2 and
+    K3 take."""
+    n, lm = q.num_cells, q.lm
+    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev, fn=fn)
+    ck("q.test12", q.test12, F32, (n, 12))
+    ck("q.h_frac", q.h_frac, F32, (None, lm))
+    if q.h_frac.shape[0] not in (1, n):
+        raise ValueError(f"{fn}: q.h_frac must have 1 or N rows")
+    ck("q.value_q", q.value_q, torch.uint8, (n, lm))
+    ck("q.alpha_q", q.alpha_q, torch.uint8, (n, lm))
+    for name in ("value_lo", "value_hi", "alpha_max"):
+        ck(f"q.{name}", getattr(q, name), F32, ())
+    ck("loc.bins", loc.bins, torch.int32, (n_lat * n_lon, loc.bins.shape[1]))
+    ck("tf.values", tf.values, F32, (tf.size, 4))
+    ck("tf.value_range", tf.value_range, F32, (2,))
+    if finemap is None:
+        return
+    f_lat, f_lon = (int(d) for d in finemap.dims.tolist())
+    ck("finemap.slots", finemap.slots, torch.uint8, (f_lat * f_lon, K_CAND))
+    factor = f_lat // n_lat
+    if factor < 1 or f_lat != factor * n_lat or f_lon != factor * n_lon:
+        raise ValueError(f"{fn}: the fine map must refine the locator's "
+                         "grid by an integer factor")
+
+
+def track_q_params(q: QuantizedCells, loc: Locator, tf: Transfunc,
+                   finemap: FineMap | None,
+                   c: _TrackCommon) -> _TrackQParams:
+    """The quantized tier's launch arguments of K2 and K3
+    (csrc/tier_q.cuh); one host read of the scalars."""
+    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    f_lat = f_lon = factor = 0
+    if finemap is not None:
+        f_lat, f_lon = (int(d) for d in finemap.dims.tolist())
+        factor = f_lat // n_lat
+    fm = finemap if finemap is not None else loc
+    host = torch.stack([
+        q.value_lo, q.value_hi, q.alpha_max, tf.value_range[0],
+        tf.value_range[1], loc.lat_lo, loc.lat_hi, loc.lon_lo, loc.lon_hi,
+        fm.lat_lo, fm.lat_hi, fm.lon_lo, fm.lon_hi]).to(F32).tolist()
+    return _TrackQParams(
+        c=c, test12=q.test12.data_ptr(), hfrac=q.h_frac.data_ptr(),
+        vq=q.value_q.data_ptr(), aq=q.alpha_q.data_ptr(),
+        bins=loc.bins.data_ptr(),
+        fslots=finemap.slots.data_ptr() if finemap is not None else None,
+        lut=tf.values.data_ptr(), value_lo=host[0], value_hi=host[1],
+        alpha_max=host[2], tf_lo=host[3], tf_hi=host[4], lat_lo=host[5],
+        lat_hi=host[6], lon_lo=host[7], lon_hi=host[8], f_lat_lo=host[9],
+        f_lat_hi=host[10], f_lon_lo=host[11], f_lon_hi=host[12],
+        hf_stride=0 if q.h_frac.shape[0] == 1 else q.lm, lm=q.lm,
+        lut_size=tf.size, n_lat=n_lat, n_lon=n_lon,
+        k_cap=loc.bins.shape[1], f_lat=f_lat, f_lon=f_lon, factor=factor,
+        use_fine=int(finemap is not None))
+
+
 def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
             tf: Transfunc, lp, pix, accum, fb, *, width: int, height: int,
             samples: int = 1, preserve_cache: bool = True,
@@ -179,38 +304,16 @@ def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     anything else raises."""
     global launches
     dev = pix.device
-    n, lm = q.num_cells, q.lm
     nb = bands.max_opacities.shape[0]
     L = pix.shape[0]
-    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
-    k_cap = loc.bins.shape[1]
+    check_q_tables("track_q", q, loc, tf, finemap, dev)
     ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev,
                                            fn="track_q")
-    ck("q.test12", q.test12, F32, (n, 12))
-    ck("q.h_frac", q.h_frac, F32, (None, lm))
-    if q.h_frac.shape[0] not in (1, n):
-        raise ValueError("track_q: q.h_frac must have 1 or N rows")
-    ck("q.value_q", q.value_q, torch.uint8, (n, lm))
-    ck("q.alpha_q", q.alpha_q, torch.uint8, (n, lm))
-    for name in ("value_lo", "value_hi", "alpha_max"):
-        ck(f"q.{name}", getattr(q, name), F32, ())
-    ck("loc.bins", loc.bins, torch.int32, (n_lat * n_lon, k_cap))
     ck("bands.edges", bands.edges, F32, (nb + 1,))
     ck("bands.max_opacities", bands.max_opacities, F32, (nb,))
-    ck("tf.values", tf.values, F32, (tf.size, 4))
-    ck("tf.value_range", tf.value_range, F32, (2,))
     ck("pix", pix, torch.int32, (L,))
     ck("accum", accum, F32, (L, 4))
     ck("fb", fb, torch.int32, (L,))
-    f_lat = f_lon = factor = 0
-    if finemap is not None:
-        f_lat, f_lon = (int(d) for d in finemap.dims.tolist())
-        ck("finemap.slots", finemap.slots, torch.uint8,
-           (f_lat * f_lon, K_CAND))
-        factor = f_lat // n_lat
-        if factor < 1 or f_lat != factor * n_lat or f_lon != factor * n_lon:
-            raise ValueError("track_q: the fine map must refine the "
-                             "locator's grid by an integer factor")
     if samples < 1:
         raise ValueError("track_q: samples must be >= 1")
     if dev.type == "cpu":
@@ -221,26 +324,9 @@ def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     if dev.type != "cuda":
         raise ValueError(f"track_q: unsupported device {dev}")
     lib = build_track_q()
-    fm = finemap if finemap is not None else loc
-    host = torch.stack([
-        q.value_lo, q.value_hi, q.alpha_max, tf.value_range[0],
-        tf.value_range[1], loc.lat_lo, loc.lat_hi, loc.lon_lo, loc.lon_hi,
-        fm.lat_lo, fm.lat_hi, fm.lon_lo, fm.lon_hi]).to(F32).tolist()
-    p = _TrackQParams(
-        c=track_common(bands, lp, pix, accum, fb, width=width, height=height,
-                       samples=samples, preserve_cache=preserve_cache),
-        test12=q.test12.data_ptr(), hfrac=q.h_frac.data_ptr(),
-        vq=q.value_q.data_ptr(), aq=q.alpha_q.data_ptr(),
-        bins=loc.bins.data_ptr(),
-        fslots=finemap.slots.data_ptr() if finemap is not None else None,
-        lut=tf.values.data_ptr(), value_lo=host[0], value_hi=host[1],
-        alpha_max=host[2], tf_lo=host[3], tf_hi=host[4], lat_lo=host[5],
-        lat_hi=host[6], lon_lo=host[7], lon_hi=host[8], f_lat_lo=host[9],
-        f_lat_hi=host[10], f_lon_lo=host[11], f_lon_hi=host[12],
-        hf_stride=0 if q.h_frac.shape[0] == 1 else lm, lm=lm,
-        lut_size=tf.size, n_lat=n_lat, n_lon=n_lon, k_cap=k_cap,
-        f_lat=f_lat, f_lon=f_lon, factor=factor,
-        use_fine=int(finemap is not None))
+    p = track_q_params(q, loc, tf, finemap, track_common(
+        bands, lp, pix, accum, fb, width=width, height=height,
+        samples=samples, preserve_cache=preserve_cache))
     cuda_build.check("track_q", lib.track_q_launch(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches += 1

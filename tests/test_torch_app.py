@@ -55,7 +55,7 @@ def test_torch_app_build_runs_and_counts_frames(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--raygen", "accel"], ["--raygen", "ae"], ["--sampler", "brute"],
-    ["--sampler", "wedge"], ["-mode", "2"], ["--march"],
+    ["--sampler", "wedge"], ["-mode", "2"], ["--march", "--raygen", "ae"],
     ["--preview", "4"], ["--samples", "auto"]])
 def test_torch_app_out_of_slice_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -143,8 +143,9 @@ def test_torch_app_help_and_missing_input(capsys):
 
 def test_torch_app_tf_edit_rebakes(tmp_path):
     """An opacity-scale edit goes through the TFE dirty flags, resets the
-    accumulation and re-runs the full bake (K5a) and the band majorants
-    (K5b) against the edited transfer function."""
+    accumulation and re-bakes the rows (the scale-only K5c-f32 path, equal
+    to a full K5a bake) and the band majorants (K5b) against the edited
+    transfer function."""
     from icon_rt_tpu_torch.models.accel import compute_max_opacities_torch
     from icon_rt_tpu_torch.ops.fast import _profile_rows_torch
     pl = app.build(["--device", "cpu", *ARGS, "-o", str(tmp_path / "e")])
@@ -174,3 +175,71 @@ def test_torch_app_xf_file(tmp_path):
     img = read_png(out + ".png")
     hit = (img[..., 0] > 200) & (img[..., 1] < 60) & (img[..., 2] < 60)
     assert hit.sum() > 50
+
+
+#: per-pixel PNG mismatch bound of the --march app against the JAX app
+#: (subdiv 3 x 8, 64x64, 2 passes), measured once: 0 of 4096 pixels on the
+#: f32 tier and 0 on the quantized tier; the march's per-pixel accum bound
+#: against JAX (tests/test_torch_march.py) moves an 8-bit channel only on
+#: a rounding edge
+MARCH_MISMATCH_BOUND = 4
+
+
+@pytest.mark.parametrize("tier", [[], ["--quantized"]], ids=["f32", "q"])
+def test_torch_app_march_matches_jax_app(caches, tier):
+    """--march: each launch renders one converged pass (2 launches for
+    --sample-limit 2), the quantized march without a fine map (none is
+    built); the PNG agrees with the JAX app's per pixel within
+    MARCH_MISMATCH_BOUND."""
+    args = ["--synthetic", "3:8", "--size", "64", "64", "--sample-limit", "2",
+            "--march", *tier]
+    out_t, out_j = str(caches / "tm"), str(caches / "jm")
+    pl = app.build(["--device", "cpu", *args, "-o", out_t])
+    assert _run_loop(pl) == 2 and pl.frame_id == 2
+    pl.present()
+    if tier:
+        assert pl.scene["fm"]() is None
+    assert icon_rt.main([*args, "-o", out_j]) == 0
+    img_t, img_j = read_png(out_t + ".png"), read_png(out_j + ".png")
+    assert img_t.shape == img_j.shape == (64, 64, 4)
+    differ = (img_t != img_j).any(axis=-1)
+    assert differ.sum() <= MARCH_MISMATCH_BOUND, differ.sum()
+    assert (img_t[..., :3] != img_t[0, 0, :3]).any(axis=-1).sum() > 50
+
+
+def test_torch_app_scale_only_edit_skips_full_bake(tmp_path, monkeypatch):
+    """After a curve edit (a full K5a bake), opacity-scale edits re-derive
+    the baked alpha from parts baked once per LUT (K5c-f32) and run no full
+    bake; the rows equal a full bake at every step."""
+    from icon_rt_tpu_torch.ops import fast
+    calls = {"bake": 0, "parts": 0}
+    for name, key in (("classify_bake", "bake"),
+                      ("pack_alpha_scale_parts", "parts")):
+        orig = getattr(fast, name)
+
+        def counted(*a, _orig=orig, _key=key, **k):
+            calls[_key] += 1
+            return _orig(*a, **k)
+        monkeypatch.setattr(fast, name, counted)
+    pl = app.build(["--device", "cpu", *ARGS, "--march",
+                    "-o", str(tmp_path / "s")])
+    pl.launch()
+    assert calls == {"bake": 1, "parts": 0}
+    calls["bake"] = 0
+    lut = pl.transfunc.get_lut()
+    lut[:, 3] *= 0.5
+    pl.transfunc.set_lut(lut)
+    pl.transfunc_update_handler(pl.transfunc, pl.tf_index)
+    assert calls == {"bake": 1, "parts": 0}
+    s = pl.scene
+    for v in (0.3, 2.0):
+        pl.set_ui_param("Opacity scale", v)
+        pl.is_running()
+        tf = s["tf"]()
+        prof, rgb = fast._profile_rows_torch(
+            s["cells"].height, s["cells"].value, s["cells"].num_layers, tf)
+        packed = s["get_packed"]()
+        assert torch.equal(packed.prof, prof) and torch.equal(packed.rgb, rgb)
+    assert calls == {"bake": 1, "parts": 1}
+    pl.launch()
+    assert torch.isfinite(pl.frame["accum"]).all()

@@ -1,5 +1,6 @@
-"""PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q
-and K7-fm against their plain PyTorch versions on the same CUDA inputs.  Marked `cuda`: they
+"""PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q,
+K7-fm, K3 (both tiers) and K5c-f32 against their plain PyTorch versions on
+the same CUDA inputs.  Marked `cuda`: they
 skip where no GPU is present (CUDA and Triton kernels have no CPU mode).
 On a GPU machine:  python -m pytest tests/test_torch_kernels_cuda.py"""
 import numpy as np
@@ -15,7 +16,7 @@ from icon_rt_tpu_torch.models.shells import (build_radial_bands,
 from icon_rt_tpu_torch.models.transfunc import make_transfunc
 from icon_rt_tpu_torch.models import finemap, qcells
 from icon_rt_tpu_torch.models.locator import build_locator_csr, densify_csr
-from icon_rt_tpu_torch.ops import fast, fastq, order
+from icon_rt_tpu_torch.ops import fast, fastq, march, order
 from icon_rt_tpu_torch.ops.camera import Camera
 from icon_rt_tpu_torch.ops.render import alloc_frame, make_launch_params
 
@@ -201,3 +202,73 @@ def test_cuda_track_q_matches_plain(scene, qscene, use_fm, preserve_cache):
     (ak, fk), (ap, fp) = outs
     assert (fk == fp).float().mean() >= 0.999
     assert float((ak - ap).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("accum_id", [0, 3])
+def test_cuda_march_f32_matches_plain(scene, accum_id):
+    """K3-f32: fb identical on >= 99.9% of lanes, accum within 1e-6 (the
+    kernel follows the plain version's loop order; bit-equal is the aim)."""
+    n = scene["n_cov"]
+    pix = scene["perm"][:n].contiguous()
+    lp = scene["lp"]._replace(accum_id=torch.tensor(
+        accum_id, dtype=torch.int32, device=pix.device))
+    outs = []
+    for kernel in (True, False):
+        acc, fb = alloc_frame(96, 96, device=pix.device)
+        args = (scene["packed"], scene["loc"], scene["bands"], lp, pix,
+                acc[:n], fb[:n])
+        before = march.launches["march_f32"]
+        if kernel:
+            march.march_f32(*args, width=96, height=96)
+            assert march.launches["march_f32"] == before + 1
+        else:
+            march._march_frame_torch(
+                fast._F32Tier(scene["packed"], scene["loc"]),
+                scene["bands"], lp, pix, acc[:n], fb[:n], 96, 96)
+        torch.cuda.synchronize()
+        outs.append((acc, fb))
+    (ak, fk), (ap, fp) = outs
+    assert (fk == fp).float().mean() >= 0.999
+    assert float((ak - ap).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("use_fm", [True, False],
+                         ids=["finemap", "no_finemap"])
+def test_cuda_march_q_matches_plain(scene, qscene, use_fm):
+    """K3-q: fb identical on >= 99.9% of lanes, accum within 1e-6."""
+    n = scene["n_cov"]
+    pix = scene["perm"][:n].contiguous()
+    fm = qscene["fm"] if use_fm else None
+    outs = []
+    for kernel in (True, False):
+        acc, fb = alloc_frame(96, 96, device=pix.device)
+        tabs = (qscene["q"], qscene["loc"], scene["bands"], scene["tf"])
+        if kernel:
+            march.march_q(*tabs, scene["lp"], pix, acc[:n], fb[:n],
+                          width=96, height=96, finemap=fm)
+        else:
+            march._march_frame_torch(
+                fastq._QTier(qscene["q"], qscene["loc"], scene["tf"], fm),
+                scene["bands"], scene["lp"], pix, acc[:n], fb[:n], 96, 96)
+        torch.cuda.synchronize()
+        outs.append((acc, fb))
+    (ak, fk), (ap, fp) = outs
+    assert (fk == fp).float().mean() >= 0.999
+    assert float((ak - ap).abs().max()) <= 1e-6
+
+
+def test_cuda_opacity_scale_matches_plain(scene):
+    """K5c-f32: parts and apply bitwise equal to the plain versions, and the
+    scale-only re-bake bitwise equal to a full K5a bake at the new scale."""
+    c, tf = scene["cells"], scene["tf"]
+    parts = fast.pack_alpha_scale_parts(c, tf)
+    want = fast._alpha_scale_parts_torch(c.value, tf)
+    assert torch.equal(parts[0], want[0]) and torch.equal(parts[1], want[1])
+    s = torch.full_like(tf.opacity_scale, 0.37)
+    packed = fast.pack_cells(c, tf)
+    prof_p = packed.prof.clone()
+    fast.apply_opacity_scale(packed, parts, s)
+    fast._apply_opacity_scale_torch(prof_p, *want, s)
+    assert torch.equal(packed.prof, prof_p)
+    full = fast.classify_bake(c, tf._replace(opacity_scale=s))[0]
+    assert torch.equal(packed.prof, full)

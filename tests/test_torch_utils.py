@@ -96,8 +96,10 @@ def test_torch_png_roundtrip(tmp_path):
 
 
 def test_torch_port_never_imports_jax(tmp_path):
-    """In a fresh interpreter: import every module of the port and run a
-    tiny render through the app; neither jax nor icon_rt_tpu may load."""
+    """In a fresh interpreter: import every module of the port (the march,
+    ops/march.py, by name too) and run tiny renders through the app, the
+    Woodcock tracker and the march; neither jax nor icon_rt_tpu may
+    load."""
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -107,9 +109,12 @@ torch.set_num_threads(1)
 import icon_rt_tpu_torch
 for m in pkgutil.walk_packages(icon_rt_tpu_torch.__path__, 'icon_rt_tpu_torch.'):
     importlib.import_module(m.name)
+import icon_rt_tpu_torch.ops.march
 from icon_rt_tpu_torch import app
-assert app.main(['--device', 'cpu', '--synthetic', '1:2', '--size', '16', '16',
-                 '--sample-limit', '2', '-o', {str(tmp_path / 'x')!r}]) == 0
+for extra, out in (([], 'x'), (['--march'], 'm')):
+    assert app.main(['--device', 'cpu', '--synthetic', '1:2', '--size', '16',
+                     '16', '--sample-limit', '2', *extra,
+                     '-o', {str(tmp_path)!r} + '/' + out]) == 0
 bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')
        or m == 'icon_rt_tpu' or m.startswith('icon_rt_tpu.')]
 assert not bad, bad
@@ -122,3 +127,4 @@ print('CLEAN')
     assert res.returncode == 0, res.stderr
     assert "CLEAN" in res.stdout
     assert os.path.exists(tmp_path / "x.png")
+    assert os.path.exists(tmp_path / "m.png")
