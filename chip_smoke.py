@@ -8,7 +8,8 @@ script exits non-zero without printing a result):
 
   env     the card's name and power limit; there is no CPU fallback
   build   the nvcc builds of K1 (csrc/track_f32.cu), K2 (csrc/track_q.cu),
-          K7-fm (csrc/finemap.cu) and K3 (csrc/march.cu), started together,
+          K7-fm (csrc/finemap.cu), K3 (csrc/march.cu), K7-scene
+          (csrc/scene.cu) and K7-loc (csrc/locator.cu), started together,
           and the first Triton compile of K5a, K5b, K6, K5c-q and K5c-f32,
           with their seconds and the ptxas register/spill lines
   check   every kernel against its plain PyTorch version on the card, at
@@ -61,6 +62,35 @@ script exits non-zero without printing a result):
   profile one steady launch of each main path under torch.profiler:
           device time by kernel and the device's idle share of the
           launch's wall time
+  scene9  the R2B9 scene's kernels (subdiv 11 x 16, 83,886,080 columns),
+          after every earlier table is freed:
+            K7-scene against its plain version on the whole subdiv-8 x 16
+                scene, on the first and the last 2^20-cell index windows of
+                R2B9 and on the whole of R2B9: test12 and corner lat/lon
+                bit-equal, value_q exact on >= 99.999% of entries and within
+                1 level, value range and per-layer u8 ranges equal
+            K7-loc against its plain version on the subdiv-8 scene and on
+                R2B9 (rectangles, counts, k_cap and bins exact), the R2B9
+                invariants (counts sum to the rectangles' area, rows
+                ascending with -1 only at the tail, every cell listed), and
+                the bins of the host synthesizer's lat/lon against the device
+                scene's at subdiv 8 (a count, not a check)
+            K7-fm at R2B9: seconds and fine bins
+  main r2b9q  bench.py `_measure_row_q` at LOD 0: build_q_scene(11, 16)
+          with every launch counter zeroed before and read after, the
+          closeup camera at 1920x1080, 8 samples per launch to 64 samples
+          (median and spread of the steady launches, fb on the host), fps1,
+          tf_edit_s, tf_stroke_s, tf_preview_s; coverage >= 0.5; K2 against
+          its plain version on the first 4096 covered lanes, fine map on
+          and off
+  main r2b9m  bench.py `_measure_row_m`: the scene built again, the
+          quantized march with the fine map, one converged pass per launch
+          (median of 3), tf_edit_s; the pass with the fine map against the
+          pass without (<= FINEMAP_SHARE of lanes beyond FINEMAP_TOL); K3-q
+          against its plain version on the first 4096 covered lanes
+
+Every phase prints the device's peak memory (torch.cuda.max_memory_allocated
+since the phase began).
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line {"kernels": [...]}, and {"ok": true, "device": {...}}.
@@ -97,7 +127,14 @@ FINEMAP_TOL = 1e-4          # K3-q fine map on vs off (tests/test_march.py:366)
 #: port's exit on the CPU: 7 of 64,667 lanes, up to 3.4e-3
 #: (scripts/torch_march_vs_jax.py tie --tf default).
 FINEMAP_SHARE = 1e-3
-CU_SOURCES = ("track_f32", "track_q", "finemap", "march")   # csrc/*.cu
+CU_SOURCES = ("track_f32", "track_q", "finemap", "march", "scene",
+              "locator")                                  # csrc/*.cu
+R2B9_SUB, R2B9_LAYERS = 11, 16    # bench.py r2b9q_closeup / r2b9m_closeup
+R2B9_SPL, R2B9_LIMIT = 8, 64      # r2b9q: samples per launch, in all
+PREVIEW_W, PREVIEW_H = 480, 270   # bench.py's preview frame (W/4 x H/4)
+WINDOW_CELLS = 1 << 20            # the R2B9 index windows of the K7-scene check
+CHECK_LANES = 4096                # K2 / K3-q against plain at R2B9
+SCENE_THICKNESS = 3.0e4           # data/device_scene.py's default
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 # The bound of a kernel is the larger of its bytes over the H100's memory
@@ -109,6 +146,17 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # read; the operations are per event counts of the kernels' arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12           # NVIDIA's H100 SXM data sheet, FP64 outside
+#                             the tensor cores (K7-loc's rectangles)
+#: K7-scene operations per cell: per subdivision step 9 adds and 3 vertex
+#: normalizations (3 mul, 2 add, sqrt, 3 div); per pass the orientation and
+#: the 16 transcendentals of the corner lat/lon and the field (~20 each);
+#: per layer the field's scale and clip and, in pass 2, the quantization;
+#: the three side normals (9 mul, 6 sub, 9 cross products)
+SCENE_OPS = {"step": 36, "pass": 400, "layer": 12, "normals": 72}
+#: K7-loc f64 operations per cell (edge extrema, 2 bulge points per edge,
+#: the interior tests and the bin indices)
+LOCATOR_OPS = 300
 LANE_BYTES = 40             # pix read, accum read and written, fb written
 #: per distinct located column: bytes of its test data, and bytes per layer
 #: of the per-layer entries the kernel reads (K1: height + alpha; K3-f32:
@@ -605,13 +653,26 @@ def check_march(sc, qtabs, dev):
 
 def zero_counters():
     """Every kernel launch counter of the port to 0."""
-    from icon_rt_tpu_torch.models import accel, finemap, qcells
+    from icon_rt_tpu_torch.data import device_scene
+    from icon_rt_tpu_torch.models import accel, finemap, locator, qcells
     from icon_rt_tpu_torch.ops import fast, fastq, march, order
     accel.launches = order.launches = 0
     fastq.launches = finemap.launches = 0
-    for d in (fast.launches, qcells.launches, march.launches):
+    for d in (fast.launches, qcells.launches, march.launches,
+              device_scene.launches, locator.launches):
         for k in d:
             d[k] = 0
+
+
+def peak_memory(tag):
+    """Print the device's peak allocated memory since the last call (or the
+    start) and reset the peak."""
+    import torch
+    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{tag} peak device memory {gib:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    torch.cuda.reset_peak_memory_stats()
+    return gib
 
 
 def read_counters(quantized, marching):
@@ -1302,8 +1363,6 @@ def profile_launch(pl, quantized=False, marching=False):
     """One steady main-path launch (fb copied to the host) under
     torch.profiler: device time by kernel and the device's idle share of
     the launch's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from icon_rt_tpu_torch.ops.fast import render_frame_fast
     from icon_rt_tpu_torch.ops.fastq import render_frame_fast_q
     from icon_rt_tpu_torch.ops.march import (render_frame_march,
@@ -1331,9 +1390,21 @@ def profile_launch(pl, quantized=False, marching=False):
             render = lambda: render_frame_fast(*tables, lp, *out,
                                                samples=MAIN_SPL, **kw)
 
+    what = ("march " if marching else "") + ("quantized " if quantized
+                                             else "")
+    profile_render(render, frame["fb"], f"steady {what}launch")
+
+
+def profile_render(render, fb, what):
+    """One call of `render` and the copy of fb to the host, after a warm
+    call, under torch.profiler: device time by kernel and the device's idle
+    share of the call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     def launch():
         render()
-        return frame["fb"].cpu()
+        return fb.cpu()
 
     launch()
     torch.cuda.synchronize()
@@ -1358,13 +1429,559 @@ def profile_launch(pl, quantized=False, marching=False):
             end = b
     top = ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in
                     sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
-    what = ("march " if marching else "") + ("quantized " if quantized
-                                             else "")
-    print(f"profile steady {what}launch: wall {wall:.3f} ms, device busy "
+    print(f"profile {what}: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; {top}")
     if not 0.0 < busy <= wall:
         raise AssertionError(f"device busy {busy:.3f} ms is not within the "
                              f"launch's wall time {wall:.3f} ms")
+
+
+def scene_consts(sub, dev):
+    """K7-scene's constants of the synthetic subdiv-`sub` x 16 scene."""
+    from icon_rt_tpu_torch.data import device_scene
+    from icon_rt_tpu_torch.data.synthetic import EARTH_RADIUS
+    return device_scene._Consts(sub, R2B9_LAYERS, float(EARTH_RADIUS),
+                                SCENE_THICKNESS, dev)
+
+
+def u8_diff(a, b):
+    """(largest level difference, share of equal entries) of two u8
+    tables, without widening them."""
+    import torch
+    d = torch.maximum(a, b) - torch.minimum(a, b)
+    return int(d.max()), 1.0 - float(torch.count_nonzero(d)) / max(d.numel(),
+                                                                   1)
+
+
+def compare_scene(got, want, label, whole):
+    """K7-scene pass-2 outputs against the plain version's: test12 and the
+    corner lat/lon bit-equal, value_q exact on >= 99.999% of its entries and
+    within 1 level; for a whole scene also the per-layer u8 ranges.  Returns
+    the largest value_q level difference."""
+    import torch
+    t12k, vqk, qmink, qmaxk, latk, lonk = got
+    t12p, vqp, qminp, qmaxp, latp, lonp = want
+    geo = torch.equal(t12k, t12p) and torch.equal(latk, latp) \
+        and torch.equal(lonk, lonp)
+    mx, same = u8_diff(vqk, vqp)
+    ranges = (not whole) or (torch.equal(qmink, qminp)
+                             and torch.equal(qmaxk, qmaxp))
+    print(f"{label}: {t12k.shape[0]} cells; test12 and lat/lon bit-equal "
+          f"{geo}; value_q identical on {same:.7f} of {vqk.numel()} "
+          f"entries, max {mx} level(s)"
+          + (f"; per-layer u8 ranges equal {ranges}" if whole else ""))
+    if not geo or mx > 1 or same < 0.99999 or not ranges:
+        raise AssertionError(f"{label}: K7-scene differs from its plain "
+                             f"version")
+    return float(mx)
+
+
+def scene_bound(c):
+    """(ms, by) of both K7-scene passes over the scene of `c` as the main
+    path runs them: writes test12, value_q and the corner lat/lon."""
+    n, nl = c.n, c.num_layers
+    nbytes = n * (48 + c.lm + 24)
+    ops = n * (2 * (SCENE_OPS["step"] * c.subdivisions + SCENE_OPS["pass"])
+               + nl * SCENE_OPS["layer"] + SCENE_OPS["normals"])
+    return bound(nbytes, ops)
+
+
+def locator_bound(n, n_bins, k_cap):
+    """(ms, by) of K7-loc: reads the corner lat/lon, writes the rectangles,
+    the counts and the dense table once; its f64 rectangles."""
+    nbytes = 24 * n + 32 * n + 4 * n_bins + 4 * n_bins * k_cap
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = LOCATOR_OPS * n / F64_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def compare_locator(got, want, label):
+    """K7-loc's (loc, k_cap, counts, rect) against the plain version's
+    (bins, k_cap, counts, rect): everything exact.  On a mismatch the first
+    differing cells' rectangles are printed."""
+    import torch
+    loc, k, counts, rect = got
+    bins_p, k_p, counts_p, rect_p = want
+    same_rect = torch.equal(rect, rect_p)
+    ok = (k == k_p and same_rect and torch.equal(counts, counts_p)
+          and torch.equal(loc.bins, bins_p))
+    print(f"{label}: {rect.shape[0]} cells, {tuple(loc.bins.shape)} bins, "
+          f"k_cap {k} (plain {k_p}); rectangles, counts and bins exact {ok}")
+    if not same_rect:
+        bad = torch.nonzero((rect != rect_p).any(1)).squeeze(1)[:5]
+        for c in bad.tolist():
+            print(f"{label}: cell {c} rect kernel {rect[c].tolist()} plain "
+                  f"{rect_p[c].tolist()}")
+    if not ok:
+        raise AssertionError(f"{label}: K7-loc differs from its plain "
+                             f"version")
+    return 0.0
+
+
+def locator_invariants(loc, k_cap, counts, rect, n, label):
+    """The dense locator's invariants: counts sum to the rectangles' area
+    (int64), k_cap == max(counts), each row holds counts[b] ids in
+    ascending order with -1 only past them, and every cell id appears."""
+    import torch
+    r = rect.to(torch.int64)
+    area = ((r[:, 1] - r[:, 0] + 1) * (r[:, 3] - r[:, 2] + 1)).sum() + (
+        (r[:, 5] - r[:, 4] + 1) * (r[:, 7] - r[:, 6] + 1)
+        * (r[:, 4] >= 0)).sum()
+    total = int(counts.to(torch.int64).sum())
+    bins = loc.bins
+    valid = bins >= 0
+    filled = valid.sum(1, dtype=torch.int32)
+    prefix = bool((valid[:, :-1] | ~valid[:, 1:]).all())
+    ascending = bool(((bins[:, 1:] >= bins[:, :-1]) | ~valid[:, 1:]).all())
+    seen = torch.zeros(n, dtype=torch.bool, device=bins.device)
+    seen[bins[valid].long()] = True
+    checks = {"area": total == int(area), "k_cap": k_cap == int(counts.max()),
+              "rows": bool(torch.equal(filled, counts)) and prefix,
+              "ascending": ascending, "every_cell": bool(seen.all())}
+    print(f"{label}: {total} entries (rectangle area {int(area)}), k_cap "
+          f"{k_cap}, invariants {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: the locator breaks an invariant")
+
+
+def scene9(dev, errs):
+    """K7-scene and K7-loc against their plain versions (subdiv 8 whole,
+    R2B9 windows and whole), the R2B9 invariants, and K7-fm at R2B9.
+    Returns the timing entries of the kernels line."""
+    import torch
+    from icon_rt_tpu_torch.data import bigscene
+    from icon_rt_tpu_torch.data import device_scene as ds
+    from icon_rt_tpu_torch.models import finemap, locator
+    t = {}
+
+    # -- subdiv 8: the whole scene against the plain version ----------------
+    c8 = scene_consts(MAIN_SUB, dev)
+    agg_k, agg_p = ds.scene_pass1(c8), ds._scene_pass1_torch(c8, 0, c8.n)
+    if not torch.equal(agg_k, agg_p):
+        raise AssertionError(f"K7-scene pass 1 differs: {agg_k.tolist()} "
+                             f"vs {agg_p.tolist()}")
+    lo, hi = (float(v) for v in agg_k[:2])
+    scale = float(ds.quant_scale(lo, hi))
+    out8 = ds.scene_pass2(c8, lo, scale, latlon=True)
+    errs["synth_scene"] = compare_scene(
+        out8, ds._scene_pass2_torch(c8, 0, c8.n, lo, scale, True),
+        f"scene9 K7-scene subdiv {MAIN_SUB} whole", True)
+    lat8, lon8 = out8[4], out8[5]
+    got8 = locator.bin_locator(lat8, lon8)
+    n_lat, n_lon = (int(d) for d in got8[0].dims.tolist())
+    win8 = locator.locator_window(lat8, lon8)
+    errs["locator_bins"] = compare_locator(
+        got8, locator._locator_bins_torch(lat8, lon8, n_lat, n_lon, win8),
+        f"scene9 K7-loc subdiv {MAIN_SUB} whole")
+    t["locator_ms_sub8"] = time_cuda(lambda: locator.bin_locator(lat8, lon8),
+                                     reps=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    locator._locator_bins_torch(lat8, lon8, n_lat, n_lon, win8)
+    torch.cuda.synchronize()
+    t["locator_plain_ms_sub8"] = (time.perf_counter() - t0) * 1e3
+    # the reference's bench bins R2B9 from the HOST scene's lat/lon while
+    # its tables come from the device scene; count what that changes
+    sc = bigscene.synth_quantized(MAIN_SUB, MAIN_LAYERS)
+    lat_h = torch.from_numpy(sc.lat).to(dev)
+    lon_h = torch.from_numpy(sc.lon).to(dev)
+    loc_h, k_h = locator.bin_locator(lat_h, lon_h)[:2]
+    ll_diff = int(((lat_h != lat8) | (lon_h != lon8)).any(1).sum())
+    if loc_h.bins.shape == got8[0].bins.shape:
+        rows = int((loc_h.bins != got8[0].bins).any(1).sum())
+    else:
+        rows = -1
+    print(f"scene9 host vs device lat/lon at subdiv {MAIN_SUB}: {ll_diff} "
+          f"of {c8.n} cells differ in a corner lat/lon; k_cap {k_h} vs "
+          f"{got8[1]}; {rows} of {n_lat * n_lon} locator rows differ "
+          f"(-1: the tables' widths differ)")
+    del out8, lat8, lon8, got8, sc, lat_h, lon_h, loc_h
+    peak_memory("scene9 subdiv 8")
+
+    # -- R2B9 --------------------------------------------------------------
+    c = scene_consts(R2B9_SUB, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg = ds.scene_pass1(c)
+    lo, hi = (float(v) for v in agg[:2])
+    scale = float(ds.quant_scale(lo, hi))
+    out = ds.scene_pass2(c, lo, scale, latlon=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tables = (out[0].numel() * 4 + out[1].numel()) / 1e9
+    print(f"scene9 K7-scene subdiv {R2B9_SUB} x {R2B9_LAYERS}: {c.n} cells "
+          f"in {build_s:.3f} s (both passes, one host read); tables test12 + "
+          f"value_q {tables:.3f} GB, corner lat/lon "
+          f"{2 * out[4].numel() * 4 / 1e9:.3f} GB; value range [{lo:.7f}, "
+          f"{hi:.7f}]; per-layer u8 min {out[2].tolist()} max "
+          f"{out[3].tolist()}")
+    k1 = time_cuda(lambda: ds.scene_pass1(c), reps=3)
+    k2 = time_cuda(lambda: ds.scene_pass2(c, lo, scale, latlon=True),
+                   reps=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg_p = ds._scene_pass1_torch(c, 0, c.n)
+    torch.cuda.synchronize()
+    p1 = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(agg, agg_p):
+        raise AssertionError(f"K7-scene pass 1 differs at R2B9: "
+                             f"{agg.tolist()} vs {agg_p.tolist()}")
+    for name, s0 in (("first", 0), ("last", c.n - WINDOW_CELLS)):
+        w = ds._scene_pass2_torch(c, s0, WINDOW_CELLS, lo, scale, True)
+        rows = slice(s0, s0 + WINDOW_CELLS)
+        compare_scene(tuple(x[rows] for x in out[:2]) + w[2:4]
+                      + tuple(x[rows] for x in out[4:]), w,
+                      f"scene9 K7-scene R2B9 {name} window [{s0}, "
+                      f"{s0 + WINDOW_CELLS})", False)
+        del w
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = ds._scene_pass2_torch(c, 0, c.n, lo, scale, True)
+    torch.cuda.synchronize()
+    p2 = (time.perf_counter() - t0) * 1e3
+    errs["synth_scene"] = max(errs["synth_scene"], compare_scene(
+        out, whole, f"scene9 K7-scene R2B9 whole", True))
+    del whole
+    t["scene"] = dict(ms=k1 + k2, plain_ms=p1 + p2, pass1_ms=k1,
+                      pass2_ms=k2, plain_pass1_ms=p1, plain_pass2_ms=p2,
+                      build_s=build_s, bnd=scene_bound(c), cells=c.n)
+    print(f"scene9 K7-scene R2B9 kernel pass 1 {k1:.3f} ms + pass 2 "
+          f"{k2:.3f} ms; plain {p1:.1f} + {p2:.1f} ms")
+    peak_memory("scene9 K7-scene R2B9")
+
+    test12, lat, lon = out[0], out[4], out[5]
+    del out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = locator.bin_locator(lat, lon)
+    torch.cuda.synchronize()
+    loc_s = time.perf_counter() - t0
+    loc, k_cap, counts, rect = got
+    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    print(f"scene9 K7-loc R2B9: {loc_s:.3f} s (three launches, one host "
+          f"read); dims {n_lat} x {n_lon}, k_cap {k_cap}, table "
+          f"{loc.bins.numel() * 4 / 1e9:.3f} GB")
+    locator_invariants(loc, k_cap, counts, rect, c.n, "scene9 K7-loc R2B9")
+    kl = time_cuda(lambda: locator.bin_locator(lat, lon), reps=2)
+    win = locator.locator_window(lat, lon)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = locator._locator_bins_torch(lat, lon, n_lat, n_lon, win)
+    torch.cuda.synchronize()
+    pl = (time.perf_counter() - t0) * 1e3
+    compare_locator(got, want, "scene9 K7-loc R2B9 whole")
+    del want, got, rect, counts
+    t["locator"] = dict(ms=kl, plain_ms=pl, build_s=loc_s,
+                        bnd=locator_bound(c.n, n_lat * n_lon, k_cap),
+                        dims=[n_lat, n_lon], k_cap=k_cap,
+                        ms_subdiv8=t["locator_ms_sub8"],
+                        plain_ms_subdiv8=t["locator_plain_ms_sub8"])
+    print(f"scene9 K7-loc R2B9 kernel {kl:.3f} ms, plain {pl:.1f} ms")
+    peak_memory("scene9 K7-loc R2B9")
+
+    del lat, lon               # the corners go before the fine map's scratch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = finemap.finemap_slots(loc, test12)
+    torch.cuda.synchronize()
+    print(f"scene9 K7-fm R2B9: {time.perf_counter() - t0:.3f} s, "
+          f"{slots.shape[0]} fine bins ({slots.numel() / 1e9:.3f} GB)")
+    del slots, loc, test12
+    torch.cuda.empty_cache()
+    peak_memory("scene9 K7-fm R2B9")
+    return t
+
+
+def r2b9_scene(dev, tag):
+    """build_q_scene(11, 16) on the card, timed by phase (the peak memory
+    counted from its start); returns its tuple."""
+    import torch
+    from icon_rt_tpu_torch.data import bigscene
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = bigscene.build_q_scene(R2B9_SUB, R2B9_LAYERS, device=dev,
+                                 finemap_factor=2, timings=timings)
+    build_s = time.perf_counter() - t0
+    q, loc, k_cap, _, _, _, fm = out
+    gb = (q.test12.numel() * 4 + q.value_q.numel() + q.alpha_q.numel()
+          + loc.bins.numel() * 4 + fm.slots.numel()) / 1e9
+    phases = ", ".join(f"{k} {v:.3f} s (peak "
+                       f"{timings.get(k + '_peak_bytes', 0) / 2 ** 30:.2f} GiB)"
+                       for k, v in timings.items() if not k.endswith("bytes"))
+    print(f"{tag} build_q_scene({R2B9_SUB}, {R2B9_LAYERS}) {build_s:.3f} s: "
+          f"{phases}; {q.num_cells} cells, locator "
+          f"{tuple(loc.dims.tolist())} k_cap {k_cap}, fine map "
+          f"{tuple(fm.dims.tolist())}; tables {gb:.3f} GB")
+    return out
+
+
+def r2b9_frame(stats, width, height, dev):
+    """(launch params, pixel order, covered lanes) of the closeup camera."""
+    from icon_rt_tpu_torch.ops.order import pixel_order
+    from icon_rt_tpu_torch.ops.render import make_launch_params
+    cam = closeup_camera(stats, width, height)
+    ud = 10.0 ** (np.floor(np.log10(stats.spherical_bounds_lo[0])) - 3)
+    lp = make_launch_params(cam.basis(width, height), stats.world_bounds_lo,
+                            stats.world_bounds_hi, unit_distance=ud,
+                            device=dev)
+    perm, n_active = pixel_order(lp, stats.spherical_bounds_lo[0],
+                                 stats.spherical_bounds_hi[0], width, height)
+    return lp, perm, n_active
+
+
+def with_id(lp, k):
+    import torch
+    return lp._replace(accum_id=torch.tensor(k, dtype=torch.int32,
+                                             device=lp.accum_id.device))
+
+
+def gain_edit(tf, gain, scale):
+    """bench.py's worst-case TF edit: every LUT entry scaled by gain and a
+    new opacity scale."""
+    import torch
+    return tf._replace(values=tf.values * gain,
+                       opacity_scale=torch.full_like(tf.opacity_scale, scale))
+
+
+def stroke_edit(tf, gain):
+    """bench.py's freehand stroke: alpha of n/16 LUT entries from 2/5 of
+    the LUT scaled by gain (a few of the 256 normalized levels move)."""
+    vals = tf.values.clone()
+    n = vals.shape[0]
+    vals[(n * 2) // 5:(n * 2) // 5 + max(n // 16, 1), 3] *= gain
+    return tf._replace(values=vals)
+
+
+def require_counts(tag, counts):
+    print(f"{tag} launch counts {json.dumps(counts)}")
+    for k, v in counts.items():
+        if v <= 0:
+            raise AssertionError(f"{tag} path did not launch {k}")
+
+
+def scene_counts():
+    """{kernel name: launches} of the R2B9 build's own kernels."""
+    from icon_rt_tpu_torch.data import device_scene
+    from icon_rt_tpu_torch.models import accel, finemap, locator, qcells
+    return {"synth_scene": sum(device_scene.launches.values()),
+            "locator_bins": sum(locator.launches.values()),
+            "build_finemap": finemap.launches,
+            "bake_alpha_q": sum(qcells.launches.values()),
+            "max_opacity": accel.launches}
+
+
+def main_r2b9q(dev, errs):
+    """bench.py `_measure_row_q` (bench.py:581-743) at LOD 0 through the
+    port: the build, the steady launches, fps1 and the three edit
+    latencies; K2 against its plain version on the first CHECK_LANES
+    covered lanes.  Returns the launch counts of the path."""
+    import torch
+    from icon_rt_tpu_torch.models import qcells
+    from icon_rt_tpu_torch.models.qcells import bake_alpha_q
+    from icon_rt_tpu_torch.models.shells import update_band_majorants
+    from icon_rt_tpu_torch.ops import fastq, order
+    from icon_rt_tpu_torch.ops.fastq import render_frame_fast_q
+    from icon_rt_tpu_torch.ops.order import inverse_order
+    from icon_rt_tpu_torch.ops.render import alloc_frame, fb_to_image
+    from icon_rt_tpu_torch.utils.png import write_png
+    tag = "main r2b9q"
+    W, H = MAIN_W, MAIN_H
+    zero_counters()
+    q, loc, _, bands, tf, stats, fm = r2b9_scene(dev, tag)
+    lp, perm, n_active = r2b9_frame(stats, W, H, dev)
+    kw = dict(width=W, height=H, pixel_perm=perm, n_active=n_active,
+              finemap=fm)
+    accum, fb = alloc_frame(W, H, device=dev)
+    launch_ms = []
+    for k in range(R2B9_LIMIT // R2B9_SPL):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        render_frame_fast_q(q, loc, bands, tf, with_id(lp, k * R2B9_SPL),
+                            accum, fb, samples=R2B9_SPL, **kw)
+        fb_host = fb.cpu().numpy().view(np.uint32)
+        e1.record()
+        torch.cuda.synchronize()
+        launch_ms.append(e0.elapsed_time(e1))
+    covered = float(((fb_host >> 24) > 0).mean())
+    if not bool(torch.isfinite(accum).all()) or covered < 0.5:
+        raise AssertionError(f"{tag}: image covers {covered:.4f} (< 0.5) or "
+                             f"accum is not finite")
+    inv = inverse_order(perm).cpu().numpy()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    write_png(os.path.join(OUT_DIR, "chip_smoke_r2b9q.png"),
+              fb_to_image(fb_host[inv].view(np.int32), W, H))
+    steady = np.array(launch_ms[1:])
+    med = float(np.median(steady))
+    spread = float((steady.max() - steady.min()) / med)
+    mray = W * H * R2B9_SPL / (med * 1e-3) / 1e6
+    mray_t = n_active * R2B9_SPL / (med * 1e-3) / 1e6
+    print(f"{tag} {len(launch_ms)} launches of {R2B9_SPL} samples to "
+          f"{R2B9_LIMIT}; ms per launch {[round(x, 3) for x in launch_ms]} "
+          f"(the first is the warm-up)")
+    print(f"{tag} steady launch median {med:.3f} ms, spread {spread:.3f}; "
+          f"{mray:.3f} Mray/s full, {mray_t:.3f} Mray/s traced ({n_active} "
+          f"covered lanes); image covered fraction {covered:.4f}")
+
+    profile_render(lambda: render_frame_fast_q(
+        q, loc, bands, tf, with_id(lp, R2B9_LIMIT), accum, fb,
+        samples=R2B9_SPL, **kw), fb, f"{tag} steady launch")
+    t1s = []
+    for j in range(4):          # the first warms the samples=1 launch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_frame_fast_q(q, loc, bands, tf, with_id(lp, R2B9_LIMIT + j),
+                            accum, fb, samples=1, **kw)
+        np.asarray(fb.cpu())
+        t1s.append(time.perf_counter() - t0)
+    fps1 = 1.0 / float(np.median(t1s[1:]))
+    print(f"{tag} fps1 {fps1:.3f} (median of 3 samples=1 launches, "
+          f"{[round(x * 1e3, 3) for x in t1s[1:]]} ms)")
+
+    def tf_edit(tf2, lp_, perm_, n_act_, w, h):
+        before = dict(qcells.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q2 = bake_alpha_q(q, tf2)
+        bands2 = update_band_majorants(bands, tf2.values, tf2.value_range)
+        a2, f2 = alloc_frame(w, h, device=dev)
+        render_frame_fast_q(q2, loc, bands2, tf2, lp_, a2, f2, width=w,
+                            height=h, pixel_perm=perm_, n_active=n_act_,
+                            samples=1, finemap=fm)
+        np.asarray(f2.cpu())
+        dt = time.perf_counter() - t0
+        levels = int((q2.alpha_tab != q.alpha_tab).sum())
+        return dt, dict({k: qcells.launches[k] - before[k] for k in before},
+                        levels=levels)
+
+    full = (lp, perm, n_active, W, H)
+    tf_edit(gain_edit(tf, 0.95, 0.9), *full)
+    edit_s, ran_e = tf_edit(gain_edit(tf, 0.9, 0.8), *full)
+    tf_edit(stroke_edit(tf, 0.7), *full)
+    stroke_s, ran_s = tf_edit(stroke_edit(tf, 0.5), *full)
+    lp_p, perm_p, n_p = r2b9_frame(stats, PREVIEW_W, PREVIEW_H, dev)
+    prev = (lp_p, perm_p, n_p, PREVIEW_W, PREVIEW_H)
+    tf_edit(gain_edit(tf, 0.97, 0.95), *prev)
+    preview_s, ran_p = tf_edit(gain_edit(tf, 0.93, 0.85), *prev)
+    print(f"{tag} tf_edit_s {edit_s:.4f} (gain 0.9, opacity 0.8; K5c-q "
+          f"launches and alpha levels changed {ran_e}), tf_stroke_s "
+          f"{stroke_s:.4f} ({ran_s}), tf_preview_s {preview_s:.4f} "
+          f"({PREVIEW_W}x{PREVIEW_H}; {ran_p}): each from the edit to the "
+          f"next samples=1 frame's fb on the host")
+    if not 0 < ran_s["levels"] <= qcells.PATCH_LEVELS:
+        raise AssertionError(f"{tag}: the stroke edit is not a <= "
+                             f"{qcells.PATCH_LEVELS}-level patch")
+    counts = dict(scene_counts(), chord_keys=order.launches,
+                  track_q=fastq.launches)
+    require_counts(tag, counts)
+
+    pix = perm[:CHECK_LANES].contiguous()
+    for f in (fm, None):
+        err, _, _ = compare_track_q((q, loc, bands, tf), lp, pix,
+                                    CHECK_LANES, W, H, 4, True, f, tag)
+        errs["track_q"] = max(errs["track_q"], err)
+    peak_memory(tag)
+    return counts
+
+
+def main_r2b9m(dev, errs):
+    """bench.py `_measure_row_m` (bench.py:498-578) through the port: the
+    scene built again, one converged pass per launch with the fine map
+    (median of 3), tf_edit_s to the next converged frame; the pass against
+    the pass without the fine map, and K3-q against its plain version on
+    the first CHECK_LANES covered lanes."""
+    import torch
+    from icon_rt_tpu_torch.models.qcells import bake_alpha_q
+    from icon_rt_tpu_torch.models.shells import update_band_majorants
+    from icon_rt_tpu_torch.ops import march, order
+    from icon_rt_tpu_torch.ops.march import render_frame_march_q
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    tag = "main r2b9m"
+    W, H = MAIN_W, MAIN_H
+    zero_counters()
+    q, loc, _, bands, tf, stats, fm = r2b9_scene(dev, tag)
+    lp, perm, n_active = r2b9_frame(stats, W, H, dev)
+    kw = dict(width=W, height=H, pixel_perm=perm, n_active=n_active)
+
+    def sweep(q_, bands_, tf_, k, frame=None, f=fm):
+        acc, fb = frame if frame is not None else alloc_frame(W, H,
+                                                              device=dev)
+        render_frame_march_q(q_, loc, bands_, tf_, with_id(lp, k), acc, fb,
+                             finemap=f, **kw)
+        return acc, fb.cpu().numpy().view(np.uint32)
+
+    frame = alloc_frame(W, H, device=dev)
+    _, fb_host = sweep(q, bands, tf, 0, frame)           # warm + coverage
+    covered = float(((fb_host >> 24) > 0).mean())
+    times = []
+    for k in range(1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep(q, bands, tf, k, frame)
+        times.append(time.perf_counter() - t0)
+    dt = float(np.median(times))
+    spread = float((max(times) - min(times)) / dt)
+    print(f"{tag} converged pass (fine map on) median {dt * 1e3:.3f} ms of "
+          f"{[round(x * 1e3, 3) for x in times]}, spread {spread:.3f}: "
+          f"{1.0 / dt:.3f} converged frames/s, {W * H / dt / 1e6:.3f} Mray/s "
+          f"full, {n_active / dt / 1e6:.3f} Mray/s traced; covered "
+          f"{covered:.4f}")
+    if covered < 0.5:
+        raise AssertionError(f"{tag}: image covers only {covered:.4f}")
+    profile_render(lambda: render_frame_march_q(
+        q, loc, bands, tf, with_id(lp, 4), *frame, finemap=fm, **kw),
+        frame[1], f"{tag} converged pass")
+
+    def tf_edit(tf2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q2 = bake_alpha_q(q, tf2)
+        bands2 = update_band_majorants(bands, tf2.values, tf2.value_range)
+        sweep(q2, bands2, tf2, 0)
+        return time.perf_counter() - t0
+
+    tf_edit(gain_edit(tf, 0.95, 0.9))
+    edit_s = tf_edit(gain_edit(tf, 0.9, 0.8))
+    print(f"{tag} tf_edit_s {edit_s:.4f} (gain 0.9, opacity 0.8, to the next "
+          f"converged frame's fb on the host)")
+    counts = dict(scene_counts(), chord_keys=order.launches,
+                  march_q=march.launches["march_q"])
+    require_counts(tag, counts)
+
+    acc_on, _ = sweep(q, bands, tf, 0)
+    acc_off, _ = sweep(q, bands, tf, 0, f=None)
+    finemap_agreement(acc_on, acc_off, n_active, tag)
+    pix = perm[:CHECK_LANES].contiguous()
+    for f in (fm, None):
+        err, _, _ = compare_march(
+            f"{tag} K3 march_q finemap={'on' if f is not None else 'off'} "
+            f"on {CHECK_LANES} lanes",
+            march_runs(None, None, bands, lp, pix, W, H,
+                       qtabs=(q, loc, tf), fm=f), W, H, CHECK_LANES, dev)
+        errs["march_q"] = max(errs["march_q"], err)
+    peak_memory(tag)
+
+
+def scene_rows(t, errs, counts):
+    """The kernels line's rows of K7-scene and K7-loc (timed in scene9,
+    launches from main r2b9q)."""
+    rows = []
+    sc, lo = t["scene"], t["locator"]
+    kernel_row(rows, counts, errs, "synth_scene", "cuda",
+               "icon_rt_tpu_torch/csrc/scene.cu",
+               "icon_rt_tpu/data/device_scene.py:103", sc["ms"],
+               sc["plain_ms"], sc["bnd"],
+               **{k: sc[k] for k in ("pass1_ms", "pass2_ms", "plain_pass1_ms",
+                                     "plain_pass2_ms", "build_s", "cells")})
+    kernel_row(rows, counts, errs, "locator_bins", "cuda",
+               "icon_rt_tpu_torch/csrc/locator.cu",
+               "icon_rt_tpu/models/locator.py:239 (host binning, no TPU "
+               "kernel)", lo["ms"], lo["plain_ms"], lo["bnd"],
+               **{k: lo[k] for k in ("build_s", "dims", "k_cap", "ms_subdiv8",
+                                     "plain_ms_subdiv8")})
+    return rows
 
 
 def build_all():
@@ -1374,12 +1991,15 @@ def build_all():
     from icon_rt_tpu_torch.ops.fast import build_track_f32
     from icon_rt_tpu_torch.ops.fastq import build_track_q
     from icon_rt_tpu_torch.ops.march import build_march
+    from icon_rt_tpu_torch.data.device_scene import build_scene_kernel
+    from icon_rt_tpu_torch.models.locator import build_locator_kernel
     from icon_rt_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(CU_SOURCES)) as ex:
         for f in [ex.submit(b) for b in (build_track_f32, build_track_q,
                                           build_finemap_kernel,
-                                          build_march)]:
+                                          build_march, build_scene_kernel,
+                                          build_locator_kernel)]:
             f.result()
     for name in CU_SOURCES:
         info = cuda_build.info(name)
@@ -1403,6 +2023,7 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"python {sys.version.split()[0]}")
     t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     build_all()
     t1 = time.perf_counter()
     errs, sc = check_kernels(dev)   # first Triton compiles happen in here
@@ -1412,12 +2033,14 @@ def main() -> int:
     del sc, qtabs
     print(f"build+check Triton compiles and checks "
           f"{time.perf_counter() - t1:.2f} s")
+    peak_memory("check")
 
     pl, counts, _ = main_path(dev)
     rows = time_kernels(pl, errs, counts)
     profile_launch(pl)
     del pl
     torch.cuda.empty_cache()
+    peak_memory("main")
 
     # the quantized paths build their fine map into an empty cache (K7-fm)
     bigscene.CACHE_DIR = tempfile.mkdtemp(
@@ -1429,6 +2052,7 @@ def main() -> int:
         tf_edits(pl_q)
         del pl_q
         torch.cuda.empty_cache()
+        peak_memory("main q")
 
         pl_m, counts_m, _ = main_path(dev, marching=True)
         pl_mq, counts_mq, _ = main_path(dev, quantized=True, marching=True)
@@ -1439,9 +2063,27 @@ def main() -> int:
         profile_launch(pl_mq, quantized=True, marching=True)
         del pl_m, pl_mq, fm
         torch.cuda.empty_cache()
+        peak_memory("main m, main mq, bench m")
     finally:
         shutil.rmtree(bigscene.CACHE_DIR, ignore_errors=True)
     rmse_q(dev)
+    torch.cuda.empty_cache()
+    peak_memory("rmse_q")
+
+    # the R2B9 headline scene, every earlier table freed
+    t0 = time.perf_counter()
+    t9 = scene9(dev, errs)
+    t1 = time.perf_counter()
+    counts9 = main_r2b9q(dev, errs)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    main_r2b9m(dev, errs)
+    torch.cuda.empty_cache()
+    print(f"time R2B9 phases: scene9 {t1 - t0:.1f} s, main r2b9q "
+          f"{t2 - t1:.1f} s, main r2b9m {time.perf_counter() - t2:.1f} s")
+    rows += scene_rows(t9, errs, counts9)
+    for r in rows:              # the R2B9 checks ran after the first rows
+        r["max_abs_err"] = errs[r["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": rows}))

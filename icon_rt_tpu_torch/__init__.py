@@ -14,6 +14,9 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
   K5c-f32 ops/fast.py      pack_alpha_scale_parts, apply_opacity_scale  Triton
   K6     ops/order.py      chord_keys     Triton
   K7-fm  models/finemap.py build_finemap  CUDA C++ (csrc/finemap.cu)
+  K7-scene data/device_scene.py scene_pass1, scene_pass2  CUDA C++
+         (csrc/scene.cu)
+  K7-loc models/locator.py locator_bins   CUDA C++ (csrc/locator.cu)
 
 K1, K2 and K3 share the lane setup of csrc/track_common.cuh and the storage
 tiers of csrc/tier_f32.cuh and csrc/tier_q.cuh; K1 and K2 also share its
@@ -27,7 +30,9 @@ icon_rt_tpu (the JAX reference package beside it).
 
 Layer map (bottom-up), mirroring icon_rt_tpu:
   utils/     — LCG, color, PNG, host vector math, native host module loader
-  data/      — .ic IO, synthetic icosphere scenes, the fine-map cache
+  data/      — .ic IO, synthetic icosphere scenes, the north-star scene
+               built on the device (build_q_scene), the locator and
+               fine-map caches
   models/    — cells, quantized cells, transfer function, locator (dense
                and CSR), fine map, radial bands
   ops/       — camera, ray ordering, launch params, the fast trackers

@@ -53,10 +53,13 @@ __global__ void __launch_bounds__(256)
 centers_c0_kernel(const FinemapParams p) {
   const int s_lat = 2 * p.factor * p.n_lat;
   const int s_lon = 2 * p.factor * p.n_lon;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s_lat * s_lon) return;
-  const int sl = i / s_lon;
-  const int so = i % s_lon;
+  // 64-bit: the sub grid has 4 f^2 n_lat n_lon entries (671M at subdiv 11
+  // with factor 2; past 2^31 at factor 4)
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(s_lat) * s_lon) return;
+  const int sl = static_cast<int>(i / s_lon);
+  const int so = static_cast<int>(i % s_lon);
   const float lat = p.lat_lo + (static_cast<float>(sl) + 0.5f) *
                                    ((p.lat_hi - p.lat_lo) /
                                     static_cast<float>(s_lat));
@@ -107,10 +110,11 @@ select_slots_kernel(const FinemapParams p) {
   const int f_lat = p.factor * p.n_lat;
   const int f_lon = p.factor * p.n_lon;
   const int s_lat = 2 * f_lat, s_lon = 2 * f_lon;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= f_lat * f_lon) return;
-  const int fl = b / f_lon;
-  const int fo = b % f_lon;
+  const long long b =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= static_cast<long long>(f_lat) * f_lon) return;
+  const int fl = static_cast<int>(b / f_lon);
+  const int fo = static_cast<int>(b % f_lon);
   int pool[8];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -156,14 +160,18 @@ select_slots_kernel(const FinemapParams p) {
 // nothing and does not synchronise.  Returns cudaGetLastError().
 extern "C" int finemap_launch(const FinemapParams* params, void* stream) {
   const FinemapParams& p = *params;
-  const int n_sub = 4 * p.factor * p.factor * p.n_lat * p.n_lon;
-  const int n_fine = p.factor * p.factor * p.n_lat * p.n_lon;
+  const long long n_fine = static_cast<long long>(p.factor) * p.factor *
+                           p.n_lat * p.n_lon;
+  const long long n_sub = 4 * n_fine;
   if (n_fine <= 0) return 0;
   constexpr int kBlock = 256;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  centers_c0_kernel<<<(n_sub + kBlock - 1) / kBlock, kBlock, 0, s>>>(p);
+  centers_c0_kernel<<<static_cast<unsigned int>((n_sub + kBlock - 1) / kBlock),
+                      kBlock, 0, s>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  select_slots_kernel<<<(n_fine + kBlock - 1) / kBlock, kBlock, 0, s>>>(p);
+  select_slots_kernel<<<static_cast<unsigned int>((n_fine + kBlock - 1) /
+                                                  kBlock),
+                        kBlock, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

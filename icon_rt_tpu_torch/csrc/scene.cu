@@ -1,0 +1,316 @@
+// K7-scene `synth_quantized_device`: the procedural quantized scene built on
+// the card, one thread per cell, in two launches.
+//
+// Replaces the XLA-fused icon_rt_tpu/data/device_scene.py `_cell_corners`,
+// `_orient_ccw`, `_default_field_jnp` and the two `lax.map` passes of
+// `synth_quantized_device`.  Its plain-PyTorch version is
+// `_scene_pass1_torch` / `_scene_pass2_torch` in data/device_scene.py.
+//
+// Cell i of a subdivision-s icosphere is base face i % 20, refined along the
+// base-4 digits of i // 20 (least significant digit first); every step
+// renormalises all three corners.  The corners are then oriented CCW seen
+// from outside (corners 1 and 2 swap where the triangle is clockwise).
+//
+//   1. `scene_pass1`: the field's min and max over all cells and layers,
+//      min |mean corner|, and the corners' lat/lon min and max.  Each block
+//      reduces its threads (min and max are exact in any order) and folds
+//      its partials into 7 order-preserving u32 words with atomicMin/Max.
+//   2. `scene_pass2`: each cell's test12 row (three side normals
+//      cross(b - a, c - a), then h_bot, h_top, num_layers), its u8 value row
+//      clip(rint((v - lo) * scale), 0, 255) zero-padded to lm, the per-layer
+//      u8 min/max (warp, then block, then one atomic per layer and block)
+//      and, optionally, the oriented corners' lat/lon.
+//
+// The plain version takes an index window [start, start + count), and so
+// does this kernel: the scene is procedural, so any window of it can be
+// checked without the rest.
+//
+// What bounds it: pass 2 writes 48 + lm (+ 24) bytes per cell (5.4 GB at
+// subdiv 11 x 16: 1.6 ms at 3.35 TB/s); each pass recomputes the cell's
+// subdivision walk (s steps of 3 IEEE square roots and 9 IEEE divisions) and
+// ~20 transcendentals, several thousand operations per cell, so the kernel
+// is bound by its arithmetic, not its bytes.  The field's per-cell terms
+// (sin 3 lon * cos 2 lat, cos 7 lat) are evaluated once per cell, then
+// scaled per layer.  Built with -fmad=false and __fdiv_rn/__fsqrt_rn: every
+// operation rounds as the plain version's eager ops do.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+// Mirror of `_SceneParams` in data/device_scene.py (same field order).
+struct SceneParams {
+  float base[180];          // (20, 3, 3) unit corners of the base faces
+  float layer_f[32];        // per-layer factor 1 - 0.5 * (j + 0.5) / nl
+  float* test12;            // (count, 12) out (pass 2)
+  uint8_t* value_q;         // (count, lm) out (pass 2)
+  float* lat;               // (count, 3) out (pass 2), or null
+  float* lon;               // (count, 3) out (pass 2), or null
+  unsigned int* agg;        // pass 1: 7 words; pass 2: 2 * num_layers words
+  float h_bot, h_top, nl_f, lo, scale;
+  long long start, count;
+  int subdivisions, num_layers, lm;
+};
+
+namespace {
+
+constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;
+
+// f32 <-> u32 keys whose unsigned order is the float order.
+__device__ __forceinline__ unsigned int key_of(float f) {
+  const unsigned int b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+struct Tri {
+  float v[3][3];   // corner, xyz
+};
+
+__device__ __forceinline__ void normalize(float* v) {
+  const float s = __fsqrt_rn(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
+  v[0] = __fdiv_rn(v[0], s);
+  v[1] = __fdiv_rn(v[1], s);
+  v[2] = __fdiv_rn(v[2], s);
+}
+
+// The oriented corners of cell `idx`.
+__device__ Tri corners(const SceneParams& p, long long idx) {
+  Tri t;
+  const int face = static_cast<int>(idx % 20);
+  const long long rest = idx / 20;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) t.v[k][c] = p.base[face * 9 + k * 3 + c];
+  for (int s = 0; s < p.subdivisions; ++s) {
+    const int d = static_cast<int>((rest >> (2 * s)) & 3);
+    float n[3][3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float a = t.v[0][c], b = t.v[1][c], cc = t.v[2][c];
+      const float ab = a + b, bc = b + cc, ca = cc + a;
+      n[0][c] = d == 0 ? a : (d == 2 ? ca : ab);
+      n[1][c] = d == 0 ? ab : (d == 1 ? b : bc);
+      n[2][c] = d == 2 ? cc : (d == 1 ? bc : ca);
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      normalize(n[k]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) t.v[k][c] = n[k][c];
+    }
+  }
+  // orient CCW: swap corners 1 and 2 where cross(t1 - t0, t2 - t0) points
+  // away from the corners' mean
+  float e1[3], e2[3], m[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    e1[c] = t.v[1][c] - t.v[0][c];
+    e2[c] = t.v[2][c] - t.v[0][c];
+    m[c] = __fdiv_rn(t.v[0][c] + t.v[1][c] + t.v[2][c], 3.0f);
+  }
+  const float nx = e1[1] * e2[2] - e1[2] * e2[1];
+  const float ny = e1[2] * e2[0] - e1[0] * e2[2];
+  const float nz = e1[0] * e2[1] - e1[1] * e2[0];
+  if (nx * m[0] + ny * m[1] + nz * m[2] < 0.0f) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float tmp = t.v[1][c];
+      t.v[1][c] = t.v[2][c];
+      t.v[2][c] = tmp;
+    }
+  }
+  return t;
+}
+
+// Corner latitudes and longitudes of an oriented triangle.
+__device__ __forceinline__ void lat_lon(const Tri& t, float* lat, float* lon) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    lat[k] = asinf(fminf(fmaxf(t.v[k][2], -1.0f), 1.0f));
+    lon[k] = atan2f(t.v[k][1], t.v[k][0]);
+  }
+}
+
+// The banded-wave field at the column centroid before the height factor:
+// 0.5 + 0.35 sin(3 clon) cos(2 clat) + 0.15 cos(7 clat).
+__device__ __forceinline__ float field_base(const float* lat,
+                                            const float* lon) {
+  const float clat = __fdiv_rn(lat[0] + lat[1] + lat[2], 3.0f);
+  const float sm = __fdiv_rn(sinf(lon[0]) + sinf(lon[1]) + sinf(lon[2]), 3.0f);
+  const float cm = __fdiv_rn(cosf(lon[0]) + cosf(lon[1]) + cosf(lon[2]), 3.0f);
+  const float clon = atan2f(sm, cm);
+  return 0.5f + 0.35f * sinf(3.0f * clon) * cosf(2.0f * clat) +
+         0.15f * cosf(7.0f * clat);
+}
+
+__device__ __forceinline__ float layer_value(const SceneParams& p, float w,
+                                             int j) {
+  return fminf(fmaxf(w * p.layer_f[j], 0.0f), 1.0f);
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// agg: [v_min, v_max, m_min, lat_min, lat_max, lon_min, lon_max] as keys;
+// the wrapper initialises the min words to 0xffffffff and the max words
+// to 0.
+__global__ void __launch_bounds__(kBlock) scene_pass1_kernel(
+    const SceneParams p) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  const float inf = __int_as_float(0x7f800000);
+  float r[7] = {inf, -inf, inf, inf, -inf, inf, -inf};
+  if (i < p.count) {
+    const Tri t = corners(p, p.start + i);
+    float lat[3], lon[3];
+    lat_lon(t, lat, lon);
+    const float w = field_base(lat, lon);
+    for (int j = 0; j < p.num_layers; ++j) {
+      const float v = layer_value(p, w, j);
+      r[0] = fminf(r[0], v);
+      r[1] = fmaxf(r[1], v);
+    }
+    float m[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      m[c] = __fdiv_rn(t.v[0][c] + t.v[1][c] + t.v[2][c], 3.0f);
+    r[2] = __fsqrt_rn(m[0] * m[0] + m[1] * m[1] + m[2] * m[2]);
+    r[3] = fminf(fminf(lat[0], lat[1]), lat[2]);
+    r[4] = fmaxf(fmaxf(lat[0], lat[1]), lat[2]);
+    r[5] = fminf(fminf(lon[0], lon[1]), lon[2]);
+    r[6] = fmaxf(fmaxf(lon[0], lon[1]), lon[2]);
+  }
+  __shared__ float part[kWarps][7];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+    const bool is_max = (k == 1 || k == 4 || k == 6);
+    const float v = is_max ? warp_max(r[k]) : warp_min(r[k]);
+    if (lane == 0) part[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 7) {
+    const int k = threadIdx.x;
+    const bool is_max = (k == 1 || k == 4 || k == 6);
+    float v = part[0][k];
+    for (int w = 1; w < kWarps; ++w)
+      v = is_max ? fmaxf(v, part[w][k]) : fminf(v, part[w][k]);
+    if (is_max)
+      atomicMax(p.agg + k, key_of(v));
+    else
+      atomicMin(p.agg + k, key_of(v));
+  }
+}
+
+// agg: [qmin of layer 0..nl-1, qmax of layer 0..nl-1] as plain u32; the
+// wrapper initialises qmin to 255 and qmax to 0.
+__global__ void __launch_bounds__(kBlock) scene_pass2_kernel(
+    const SceneParams p) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  const bool real = i < p.count;
+  __shared__ unsigned int s_min[32], s_max[32];
+  if (threadIdx.x < 32) {
+    s_min[threadIdx.x] = 255u;
+    s_max[threadIdx.x] = 0u;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  float w = 0.0f;
+  if (real) {
+    const Tri t = corners(p, p.start + i);
+    float lat[3], lon[3];
+    lat_lon(t, lat, lon);
+    if (p.lat != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        p.lat[i * 3 + k] = lat[k];
+        p.lon[i * 3 + k] = lon[k];
+      }
+    }
+    float* row = p.test12 + i * 12;
+    constexpr int kEdge[3][2] = {{0, 1}, {1, 2}, {2, 0}};
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      float u[3], v[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float a = t.v[kEdge[e][0]][c] * p.h_bot;
+        const float b = t.v[kEdge[e][1]][c] * p.h_bot;
+        const float cc = t.v[kEdge[e][1]][c] * p.h_top;
+        u[c] = b - a;
+        v[c] = cc - a;
+      }
+      row[3 * e + 0] = u[1] * v[2] - u[2] * v[1];
+      row[3 * e + 1] = u[2] * v[0] - u[0] * v[2];
+      row[3 * e + 2] = u[0] * v[1] - u[1] * v[0];
+    }
+    row[9] = p.h_bot;
+    row[10] = p.h_top;
+    row[11] = p.nl_f;
+    w = field_base(lat, lon);
+  }
+  // value row, 4 levels per u32 word (lm is a multiple of 8, so each row
+  // starts on an 8-byte boundary)
+  uint32_t* vrow = reinterpret_cast<uint32_t*>(p.value_q + i * p.lm);
+  for (int w4 = 0; w4 < p.lm / 4; ++w4) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = 4 * w4 + b;
+      if (j >= p.num_layers) continue;   // uniform across the warp
+      unsigned int q = 0;
+      if (real) {
+        const float v = layer_value(p, w, j);
+        q = static_cast<unsigned int>(
+            fminf(fmaxf(rintf((v - p.lo) * p.scale), 0.0f), 255.0f));
+        word |= q << (8 * b);
+      }
+      const unsigned int qmin = __reduce_min_sync(0xffffffffu, real ? q : 255u);
+      const unsigned int qmax = __reduce_max_sync(0xffffffffu, real ? q : 0u);
+      if (lane == 0) {
+        atomicMin(s_min + j, qmin);
+        atomicMax(s_max + j, qmax);
+      }
+    }
+    if (real) vrow[w4] = word;
+  }
+  __syncthreads();
+  if (threadIdx.x < p.num_layers) {
+    atomicMin(p.agg + threadIdx.x, s_min[threadIdx.x]);
+    atomicMax(p.agg + p.num_layers + threadIdx.x, s_max[threadIdx.x]);
+  }
+}
+
+unsigned int blocks(long long count) {
+  return static_cast<unsigned int>((count + kBlock - 1) / kBlock);
+}
+
+}  // namespace
+
+// Each launches one pass on `stream` (PyTorch's current stream); they
+// allocate nothing and do not synchronise.  Return cudaGetLastError().
+extern "C" int scene_pass1_launch(const SceneParams* params, void* stream) {
+  if (params->count <= 0) return 0;
+  scene_pass1_kernel<<<blocks(params->count), kBlock, 0,
+                       static_cast<cudaStream_t>(stream)>>>(*params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int scene_pass2_launch(const SceneParams* params, void* stream) {
+  if (params->count <= 0) return 0;
+  scene_pass2_kernel<<<blocks(params->count), kBlock, 0,
+                       static_cast<cudaStream_t>(stream)>>>(*params);
+  return static_cast<int>(cudaGetLastError());
+}

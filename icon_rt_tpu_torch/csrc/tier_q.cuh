@@ -98,6 +98,8 @@ struct QTier {
       // its integer-divided parent bin (never a second f32 binning)
       const int fl = track::grid_bin(lat, p.f_lat_lo, p.f_lat_hi, p.f_lat);
       const int fo = track::grid_bin(lon, p.f_lon_lo, p.f_lon_hi, p.f_lon);
+      // int: f_lat * f_lon is 168M at subdiv 11, factor 2; the fine-map
+      // wrapper (models/finemap.py) rejects grids of 2^31 bins or more
       const int fbid = fl * p.f_lon + fo;
       const int pbid = (fbid / p.f_lon / p.factor) * p.n_lon +
                        (fbid % p.f_lon) / p.factor;

@@ -16,8 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .data.device_scene import DeviceScene
 from .data.icfile import ICDataset
-from .models.cells import Cells
+from .models.cells import Cells, CellStats
 from .models.finemap import FineMap
 from .models.locator import Locator
 from .models.qcells import QuantizedCells
@@ -129,3 +130,13 @@ def finemap(fm, device="cpu") -> FineMap:
                    **{f: to_tensor(getattr(fm, f), device)
                       for f in ("lat_lo", "lat_hi", "lon_lo", "lon_hi",
                                 "dims")})
+
+
+def device_scene(dsc, n: int, device="cpu") -> DeviceScene:
+    """A JAX DeviceScene (packed tables, pad rows past n) as this package's
+    DeviceScene of n cells: its quantized cells, radial bands and stats."""
+    st = dsc.stats
+    stats = CellStats(*(np.array(getattr(st, f), np.float32, copy=True)
+                        for f in CellStats._fields))
+    return DeviceScene(cells=quantized_cells(dsc.cells, device, n),
+                       bands=radial_bands(dsc.bands, device), stats=stats)

@@ -192,6 +192,11 @@ def finemap_slots(loc, test12, factor: int = 2) -> torch.Tensor:
         raise ValueError(f"build_finemap: k_cap {k_cap} overflows the u8 "
                          f"slot encoding")
     n_lat, n_lon, s_lat, s_lon = _sub_grid(loc, factor)
+    # csrc/finemap.cu indexes the (s_lat, s_lon) sub grid in 64 bits, but
+    # the trackers' fine bin id (csrc/tier_q.cuh `fbid`) is an int
+    if (s_lat // 2) * (s_lon // 2) >= 2 ** 31:
+        raise ValueError(f"build_finemap: {s_lat // 2} x {s_lon // 2} fine "
+                         f"bins overflow the trackers' 32-bit fine bin ids")
     if loc.bins.shape[0] != n_lat * n_lon:
         raise ValueError("build_finemap: loc.bins rows != n_lat * n_lon")
     if dev.type == "cpu":

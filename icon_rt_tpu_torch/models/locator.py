@@ -19,12 +19,14 @@ numpy and the shared C++ host module; the table then moves to the device.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..data.icfile import ICDataset
+from ..utils import cuda_build
 
 F = np.float32
 
@@ -325,3 +327,250 @@ def densify_csr(loc: LocatorCSR, k_cap: int, device="cpu") -> Locator:
                    lon_lo=f32(loc.lon_lo), lon_hi=f32(loc.lon_hi),
                    dims=torch.tensor(loc.dims, dtype=torch.int32,
                                      device=device))
+
+
+# ---------------------------------------------------------------------------
+# K7-loc: the quantized tier's binning on the device
+# ---------------------------------------------------------------------------
+
+#: K7-loc kernel launches (the wrapper counts only CUDA launches)
+launches = {"locator_count": 0, "locator_fill": 0, "locator_sort": 0}
+
+
+def _rect_torch(lat, lon, n_lat: int, n_lon: int, window):
+    """Plain K7-loc, step 1: (N, 8) i32 bin rectangles (la0, la1, lb0, lb1
+    of one range, then of a second range or -1) of the cells' corner
+    lat/lon, in f64 tensors with the formula order of `_edge_extrema` (the
+    native mirror's) and `_range_records`."""
+    f64 = torch.float64
+    dev = lat.device
+    lat_lo, lat_hi, lon_lo, lon_hi = (torch.tensor(v, dtype=f64, device=dev)
+                                      for v in window)
+    la, lo = lat.to(f64), lon.to(f64)
+    lo_v = lat.amin(1).to(f64)
+    hi_v = lat.amax(1).to(f64)
+    cl = torch.cos(la)
+    u = [(cl[:, k] * torch.cos(lo[:, k]), cl[:, k] * torch.sin(lo[:, k]),
+          torch.sin(la[:, k])) for k in range(3)]
+    mm = []
+    for e in range(3):
+        a, b = u[e], u[(e + 1) % 3]
+        mm.append((a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+                   a[0] * b[1] - a[1] * b[0]))
+    zin = torch.stack([m[2] for m in mm], dim=1)
+    pole = torch.where((zin <= 0).all(1), 1, torch.where((zin >= 0).all(1),
+                                                          -1, 0))
+    lon_ext = [lo[:, 0]] * 3
+    for e in range(3):
+        ui, uj, m3 = u[e], u[(e + 1) % 3], mm[e]
+        nrm = torch.sqrt(m3[0] * m3[0] + m3[1] * m3[1] + m3[2] * m3[2])
+        dn = torch.clamp(nrm, min=1e-300)
+        mz = m3[2] / dn
+        zml = torch.sqrt(torch.clamp(1.0 - mz * mz, min=0.0))
+        ex, ey = -mz * m3[0] / dn, -mz * m3[1] / dn
+        ez = zml * zml
+        den = torch.clamp(zml, min=1e-300)
+        for sign in (1.0, -1.0):
+            px, py, pz = sign * ex / den, sign * ey / den, sign * ez / den
+            c1 = (ui[1] * pz - ui[2] * py) * m3[0] \
+                + (ui[2] * px - ui[0] * pz) * m3[1] \
+                + (ui[0] * py - ui[1] * px) * m3[2]
+            c2 = (py * uj[2] - pz * uj[1]) * m3[0] \
+                + (pz * uj[0] - px * uj[2]) * m3[1] \
+                + (px * uj[1] - py * uj[0]) * m3[2]
+            inner = (c1 > 0) & (c2 > 0) & (zml > 1e-12)
+            plat = torch.asin(torch.clamp(pz, -1.0, 1.0))
+            lo_v = torch.where(inner, torch.minimum(lo_v, plat), lo_v)
+            hi_v = torch.where(inner, torch.maximum(hi_v, plat), hi_v)
+            lon_ext[e] = torch.where(inner, torch.atan2(py, px), lon_ext[e])
+
+    def bins_of(v, lo_t, hi_t, n):
+        return torch.clamp(((v - lo_t) / (hi_t - lo_t) * n).to(torch.int64),
+                           0, n - 1)
+
+    lat_all = torch.cat([la, lo_v[:, None], hi_v[:, None]], dim=1)
+    lat_all[:, 4] = torch.where(pole > 0, lat_hi, lat_all[:, 4])
+    lat_all[:, 3] = torch.where(pole < 0, lat_lo, lat_all[:, 3])
+    la0 = bins_of(lat_all.amin(1), lat_lo, lat_hi, n_lat)
+    la1 = bins_of(lat_all.amax(1), lat_lo, lat_hi, n_lat)
+    lon_all = torch.cat([lo, torch.stack(lon_ext, dim=1)], dim=1)
+    lo_min = torch.where(pole != 0, lon_lo, lon_all.amin(1))
+    lo_max = torch.where(pole != 0, lon_hi, lon_all.amax(1))
+    crossing = ((lo_max - lo_min) > np.pi) & (pole == 0)
+    inf = torch.tensor(float("inf"), dtype=f64, device=dev)
+    pos_min = torch.where(lon_all > 0, lon_all, inf).amin(1)
+    neg_max = torch.where(lon_all < 0, lon_all, -inf).amax(1)
+    none = torch.full_like(la0, -1)
+    rect = torch.stack([
+        la0, la1,
+        torch.where(crossing, bins_of(pos_min, lon_lo, lon_hi, n_lon),
+                    bins_of(lo_min, lon_lo, lon_hi, n_lon)),
+        torch.where(crossing, n_lon - 1, bins_of(lo_max, lon_lo, lon_hi,
+                                                 n_lon)),
+        torch.where(crossing, la0, none), torch.where(crossing, la1, none),
+        torch.where(crossing, 0, none),
+        torch.where(crossing, bins_of(neg_max, lon_lo, lon_hi, n_lon), none),
+    ], dim=1)
+    return rect.to(torch.int32)
+
+
+#: cells per chunk of the plain rectangles, and expanded entries per lat
+#: band of the plain expansion (bounds the plain version's temporaries)
+_RECT_CHUNK = 1 << 22
+_BAND_ENTRIES = 1 << 26
+
+
+def _locator_bins_torch(lat, lon, n_lat: int, n_lon: int, window):
+    """Plain K7-loc: (bins (n_bins, k_cap) i32 -1 padded, k_cap, counts
+    (n_bins,) i32, rect (N, 8) i32) — the rectangles, their expansion
+    (repeat_interleave), a sort of packed bin * (N + 1) + cell keys and the
+    densify, as `_bbox_entries`, `build_locator_csr` and `densify_csr`.
+    The expansion runs in bands of whole lat rows; the bands' sorted keys
+    concatenate in bin order, so the result is the one global sort's."""
+    n, dev = lat.shape[0], lat.device
+    n_bins = n_lat * n_lon
+    rect = torch.cat([_rect_torch(lat[s:s + _RECT_CHUNK],
+                                  lon[s:s + _RECT_CHUNK], n_lat, n_lon,
+                                  window)
+                      for s in range(0, n, _RECT_CHUNK)]) if n else \
+        torch.zeros((0, 8), dtype=torch.int32, device=dev)
+    rec = torch.cat([rect[:, :4], rect[:, 4:]]).to(torch.int64)
+    ids = torch.arange(n, dtype=torch.int64, device=dev).repeat(2)
+    keep = rec[:, 0] >= 0
+    rec, ids = rec[keep], ids[keep]
+    wlo = rec[:, 3] - rec[:, 2] + 1
+    total = int(((rec[:, 1] - rec[:, 0] + 1) * wlo).sum())
+    rows = max(1, n_lat * _BAND_ENTRIES // max(total, 1))
+    keys, counts = [], torch.zeros(n_bins, dtype=torch.int64, device=dev)
+    for r0 in range(0, n_lat, rows):
+        r1 = min(r0 + rows, n_lat)
+        sel = (rec[:, 0] < r1) & (rec[:, 1] >= r0)
+        la0 = torch.clamp(rec[sel, 0], min=r0)
+        la1 = torch.clamp(rec[sel, 1], max=r1 - 1)
+        lb0, w, cid = rec[sel, 2], wlo[sel], ids[sel]
+        cnt = (la1 - la0 + 1) * w
+        r = torch.repeat_interleave(torch.arange(cnt.shape[0], device=dev),
+                                    cnt)
+        o = torch.arange(r.shape[0], dtype=torch.int64, device=dev) \
+            - (torch.cumsum(cnt, 0) - cnt)[r]
+        dla = torch.div(o, w[r], rounding_mode="floor")
+        b = (la0[r] + dla) * n_lon + lb0[r] + (o - dla * w[r])
+        key, _ = torch.sort(b * (n + 1) + cid[r])
+        keys.append(key)
+        counts += torch.bincount(b, minlength=n_bins)
+    k_cap = int(counts.max()) if total else 1
+    starts = torch.cumsum(counts, 0) - counts
+    bins = torch.full((n_bins, k_cap), -1, dtype=torch.int32, device=dev)
+    offset = 0
+    for key in keys:
+        b = torch.div(key, n + 1, rounding_mode="floor")
+        slot = offset + torch.arange(key.shape[0], device=dev) - starts[b]
+        bins[b, slot] = (key - b * (n + 1)).to(torch.int32)
+        offset += key.shape[0]
+    return bins, k_cap, counts.to(torch.int32), rect
+
+
+class _LocatorParams(ctypes.Structure):
+    """Mirror of `LocatorParams` in csrc/locator.cu (same field order)."""
+    _fields_ = [
+        ("lat", ctypes.c_void_p), ("lon", ctypes.c_void_p),
+        ("rect", ctypes.c_void_p), ("counts", ctypes.c_void_p),
+        ("cursor", ctypes.c_void_p), ("bins", ctypes.c_void_p),
+        ("big", ctypes.c_void_p), ("n_big", ctypes.c_void_p),
+        ("lat_lo", ctypes.c_double), ("lat_hi", ctypes.c_double),
+        ("lon_lo", ctypes.c_double), ("lon_hi", ctypes.c_double),
+        ("n", ctypes.c_longlong),
+        ("n_lat", ctypes.c_int), ("n_lon", ctypes.c_int),
+        ("k_cap", ctypes.c_int),
+    ]
+
+
+def build_locator_kernel():
+    """Compile csrc/locator.cu for sm_90a and bind its entry points."""
+    lib = cuda_build.build("locator")
+    for fn in (lib.locator_count_launch, lib.locator_fill_launch,
+               lib.locator_sort_launch):
+        fn.argtypes = [ctypes.POINTER(_LocatorParams), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def locator_bins(lat, lon, n_lat: int, n_lon: int, window):
+    """K7-loc wrapper: the dense (n_lat * n_lon, k_cap) bins of cells with
+    (N, 3) f32 corner lat/lon over `window` (lat_lo, lat_hi, lon_lo,
+    lon_hi); returns (bins, k_cap, counts, rect) as `_locator_bins_torch`.
+    CUDA tensors launch csrc/locator.cu; CPU tensors run the plain
+    version; anything else raises."""
+    dev = lat.device
+    for name, x in (("lat", lat), ("lon", lon)):
+        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 \
+                or not x.is_contiguous() or x.device != dev \
+                or x.shape[0] != lat.shape[0]:
+            raise ValueError(f"locator_bins: {name} must be a contiguous "
+                             f"(N, 3) float32 tensor on {dev}")
+    n_bins = n_lat * n_lon
+    if n_lat < 1 or n_lon < 1 or n_bins >= 2 ** 31:
+        raise ValueError(f"locator_bins: {n_lat} x {n_lon} bins")
+    if lat.shape[0] >= 2 ** 31:
+        raise ValueError("locator_bins: cell ids must fit int32")
+    if dev.type == "cpu":
+        return _locator_bins_torch(lat, lon, n_lat, n_lon, window)
+    if dev.type != "cuda":
+        raise ValueError(f"locator_bins: unsupported device {dev}")
+    lib = build_locator_kernel()
+    n = lat.shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rect = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    counts = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    big = torch.empty(n, dtype=torch.int32, device=dev)
+    n_big = torch.zeros(1, dtype=torch.int32, device=dev)
+    p = _LocatorParams(lat=lat.data_ptr(), lon=lon.data_ptr(),
+                       rect=rect.data_ptr(), counts=counts.data_ptr(),
+                       big=big.data_ptr(), n_big=n_big.data_ptr(),
+                       lat_lo=window[0], lat_hi=window[1],
+                       lon_lo=window[2], lon_hi=window[3], n=n,
+                       n_lat=n_lat, n_lon=n_lon)
+    cuda_build.check("locator_count", lib.locator_count_launch(
+        ctypes.byref(p), stream))
+    launches["locator_count"] += 1
+    k_cap = int(counts.max()) if n else 1
+    cursor = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    bins = torch.full((n_bins, k_cap), -1, dtype=torch.int32, device=dev)
+    p.cursor, p.bins, p.k_cap = cursor.data_ptr(), bins.data_ptr(), k_cap
+    cuda_build.check("locator_fill", lib.locator_fill_launch(
+        ctypes.byref(p), stream))
+    launches["locator_fill"] += 1
+    cuda_build.check("locator_sort", lib.locator_sort_launch(
+        ctypes.byref(p), stream))
+    launches["locator_sort"] += 1
+    return bins, k_cap, counts, rect
+
+
+def locator_window(lat, lon):
+    """(lat_lo, lat_hi, lon_lo, lon_hi) of (N, 3) corner lat/lon tensors,
+    padded by 1e-4 as `_window`; the whole sphere for no cells."""
+    if not lat.shape[0]:
+        return -np.pi / 2, np.pi / 2, -np.pi, np.pi
+    mm = torch.stack([lat.min(), lat.max(), lon.min(), lon.max()]).tolist()
+    return mm[0] - 1e-4, mm[1] + 1e-4, mm[2] - 1e-4, mm[3] + 1e-4
+
+
+def bin_locator(lat, lon, dims_scale: float = 1.0):
+    """The quantized tier's dense locator of cells with (N, 3) f32 corner
+    lat/lon tensors, on their device: sqrt(N/2) bins per axis (times
+    dims_scale) over `locator_window`.  Returns (Locator, k_cap, counts,
+    rect); equal to densify_csr(build_locator_csr(...)) for the same
+    lat/lon.  K7-loc on CUDA tensors, the plain version on CPU ones."""
+    side = np.sqrt(max(lat.shape[0], 1) / 2)
+    if dims_scale != 1.0:
+        side *= dims_scale
+    n_lat = n_lon = max(1, int(side))
+    window = locator_window(lat, lon)
+    bins, k_cap, counts, rect = locator_bins(lat, lon, n_lat, n_lon, window)
+    dev = lat.device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    loc = Locator(bins=bins, lat_lo=f32(window[0]), lat_hi=f32(window[1]),
+                  lon_lo=f32(window[2]), lon_hi=f32(window[3]),
+                  dims=torch.tensor([n_lat, n_lon], dtype=torch.int32,
+                                    device=dev))
+    return loc, k_cap, counts, rect

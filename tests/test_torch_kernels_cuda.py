@@ -272,3 +272,52 @@ def test_cuda_opacity_scale_matches_plain(scene):
     assert torch.equal(packed.prof, prof_p)
     full = fast.classify_bake(c, tf._replace(opacity_scale=s))[0]
     assert torch.equal(packed.prof, full)
+
+
+@pytest.fixture(scope="module")
+def scene5(dev):
+    """K7-scene's consts of a subdivision-5 x 16 scene on the card."""
+    from icon_rt_tpu_torch.data import device_scene
+    return device_scene._Consts(5, 16, float(synthetic.EARTH_RADIUS), 3.0e4,
+                                dev)
+
+
+def test_cuda_scene_matches_plain(scene5):
+    """K7-scene: pass 1's aggregates and pass 2's test12 rows and corner
+    lat/lon bit-equal to the plain version's; value_q within 1 level and
+    exact on >= 99.999% of entries; the per-layer u8 ranges equal."""
+    from icon_rt_tpu_torch.data import device_scene as ds
+    c = scene5
+    before = dict(ds.launches)
+    agg = ds.scene_pass1(c)
+    assert torch.equal(agg, ds._scene_pass1_torch(c, 0, c.n))
+    lo, hi = float(agg[0]), float(agg[1])
+    scale = float(ds.quant_scale(lo, hi))
+    got = ds.scene_pass2(c, lo, scale, latlon=True)
+    want = ds._scene_pass2_torch(c, 0, c.n, lo, scale, True)
+    assert ds.launches == {k: v + 1 for k, v in before.items()}
+    for k in (0, 4, 5):
+        assert torch.equal(got[k], want[k])
+    dv = (got[1].int() - want[1].int()).abs()
+    assert int(dv.max()) <= 1 and float((dv == 0).float().mean()) >= 0.99999
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+
+
+def test_cuda_locator_bins_match_plain(scene5):
+    """K7-loc: rectangles, counts, k_cap and the dense bins exactly equal
+    to the plain version's on the subdivision-5 scene's corners."""
+    from icon_rt_tpu_torch.data import device_scene as ds
+    from icon_rt_tpu_torch.models import locator
+    agg = ds.scene_pass1(scene5)
+    lo, hi = float(agg[0]), float(agg[1])
+    _, _, _, _, lat, lon = ds.scene_pass2(
+        scene5, lo, float(ds.quant_scale(lo, hi)), latlon=True)
+    before = dict(locator.launches)
+    loc, k, counts, rect = locator.bin_locator(lat, lon)
+    assert locator.launches == {k_: v + 1 for k_, v in before.items()}
+    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    bins_p, k_p, counts_p, rect_p = locator._locator_bins_torch(
+        lat, lon, n_lat, n_lon, locator.locator_window(lat, lon))
+    assert k == k_p
+    assert torch.equal(rect, rect_p) and torch.equal(counts, counts_p)
+    assert torch.equal(loc.bins, bins_p)
