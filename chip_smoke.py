@@ -36,9 +36,9 @@ script exits non-zero without printing a result):
           and spread of the steady launches' wall time (fb copied to the
           host) give the end-to-end rate
   main q  the app's --quantized path (fine map on, its cache emptied) at
-          the same scale and camera: the counters of K2, K5c-q, K7-fm, K5b
-          and K6 are zeroed before and read after, the image must cover
-          >= 0.5; on to 128 samples for the steady launch; then one
+          the same scale and camera: the counters of K2, K5c-q, K7-loc,
+          K7-fm, K5b and K6 are zeroed before and read after, the image
+          must cover >= 0.5; on to 128 samples for the steady launch; one
           opacity-scale edit, one <= 32-level curve edit and one full
           curve edit, each timed up to the next launch's fb on the host
   main m  the app's --march path at the same scale and camera, 8 launches
@@ -61,7 +61,8 @@ script exits non-zero without printing a result):
           that call's time
   profile one steady launch of each main path under torch.profiler:
           device time by kernel and the device's idle share of the
-          launch's wall time
+          launch's wall time, from a window that holds the path's tracker
+          or march kernel (up to 3 windows; none fails the phase)
   scene9  the R2B9 scene's kernels (subdiv 11 x 16, 83,886,080 columns),
           after every earlier table is freed:
             K7-scene against its plain version on the whole subdiv-8 x 16
@@ -134,6 +135,7 @@ R2B9_SPL, R2B9_LIMIT = 8, 64      # r2b9q: samples per launch, in all
 PREVIEW_W, PREVIEW_H = 480, 270   # bench.py's preview frame (W/4 x H/4)
 WINDOW_CELLS = 1 << 20            # the R2B9 index windows of the K7-scene check
 CHECK_LANES = 4096                # K2 / K3-q against plain at R2B9
+PROFILE_WINDOWS = 3               # profiler windows tried for a kernel
 SCENE_THICKNESS = 3.0e4           # data/device_scene.py's default
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
@@ -148,12 +150,13 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12           # NVIDIA's H100 SXM data sheet, FP64 outside
 #                             the tensor cores (K7-loc's rectangles)
-#: K7-scene operations per cell: per subdivision step 9 adds and 3 vertex
-#: normalizations (3 mul, 2 add, sqrt, 3 div); per pass the orientation and
-#: the 16 transcendentals of the corner lat/lon and the field (~20 each);
-#: per layer the field's scale and clip and, in pass 2, the quantization;
-#: the three side normals (9 mul, 6 sub, 9 cross products)
-SCENE_OPS = {"step": 36, "pass": 400, "layer": 12, "normals": 72}
+#: K7-scene operations per cell, counted once whatever passes the kernel
+#: takes: per subdivision step 9 adds and 3 vertex normalizations (3 mul,
+#: 2 add, sqrt, 3 div); per cell the orientation and the 16 transcendentals
+#: of the corner lat/lon and the field (~20 each); per layer the field's
+#: scale, clip and quantization; the three side normals (9 mul, 6 sub, 9
+#: cross products)
+SCENE_OPS = {"step": 36, "cell": 400, "layer": 12, "normals": 72}
 #: K7-loc f64 operations per cell (edge extrema, 2 bulge points per edge,
 #: the interior tests and the bin indices)
 LOCATOR_OPS = 300
@@ -491,21 +494,28 @@ def check_finemap(loc, test12, label):
     return err
 
 
+def bin_dataset(ds, dev):
+    """The quantized tier's dense locator of a dataset on `dev`, binned as
+    the app's get_q bins it (K7-loc on the card)."""
+    import torch
+    from icon_rt_tpu_torch.models.locator import bin_locator
+    lat, lon = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (ds.lat, ds.lon))
+    return bin_locator(lat, lon)[0]
+
+
 def check_q_kernels(sc, dev):
     """The quantized tier's kernels against their plain versions on the
     check scene (built as the app's get_q builds it).  Returns (errs,
     (q, locator, fine map))."""
     from icon_rt_tpu_torch.models.finemap import build_finemap
-    from icon_rt_tpu_torch.models.locator import (build_locator_csr,
-                                                  densify_csr)
     from icon_rt_tpu_torch.models.qcells import (bake_alpha_q,
                                                  quantize_cells,
                                                  quantize_dataset_values)
     ds_q, lo, hi = quantize_dataset_values(sc.ds)
     q = bake_alpha_q(quantize_cells(ds_q, value_range=(lo, hi), device=dev),
                      sc.tf)
-    csr, k_cap = build_locator_csr(ds_q)
-    loc = densify_csr(csr, k_cap, device=dev)
+    loc = bin_dataset(ds_q, dev)
     errs = {"build_finemap": check_finemap(loc, q.test12, "check q"),
             "bake_alpha_q": check_bakes(q, sc.tf, dev, "check q")}
     fm = build_finemap(loc, q.test12)
@@ -678,11 +688,12 @@ def peak_memory(tag):
 def read_counters(quantized, marching):
     """({kernel name: launches} of the kernels a main path runs, {kernel
     name: launches} of the trackers it must not run)."""
-    from icon_rt_tpu_torch.models import accel, finemap, qcells
+    from icon_rt_tpu_torch.models import accel, finemap, locator, qcells
     from icon_rt_tpu_torch.ops import fast, fastq, march, order
     counts = {"max_opacity": accel.launches, "chord_keys": order.launches}
     if quantized:
         counts["bake_alpha_q"] = sum(qcells.launches.values())
+        counts["locator_bins"] = sum(locator.launches.values())
     else:
         counts["classify_bake"] = fast.launches["classify_bake"]
     absent = {}
@@ -762,8 +773,8 @@ def main_path(dev, quantized=False, marching=False):
     t1 = time.perf_counter()
     pl.present()
     present_s = time.perf_counter() - t1
-    what = ("scene; the quantized tables and CSR locator are built by the "
-            "first launch" if quantized else
+    what = ("scene; the quantized tables and the K7-loc locator are built "
+            "by the first launch" if quantized else
             "scene, locator, tables on the card")
     print(f"{tag} build {build_s:.3f} s ({what}); launches "
           f"{n_launch}, ms per launch {[round(x, 3) for x in launch_ms]} "
@@ -1303,9 +1314,7 @@ def rmse_q(dev):
     import torch
     from icon_rt_tpu_torch.data import synthetic
     from icon_rt_tpu_torch.models.cells import build_cells, compute_stats
-    from icon_rt_tpu_torch.models.locator import (build_locator,
-                                                  build_locator_csr,
-                                                  densify_csr)
+    from icon_rt_tpu_torch.models.locator import build_locator
     from icon_rt_tpu_torch.models.qcells import (bake_alpha_q,
                                                  quantize_cells,
                                                  quantize_dataset_values)
@@ -1340,9 +1349,8 @@ def rmse_q(dev):
     del cells
     q = bake_alpha_q(quantize_cells(ds_q, value_range=(lo, hi), device=dev),
                      tf)
-    csr, k_cap = build_locator_csr(ds_q)
     accum_q, _ = march.render_frame_march_q(
-        q, densify_csr(csr, k_cap, device=dev), bands, tf, lp,
+        q, bin_dataset(ds_q, dev), bands, tf, lp,
         *alloc_frame(W, H, device=dev), **kw)
     ran = {k: march.launches[k] - before[k] for k in before}
     af, aq = accum_f.cpu().numpy(), accum_q.cpu().numpy()
@@ -1392,14 +1400,21 @@ def profile_launch(pl, quantized=False, marching=False):
 
     what = ("march " if marching else "") + ("quantized " if quantized
                                              else "")
-    profile_render(render, frame["fb"], f"steady {what}launch")
+    kernel = ("march_" if marching else "track_") + ("q" if quantized
+                                                      else "f32")
+    profile_render(render, frame["fb"], f"steady {what}launch",
+                   f"{kernel}_kernel")
 
 
-def profile_render(render, fb, what):
+def profile_render(render, fb, what, kernel):
     """One call of `render` and the copy of fb to the host, after a warm
     call, under torch.profiler: device time by kernel and the device's idle
-    share of the call's wall time."""
+    share of the call's wall time.  The profiler may drop a kernel from a
+    one-launch window; a window without a device event named `kernel` is
+    reported and profiled again, and none in PROFILE_WINDOWS tries raises,
+    so no idle share is printed from a window that lacks the kernel."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def launch():
@@ -1408,18 +1423,25 @@ def profile_render(render, fb, what):
 
     launch()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        launch()
-        wall = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-    by_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:    # kernels and copies
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-            spans.append((e.time_range.start, e.time_range.end))
+    for attempt in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            launch()
+            wall = (time.perf_counter() - t0) * 1e3
+        by_name, spans = {}, []
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:    # kernels and copies
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3
+                spans.append((e.time_range.start, e.time_range.end))
+        if any(kernel in k for k in by_name):
+            break
+        print(f"profile {what}: window {attempt} holds no {kernel} (device "
+              f"events {sorted(by_name)}); profiled again")
+    else:
+        raise AssertionError(f"profile {what}: the profiler saw no {kernel} "
+                             f"in {PROFILE_WINDOWS} windows")
     # busy: the union of the device spans, so an event reported twice
     # counts once
     busy, end = 0.0, -float("inf")
@@ -1477,19 +1499,21 @@ def compare_scene(got, want, label, whole):
 
 
 def scene_bound(c):
-    """(ms, by) of both K7-scene passes over the scene of `c` as the main
-    path runs them: writes test12, value_q and the corner lat/lon."""
+    """(ms, by) of K7-scene's function over the scene of `c` as the main
+    path asks for it: test12, value_q and the corner lat/lon written once,
+    one subdivision walk per cell (the kernel's two passes walk twice)."""
     n, nl = c.n, c.num_layers
     nbytes = n * (48 + c.lm + 24)
-    ops = n * (2 * (SCENE_OPS["step"] * c.subdivisions + SCENE_OPS["pass"])
+    ops = n * (SCENE_OPS["step"] * c.subdivisions + SCENE_OPS["cell"]
                + nl * SCENE_OPS["layer"] + SCENE_OPS["normals"])
     return bound(nbytes, ops)
 
 
 def locator_bound(n, n_bins, k_cap):
-    """(ms, by) of K7-loc: reads the corner lat/lon, writes the rectangles,
-    the counts and the dense table once; its f64 rectangles."""
-    nbytes = 24 * n + 32 * n + 4 * n_bins + 4 * n_bins * k_cap
+    """(ms, by) of K7-loc's function: reads the corner lat/lon and writes
+    the counts and the dense table once (the kernel's (N, 8) rectangles are
+    its own intermediate); the f64 rectangles' operations."""
+    nbytes = 24 * n + 4 * n_bins + 4 * n_bins * k_cap
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = LOCATOR_OPS * n / F64_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -1827,7 +1851,8 @@ def main_r2b9q(dev, errs):
 
     profile_render(lambda: render_frame_fast_q(
         q, loc, bands, tf, with_id(lp, R2B9_LIMIT), accum, fb,
-        samples=R2B9_SPL, **kw), fb, f"{tag} steady launch")
+        samples=R2B9_SPL, **kw), fb, f"{tag} steady launch",
+        "track_q_kernel")
     t1s = []
     for j in range(4):          # the first warms the samples=1 launch
         torch.cuda.synchronize()
@@ -1932,7 +1957,7 @@ def main_r2b9m(dev, errs):
         raise AssertionError(f"{tag}: image covers only {covered:.4f}")
     profile_render(lambda: render_frame_march_q(
         q, loc, bands, tf, with_id(lp, 4), *frame, finemap=fm, **kw),
-        frame[1], f"{tag} converged pass")
+        frame[1], f"{tag} converged pass", "march_q_kernel")
 
     def tf_edit(tf2):
         torch.cuda.synchronize()

@@ -250,21 +250,23 @@ def build(argv):
         return struct["packed"]
 
     def get_q():
-        """Quantized tier (--quantized): cells, the CSR-binned locator and
+        """Quantized tier (--quantized): cells, the locator (K7-loc) and
         (with --finemap, not --march) the fine map, built on first use; the
         u8 alpha table re-bakes (K5c-q) only when the device TF changed.
         The bands stay those of the unquantized dataset (get_bands), as in
         the JAX app.  Returns (q, locator, k_cap)."""
+        import torch
         from .data.bigscene import build_finemap_cached
-        from .models.locator import build_locator_csr, densify_csr
+        from .models.locator import bin_locator
         from .models.qcells import (bake_alpha_q, quantize_cells,
                                     quantize_dataset_values)
         if struct["q"] is None:
             ds_q, lo, hi = quantize_dataset_values(ds)
             struct["q"] = quantize_cells(ds_q, value_range=(lo, hi),
                                          device=dev)
-            csr, k_cap = build_locator_csr(ds_q)
-            struct["loc_q"] = (densify_csr(csr, k_cap, device=dev), k_cap)
+            lat, lon = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in (ds_q.lat, ds_q.lon))
+            struct["loc_q"] = bin_locator(lat, lon)[:2]
             if cfg["finemap"] and not cfg["march"]:
                 # the quantized march renders without the fine map
                 # (apps/icon_rt.py:489-493), so it is not built for it

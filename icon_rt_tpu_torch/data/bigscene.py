@@ -12,7 +12,8 @@ the host synthesizer is the oracle the tests hold the device one against.
 
 A viewer run or a batch of renders of one dataset bins its locator and
 builds its fine map once: both are functions of the scene's geometry
-alone, so (scene key, locator scale, factor) names them.  The caches hold
+alone, so (scene key, locator scale) names the locator and (scene key,
+factor) the fine map.  The caches hold
 this package's unpacked tables, so they are not shared with the JAX
 package's caches of packed ones.
 
@@ -202,19 +203,14 @@ def to_device(sc: QuantScene, device="cuda"):
     return q, bands
 
 
-def _suffix(dims_scale: float) -> str:
-    return "" if dims_scale == 1.0 else f"_x{dims_scale:g}"
-
-
 def locator_cache_path(cache_key: str, dims_scale: float = 1.0) -> str:
     """npz cache location of the dense locator bins."""
-    return os.path.join(CACHE_DIR, f"qloc_{cache_key}{_suffix(dims_scale)}.npz")
+    suffix = "" if dims_scale == 1.0 else f"_x{dims_scale:g}"
+    return os.path.join(CACHE_DIR, f"qloc_{cache_key}{suffix}.npz")
 
 
-def finemap_cache_path(cache_key: str, factor: int,
-                       dims_scale: float = 1.0) -> str:
-    return os.path.join(CACHE_DIR, f"fmap_{cache_key}{_suffix(dims_scale)}"
-                        f"_f{factor}.npz")
+def finemap_cache_path(cache_key: str, factor: int) -> str:
+    return os.path.join(CACHE_DIR, f"fmap_{cache_key}_f{factor}.npz")
 
 
 def _save_npz(path: str, **arrays):
@@ -229,16 +225,14 @@ _WINDOW = ("lat_lo", "lat_hi", "lon_lo", "lon_hi")
 
 
 def build_finemap_cached(loc, test12, factor: int,
-                         cache_key: str | None = None,
-                         dims_scale: float = 1.0):
+                         cache_key: str | None = None):
     """models/finemap.build_finemap through the npz cache: a hit loads the
     map onto the locator's device, a miss builds it (K7-fm on a CUDA
     locator) and stores it.  Without a cache_key it always builds."""
     from ..models.finemap import FineMap, build_finemap
 
     dev = loc.bins.device
-    path = finemap_cache_path(cache_key, factor, dims_scale) if cache_key \
-        else None
+    path = finemap_cache_path(cache_key, factor) if cache_key else None
     if path and os.path.exists(path):
         z = np.load(path)
         f32 = lambda k: torch.tensor(float(z[k]), dtype=torch.float32,
