@@ -9,7 +9,8 @@ script exits non-zero without printing a result):
   env     the card's name and power limit; there is no CPU fallback
   build   the nvcc builds of K1 (csrc/track_f32.cu), K2 (csrc/track_q.cu),
           K7-fm (csrc/finemap.cu), K3 (csrc/march.cu), K7-scene
-          (csrc/scene.cu) and K7-loc (csrc/locator.cu), started together,
+          (csrc/scene.cu), K7-loc (csrc/locator.cu) and K8
+          (csrc/parity.cu), started together,
           and the first Triton compile of K5a, K5b, K6, K5c-q and K5c-f32,
           with their seconds and the ptxas register/spill lines
   check   every kernel against its plain PyTorch version on the card, at
@@ -89,6 +90,32 @@ script exits non-zero without printing a result):
           (median of 3), tf_edit_s; the pass with the fine map against the
           pass without (<= FINEMAP_SHARE of lanes beyond FINEMAP_TOL); K3-q
           against its plain version on the first 4096 covered lanes
+  main ae, main accel sphere, main accel grid  the reference-parity
+          raygens (K8, csrc/parity.cu) through the app (--raygen ae /
+          accel, --accel-mode, the locator sampler) at subdiv 8 x 16,
+          1920x1080, closeup camera, after every earlier table is freed:
+          K8's counters zeroed before the build and read after 8 launches
+          of samples=1; build seconds (cells, locator, the accel with its
+          K5b majorants), ms per launch (fb on the host) and Mray/s,
+          coverage >= 0.5, the maximum loop iterations per lane over the
+          frame, K5b against its plain version at the accel's bin count
+          (exact), a profiled launch, tf_edit_s (a gain edit to the next
+          frame's fb on the host)
+  main brute  the brute-force sampler through the app on the check scene,
+          each raygen, 2 launches (its launch counts)
+  check parity  K8's six raygen x sampler combinations {ae, accel sphere,
+          accel grid} x {locator, brute} against the plain version at
+          subdiv 3 x 8, 128x128, closeup camera, the app's unit distance,
+          2 samples: the first sample's final LCG state and loop
+          iterations equal on every lane, fb identical on >= 99.9% of
+          pixels, accum <= 1e-6; then each main parity path's K8 against
+          its plain version on the first 4096 lanes of pixel_order's
+          covered prefix and on 4096 lanes strided over the frame.  The
+          bound of each K8 row comes from the events that the plain run
+          of the brute rows' 128x128 lanes, or of the strided lanes
+          (scaled to the frame), counts (ops/woodcock.py `Work`).  These
+          plain runs come last: after their long loops the profiler
+          reports no device event for several windows
 
 Every phase prints the device's peak memory (torch.cuda.max_memory_allocated
 since the phase began).
@@ -129,15 +156,25 @@ FINEMAP_TOL = 1e-4          # K3-q fine map on vs off (tests/test_march.py:366)
 #: (scripts/torch_march_vs_jax.py tie --tf default).
 FINEMAP_SHARE = 1e-3
 CU_SOURCES = ("track_f32", "track_q", "finemap", "march", "scene",
-              "locator")                                  # csrc/*.cu
+              "locator", "parity")                        # csrc/*.cu
 R2B9_SUB, R2B9_LAYERS = 11, 16    # bench.py r2b9q_closeup / r2b9m_closeup
 R2B9_SPL, R2B9_LIMIT = 8, 64      # r2b9q: samples per launch, in all
 PREVIEW_W, PREVIEW_H = 480, 270   # bench.py's preview frame (W/4 x H/4)
 WINDOW_CELLS = 1 << 20            # the R2B9 index windows of the K7-scene check
 CHECK_LANES = 4096                # K2 / K3-q against plain at R2B9
-PROFILE_WINDOWS = 3               # profiler windows tried for a kernel
+PROFILE_WINDOWS = 20              # profiler windows tried for a kernel
 SCENE_THICKNESS = 3.0e4           # data/device_scene.py's default
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+PARITY_SUB, PARITY_LAYERS, PARITY_W = 3, 8, 128   # the K8 check scene
+PARITY_SAMPLES = 2          # samples of each K8 check
+PARITY_LIMIT = 8            # main parity phases: 8 launches of 1 sample
+PARITY_RAYGENS = ("ae", "sphere", "grid")
+PARITY_SAMPLERS = ("locator", "brute")
+#: the JAX loops each K8 raygen replaces (the samplers' too: models/
+#: cells.py:170, models/locator.py:366)
+PARITY_REPLACES = {"ae": "icon_rt_tpu/ops/render.py:102",
+                   "sphere": "icon_rt_tpu/ops/traverse.py:212",
+                   "grid": "icon_rt_tpu/ops/traverse.py:84"}
 
 # The bound of a kernel is the larger of its bytes over the H100's memory
 # rate and its f32 operations over the card's f32 rate (NVIDIA's published
@@ -173,6 +210,24 @@ ROW_BYTES = {"track_f32": (56, 8), "track_q": (44, 2), "march_f32": (56, 20),
 #: overlap, the depth, two exponentials, the colour), a crossing's column
 #: exit, and per candidate of a gap skip
 FLOPS = {"eval": 40, "locate": 60, "layer": 20, "cross": 60, "skip_cand": 50}
+#: K8's f32 operations per event of ops/woodcock.py `Work`, each the
+#: arithmetic its code path in csrc/parity.cu runs (a transcendental counts
+#: 20, a division or square root 1): a free-path draw (the LCG, the log,
+#: two divisions, the compare), a DDA advance (grid: the closest crossing,
+#: the stepping axes, the next segment and bin; sphere: the same with the
+#: floored bin wrap), a sample (position and radius), its locate (asin,
+#: atan2, two bins), a candidate test by where it stops (the radial compare
+#: 2, then 7 per plane evaluated), and a hit (classification, acceptance
+#: draw, collision window) plus 2 per layer of its layer select
+PARITY_OPS = {"draw": 30, "advance": {"ae": 0, "grid": 18, "sphere": 27},
+              "eval": 12, "locate": 55, "radial": 2, "plane": 7, "hit": 40,
+              "hit_layer": 2}
+#: K8's bytes per lane (accum read and written, fb written) and per read:
+#: a cell's radii 8 when its radial test runs, its planes 48 when a plane
+#: test runs, num_layers, one value and 4 per layer ceiling when it is hit,
+#: 4 per locator entry
+PARITY_BYTES = {"lane": 36, "radial": 8, "planes": 48, "hit": 8,
+                "layer": 4, "entry": 4}
 
 
 def nvidia_smi() -> str:
@@ -665,11 +720,11 @@ def zero_counters():
     """Every kernel launch counter of the port to 0."""
     from icon_rt_tpu_torch.data import device_scene
     from icon_rt_tpu_torch.models import accel, finemap, locator, qcells
-    from icon_rt_tpu_torch.ops import fast, fastq, march, order
+    from icon_rt_tpu_torch.ops import fast, fastq, march, order, render
     accel.launches = order.launches = 0
     fastq.launches = finemap.launches = 0
     for d in (fast.launches, qcells.launches, march.launches,
-              device_scene.launches, locator.launches):
+              device_scene.launches, locator.launches, render.launches):
         for k in d:
             d[k] = 0
 
@@ -1367,6 +1422,379 @@ def rmse_q(dev):
     return rmse
 
 
+# ===========================================================================
+# The reference-parity raygens (K8)
+# ===========================================================================
+
+def parity_tables(sub, layers, dev):
+    """Cells, locator, transfer function and both accels (built on the
+    host, majorants by K5b) of the synthetic subdiv-`sub` scene; returns
+    (tables dict, stats, build seconds by part)."""
+    from icon_rt_tpu_torch.data import synthetic
+    from icon_rt_tpu_torch.models.accel import (build_grid_accel,
+                                                build_shell_accel,
+                                                update_majorants)
+    from icon_rt_tpu_torch.models.cells import build_cells, compute_stats
+    from icon_rt_tpu_torch.models.locator import build_locator
+    from icon_rt_tpu_torch.models.transfunc import make_transfunc
+    ds = synthetic.icosphere(sub, layers)
+    stats = compute_stats(ds)
+    secs = {}
+    t0 = time.perf_counter()
+    cells = build_cells(ds, device=dev)
+    t1 = time.perf_counter()
+    loc = build_locator(ds, device=dev)
+    t2 = time.perf_counter()
+    tf = make_transfunc(value_range=tuple(stats.data_range), device=dev)
+    sph = update_majorants(build_shell_accel(
+        ds, stats.spherical_bounds_lo, stats.spherical_bounds_hi,
+        device=dev), tf.values, tf.value_range)
+    t3 = time.perf_counter()
+    grid = update_majorants(build_grid_accel(
+        ds, stats.world_bounds_lo, stats.world_bounds_hi, device=dev),
+        tf.values, tf.value_range)
+    secs.update(cells=t1 - t0, locator=t2 - t1, sphere=t3 - t2,
+                grid=time.perf_counter() - t3)
+    return dict(cells=cells, loc=loc, tf=tf,
+                accel={"sphere": sph, "grid": grid}), stats, secs
+
+
+def parity_lp(stats, width, height, dev, k=0):
+    """Closeup launch parameters with the app's unit distance."""
+    from icon_rt_tpu_torch.ops.render import make_launch_params
+    cam = closeup_camera(stats, width, height)
+    ud = 10.0 ** (np.floor(np.log10(stats.spherical_bounds_lo[0])) - 3)
+    return make_launch_params(cam.basis(width, height),
+                              stats.world_bounds_lo, stats.world_bounds_hi,
+                              unit_distance=ud, accum_id=k, device=dev)
+
+
+def parity_run(tabs, lp, raygen, sampler, pix, width, height, samples,
+               kernel, work=None):
+    """`samples` K8 samples (kernel, or its plain version on the same
+    card) of the lanes `pix`; returns (accum, fb, debug of the first
+    sample: final rng, iterations; seconds per sample).  `work`, an
+    ops/woodcock.py `Work` (plain version only), counts the first
+    sample's events."""
+    import torch
+    from icon_rt_tpu_torch.ops import render
+    dev = pix.device
+    n = pix.shape[0]
+    acc = torch.zeros(n, 4, dtype=torch.float32, device=dev)
+    fb = torch.zeros(n, dtype=torch.int32, device=dev)
+    dbg = torch.zeros(n, 2, dtype=torch.int32, device=dev)
+    accel = tabs["accel"].get(raygen)
+    cells, loc = tabs["cells"], tabs["loc"]
+    secs = []
+    for k in range(samples):
+        lpk = with_id(lp, k)
+        d = dbg if k == 0 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kernel:
+            render.parity_track(cells, tabs["tf"], lpk, acc, fb,
+                                width=width, height=height, raygen=raygen,
+                                sampler=sampler, locator=loc, accel=accel,
+                                pix=pix, debug=d)
+        else:
+            render._parity_torch(cells, tabs["tf"], lpk, pix, acc, fb, d,
+                                 width, height, raygen, sampler, loc, accel,
+                                 work if k == 0 else None)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return acc, fb, dbg, secs
+
+
+def parity_bound(raygen, sampler, lanes, w, scale):
+    """(ms, by) of one K8 sample of `lanes` lanes from the work `w`
+    (`Work.counts()`) of a plain run on lanes/scale of them: the events
+    scaled to the frame, each by its own operations; the bytes of every
+    lane, and the reads of the counted lanes (fewer than the frame's, so
+    the bound stays a least time)."""
+    o, b = PARITY_OPS, PARITY_BYTES
+    plane_tests = w["plane1"] + 2 * w["plane2"] + 3 * (w["plane3"]
+                                                       + w["hit"])
+    per_sample = o["eval"] + (o["locate"] if sampler == "locator" else 0)
+    ops = scale * (w["draw"] * o["draw"]
+                   + w["advance"] * o["advance"][raygen]
+                   + w["eval"] * per_sample
+                   + (w["radial"] + w["plane1"] + w["plane2"] + w["plane3"]
+                      + w["hit"]) * o["radial"]
+                   + plane_tests * o["plane"]
+                   + w["hit"] * o["hit"] + w["hit_layers"] * o["hit_layer"])
+    nbytes = (b["lane"] * lanes + b["radial"] * w["radial_cells"]
+              + b["planes"] * w["plane_cells"] + b["hit"] * w["hit_cells"]
+              + b["layer"] * w["hit_cell_layers"] + b["entry"] * w["entries"])
+    return bound(nbytes, ops)
+
+
+def compare_parity(label, tabs, lp, raygen, sampler, pix, width, height,
+                   samples, count=False):
+    """K8 against its plain version on the lanes `pix`: the first sample's
+    final rng and iterations equal on every lane, then after `samples`
+    samples fb identical on >= 99.9% and accum within ACCUM_TOL; raises
+    past them.  Returns (accum max abs err, plain seconds of the last
+    sample, kernel seconds of the last sample, with `count` the plain
+    version's work in the first sample (`Work.counts()`), else None).
+    The lanes' equal rng and iterations make that work the kernel's."""
+    import torch
+    from icon_rt_tpu_torch.ops.woodcock import Work
+    work = Work(tabs["cells"], sampler,
+                tabs["loc"] if sampler == "locator" else None) \
+        if count else None
+    ak, fk, dk, ks = parity_run(tabs, lp, raygen, sampler, pix, width,
+                                height, samples, True)
+    ap, fp, dp, ps = parity_run(tabs, lp, raygen, sampler, pix, width,
+                                height, samples, False, work)
+    w = work.counts() if count else None
+    same_rng = float((dk[:, 0] == dp[:, 0]).float().mean())
+    same_it = float((dk[:, 1] == dp[:, 1]).float().mean())
+    same = float((fk == fp).float().mean())
+    err = float((ak - ap).abs().max())
+    print(f"{label} {raygen} x {sampler}: first sample's rng equal on "
+          f"{same_rng:.6f}, iterations on {same_it:.6f} of {pix.shape[0]} "
+          f"lanes (max {int(dk[:, 1].max())}); after {samples} samples fb "
+          f"identical on {same:.6f}, accum max abs diff {err:.3e}; last "
+          f"sample kernel {ks[-1] * 1e3:.3f} ms, plain {ps[-1] * 1e3:.3f} "
+          f"ms" + (f"; the first sample's work {json.dumps(w)}" if count
+                   else ""))
+    if same_rng < 1.0 or same_it < 1.0:
+        bad = int(torch.nonzero((dk != dp).any(dim=1))[0, 0])
+        raise AssertionError(
+            f"{label}: K8 {raygen} x {sampler} lane {bad} (pixel "
+            f"{int(pix[bad])}) ends with rng {int(dk[bad, 0])} after "
+            f"{int(dk[bad, 1])} iterations, the plain version with "
+            f"{int(dp[bad, 0])} after {int(dp[bad, 1])}")
+    if same < 0.999 or not err <= ACCUM_TOL:
+        raise AssertionError(f"{label}: K8 {raygen} x {sampler} disagrees "
+                             f"with its plain version")
+    return err, ps[-1], ks[-1], w
+
+
+def check_parity(dev, errs):
+    """K8's six raygen x sampler combinations against the plain version at
+    subdiv 3 x 8, 128x128, closeup camera, app unit distance, 2 samples.
+    Returns the brute-force rows' timings and bounds (they run here only)."""
+    import torch
+    t0 = time.perf_counter()
+    tabs, stats, secs = parity_tables(PARITY_SUB, PARITY_LAYERS, dev)
+    W = H = PARITY_W
+    lp = parity_lp(stats, W, H, dev)
+    pix = torch.arange(W * H, dtype=torch.int32, device=dev)
+    print(f"check parity scene subdiv {PARITY_SUB} x {PARITY_LAYERS} "
+          f"({tabs['cells'].num_cells} cells), {W}x{H}, build seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    brute = {}
+    for raygen in PARITY_RAYGENS:
+        for sampler in PARITY_SAMPLERS:
+            name = f"parity_{raygen}_{sampler}"
+            err, ps, ks, w = compare_parity(
+                "check parity", tabs, lp, raygen, sampler, pix, W, H,
+                PARITY_SAMPLES, count=sampler == "brute")
+            errs[name] = max(errs.get(name, 0.0), err)
+            if sampler == "brute":
+                # one sample of the whole frame, kernel and plain; the
+                # work counted on every lane
+                ms = time_cuda(lambda: parity_run(
+                    tabs, lp, raygen, sampler, pix, W, H, 1, True), reps=3)
+                bnd = parity_bound(raygen, sampler, W * H, w, 1.0)
+                print(f"bound {name}: {bnd[0]:.4f} ms ({bnd[1]}), the work "
+                      f"of all {W * H} lanes")
+                brute[name] = dict(ms=ms, plain_ms=ps * 1e3, bnd=bnd,
+                                   lanes=W * H, scene=f"subdiv {PARITY_SUB}")
+    print(f"check parity {time.perf_counter() - t0:.1f} s")
+    return brute
+
+
+def parity_argv(raygen, accel_mode, sampler, sub, layers, width, height,
+                limit, name):
+    """The app's argv of a parity path with the closeup camera."""
+    from icon_rt_tpu_torch.data import synthetic
+    from icon_rt_tpu_torch.models.cells import compute_stats
+    stats = compute_stats(synthetic.icosphere(sub, layers))
+    cam = closeup_camera(stats, width, height)
+    pose = [*cam.position, *cam.get_poi(), *cam.up_vector]
+    argv = ["--device", "cuda", "--synthetic", f"{sub}:{layers}",
+            "--size", str(width), str(height), "--sample-limit", str(limit),
+            "--camera", *[repr(float(v)) for v in pose],
+            "-fovy", repr(float(cam.get_fovy_degrees())),
+            "--raygen", "ae" if raygen == "ae" else "accel",
+            "--sampler", sampler, "-o", os.path.join(OUT_DIR, name)]
+    if raygen != "ae":
+        argv += ["--accel-mode", accel_mode]
+    return argv
+
+
+def main_parity(dev, raygen, errs):
+    """A parity raygen through the app (icon_rt_tpu_torch.app.build, the
+    launch / is_running / present loop) at subdiv 8 x 16, 1920x1080, the
+    closeup camera, the locator sampler and the app's unit distance:
+    build seconds (cells, locator, the accel), PARITY_LIMIT launches of
+    samples=1 (fb on the host), coverage, the maximum iterations per lane,
+    tf_edit_s, K5b against its plain version at the accel's bin count, a
+    profiled launch and the peak memory.  Returns (counts, the K8 row's
+    numbers, `check`): check() holds K8 against its plain version on the
+    first CHECK_LANES lanes of pixel_order's covered prefix (adding the
+    plain time to the row) and on CHECK_LANES lanes strided over the
+    frame, whose plain run counts the work of the bound, scaled to the
+    frame; it runs after every profile of the script, because the plain
+    version's long loops leave the profiler without device events for
+    several windows."""
+    import torch
+    from icon_rt_tpu_torch import app
+    from icon_rt_tpu_torch.models import accel as accel_mod
+    from icon_rt_tpu_torch.models.accel import (compute_max_opacities_torch,
+                                                max_opacity)
+    from icon_rt_tpu_torch.ops import render
+    from icon_rt_tpu_torch.ops.order import pixel_order
+    tag = "main ae" if raygen == "ae" else f"main accel {raygen}"
+    name = f"parity_{raygen}_locator"
+    W, H = MAIN_W, MAIN_H
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    pl = app.build(parity_argv(raygen, raygen, "locator", MAIN_SUB,
+                               MAIN_LAYERS, W, H, PARITY_LIMIT,
+                               f"chip_smoke_{raygen}"))
+    build_s = time.perf_counter() - t0
+    launch_ms = []
+    run_loop(pl, launch_ms)
+    pl.present()
+    s = pl.scene
+    secs = dict(s["timings"])
+    print(f"{tag} build {build_s:.3f} s (app.build: cells and locator); "
+          f"build seconds by part {json.dumps({k: round(v, 3) for k, v in secs.items()})}"
+          f" (the accel and its K5b majorants in the first launch)")
+    fb_host = pl.frame["fb"].cpu().numpy().view(np.uint32)
+    covered = float(((fb_host >> 24) > 0).mean())
+    acc = pl.frame["accum"]
+    if not bool(torch.isfinite(acc).all()) or covered < 0.5:
+        raise AssertionError(f"{tag}: image covers {covered:.4f} (< 0.5) or "
+                             f"accum is not finite")
+    steady = np.array(launch_ms[1:])
+    med = float(np.median(steady))
+    spread = float((steady.max() - steady.min()) / med)
+    print(f"{tag} {len(launch_ms)} launches of 1 sample; ms per launch "
+          f"{[round(x, 3) for x in launch_ms]} (the first also builds the "
+          f"accel); steady median {med:.3f} ms, spread {spread:.3f}: "
+          f"{W * H / (med * 1e-3) / 1e6:.3f} Mray/s full frame (fb copied "
+          f"to the host); image covered fraction {covered:.4f}")
+    counts = {name: render.launches[name]}
+    if raygen != "ae":                  # the accel's majorants
+        counts["max_opacity"] = accel_mod.launches
+    require_counts(tag, counts)
+    if counts[name] != len(launch_ms):
+        raise AssertionError(f"{tag}: K8 launched {counts[name]} times in "
+                             f"{len(launch_ms)} launches")
+
+    cells, loc = s["get_f32"]()
+    tf = s["tf"]()
+    accel = s["get_accel"](raygen) if raygen != "ae" else None
+    tabs = dict(cells=cells, loc=loc, tf=tf,
+                accel={} if accel is None else {raygen: accel})
+    lp = launch_params(pl)
+    full = torch.arange(W * H, dtype=torch.int32, device=dev)
+    _, _, dbg, _ = parity_run(tabs, lp, raygen, "locator", full, W, H, 1,
+                              True)
+    print(f"{tag} iterations per lane over the frame: max "
+          f"{int(dbg[:, 1].max())}, mean "
+          f"{float(dbg[:, 1].double().mean()):.1f} (cap {render.MAX_ITERS})")
+    if int(dbg[:, 1].max()) >= render.MAX_ITERS:
+        raise AssertionError(f"{tag}: a lane reached the iteration cap")
+    ms = time_cuda(lambda: render.parity_track(
+        cells, tf, lp, acc, pl.frame["fb"], width=W, height=H,
+        raygen=raygen, sampler="locator", locator=loc, accel=accel),
+        reps=3)
+
+    if accel is not None:
+        mo_args = (accel.value_ranges, tf.values, tf.value_range)
+        got = max_opacity(*mo_args)
+        want = compute_max_opacities_torch(*mo_args)
+        km = time_cuda(lambda: max_opacity(*mo_args), reps=5)
+        pm = time_cuda(lambda: compute_max_opacities_torch(*mo_args), reps=1)
+        print(f"{tag} K5b at {accel.value_ranges.shape[0]} bins: "
+              f"{'exact' if torch.equal(got, want) else 'DIFFERS'}; kernel "
+              f"{km:.4f} ms, plain {pm:.4f} ms")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: K5b differs from its plain "
+                                 f"version at {got.shape[0]} bins")
+
+    profile_render(lambda: render.parity_track(
+        cells, tf, with_id(lp, PARITY_LIMIT), acc, pl.frame["fb"], width=W,
+        height=H, raygen=raygen, sampler="locator", locator=loc,
+        accel=accel), pl.frame["fb"], f"{tag} launch", "parity_kernel")
+
+    lut0 = pl.transfunc.get_lut()
+    timed_edit(pl, tag, "gain 0.95 (warm-up)", lambda: set_lut(
+        pl, lut0 * np.float32(0.95)))
+    edit_ms = timed_edit(pl, tag, "gain 0.9", lambda: set_lut(
+        pl, lut0 * np.float32(0.9)))
+    print(f"{tag} tf_edit_s {edit_ms / 1e3:.4f} (a gain edit: "
+          f"{'K5b over the accel, ' if accel is not None else ''}the next "
+          f"frame's fb on the host)")
+    gib = peak_memory(tag)
+    row = dict(ms=ms, lanes=W * H, launch_ms=med,
+               max_iters=int(dbg[:, 1].max()), tf_edit_s=edit_ms / 1e3,
+               peak_gib=gib)
+    perm, _ = pixel_order(lp, s["stats"].spherical_bounds_lo[0],
+                          s["stats"].spherical_bounds_hi[0], W, H)
+    pix = perm[:CHECK_LANES].contiguous()
+    stride = W * H // CHECK_LANES
+    strided = full[::stride][:CHECK_LANES].contiguous()
+    del pl, acc, dbg, perm, full
+
+    def check():
+        err, ps, ks, _ = compare_parity(
+            f"{tag} K8 on {CHECK_LANES} covered lanes", tabs, lp, raygen,
+            "locator", pix, W, H, 1)
+        err2, _, _, w = compare_parity(
+            f"{tag} K8 on {CHECK_LANES} lanes strided by {stride}", tabs,
+            lp, raygen, "locator", strided, W, H, 1, count=True)
+        errs[name] = max(errs.get(name, 0.0), err, err2)
+        bnd = parity_bound(raygen, "locator", W * H, w,
+                           W * H / CHECK_LANES)
+        print(f"bound {name}: {bnd[0]:.4f} ms ({bnd[1]}), the work of "
+              f"{CHECK_LANES} strided lanes scaled by "
+              f"{W * H / CHECK_LANES:.2f}")
+        row.update(bnd=bnd, plain_ms=ps * 1e3, plain_lanes=CHECK_LANES,
+                   ms_check_lanes=ks * 1e3)
+    return counts, row, check
+
+
+def main_brute(dev):
+    """The brute-force sampler through the app on the check scene (it is
+    meant for small scenes): each parity raygen, 2 launches of 1 sample,
+    counters zeroed before and read after.  Returns the counts."""
+    from icon_rt_tpu_torch import app
+    from icon_rt_tpu_torch.ops import render
+    zero_counters()
+    for raygen in PARITY_RAYGENS:
+        pl = app.build(parity_argv(raygen, raygen, "brute", PARITY_SUB,
+                                   PARITY_LAYERS, PARITY_W, PARITY_W, 2,
+                                   f"chip_smoke_{raygen}_brute"))
+        run_loop(pl, [])
+        pl.present()
+    counts = {f"parity_{g}_brute": render.launches[f"parity_{g}_brute"]
+              for g in PARITY_RAYGENS}
+    require_counts("main brute", counts)
+    return counts
+
+
+def parity_rows(loc_rows, brute_rows, errs, counts):
+    """The kernels line's K8 rows, one per raygen x sampler."""
+    rows = []
+    for raygen in PARITY_RAYGENS:
+        for sampler in PARITY_SAMPLERS:
+            name = f"parity_{raygen}_{sampler}"
+            r = dict((loc_rows if sampler == "locator" else brute_rows)[name])
+            kernel_row(rows, counts, errs, name, "cuda",
+                       "icon_rt_tpu_torch/csrc/parity.cu",
+                       PARITY_REPLACES[raygen], r.pop("ms"),
+                       r.pop("plain_ms"), r.pop("bnd"), **r)
+    return rows
+
+
 def profile_launch(pl, quantized=False, marching=False):
     """One steady main-path launch (fb copied to the host) under
     torch.profiler: device time by kernel and the device's idle share of
@@ -1410,9 +1838,11 @@ def profile_render(render, fb, what, kernel):
     """One call of `render` and the copy of fb to the host, after a warm
     call, under torch.profiler: device time by kernel and the device's idle
     share of the call's wall time.  The profiler may drop a kernel from a
-    one-launch window; a window without a device event named `kernel` is
-    reported and profiled again, and none in PROFILE_WINDOWS tries raises,
-    so no idle share is printed from a window that lacks the kernel."""
+    one-launch window, and after the plain versions' long loops its
+    windows can hold no device event for several tries (PERF.md §7); a
+    window without a device event named `kernel` is reported and profiled
+    again, and none in PROFILE_WINDOWS tries raises, so no idle share is
+    printed from a window that lacks the kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2018,13 +2448,15 @@ def build_all():
     from icon_rt_tpu_torch.ops.march import build_march
     from icon_rt_tpu_torch.data.device_scene import build_scene_kernel
     from icon_rt_tpu_torch.models.locator import build_locator_kernel
+    from icon_rt_tpu_torch.ops.render import build_parity
     from icon_rt_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(CU_SOURCES)) as ex:
         for f in [ex.submit(b) for b in (build_track_f32, build_track_q,
                                           build_finemap_kernel,
                                           build_march, build_scene_kernel,
-                                          build_locator_kernel)]:
+                                          build_locator_kernel,
+                                          build_parity)]:
             f.result()
     for name in CU_SOURCES:
         info = cuda_build.info(name)
@@ -2107,6 +2539,27 @@ def main() -> int:
     print(f"time R2B9 phases: scene9 {t1 - t0:.1f} s, main r2b9q "
           f"{t2 - t1:.1f} s, main r2b9m {time.perf_counter() - t2:.1f} s")
     rows += scene_rows(t9, errs, counts9)
+
+    # the reference-parity raygens (K8), every earlier table freed; the
+    # plain versions' long loops come after every profile of the script
+    t0 = time.perf_counter()
+    counts_p, loc_rows, checks = {}, {}, []
+    for raygen in PARITY_RAYGENS:
+        c, loc_rows[f"parity_{raygen}_locator"], chk = main_parity(
+            dev, raygen, errs)
+        counts_p.update(c)
+        checks.append(chk)
+        torch.cuda.empty_cache()
+    counts_p.update(main_brute(dev))
+    torch.cuda.empty_cache()
+    brute_rows = check_parity(dev, errs)
+    for chk in checks:
+        chk()
+    del checks
+    torch.cuda.empty_cache()
+    peak_memory("check parity, the parity paths' checks")
+    print(f"time parity phases {time.perf_counter() - t0:.1f} s")
+    rows += parity_rows(loc_rows, brute_rows, errs, counts_p)
     for r in rows:              # the R2B9 checks ran after the first rows
         r["max_abs_err"] = errs[r["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -17,11 +17,13 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
   K7-scene data/device_scene.py scene_pass1, scene_pass2  CUDA C++
          (csrc/scene.cu)
   K7-loc models/locator.py locator_bins   CUDA C++ (csrc/locator.cu)
+  K8     ops/render.py     parity_track   CUDA C++ (csrc/parity.cu)
 
 K1, K2 and K3 share the lane setup of csrc/track_common.cuh and the storage
 tiers of csrc/tier_f32.cuh and csrc/tier_q.cuh; K1 and K2 also share its
 Woodcock tracking machine.  K3 is the deterministic march (the app's
---march).
+--march).  K8 is the reference-parity raygens (--raygen ae / accel), the
+renderer's ground truth.
 
 Every kernel has a plain-PyTorch version in the same module.  A wrapper
 launches its kernel for a CUDA tensor and runs the plain version for a CPU
@@ -29,14 +31,16 @@ tensor; anything else raises.  This package never imports jax or
 icon_rt_tpu (the JAX reference package beside it).
 
 Layer map (bottom-up), mirroring icon_rt_tpu:
-  utils/     — LCG, color, PNG, host vector math, native host module loader
+  utils/     — LCG, color, PNG, vector math, image metrics, native host
+               module loader
   data/      — .ic IO, synthetic icosphere scenes, the north-star scene
                built on the device (build_q_scene), the locator and
                fine-map caches
   models/    — cells, quantized cells, transfer function, locator (dense
-               and CSR), fine map, radial bands
+               and CSR), fine map, radial bands, majorant grids
   ops/       — camera, ray ordering, launch params, the fast trackers
-               (f32 and quantized tiers) and the march
+               (f32 and quantized tiers), the march and the parity
+               raygens (Woodcock tracking, majorant traversals)
   pipeline/  — frame loop, CLI flags, .xf IO, TF editor
   app.py     — the icon_rt application (apps/icon_rt_torch.py)
 """

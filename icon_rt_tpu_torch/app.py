@@ -17,13 +17,23 @@ Same CLI as apps/icon_rt.py (ref: icon_rt/hostCode.cu:703-968):
                                converged pass per launch instead of
                                Woodcock samples (K3; without the fine map
                                on the quantized tier, as apps/icon_rt.py)
+  --raygen {fast,accel,ae}     fast = the radial-band raygen; accel/ae =
+                               the reference-parity raygens (K8, one
+                               sample per launch, f32 cells)
+  --accel-mode {sphere,grid}   the accel raygen's majorant grid
+  --sampler {locator,brute}    the parity raygens' point sampler (brute:
+                               a scan of every cell per sample, meant for
+                               small scenes)
 
 This port renders the fast radial-band raygen with the locator sampler on
 the f32 tier and, with --quantized, on the quantized tier, by Woodcock
-tracking (K1, K2) or, with --march, by the march (K3).  An opacity-scale
-edit of the f32 tier re-bakes only the alpha half (K5c-f32).  Flags that
-select anything else raise NotImplementedError naming the ROADMAP item
-that will port them.
+tracking (K1, K2) or, with --march, by the march (K3), and the
+reference-parity raygens (K8) on the f32 cells.  An opacity-scale edit of
+the f32 tier re-bakes only the alpha half (K5c-f32).  The UI parameters
+"Raygen", "Accel mode", "Sampler mode" and "Use naive accel" switch the
+path at run time and reset accumulation; "Use naive accel" off renders the
+accel raygen as AE.  Flags that select anything else raise
+NotImplementedError naming the ROADMAP item that will port them.
 
 Batch behavior matches the reference: renders --sample-limit progressive
 frames, writes the PNG, prints FPS.
@@ -37,13 +47,10 @@ import numpy as np
 
 #: flags and values this port does not render yet -> the ROADMAP item
 _NOT_PORTED = {
-    ("--raygen", "accel"): "ROADMAP Queue 1 item 7 (reference-parity tier)",
-    ("--raygen", "ae"): "ROADMAP Queue 1 item 7 (reference-parity tier)",
-    ("--sampler", "brute"): "ROADMAP Queue 1 item 7 (reference-parity tier)",
-    ("--sampler", "wedge"): "ROADMAP Queue 1 item 8 (unstructured elements)",
-    ("-mode", "2"): "ROADMAP Queue 1 item 8 (unstructured elements)",
-    ("--preview", None): "ROADMAP Queue 1 item 5 (preview tier)",
-    ("--samples", "auto"): "ROADMAP Queue 1 item 5 (auto samples)",
+    ("--sampler", "wedge"): "ROADMAP Queue 1 item 7 (unstructured elements)",
+    ("-mode", "2"): "ROADMAP Queue 1 item 7 (unstructured elements)",
+    ("--preview", None): "ROADMAP Queue 1 item 2 (preview tier)",
+    ("--samples", "auto"): "ROADMAP Queue 1 item 2 (auto samples)",
 }
 
 
@@ -54,13 +61,20 @@ def _not_ported(flag, value=None):
                               f"yet: {item}")
 
 
+def _choice(flag, value, options):
+    if value not in options:
+        raise ValueError(f"{flag} {value}: expected one of {options}")
+    return value
+
+
 def parse_app_args(argv):
     cfg = {
         "filepath": None, "num_cells": -1,
         "lat_range": None, "lon_range": None,
         "synthetic": None, "out": "icon_rt", "bands": 64,
         "samples": 8, "device": "cuda", "quantized": False,
-        "finemap": True, "march": False,
+        "finemap": True, "march": False, "mode": 1, "raygen": "fast",
+        "accel_mode": "sphere", "sampler": "locator",
     }
     i = 0
     while i < len(argv):
@@ -80,20 +94,22 @@ def parse_app_args(argv):
             # 1 = triangles (both: analytic column sampling), 2 = cuBQL
             if argv[i + 1] == "2":
                 _not_ported("-mode", "2")
+            cfg["mode"] = int(argv[i + 1])
             i += 1
         elif a == "--synthetic":
             s = argv[i + 1].split(":")
             cfg["synthetic"] = (int(s[0]), int(s[1]) if len(s) > 1 else 8)
             i += 1
         elif a == "--raygen":
-            if argv[i + 1] != "fast":
-                _not_ported("--raygen", argv[i + 1])
+            cfg["raygen"] = _choice(a, argv[i + 1], ("fast", "accel", "ae"))
             i += 1
         elif a == "--accel-mode":
-            i += 1      # selects the parity raygens' accel: no effect here
+            cfg["accel_mode"] = _choice(a, argv[i + 1], ("sphere", "grid"))
+            i += 1
         elif a == "--sampler":
-            if argv[i + 1] != "locator":
-                _not_ported("--sampler", argv[i + 1])
+            if argv[i + 1] == "wedge":
+                _not_ported("--sampler", "wedge")
+            cfg["sampler"] = _choice(a, argv[i + 1], ("locator", "brute"))
             i += 1
         elif a == "-o":
             cfg["out"] = argv[i + 1].removesuffix(".png"); i += 1
@@ -149,7 +165,11 @@ def build(argv):
     cfg = parse_app_args(argv)
     dev = _device(cfg["device"])
 
+    import time
+
     from .data import icfile, synthetic
+    from .models.accel import (build_grid_accel, build_shell_accel,
+                               update_majorants)
     from .models.cells import build_cells, compute_stats
     from .models.locator import build_locator
     from .models.shells import build_radial_bands, update_band_majorants
@@ -160,7 +180,8 @@ def build(argv):
     from .ops.fastq import render_frame_fast_q
     from .ops.march import render_frame_march, render_frame_march_q
     from .ops.order import inverse_order, pixel_order
-    from .ops.render import alloc_frame, make_launch_params
+    from .ops.render import (alloc_frame, make_launch_params,
+                             render_frame_accel, render_frame_ae)
     from .pipeline.pipeline import Pipeline, TransfuncState
 
     # -- dataset (ref: hostCode.cu:717-808) ---------------------------------
@@ -178,11 +199,25 @@ def build(argv):
     print(f"cells: {ds.num_cells}")
     stats = compute_stats(ds)
 
-    # the f32 tier's tables; the quantized tier builds its own in get_q
+    # the f32 tier's tables (the parity raygens render from them too); the
+    # quantized tier builds its own in get_q
+    timings = {}
+    f32_tabs = {"cells": None, "locator": None}
+
+    def get_f32():
+        """(cells, locator) of the f32 tier, built on first use."""
+        if f32_tabs["cells"] is None:
+            t0 = time.perf_counter()
+            f32_tabs["cells"] = build_cells(ds, device=dev)
+            t1 = time.perf_counter()
+            f32_tabs["locator"] = build_locator(ds, device=dev)
+            timings.update(cells_s=t1 - t0,
+                           locator_s=time.perf_counter() - t1)
+        return f32_tabs["cells"], f32_tabs["locator"]
+
     cells = locator = None
     if not cfg["quantized"]:
-        cells = build_cells(ds, device=dev)
-        locator = build_locator(ds, device=dev)
+        cells, locator = get_f32()
 
     pl = Pipeline(argv, name=cfg["out"])
     pl.set_frame(512, 512)
@@ -211,10 +246,37 @@ def build(argv):
     # unit distance slider scaled to shell magnitude (ref: hostCode.cu:838-841)
     magnitude = np.floor(np.log10(stats.spherical_bounds_lo[0]))
     scale = 10.0 ** (magnitude - 3)
-    state = {"unit_distance": 1.0 * scale}
+    state = {"unit_distance": 1.0 * scale, "accel_active": True,
+             "mode": cfg["mode"], "accel_mode": cfg["accel_mode"],
+             "raygen": cfg["raygen"]}
     pl.ui_param("Unit distance", lambda: state["unit_distance"],
                 lambda v: state.__setitem__("unit_distance", v),
                 minf=0.01 * scale, maxf=5.0 * scale)
+    pl.ui_param("Use naive accel", lambda: state["accel_active"],
+                lambda v: state.__setitem__("accel_active", v))
+
+    def setter(key, options):
+        def set_(v):
+            if key == "mode" and v == 2:
+                _not_ported("-mode", "2")
+            if v not in options:
+                raise ValueError(f"{key} {v!r}: expected one of {options}")
+            state[key] = v
+        return set_
+
+    # live mode toggles (ref: hostCode.cu:138-199 toggleRayGen/Mode/
+    # AccelMode, UI at :843-857): render() reads `state` every frame, so a
+    # set_ui_param swaps the path and resets accumulation.  "Sampler mode"
+    # and "Accel mode" apply to the parity raygens (accel, ae).
+    pl.ui_param("Raygen", lambda: state["raygen"],
+                setter("raygen", ("fast", "accel", "ae")),
+                options=["fast", "accel", "ae"])
+    pl.ui_param("Sampler mode", lambda: state["mode"],
+                setter("mode", (0, 1)),
+                options=["user geom mode", "triangle mode", "cuBQL mode"])
+    pl.ui_param("Accel mode", lambda: state["accel_mode"],
+                setter("accel_mode", ("sphere", "grid")),
+                options=["sphere accel", "grid accel"])
 
     def set_opacity(v):
         """Live opacity-scale slider (the reference's opacityScale,
@@ -235,7 +297,8 @@ def build(argv):
     # TF edit (ref: hostCode.cu:878-909) -----------------------------------
     device = {}
     struct = {"bands": None, "packed": None, "q": None, "loc_q": None,
-              "q_tf": None, "fm": None, "alpha_parts": None}
+              "q_tf": None, "fm": None, "alpha_parts": None, "sphere": None,
+              "grid": None}
 
     def get_bands():
         if struct["bands"] is None:
@@ -285,6 +348,23 @@ def build(argv):
             struct["q_tf"] = device["tf"]
         return (struct["q"], *struct["loc_q"])
 
+    def get_accel(mode):
+        """The parity accel raygen's ShellAccel ('sphere', 1 x 1024 x 1024
+        bins) or GridAccel ('grid', 256^3), built on first use (host numpy
+        and the native rasterizer) with its majorants (K5b)."""
+        if struct[mode] is None:
+            t0 = time.perf_counter()
+            if mode == "sphere":
+                acc = build_shell_accel(ds, stats.spherical_bounds_lo,
+                                        stats.spherical_bounds_hi, device=dev)
+            else:
+                acc = build_grid_accel(ds, stats.world_bounds_lo,
+                                       stats.world_bounds_hi, device=dev)
+            struct[mode] = update_majorants(acc, device["tf"].values,
+                                            device["tf"].value_range)
+            timings[f"{mode}_s"] = time.perf_counter() - t0
+        return struct[mode]
+
     def on_tf_update(tf_state, index):
         """TF-edit handler: new device LUT, band majorants (K5b) and baked
         rows of the f32 tier.  An edit that changes only the opacity scale
@@ -301,6 +381,11 @@ def build(argv):
             struct["bands"] = update_band_majorants(
                 struct["bands"], device["tf"].values,
                 device["tf"].value_range)
+        for mode in ("sphere", "grid"):
+            if struct[mode] is not None:
+                struct[mode] = update_majorants(
+                    struct[mode], device["tf"].values,
+                    device["tf"].value_range)
         if not scale_only:
             struct["alpha_parts"] = None   # parts are baked per LUT + range
         if struct["packed"] is not None:
@@ -318,22 +403,39 @@ def build(argv):
     on_tf_update(pl.transfunc, 0)
 
     W, H = pl.width, pl.height
-    frame = {"perm": None, "inv": None, "n_active": None}
+    frame = {"perm": None, "inv": None, "n_active": None, "raygen": None}
     frame["accum"], frame["fb"] = alloc_frame(W, H, device=dev)
 
     def render(frame_id):
-        # samples per launch, clamped so batch mode honors --sample-limit
-        want = cfg["samples"]
+        raygen = state["raygen"]
+        # samples per launch, clamped so batch mode honors --sample-limit;
+        # the parity raygens render one sample per launch (the oracle)
+        want = cfg["samples"] if raygen == "fast" else 1
         spl = max(1, min(want, pl.sample_limit - frame_id
                          if not pl.interactive else want))
         pl.samples_per_launch = spl
         if frame_id == 0:
             frame["accum"], frame["fb"] = alloc_frame(W, H, device=dev)
+            # mode changes reset accumulation, so the buffer's layout
+            # (permuted for fast, natural otherwise) holds for a whole run
+            frame["raygen"] = raygen
         lp = make_launch_params(
             cam.basis(W, H), stats.world_bounds_lo, stats.world_bounds_hi,
             ambient_color=(1.0, 1.0, 1.0), ambient_radiance=1.0,
             unit_distance=state["unit_distance"], accum_id=frame_id,
             device=dev)
+        if raygen != "fast":
+            c, loc = get_f32()
+            kw = dict(width=W, height=H, sampler=cfg["sampler"], locator=loc)
+            if raygen == "accel" and state["accel_active"]:
+                mode = state["accel_mode"]
+                render_frame_accel(c, device["tf"], get_accel(mode), lp,
+                                   frame["accum"], frame["fb"],
+                                   accel_mode=mode, **kw)
+            else:
+                render_frame_ae(c, device["tf"], lp, frame["accum"],
+                                frame["fb"], **kw)
+            return frame["fb"]
         if frame["perm"] is None or frame_id == 0:
             # re-sort rays by expected cost on camera change (K6)
             p, n_cov = pixel_order(lp, stats.spherical_bounds_lo[0],
@@ -372,7 +474,9 @@ def build(argv):
 
     def present_fn(fb, w, h):
         # the fast path renders in ray-sorted order; unpermute on the host
-        pl.write_frame(fb[frame["inv"]])
+        if frame["raygen"] == "fast":
+            fb = fb[frame["inv"]]
+        pl.write_frame(fb)
     pl.present_fn = present_fn
     # the wired state, for drivers that measure the path (chip_smoke.py)
     pl.frame = frame
@@ -380,5 +484,7 @@ def build(argv):
                 "camera": cam, "get_bands": get_bands,
                 "get_packed": get_packed, "get_q": get_q,
                 "fm": lambda: struct["fm"], "tf": lambda: device["tf"],
-                "unit_distance": lambda: state["unit_distance"]}
+                "unit_distance": lambda: state["unit_distance"],
+                "get_f32": get_f32, "get_accel": get_accel,
+                "timings": timings}
     return pl

@@ -1,0 +1,530 @@
+// K8 `parity_track`: the reference-parity raygens, one thread per pixel.
+//
+// Replaces the XLA-fused loops of icon_rt_tpu/ops/render.py
+// (`generate_ray`, `_pixel_ae`, `_pixel_accel`, `_finalize`),
+// icon_rt_tpu/ops/woodcock.py `woodcock_track`, icon_rt_tpu/ops/traverse.py
+// (`_woodcock_step`, `trace_dda3`, `trace_sdda` and their helpers),
+// icon_rt_tpu/models/cells.py (`find_layer`, `sample_one_cell`,
+// `sample_brute_force`) and icon_rt_tpu/models/locator.py
+// `sample_locator`.  Its plain-PyTorch version is `_parity_torch` in
+// ops/render.py.
+//
+// The shape is the reference's own (deviceCode.cu:239-341): each thread
+// takes its pixel's LCG seed and jittered ray, clips it to the volume box,
+// runs the tracking loop with its point sampler as a device function,
+// classifies through the (S, 4) LUT and finalizes (running-average lerp,
+// sRGB, RGBA8 pack; a ray that misses the box leaves accum and fb as they
+// were).  One template covers raygen {AE, SPHERE, GRID} x sampler
+// {LOCATOR, BRUTE}:
+//   AE      Woodcock tracking of the whole box segment at majorant 1;
+//   GRID    the Cartesian 3-DDA over per-bin majorants (DDA.h:37-136);
+//   SPHERE  the spherical-shell DDA with the reference's degenerate r = 0
+//           lat/lon planes (ShellAccel.h:82-229): the whole shell segment
+//           at the entry cell's majorant, then zero-length visits that step
+//           lat and lon together, one draw each where the majorant is > 0.
+// The traversals are the JAX package's state machines, one Woodcock step
+// and at most one advance per iteration, so a lane's iteration count (the
+// debug output) is the plain version's.
+//
+// Bit for bit with the plain version: built with -fmad=false and without
+// --use_fast_math (IEEE division and square root), every expression in the
+// plain version's operation order; the direction is normalised by three
+// divisions (not the fast tiers' reciprocal multiply); |d| < 1e-5 becomes
+// +1e-5; the seed is accum_id * W * H + x in wrapping u32; the sdda bin
+// wraps with a floored modulo.
+//
+// What bounds it on the H100: the dependent random reads of each locate
+// (bins row -> candidate planes -> heights and value) and the divergence of
+// lanes whose paths differ by orders of magnitude in steps (an AE ray that
+// crosses the box beside the globe takes ~1e4 steps at the app's unit
+// distance).  No shared-memory staging yet.
+#include "track_common.cuh"
+
+struct ParityParams {
+  const float* planes;       // (N, 3, 4)
+  const float* h_bot;        // (N,)
+  const float* h_top;        // (N,)
+  const float* heights;      // (N, 32)
+  const float* value;        // (N, 32)
+  const int32_t* num_layers; // (N,)
+  const int32_t* bins;       // (n_lat * n_lon, k_cap), ascending, -1 tail
+  const float* majors;       // (prod(dims),) accel majorants
+  const float* lut;          // (S, 4)
+  const int32_t* pix;        // (n_lanes,) pixel ids, or null: lane = pixel
+  float* accum;              // (n_lanes, 4) in/out
+  int32_t* fb;               // (n_lanes,) in/out, u32 bits
+  int32_t* dbg;              // (n_lanes, 2) final rng, iterations; or null
+  float cam[12];             // org | dir00 | du | dv
+  float blo[3], bhi[3];      // volume world bounds
+  float amb[3];
+  float amb_rad, ud;
+  float vr[2];               // TF value range
+  float opacity_scale;
+  float win[4];              // locator lat_lo, lat_hi, lon_lo, lon_hi
+  float acc_lo[3], acc_hi[3];  // accel bounds (world, or r/lat/lon)
+  int dims[3];
+  int n_cells, n_lat, n_lon, k_cap, lut_size;
+  int n_lanes, width, height, accum_id, max_iters;
+};
+
+namespace {
+
+constexpr int kAE = 0, kSphere = 1, kGrid = 2;
+constexpr int kLocator = 0, kBrute = 1;
+constexpr float kFltMax = 3.40282347e38f;
+
+__device__ __forceinline__ float min3(const float v[3]) {
+  return fminf(fminf(v[0], v[1]), v[2]);
+}
+
+// Containment of a point with radius r in cell c (ICONGrid.h:181-208).
+__device__ __forceinline__ bool inside_cell(const ParityParams& p, int c,
+                                            float px, float py, float pz,
+                                            float r) {
+  if (!(r >= __ldg(p.h_bot + c) && r <= __ldg(p.h_top + c))) return false;
+  const float* pl = p.planes + static_cast<size_t>(c) * 12;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float ev = __ldg(pl + 4 * k) * px + __ldg(pl + 4 * k + 1) * py +
+                     __ldg(pl + 4 * k + 2) * pz - __ldg(pl + 4 * k + 3);
+    if (!(ev <= 0.0f)) return false;
+  }
+  return true;
+}
+
+// The value of cell c's layer at radius r: the layer is the number of
+// ceilings height[1..num_layers] below r (find_layer's masked count).
+__device__ __forceinline__ float layer_value(const ParityParams& p, int c,
+                                             float r) {
+  const int nl = __ldg(p.num_layers + c);
+  const float* h = p.heights + static_cast<size_t>(c) * 32;
+  int layer = 0;
+  for (int k = 1; k < 32 && k <= nl; ++k) layer += (__ldg(h + k) < r) ? 1 : 0;
+  return __ldg(p.value + static_cast<size_t>(c) * 32 + layer);
+}
+
+// Point sample: true and the value if a cell contains the point.
+template <int SAMPLER>
+__device__ bool sample(const ParityParams& p, float px, float py, float pz,
+                       float& value) {
+  const float r = sqrtf(px * px + py * py + pz * pz);
+  if (SAMPLER == kBrute) {
+    for (int c = 0; c < p.n_cells; ++c) {
+      if (inside_cell(p, c, px, py, pz, r)) {
+        value = layer_value(p, c, r);
+        return true;
+      }
+    }
+    return false;
+  } else {
+    const float lat = asinf(pz / r);
+    const float lon = atan2f(py, px);
+    const int bl = track::grid_bin(lat, p.win[0], p.win[1], p.n_lat);
+    const int bo = track::grid_bin(lon, p.win[2], p.win[3], p.n_lon);
+    const int bin = bl * p.n_lon + bo;
+    const int32_t* row = p.bins + static_cast<size_t>(bin) * p.k_cap;
+    // candidates ascend by id and -1 pads only the tail, so the first
+    // containing one is the lowest-id cell, as the brute-force scan's
+    for (int s = 0; s < p.k_cap; ++s) {
+      const int c = __ldg(row + s);
+      if (c < 0) break;
+      if (inside_cell(p, c, px, py, pz, r)) {
+        value = layer_value(p, c, r);
+        return true;
+      }
+    }
+    return false;
+  }
+}
+
+// postClassify (deviceCode.cu:127-135) with the reference's asymmetric
+// lerp: lut[i] * frac + lut[i+1] * (1 - frac) * (1, 1, 1, opacity_scale).
+__device__ __forceinline__ void classify(const ParityParams& p, float v,
+                                         float rgba[4]) {
+  const int S = p.lut_size;
+  const float vn = (v - p.vr[0]) / (p.vr[1] - p.vr[0]);
+  const float vs = vn * static_cast<float>(S);
+  const int idx = static_cast<int>(vs);
+  const float frac = vs - static_cast<float>(idx);
+  const float* a = p.lut + min(max(idx, 0), S - 1) * 4;
+  const float* b = p.lut + min(max(idx + 1, 0), S - 1) * 4;
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    const float sc = ch == 3 ? p.opacity_scale : 1.0f;
+    rgba[ch] = __ldg(a + ch) * frac + __ldg(b + ch) * (1.0f - frac) * sc;
+  }
+}
+
+// A lane's ray, its LCG state, its result and its iterations.
+struct Ray {
+  float o[3], d[3];
+  uint32_t rng;
+  float color[3], alpha;
+  int it;
+};
+
+// One tentative collision of the accel raygen (deviceCode.cu:160-183) and
+// woodcockFunc's window check (:304-323).  Returns seg_over; sets
+// `collided` and the sample's rgba.
+template <int SAMPLER>
+__device__ bool woodcock_step(const ParityParams& p, Ray& R, float& wt,
+                              float seg0, float seg1, float m,
+                              bool& collided, float rgba[4]) {
+  collided = false;
+  if (!(m > 0.0f)) return true;          // a zero majorant draws nothing
+  const float xi = track::lcg_next(R.rng);
+  wt = wt - logf(1.0f - xi) / (m / p.ud);
+  if (wt > seg1) return true;            // beyond the segment
+  float value;
+  if (!sample<SAMPLER>(p, R.o[0] + R.d[0] * wt, R.o[1] + R.d[1] * wt,
+                       R.o[2] + R.d[2] * wt, value))
+    return false;
+  classify(p, value, rgba);
+  const float u = track::lcg_next(R.rng);
+  if (!(rgba[3] >= u * m)) return false;
+  collided = (wt > seg0) && (wt < seg1);
+  return true;
+}
+
+__device__ __forceinline__ void record(Ray& R, const float rgba[4]) {
+  R.color[0] = rgba[0];
+  R.color[1] = rgba[1];
+  R.color[2] = rgba[2];
+  R.alpha = rgba[3] > 0.0f ? 1.0f : 0.0f;
+}
+
+// AE: the whole box segment [t0, t1] at majorant 1 (woodcock.py:31).
+template <int SAMPLER>
+__device__ void track_ae(const ParityParams& p, Ray& R, float t0, float t1) {
+  const float rate = 1.0f / p.ud;
+  float t = t0;
+  while (R.it < p.max_iters) {
+    ++R.it;
+    const float xi = track::lcg_next(R.rng);
+    t = t - logf(1.0f - xi) / rate;
+    if (t > t1) return;
+    float value;
+    if (!sample<SAMPLER>(p, R.o[0] + R.d[0] * t, R.o[1] + R.d[1] * t,
+                         R.o[2] + R.d[2] * t, value))
+      continue;
+    float rgba[4];
+    classify(p, value, rgba);
+    const float u = track::lcg_next(R.rng);
+    if (rgba[3] >= u * 1.0f) {
+      R.color[0] = rgba[0];
+      R.color[1] = rgba[1];
+      R.color[2] = rgba[2];
+      R.alpha = rgba[3] > 0.0f ? 1.0f : 0.0f;
+      return;
+    }
+  }
+}
+
+__device__ __forceinline__ int linear_index(const int cell[3],
+                                            const int dims[3]) {
+  return cell[2] * dims[0] * dims[1] + cell[1] * dims[0] + cell[0];
+}
+
+// GRID: the Cartesian 3-DDA (traverse.py:84-184).
+template <int SAMPLER>
+__device__ void track_grid(const ParityParams& p, Ray& R, float tmin,
+                           float tmax) {
+  const float ray_tmin = tmin;
+  const float tmax_s = tmax - ray_tmin;
+  int cell[3], step[3], stop[3];
+  float tnext[3], dist[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float os = R.o[k] + ray_tmin * R.d[k];     // shifted so tmin = 0
+    const float rcp = 1.0f / R.d[k];
+    const float lo = (p.acc_lo[k] - os) * rcp;
+    const float hi = (p.acc_hi[k] - os) * rcp;
+    const float tnear = fminf(lo, hi), tfar = fmaxf(lo, hi);
+    const float dimf = static_cast<float>(p.dims[k]);
+    const float v01 = (os - p.acc_lo[k]) / (p.acc_hi[k] - p.acc_lo[k]);
+    cell[k] = min(max(static_cast<int>(v01 * dimf), 0), p.dims[k] - 1);
+    dist[k] = fmaxf(0.0f, (tfar - tnear) / dimf);
+    const bool pos = R.d[k] > 0.0f;
+    step[k] = pos ? 1 : -1;
+    stop[k] = pos ? p.dims[k] : -1;
+    tnext[k] = pos ? tnear + static_cast<float>(cell[k] + 1) * dist[k]
+                   : tnear + static_cast<float>(p.dims[k] - cell[k]) * dist[k];
+  }
+  float t1 = fminf(min3(tnext), tmax_s);
+  float seg0 = ray_tmin + 0.0f, seg1 = ray_tmin + t1;
+  float m = __ldg(p.majors + linear_index(cell, p.dims));
+  float wt = seg0;
+  while (R.it < p.max_iters) {
+    ++R.it;
+    bool collided;
+    float rgba[4];
+    const bool seg_over =
+        woodcock_step<SAMPLER>(p, R, wt, seg0, seg1, m, collided, rgba);
+    if (collided) {
+      record(R, rgba);
+      return;
+    }
+    if (!seg_over) continue;
+    // DDA advance (DDA.h:110-133): every axis at the closest crossing
+    // steps, in order, up to the first that leaves the grid
+    const float tc = min3(tnext);
+    bool out = false;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (!out && tnext[k] == tc) {
+        tnext[k] = tnext[k] + dist[k];
+        cell[k] += step[k];
+        out = cell[k] == stop[k];
+      }
+    }
+    if (out) return;
+    const float t0 = t1;
+    t1 = fminf(min3(tnext), tmax_s);
+    seg0 = ray_tmin + t0;
+    seg1 = ray_tmin + t1;
+    m = __ldg(p.majors + linear_index(cell, p.dims));
+    wt = seg0;
+  }
+}
+
+// Origin-centred sphere of radius rad (ShellAccel.h:34-53).
+__device__ __forceinline__ bool intersect_sphere(const Ray& R, float rad,
+                                                 float& tn, float& tf) {
+  const float a = R.d[0] * R.d[0] + R.d[1] * R.d[1] + R.d[2] * R.d[2];
+  const float b = (R.d[0] * R.o[0] + R.d[1] * R.o[1] + R.d[2] * R.o[2]) *
+                  2.0f;
+  const float c = (R.o[0] * R.o[0] + R.o[1] * R.o[1] + R.o[2] * R.o[2]) -
+                  rad * rad;
+  const float disc = b * b - 4.0f * a * c;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float q = b < 0.0f ? -0.5f * (b - sq) : -0.5f * (b + sq);
+  const float t1 = q / a, t2 = c / q;
+  tn = fminf(t1, t2);
+  tf = fmaxf(t1, t2);
+  return disc >= 0.0f;
+}
+
+// (r, lat, lon) of the point o + d * t, projected on the shell grid
+// unclamped and scaled by dims - 1 (ShellAccel.h:57-68).
+__device__ __forceinline__ void project_point(const ParityParams& p,
+                                              const Ray& R, float t,
+                                              float sph[3], int idx[3]) {
+  const float x = R.o[0] + R.d[0] * t, y = R.o[1] + R.d[1] * t,
+              z = R.o[2] + R.d[2] * t;
+  const float r = sqrtf(x * x + y * y + z * z);
+  sph[0] = r;
+  sph[1] = asinf(z / r);
+  sph[2] = atan2f(y, x);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    idx[k] = static_cast<int>((sph[k] - p.acc_lo[k]) /
+                              (p.acc_hi[k] - p.acc_lo[k]) *
+                              static_cast<float>(p.dims[k] - 1));
+}
+
+// Enter range [rlo, rhi] (ShellAccel.h:113-162); false if it is empty.
+__device__ __forceinline__ bool range_setup(const ParityParams& p,
+                                            const Ray& R, float rlo,
+                                            float rhi, float eps, int cell[3],
+                                            int step[3], int stop[3],
+                                            float tnext[3]) {
+  float sp1[3], sp2[3];
+  int c2[3];
+  project_point(p, R, rlo + eps, sp1, cell);
+  project_point(p, R, rhi - eps, sp2, c2);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    step[k] = sp1[k] < sp2[k] ? 1 : -1;
+    stop[k] = c2[k] + step[k];
+  }
+  // the lat/lon planes are degenerate (r = 0, a zero plane): eval == 0
+  tnext[0] = rhi;
+  tnext[1] = 0.0f;
+  tnext[2] = 0.0f;
+  return !(rhi <= rlo);
+}
+
+// Loop-head visit (ShellAccel.h:163-172): the smallest tnext >= t, and the
+// majorant of the cell wrapped into the grid by a floored modulo.
+__device__ __forceinline__ float shell_visit(const ParityParams& p,
+                                             const int cell[3],
+                                             const float tnext[3], float t,
+                                             float& m) {
+  int w[3];
+  float t1 = kFltMax;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    w[k] = ((cell[k] % p.dims[k]) + p.dims[k]) % p.dims[k];
+    t1 = fminf(t1, tnext[k] >= t ? tnext[k] : kFltMax);
+  }
+  m = __ldg(p.majors + linear_index(w, p.dims));
+  return t1;
+}
+
+// SPHERE: the spherical-shell DDA (traverse.py:212-341).
+template <int SAMPLER>
+__device__ void track_sphere(const ParityParams& p, Ray& R, float tmin) {
+  float ts1, ts4, ts2, ts3;
+  const bool hit1 = intersect_sphere(R, p.acc_hi[0], ts1, ts4);
+  const bool hit2 = intersect_sphere(R, p.acc_lo[0], ts2, ts3);
+  if ((!hit1 && !hit2) || ts4 < tmin) return;
+  // segment table (ShellAccel.h:94-111)
+  const bool outer_only = hit1 && !hit2;
+  const bool front = tmin < ts2;
+  const float r_lo[2] = {(outer_only || front) ? ts1 : ts3,
+                         outer_only ? kFltMax : (front ? ts3 : kFltMax)};
+  const float r_hi[2] = {outer_only ? ts4 : (front ? ts2 : ts4),
+                         outer_only ? -kFltMax : (front ? ts4 : -kFltMax)};
+  const float eps = p.acc_lo[0] * 1e-6f;
+  int cell[3], step[3], stop[3];
+  float tnext[3];
+  if (!range_setup(p, R, r_lo[0], r_hi[0], eps, cell, step, stop, tnext))
+    return;
+  int si = 0;
+  float t = r_lo[0];
+  float m;
+  float t1 = shell_visit(p, cell, tnext, t, m);
+  float wt = t;
+  while (R.it < p.max_iters) {
+    ++R.it;
+    bool collided;
+    float rgba[4];
+    const bool seg_over =
+        woodcock_step<SAMPLER>(p, R, wt, t, t1, m, collided, rgba);
+    if (collided) {
+      record(R, rgba);
+      return;
+    }
+    if (!seg_over) continue;
+    // advance (ShellAccel.h:174-201), sequential with break on stop; the
+    // radial tnext stays at the range end
+    const float tc = min3(tnext);
+    bool out = false;
+    if (tnext[0] == tc) {
+      cell[0] += step[0];
+      out = cell[0] == stop[0];
+    }
+#pragma unroll
+    for (int k = 1; k < 3; ++k) {
+      if (!out && tnext[k] == tc) {
+        cell[k] += step[k];
+        if (cell[k] == stop[k])
+          out = true;
+        else
+          tnext[k] = 0.0f;     // the degenerate plane evaluated again
+      }
+    }
+    float t_new = tc;
+    if (out) {                 // the next range, or finished
+      if (++si > 1) return;
+      if (!range_setup(p, R, r_lo[1], r_hi[1], eps, cell, step, stop, tnext))
+        return;
+      t_new = r_lo[1];
+    }
+    t1 = shell_visit(p, cell, tnext, t_new, m);
+    t = t_new;
+    wt = t_new;
+  }
+}
+
+template <int RAYGEN, int SAMPLER>
+__global__ void __launch_bounds__(128) parity_kernel(const ParityParams p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= p.n_lanes) return;
+  const int pixel = p.pix ? p.pix[lane] : lane;
+  const int x = pixel % p.width;
+  const int y = pixel / p.width;
+
+  // seed and jittered pinhole ray (render.py:85-109)
+  Ray R;
+  R.rng = track::lcg_init(static_cast<uint32_t>(p.accum_id) *
+                                  static_cast<uint32_t>(p.width * p.height) +
+                              static_cast<uint32_t>(x),
+                          static_cast<uint32_t>(y));
+  const float jx = track::lcg_next(R.rng);
+  const float jy = track::lcg_next(R.rng);
+  const float u = static_cast<float>(x) + 0.5f + jx;
+  const float v = static_cast<float>(y) + 0.5f + jy;
+  float d[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    d[k] = p.cam[3 + k] + u * p.cam[6 + k] + v * p.cam[9 + k];
+  const float n = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float dk = d[k] / n;
+    R.d[k] = fabsf(dk) < 1e-5f ? 1e-5f : dk;
+    R.o[k] = p.cam[k];
+  }
+  R.color[0] = R.color[1] = R.color[2] = 0.0f;
+  R.alpha = 0.0f;
+  R.it = 0;
+
+  // box test against the volume bounds (vecmath.h:1926-1937)
+  float t0 = 0.0f, t1 = 1e10f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float a = (p.blo[k] - R.o[k]) / R.d[k];
+    const float b = (p.bhi[k] - R.o[k]) / R.d[k];
+    t0 = fmaxf(t0, fminf(a, b));
+    t1 = fminf(t1, fmaxf(a, b));
+  }
+  const bool wrote = t0 < t1;
+  if (wrote) {
+    if (RAYGEN == kAE)
+      track_ae<SAMPLER>(p, R, t0, t1);
+    else if (RAYGEN == kGrid)
+      track_grid<SAMPLER>(p, R, t0, t1);
+    else
+      track_sphere<SAMPLER>(p, R, t0);
+    // finalize (render.py:127-139): running average, sRGB, RGBA8
+    const float sc = 1.0f / (static_cast<float>(p.accum_id) + 1.0f);
+    float* acc = p.accum + static_cast<size_t>(lane) * 4;
+    float out[4];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      out[k] = track::blend(sc, R.color[k] * p.amb[k] * p.amb_rad, acc[k]);
+    out[3] = track::blend(sc, R.alpha, acc[3]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = out[k];
+    p.fb[lane] = static_cast<int32_t>(
+        track::make_8bit(track::linear_to_srgb(out[0])) |
+        (track::make_8bit(track::linear_to_srgb(out[1])) << 8) |
+        (track::make_8bit(track::linear_to_srgb(out[2])) << 16) |
+        (track::make_8bit(out[3]) << 24));
+  }
+  if (p.dbg) {
+    p.dbg[lane * 2] = static_cast<int32_t>(R.rng);
+    p.dbg[lane * 2 + 1] = R.it;
+  }
+}
+
+template <int RAYGEN, int SAMPLER>
+void launch(const ParityParams& p, cudaStream_t stream) {
+  constexpr int kBlock = 128;
+  const int grid = (p.n_lanes + kBlock - 1) / kBlock;
+  parity_kernel<RAYGEN, SAMPLER><<<grid, kBlock, 0, stream>>>(p);
+}
+
+}  // namespace
+
+// Launches raygen (0 AE, 1 SPHERE, 2 GRID) with sampler (0 LOCATOR,
+// 1 BRUTE) on `stream` (PyTorch's current stream); allocates nothing and
+// does not synchronise.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unknown mode.
+extern "C" int parity_launch(const ParityParams* params, int raygen,
+                             int sampler, void* stream) {
+  if (params->n_lanes <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int mode = raygen * 2 + sampler;
+  switch (mode) {
+    case kAE * 2 + kLocator: launch<kAE, kLocator>(*params, s); break;
+    case kAE * 2 + kBrute: launch<kAE, kBrute>(*params, s); break;
+    case kSphere * 2 + kLocator: launch<kSphere, kLocator>(*params, s); break;
+    case kSphere * 2 + kBrute: launch<kSphere, kBrute>(*params, s); break;
+    case kGrid * 2 + kLocator: launch<kGrid, kLocator>(*params, s); break;
+    case kGrid * 2 + kBrute: launch<kGrid, kBrute>(*params, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -18,6 +18,7 @@ import torch
 
 from .data.device_scene import DeviceScene
 from .data.icfile import ICDataset
+from .models.accel import GridAccel, ShellAccel
 from .models.cells import Cells, CellStats
 from .models.finemap import FineMap
 from .models.locator import Locator
@@ -53,6 +54,16 @@ def cells(c, device="cpu") -> Cells:
 
 def locator(loc, device="cpu") -> Locator:
     return _convert(loc, Locator, device)
+
+
+def grid_accel(a, device="cpu") -> GridAccel:
+    """A JAX GridAccel (dims, bounds, value ranges, majorants)."""
+    return _convert(a, GridAccel, device)
+
+
+def shell_accel(a, device="cpu") -> ShellAccel:
+    """A JAX ShellAccel (dims, spherical bounds, value ranges, majorants)."""
+    return _convert(a, ShellAccel, device)
 
 
 def radial_bands(b, device="cpu") -> RadialBands:

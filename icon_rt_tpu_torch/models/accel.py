@@ -1,23 +1,61 @@
-"""Majorant helpers shared by the empty-space accelerators: the host-side
-range rasterizer and the TF-edit range-max pass (kernel K5b).
+"""Empty-space-skipping majorant grids and the TF-edit range-max pass
+(kernel K5b).
+
+Two majorant grids, as in the reference, back the parity raygen `accel`
+(ops/render.py, kernel K8):
+  * GridAccel  -- uniform Cartesian grid over the volume AABB, 256^3 bins
+                  (ref: icon_rt/Params.h:44-49, hostCode.cu:245-297)
+  * ShellAccel -- (r, lat, lon) spherical-shell grid, 1 x 1024 x 1024 bins
+                  (ref: icon_rt/ShellAccel.h:22-27, hostCode.cu:299-336)
+Each bin stores the value range of all cell layers touching it; the builds
+run on the host in numpy and the shared C++ rasterizer.  Reference quirks
+kept for image parity: the per-layer value range is (value[L-1], value[L])
+unsorted (ref: hostCode.cu:291-293); ShellAccel's lower corner uses only
+the bottom corners and its upper corner only the top corners (ref:
+hostCode.cu:311-319); the spherical projection scales by dims-1 and is
+unclamped (ref: ShellAccel.h:57-68), the Cartesian one clamps (ref:
+DDA.h:24-31).  The radial bands of the fast path (models/shells.py) reuse
+the rasterizer and K5b.
 
 K5b `max_opacity` (Triton) maps per-bin value ranges through the LUT's
-alpha channel to per-bin majorants — the reference's computeMaxOpacities
+alpha channel to per-bin majorants -- the reference's computeMaxOpacities
 (ref: hostCode.cu:362-434).  It replaces the XLA-fused
 icon_rt_tpu/models/accel.py `compute_max_opacities` (a sparse-table
-range-max) and runs on every TF edit.  On the H100 it is bound by launch
-latency at the 64 radial bands of the fast path, and by reading the
-(M, 2) ranges (8 bytes per row) at the >= 1M-bin accel grids that reuse
-it: each program keeps the whole alpha column (<= 512 floats) in registers
-and reduces one masked (rows, LUT) tile per block of rows, so the LUT is
-read once per program and the ranges once in total.
+range-max) and runs on every TF edit.  Each program keeps the whole alpha
+column (<= 512 floats) in registers and reduces one masked (rows, LUT)
+tile per block of rows.  On the H100 that is launch-bound at the 64
+radial bands (0.04 ms) and compare-bound at the grid accel's 16.8M bins
+(29 ms: every row, empty or not, is compared with the whole LUT; PERF.md
+§7).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..data.icfile import ICDataset
+from .cells import layer_bounds
+
 F = np.float32
+FLT_MAX = np.float32(np.finfo(np.float32).max)
+
+
+class GridAccel(NamedTuple):
+    dims: torch.Tensor            # (3,) i32
+    world_lo: torch.Tensor        # (3,) f32
+    world_hi: torch.Tensor        # (3,) f32
+    value_ranges: torch.Tensor    # (M, 2) f32
+    max_opacities: torch.Tensor   # (M,) f32
+
+
+class ShellAccel(NamedTuple):
+    dims: torch.Tensor            # (3,) i32
+    sph_lo: torch.Tensor          # (3,) f32 (r, lat, lon)
+    sph_hi: torch.Tensor          # (3,) f32
+    value_ranges: torch.Tensor    # (M, 2) f32
+    max_opacities: torch.Tensor   # (M,) f32
 
 #: K5b launches (the wrapper adds one per kernel launch; plain-version runs
 #: on the CPU do not count)
@@ -28,8 +66,95 @@ _KERNEL = None
 
 
 # ---------------------------------------------------------------------------
-# Host-side build helper (numpy scatter-min/max)
+# Host-side builds (numpy scatter-min/max)
 # ---------------------------------------------------------------------------
+
+def _np_project_on_grid(v, dims, lo, hi):
+    """Clamped Cartesian projection (ref: DDA.h:24-31); trunc toward zero."""
+    v01 = ((v - lo) / (hi - lo)).astype(F)
+    vs = (v01 * dims.astype(F)).astype(F)
+    return np.clip(vs.astype(np.int64), 0, dims - 1)
+
+
+def _np_project_spherical(sph, dims, slo, shi):
+    """Unclamped spherical projection scaled by dims-1 (ref:
+    ShellAccel.h:57-68)."""
+    scaled = ((sph - slo) / (shi - slo) * (dims - 1).astype(F)).astype(F)
+    return scaled.astype(np.int64)
+
+
+def _layer_values(ds: ICDataset, L: int):
+    """(value at layer bottom height, value at layer top height): the
+    reference evaluates getValue(h[L]) / getValue(h[L+1]), which resolve to
+    value[max(L-1, 0)] and value[L] (ref: hostCode.cu:291-293)."""
+    return ds.value[:, max(L - 1, 0)], ds.value[:, L]
+
+
+def _layer_subsets(ds: ICDataset):
+    """(L, the cells with more than L layers) for every layer index."""
+    max_l = int(ds.num_layers.max()) if ds.num_cells else 0
+    for L in range(max_l):
+        sel = ds.num_layers > L
+        yield L, ICDataset(ds.lat[sel], ds.lon[sel], ds.num_layers[sel],
+                           ds.height[sel], ds.value[sel])
+
+
+def _accel_tensors(dims, lo, hi, vr_lo, vr_hi, device):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (t(dims.astype(np.int32)), t(lo), t(hi),
+            t(np.stack([vr_lo, vr_hi], axis=1)),
+            torch.zeros(vr_lo.shape[0], dtype=torch.float32, device=device))
+
+
+def build_grid_accel(ds: ICDataset, world_lo, world_hi,
+                     dims=(256, 256, 256), device="cpu") -> GridAccel:
+    """Cartesian majorant grid (ref: hostCode.cu:245-297 buildGrid_ICON);
+    majorants zero until `update_majorants`."""
+    dims = np.asarray(dims, np.int64)
+    world_lo = np.asarray(world_lo, F)
+    world_hi = np.asarray(world_hi, F)
+    m = int(np.prod(dims))
+    vr_lo = np.full(m, FLT_MAX, F)
+    vr_hi = np.full(m, -FLT_MAX, F)
+    for L, sub in _layer_subsets(ds):
+        blo, bhi = layer_bounds(sub, sub.height[:, L], sub.height[:, L + 1])
+        lo_idx = _np_project_on_grid(blo, dims, world_lo, world_hi)
+        up_idx = _np_project_on_grid(bhi, dims, world_lo, world_hi)
+        vlo, vhi = _layer_values(sub, L)
+        _rasterize(vr_lo, vr_hi, lo_idx, up_idx, vlo, vhi, dims)
+    return GridAccel(*_accel_tensors(dims, world_lo, world_hi, vr_lo, vr_hi,
+                                     device))
+
+
+def build_shell_accel(ds: ICDataset, sph_lo, sph_hi, dims=(1, 1024, 1024),
+                      device="cpu") -> ShellAccel:
+    """Spherical-shell majorant grid (ref: hostCode.cu:299-336
+    buildShell_ICON); majorants zero until `update_majorants`."""
+    dims = np.asarray(dims, np.int64)
+    sph_lo = np.asarray(sph_lo, F)
+    sph_hi = np.asarray(sph_hi, F)
+    m = int(np.prod(dims))
+    vr_lo = np.full(m, FLT_MAX, F)
+    vr_hi = np.full(m, -FLT_MAX, F)
+    for L, sub in _layer_subsets(ds):
+        n = sub.num_cells
+        # bottom corners -> lower index, top corners -> upper (the quirk)
+        sph_b = np.stack([np.broadcast_to(sub.height[:, L][:, None], (n, 3)),
+                          sub.lat, sub.lon], axis=-1).astype(F)
+        sph_t = np.stack([np.broadcast_to(sub.height[:, L + 1][:, None],
+                                          (n, 3)),
+                          sub.lat, sub.lon], axis=-1).astype(F)
+        lo_idx = _np_project_spherical(sph_b, dims, sph_lo, sph_hi).min(1)
+        up_idx = _np_project_spherical(sph_t, dims, sph_lo, sph_hi).max(1)
+        # the traversal wraps shell bins; the build writes raw indices, which
+        # the reference would write out of bounds: clamp them into the array
+        lo_idx = np.clip(lo_idx, 0, dims - 1)
+        up_idx = np.clip(up_idx, 0, dims - 1)
+        vlo, vhi = _layer_values(sub, L)
+        _rasterize(vr_lo, vr_hi, lo_idx, up_idx, vlo, vhi, dims)
+    return ShellAccel(*_accel_tensors(dims, sph_lo, sph_hi, vr_lo, vr_hi,
+                                      device))
+
 
 def _rasterize(vr_lo, vr_hi, lo_idx, up_idx, val_lo, val_hi, dims):
     """Scatter (val_lo, val_hi) min/max into every bin of [lo_idx, up_idx]
@@ -172,3 +297,10 @@ def max_opacity(value_ranges, lut, tf_value_range):
         BLOCK_M=block_m, BLOCK_S=block_s, enable_fp_fusion=False)
     launches += 1
     return out
+
+
+def update_majorants(accel, lut, tf_value_range):
+    """TF-edit handler of a GridAccel or ShellAccel (ref:
+    hostCode.cu:878-909): its majorants through K5b `max_opacity`."""
+    return accel._replace(max_opacities=max_opacity(
+        accel.value_ranges, lut, tf_value_range))

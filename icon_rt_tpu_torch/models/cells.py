@@ -6,6 +6,11 @@ The three side planes of every column are precomputed on the host at load
 time, so a point query is a handful of dense ops:
 
     inside = (h_bot <= r <= h_top) AND (dot(pos, n_k) - w_k <= 0 for k=1..3)
+
+The point samplers at the end (`find_layer`, `sample_one_cell`,
+`sample_brute_force`) are batched over lanes: a position is an (L, 3)
+tensor.  They are the plain versions of the samplers inside kernel K8
+(csrc/parity.cu).
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import numpy as np
 import torch
 
 from ..data.icfile import ICDataset, MAX_LAYERS
-from ..utils.vecmath import np_to_cartesian
+from ..utils.vecmath import np_to_cartesian, sqrt_rn
 
 
 class Cells(NamedTuple):
@@ -94,6 +99,22 @@ def cell_bounds(ds: ICDataset) -> tuple[np.ndarray, np.ndarray]:
     return pts.min(axis=1), pts.max(axis=1)
 
 
+def layer_bounds(ds: ICDataset, layer_lo: np.ndarray, layer_hi: np.ndarray
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Cartesian AABBs of one layer slab per cell, with bulge correction on
+    the top face (ref: icon_rt/hostCode.cu:256-290). layer_lo/hi are (N,)
+    radii of the slab's bottom/top."""
+    bv = _corner_xyz(ds, layer_lo.astype(np.float32))
+    tv = _corner_xyz(ds, layer_hi.astype(np.float32))
+    bary = tv.mean(axis=1, dtype=np.float32).astype(np.float32)
+    r = layer_hi.astype(np.float32)
+    d = r - np.sqrt(np.sum(bary * bary, axis=-1, dtype=np.float32))
+    off = (d / r).astype(np.float32)
+    tv = tv + tv * off[:, None, None]
+    pts = np.concatenate([bv, tv], axis=1)
+    return pts.min(axis=1), pts.max(axis=1)
+
+
 def compute_stats(ds: ICDataset) -> CellStats:
     lo, hi = cell_bounds(ds)
     idx = np.arange(ds.num_cells)
@@ -110,3 +131,80 @@ def compute_stats(ds: ICDataset) -> CellStats:
         data_range=np.array([vals.min(), vals.max()], np.float32) if vals.size
         else np.array([np.inf, -np.inf], np.float32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Point sampling, batched over lanes
+# ---------------------------------------------------------------------------
+
+#: lanes x cells of one brute-force chunk (bounds its (M, N) temporaries)
+_BRUTE_CHUNK = 1 << 22
+
+
+def find_layer(height_rows, num_layers, hpos):
+    """Index i of the layer containing radius hpos: smallest i with
+    hpos <= height[i+1], as the masked count over the 31 ceilings (ref:
+    icon_rt/ICONGrid.h:117-145 is a branchless binary search with the same
+    result).  height_rows (L, 32), num_layers (L,), hpos (L,) -> (L,) i64."""
+    k = torch.arange(1, MAX_LAYERS, device=height_rows.device)
+    mask = (k[None, :] <= num_layers[:, None]) \
+        & (height_rows[:, 1:] < hpos[:, None])
+    return mask.sum(dim=1)
+
+
+def _eval_planes(planes, pos):
+    """planes (..., 3, 4), pos (..., 3) -> (..., 3) plane evaluations
+    dot(pos, n) - w, summed x, y, z in order."""
+    p = pos[..., None, :]
+    return (planes[..., 0] * p[..., 0] + planes[..., 1] * p[..., 1]
+            + planes[..., 2] * p[..., 2]) - planes[..., 3]
+
+
+def _radius(pos):
+    return sqrt_rn(pos[:, 0] * pos[:, 0] + pos[:, 1] * pos[:, 1]
+                   + pos[:, 2] * pos[:, 2])
+
+
+def candidate_tests(cells: Cells, idx, pos, r):
+    """The two parts of the point-in-prism test of candidate cells idx
+    (L, K) (None: every cell, K = N) at pos (L, 3) with radius r (L,):
+    (radial (L, K), planes (L, K, 3)) pass masks; a candidate contains the
+    point where all pass."""
+    h_bot, h_top, planes = ((cells.h_bot, cells.h_top, cells.planes)
+                            if idx is None else (cells.h_bot[idx],
+                                                 cells.h_top[idx],
+                                                 cells.planes[idx]))
+    radial = (r[:, None] >= h_bot) & (r[:, None] <= h_top)
+    return radial, _eval_planes(planes, pos[:, None, :]) <= 0.0
+
+
+def sample_one_cell(cells: Cells, cell_idx, pos, r):
+    """Point-in-prism test and layer value of one cell per lane
+    (ref: icon_rt/ICONGrid.h:181-208).  cell_idx (L,), pos (L, 3), r (L,)
+    its radius.  Returns (inside (L,) bool, value (L,) f32, 0 outside)."""
+    cell_idx = cell_idx.long()
+    inside_r = (r >= cells.h_bot[cell_idx]) & (r <= cells.h_top[cell_idx])
+    ev = _eval_planes(cells.planes[cell_idx], pos)
+    inside = inside_r & (ev <= 0.0).all(dim=-1)
+    layer = find_layer(cells.height[cell_idx], cells.num_layers[cell_idx], r)
+    val = cells.value[cell_idx, layer]
+    return inside, torch.where(inside, val, 0.0)
+
+
+def sample_brute_force(cells: Cells, pos):
+    """Linear scan over all cells; the reference's no-RT fallback
+    (ref: icon_rt/deviceCode.cu:116-123).  The first (lowest-index)
+    containing cell wins.  pos (L, 3) -> (hit (L,) bool, value (L,) f32)."""
+    n, L = cells.num_cells, pos.shape[0]
+    r = _radius(pos)
+    idx = torch.zeros(L, dtype=torch.int64, device=pos.device)
+    hit = torch.zeros(L, dtype=torch.bool, device=pos.device)
+    step = max(1, _BRUTE_CHUNK // max(n, 1))
+    for a in range(0, L, step):
+        radial, planes = candidate_tests(cells, None, pos[a:a + step],
+                                         r[a:a + step])
+        inside = radial & planes.all(dim=-1)                 # (M, N)
+        hit[a:a + step] = inside.any(dim=1)
+        idx[a:a + step] = inside.to(torch.uint8).argmax(dim=1)
+    layer = find_layer(cells.height[idx], cells.num_layers[idx], r)
+    return hit, torch.where(hit, cells.value[idx, layer], 0.0)

@@ -27,6 +27,7 @@ import torch
 
 from ..data.icfile import ICDataset
 from ..utils import cuda_build
+from .cells import Cells, _radius, candidate_tests, find_layer
 
 F = np.float32
 
@@ -574,3 +575,37 @@ def bin_locator(lat, lon, dims_scale: float = 1.0):
                   dims=torch.tensor([n_lat, n_lon], dtype=torch.int32,
                                     device=dev))
     return loc, k_cap, counts, rect
+
+
+def locator_rows(loc: Locator, pos, dims=None):
+    """The locator row of each point, clipped into the grid as
+    sample_locator's: pos (L, 3) -> (radius (L,), row (L,) i64).  dims:
+    (n_lat, n_lon) as ints, to spare the host read of loc.dims in a
+    loop."""
+    r = _radius(pos)
+    lat = torch.asin(pos[:, 2] / r)
+    lon = torch.atan2(pos[:, 1], pos[:, 0])
+    n_lat, n_lon = dims or (int(d) for d in loc.dims.tolist())
+    bl = torch.clamp(((lat - loc.lat_lo) / (loc.lat_hi - loc.lat_lo)
+                      * float(n_lat)).to(torch.int32), 0, n_lat - 1)
+    bo = torch.clamp(((lon - loc.lon_lo) / (loc.lon_hi - loc.lon_lo)
+                      * float(n_lon)).to(torch.int32), 0, n_lon - 1)
+    return r, (bl * n_lon + bo).long()
+
+
+def sample_locator(cells: Cells, loc: Locator, pos, dims=None):
+    """Point query through the locator, batched over lanes: pos (L, 3) ->
+    (hit (L,) bool, value (L,) f32).  Equals sample_brute_force (the
+    lowest-id containing cell: each row lists its candidates in ascending
+    id order) at O(K) instead of O(N) per query (ref fallback:
+    deviceCode.cu:116-123).  dims as `locator_rows`."""
+    r, row = locator_rows(loc, pos, dims)
+    cand = loc.bins[row]                                       # (L, K)
+    safe = torch.clamp(cand, min=0).long()
+    radial, planes = candidate_tests(cells, safe, pos, r)
+    inside = (cand >= 0) & radial & planes.all(dim=-1)
+    hit = inside.any(dim=1)
+    slot = inside.to(torch.uint8).argmax(dim=1)
+    idx = safe.gather(1, slot[:, None])[:, 0]
+    layer = find_layer(cells.height[idx], cells.num_layers[idx], r)
+    return hit, torch.where(hit, cells.value[idx, layer], 0.0)

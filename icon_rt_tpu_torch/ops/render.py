@@ -1,21 +1,55 @@
-"""Launch parameters, frame buffers and the progressive-accumulation epilogue.
+"""Launch parameters, frame buffers, the progressive-accumulation epilogue
+and the reference-parity raygens with their kernel K8.
 
 The reference's OWL name->pointer launch-params registry
 (ref: common/pipeline.cu:357-411) becomes a NamedTuple of small tensors
 (`LaunchParams`); the accumulation buffer (P, 4) f32 and the packed RGBA8
 framebuffer (P,) (int32 holding the u32 bits) live on the render device.
 
-The reference-parity raygens (`ae`, `accel`) of the JAX package are not
-ported yet (ROADMAP Queue 1 item 7).
+The parity raygens are the renderer's ground truth, held sample for
+sample against the reference's CUDA semantics (tests/refimpl.py):
+  * `render_frame_ae`    -- woodcockTrackingAE (ref: deviceCode.cu:239-275):
+                            Woodcock tracking of the whole camera-box
+                            segment at the global majorant 1;
+  * `render_frame_accel` -- woodcockTrackingWithAccel (ref:
+                            deviceCode.cu:281-341): tracking driven through
+                            per-cell majorants by the spherical-shell DDA
+                            (accel_mode 'sphere') or the Cartesian 3-DDA
+                            ('grid');
+each with the brute-force or the locator point sampler.  One sample per
+call, over the pixels in natural order.
+
+Kernel K8 `parity_track` (CUDA C++, csrc/parity.cu) runs one thread per
+pixel: ray generation, the box test, the tracking loop with its sampler,
+postClassify and the finalize.  Its plain version is `_parity_torch` (the
+lock-step loops of ops/woodcock.py and ops/traverse.py).  The wrapper
+launches the kernel for CUDA tensors and the plain version for CPU
+tensors; anything else raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..models.cells import Cells, sample_brute_force
+from ..models.locator import Locator, sample_locator
+from ..models.transfunc import Transfunc, post_classify
 from ..utils import color as colorlib
+from ..utils import cuda_build
+from ..utils.lcg import lcg_init, lcg_next
+from ..utils.vecmath import box_test, sqrt_rn
+from .traverse import trace_dda3, trace_sdda
+from .woodcock import MAX_ITERS, Work, woodcock_track
+
+F32 = torch.float32
+
+#: K8 launches per raygen x sampler (the wrapper adds one per kernel
+#: launch; plain-version runs on the CPU do not count)
+launches = {f"parity_{g}_{s}": 0 for g in ("ae", "sphere", "grid")
+            for s in ("locator", "brute")}
 
 
 class LaunchParams(NamedTuple):
@@ -60,6 +94,298 @@ def _finalize(wrote, color_alpha, accum, fb, accum_id):
     packed = colorlib.make_rgba(torch.cat([srgb, accum_out[..., 3:]], dim=-1))
     fb_out = torch.where(wrote, packed, fb)
     return accum_out, fb_out
+
+
+def make_sample_fn(cells: Cells, locator: Locator | None, sampler: str):
+    """Volume point-sampler dispatch (ref: deviceCode.cu:58-125), batched
+    over lanes: 'brute' is the linear scan (the reference's no-RT
+    fallback), 'locator' the grid-of-lists query (the reference's
+    user-geometry and triangle modes both resolve to this analytic column
+    sampling)."""
+    if sampler == "brute":
+        return lambda pos: sample_brute_force(cells, pos)
+    if sampler == "locator":
+        if locator is None:
+            raise ValueError("sampler='locator' needs a Locator")
+        dims = tuple(int(d) for d in locator.dims.tolist())
+        return lambda pos: sample_locator(cells, locator, pos, dims)
+    if sampler == "wedge":
+        raise NotImplementedError(
+            "the wedge sampler is not ported to icon_rt_tpu_torch yet: "
+            "ROADMAP Queue 1 item 7 (unstructured elements)")
+    raise ValueError(f"unknown sampler {sampler!r}")
+
+
+def generate_ray(lp: LaunchParams, x, y, rng):
+    """Jittered pinhole rays of the pixels (x, y) ((L,) int tensors;
+    ref: icon_rt/deviceCode.cu:36-49).  Returns (org (3,), direction
+    (L, 3), rng).
+
+    Reference quirks kept: the raygen passes pixel+0.5 and adds another
+    rnd() in [0,1), so the jitter window is [0.5, 1.5) of the pixel; the
+    direction is normalised by three divisions; components with
+    |d| < 1e-5 become +1e-5, also negative ones."""
+    rng, jx = lcg_next(rng)
+    rng, jy = lcg_next(rng)
+    u = x.to(F32) + 0.5 + jx
+    v = y.to(F32) + 0.5 + jy
+    d = lp.cam_dir00 + u[:, None] * lp.cam_du + v[:, None] * lp.cam_dv
+    n = sqrt_rn(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])
+    d = d / n[:, None]
+    d = torch.where(torch.abs(d) < 1e-5, 1e-5, d)
+    return lp.cam_org, d, rng
+
+
+def _pixels(cells: Cells, tf: Transfunc, lp: LaunchParams, xs, ys,
+            width: int, height: int, raygen: str, sampler: str,
+            locator: Locator | None, accel, work: Work | None = None):
+    """One parity sample of the pixels (xs, ys): (wrote (L,), color_alpha
+    (L, 4), final rng (L,), loop iterations (L,)).  `wrote` is False
+    where the ray misses the volume bounds (the reference returns without
+    writing).  `work`, if given, counts the tracking loop's events."""
+    sample_fn = make_sample_fn(cells, locator, sampler)
+    classify_fn = lambda value: post_classify(tf, value)
+    seed0 = ((lp.accum_id.to(torch.int64) & 0xFFFFFFFF)
+             * ((width * height) & 0xFFFFFFFF) + xs) & 0xFFFFFFFF
+    rng = lcg_init(seed0, ys)
+    org, direction, rng = generate_ray(lp, xs, ys, rng)
+    hit_box, t0, t1 = box_test(org, direction, 0.0, 1e10, lp.bounds_lo,
+                               lp.bounds_hi)
+    if raygen == "ae":
+        res = woodcock_track(sample_fn, classify_fn, org, direction, t0, t1,
+                             1.0, rng, lp.unit_distance, active=hit_box,
+                             work=work)
+        color = res.albedo
+        alpha = torch.where(res.extinction > 0.0, 1.0, 0.0)
+    elif raygen == "sphere":
+        res = trace_sdda(sample_fn, classify_fn, accel.max_opacities,
+                         accel.dims, accel.sph_lo, accel.sph_hi, org,
+                         direction, t0, t1, rng, lp.unit_distance,
+                         active=hit_box, work=work)
+        color, alpha = res.color, res.alpha
+    elif raygen == "grid":
+        res = trace_dda3(sample_fn, classify_fn, accel.max_opacities,
+                         accel.dims, accel.world_lo, accel.world_hi, org,
+                         direction, t0, t1, rng, lp.unit_distance,
+                         active=hit_box, work=work)
+        color, alpha = res.color, res.alpha
+    else:
+        raise ValueError(f"unknown raygen {raygen!r}")
+    rgb = color * lp.ambient_color * lp.ambient_radiance
+    return (hit_box, torch.cat([rgb, alpha[:, None]], dim=1), res.rng,
+            res.steps)
+
+
+def frame_pixels_ae(cells: Cells, tf: Transfunc, lp: LaunchParams, xs, ys,
+                    width: int, height: int, sampler: str = "brute",
+                    locator: Locator | None = None):
+    """The AE raygen over pixel index tensors, plain version: (wrote (P,),
+    color_alpha (P, 4))."""
+    return _pixels(cells, tf, lp, xs, ys, width, height, "ae", sampler,
+                   locator, None)[:2]
+
+
+def frame_pixels_accel(cells: Cells, tf: Transfunc, accel, lp: LaunchParams,
+                       xs, ys, width: int, height: int,
+                       accel_mode: str = "sphere", sampler: str = "brute",
+                       locator: Locator | None = None):
+    """The accel raygen over pixel index tensors, plain version: (wrote
+    (P,), color_alpha (P, 4))."""
+    if accel_mode not in ("sphere", "grid"):
+        raise ValueError(f"unknown accel_mode {accel_mode!r}")
+    return _pixels(cells, tf, lp, xs, ys, width, height, accel_mode,
+                   sampler, locator, accel)[:2]
+
+
+def _parity_torch(cells: Cells, tf: Transfunc, lp: LaunchParams, pix,
+                  accum, fb, debug, width: int, height: int, raygen: str,
+                  sampler: str, locator, accel, work: Work | None = None):
+    """Plain-PyTorch K8 over the lanes of `pix`: one sample, then the
+    finalize into accum/fb IN PLACE; debug (L, 2) i32 gets each lane's
+    final LCG state (u32 bits) and loop iterations; `work`, if given,
+    counts the sample's events (ops/woodcock.py `Work`)."""
+    pix = pix.long()
+    wrote, ca, rng, steps = _pixels(cells, tf, lp, pix % width,
+                                    pix // width, width, height, raygen,
+                                    sampler, locator, accel, work)
+    acc, out = _finalize(wrote, ca, accum, fb, lp.accum_id)
+    accum.copy_(acc)
+    fb.copy_(out)
+    if debug is not None:
+        debug[:, 0] = colorlib._u32_to_i32(rng)
+        debug[:, 1] = steps
+
+
+# ===========================================================================
+# K8 kernel: build, bind, launch
+# ===========================================================================
+
+_RAYGENS = {"ae": 0, "sphere": 1, "grid": 2}
+_SAMPLERS = {"locator": 0, "brute": 1}
+
+
+class _ParityParams(ctypes.Structure):
+    """Mirror of `ParityParams` in csrc/parity.cu (same field order)."""
+    _fields_ = [
+        ("planes", ctypes.c_void_p), ("h_bot", ctypes.c_void_p),
+        ("h_top", ctypes.c_void_p), ("heights", ctypes.c_void_p),
+        ("value", ctypes.c_void_p), ("num_layers", ctypes.c_void_p),
+        ("bins", ctypes.c_void_p), ("majors", ctypes.c_void_p),
+        ("lut", ctypes.c_void_p), ("pix", ctypes.c_void_p),
+        ("accum", ctypes.c_void_p), ("fb", ctypes.c_void_p),
+        ("dbg", ctypes.c_void_p), ("cam", ctypes.c_float * 12),
+        ("blo", ctypes.c_float * 3),
+        ("bhi", ctypes.c_float * 3), ("amb", ctypes.c_float * 3),
+        ("amb_rad", ctypes.c_float), ("ud", ctypes.c_float),
+        ("vr", ctypes.c_float * 2), ("opacity_scale", ctypes.c_float),
+        ("win", ctypes.c_float * 4), ("acc_lo", ctypes.c_float * 3),
+        ("acc_hi", ctypes.c_float * 3), ("dims", ctypes.c_int * 3),
+        ("n_cells", ctypes.c_int), ("n_lat", ctypes.c_int),
+        ("n_lon", ctypes.c_int), ("k_cap", ctypes.c_int),
+        ("lut_size", ctypes.c_int), ("n_lanes", ctypes.c_int),
+        ("width", ctypes.c_int), ("height", ctypes.c_int),
+        ("accum_id", ctypes.c_int), ("max_iters", ctypes.c_int),
+    ]
+
+
+def build_parity():
+    """Compile csrc/parity.cu for sm_90a (utils/cuda_build.py) and bind its
+    C entry point; returns the ctypes library."""
+    lib = cuda_build.build("parity")
+    lib.parity_launch.argtypes = [ctypes.POINTER(_ParityParams),
+                                  ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p]
+    lib.parity_launch.restype = ctypes.c_int
+    return lib
+
+
+def _host_floats(*tensors):
+    """One host read of small f32 tensors, flattened."""
+    return torch.cat([t.reshape(-1).to(F32) for t in tensors]).tolist()
+
+
+def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
+                 *, width: int, height: int, raygen: str = "ae",
+                 sampler: str = "brute", locator: Locator | None = None,
+                 accel=None, pix=None, debug=None):
+    """K8 wrapper: one parity sample (raygen 'ae', 'sphere' or 'grid' with
+    sampler 'locator' or 'brute') for the lanes of `pix` ((L,) int32
+    pixel ids; None = every pixel in natural order), updating accum (L, 4)
+    f32 and fb (L,) int32 IN PLACE; lanes whose ray misses the volume
+    bounds keep both.  debug, optional (L, 2) int32, receives each lane's
+    final LCG state (u32 bits) and loop iterations.  CUDA tensors launch
+    csrc/parity.cu; CPU tensors run `_parity_torch`; anything else
+    raises."""
+    from .fast import _check as check    # ops/fast.py imports this module
+    _check = lambda *a: check(*a, fn="parity_track")
+    if raygen not in _RAYGENS:
+        raise ValueError(f"unknown raygen {raygen!r}")
+    make_sample_fn(cells, locator, sampler)       # validates the sampler
+    if raygen != "ae" and accel is None:
+        raise ValueError(f"raygen {raygen!r} needs an accel")
+    dev = accum.device
+    n = cells.num_cells
+    L = accum.shape[0] if pix is None else pix.shape[0]
+    if pix is None and L != width * height:
+        raise ValueError("parity_track: without pix, accum must hold "
+                         "width * height lanes")
+    _check("cells.planes", cells.planes, F32, (n, 3, 4), dev)
+    for name in ("h_bot", "h_top"):
+        _check(f"cells.{name}", getattr(cells, name), F32, (n,), dev)
+    _check("cells.height", cells.height, F32, (n, 32), dev)
+    _check("cells.value", cells.value, F32, (n, 32), dev)
+    _check("cells.num_layers", cells.num_layers, torch.int32, (n,), dev)
+    _check("tf.values", tf.values, F32, (None, 4), dev)
+    _check("accum", accum, F32, (L, 4), dev)
+    _check("fb", fb, torch.int32, (L,), dev)
+    if pix is not None:
+        _check("pix", pix, torch.int32, (L,), dev)
+    if debug is not None:
+        _check("debug", debug, torch.int32, (L, 2), dev)
+    if sampler == "locator":
+        _check("locator.bins", locator.bins, torch.int32, (None, None), dev)
+    if accel is not None:
+        _check("accel.max_opacities", accel.max_opacities, F32, (None,),
+               dev)
+    if dev.type == "cpu":
+        if pix is None:
+            pix = torch.arange(L, dtype=torch.int32)
+        _parity_torch(cells, tf, lp, pix, accum, fb, debug, width, height,
+                      raygen, sampler, locator, accel)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"parity_track: unsupported device {dev}")
+    lib = build_parity()
+    h = _host_floats(lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv,
+                     lp.bounds_lo, lp.bounds_hi, lp.ambient_color,
+                     lp.ambient_radiance, lp.unit_distance, tf.value_range,
+                     tf.opacity_scale)
+    fa = lambda k, v: (ctypes.c_float * k)(*v)
+    p = _ParityParams(
+        planes=cells.planes.data_ptr(), h_bot=cells.h_bot.data_ptr(),
+        h_top=cells.h_top.data_ptr(), heights=cells.height.data_ptr(),
+        value=cells.value.data_ptr(),
+        num_layers=cells.num_layers.data_ptr(), lut=tf.values.data_ptr(),
+        pix=0 if pix is None else pix.data_ptr(), accum=accum.data_ptr(),
+        fb=fb.data_ptr(), dbg=0 if debug is None else debug.data_ptr(),
+        cam=fa(12, h[0:12]), blo=fa(3, h[12:15]), bhi=fa(3, h[15:18]),
+        amb=fa(3, h[18:21]), amb_rad=h[21], ud=h[22], vr=fa(2, h[23:25]),
+        opacity_scale=h[25], n_cells=n, lut_size=tf.values.shape[0],
+        n_lanes=L, width=width, height=height, accum_id=int(lp.accum_id),
+        max_iters=MAX_ITERS)
+    if sampler == "locator":
+        n_lat, n_lon = (int(d) for d in locator.dims.tolist())
+        if locator.bins.shape[0] != n_lat * n_lon:
+            raise ValueError("parity_track: locator.bins rows != n_lat * "
+                             "n_lon")
+        p.bins = locator.bins.data_ptr()
+        p.win = fa(4, _host_floats(locator.lat_lo, locator.lat_hi,
+                                   locator.lon_lo, locator.lon_hi))
+        p.n_lat, p.n_lon, p.k_cap = n_lat, n_lon, locator.bins.shape[1]
+    if accel is not None:
+        dims = [int(d) for d in accel.dims.tolist()]
+        if accel.max_opacities.shape[0] != dims[0] * dims[1] * dims[2]:
+            raise ValueError("parity_track: accel.max_opacities size != "
+                             "prod(dims)")
+        lohi = _host_floats(*((accel.sph_lo, accel.sph_hi)
+                              if raygen == "sphere" else
+                              (accel.world_lo, accel.world_hi)))
+        p.majors = accel.max_opacities.data_ptr()
+        p.acc_lo, p.acc_hi = fa(3, lohi[0:3]), fa(3, lohi[3:6])
+        p.dims = (ctypes.c_int * 3)(*dims)
+    cuda_build.check("parity_track", lib.parity_launch(
+        ctypes.byref(p), _RAYGENS[raygen], _SAMPLERS[sampler],
+        torch.cuda.current_stream(dev).cuda_stream))
+    launches[f"parity_{raygen}_{sampler}"] += 1
+
+
+def render_frame_ae(cells: Cells, tf: Transfunc, lp: LaunchParams, accum,
+                    fb, *, width: int, height: int, sampler: str = "brute",
+                    locator: Locator | None = None):
+    """One progressive sample over the whole frame at the global majorant 1
+    (reference raygen 'woodcockTrackingAE'), through K8.  accum (H*W, 4)
+    f32 and fb (H*W,) int32 in natural pixel order (row 0 = bottom) are
+    updated IN PLACE and returned."""
+    parity_track(cells, tf, lp, accum, fb, width=width, height=height,
+                 raygen="ae", sampler=sampler, locator=locator)
+    return accum, fb
+
+
+def render_frame_accel(cells: Cells, tf: Transfunc, accel, lp: LaunchParams,
+                       accum, fb, *, width: int, height: int,
+                       accel_mode: str = "sphere", sampler: str = "brute",
+                       locator: Locator | None = None):
+    """One progressive sample with per-cell majorants driven by a traversal
+    (reference raygen 'woodcockTrackingWithAccel'), through K8.  accel: a
+    ShellAccel (accel_mode 'sphere') or GridAccel ('grid') whose
+    max_opacities are up to date for the transfer function.  accum/fb as
+    `render_frame_ae`."""
+    if accel_mode not in ("sphere", "grid"):
+        raise ValueError(f"unknown accel_mode {accel_mode!r}")
+    parity_track(cells, tf, lp, accum, fb, width=width, height=height,
+                 raygen=accel_mode, sampler=sampler, locator=locator,
+                 accel=accel)
+    return accum, fb
 
 
 def alloc_frame(width: int, height: int, device="cpu"):

@@ -1,5 +1,6 @@
 """PyTorch port, the application: icon_rt_tpu_torch.app against
-apps/icon_rt.py on the same arguments, and the flags it does not port."""
+apps/icon_rt.py on the same arguments, its runtime mode toggles against
+tests/test_toggles.py's contract, and the flags it does not port."""
 import os
 import sys
 
@@ -54,8 +55,7 @@ def test_torch_app_build_runs_and_counts_frames(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--raygen", "accel"], ["--raygen", "ae"], ["--sampler", "brute"],
-    ["--sampler", "wedge"], ["-mode", "2"], ["--march", "--raygen", "ae"],
+    ["--sampler", "wedge"], ["-mode", "2"], ["--raygen", "ae", "-mode", "2"],
     ["--preview", "4"], ["--samples", "auto"]])
 def test_torch_app_out_of_slice_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -243,3 +243,134 @@ def test_torch_app_scale_only_edit_skips_full_bake(tmp_path, monkeypatch):
     assert calls == {"bake": 1, "parts": 1}
     pl.launch()
     assert torch.isfinite(pl.frame["accum"]).all()
+
+
+#: the parity app tests' scene: subdiv 1 x 3 seen along the x axis through
+#: a 12-degree field, so every ray meets the globe within ~300 free paths
+#: of the app's unit distance (1e3 m) and the CPU renders stay short
+PARITY_ARGS = ["--synthetic", "1:3", "--size", "16", "16", "--sample-limit",
+               "2", "--camera", "1.6e7", "0", "0", "0", "0", "0", "0", "0",
+               "1", "-fovy", "12"]
+#: per-pixel PNG mismatch bound of the parity app against the JAX app
+#: after 2 samples; measured 0 of 256 pixels for every case below (the
+#: parity raygens' libm-ULP argument of tests/test_torch_parity.py)
+PARITY_MISMATCH_BOUND = 2
+
+
+@pytest.mark.parametrize("flags", [
+    ["--raygen", "ae"], ["--raygen", "accel", "--accel-mode", "grid"],
+    ["--raygen", "accel"], ["--raygen", "ae", "--sampler", "brute"]],
+    ids=["ae", "accel-grid", "accel-sphere", "ae-brute"])
+def test_torch_app_parity_matches_jax_app(tmp_path, flags):
+    """--raygen ae / accel (sphere and grid) and --sampler brute: one
+    sample per launch in natural pixel order, so 2 launches for
+    --sample-limit 2; the PNG agrees with the JAX app's within
+    PARITY_MISMATCH_BOUND pixels."""
+    out_t, out_j = str(tmp_path / "tp"), str(tmp_path / "jp")
+    pl = app.build(["--device", "cpu", *PARITY_ARGS, *flags, "-o", out_t])
+    assert _run_loop(pl) == 2 and pl.frame_id == 2
+    pl.present()
+    assert pl.frame["raygen"] == flags[1] and pl.frame["perm"] is None
+    assert icon_rt.main([*PARITY_ARGS, *flags, "-o", out_j]) == 0
+    img_t, img_j = read_png(out_t + ".png"), read_png(out_j + ".png")
+    assert img_t.shape == img_j.shape == (16, 16, 4)
+    differ = (img_t != img_j).any(axis=-1)
+    assert differ.sum() <= PARITY_MISMATCH_BOUND, differ.sum()
+    assert (img_t[..., :3] != img_t[0, 0, :3]).any(axis=-1).sum() > 20
+
+
+@pytest.fixture()
+def spy(monkeypatch):
+    """The render function each frame dispatches to."""
+    from icon_rt_tpu_torch.ops import fast, render
+    calls = []
+    for mod, name in ((fast, "render_frame_fast"),
+                      (render, "render_frame_accel"),
+                      (render, "render_frame_ae")):
+        orig = getattr(mod, name)
+
+        def wrapper(*a, _orig=orig, _name=name, **k):
+            calls.append(_name)
+            return _orig(*a, **k)
+        monkeypatch.setattr(mod, name, wrapper)
+    return calls
+
+
+def _toggle_app(tmp_path, *extra):
+    """A semi-transparent blue-to-red ramp (alpha 0.3; tests/test_toggles.py
+    uses 0.02 at its wider view), so the paths collide in different layers
+    and their images differ, on the parity scene; at 0.3 nearly every ray
+    stops inside the front shell, which keeps the CPU renders short."""
+    from icon_rt_tpu_torch.pipeline.xf import save_xf
+    xf = str(tmp_path / "ramp.xf")
+    lut = np.stack([np.linspace(0, 1, 16, dtype=np.float32),
+                    np.zeros(16, np.float32),
+                    np.linspace(1, 0, 16, dtype=np.float32),
+                    np.full(16, 0.3, np.float32)], axis=1)
+    save_xf(xf, 1.0, (0.0, 1.0), (0.0, 1.0), lut)
+    out = str(tmp_path / "t")
+    pl = app.build(["--device", "cpu", *PARITY_ARGS, "--sample-limit", "99",
+                    "--xf", xf, "-o", out, *extra])
+    return pl, out
+
+
+def _frame(pl, out):
+    pl.launch()
+    pl.present()
+    return read_png(out + ".png").astype(np.int32)
+
+
+def test_torch_app_raygen_toggle(tmp_path, spy):
+    """"Raygen" swaps the path and resets accumulation; the fast raygen
+    renders a batch of samples per launch, the parity raygens one, and the
+    image's footprint survives the swap back to the permuted fast layout
+    (tests/test_toggles.py::test_raygen_toggle_changes_image_and_resets)."""
+    pl, out = _toggle_app(tmp_path)
+    img_fast = _frame(pl, out)
+    assert spy[-1] == "render_frame_fast"
+    assert pl.is_running() and pl.frame_id == pl.samples_per_launch > 1
+    pl.set_ui_param("Raygen", "ae")
+    assert pl.frame_id == 0
+    img_ae = _frame(pl, out)
+    assert spy[-1] == "render_frame_ae" and pl.samples_per_launch == 1
+    assert (img_ae[..., 3] > 0).any() and (img_fast != img_ae).any()
+    pl.set_ui_param("Raygen", "accel")
+    img_accel = _frame(pl, out)
+    assert spy[-1] == "render_frame_accel" and (img_accel[..., 3] > 0).any()
+    pl.set_ui_param("Raygen", "fast")
+    img_fast2 = _frame(pl, out)
+    assert spy[-1] == "render_frame_fast"
+    assert ((img_fast[..., 3] > 0) == (img_fast2[..., 3] > 0)).mean() > 0.9
+
+
+def test_torch_app_accel_mode_and_naive_toggles(tmp_path, spy):
+    """"Accel mode" swaps sphere and grid (a different majorant
+    segmentation, so other collisions) and resets accumulation; "Use naive
+    accel" off renders the accel raygen as AE; "Sampler mode" 2 (the
+    wedge sampler) raises and changes nothing, 0 keeps the locator."""
+    pl, out = _toggle_app(tmp_path, "--raygen", "accel")
+    img_sphere = _frame(pl, out)
+    assert spy[-1] == "render_frame_accel"
+    assert pl.scene["get_accel"]("sphere") is not None
+    pl.set_ui_param("Accel mode", "grid")
+    assert pl.frame_id == 0
+    img_grid = _frame(pl, out)
+    assert spy[-1] == "render_frame_accel"
+    assert (img_grid[..., 3] > 0).any() and (img_sphere != img_grid).any()
+    pl.set_ui_param("Use naive accel", False)
+    _frame(pl, out)
+    assert spy[-1] == "render_frame_ae"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pl.set_ui_param("Sampler mode", 2)
+    pl.set_ui_param("Sampler mode", 0)
+    _frame(pl, out)
+    assert spy[-1] == "render_frame_ae"
+    # a TF edit refreshes both built accels' majorants (K5b)
+    pl.set_ui_param("Opacity scale", 0.5)
+    pl.is_running()
+    tf = pl.scene["tf"]()
+    from icon_rt_tpu_torch.models.accel import compute_max_opacities_torch
+    for mode in ("sphere", "grid"):
+        a = pl.scene["get_accel"](mode)
+        assert torch.equal(a.max_opacities, compute_max_opacities_torch(
+            a.value_ranges, tf.values, tf.value_range))

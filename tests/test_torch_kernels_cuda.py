@@ -1,5 +1,5 @@
 """PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q,
-K7-fm, K3 (both tiers) and K5c-f32 against their plain PyTorch versions on
+K7-fm, K3 (both tiers), K5c-f32, K7-scene, K7-loc and K8 against their plain PyTorch versions on
 the same CUDA inputs.  Marked `cuda`: they
 skip where no GPU is present (CUDA and Triton kernels have no CPU mode).
 On a GPU machine:  python -m pytest tests/test_torch_kernels_cuda.py"""
@@ -321,3 +321,107 @@ def test_cuda_locator_bins_match_plain(scene5):
     assert k == k_p
     assert torch.equal(rect, rect_p) and torch.equal(counts, counts_p)
     assert torch.equal(loc.bins, bins_p)
+
+
+@pytest.fixture(scope="module")
+def pscene(dev):
+    """The parity raygens' tables at subdiv 3 x 8: cells, locator, both
+    accels with their majorants, and a 64x64 closeup-like frame."""
+    from icon_rt_tpu_torch.models.accel import (build_grid_accel,
+                                                build_shell_accel,
+                                                update_majorants)
+    ds = synthetic.icosphere(3, 8)
+    st = compute_stats(ds)
+    tf = make_transfunc(value_range=tuple(st.data_range), opacity_scale=0.7,
+                        device=dev)
+    accels = {
+        "sphere": build_shell_accel(ds, st.spherical_bounds_lo,
+                                    st.spherical_bounds_hi, device=dev),
+        "grid": build_grid_accel(ds, st.world_bounds_lo, st.world_bounds_hi,
+                                 device=dev)}
+    accels = {k: update_majorants(a, tf.values, tf.value_range)
+              for k, a in accels.items()}
+    cam = Camera()
+    c = 0.5 * (st.world_bounds_lo + st.world_bounds_hi)
+    v = np.array([2.2, 0.4, 0.9], np.float32)
+    v /= np.linalg.norm(v)
+    cam.set_orientation(c + v * st.spherical_bounds_hi[0] * 1.6, c,
+                        np.array([0, 0, 1], np.float32), cam.fovy)
+    lp = make_launch_params(cam.basis(64, 64), st.world_bounds_lo,
+                            st.world_bounds_hi, unit_distance=1e3,
+                            device=dev)
+    return dict(cells=build_cells(ds, device=dev),
+                loc=build_locator(ds, device=dev), tf=tf, accels=accels,
+                lp=lp)
+
+
+@pytest.mark.parametrize("sampler", ["locator", "brute"])
+@pytest.mark.parametrize("raygen", ["ae", "sphere", "grid"])
+def test_cuda_parity_matches_plain(pscene, raygen, sampler):
+    """K8: two samples of each raygen x sampler; the first sample's final
+    LCG state and loop iterations equal on every lane, then fb identical
+    on >= 99.9% of pixels and accum within 1e-6."""
+    from icon_rt_tpu_torch.ops import render
+    s = pscene
+    lp = s["lp"]
+    accel = s["accels"].get(raygen)
+    key = f"parity_{raygen}_{sampler}"
+    before = render.launches[key]
+    outs = []
+    for kernel in (True, False):
+        acc, fb = alloc_frame(64, 64, device=lp.accum_id.device)
+        dbg = torch.zeros(64 * 64, 2, dtype=torch.int32, device=acc.device)
+        pix = torch.arange(64 * 64, dtype=torch.int32, device=acc.device)
+        for k in range(2):
+            lpk = lp._replace(accum_id=torch.tensor(k, dtype=torch.int32,
+                                                    device=acc.device))
+            args = (s["cells"], s["tf"], lpk, acc, fb)
+            if kernel:
+                render.parity_track(*args, width=64, height=64,
+                                    raygen=raygen, sampler=sampler,
+                                    locator=s["loc"], accel=accel,
+                                    debug=dbg if k == 0 else None)
+            else:
+                render._parity_torch(s["cells"], s["tf"], lpk, pix, acc, fb,
+                                     dbg if k == 0 else None, 64, 64,
+                                     raygen, sampler, s["loc"], accel)
+        torch.cuda.synchronize()
+        outs.append((acc, fb, dbg))
+    assert render.launches[key] == before + 2
+    (ak, fk, dk), (ap, fp, dp) = outs
+    assert torch.equal(dk, dp)
+    assert (fk == fp).float().mean() >= 0.999
+    assert float((ak - ap).abs().max()) <= 1e-6
+
+
+def _on(tup, device):
+    """A NamedTuple of tensors with every tensor moved to `device`."""
+    return type(tup)(*[x.to(device) if isinstance(x, torch.Tensor) else x
+                       for x in tup])
+
+
+@pytest.mark.parametrize("raygen", ["ae", "sphere", "grid"])
+def test_cuda_parity_work_counts_match_eager(pscene, raygen):
+    """ops/woodcock.py `Work`, the counts behind K8's bound in
+    chip_smoke.py: the plain version on the card (a CUDA graph of one
+    lock-step iteration replayed between compactions, rows that finished
+    inside a window masked out) counts exactly what the eager loop on the
+    CPU counts, on 256 strided lanes of the frame, locator sampler."""
+    from icon_rt_tpu_torch.ops import render
+    from icon_rt_tpu_torch.ops.woodcock import Work
+    s = pscene
+    got = []
+    for device in ("cuda", "cpu"):
+        cells, loc = _on(s["cells"], device), _on(s["loc"], device)
+        accel = s["accels"].get(raygen)
+        accel = None if accel is None else _on(accel, device)
+        pix = torch.arange(0, 64 * 64, 16, dtype=torch.int32, device=device)
+        acc = torch.zeros(pix.shape[0], 4, device=device)
+        fb = torch.zeros(pix.shape[0], dtype=torch.int32, device=device)
+        work = Work(cells, "locator", loc)
+        render._parity_torch(cells, _on(s["tf"], device),
+                             _on(s["lp"], device), pix, acc, fb, None, 64,
+                             64, raygen, "locator", loc, accel, work)
+        got.append(work.counts())
+    assert got[0] == got[1]
+    assert got[0]["eval"] > 0
