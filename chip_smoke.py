@@ -84,12 +84,33 @@ script exits non-zero without printing a result):
           (median and spread of the steady launches, fb on the host), fps1,
           tf_edit_s, tf_stroke_s, tf_preview_s; coverage >= 0.5; K2 against
           its plain version on the first 4096 covered lanes, fine map on
-          and off
+          and off, and with its cost output on 4096 lanes strided over the
+          covered prefix
   main r2b9m  bench.py `_measure_row_m`: the scene built again, the
           quantized march with the fine map, one converged pass per launch
           (median of 3), tf_edit_s; the pass with the fine map against the
           pass without (<= FINEMAP_SHARE of lanes beyond FINEMAP_TOL); K3-q
           against its plain version on the first 4096 covered lanes
+  scene9lod  K7-scene's mip tier as r2b9q_viewall builds it (subdiv 8 x
+          16, each cell the mean of its 64 subdivision-11 descendants)
+          against its plain version: pass 1 on the whole tier, pass 2 on
+          the whole tier and on a head and a tail window of 65,536 cells,
+          under the K7-scene contract; both passes timed with CUDA events
+  main r2b9qv  bench.py `_measure_row_q` for r2b9q_viewall: frame_lod(11,
+          "viewall", 1920, 1080) must be level 3, then the main r2b9q
+          phase's contract on build_q_scene(11, 16, field_lod=3) with the
+          reference's viewall camera (coverage >= 0.02 of the frame: the
+          globe is small in that framing); K2 and its cost output also
+          against the plain version on 4096 lanes strided over the
+          covered prefix
+  order refine  the measured-cost re-sort K6b on the R2B8 closeup at
+          1080p, f32 and quantized tiers: three 8-sample launches with
+          return_cost, once with refine_order_device + repermute_device
+          between launches and once without; the unpermuted fb and accum,
+          and every launch's cost, identical; both runs' launch times
+          printed beside each other; K1's cost against its plain version;
+          K6b's kernels exact against their plain versions, timed beside
+          index_select and the torch.sort + index_select re-sort
   main ae, main accel sphere, main accel grid  the reference-parity
           raygens (K8, csrc/parity.cu) through the app (--raygen ae /
           accel, --accel-mode, the locator sampler) at subdiv 8 x 16,
@@ -161,6 +182,12 @@ R2B9_SUB, R2B9_LAYERS = 11, 16    # bench.py r2b9q_closeup / r2b9m_closeup
 R2B9_SPL, R2B9_LIMIT = 8, 64      # r2b9q: samples per launch, in all
 PREVIEW_W, PREVIEW_H = 480, 270   # bench.py's preview frame (W/4 x H/4)
 WINDOW_CELLS = 1 << 20            # the R2B9 index windows of the K7-scene check
+R2B9V_LOD = 3                     # r2b9q_viewall's auto-LOD level (bench.py:412)
+LOD_WINDOW = 1 << 16              # the mip tier's windows of the K7-scene check
+#: least covered share of the frame by framing: the closeup globe covers
+#: 0.55; viewall's ~3.5 r_out camera distance leaves a disc of ~160 px
+#: radius at 1080p, 0.04 of the frame
+MIN_COVERED = {"closeup": 0.5, "viewall": 0.02}
 CHECK_LANES = 4096                # K2 / K3-q against plain at R2B9
 PROFILE_WINDOWS = 20              # profiler windows tried for a kernel
 SCENE_THICKNESS = 3.0e4           # data/device_scene.py's default
@@ -187,13 +214,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12           # NVIDIA's H100 SXM data sheet, FP64 outside
 #                             the tensor cores (K7-loc's rectangles)
-#: K7-scene operations per cell, counted once whatever passes the kernel
-#: takes: per subdivision step 9 adds and 3 vertex normalizations (3 mul,
-#: 2 add, sqrt, 3 div); per cell the orientation and the 16 transcendentals
-#: of the corner lat/lon and the field (~20 each); per layer the field's
-#: scale, clip and quantization; the three side normals (9 mul, 6 sub, 9
-#: cross products)
-SCENE_OPS = {"step": 36, "cell": 400, "layer": 12, "normals": 72}
+#: K7-scene operations, counted once whatever passes the kernel takes: per
+#: subdivision step 9 adds and 3 vertex normalizations (3 mul, 2 add, sqrt,
+#: 3 div); per cell the orientation, the 6 transcendentals of the corner
+#: lat/lon and the 10 of the centroid field (~20 each, with the means); per
+#: layer the field's scale, clip and quantization; the three side normals
+#: (9 mul, 6 sub, 9 cross products); per layer of a pooled descendant its
+#: scale, clip and add
+SCENE_OPS = {"step": 36, "orient": 40, "latlon": 120, "field": 240,
+             "layer": 12, "normals": 72, "pool": 4}
 #: K7-loc f64 operations per cell (edge extrema, 2 bulge points per edge,
 #: the interior tests and the bin indices)
 LOCATOR_OPS = 300
@@ -236,23 +265,6 @@ def nvidia_smi() -> str:
                          capture_output=True, text=True, timeout=60,
                          check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def closeup_camera(stats, width, height):
-    """bench.py's closeup pose (bench.py:205-222): the globe slightly
-    overfills the frame vertically."""
-    from icon_rt_tpu_torch.ops.camera import Camera
-    cam = Camera()
-    cam.set_aspect(width / height)
-    center = 0.5 * (stats.world_bounds_lo + stats.world_bounds_hi)
-    r_out = float(stats.spherical_bounds_hi[0])
-    theta = np.arctan(1.15 * np.tan(0.5 * cam.fovy))
-    d = r_out / np.sin(theta)
-    direction = np.array([2.2, 0.4, 0.9], np.float32)
-    direction /= np.linalg.norm(direction)
-    cam.set_orientation(center + direction * d, center,
-                        np.array([0, 0, 1], np.float32), cam.fovy)
-    return cam
 
 
 def ulp_diff(a, b):
@@ -367,6 +379,7 @@ class Scene:
         from icon_rt_tpu_torch.ops.fast import pack_cells
         from icon_rt_tpu_torch.ops.order import pixel_order
         from icon_rt_tpu_torch.ops.render import make_launch_params
+        from icon_rt_tpu_torch.data.lod import frame_camera
         self.ds = ds = synthetic.icosphere(sub, layers)
         self.stats = stats = compute_stats(ds)
         self.cells = build_cells(ds, device=dev)
@@ -377,7 +390,7 @@ class Scene:
             build_radial_bands(ds, 64, device=dev), self.tf.values,
             self.tf.value_range)
         self.packed = pack_cells(self.cells, self.tf)
-        cam = closeup_camera(stats, width, height)
+        cam = frame_camera(stats, "closeup", width, height)
         ud = 10.0 ** (np.floor(np.log10(stats.spherical_bounds_lo[0])) - 3)
         self.lp = make_launch_params(cam.basis(width, height),
                                      stats.world_bounds_lo,
@@ -465,10 +478,12 @@ def check_kernels(dev, sub=SMOKE_SUB, layers=SMOKE_LAYERS, size=SMOKE_W):
 
 
 def compare_track_q(tabs, lp, pix, acc_n, width, height, samples,
-                    preserve, fm, label):
+                    preserve, fm, label, cost=False):
     """K2 and its plain version on the same lanes; returns (max abs err of
     accum, the plain version's ms, its CountingTier), raises past the
-    tolerances (fb identical on >= 99.9%, accum <= ACCUM_TOL)."""
+    tolerances (fb identical on >= 99.9%, accum <= ACCUM_TOL; with `cost`
+    the per-pixel step counts too: identical on >= 99.9% of the lanes, 0
+    on every other pixel)."""
     import torch
     from icon_rt_tpu_torch.ops import fast, fastq
     from icon_rt_tpu_torch.ops.render import alloc_frame
@@ -477,19 +492,21 @@ def compare_track_q(tabs, lp, pix, acc_n, width, height, samples,
     outs = []
     for kernel in (True, False):
         acc, fb = alloc_frame(width, height, device=pix.device)
+        c = torch.zeros(width * height, dtype=torch.int32,
+                        device=pix.device) if cost else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if kernel:
             fastq.track_q(*tabs, lp, pix, acc[:acc_n], fb[:acc_n],
                           width=width, height=height, samples=samples,
-                          preserve_cache=preserve, finemap=fm)
+                          preserve_cache=preserve, finemap=fm, cost=c)
         else:   # _render_frame_fast_q_torch, through the counting tier
             fast._track_torch(tier, bands, lp, pix, acc[:acc_n], fb[:acc_n],
-                              width, height, samples, preserve)
+                              width, height, samples, preserve, c)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        outs.append((acc, fb))
-    (ak, fk), (ap, fp) = outs
+        outs.append((acc, fb, c))
+    (ak, fk, ck), (ap, fp, cp) = outs
     same = float((fk == fp).float().mean())
     err = float((ak - ap).abs().max())
     print(f"{label} K2 track_q samples={samples} preserve_cache={preserve} "
@@ -498,7 +515,34 @@ def compare_track_q(tabs, lp, pix, acc_n, width, height, samples,
           f"{err:.3e}")
     if same < 0.999 or not err <= ACCUM_TOL:
         raise AssertionError("K2 disagrees with its plain version")
+    if cost:
+        compare_cost(ck, cp, pix, f"{label} K2 track_q")
     return err, plain_ms, tier
+
+
+def strided_lanes(perm, n_active):
+    """CHECK_LANES lanes strided over the covered prefix of a pixel order:
+    every chord length, where the prefix's head holds the shortest."""
+    step = max(1, n_active // CHECK_LANES)
+    return perm[:n_active][::step][:CHECK_LANES].contiguous()
+
+
+def compare_cost(ck, cp, pix, label):
+    """The kernel's per-pixel step counts against the plain version's:
+    identical on >= 99.9% of the traced pixels (the share the fb is held
+    to), 0 on every untraced one."""
+    import torch
+    traced = torch.zeros_like(ck, dtype=torch.bool)
+    traced[pix.long()] = True
+    same = float((ck[traced] == cp[traced]).float().mean())
+    zero = int(ck[~traced].abs().max()) if bool((~traced).any()) else 0
+    print(f"{label} cost: step counts identical on {same:.6f} of "
+          f"{pix.shape[0]} traced pixels (mean "
+          f"{float(ck[traced].float().mean()):.2f} steps), max on untraced "
+          f"pixels {zero}")
+    if same < 0.999 or zero != 0:
+        raise AssertionError(f"{label}: the cost output disagrees with the "
+                             f"plain version")
 
 
 def bake_inputs(q, tf, dev):
@@ -724,7 +768,8 @@ def zero_counters():
     accel.launches = order.launches = 0
     fastq.launches = finemap.launches = 0
     for d in (fast.launches, qcells.launches, march.launches,
-              device_scene.launches, locator.launches, render.launches):
+              device_scene.launches, locator.launches, render.launches,
+              order.refine_launches):
         for k in d:
             d[k] = 0
 
@@ -796,11 +841,12 @@ def main_path(dev, quantized=False, marching=False):
     from icon_rt_tpu_torch import app
     from icon_rt_tpu_torch.data import synthetic
     from icon_rt_tpu_torch.models.cells import compute_stats
+    from icon_rt_tpu_torch.data.lod import frame_camera
 
     tag = "main " + ("m" if marching else "") + ("q" if quantized else "")
     tag = tag.rstrip()
     stats = compute_stats(synthetic.icosphere(MAIN_SUB, MAIN_LAYERS))
-    cam = closeup_camera(stats, MAIN_W, MAIN_H)
+    cam = frame_camera(stats, "closeup", MAIN_W, MAIN_H)
     pose = [*cam.position, *cam.get_poi(), *cam.up_vector]
     os.makedirs(OUT_DIR, exist_ok=True)
     name = "chip_smoke" + ("_m" if marching else "") \
@@ -1380,6 +1426,7 @@ def rmse_q(dev):
     from icon_rt_tpu_torch.ops.fast import pack_cells
     from icon_rt_tpu_torch.ops.order import pixel_order
     from icon_rt_tpu_torch.ops.render import alloc_frame, make_launch_params
+    from icon_rt_tpu_torch.data.lod import frame_camera
     t0 = time.perf_counter()
     W, H = RMSE_W, RMSE_H
     ds_q, lo, hi = quantize_dataset_values(
@@ -1388,7 +1435,7 @@ def rmse_q(dev):
     tf = make_transfunc(value_range=tuple(stats.data_range), device=dev)
     bands = update_band_majorants(build_radial_bands(ds_q, 64, device=dev),
                                   tf.values, tf.value_range)
-    cam = closeup_camera(stats, W, H)
+    cam = frame_camera(stats, "closeup", W, H)
     ud = 10.0 ** (np.floor(np.log10(stats.spherical_bounds_lo[0])) - 3)
     lp = make_launch_params(cam.basis(W, H), stats.world_bounds_lo,
                             stats.world_bounds_hi, unit_distance=ud,
@@ -1462,7 +1509,8 @@ def parity_tables(sub, layers, dev):
 def parity_lp(stats, width, height, dev, k=0):
     """Closeup launch parameters with the app's unit distance."""
     from icon_rt_tpu_torch.ops.render import make_launch_params
-    cam = closeup_camera(stats, width, height)
+    from icon_rt_tpu_torch.data.lod import frame_camera
+    cam = frame_camera(stats, "closeup", width, height)
     ud = 10.0 ** (np.floor(np.log10(stats.spherical_bounds_lo[0])) - 3)
     return make_launch_params(cam.basis(width, height),
                               stats.world_bounds_lo, stats.world_bounds_hi,
@@ -1611,8 +1659,9 @@ def parity_argv(raygen, accel_mode, sampler, sub, layers, width, height,
     """The app's argv of a parity path with the closeup camera."""
     from icon_rt_tpu_torch.data import synthetic
     from icon_rt_tpu_torch.models.cells import compute_stats
+    from icon_rt_tpu_torch.data.lod import frame_camera
     stats = compute_stats(synthetic.icosphere(sub, layers))
-    cam = closeup_camera(stats, width, height)
+    cam = frame_camera(stats, "closeup", width, height)
     pose = [*cam.position, *cam.get_poi(), *cam.up_vector]
     argv = ["--device", "cuda", "--synthetic", f"{sub}:{layers}",
             "--size", str(width), str(height), "--sample-limit", str(limit),
@@ -1888,12 +1937,13 @@ def profile_render(render, fb, what, kernel):
                              f"launch's wall time {wall:.3f} ms")
 
 
-def scene_consts(sub, dev):
-    """K7-scene's constants of the synthetic subdiv-`sub` x 16 scene."""
+def scene_consts(sub, dev, lod=0):
+    """K7-scene's constants of the synthetic subdiv-`sub` x 16 scene (its
+    level-`lod` mip tier when lod > 0)."""
     from icon_rt_tpu_torch.data import device_scene
     from icon_rt_tpu_torch.data.synthetic import EARTH_RADIUS
     return device_scene._Consts(sub, R2B9_LAYERS, float(EARTH_RADIUS),
-                                SCENE_THICKNESS, dev)
+                                SCENE_THICKNESS, dev, lod=lod)
 
 
 def u8_diff(a, b):
@@ -1931,11 +1981,25 @@ def compare_scene(got, want, label, whole):
 def scene_bound(c):
     """(ms, by) of K7-scene's function over the scene of `c` as the main
     path asks for it: test12, value_q and the corner lat/lon written once,
-    one subdivision walk per cell (the kernel's two passes walk twice)."""
-    n, nl = c.n, c.num_layers
+    one subdivision walk, orientation and corner lat/lon per cell (the
+    kernel's two passes do them twice).  A cell of a mip tier (c.lod > 0)
+    takes no field of its own; its 4**lod descendants share the cell's walk
+    and then each other's, so the least walk is a tree of 4 + 16 + ... +
+    4**lod steps per cell (the kernel takes lod steps per descendant), and
+    each descendant adds its corner lat/lon, its centroid field and the
+    per-layer clip and sum, but no orientation or quantization."""
+    n, nl, s, lod = c.n, c.num_layers, c.subdivisions, c.lod
     nbytes = n * (48 + c.lm + 24)
-    ops = n * (SCENE_OPS["step"] * c.subdivisions + SCENE_OPS["cell"]
-               + nl * SCENE_OPS["layer"] + SCENE_OPS["normals"])
+    op = SCENE_OPS
+    ops = n * (op["step"] * s + op["orient"] + op["latlon"]
+               + nl * op["layer"] + op["normals"])
+    if lod:
+        tree = sum(4 ** k for k in range(1, lod + 1))
+        ops += n * (op["step"] * tree
+                    + 4 ** lod * (op["latlon"] + op["field"]
+                                  + nl * op["pool"]))
+    else:
+        ops += n * op["field"]
     return bound(nbytes, ops)
 
 
@@ -2146,36 +2210,94 @@ def scene9(dev, errs):
     return t
 
 
-def r2b9_scene(dev, tag):
-    """build_q_scene(11, 16) on the card, timed by phase (the peak memory
-    counted from its start); returns its tuple."""
+def scene9lod(dev, errs):
+    """K7-scene's mip tier as r2b9q_viewall builds it (subdiv 8 x 16, each
+    cell pooled over its 64 subdivision-11 descendants) against its plain
+    version: pass 1 on the whole tier, pass 2 on the whole tier and on a
+    head and a tail window of LOD_WINDOW coarse cells (test12 and lat/lon
+    bit-equal, value_q within 1 level on >= 99.999%, per-layer u8 ranges
+    equal).  Returns the timing entry of the kernels line."""
+    import torch
+    from icon_rt_tpu_torch.data import device_scene as ds
+    tag = "scene9lod"
+    c = scene_consts(R2B9_SUB - R2B9V_LOD, dev, lod=R2B9V_LOD)
+    agg = ds.scene_pass1(c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg_p = ds._scene_pass1_torch(c, 0, c.n)
+    torch.cuda.synchronize()
+    p1 = (time.perf_counter() - t0) * 1e3
+    print(f"{tag} K7-scene lod {c.lod} subdiv {c.subdivisions} x "
+          f"{c.num_layers}: {c.n} cells of {4 ** c.lod} descendants each; "
+          f"pass 1 {agg.tolist()} (plain equal {torch.equal(agg, agg_p)})")
+    if not torch.equal(agg, agg_p):
+        raise AssertionError(f"{tag}: K7-scene pass 1 differs: "
+                             f"{agg.tolist()} vs {agg_p.tolist()}")
+    lo, hi = (float(v) for v in agg[:2])
+    scale = float(ds.quant_scale(lo, hi))
+    for name, s0 in (("head", 0), ("tail", c.n - LOD_WINDOW)):
+        errs["synth_scene_lod"] = max(errs.get("synth_scene_lod", 0.0),
+                                      compare_scene(
+            ds.scene_pass2(c, lo, scale, s0, LOD_WINDOW, latlon=True),
+            ds._scene_pass2_torch(c, s0, LOD_WINDOW, lo, scale, True),
+            f"{tag} {name} window [{s0}, {s0 + LOD_WINDOW})", True))
+    out = ds.scene_pass2(c, lo, scale, latlon=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = ds._scene_pass2_torch(c, 0, c.n, lo, scale, True)
+    torch.cuda.synchronize()
+    p2 = (time.perf_counter() - t0) * 1e3
+    errs["synth_scene_lod"] = max(errs["synth_scene_lod"], compare_scene(
+        out, whole, f"{tag} whole", True))
+    del out, whole
+    k1 = time_cuda(lambda: ds.scene_pass1(c), reps=3)
+    k2 = time_cuda(lambda: ds.scene_pass2(c, lo, scale, latlon=True),
+                   reps=3)
+    bnd = scene_bound(c)
+    print(f"{tag} kernel pass 1 {k1:.3f} ms + pass 2 {k2:.3f} ms; plain "
+          f"{p1:.1f} + {p2:.1f} ms; bound {bnd[0]:.3f} ms ({bnd[1]})")
+    peak_memory(tag)
+    return dict(ms=k1 + k2, plain_ms=p1 + p2, pass1_ms=k1, pass2_ms=k2,
+                plain_pass1_ms=p1, plain_pass2_ms=p2, bnd=bnd, cells=c.n,
+                lod=c.lod)
+
+
+def r2b9_scene(dev, tag, lod=0):
+    """build_q_scene(11, 16, field_lod=lod) on the card, timed by phase
+    (the peak memory counted from its start); returns its tuple."""
     import torch
     from icon_rt_tpu_torch.data import bigscene
     timings = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
     out = bigscene.build_q_scene(R2B9_SUB, R2B9_LAYERS, device=dev,
-                                 finemap_factor=2, timings=timings)
+                                 finemap_factor=2, field_lod=lod,
+                                 timings=timings)
     build_s = time.perf_counter() - t0
-    q, loc, k_cap, _, _, _, fm = out
+    q, loc, k_cap, _, _, _, fm, _, eff = out
     gb = (q.test12.numel() * 4 + q.value_q.numel() + q.alpha_q.numel()
           + loc.bins.numel() * 4 + fm.slots.numel()) / 1e9
     phases = ", ".join(f"{k} {v:.3f} s (peak "
                        f"{timings.get(k + '_peak_bytes', 0) / 2 ** 30:.2f} GiB)"
                        for k, v in timings.items() if not k.endswith("bytes"))
-    print(f"{tag} build_q_scene({R2B9_SUB}, {R2B9_LAYERS}) {build_s:.3f} s: "
-          f"{phases}; {q.num_cells} cells, locator "
+    print(f"{tag} build_q_scene({R2B9_SUB}, {R2B9_LAYERS}, field_lod={lod}) "
+          f"{build_s:.3f} s: {phases}; {q.num_cells} cells (subdiv {eff}), "
+          f"locator "
           f"{tuple(loc.dims.tolist())} k_cap {k_cap}, fine map "
-          f"{tuple(fm.dims.tolist())}; tables {gb:.3f} GB")
+          f"{tuple(fm.dims.tolist())}; tables {gb:.3f} GB; {held:.2f} GiB "
+          f"held before the build (inside every peak)")
     return out
 
 
-def r2b9_frame(stats, width, height, dev):
-    """(launch params, pixel order, covered lanes) of the closeup camera."""
+def r2b9_frame(stats, width, height, dev, framing="closeup"):
+    """(launch params, pixel order, covered lanes) of a bench framing's
+    camera (bench.py `_camera`)."""
+    from icon_rt_tpu_torch.data.lod import frame_camera
     from icon_rt_tpu_torch.ops.order import pixel_order
     from icon_rt_tpu_torch.ops.render import make_launch_params
-    cam = closeup_camera(stats, width, height)
+    cam = frame_camera(stats, framing, width, height)
     ud = 10.0 ** (np.floor(np.log10(stats.spherical_bounds_lo[0])) - 3)
     lp = make_launch_params(cam.basis(width, height), stats.world_bounds_lo,
                             stats.world_bounds_hi, unit_distance=ud,
@@ -2215,23 +2337,31 @@ def require_counts(tag, counts):
             raise AssertionError(f"{tag} path did not launch {k}")
 
 
-def scene_counts():
-    """{kernel name: launches} of the R2B9 build's own kernels."""
+def scene_counts(lod=0):
+    """{kernel name: launches} of the R2B9 build's own kernels (K7-scene's
+    lod-0 passes, or its mip tier's)."""
     from icon_rt_tpu_torch.data import device_scene
     from icon_rt_tpu_torch.models import accel, finemap, locator, qcells
-    return {"synth_scene": sum(device_scene.launches.values()),
+    dl = device_scene.launches
+    scene = {"synth_scene_lod": dl["scene_lod_pass1"] + dl["scene_lod_pass2"]} \
+        if lod else {"synth_scene": dl["scene_pass1"] + dl["scene_pass2"]}
+    return {**scene,
             "locator_bins": sum(locator.launches.values()),
             "build_finemap": finemap.launches,
             "bake_alpha_q": sum(qcells.launches.values()),
             "max_opacity": accel.launches}
 
 
-def main_r2b9q(dev, errs):
-    """bench.py `_measure_row_q` (bench.py:581-743) at LOD 0 through the
-    port: the build, the steady launches, fps1 and the three edit
-    latencies; K2 against its plain version on the first CHECK_LANES
-    covered lanes.  Returns the launch counts of the path."""
+def main_r2b9q(dev, errs, framing="closeup"):
+    """bench.py `_measure_row_q` (bench.py:581-743) through the port, for
+    the row r2b9q_closeup (framing "closeup", LOD 0) or r2b9q_viewall
+    ("viewall", the reference's default framing, whose auto-LOD level
+    frame_lod must be R2B9V_LOD): the build, the steady launches, fps1 and
+    the three edit latencies; K2 and its cost output against the plain
+    version on the first CHECK_LANES covered lanes.  Returns the launch
+    counts of the path."""
     import torch
+    from icon_rt_tpu_torch.data.lod import frame_lod
     from icon_rt_tpu_torch.models import qcells
     from icon_rt_tpu_torch.models.qcells import bake_alpha_q
     from icon_rt_tpu_torch.models.shells import update_band_majorants
@@ -2240,11 +2370,16 @@ def main_r2b9q(dev, errs):
     from icon_rt_tpu_torch.ops.order import inverse_order
     from icon_rt_tpu_torch.ops.render import alloc_frame, fb_to_image
     from icon_rt_tpu_torch.utils.png import write_png
-    tag = "main r2b9q"
+    row = "r2b9q" + ("v" if framing == "viewall" else "")
+    tag = f"main {row}"
     W, H = MAIN_W, MAIN_H
+    lod = frame_lod(R2B9_SUB, framing, W, H)
+    print(f"{tag} frame_lod({R2B9_SUB}, {framing!r}, {W}, {H}) = level {lod}")
+    if lod != (R2B9V_LOD if framing == "viewall" else 0):
+        raise AssertionError(f"{tag}: auto-LOD picked level {lod}")
     zero_counters()
-    q, loc, _, bands, tf, stats, fm = r2b9_scene(dev, tag)
-    lp, perm, n_active = r2b9_frame(stats, W, H, dev)
+    q, loc, _, bands, tf, stats, fm, _, _ = r2b9_scene(dev, tag, lod)
+    lp, perm, n_active = r2b9_frame(stats, W, H, dev, framing)
     kw = dict(width=W, height=H, pixel_perm=perm, n_active=n_active,
               finemap=fm)
     accum, fb = alloc_frame(W, H, device=dev)
@@ -2260,12 +2395,14 @@ def main_r2b9q(dev, errs):
         torch.cuda.synchronize()
         launch_ms.append(e0.elapsed_time(e1))
     covered = float(((fb_host >> 24) > 0).mean())
-    if not bool(torch.isfinite(accum).all()) or covered < 0.5:
-        raise AssertionError(f"{tag}: image covers {covered:.4f} (< 0.5) or "
-                             f"accum is not finite")
+    if not bool(torch.isfinite(accum).all()) \
+            or covered < MIN_COVERED[framing]:
+        raise AssertionError(f"{tag}: image covers {covered:.4f} (< "
+                             f"{MIN_COVERED[framing]}) or accum is not "
+                             f"finite")
     inv = inverse_order(perm).cpu().numpy()
     os.makedirs(OUT_DIR, exist_ok=True)
-    write_png(os.path.join(OUT_DIR, "chip_smoke_r2b9q.png"),
+    write_png(os.path.join(OUT_DIR, f"chip_smoke_{row}.png"),
               fb_to_image(fb_host[inv].view(np.int32), W, H))
     steady = np.array(launch_ms[1:])
     med = float(np.median(steady))
@@ -2316,7 +2453,8 @@ def main_r2b9q(dev, errs):
     edit_s, ran_e = tf_edit(gain_edit(tf, 0.9, 0.8), *full)
     tf_edit(stroke_edit(tf, 0.7), *full)
     stroke_s, ran_s = tf_edit(stroke_edit(tf, 0.5), *full)
-    lp_p, perm_p, n_p = r2b9_frame(stats, PREVIEW_W, PREVIEW_H, dev)
+    lp_p, perm_p, n_p = r2b9_frame(stats, PREVIEW_W, PREVIEW_H, dev,
+                                   framing)
     prev = (lp_p, perm_p, n_p, PREVIEW_W, PREVIEW_H)
     tf_edit(gain_edit(tf, 0.97, 0.95), *prev)
     preview_s, ran_p = tf_edit(gain_edit(tf, 0.93, 0.85), *prev)
@@ -2328,7 +2466,7 @@ def main_r2b9q(dev, errs):
     if not 0 < ran_s["levels"] <= qcells.PATCH_LEVELS:
         raise AssertionError(f"{tag}: the stroke edit is not a <= "
                              f"{qcells.PATCH_LEVELS}-level patch")
-    counts = dict(scene_counts(), chord_keys=order.launches,
+    counts = dict(scene_counts(lod), chord_keys=order.launches,
                   track_q=fastq.launches)
     require_counts(tag, counts)
 
@@ -2337,6 +2475,11 @@ def main_r2b9q(dev, errs):
         err, _, _ = compare_track_q((q, loc, bands, tf), lp, pix,
                                     CHECK_LANES, W, H, 4, True, f, tag)
         errs["track_q"] = max(errs["track_q"], err)
+    pix = strided_lanes(perm, n_active)
+    err, _, _ = compare_track_q((q, loc, bands, tf), lp, pix, pix.shape[0],
+                                W, H, 4, True, fm, f"{tag} strided",
+                                cost=True)
+    errs["track_q"] = max(errs["track_q"], err)
     peak_memory(tag)
     return counts
 
@@ -2356,7 +2499,7 @@ def main_r2b9m(dev, errs):
     tag = "main r2b9m"
     W, H = MAIN_W, MAIN_H
     zero_counters()
-    q, loc, _, bands, tf, stats, fm = r2b9_scene(dev, tag)
+    q, loc, _, bands, tf, stats, fm, _, _ = r2b9_scene(dev, tag)
     lp, perm, n_active = r2b9_frame(stats, W, H, dev)
     kw = dict(width=W, height=H, pixel_perm=perm, n_active=n_active)
 
@@ -2439,6 +2582,244 @@ def scene_rows(t, errs, counts):
     return rows
 
 
+def compare_track_f32(tabs, lp, pix, width, height, samples, label):
+    """K1 with its cost output against the plain version on the same lanes
+    (8 samples, column cache kept): fb identical on >= 99.9%, accum <=
+    ACCUM_TOL, the step counts as compare_cost.  Returns the accum error."""
+    import torch
+    from icon_rt_tpu_torch.ops import fast
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    n = pix.shape[0]
+    outs = []
+    for run in (fast.track_f32, None):
+        acc, fb = alloc_frame(width, height, device=pix.device)
+        cost = torch.zeros(width * height, dtype=torch.int32,
+                           device=pix.device)
+        if run is not None:
+            run(*tabs, lp, pix, acc[:n], fb[:n], width=width, height=height,
+                samples=samples, cost=cost)
+        else:
+            fast._render_frame_fast_torch(*tabs, lp, pix, acc[:n], fb[:n],
+                                          width, height, samples, True, cost)
+        outs.append((acc, fb, cost))
+    torch.cuda.synchronize()
+    (ak, fk, ck), (ap, fp, cp) = outs
+    same = float((fk == fp).float().mean())
+    err = float((ak - ap).abs().max())
+    print(f"{label} K1 track_f32 samples={samples} on {n} lanes: fb "
+          f"identical on {same:.6f}, accum max abs diff {err:.3e}")
+    if same < 0.999 or not err <= ACCUM_TOL:
+        raise AssertionError("K1 disagrees with its plain version")
+    compare_cost(ck, cp, pix, f"{label} K1 track_f32")
+    return err
+
+
+def resort_runs(render, perm, n_active, width, height, dev, label):
+    """Three launches of R2B9_SPL samples with return_cost, once without
+    and once with the K6b re-sort between launches (refine_order_device on
+    the launch's cost, then repermute_device of accum and fb).  The
+    unpermuted fb and accum must be identical, and so must every launch's
+    cost in natural pixel order.  Prints both runs' launch times beside
+    each other; returns (the last launch's perm, inverse, cost, accum, fb)
+    of the re-sorted run, for the K6b timings."""
+    import torch
+    from icon_rt_tpu_torch.ops import order
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    runs = {}
+    for resort in (False, True):
+        p, inv = perm, order.inverse_order(perm)
+        acc, fb = alloc_frame(width, height, device=dev)
+        ms, sort_ms, costs = [], [], []
+        for k in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            acc, fb, cost = render(k * R2B9_SPL, p, acc, fb)
+            ev[1].record()
+            last = (p, inv, cost, acc, fb)
+            if resort:
+                p2 = order.refine_order_device(p, n_active, cost)
+                acc, fb = order.repermute_device(acc, fb, p2, inv)
+                p, inv = p2, order.inverse_order(p2)
+            ev[2].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            sort_ms.append(ev[1].elapsed_time(ev[2]))
+            costs.append(cost)
+        nat = inv.long()
+        runs[resort] = dict(acc=acc[nat], fb=fb[nat], costs=costs, ms=ms,
+                            sort_ms=sort_ms, perm=p, last=last)
+    a, b = runs[False], runs[True]
+    same = torch.equal(a["fb"], b["fb"]) and torch.equal(a["acc"], b["acc"])
+    same_cost = all(torch.equal(x, y) for x, y in zip(a["costs"],
+                                                      b["costs"]))
+    moved = float((a["perm"][:n_active] != b["perm"][:n_active]).float()
+                  .mean())
+    c = a["costs"][-1][perm[:n_active].long()].float()
+    print(f"{label}: ms per {R2B9_SPL}-sample launch, static order "
+          f"{[round(x, 3) for x in a['ms']]} | re-sorted "
+          f"{[round(x, 3) for x in b['ms']]} (+ re-sort "
+          f"{[round(x, 3) for x in b['sort_ms']]} ms); steps per covered "
+          f"lane mean {float(c.mean()):.1f}, max {int(c.max())}; "
+          f"{moved:.4f} of the {n_active} covered lanes moved; unpermuted fb "
+          f"and accum identical {same}, costs identical {same_cost}")
+    if not (same and same_cost):
+        raise AssertionError(f"{label}: the re-sort changed the image")
+    return b["last"]
+
+
+def order_refine(dev, errs):
+    """The measured-cost re-sort K6b on the R2B8 closeup at 1080p, the f32
+    tier (the scene as the app builds it) and the quantized tier
+    (build_q_scene(8, 16), fine map on): resort_runs for each, with
+    every counter zeroed before and read after; then K1's cost output
+    against its plain version, and K6b's kernels against their plain
+    versions and the library calls at these shapes.  Returns (the path's
+    launch counts, the timing entries of the kernels line)."""
+    import torch
+    from icon_rt_tpu_torch.data import bigscene, synthetic
+    from icon_rt_tpu_torch.models.cells import build_cells, compute_stats
+    from icon_rt_tpu_torch.models.locator import build_locator
+    from icon_rt_tpu_torch.models.shells import (build_radial_bands,
+                                                 update_band_majorants)
+    from icon_rt_tpu_torch.models.transfunc import make_transfunc
+    from icon_rt_tpu_torch.ops import fast, fastq, order
+    tag = "order refine"
+    W, H = MAIN_W, MAIN_H
+    zero_counters()
+    t0 = time.perf_counter()
+    ds = synthetic.icosphere(MAIN_SUB, MAIN_LAYERS)
+    stats = compute_stats(ds)
+    cells = build_cells(ds, device=dev)
+    loc = build_locator(ds, device=dev)
+    tf = make_transfunc(value_range=tuple(stats.data_range), device=dev)
+    bands = update_band_majorants(build_radial_bands(ds, 64, device=dev),
+                                  tf.values, tf.value_range)
+    packed = fast.pack_cells(cells, tf)
+    del ds
+    lp, perm, n_act = r2b9_frame(stats, W, H, dev)
+    print(f"{tag} R2B8 f32 closeup built in {time.perf_counter() - t0:.3f} "
+          f"s; {n_act} covered lanes")
+    tabs = (packed, loc, bands)
+    last = resort_runs(lambda k, p, acc, fb: fast.render_frame_fast(
+        cells, *tabs, with_id(lp, k), acc, fb, width=W, height=H,
+        pixel_perm=p, n_active=n_act, samples=R2B9_SPL, return_cost=True),
+        perm, n_act, W, H, dev, f"{tag} f32")
+
+    q, qloc, _, qbands, qtf, qstats, fm, _, _ = bigscene.build_q_scene(
+        MAIN_SUB, MAIN_LAYERS, device=dev)
+    qlp, qperm, qn = r2b9_frame(qstats, W, H, dev)
+    resort_runs(lambda k, p, acc, fb: fastq.render_frame_fast_q(
+        q, qloc, qbands, qtf, with_id(qlp, k), acc, fb, width=W, height=H,
+        pixel_perm=p, n_active=qn, samples=R2B9_SPL, finemap=fm,
+        return_cost=True), qperm, qn, W, H, dev, f"{tag} q")
+    counts = dict(track_f32=fast.launches["track_f32"],
+                  track_q=fastq.launches, chord_keys=order.launches,
+                  **order.refine_launches)
+    require_counts(tag, counts)
+    del q, qloc, qbands, fm
+
+    errs["track_f32"] = max(errs["track_f32"], compare_track_f32(
+        tabs, lp, strided_lanes(perm, n_act), W, H, R2B9_SPL, tag))
+
+    # K6b at these shapes: the f32 run's last re-sort
+    p, inv, cost, acc, fb = last
+    new = order.refine_order_device(p, n_act, cost)
+    keys_k = order.refine_keys(p, n_act, cost)
+    srt = torch.sort(keys_k, stable=True).indices.to(torch.int32)
+    perm_k = order.refine_perm(p, n_act, srt)
+    moved_k = order.repermute_device(acc, fb, new, inv)
+    moved_p = order._repermute_torch(acc, fb, new, inv)
+    exact = (torch.equal(keys_k, order._refine_keys_torch(p, n_act, cost)),
+             torch.equal(perm_k, order._refine_perm_torch(p, n_act, srt))
+             and torch.equal(perm_k, new),
+             torch.equal(moved_k[0], moved_p[0])
+             and torch.equal(moved_k[1], moved_p[1]))
+    print(f"{tag} K6b refine_keys exact {exact[0]}, refine_perm exact "
+          f"{exact[1]}, repermute exact {exact[2]} ({n_act} keys, "
+          f"{p.shape[0]} lanes)")
+    if not all(exact):
+        raise AssertionError("K6b differs from its plain version")
+    errs["refine_keys"] = errs["refine_perm"] = errs["repermute"] = 0.0
+    head, tail = p[:n_act], p[n_act:]
+
+    def library_resort():
+        keys = cost.index_select(0, head)
+        srt = head.index_select(0, torch.sort(keys, stable=True).indices)
+        src = inv.index_select(0, torch.cat([srt, tail]))
+        return acc.index_select(0, src), fb.index_select(0, src)
+
+    def port_resort():
+        n2 = order.refine_order_device(p, n_act, cost)
+        return order.repermute_device(acc, fb, n2, inv)
+
+    lib_out = library_resort()
+    if not (torch.equal(lib_out[0], moved_k[0])
+            and torch.equal(lib_out[1], moved_k[1])):
+        raise AssertionError("K6b's re-sort differs from the library's")
+    t = dict(
+        keys=time_cuda(lambda: order.refine_keys(p, n_act, cost), reps=20),
+        keys_plain=time_cuda(lambda: order._refine_keys_torch(p, n_act,
+                                                              cost), reps=20),
+        keys_lib=time_cuda(lambda: cost.index_select(0, head), reps=20),
+        perm=time_cuda(lambda: order.refine_perm(p, n_act, srt), reps=20),
+        perm_plain=time_cuda(lambda: order._refine_perm_torch(p, n_act, srt),
+                             reps=20),
+        perm_lib=time_cuda(lambda: torch.cat([head.index_select(0, srt),
+                                              tail]), reps=20),
+        move=time_cuda(lambda: order.repermute_device(acc, fb, new, inv),
+                       reps=20),
+        move_plain=time_cuda(lambda: order._repermute_torch(acc, fb, new,
+                                                            inv), reps=20),
+        move_lib=time_cuda(lambda: (lambda src: (acc.index_select(0, src),
+                                                 fb.index_select(0, src)))(
+            inv.index_select(0, new)), reps=20),
+        resort=time_cuda(port_resort, reps=20),
+        resort_lib=time_cuda(library_resort, reps=20),
+        n_active=n_act, lanes=p.shape[0])
+    print(f"{tag} K6b at {W}x{H}: refine_keys {t['keys']:.4f} ms (plain "
+          f"{t['keys_plain']:.4f}, index_select {t['keys_lib']:.4f}); "
+          f"refine_perm {t['perm']:.4f} ms (plain {t['perm_plain']:.4f}, "
+          f"index_select + cat {t['perm_lib']:.4f}); repermute {t['move']:.4f} ms (plain {t['move_plain']:.4f}, "
+          f"index_select {t['move_lib']:.4f}); the whole re-sort "
+          f"{t['resort']:.4f} ms (torch.sort + index_select "
+          f"{t['resort_lib']:.4f})")
+    peak_memory(tag)
+    return counts, t
+
+
+def lod_rows(t9l, t_o, errs, counts):
+    """The kernels line's rows of K7-scene's mip tier (timed in scene9lod,
+    launches from main r2b9qv) and of K6b (timed and launched in order
+    refine)."""
+    rows = []
+    sc = t9l
+    kernel_row(rows, counts, errs, "synth_scene_lod", "cuda",
+               "icon_rt_tpu_torch/csrc/scene.cu",
+               "icon_rt_tpu/data/device_scene.py:179", sc["ms"],
+               sc["plain_ms"], sc["bnd"],
+               **{k: sc[k] for k in ("pass1_ms", "pass2_ms", "plain_pass1_ms",
+                                     "plain_pass2_ms", "cells", "lod")})
+    n, lanes = t_o["n_active"], t_o["lanes"]
+    # keys: perm and the gathered cost read, the key written, per covered
+    # lane; refine_perm: the order read per covered lane, perm read and the
+    # new perm written per lane; repermute: new_perm, inv_old, accum and fb
+    # read, accum and fb written, per lane (no arithmetic to speak of)
+    kernel_row(rows, counts, errs, "refine_keys", "triton",
+               "icon_rt_tpu_torch/ops/order.py",
+               "icon_rt_tpu/ops/order.py:109", t_o["keys"], t_o["keys_plain"],
+               bound(12 * n, 0), library_ms=t_o["keys_lib"],
+               resort_ms=t_o["resort"], resort_library_ms=t_o["resort_lib"])
+    kernel_row(rows, counts, errs, "refine_perm", "triton",
+               "icon_rt_tpu_torch/ops/order.py",
+               "icon_rt_tpu/ops/order.py:109", t_o["perm"], t_o["perm_plain"],
+               bound(4 * n + 8 * lanes, 0), library_ms=t_o["perm_lib"])
+    kernel_row(rows, counts, errs, "repermute", "triton",
+               "icon_rt_tpu_torch/ops/order.py",
+               "icon_rt_tpu/ops/order.py:124", t_o["move"], t_o["move_plain"],
+               bound(48 * lanes, 0), library_ms=t_o["move_lib"])
+    return rows
+
+
 def build_all():
     """nvcc of every csrc/*.cu kernel, started together; prints seconds and
     the ptxas register/spill lines."""
@@ -2462,7 +2843,8 @@ def build_all():
         info = cuda_build.info(name)
         print(f"build {name}.cu nvcc+load {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "stack" in line:
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "stack")):
                 print(f"build ptxas {name}: {line.strip()}")
     print(f"build nvcc total {time.perf_counter() - t0:.2f} s (in parallel)")
 
@@ -2539,6 +2921,21 @@ def main() -> int:
     print(f"time R2B9 phases: scene9 {t1 - t0:.1f} s, main r2b9q "
           f"{t2 - t1:.1f} s, main r2b9m {time.perf_counter() - t2:.1f} s")
     rows += scene_rows(t9, errs, counts9)
+
+    # the mip tier of the reference's default framing, and the re-sort
+    t0 = time.perf_counter()
+    t9l = scene9lod(dev, errs)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counts9v = main_r2b9q(dev, errs, framing="viewall")
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    counts_o, t_o = order_refine(dev, errs)
+    torch.cuda.empty_cache()
+    print(f"time LOD and re-sort phases: scene9lod {t1 - t0:.1f} s, main "
+          f"r2b9qv {t2 - t1:.1f} s, order refine "
+          f"{time.perf_counter() - t2:.1f} s")
+    rows += lod_rows(t9l, t_o, errs, {**counts9v, **counts_o})
 
     # the reference-parity raygens (K8), every earlier table freed; the
     # plain versions' long loops come after every profile of the script

@@ -13,9 +13,10 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
   K5c-q  models/qcells.py  bake_lookup, bake_patch   Triton
   K5c-f32 ops/fast.py      pack_alpha_scale_parts, apply_opacity_scale  Triton
   K6     ops/order.py      chord_keys     Triton
+  K6b    ops/order.py      refine_keys, repermute    Triton
   K7-fm  models/finemap.py build_finemap  CUDA C++ (csrc/finemap.cu)
   K7-scene data/device_scene.py scene_pass1, scene_pass2  CUDA C++
-         (csrc/scene.cu)
+         (csrc/scene.cu; with field_lod > 0 the value-space mip tier)
   K7-loc models/locator.py locator_bins   CUDA C++ (csrc/locator.cu)
   K8     ops/render.py     parity_track   CUDA C++ (csrc/parity.cu)
 
@@ -34,11 +35,12 @@ Layer map (bottom-up), mirroring icon_rt_tpu:
   utils/     — LCG, color, PNG, vector math, image metrics, native host
                module loader
   data/      — .ic IO, synthetic icosphere scenes, the north-star scene
-               built on the device (build_q_scene), the locator and
-               fine-map caches
+               built on the device (build_q_scene), its LOD mip tiers
+               (lod.py), the locator and fine-map caches
   models/    — cells, quantized cells, transfer function, locator (dense
                and CSR), fine map, radial bands, majorant grids
-  ops/       — camera, ray ordering, launch params, the fast trackers
+  ops/       — camera, ray ordering and the measured-cost re-sort,
+               launch params, the fast trackers
                (f32 and quantized tiers), the march and the parity
                raygens (Woodcock tracking, majorant traversals)
   pipeline/  — frame loop, CLI flags, .xf IO, TF editor

@@ -25,14 +25,33 @@
 // does this kernel: the scene is procedural, so any window of it can be
 // checked without the rest.
 //
+// With lod > 0 (`field_lod`, the value-space mip tier; the reference's
+// `field_chunk` :179-191 and `_field_of_tri` :171) both passes replace the
+// cell's own field by the mean of the clipped per-layer field over its
+// 4**lod descendants at subdivision s + lod, fine = idx + m * n_cells for
+// m = 0 .. 4**lod - 1 (data/lod.py's index rule).  Descendant m's walk is
+// the cell's own s steps and then the lod base-4 digits of m, so the thread
+// walks the cell once and each descendant only its last lod steps from
+// there, in order of m, and sums each layer in registers (nl <= 32), then
+// multiplies by f32(1 / 4**lod), as the reference does.  The descendants' corners are not
+// oriented: the reference skips `_orient_ccw` there, and with f32 the corner
+// order moves the centroid by an ULP.  Geometry, lat/lon and the pass-1
+// bounds stay those of the subdivision-s cell.  The pooled kernels are a
+// template instance of their own (kPooled), so the lod-0 instances keep
+// their code, registers and time.
+//
 // What bounds it: pass 2 writes 48 + lm (+ 24) bytes per cell (5.4 GB at
 // subdiv 11 x 16: 1.6 ms at 3.35 TB/s); each pass recomputes the cell's
 // subdivision walk (s steps of 3 IEEE square roots and 9 IEEE divisions) and
 // ~20 transcendentals, several thousand operations per cell, so the kernel
-// is bound by its arithmetic, not its bytes.  The field's per-cell terms
-// (sin 3 lon * cos 2 lat, cos 7 lat) are evaluated once per cell, then
-// scaled per layer.  Built with -fmad=false and __fdiv_rn/__fsqrt_rn: every
-// operation rounds as the plain version's eager ops do.
+// is bound by its arithmetic, not its bytes.  A pooled cell adds 4**lod
+// walks of lod steps and 4**lod centroid fields (64 of 3 steps and 64
+// fields at the R2B9 viewall tier) and writes only the coarse tables, so
+// the mip tier is the more so.  The
+// field's per-cell terms (sin 3 lon * cos 2 lat, cos 7 lat) are evaluated
+// once per cell (per descendant), then scaled per layer.  Built with
+// -fmad=false and __fdiv_rn/__fsqrt_rn: every operation rounds as the plain
+// version's eager ops do.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -47,7 +66,9 @@ struct SceneParams {
   unsigned int* agg;        // pass 1: 7 words; pass 2: 2 * num_layers words
   float h_bot, h_top, nl_f, lo, scale;
   long long start, count;
+  long long n_cells;        // cells of the subdivision-s scene
   int subdivisions, num_layers, lm;
+  int lod;                  // field_lod: 4**lod descendants pooled per cell
 };
 
 namespace {
@@ -72,8 +93,29 @@ __device__ __forceinline__ void normalize(float* v) {
   v[2] = __fdiv_rn(v[2], s);
 }
 
-// The oriented corners of cell `idx`.
-__device__ Tri corners(const SceneParams& p, long long idx) {
+// One subdivision step: the child `d` (0..3) of triangle t, each corner
+// renormalised.
+__device__ __forceinline__ void refine(Tri& t, int d) {
+  float n[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float a = t.v[0][c], b = t.v[1][c], cc = t.v[2][c];
+    const float ab = a + b, bc = b + cc, ca = cc + a;
+    n[0][c] = d == 0 ? a : (d == 2 ? ca : ab);
+    n[1][c] = d == 0 ? ab : (d == 1 ? b : bc);
+    n[2][c] = d == 2 ? cc : (d == 1 ? bc : ca);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    normalize(n[k]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) t.v[k][c] = n[k][c];
+  }
+}
+
+// The corners of cell `idx` of the subdivision-`subdivisions` icosphere, in
+// the order of the subdivision walk (not oriented).
+__device__ Tri walk(const SceneParams& p, long long idx, int subdivisions) {
   Tri t;
   const int face = static_cast<int>(idx % 20);
   const long long rest = idx / 20;
@@ -81,26 +123,14 @@ __device__ Tri corners(const SceneParams& p, long long idx) {
   for (int k = 0; k < 3; ++k)
 #pragma unroll
     for (int c = 0; c < 3; ++c) t.v[k][c] = p.base[face * 9 + k * 3 + c];
-  for (int s = 0; s < p.subdivisions; ++s) {
-    const int d = static_cast<int>((rest >> (2 * s)) & 3);
-    float n[3][3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float a = t.v[0][c], b = t.v[1][c], cc = t.v[2][c];
-      const float ab = a + b, bc = b + cc, ca = cc + a;
-      n[0][c] = d == 0 ? a : (d == 2 ? ca : ab);
-      n[1][c] = d == 0 ? ab : (d == 1 ? b : bc);
-      n[2][c] = d == 2 ? cc : (d == 1 ? bc : ca);
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      normalize(n[k]);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) t.v[k][c] = n[k][c];
-    }
-  }
-  // orient CCW: swap corners 1 and 2 where cross(t1 - t0, t2 - t0) points
-  // away from the corners' mean
+  for (int s = 0; s < subdivisions; ++s)
+    refine(t, static_cast<int>((rest >> (2 * s)) & 3));
+  return t;
+}
+
+// The walked corners t oriented CCW: corners 1 and 2 swap where
+// cross(t1 - t0, t2 - t0) points away from the corners' mean.
+__device__ Tri orient(Tri t) {
   float e1[3], e2[3], m[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -148,6 +178,38 @@ __device__ __forceinline__ float layer_value(const SceneParams& p, float w,
   return fminf(fmaxf(w * p.layer_f[j], 0.0f), 1.0f);
 }
 
+// v[j], j < num_layers: the mean of the clipped field over the 4**lod
+// descendants of a cell whose walked (unoriented) corners are `parent`.
+// Descendant m is the cell's index + m * n_cells at subdivision s + lod: the
+// same base face and the same first s digits, then the lod digits of m
+// (least significant first), so its walk is the parent's followed by lod
+// steps; the walk is deterministic, so this gives the corners of a walk
+// from the base face bit for bit.  Every index into v is a constant after
+// unrolling (the callers unroll their loops over j too), so v stays in
+// registers.
+__device__ __forceinline__ void pooled_field(const SceneParams& p,
+                                             const Tri& parent, float* v) {
+  const int members = 1 << (2 * p.lod);
+  for (int m = 0; m < members; ++m) {
+    Tri t = parent;
+    for (int s = 0; s < p.lod; ++s) refine(t, (m >> (2 * s)) & 3);
+    float la[3], lo[3];
+    lat_lon(t, la, lo);
+    const float w = field_base(la, lo);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (j < p.num_layers) {
+        const float x = layer_value(p, w, j);
+        v[j] = m == 0 ? x : v[j] + x;
+      }
+    }
+  }
+  const float inv = 1.0f / static_cast<float>(members);   // a power of 2
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    if (j < p.num_layers) v[j] = v[j] * inv;
+}
+
 __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -165,6 +227,7 @@ __device__ __forceinline__ float warp_max(float v) {
 // agg: [v_min, v_max, m_min, lat_min, lat_max, lon_min, lon_max] as keys;
 // the wrapper initialises the min words to 0xffffffff and the max words
 // to 0.
+template <bool kPooled>
 __global__ void __launch_bounds__(kBlock) scene_pass1_kernel(
     const SceneParams p) {
   const long long i =
@@ -172,14 +235,27 @@ __global__ void __launch_bounds__(kBlock) scene_pass1_kernel(
   const float inf = __int_as_float(0x7f800000);
   float r[7] = {inf, -inf, inf, inf, -inf, inf, -inf};
   if (i < p.count) {
-    const Tri t = corners(p, p.start + i);
+    const Tri walked = walk(p, p.start + i, p.subdivisions);
+    const Tri t = orient(walked);
     float lat[3], lon[3];
     lat_lon(t, lat, lon);
-    const float w = field_base(lat, lon);
-    for (int j = 0; j < p.num_layers; ++j) {
-      const float v = layer_value(p, w, j);
-      r[0] = fminf(r[0], v);
-      r[1] = fmaxf(r[1], v);
+    if constexpr (kPooled) {
+      float val[32];
+      pooled_field(p, walked, val);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        if (j < p.num_layers) {
+          r[0] = fminf(r[0], val[j]);
+          r[1] = fmaxf(r[1], val[j]);
+        }
+      }
+    } else {
+      const float w = field_base(lat, lon);
+      for (int j = 0; j < p.num_layers; ++j) {
+        const float v = layer_value(p, w, j);
+        r[0] = fminf(r[0], v);
+        r[1] = fmaxf(r[1], v);
+      }
     }
     float m[3];
 #pragma unroll
@@ -213,8 +289,32 @@ __global__ void __launch_bounds__(kBlock) scene_pass1_kernel(
   }
 }
 
+// Layer j's u8 level of value v into byte b of `word`, and into the block's
+// per-layer u8 min/max (warp, then one shared atomic per warp); layers past
+// num_layers keep 0 (uniform across the warp).
+__device__ __forceinline__ void store_level(const SceneParams& p, bool real,
+                                            int lane, int j, int b, float v,
+                                            uint32_t& word,
+                                            unsigned int* s_min,
+                                            unsigned int* s_max) {
+  if (j >= p.num_layers) return;
+  unsigned int q = 0;
+  if (real) {
+    q = static_cast<unsigned int>(
+        fminf(fmaxf(rintf((v - p.lo) * p.scale), 0.0f), 255.0f));
+    word |= q << (8 * b);
+  }
+  const unsigned int qmin = __reduce_min_sync(0xffffffffu, real ? q : 255u);
+  const unsigned int qmax = __reduce_max_sync(0xffffffffu, real ? q : 0u);
+  if (lane == 0) {
+    atomicMin(s_min + j, qmin);
+    atomicMax(s_max + j, qmax);
+  }
+}
+
 // agg: [qmin of layer 0..nl-1, qmax of layer 0..nl-1] as plain u32; the
 // wrapper initialises qmin to 255 and qmax to 0.
+template <bool kPooled>
 __global__ void __launch_bounds__(kBlock) scene_pass2_kernel(
     const SceneParams p) {
   const long long i =
@@ -227,9 +327,15 @@ __global__ void __launch_bounds__(kBlock) scene_pass2_kernel(
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  float w = 0.0f;
+  float w = 0.0f;          // the cell's field term (lod 0)
+  float val[32];           // its pooled layer values (lod > 0)
+  if constexpr (kPooled) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) val[j] = 0.0f;
+  }
   if (real) {
-    const Tri t = corners(p, p.start + i);
+    const Tri walked = walk(p, p.start + i, p.subdivisions);
+    const Tri t = orient(walked);
     float lat[3], lon[3];
     lat_lon(t, lat, lon);
     if (p.lat != nullptr) {
@@ -259,32 +365,38 @@ __global__ void __launch_bounds__(kBlock) scene_pass2_kernel(
     row[9] = p.h_bot;
     row[10] = p.h_top;
     row[11] = p.nl_f;
-    w = field_base(lat, lon);
+    if constexpr (kPooled)
+      pooled_field(p, walked, val);
+    else
+      w = field_base(lat, lon);
   }
   // value row, 4 levels per u32 word (lm is a multiple of 8, so each row
   // starts on an 8-byte boundary)
   uint32_t* vrow = reinterpret_cast<uint32_t*>(p.value_q + i * p.lm);
-  for (int w4 = 0; w4 < p.lm / 4; ++w4) {
-    uint32_t word = 0;
+  if constexpr (kPooled) {
+    // unrolled, so that val[j] is a register
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = 4 * w4 + b;
-      if (j >= p.num_layers) continue;   // uniform across the warp
-      unsigned int q = 0;
-      if (real) {
-        const float v = layer_value(p, w, j);
-        q = static_cast<unsigned int>(
-            fminf(fmaxf(rintf((v - p.lo) * p.scale), 0.0f), 255.0f));
-        word |= q << (8 * b);
-      }
-      const unsigned int qmin = __reduce_min_sync(0xffffffffu, real ? q : 255u);
-      const unsigned int qmax = __reduce_max_sync(0xffffffffu, real ? q : 0u);
-      if (lane == 0) {
-        atomicMin(s_min + j, qmin);
-        atomicMax(s_max + j, qmax);
-      }
+    for (int w4 = 0; w4 < 8; ++w4) {
+      if (4 * w4 >= p.lm) break;         // uniform across the block
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        store_level(p, real, lane, 4 * w4 + b, b, val[4 * w4 + b], word,
+                    s_min, s_max);
+      if (real) vrow[w4] = word;
     }
-    if (real) vrow[w4] = word;
+  } else {
+    for (int w4 = 0; w4 < p.lm / 4; ++w4) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = 4 * w4 + b;
+        store_level(p, real, lane, j, b,
+                    j < p.num_layers ? layer_value(p, w, j) : 0.0f, word,
+                    s_min, s_max);
+      }
+      if (real) vrow[w4] = word;
+    }
   }
   __syncthreads();
   if (threadIdx.x < p.num_layers) {
@@ -303,14 +415,20 @@ unsigned int blocks(long long count) {
 // allocate nothing and do not synchronise.  Return cudaGetLastError().
 extern "C" int scene_pass1_launch(const SceneParams* params, void* stream) {
   if (params->count <= 0) return 0;
-  scene_pass1_kernel<<<blocks(params->count), kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(*params);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (params->lod > 0)
+    scene_pass1_kernel<true><<<blocks(params->count), kBlock, 0, s>>>(*params);
+  else
+    scene_pass1_kernel<false><<<blocks(params->count), kBlock, 0, s>>>(*params);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int scene_pass2_launch(const SceneParams* params, void* stream) {
   if (params->count <= 0) return 0;
-  scene_pass2_kernel<<<blocks(params->count), kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(*params);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (params->lod > 0)
+    scene_pass2_kernel<true><<<blocks(params->count), kBlock, 0, s>>>(*params);
+  else
+    scene_pass2_kernel<false><<<blocks(params->count), kBlock, 0, s>>>(*params);
   return static_cast<int>(cudaGetLastError());
 }

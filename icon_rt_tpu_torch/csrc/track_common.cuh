@@ -44,6 +44,8 @@ struct TrackCommon {
   const int32_t* pix;    // (n_lanes,) pixel id of each lane
   float* accum;          // (n_lanes, 4) in/out
   int32_t* fb;           // (n_lanes,) in/out, u32 bits
+  int32_t* cost;         // (width * height,) out in natural pixel order, or
+                         // null: each lane's tracking steps (K1, K2)
   float cam[12];         // org | dir00 | du | dv
   float amb[3];
   float amb_rad;
@@ -211,7 +213,13 @@ __device__ __forceinline__ void store_lane(const TrackCommon& p, int lane,
 }
 
 // One lane: `samples` progressive samples of pixel p.pix[lane], then the
-// K4 epilogue (accumulate lerp, sRGB, RGBA8 pack).
+// K4 epilogue (accumulate lerp, sRGB, RGBA8 pack).  With p.cost the lane
+// also stores the tracking steps it took over its samples (iterations of
+// the step loop: draws and band or segment advances) at its pixel, the
+// measured cost the re-sort K6b orders the next launch's lanes by (the
+// reference's `return_cost`, ops/fast.py:1190-1191, counts wavefront
+// iterations instead).  The count lives in a register; the one store is
+// skipped when p.cost is null, as on the main path.
 template <class Tier>
 __device__ __forceinline__ void track_lane(const TrackCommon& p,
                                            const Tier& T, int lane) {
@@ -235,6 +243,7 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
   int cid0 = 0, cid1 = 0;
   bool valid0 = false, valid1 = false;
   int mru = 0;
+  int steps = 0;
 
   for (int samp = 0; samp < p.samples; ++samp) {
     if (!p.preserve_cache) {
@@ -260,7 +269,8 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
     // max_steps (ops/fast.py MAX_STEPS, the JAX loop's 16384 x 8 cap) ends
     // a sample without a collision; no lane of the tests or of
     // chip_smoke.py comes near it.
-    for (int step = 0; !done && step < p.max_steps; ++step) {
+    int step = 0;
+    for (; !done && step < p.max_steps; ++step) {
       if (m > 0.0f) {
         const float xi = lcg_next(rng);
         const float t_new = t - logf(1.0f - xi) / (m / p.ud);
@@ -326,6 +336,7 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
       }
       if (at_seg_end && !to_seg1) done = true;
     }
+    steps += step;
 
     // -- shade (ref: deviceCode.cu:333-340) and accumulate (:267-274) -------
     float cr = 0.0f, cg = 0.0f, cb = 0.0f, ca = 0.0f;
@@ -347,6 +358,7 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
     }
   }
   store_lane(p, lane, ar, ag, ab, aa, wany);
+  if (p.cost != nullptr) p.cost[pixel] = steps;
 }
 
 }  // namespace track

@@ -281,18 +281,27 @@ def build_locator_csr_from_scene(sc, cache_key: str | None = None,
 
 
 def build_q_scene(subdiv: int, num_layers: int, *, device="cuda",
-                  finemap_factor: int = 2, cache_key: str | None = None,
-                  timings: dict | None = None):
+                  finemap_factor: int = 2, field_lod: int = 0,
+                  cache: bool = False, timings: dict | None = None):
     """The quantized north-star scene, built on `device` (the card unless
     the caller asks for the CPU): the device scene (K7-scene) -> alpha bake
     (K5c-q) -> band majorants (K5b) -> locator binned from the scene's own
     corners (K7-loc) -> fine map (K7-fm).  The counterpart of the JAX
-    bench's `_build_q_scene` at LOD 0.  Returns (q, loc, k_cap, bands, tf,
-    stats, fm).
+    bench's `_build_q_scene`.  Returns (q, loc, k_cap, bands, tf, stats,
+    fm, lod, eff).
+
+    field_lod > 0 renders the scene's level-`field_lod` mip tier (the
+    bench's auto-LOD, data/lod.py `frame_lod`): subdivision-eff geometry,
+    eff = subdiv - lod, each column's field pooled over its 4**lod
+    subdivision-`subdiv` descendants; the locator and the fine map are
+    those of the subdivision-eff geometry.
 
     The pre-bake all-zero alpha_q and the corners' lat/lon are dropped as
     soon as they are spent, before the fine map's scratch is allocated.
-    cache_key caches the locator and the fine map (build_*_cached).
+    cache: the locator and the fine map go through the npz caches
+    (build_*_cached) under the key f"s{eff}_l{num_layers}": both are
+    functions of the geometry alone, so a mip tier shares the plain
+    subdivision-eff scene's, as bench.py:422-424 does.
     timings: when a dict, each phase's seconds (the device synchronised at
     its end) and the device's peak memory after it are stored in it."""
     from ..models.qcells import bake_alpha_q
@@ -313,7 +322,12 @@ def build_q_scene(subdiv: int, num_layers: int, *, device="cuda",
         if dev.type == "cuda":
             timings[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
 
-    dsc = synth_quantized_device(subdiv, num_layers, device=dev, latlon=True)
+    if not 0 <= field_lod < subdiv:
+        raise ValueError(f"build_q_scene: field_lod must be in [0, {subdiv})")
+    eff = subdiv - field_lod
+    cache_key = f"s{eff}_l{num_layers}" if cache else None
+    dsc = synth_quantized_device(eff, num_layers, device=dev, latlon=True,
+                                 field_lod=field_lod)
     mark("scene")
     stats = dsc.stats
     tf = make_transfunc(value_range=tuple(stats.data_range), device=dev)
@@ -328,4 +342,4 @@ def build_q_scene(subdiv: int, num_layers: int, *, device="cuda",
         fm = build_finemap_cached(loc, q.test12, factor=finemap_factor,
                                   cache_key=cache_key)
     mark("finemap")
-    return q, loc, k_cap, bands, tf, stats, fm
+    return q, loc, k_cap, bands, tf, stats, fm, field_lod, eff

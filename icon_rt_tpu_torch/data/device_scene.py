@@ -30,6 +30,15 @@ Kernel of this module:
      any index window of the scene.  The TPU build's 128-lane table packing,
      its chunk arithmetic and its donated merge are not ported: the tables
      are unpacked and have no pad rows.
+
+  With field_lod > 0 the same two passes build a value-space mip tier (the
+  JAX `field_chunk` and `_field_of_tri` of `synth_quantized_device`):
+  geometry stays the subdivision-s cell's, and each layer's value is the
+  mean of the clipped field over the cell's 4**lod descendants at
+  subdivision s + lod, { p + m * n : m < 4**lod } (data/lod.py).  The
+  descendant corners are not oriented (the reference's `field_chunk` skips
+  `_orient_ccw`; the corner order moves the f32 centroid by an ULP), the
+  sum runs over m in order and is then multiplied by f32(1 / 4**lod).
 """
 from __future__ import annotations
 
@@ -49,7 +58,8 @@ from .synthetic import EARTH_RADIUS
 F32 = torch.float32
 
 #: K7-scene kernel launches (the wrappers count only CUDA launches)
-launches = {"scene_pass1": 0, "scene_pass2": 0}
+launches = {"scene_pass1": 0, "scene_pass2": 0, "scene_lod_pass1": 0,
+            "scene_lod_pass2": 0}
 
 #: cells per chunk of the plain versions
 _CHUNK = 1 << 21
@@ -125,10 +135,13 @@ def _orient_ccw(a, b, c, three):
 
 
 class _Consts:
-    """The scene's constants on one device."""
+    """The scene's constants on one device; `lod` > 0 pools each cell's
+    field over its 4**lod descendants at subdivision `subdivisions + lod`."""
 
-    def __init__(self, subdivisions, num_layers, radius, thickness, device):
+    def __init__(self, subdivisions, num_layers, radius, thickness, device,
+                 lod: int = 0):
         self.subdivisions, self.num_layers = subdivisions, num_layers
+        self.lod = lod
         self.n = 20 * 4 ** subdivisions
         self.lm = max(8, -(-num_layers // 8) * 8)
         self.base = _base_triangles()
@@ -144,19 +157,47 @@ class _Consts:
                 torch.tensor(3.0, dtype=F32, device=dev))
 
 
-def _window_cells(c: _Consts, start: int, stop: int, base, three):
-    """Oriented corners, corner lat/lon and the per-cell field term of the
-    cells [start, stop)."""
-    idx = torch.arange(start, stop, dtype=torch.int64, device=c.device)
-    a, b, cc = _orient_ccw(*_cell_corners(idx, c.subdivisions, base), three)
-    tri = torch.stack([a, b, cc], dim=1)                        # (M, 3, 3)
+def _centroid_field(tri, factors, three):
+    """Corner lat/lon of (M, 3, 3) corners and the (M, nl) clipped field at
+    their centroid (the reference's `_field_of_tri`)."""
     lat = torch.asin(torch.clamp(tri[..., 2], -1.0, 1.0))
     lon = torch.atan2(tri[..., 1], tri[..., 0])
     clat = _mean3(lat[:, 0], lat[:, 1], lat[:, 2], three)
     s, co = torch.sin(lon), torch.cos(lon)
     clon = torch.atan2(_mean3(s[:, 0], s[:, 1], s[:, 2], three),
                        _mean3(co[:, 0], co[:, 1], co[:, 2], three))
-    return tri, lat, lon, clat, clon
+    return lat, lon, _default_field(clat, clon, factors)
+
+
+def _window_cells(c: _Consts, start: int, stop: int, base, factors, three):
+    """Oriented corners, corner lat/lon and the (M, nl) field of the cells
+    [start, stop); with c.lod > 0 the field is the mean over each cell's
+    4**lod descendants (unoriented corners, summed in order, then scaled)."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=c.device)
+    a, b, cc = _orient_ccw(*_cell_corners(idx, c.subdivisions, base), three)
+    tri = torch.stack([a, b, cc], dim=1)                        # (M, 3, 3)
+    lat, lon, v = _centroid_field(tri, factors, three)
+    if c.lod:
+        # every descendant at once, (4**lod, M) in m-major order; the sum
+        # then runs over m in order
+        members = 4 ** c.lod
+        m = torch.arange(members, dtype=torch.int64, device=c.device)
+        fine = (idx[None, :] + m[:, None] * c.n).reshape(-1)
+        tri_f = torch.stack(_cell_corners(fine, c.subdivisions + c.lod,
+                                          base), dim=1)
+        v_all = _centroid_field(tri_f, factors, three)[2].reshape(
+            members, idx.shape[0], -1)
+        v = v_all[0]
+        for k in range(1, members):
+            v = v + v_all[k]
+        v = v * torch.tensor(1.0 / members, dtype=F32, device=c.device)
+    return tri, lat, lon, v
+
+
+def _chunk(c: _Consts) -> int:
+    """Cells per chunk of the plain versions (a pooled cell walks 4**lod
+    descendants)."""
+    return max(1024, _CHUNK >> (2 * c.lod))
 
 
 def _scene_pass1_torch(c: _Consts, start: int, count: int) -> torch.Tensor:
@@ -166,10 +207,10 @@ def _scene_pass1_torch(c: _Consts, start: int, count: int) -> torch.Tensor:
     inf = float("inf")
     out = torch.tensor([inf, -inf, inf, inf, -inf, inf, -inf], dtype=F32,
                        device=c.device)
-    for s0 in range(start, start + count, _CHUNK):
-        s1 = min(s0 + _CHUNK, start + count)
-        tri, lat, lon, clat, clon = _window_cells(c, s0, s1, base, three)
-        v = _default_field(clat, clon, factors)
+    step = _chunk(c)
+    for s0 in range(start, start + count, step):
+        s1 = min(s0 + step, start + count)
+        tri, lat, lon, v = _window_cells(c, s0, s1, base, factors, three)
         m = _mean3(tri[:, 0], tri[:, 1], tri[:, 2], three)
         mag = torch.sqrt(m[:, 0] * m[:, 0] + m[:, 1] * m[:, 1]
                          + m[:, 2] * m[:, 2])
@@ -196,10 +237,11 @@ def _scene_pass2_torch(c: _Consts, start: int, count: int, lo: float,
     qmax = torch.zeros((nl,), dtype=torch.int32, device=dev)
     lo_t = torch.tensor(lo, dtype=F32, device=dev)
     scale_t = torch.tensor(scale, dtype=F32, device=dev)
-    for s0 in range(start, start + count, _CHUNK):
-        s1 = min(s0 + _CHUNK, start + count)
+    step = _chunk(c)
+    for s0 in range(start, start + count, step):
+        s1 = min(s0 + step, start + count)
         r = slice(s0 - start, s1 - start)
-        tri, lat, lon, clat, clon = _window_cells(c, s0, s1, base, three)
+        tri, lat, lon, v = _window_cells(c, s0, s1, base, factors, three)
         for e, (i, j) in enumerate(((0, 1), (1, 2), (2, 0))):
             a = tri[:, i] * float(c.h_bot)
             b = tri[:, j] * float(c.h_bot)
@@ -208,7 +250,6 @@ def _scene_pass2_torch(c: _Consts, start: int, count: int, lo: float,
         test12[r, 9] = float(c.h_bot)
         test12[r, 10] = float(c.h_top)
         test12[r, 11] = float(nl)
-        v = _default_field(clat, clon, factors)
         q = torch.clamp(torch.round((v - lo_t) * scale_t), 0, 255) \
             .to(torch.uint8)
         value_q[r, :nl] = q
@@ -235,8 +276,9 @@ class _SceneParams(ctypes.Structure):
         ("nl_f", ctypes.c_float), ("lo", ctypes.c_float),
         ("scale", ctypes.c_float),
         ("start", ctypes.c_longlong), ("count", ctypes.c_longlong),
+        ("n_cells", ctypes.c_longlong),
         ("subdivisions", ctypes.c_int), ("num_layers", ctypes.c_int),
-        ("lm", ctypes.c_int),
+        ("lm", ctypes.c_int), ("lod", ctypes.c_int),
     ]
 
 
@@ -256,9 +298,9 @@ def _params(c: _Consts, start: int, count: int, **ptrs) -> _SceneParams:
         base=(ctypes.c_float * 180)(*c.base.ravel().tolist()),
         layer_f=(ctypes.c_float * 32)(*f.tolist()),
         h_bot=float(c.h_bot), h_top=float(c.h_top),
-        nl_f=float(c.num_layers), start=start, count=count,
+        nl_f=float(c.num_layers), start=start, count=count, n_cells=c.n,
         subdivisions=c.subdivisions, num_layers=c.num_layers, lm=c.lm,
-        **ptrs)
+        lod=c.lod, **ptrs)
 
 
 def _check_window(fn, c: _Consts, start: int, count: int):
@@ -269,6 +311,12 @@ def _check_window(fn, c: _Consts, start: int, count: int):
                          f"the scene's {c.n}")
     if c.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn}: unsupported device {c.device}")
+    if c.lod < 0:
+        raise ValueError(f"{fn}: field_lod must be >= 0")
+
+
+def _count(name: str, c: _Consts):
+    launches[f"scene_lod_{name}" if c.lod else f"scene_{name}"] += 1
 
 
 def _decode(keys: torch.Tensor) -> torch.Tensor:
@@ -280,8 +328,8 @@ def _decode(keys: torch.Tensor) -> torch.Tensor:
 
 def scene_pass1(c: _Consts, start: int = 0, count: int | None = None):
     """K7-scene wrapper, pass 1: the (7,) f32 aggregates (AGG) of the cells
-    [start, start + count).  A CUDA device launches csrc/scene.cu, the CPU
-    runs `_scene_pass1_torch`."""
+    [start, start + count), the field pooled when c.lod > 0.  A CUDA device
+    launches csrc/scene.cu, the CPU runs `_scene_pass1_torch`."""
     count = c.n - start if count is None else count
     _check_window("scene_pass1", c, start, count)
     if c.device.type == "cpu":
@@ -293,7 +341,7 @@ def scene_pass1(c: _Consts, start: int = 0, count: int | None = None):
     p = _params(c, start, count, agg=agg.data_ptr())
     cuda_build.check("scene_pass1", lib.scene_pass1_launch(
         ctypes.byref(p), torch.cuda.current_stream(c.device).cuda_stream))
-    launches["scene_pass1"] += 1
+    _count("pass1", c)
     return _decode(agg.to(torch.int64) & 0xFFFFFFFF)
 
 
@@ -302,8 +350,8 @@ def scene_pass2(c: _Consts, lo: float, scale: float, start: int = 0,
     """K7-scene wrapper, pass 2: (test12 (count, 12) f32, value_q (count,
     lm) u8, qmin (nl,) i32, qmax (nl,) i32, lat, lon (count, 3) f32 or
     None) of the cells [start, start + count), quantized as clip(rint((v -
-    lo) * scale), 0, 255).  A CUDA device launches csrc/scene.cu, the CPU
-    runs `_scene_pass2_torch`."""
+    lo) * scale), 0, 255), v pooled when c.lod > 0.  A CUDA device launches
+    csrc/scene.cu, the CPU runs `_scene_pass2_torch`."""
     count = c.n - start if count is None else count
     _check_window("scene_pass2", c, start, count)
     if c.device.type == "cpu":
@@ -323,7 +371,7 @@ def scene_pass2(c: _Consts, lo: float, scale: float, start: int = 0,
                 agg=agg.data_ptr(), lo=lo, scale=scale)
     cuda_build.check("scene_pass2", lib.scene_pass2_launch(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
-    launches["scene_pass2"] += 1
+    _count("pass2", c)
     return test12, value_q, agg[:nl], agg[nl:], lat, lon
 
 
@@ -359,12 +407,15 @@ def synth_quantized_device(subdivisions: int, num_layers: int,
     tables and the per-layer u8 ranges the radial bands come from.  With
     `latlon` the corners' lat/lon are kept for a locator binning.
 
-    field_lod > 0 (the value-space mip tier) is not ported yet."""
-    if field_lod:
-        raise NotImplementedError(
-            "field_lod > 0 (the LOD mip tier) is not ported yet: ROADMAP "
-            "Queue 1 item 9")
-    c = _Consts(subdivisions, num_layers, radius, thickness, device)
+    field_lod > 0 builds the value-space mip tier (data/lod.py): the
+    geometry of the subdivision-`subdivisions` icosphere, each cell's value
+    the mean of the field over its 4**field_lod descendants at subdivision
+    subdivisions + field_lod.  The value range, value_q and the per-layer
+    u8 ranges behind the radial bands all take the pooled field."""
+    if field_lod < 0:
+        raise ValueError("synth_quantized_device: field_lod must be >= 0")
+    c = _Consts(subdivisions, num_layers, radius, thickness, device,
+                lod=field_lod)
     agg = dict(zip(AGG, scene_pass1(c).tolist()))
     lo, hi = agg["v_min"], agg["v_max"]
     if not hi > lo:

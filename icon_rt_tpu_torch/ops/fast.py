@@ -564,10 +564,11 @@ class _F32Tier:
 
 
 def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
-                 height: int, samples: int, preserve_cache: bool):
+                 height: int, samples: int, preserve_cache: bool, cost=None):
     """Plain-PyTorch tracking machine over the lanes of `pix` (pixel ids)
     for a storage tier (`_F32Tier`, ops/fastq.py `_QTier`); updates accum
-    (L, 4) and fb (L,) in place.
+    (L, 4) and fb (L,) in place, and with `cost` ((W*H,) int32) writes each
+    lane's tracking steps over its samples at its pixel.
 
     All lanes advance in lock step, one tracking step per iteration: a
     step draws the flight uniform xi; an overshoot (or a zero majorant)
@@ -601,6 +602,7 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
     c_cid = [new_i(), new_i()]
     c_valid = [new_b(), new_b()]
     c_mru = new_b()
+    steps_l = new_i() if cost is not None else None
 
     for samp in range(samples):
         if not preserve_cache:
@@ -623,6 +625,8 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
         steps = 0
         while act.numel() and steps < MAX_STEPS:
             steps += 1
+            if steps_l is not None:
+                steps_l[act] += 1
             m_a = m[act]
             has_m = m_a > 0.0
             rng_a = rng[act]
@@ -718,16 +722,18 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
 
     accum.copy_(acc)
     fb.copy_(pixels)
+    if cost is not None:
+        cost[pix.long()] = steps_l.to(torch.int32)
 
 
 def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
                              bands: RadialBands, lp, pix, accum, fb,
                              width: int, height: int, samples: int,
-                             preserve_cache: bool):
+                             preserve_cache: bool, cost=None):
     """Plain-PyTorch K1+K4 over the lanes of `pix` (pixel ids): the
     tracking machine `_track_torch` on the f32 tier."""
     _track_torch(_F32Tier(packed, loc), bands, lp, pix, accum, fb, width,
-                 height, samples, preserve_cache)
+                 height, samples, preserve_cache, cost)
 
 
 # ===========================================================================
@@ -739,7 +745,7 @@ class _TrackCommon(ctypes.Structure):
     _fields_ = [
         ("edges", ctypes.c_void_p), ("majors", ctypes.c_void_p),
         ("pix", ctypes.c_void_p), ("accum", ctypes.c_void_p),
-        ("fb", ctypes.c_void_p),
+        ("fb", ctypes.c_void_p), ("cost", ctypes.c_void_p),
         ("cam", ctypes.c_float * 12), ("amb", ctypes.c_float * 3),
         ("amb_rad", ctypes.c_float), ("ud", ctypes.c_float),
         ("nb", ctypes.c_int), ("n_lanes", ctypes.c_int),
@@ -750,10 +756,11 @@ class _TrackCommon(ctypes.Structure):
 
 
 def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
-                 height: int, samples: int,
-                 preserve_cache: bool) -> _TrackCommon:
+                 height: int, samples: int, preserve_cache: bool,
+                 cost=None) -> _TrackCommon:
     """The tier-independent launch arguments of K1, K2 and K3 (one host
-    read of the launch scalars)."""
+    read of the launch scalars); `cost` is K1's and K2's optional (W*H,)
+    int32 step-count output."""
     host = torch.cat([
         lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv, lp.ambient_color,
         lp.ambient_radiance.reshape(1), lp.unit_distance.reshape(1),
@@ -761,6 +768,7 @@ def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
     return _TrackCommon(
         edges=bands.edges.data_ptr(), majors=bands.max_opacities.data_ptr(),
         pix=pix.data_ptr(), accum=accum.data_ptr(), fb=fb.data_ptr(),
+        cost=None if cost is None else cost.data_ptr(),
         cam=(ctypes.c_float * 12)(*host[0:12]),
         amb=(ctypes.c_float * 3)(*host[12:15]),
         amb_rad=host[15], ud=host[16], nb=bands.max_opacities.shape[0],
@@ -821,11 +829,12 @@ def _check(name, x, dtype, shape, device, fn="track_f32"):
 
 def track_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
               pix, accum, fb, *, width: int, height: int, samples: int = 1,
-              preserve_cache: bool = True):
+              preserve_cache: bool = True, cost=None):
     """K1+K4 wrapper: trace `samples` progressive samples for the lanes of
     `pix` ((L,) int32 pixel ids) and update accum (L, 4) f32 and fb (L,)
-    int32 IN PLACE.  CUDA tensors launch csrc/track_f32.cu; CPU tensors run
-    `_render_frame_fast_torch`; anything else raises."""
+    int32 IN PLACE; with `cost` ((W*H,) int32) also store each lane's
+    tracking steps at its pixel.  CUDA tensors launch csrc/track_f32.cu; CPU
+    tensors run `_render_frame_fast_torch`; anything else raises."""
     dev = pix.device
     n = packed.test.shape[0]
     nb = bands.max_opacities.shape[0]
@@ -839,18 +848,20 @@ def track_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
     _check("pix", pix, torch.int32, (L,), dev)
     _check("accum", accum, F32, (L, 4), dev)
     _check("fb", fb, torch.int32, (L,), dev)
+    if cost is not None:
+        _check("cost", cost, torch.int32, (width * height,), dev)
     if samples < 1:
         raise ValueError("track_f32: samples must be >= 1")
     if dev.type == "cpu":
         _render_frame_fast_torch(packed, loc, bands, lp, pix, accum, fb,
-                                 width, height, samples, preserve_cache)
+                                 width, height, samples, preserve_cache, cost)
         return
     if dev.type != "cuda":
         raise ValueError(f"track_f32: unsupported device {dev}")
     lib = build_track_f32()
     p = track_params(packed, loc, track_common(
         bands, lp, pix, accum, fb, width=width, height=height,
-        samples=samples, preserve_cache=preserve_cache))
+        samples=samples, preserve_cache=preserve_cache, cost=cost))
     cuda_build.check("track_f32", lib.track_f32_launch(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches["track_f32"] += 1
@@ -864,7 +875,7 @@ def render_frame_fast(cells: Cells, packed: PackedCells, loc: Locator,
                       bands: RadialBands, lp, accum, fb, *,
                       width: int, height: int, pixel_perm=None,
                       n_active: int | None = None, samples: int = 1,
-                      preserve_cache: bool = True):
+                      preserve_cache: bool = True, return_cost: bool = False):
     """Full-frame progressive step on the fast path.
 
     pixel_perm: optional (H*W,) int32 permutation (ops/order.pixel_order);
@@ -881,17 +892,28 @@ def render_frame_fast(cells: Cells, packed: PackedCells, loc: Locator,
     across its samples (outputs can then differ only on f32 boundary ties
     between adjacent columns).
 
+    return_cost: also return each pixel's measured cost, the tracking steps
+    its lane took over the launch's samples, as a (W*H,) int32 tensor in
+    NATURAL pixel order, 0 for untraced pixels: ops/order.py
+    `refine_order_device` re-sorts the next launch's lanes by it.
+
     accum (P, 4) f32 and fb (P,) int32 are updated IN PLACE (the JAX
     version donates them) and returned."""
+    pix, n_proc = frame_lanes(width, height, pixel_perm, n_active,
+                              accum.device)
+    cost = torch.zeros(width * height, dtype=torch.int32,
+                       device=accum.device) if return_cost else None
+    track_f32(packed, loc, bands, lp, pix, accum[:n_proc], fb[:n_proc],
+              width=width, height=height, samples=samples,
+              preserve_cache=preserve_cache, cost=cost)
+    return (accum, fb, cost) if return_cost else (accum, fb)
+
+
+def frame_lanes(width: int, height: int, pixel_perm, n_active, device):
+    """(pixel ids of the traced lanes, their count): every pixel, or the
+    first n_active of pixel_perm (lane i renders pixel pixel_perm[i])."""
     total = width * height
     if pixel_perm is None:
-        pix = torch.arange(total, dtype=torch.int32, device=accum.device)
-        n_proc = total
-    else:
-        pix = pixel_perm.to(torch.int32)
-        n_proc = total if n_active is None else \
-            min(total, max(int(n_active), 1))
-    track_f32(packed, loc, bands, lp, pix[:n_proc].contiguous(),
-              accum[:n_proc], fb[:n_proc], width=width, height=height,
-              samples=samples, preserve_cache=preserve_cache)
-    return accum, fb
+        return torch.arange(total, dtype=torch.int32, device=device), total
+    n_proc = total if n_active is None else min(total, max(int(n_active), 1))
+    return pixel_perm.to(torch.int32)[:n_proc].contiguous(), n_proc

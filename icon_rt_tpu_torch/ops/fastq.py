@@ -29,7 +29,8 @@ from ..models.shells import RadialBands
 from ..models.transfunc import Transfunc, post_classify
 from ..utils import cuda_build
 from .fast import (F32, _check, _first_inside, _grid_bin,
-                   _locate_torch, _TrackCommon, _track_torch, track_common)
+                   _locate_torch, _TrackCommon, _track_torch, frame_lanes,
+                   track_common)
 
 #: K2 kernel launches (the wrapper counts only CUDA launches)
 launches = 0
@@ -189,11 +190,11 @@ def _render_frame_fast_q_torch(q: QuantizedCells, loc: Locator,
                                bands: RadialBands, tf: Transfunc, lp, pix,
                                accum, fb, width: int, height: int,
                                samples: int, preserve_cache: bool,
-                               fm: FineMap | None):
+                               fm: FineMap | None, cost=None):
     """Plain-PyTorch K2 over the lanes of `pix`: the tracking machine
     `_track_torch` on the quantized tier; updates accum and fb in place."""
     _track_torch(_QTier(q, loc, tf, fm), bands, lp, pix, accum, fb, width,
-                 height, samples, preserve_cache)
+                 height, samples, preserve_cache, cost)
 
 
 # ===========================================================================
@@ -295,11 +296,12 @@ def track_q_params(q: QuantizedCells, loc: Locator, tf: Transfunc,
 def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
             tf: Transfunc, lp, pix, accum, fb, *, width: int, height: int,
             samples: int = 1, preserve_cache: bool = True,
-            finemap: FineMap | None = None):
+            finemap: FineMap | None = None, cost=None):
     """K2 wrapper: trace `samples` progressive samples for the lanes of
     `pix` ((L,) int32 pixel ids) on the quantized tier and update accum
-    (L, 4) f32 and fb (L,) int32 IN PLACE.  With `finemap` a cache miss
-    locates through the fine map first.  CUDA tensors launch
+    (L, 4) f32 and fb (L,) int32 IN PLACE; with `cost` ((W*H,) int32) also
+    store each lane's tracking steps at its pixel.  With `finemap` a cache
+    miss locates through the fine map first.  CUDA tensors launch
     csrc/track_q.cu; CPU tensors run `_render_frame_fast_q_torch`;
     anything else raises."""
     global launches
@@ -314,19 +316,21 @@ def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     ck("pix", pix, torch.int32, (L,))
     ck("accum", accum, F32, (L, 4))
     ck("fb", fb, torch.int32, (L,))
+    if cost is not None:
+        ck("cost", cost, torch.int32, (width * height,))
     if samples < 1:
         raise ValueError("track_q: samples must be >= 1")
     if dev.type == "cpu":
         _render_frame_fast_q_torch(q, loc, bands, tf, lp, pix, accum, fb,
                                    width, height, samples, preserve_cache,
-                                   finemap)
+                                   finemap, cost)
         return
     if dev.type != "cuda":
         raise ValueError(f"track_q: unsupported device {dev}")
     lib = build_track_q()
     p = track_q_params(q, loc, tf, finemap, track_common(
         bands, lp, pix, accum, fb, width=width, height=height,
-        samples=samples, preserve_cache=preserve_cache))
+        samples=samples, preserve_cache=preserve_cache, cost=cost))
     cuda_build.check("track_q", lib.track_q_launch(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches += 1
@@ -341,20 +345,18 @@ def render_frame_fast_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
                         height: int, pixel_perm=None,
                         n_active: int | None = None, samples: int = 1,
                         preserve_cache: bool = True,
-                        finemap: FineMap | None = None):
+                        finemap: FineMap | None = None,
+                        return_cost: bool = False):
     """Full-frame progressive step on the quantized tier — the peer of
     ops/fast.render_frame_fast (same pixel_perm / n_active / samples /
-    preserve_cache contract); `finemap` turns the two-stage locate on.
-    accum (P, 4) f32 and fb (P,) int32 are updated IN PLACE and returned."""
-    total = width * height
-    if pixel_perm is None:
-        pix = torch.arange(total, dtype=torch.int32, device=accum.device)
-        n_proc = total
-    else:
-        pix = pixel_perm.to(torch.int32)
-        n_proc = total if n_active is None else \
-            min(total, max(int(n_active), 1))
-    track_q(q, loc, bands, tf, lp, pix[:n_proc].contiguous(),
-            accum[:n_proc], fb[:n_proc], width=width, height=height,
-            samples=samples, preserve_cache=preserve_cache, finemap=finemap)
-    return accum, fb
+    preserve_cache / return_cost contract); `finemap` turns the two-stage
+    locate on.  accum (P, 4) f32 and fb (P,) int32 are updated IN PLACE and
+    returned, with the (W*H,) int32 cost when return_cost is set."""
+    pix, n_proc = frame_lanes(width, height, pixel_perm, n_active,
+                              accum.device)
+    cost = torch.zeros(width * height, dtype=torch.int32,
+                       device=accum.device) if return_cost else None
+    track_q(q, loc, bands, tf, lp, pix, accum[:n_proc], fb[:n_proc],
+            width=width, height=height, samples=samples,
+            preserve_cache=preserve_cache, finemap=finemap, cost=cost)
+    return (accum, fb, cost) if return_cost else (accum, fb)

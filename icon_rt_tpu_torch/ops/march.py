@@ -62,7 +62,8 @@ from ..models.transfunc import Transfunc
 from ..utils import cuda_build
 from .fast import (F32, PROF_W, RGB_W, TEST_W, PackedCells, _band_exit,
                    _band_of, _check, _F32Tier, _init_lanes, _r_of,
-                   _select_band, _TrackParams, track_common, track_params)
+                   _select_band, _TrackParams, frame_lanes, track_common,
+                   track_params)
 from .fastq import (_QTier, _TrackQParams, check_q_tables, track_q_params)
 from .render import _finalize
 
@@ -478,16 +479,6 @@ def march_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
 # Frame drivers
 # ===========================================================================
 
-def _lanes(width: int, height: int, pixel_perm, n_active, device):
-    """(pixel ids of the traced lanes, their count): every pixel, or the
-    first n_active of pixel_perm (ops/fast.py `render_frame_fast`)."""
-    total = width * height
-    if pixel_perm is None:
-        return torch.arange(total, dtype=torch.int32, device=device), total
-    n_proc = total if n_active is None else min(total, max(int(n_active), 1))
-    return pixel_perm.to(torch.int32)[:n_proc].contiguous(), n_proc
-
-
 def render_frame_march(cells: Cells, packed: PackedCells, loc: Locator,
                        bands: RadialBands, lp, accum, fb, *, width: int,
                        height: int, pixel_perm=None,
@@ -496,7 +487,7 @@ def render_frame_march(cells: Cells, packed: PackedCells, loc: Locator,
     ops/fast.render_frame_fast (same pixel_perm / n_active contract).  Each
     call adds ONE converged pass of the jitter of lp.accum_id.  accum (P, 4)
     f32 and fb (P,) int32 are updated IN PLACE and returned."""
-    pix, n = _lanes(width, height, pixel_perm, n_active, accum.device)
+    pix, n = frame_lanes(width, height, pixel_perm, n_active, accum.device)
     march_f32(packed, loc, bands, lp, pix, accum[:n], fb[:n], width=width,
               height=height)
     return accum, fb
@@ -510,7 +501,7 @@ def render_frame_march_q(q: QuantizedCells, loc: Locator,
     """Full-frame deterministic march on the quantized tier — the peer of
     ops/fastq.render_frame_fast_q; `finemap` turns the two-stage locate
     on.  accum and fb are updated IN PLACE and returned."""
-    pix, n = _lanes(width, height, pixel_perm, n_active, accum.device)
+    pix, n = frame_lanes(width, height, pixel_perm, n_active, accum.device)
     march_q(q, loc, bands, tf, lp, pix, accum[:n], fb[:n], width=width,
             height=height, finemap=finemap)
     return accum, fb

@@ -15,6 +15,23 @@ square roots per pixel, one f32 store.  On the H100 it is bound by its
 the 12 camera scalars in registers and computes pixel coordinates from the
 program id, so it reads nothing per pixel.  The sort that follows is
 `torch.sort(stable=True)`.
+
+K6b, the measured-cost re-sort (icon_rt_tpu/ops/order.py
+`refine_order_device` :109 and `repermute_device` :124), re-sorts the
+covered prefix by the steps each lane took in the last launch
+(render_frame_fast's `return_cost`) and carries accum and fb over to the
+new order.  Three Triton kernels, all pure gathers with no reuse, so bound
+by their bytes: `refine_keys` gathers cost_nat[perm[i]] for the covered
+prefix; `torch.sort(stable=True)` orders the keys, as K6; `refine_perm`
+writes the new permutation, perm[order[i]] on the prefix and perm[i] on
+the tail; `repermute` moves each lane's 16-byte accum row and 4-byte fb
+word in one launch, lane i reading the old lane inv_old[new_perm[i]]
+(JAX's scatter into natural order and gather out of it, in one step).  At
+1080p these launches are a few tens of microseconds, about the launch
+latency, so they are no faster than their plain versions.  The
+pixel's RNG stream is keyed by the pixel (track_common.cuh `init_lane`)
+and the column cache lives within one launch, so a re-sort between
+launches leaves the unpermuted image bit-identical.
 """
 from __future__ import annotations
 
@@ -23,9 +40,23 @@ import torch
 
 #: K6 launches (kernel launches only; CPU plain-version runs do not count)
 launches = 0
+#: K6b launches, the same rule
+refine_launches = {"refine_keys": 0, "refine_perm": 0, "repermute": 0}
 
 tl = None          # triton.language, bound on first launch
 _KERNEL = None
+_K6B = {}
+_BLOCK = 1024
+
+
+def _triton():
+    """Import Triton on first launch (this module is imported on machines
+    without it); binds the module's `tl` for the kernels' annotations."""
+    global tl
+    import triton
+    import triton.language as tl_
+    tl = tl_
+    return triton
 
 
 def _chord_keys_torch(cam, r_in, r_out, width: int, height: int):
@@ -120,7 +151,7 @@ def chord_keys(cam, r_in: float, r_out: float, width: int, height: int):
     """K6 wrapper: the Triton kernel for a CUDA `cam`, the plain version for
     a CPU one.  cam: contiguous (12,) f32 (org | dir00 | du | dv).
     Returns (W*H,) f32 keys on cam's device."""
-    global launches, _KERNEL, tl
+    global launches, _KERNEL
     if cam.dtype != torch.float32 or cam.shape != (12,) \
             or not cam.is_contiguous():
         raise ValueError("chord_keys: cam must be a contiguous (12,) float32")
@@ -132,9 +163,7 @@ def chord_keys(cam, r_in: float, r_out: float, width: int, height: int):
     if cam.device.type != "cuda":
         raise ValueError(f"chord_keys: unsupported device {cam.device}")
     if _KERNEL is None:
-        import triton
-        import triton.language as tl
-        _KERNEL = triton.jit(_chord_keys_kernel)
+        _KERNEL = _triton().jit(_chord_keys_kernel)
     total = width * height
     out = torch.empty(total, dtype=torch.float32, device=cam.device)
     block = 1024
@@ -175,3 +204,175 @@ def inverse_order(perm):
                                     device=perm.device)
     return inv
 
+
+
+# ---------------------------------------------------------------------------
+# K6b: the measured-cost re-sort
+# ---------------------------------------------------------------------------
+
+def refine_order(perm, n_active: int, cost_nat) -> np.ndarray:
+    """Host numpy re-sort (icon_rt_tpu/ops/order.py `refine_order`): the
+    covered prefix of `perm` stable-sorted by the measured per-pixel cost
+    (natural pixel order), the tail untouched.  Returns a new (total,)
+    permutation."""
+    perm = np.asarray(perm)
+    head = perm[:n_active]
+    key = np.asarray(cost_nat)[head]
+    out = perm.copy()
+    out[:n_active] = head[np.argsort(key, kind="stable")]
+    return out
+
+
+def repermute(arr, old_perm, new_perm):
+    """Host numpy: a buffer stored in old_perm order (arr[i] holds pixel
+    old_perm[i]'s data) re-indexed into new_perm order."""
+    arr = np.asarray(arr)
+    nat = np.empty_like(arr)
+    nat[np.asarray(old_perm)] = arr
+    return nat[np.asarray(new_perm)]
+
+
+def _refine_keys_kernel(perm_ptr, cost_ptr, out_ptr, n, BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    msk = i < n
+    pix = tl.load(perm_ptr + i, mask=msk, other=0)
+    tl.store(out_ptr + i, tl.load(cost_ptr + pix, mask=msk, other=0),
+             mask=msk)
+
+
+def _refine_perm_kernel(perm_ptr, order_ptr, out_ptr, n_active, total,
+                        BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    msk = i < total
+    head = i < n_active
+    src = tl.where(head, tl.load(order_ptr + i, mask=head, other=0), i)
+    tl.store(out_ptr + i, tl.load(perm_ptr + src, mask=msk, other=0),
+             mask=msk)
+
+
+def _repermute_kernel(new_ptr, inv_ptr, acc_ptr, fb_ptr, acc_out, fb_out, n,
+                      BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    msk = i < n
+    src = tl.load(inv_ptr + tl.load(new_ptr + i, mask=msk, other=0),
+                  mask=msk, other=0)
+    ch = tl.arange(0, 4)
+    m2 = msk[:, None]
+    row = tl.load(acc_ptr + src[:, None] * 4 + ch[None, :], mask=m2)
+    tl.store(acc_out + i[:, None] * 4 + ch[None, :], row, mask=m2)
+    tl.store(fb_out + i, tl.load(fb_ptr + src, mask=msk), mask=msk)
+
+
+def _k6b(name: str):
+    if name not in _K6B:
+        fn = {"refine_keys": _refine_keys_kernel,
+              "refine_perm": _refine_perm_kernel,
+              "repermute": _repermute_kernel}[name]
+        _K6B[name] = _triton().jit(fn)
+    return _K6B[name]
+
+
+def _check_perm(fn, name, x, n, device):
+    if x.dtype != torch.int32 or x.shape != (n,) or not x.is_contiguous() \
+            or x.device != device:
+        raise ValueError(f"{fn}: {name} must be a contiguous ({n},) int32 "
+                         f"tensor on {device}")
+
+
+def _refine_keys_torch(perm, n_active: int, cost_nat):
+    """Plain K6b keys: cost_nat[perm[:n_active]]."""
+    return cost_nat[perm[:n_active].long()]
+
+
+def refine_keys(perm, n_active: int, cost_nat):
+    """K6b wrapper, the keys of the re-sort: (n_active,) int32
+    cost_nat[perm[i]].  A CUDA perm launches the Triton kernel, a CPU one
+    runs the plain version."""
+    dev = perm.device
+    total = perm.shape[0]
+    _check_perm("refine_keys", "perm", perm, total, dev)
+    _check_perm("refine_keys", "cost_nat", cost_nat, total, dev)
+    if not 0 <= n_active <= total:
+        raise ValueError("refine_keys: n_active outside [0, total]")
+    if dev.type == "cpu":
+        return _refine_keys_torch(perm, n_active, cost_nat)
+    if dev.type != "cuda":
+        raise ValueError(f"refine_keys: unsupported device {dev}")
+    out = torch.empty(n_active, dtype=torch.int32, device=dev)
+    if n_active:
+        _k6b("refine_keys")[(-(-n_active // _BLOCK),)](
+            perm, cost_nat, out, n_active, BLOCK=_BLOCK)
+        refine_launches["refine_keys"] += 1
+    return out
+
+
+def _refine_perm_torch(perm, n_active: int, order):
+    """Plain K6b permutation: perm[:n_active][order], then perm's tail."""
+    return torch.cat([perm[:n_active][order.long()], perm[n_active:]])
+
+
+def refine_perm(perm, n_active: int, order):
+    """K6b wrapper, the re-sorted permutation: (total,) int32 with
+    perm[order[i]] for i < n_active and perm[i] past it.  order: the
+    (n_active,) int32 sorting permutation of the covered prefix's keys.  A
+    CUDA perm launches the Triton kernel, a CPU one runs the plain
+    version."""
+    dev = perm.device
+    total = perm.shape[0]
+    _check_perm("refine_perm", "perm", perm, total, dev)
+    if not 0 <= n_active <= total:
+        raise ValueError("refine_perm: n_active outside [0, total]")
+    _check_perm("refine_perm", "order", order, n_active, dev)
+    if dev.type == "cpu":
+        return _refine_perm_torch(perm, n_active, order)
+    if dev.type != "cuda":
+        raise ValueError(f"refine_perm: unsupported device {dev}")
+    out = torch.empty_like(perm)
+    if total:
+        _k6b("refine_perm")[(-(-total // _BLOCK),)](
+            perm, order, out, n_active, total, BLOCK=_BLOCK)
+        refine_launches["refine_perm"] += 1
+    return out
+
+
+def refine_order_device(perm, n_active: int, cost_nat):
+    """Device re-sort (icon_rt_tpu/ops/order.py `refine_order_device`): the
+    covered prefix of the (total,) int32 permutation stable-sorted by the
+    (total,) int32 measured cost in natural pixel order (K6b keys,
+    `torch.sort(stable=True)`, K6b permutation); the tail untouched.
+    Returns a new permutation on perm's device."""
+    keys = refine_keys(perm, n_active, cost_nat)
+    order = torch.sort(keys, stable=True).indices.to(torch.int32)
+    return refine_perm(perm, n_active, order)
+
+
+def _repermute_torch(accum, fb, new_perm, inv_old):
+    """Plain K6b repermute: lane i takes lane inv_old[new_perm[i]]."""
+    src = inv_old[new_perm.long()].long()
+    return accum[src], fb[src]
+
+
+def repermute_device(accum, fb, new_perm, inv_old):
+    """Device repermute (icon_rt_tpu/ops/order.py `repermute_device`, for
+    accum and fb together): accum (L, 4) f32 and fb (L,) int32 stored in
+    the order of a permutation whose inverse is inv_old (inverse_order of
+    the old perm) -> new (accum, fb) in new_perm order.  CUDA tensors
+    launch the Triton kernel, CPU tensors run the plain version."""
+    dev = fb.device
+    total = fb.shape[0]
+    for name, x in (("new_perm", new_perm), ("inv_old", inv_old),
+                    ("fb", fb)):
+        _check_perm("repermute_device", name, x, total, dev)
+    if accum.dtype != torch.float32 or accum.shape != (total, 4) \
+            or not accum.is_contiguous() or accum.device != dev:
+        raise ValueError(f"repermute_device: accum must be a contiguous "
+                         f"({total}, 4) float32 tensor on {dev}")
+    if dev.type == "cpu":
+        return _repermute_torch(accum, fb, new_perm, inv_old)
+    if dev.type != "cuda":
+        raise ValueError(f"repermute_device: unsupported device {dev}")
+    acc_out, fb_out = torch.empty_like(accum), torch.empty_like(fb)
+    _k6b("repermute")[(-(-total // _BLOCK),)](
+        new_perm, inv_old, accum, fb, acc_out, fb_out, total, BLOCK=_BLOCK)
+    refine_launches["repermute"] += 1
+    return acc_out, fb_out

@@ -159,8 +159,13 @@ def test_torch_device_scene_windows_and_latlon(scenes):
 
 
 def test_torch_device_scene_field_lod_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        synth_quantized_device(2, 4, field_lod=1, device="cpu")
+    """The mip tier is built for field_lod >= 0 (tests/test_torch_lod.py);
+    a negative level, and a build_q_scene level that leaves no geometry,
+    raise."""
+    with pytest.raises(ValueError, match="field_lod"):
+        synth_quantized_device(2, 4, field_lod=-1, device="cpu")
+    with pytest.raises(ValueError, match="field_lod"):
+        bigscene.build_q_scene(2, 4, device="cpu", field_lod=2)
 
 
 def _bins_equal(loc, want, k_want):
@@ -271,9 +276,10 @@ def test_torch_build_q_scene_renders_like_jax(scenes, tmp_path, monkeypatch):
     locator and the fine map from the cache."""
     sc, _, _, jd = scenes
     monkeypatch.setattr(bigscene, "CACHE_DIR", str(tmp_path))
-    out = bigscene.build_q_scene(SUBDIV, LAYERS, device="cpu",
-                                 cache_key="t", timings={})
-    q, loc, k, bands, tf, stats, fm = out
+    out = bigscene.build_q_scene(SUBDIV, LAYERS, device="cpu", cache=True,
+                                 timings={})
+    q, loc, k, bands, tf, stats, fm, lod, eff = out
+    assert (lod, eff) == (0, SUBDIV)
     assert q.alpha_tab is not None and fm is not None
     w = 32
     lp = _camera_lp(stats, w)
@@ -294,7 +300,7 @@ def test_torch_build_q_scene_renders_like_jax(scenes, tmp_path, monkeypatch):
     assert np.abs(a[both] - b[both]).mean() < 0.05
 
     again = bigscene.build_q_scene(SUBDIV, LAYERS, device="cpu",
-                                   cache_key="t")
+                                   cache=True)
     assert again[2] == k and torch.equal(again[1].bins, loc.bins)
     assert torch.equal(again[6].slots, fm.slots)
 

@@ -187,6 +187,60 @@ def test_torch_fast_mean_image_vs_jax(scene):
     assert np.sqrt(((aj - at) ** 2).mean()) <= 2e-3
 
 
+def reorder_invariance(render, perm, n_active, w, h):
+    """The contract of tests/test_fast.py's test_adaptive_reorder_bit_
+    identical for a port tracker: three launches of 2 samples, once with
+    ops/order.py's K6b re-sort (refine_order_device on the launch's
+    return_cost, then repermute_device of accum and fb) between launches
+    and once without.  The unpermuted fb and accum are identical, every
+    launch's cost (natural pixel order) is identical, is 0 exactly on the
+    untraced pixels and >= 1 on every pixel the first launch wrote.
+    render(accum_id, perm tensor, accum, fb) -> (accum, fb, cost)."""
+    from icon_rt_tpu_torch.ops.order import (inverse_order,
+                                             refine_order_device,
+                                             repermute_device)
+
+    def run(reorder):
+        p = torch.from_numpy(perm)
+        acc, fb = alloc_frame(w, h)
+        costs, first = [], None
+        for k in range(3):
+            acc, fb, cost = render(2 * k, p, acc, fb)
+            nat = inverse_order(p).long()
+            first = _fb(fb[nat]) if first is None else first
+            costs.append(cost)
+            if reorder:
+                p2 = refine_order_device(p, n_active, cost)
+                acc, fb = repermute_device(acc, fb, p2, inverse_order(p))
+                p = p2
+        inv = inverse_order(p).long()
+        return acc[inv], fb[inv], costs, p, first
+
+    a0, f0, c0, p0, first = run(False)
+    a1, f1, c1, p1, _ = run(True)
+    np.testing.assert_array_equal(_fb(f1), _fb(f0))
+    np.testing.assert_array_equal(a1.numpy(), a0.numpy())
+    assert (_fb(f0) != 0).sum() > 100
+    assert not torch.equal(p1, p0)
+    traced = np.zeros(w * h, bool)
+    traced[perm[:n_active]] = True
+    for k in range(3):
+        assert torch.equal(c1[k], c0[k])
+        cost = c0[k].numpy()
+        assert c0[k].dtype == torch.int32 and (cost[~traced] == 0).all()
+    assert (c0[0].numpy()[first != 0] >= 1).all()
+
+
+def test_torch_fast_reorder_keeps_image(scene):
+    """K1's return_cost and the K6b re-sort: reorder_invariance."""
+    def render(k, p, acc, fb):
+        return render_frame_fast(*scene.t, scene.tlp._replace(
+            accum_id=torch.tensor(k, dtype=torch.int32)), acc, fb,
+            width=scene.w, height=scene.h, pixel_perm=p,
+            n_active=scene.n_active, samples=2, return_cost=True)
+    reorder_invariance(render, scene.perm, scene.n_active, scene.w, scene.h)
+
+
 def test_torch_track_f32_rejects_bad_inputs():
     sc = _Scene(*CASES["thick"])
     cells, packed, loc, bands = sc.t
@@ -204,3 +258,6 @@ def test_torch_track_f32_rejects_bad_inputs():
         track_f32(packed, loc, bands, sc.tlp, pix[:10], acc, fb, **kw)
     with pytest.raises(ValueError):
         track_f32(packed, loc, bands, sc.tlp, pix, acc, fb, samples=0, **kw)
+    with pytest.raises(ValueError):
+        track_f32(packed, loc, bands, sc.tlp, pix, acc, fb,
+                  cost=torch.zeros(sc.w * sc.h - 1, dtype=torch.int32), **kw)

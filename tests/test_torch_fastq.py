@@ -26,6 +26,7 @@ from icon_rt_tpu.ops.render import make_launch_params as jmake_lp
 from icon_rt_tpu_torch import interop
 from icon_rt_tpu_torch.ops.fastq import render_frame_fast_q, track_q
 from icon_rt_tpu_torch.ops.render import alloc_frame
+from test_torch_fast import reorder_invariance
 
 torch.set_num_threads(1)
 
@@ -174,6 +175,21 @@ def test_torch_fastq_finemap_on_equals_off(scene, preserve_cache):
     off = scene.port(0, samples=3, preserve_cache=preserve_cache, fm=False)
     np.testing.assert_array_equal(on[0].numpy(), off[0].numpy())
     np.testing.assert_array_equal(_fb(on[1]), _fb(off[1]))
+
+
+def test_torch_fastq_reorder_keeps_image(scene):
+    """K2's return_cost and the K6b re-sort, fine map on: test_torch_fast.py
+    `reorder_invariance`."""
+    t = scene.t
+
+    def render(k, p, acc, fb):
+        return render_frame_fast_q(
+            t["q"], t["loc"], t["bands"], t["tf"], scene.tlp._replace(
+                accum_id=torch.tensor(k, dtype=torch.int32)), acc, fb,
+            width=scene.w, height=scene.w, pixel_perm=p,
+            n_active=scene.n_active, samples=2, finemap=scene.tfm,
+            return_cost=True)
+    reorder_invariance(render, scene.perm, scene.n_active, scene.w, scene.w)
 
 
 def test_torch_track_q_rejects_bad_inputs():

@@ -87,3 +87,86 @@ def test_torch_pixel_order_vs_jax(sub, w, h, dist):
     np.testing.assert_array_equal(inv[pt], np.arange(w * h))
     np.testing.assert_array_equal(inverse_order(pt), inv)
 
+
+
+#: (total, n_active, cost levels): few levels give many ties, which the
+#: stable sort must keep in lane order
+REFINE_CASES = [(64, 40, 5), (2304, 1500, 1000), (1000, 1000, 3), (50, 0, 4)]
+
+
+@pytest.mark.parametrize("total,n_active,levels", REFINE_CASES)
+def test_torch_refine_order_and_repermute_equal_jax(total, n_active, levels):
+    """K6b's plain versions and the host helpers against JAX's on the same
+    numpy inputs: refine_order and refine_order_device give JAX's
+    permutation (stable among equal costs, tail untouched); refine_keys is
+    cost[perm[:n_active]]; refine_perm of the keys' stable order is JAX's
+    permutation; repermute and repermute_device give JAX's
+    repermute of accum and fb, bit for bit."""
+    from icon_rt_tpu.ops.order import refine_order as jrefine
+    from icon_rt_tpu.ops.order import refine_order_device as jrefine_dev
+    from icon_rt_tpu.ops.order import repermute as jrepermute
+    from icon_rt_tpu.ops.order import repermute_device as jrepermute_dev
+    from icon_rt_tpu_torch.ops.order import (refine_keys, refine_order,
+                                             refine_order_device,
+                                             refine_perm, repermute,
+                                             repermute_device)
+    rng = np.random.default_rng(total + n_active)
+    perm = rng.permutation(total).astype(np.int32)
+    cost = rng.integers(0, levels, total).astype(np.int32)
+    acc = rng.standard_normal((total, 4)).astype(np.float32)
+    fb = rng.integers(-2 ** 31, 2 ** 31 - 1, total).astype(np.int32)
+
+    want = jrefine(perm, n_active, cost)
+    np.testing.assert_array_equal(
+        np.asarray(jrefine_dev(jnp.asarray(perm), n_active,
+                               jnp.asarray(cost))), want)
+    np.testing.assert_array_equal(refine_order(perm, n_active, cost), want)
+    tp, tc = torch.from_numpy(perm), torch.from_numpy(cost)
+    np.testing.assert_array_equal(refine_keys(tp, n_active, tc).numpy(),
+                                  cost[perm[:n_active]])
+    srt = np.argsort(cost[perm[:n_active]], kind="stable").astype(np.int32)
+    np.testing.assert_array_equal(
+        refine_perm(tp, n_active, torch.from_numpy(srt)).numpy(), want)
+    new = refine_order_device(tp, n_active, tc)
+    assert new.dtype == torch.int32
+    np.testing.assert_array_equal(new.numpy(), want)
+    np.testing.assert_array_equal(new.numpy()[n_active:], perm[n_active:])
+
+    for arr in (acc, fb):
+        ref = jrepermute(arr, perm, want)
+        np.testing.assert_array_equal(repermute(arr, perm, want), ref)
+        np.testing.assert_array_equal(
+            np.asarray(jrepermute_dev(jnp.asarray(arr), jnp.asarray(perm),
+                                      jnp.asarray(want))), ref)
+    a2, f2 = repermute_device(torch.from_numpy(acc), torch.from_numpy(fb),
+                              new, inverse_order(tp))
+    np.testing.assert_array_equal(a2.numpy(), jrepermute(acc, perm, want))
+    np.testing.assert_array_equal(f2.numpy(), jrepermute(fb, perm, want))
+
+
+def test_torch_refine_rejects_bad_inputs():
+    from icon_rt_tpu_torch.ops.order import (refine_keys, refine_perm,
+                                             repermute_device)
+    perm = torch.arange(16, dtype=torch.int32)
+    cost = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        refine_perm(perm, 4, perm[:5])
+    with pytest.raises(ValueError):
+        refine_perm(perm, 4, perm[:4].long())
+    with pytest.raises(ValueError):
+        refine_perm(perm, 17, perm)
+    with pytest.raises(ValueError):
+        refine_keys(perm.long(), 4, cost)
+    with pytest.raises(ValueError):
+        refine_keys(perm, 4, cost[:8])
+    with pytest.raises(ValueError):
+        refine_keys(perm, 17, cost)
+    acc = torch.zeros((16, 4))
+    with pytest.raises(ValueError):
+        repermute_device(acc[:8], cost, perm, perm)
+    with pytest.raises(ValueError):
+        repermute_device(acc.double(), cost, perm, perm)
+    with pytest.raises(ValueError):
+        repermute_device(acc, cost, perm, perm[:8])
+    with pytest.raises(ValueError):
+        repermute_device(acc, cost.long(), perm, perm)

@@ -97,9 +97,9 @@ def test_torch_png_roundtrip(tmp_path):
 
 def test_torch_port_never_imports_jax(tmp_path):
     """In a fresh interpreter: import every module of the port (the march,
-    ops/march.py, by name too) and run tiny renders through the app, the
-    Woodcock tracker and the march; neither jax nor icon_rt_tpu may
-    load."""
+    ops/march.py, and the LOD module, data/lod.py, by name too; frame_lod
+    picks its level) and run tiny renders through the app, the Woodcock
+    tracker and the march; neither jax nor icon_rt_tpu may load."""
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -110,6 +110,8 @@ import icon_rt_tpu_torch
 for m in pkgutil.walk_packages(icon_rt_tpu_torch.__path__, 'icon_rt_tpu_torch.'):
     importlib.import_module(m.name)
 import icon_rt_tpu_torch.ops.march
+from icon_rt_tpu_torch.data.lod import frame_lod
+assert frame_lod(11, 'viewall', 1920, 1080) == 3
 from icon_rt_tpu_torch import app
 for extra, out in (([], 'x'), (['--march'], 'm')):
     assert app.main(['--device', 'cpu', '--synthetic', '1:2', '--size', '16',
