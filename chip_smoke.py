@@ -9,8 +9,9 @@ script exits non-zero without printing a result):
   env     the card's name and power limit; there is no CPU fallback
   build   the nvcc builds of K1 (csrc/track_f32.cu), K2 (csrc/track_q.cu),
           K7-fm (csrc/finemap.cu), K3 (csrc/march.cu), K7-scene
-          (csrc/scene.cu), K7-loc (csrc/locator.cu) and K8
-          (csrc/parity.cu), started together,
+          (csrc/scene.cu), K7-loc (csrc/locator.cu), K8 and K9-p
+          (csrc/parity.cu), K9-w (csrc/track_wedge.cu) and K9-n
+          (csrc/uelems.cu), started together,
           and the first Triton compile of K5a, K5b, K6, K5c-q and K5c-f32,
           with their seconds and the ptxas register/spill lines
   check   every kernel against its plain PyTorch version on the card, at
@@ -28,6 +29,11 @@ script exits non-zero without printing a result):
                 accum <= 1e-6; K3-q fine map on against off: accum <= 1e-4
             K5c-f32 parts and apply exact; a scale-only edit's prof against
                 a full K5a bake at the new scale: its ULP printed, <= 1
+  check w the unstructured elements' kernels at the same shape: K5a over
+          the per-wedge constants bv (<= 1 ULP); K9-w samples=4, both
+          preserve_cache settings (fb identical on >= 99.9%, accum <=
+          1e-6); K9-n on 65,536 seeded points per element shape (pyramid,
+          wedge, hexahedron): inside flags and values bit-equal
   main    the app's main path (icon_rt_tpu_torch.app.build, then the
           launch / is_running / present loop of apps/icon_rt.py) at subdiv
           8 x 16 layers, 1920x1080, 16 samples (8 per launch), closeup
@@ -36,6 +42,16 @@ script exits non-zero without printing a result):
           frame; then the same loop runs on to 128 samples, and the median
           and spread of the steady launches' wall time (fb copied to the
           host) give the end-to-end rate
+  main w  the app with -mode 2 on the fast raygen (the wedge tier, K9-w)
+          at the same scale and camera: 16 samples, 8 per launch, then on
+          to 128; the counters of K9-w, K5a, K5b and K6 zeroed before the
+          build and read after (K1 must read 0); layer_pad, the build
+          seconds of bands_w and packed_w, the steady launch's median and
+          spread, Mray/s full and traced, coverage >= 0.5; an opacity-scale
+          and a curve edit, each timed to the next fb on the host; a
+          profiled launch; K9-w against its plain version on the first 4096
+          covered lanes and on 4096 lanes strided over the covered prefix
+          (whose counted work gives the bound)
   main q  the app's --quantized path (fine map on, its cache emptied) at
           the same scale and camera: the counters of K2, K5c-q, K7-loc,
           K7-fm, K5b and K6 are zeroed before and read after, the image
@@ -124,6 +140,15 @@ script exits non-zero without printing a result):
           frame's fb on the host)
   main brute  the brute-force sampler through the app on the check scene,
           each raygen, 2 launches (its launch counts)
+  main accel w, main ae w  BASELINE configs[2] (bench.py:945): the app
+          with -mode 2 on --raygen accel --accel-mode sphere, then on
+          --raygen ae (K9-p), at subdiv 7 x 16 (327,680 columns), 1024x1024,
+          closeup camera, 4 and 2 launches of samples=1, after every
+          earlier table is freed: build seconds of cells, locator, wedges
+          and the shell accel, layer_pad, ms per launch (fb on the host),
+          Mray/s, coverage, peak memory, K9-p's launch count
+  main grid w  the same with -mode 2 on --raygen accel --accel-mode
+          grid, 4 launches of samples=1
   check parity  K8's six raygen x sampler combinations {ae, accel sphere,
           accel grid} x {locator, brute} against the plain version at
           subdiv 3 x 8, 128x128, closeup camera, the app's unit distance,
@@ -136,7 +161,13 @@ script exits non-zero without printing a result):
           of the brute rows' 128x128 lanes, or of the strided lanes
           (scaled to the frame), counts (ops/woodcock.py `Work`).  These
           plain runs come last: after their long loops the profiler
-          reports no device event for several windows
+          reports no device event for several windows.  Then K9-p (the
+          wedge sampler) x {ae, accel sphere, accel grid} at subdiv 3 x 8,
+          64x64, 2 samples, on 256 (ae) or 1024 lanes strided over the
+          frame, under the same contract; then main accel w's, main ae
+          w's and main grid w's K9-p against the plain version on 1024,
+          256 and 1024 lanes strided over the frame, whose counted work,
+          scaled, gives their bounds
 
 Every phase prints the device's peak memory (torch.cuda.max_memory_allocated
 since the phase began).
@@ -177,7 +208,7 @@ FINEMAP_TOL = 1e-4          # K3-q fine map on vs off (tests/test_march.py:366)
 #: (scripts/torch_march_vs_jax.py tie --tf default).
 FINEMAP_SHARE = 1e-3
 CU_SOURCES = ("track_f32", "track_q", "finemap", "march", "scene",
-              "locator", "parity")                        # csrc/*.cu
+              "locator", "parity", "track_wedge", "uelems")   # csrc/*.cu
 R2B9_SUB, R2B9_LAYERS = 11, 16    # bench.py r2b9q_closeup / r2b9m_closeup
 R2B9_SPL, R2B9_LIMIT = 8, 64      # r2b9q: samples per launch, in all
 PREVIEW_W, PREVIEW_H = 480, 270   # bench.py's preview frame (W/4 x H/4)
@@ -197,6 +228,16 @@ PARITY_SAMPLES = 2          # samples of each K8 check
 PARITY_LIMIT = 8            # main parity phases: 8 launches of 1 sample
 PARITY_RAYGENS = ("ae", "sphere", "grid")
 PARITY_SAMPLERS = ("locator", "brute")
+#: the unstructured elements' phases: K9-p's check lanes, strided over the
+#: frame (the plain Newton window runs ~800 tensor operations per lock-step
+#: iteration, and an AE lane beside the globe walks the whole box), and
+#: BASELINE configs[2] (bench.py:945, the r2b7 scene at 1024^2, one sample
+#: per launch: 4 launches on the sphere accel, 2 on AE; 4 on the grid
+#: accel at the same scene)
+WEDGE_CHECK_LANES = {"ae": 256, "sphere": 1024, "grid": 1024}
+W7_SUB, W7_LAYERS, W7_W = 7, 16, 1024
+W7_LIMIT = {"sphere": 4, "ae": 2, "grid": 4}
+UELEMS_POINTS = 65536        # K9-n's check points per element shape
 #: the JAX loops each K8 raygen replaces (the samplers' too: models/
 #: cells.py:170, models/locator.py:366)
 PARITY_REPLACES = {"ae": "icon_rt_tpu/ops/render.py:102",
@@ -232,13 +273,14 @@ LANE_BYTES = 40             # pix read, accum read and written, fb written
 #: height, alpha, RGB; the quantized tier: u8 alpha and value, the heights
 #: from one shared row)
 ROW_BYTES = {"track_f32": (56, 8), "track_q": (44, 2), "march_f32": (56, 20),
-             "march_q": (44, 2)}
+             "march_q": (44, 2), "track_wedge": (68, 8)}
 #: f32 operations per event: a Woodcock evaluation (position, radius, three
 #: plane tests, layer select, draws), a locate (asin, atan2, binning, one
 #: candidate test), a layer of a march crossing (two sphere crossings, the
 #: overlap, the depth, two exponentials, the colour), a crossing's column
 #: exit, and per candidate of a gap skip
-FLOPS = {"eval": 40, "locate": 60, "layer": 20, "cross": 60, "skip_cand": 50}
+FLOPS = {"eval": 40, "locate": 60, "layer": 20, "cross": 60, "skip_cand": 50,
+         "coord": 5}
 #: K8's f32 operations per event of ops/woodcock.py `Work`, each the
 #: arithmetic its code path in csrc/parity.cu runs (a transcendental counts
 #: 20, a division or square root 1): a free-path draw (the LCG, the log,
@@ -256,7 +298,14 @@ PARITY_OPS = {"draw": 30, "advance": {"ae": 0, "grid": 18, "sphere": 27},
 #: test runs, num_layers, one value and 4 per layer ceiling when it is hit,
 #: 4 per locator entry
 PARITY_BYTES = {"lane": 36, "radial": 8, "planes": 48, "hit": 8,
-                "layer": 4, "entry": 4}
+                "layer": 4, "entry": 4, "wedge": 96}
+#: K9-p's f32 operations of the wedge sampler (csrc/uelems.cuh): per
+#: visited column 2 per layer of its find_layer; per Newton its set-up
+#: (the bounding box 36, the tolerance 6) and its end (the value 11, the
+#: box tests 8); per iteration the shape and derivative tables 17, the
+#: four vertex sums 4 x 3 x 11, the four determinants 4 x 14, three
+#: divisions, the update and the convergence tests 15
+NEWTON_OPS = {"col_layer": 2, "newton": 61, "iter": 223}
 
 
 def nvidia_smi() -> str:
@@ -336,9 +385,12 @@ class CountingTier:
         self.n["cross"] += cid.shape[0]
         return self._tier.march_prof(cid)
 
-    def bound(self, kernel, n_lanes, nl_of_cells):
+    def bound(self, kernel, n_lanes, nl_of_cells, scale=1.0):
         """(ms, by) of `kernel` (a ROW_BYTES key) for this run's data;
-        nl_of_cells maps cell ids to their layer counts."""
+        nl_of_cells maps cell ids to their layer counts.  With `scale` the
+        run covered n_lanes / scale lanes of the frame: its events count
+        scale times, its reads once (fewer than the frame's, so the bound
+        stays a least time)."""
         import torch
         cids = torch.cat(self.cids) if self.cids else torch.zeros(0)
         cells = torch.unique(cids[cids >= 0])
@@ -359,6 +411,9 @@ class CountingTier:
                      * FLOPS["skip_cand"])
         else:
             flops = n["eval"] * FLOPS["eval"] + n["locate"] * FLOPS["locate"]
+            if kernel == "track_wedge":    # dot(P, n') at each test
+                flops += (n["eval"] + n["locate"] * k_cap) * FLOPS["coord"]
+        flops *= scale
         print(f"bound {kernel}: {n_lanes} lanes, {cells.numel()} distinct "
               f"columns ({nl} layers), {n_bins} bins, events {n}: "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP")
@@ -764,12 +819,13 @@ def zero_counters():
     """Every kernel launch counter of the port to 0."""
     from icon_rt_tpu_torch.data import device_scene
     from icon_rt_tpu_torch.models import accel, finemap, locator, qcells
-    from icon_rt_tpu_torch.ops import fast, fastq, march, order, render
+    from icon_rt_tpu_torch.ops import (fast, fastq, march, order, render,
+                                       uelems)
     accel.launches = order.launches = 0
     fastq.launches = finemap.launches = 0
     for d in (fast.launches, qcells.launches, march.launches,
               device_scene.launches, locator.launches, render.launches,
-              order.refine_launches):
+              order.refine_launches, uelems.launches):
         for k in d:
             d[k] = 0
 
@@ -936,16 +992,21 @@ def main_path(dev, quantized=False, marching=False):
 
 
 def timed_edit(pl, tag, label, edit):
-    """ms from a TF edit to the next launch's fb on the host."""
+    """ms from a TF edit to the next launch's fb on the host; prints the
+    share of the edit itself (its handler, the device synchronized)."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     edit()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     pl.launch()
     np.asarray(pl._last_fb.cpu())
-    ms = (time.perf_counter() - t0) * 1e3
+    t2 = time.perf_counter()
+    ms = (t2 - t0) * 1e3
     print(f"{tag} TF edit {label}: {ms:.3f} ms to the next launch's fb on "
-          f"the host")
+          f"the host (the edit {(t1 - t0) * 1e3:.3f} ms, the launch "
+          f"{(t2 - t1) * 1e3:.3f} ms)")
     return ms
 
 
@@ -1519,6 +1580,7 @@ def parity_lp(stats, width, height, dev, k=0):
 
 def parity_run(tabs, lp, raygen, sampler, pix, width, height, samples,
                kernel, work=None):
+    # tabs["wedges"]: the Wedges of the wedge sampler (K9-p)
     """`samples` K8 samples (kernel, or its plain version on the same
     card) of the lanes `pix`; returns (accum, fb, debug of the first
     sample: final rng, iterations; seconds per sample).  `work`, an
@@ -1543,11 +1605,12 @@ def parity_run(tabs, lp, raygen, sampler, pix, width, height, samples,
             render.parity_track(cells, tabs["tf"], lpk, acc, fb,
                                 width=width, height=height, raygen=raygen,
                                 sampler=sampler, locator=loc, accel=accel,
-                                pix=pix, debug=d)
+                                pix=pix, debug=d, wedges=tabs.get("wedges"))
         else:
             render._parity_torch(cells, tabs["tf"], lpk, pix, acc, fb, d,
                                  width, height, raygen, sampler, loc, accel,
-                                 work if k == 0 else None)
+                                 work if k == 0 else None,
+                                 tabs.get("wedges"))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     return acc, fb, dbg, secs
@@ -1560,6 +1623,8 @@ def parity_bound(raygen, sampler, lanes, w, scale):
     lane, and the reads of the counted lanes (fewer than the frame's, so
     the bound stays a least time)."""
     o, b = PARITY_OPS, PARITY_BYTES
+    if sampler == "wedge":
+        return wedge_bound(raygen, lanes, w, scale)
     plane_tests = w["plane1"] + 2 * w["plane2"] + 3 * (w["plane3"]
                                                        + w["hit"])
     per_sample = o["eval"] + (o["locate"] if sampler == "locator" else 0)
@@ -1588,8 +1653,8 @@ def compare_parity(label, tabs, lp, raygen, sampler, pix, width, height,
     import torch
     from icon_rt_tpu_torch.ops.woodcock import Work
     work = Work(tabs["cells"], sampler,
-                tabs["loc"] if sampler == "locator" else None) \
-        if count else None
+                tabs["loc"] if sampler != "brute" else None,
+                tabs.get("wedges")) if count else None
     ak, fk, dk, ks = parity_run(tabs, lp, raygen, sampler, pix, width,
                                 height, samples, True)
     ap, fp, dp, ps = parity_run(tabs, lp, raygen, sampler, pix, width,
@@ -1616,6 +1681,8 @@ def compare_parity(label, tabs, lp, raygen, sampler, pix, width, height,
     if same < 0.999 or not err <= ACCUM_TOL:
         raise AssertionError(f"{label}: K8 {raygen} x {sampler} disagrees "
                              f"with its plain version")
+    if sampler == "wedge" and not int((fk != 0).sum()):
+        raise AssertionError(f"{label}: K9-p {raygen} wrote no pixel")
     return err, ps[-1], ks[-1], w
 
 
@@ -1656,7 +1723,8 @@ def check_parity(dev, errs):
 
 def parity_argv(raygen, accel_mode, sampler, sub, layers, width, height,
                 limit, name):
-    """The app's argv of a parity path with the closeup camera."""
+    """The app's argv of a parity path with the closeup camera; sampler
+    "wedge" is given as -mode 2."""
     from icon_rt_tpu_torch.data import synthetic
     from icon_rt_tpu_torch.models.cells import compute_stats
     from icon_rt_tpu_torch.data.lod import frame_camera
@@ -1668,7 +1736,8 @@ def parity_argv(raygen, accel_mode, sampler, sub, layers, width, height,
             "--camera", *[repr(float(v)) for v in pose],
             "-fovy", repr(float(cam.get_fovy_degrees())),
             "--raygen", "ae" if raygen == "ae" else "accel",
-            "--sampler", sampler, "-o", os.path.join(OUT_DIR, name)]
+            *(["-mode", "2"] if sampler == "wedge" else
+              ["--sampler", sampler]), "-o", os.path.join(OUT_DIR, name)]
     if raygen != "ae":
         argv += ["--accel-mode", accel_mode]
     return argv
@@ -2820,6 +2889,439 @@ def lod_rows(t9l, t_o, errs, counts):
     return rows
 
 
+# ===========================================================================
+# Unstructured elements: the fast wedge tier (K9-w), the Newton wedge
+# sampler of the parity raygens (K9-p) and the intersectors (K9-n)
+# ===========================================================================
+
+def wedge_bound(raygen, lanes, w, scale):
+    """(ms, by) of one K9-p sample of `lanes` lanes from the work `w`
+    (`Work.counts()`, wedge sampler) of a plain run on lanes/scale of them:
+    the events scaled to the frame, the reads of the counted lanes (each
+    visited column's heights, layer count and first wedge, each inverted
+    wedge's 18 vertex floats and 6 scalars, the locator entries)."""
+    o, b, nw = PARITY_OPS, PARITY_BYTES, NEWTON_OPS
+    ops = scale * (w["draw"] * o["draw"]
+                   + w["advance"] * o["advance"][raygen]
+                   + w["eval"] * (o["eval"] + o["locate"])
+                   + w["wcol_layers"] * nw["col_layer"]
+                   + w["newton"] * nw["newton"]
+                   + w["newton_iters"] * nw["iter"] + w["hit"] * o["hit"])
+    nbytes = (b["lane"] * lanes + b["hit"] * w["hit_cells"]
+              + b["layer"] * w["hit_cell_layers"]
+              + b["wedge"] * w["wedges_read"] + b["entry"] * w["entries"])
+    return bound(nbytes, ops)
+
+
+def wedge_tables(ds, cells, tf, dev):
+    """The fast wedge tier's packed rows (pack_cells_wedge: K5a over bv)
+    and bands (build_radial_bands_wedge, K5b majorants)."""
+    from icon_rt_tpu_torch.models.shells import (build_radial_bands_wedge,
+                                                 update_band_majorants)
+    from icon_rt_tpu_torch.ops import fast
+    bands = update_band_majorants(build_radial_bands_wedge(ds, 64,
+                                                           device=dev),
+                                  tf.values, tf.value_range)
+    return fast.pack_cells_wedge(cells, tf), bands
+
+
+def compare_track_wedge(packed, loc, bands, lp, pix, width, height, samples,
+                        preserve, label, count=False):
+    """K9-w against its plain version (`_track_torch` on `_WedgeTier`) on
+    the lanes `pix`, each writing its own accum and fb entry: fb identical
+    on >= 99.9% of the lanes, accum <= ACCUM_TOL; raises past them.
+    Returns (accum max abs err, plain ms, the plain run's CountingTier if
+    `count`)."""
+    import torch
+    from icon_rt_tpu_torch.ops import fast
+    n = pix.shape[0]
+    tier = CountingTier(fast._WedgeTier(packed, loc))
+    outs = []
+    for kernel in (True, False):
+        acc = torch.zeros(n, 4, device=pix.device)
+        fb = torch.zeros(n, dtype=torch.int32, device=pix.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kernel:
+            fast.track_wedge(packed, loc, bands, lp, pix, acc, fb,
+                             width=width, height=height, samples=samples,
+                             preserve_cache=preserve)
+        else:
+            fast._track_torch(tier if count else fast._WedgeTier(packed, loc),
+                              bands, lp, pix, acc, fb, width, height,
+                              samples, preserve)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        outs.append((acc, fb))
+    (ak, fk), (ap, fp) = outs
+    same = float((fk == fp).float().mean())
+    err = float((ak - ap).abs().max())
+    written = int((fk != 0).sum())
+    print(f"{label} K9-w track_wedge samples={samples} preserve_cache="
+          f"{preserve} on {n} lanes: fb identical on {same:.6f} of them, "
+          f"accum max abs diff {err:.3e}, written {written} lanes")
+    if same < 0.999 or not err <= ACCUM_TOL:
+        raise AssertionError("K9-w disagrees with its plain version")
+    if not written:
+        raise AssertionError(f"{label}: K9-w wrote no lane")
+    return err, plain_ms, tier if count else None
+
+
+def uelems_inputs(nv, m, dev, seed):
+    """m seeded points on jittered unit elements of nv vertices."""
+    import torch
+    base = {5: [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0.5, 0.5, 1]],
+            6: [[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 0, 1],
+                [0, 1, 1]],
+            8: [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0, 0, 1],
+                [1, 0, 1], [1, 1, 1], [0, 1, 1]]}[nv]
+    rs = np.random.default_rng(seed)
+    V = (np.asarray(base, np.float32)[None]
+         + rs.normal(size=(m, nv, 3)) * 0.15).astype(np.float32)
+    S = rs.random((m, nv)).astype(np.float32)
+    P = (rs.normal(size=(m, 3)) * 0.5 + 0.45).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (P, V, S))
+
+
+def check_wedge(sc, dev):
+    """`check w`: K5a over bv (<= 1 ULP), K9-w (samples=4, both
+    preserve_cache settings) and K9-n (UELEMS_POINTS points per shape,
+    bit-equal) against their plain versions on the check scene.  Returns
+    ({kernel: max abs err}, K9-n's timing row numbers)."""
+    import torch
+    from icon_rt_tpu_torch.models.wedges import bv_all, layer_pad
+    from icon_rt_tpu_torch.ops import fast, uelems
+    errs = {}
+    t0 = time.perf_counter()
+    packed, bands = wedge_tables(sc.ds, sc.cells, sc.tf, dev)
+    bv = torch.from_numpy(np.ascontiguousarray(bv_all(
+        sc.ds.value, sc.ds.num_layers))).to(dev)
+    prof_p, rgb_p = fast._profile_rows_torch(sc.cells.height, bv,
+                                             sc.cells.num_layers, sc.tf)
+    u = max(ulp_diff(packed.prof, prof_p), ulp_diff(packed.rgb, rgb_p))
+    print(f"check w subdiv {SMOKE_SUB} x {SMOKE_LAYERS}: layer_pad "
+          f"{layer_pad(sc.ds)}; K5a over bv: max {u} ULP")
+    if u > 1:
+        raise AssertionError(f"K5a over bv differs by {u} ULP")
+    n = sc.n_cov
+    pix = sc.perm[:n].contiguous()
+    errs["track_wedge"] = 0.0
+    for preserve in (True, False):
+        err, _, _ = compare_track_wedge(packed, sc.loc, bands, sc.lp, pix,
+                                        sc.width, sc.height, 4, preserve,
+                                        "check w")
+        errs["track_wedge"] = max(errs["track_wedge"], err)
+    timing = {}
+    for nv in (5, 6, 8):
+        P, V, S = uelems_inputs(nv, UELEMS_POINTS, dev, nv)
+        hk, vk = uelems.uelems_points(P, V, S)
+        hp, vp, it = uelems.newton(P, V, S, return_iters=True)
+        same = bool(torch.equal(hk, hp) and torch.equal(vk, vp))
+        print(f"check w K9-n uelems_points nv={nv} on {UELEMS_POINTS} "
+              f"points: inside {float(hk.float().mean()):.4f}, flags and "
+              f"values {'bit-equal' if same else 'DIFFER'}; iterations "
+              f"mean {float(it.float().mean()):.2f}")
+        if not same:
+            raise AssertionError(f"K9-n nv={nv} differs from its plain "
+                                 f"version")
+        if nv == 6:      # the wedge, the element of the cuBQL path
+            ms = time_cuda(lambda: uelems.uelems_points(P, V, S), reps=20)
+            pms = time_cuda(lambda: uelems.newton(P, V, S), reps=3)
+            m = UELEMS_POINTS
+            timing = dict(ms=ms, plain_ms=pms, bnd=bound(
+                m * (4 * (3 + 4 * nv) + 5),
+                m * NEWTON_OPS["newton"] + int(it.sum())
+                * NEWTON_OPS["iter"]), points=m)
+    errs["uelems_points"] = 0.0
+    print(f"check w {time.perf_counter() - t0:.1f} s")
+    return errs, timing
+
+
+def main_wedge(dev, errs):
+    """`main w`: the app with -mode 2 on the fast raygen (the wedge tier,
+    K9-w) at the main path's scale and camera, 16 samples (8 per launch)
+    then on to STEADY_LIMIT; the counters of K9-w, K5a, K5b and K6 zeroed
+    before the build and read after (K1 must read 0); layer_pad and the
+    build seconds of bands_w and packed_w; an opacity-scale and a curve
+    edit timed to the next fb on the host; a profiled launch; K9-w against
+    its plain version on the first CHECK_LANES covered lanes and on
+    CHECK_LANES lanes strided over the covered prefix, whose counted work
+    gives the bound.  Returns (counts, rows)."""
+    import torch
+    from icon_rt_tpu_torch import app
+    from icon_rt_tpu_torch.data import synthetic
+    from icon_rt_tpu_torch.data.lod import frame_camera
+    from icon_rt_tpu_torch.models import accel
+    from icon_rt_tpu_torch.models.cells import compute_stats
+    from icon_rt_tpu_torch.models.wedges import layer_pad
+    from icon_rt_tpu_torch.ops import fast, order
+    tag = "main w"
+    ds = synthetic.icosphere(MAIN_SUB, MAIN_LAYERS)
+    stats = compute_stats(ds)
+    cam = frame_camera(stats, "closeup", MAIN_W, MAIN_H)
+    pose = [*cam.position, *cam.get_poi(), *cam.up_vector]
+    argv = ["--device", "cuda", "--synthetic", f"{MAIN_SUB}:{MAIN_LAYERS}",
+            "--size", str(MAIN_W), str(MAIN_H), "--sample-limit",
+            str(MAIN_LIMIT), "--samples", str(MAIN_SPL), "--camera",
+            *[repr(float(v)) for v in pose], "-fovy",
+            repr(float(cam.get_fovy_degrees())), "-mode", "2",
+            "-o", os.path.join(OUT_DIR, "chip_smoke_w")]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    pl = app.build(argv)
+    build_s = time.perf_counter() - t0
+    launch_ms = []
+    run_loop(pl, launch_ms)
+    pl.present()
+    n_launch = len(launch_ms)
+    secs = {k: round(v, 3) for k, v in pl.scene["timings"].items()}
+    print(f"{tag} build {build_s:.3f} s (app.build: scene, cells, locator); "
+          f"build seconds {json.dumps(secs)} (bands_w and packed_w in the "
+          f"first launch); layer_pad {layer_pad(ds)}; launches {n_launch}, "
+          f"ms {[round(x, 3) for x in launch_ms]}")
+    fb = pl.frame["fb"].cpu().numpy().view(np.uint32)
+    covered = float(((fb >> 24) > 0).mean())
+    n = pl.frame["n_active"]
+    acc = pl.frame["accum"]
+    print(f"{tag} image covered fraction {covered:.4f} (K6 covered prefix "
+          f"{n} of {MAIN_W * MAIN_H} lanes)")
+    if covered < 0.5 or not bool(torch.isfinite(acc).all()):
+        raise AssertionError(f"{tag}: image covers {covered:.4f} (< 0.5) or "
+                             f"accum is not finite")
+    counts = {"track_wedge": fast.launches["track_wedge"],
+              "classify_bake": fast.launches["classify_bake"],
+              "max_opacity": accel.launches, "chord_keys": order.launches}
+    require_counts(tag, counts)
+    if fast.launches["track_f32"] != 0:
+        raise AssertionError(f"{tag}: K1 launched "
+                             f"{fast.launches['track_f32']} times")
+    if counts["track_wedge"] != n_launch:
+        raise AssertionError(f"{tag}: K9-w launched {counts['track_wedge']}"
+                             f" times in {n_launch} launches")
+    pl.sample_limit = STEADY_LIMIT
+    run_loop(pl, launch_ms)
+    steady = np.array(launch_ms[1:])
+    med = float(np.median(steady))
+    spread = float((steady.max() - steady.min()) / med)
+    mray = MAIN_W * MAIN_H * MAIN_SPL / (med * 1e-3) / 1e6
+    traced = n * MAIN_SPL / (med * 1e-3) / 1e6
+    print(f"{tag} steady launches {len(steady)} ({MAIN_SPL} samples each): "
+          f"ms per launch median {med:.3f}, spread {spread:.3f}; "
+          f"{mray:.3f} Mray/s full frame, {traced:.3f} traced ({n} lanes; "
+          f"fb copied to the host); K1 launches "
+          f"{fast.launches['track_f32']}")
+
+    s = pl.scene
+    lut0 = pl.transfunc.get_lut()
+    edit = {"opacity": timed_edit(pl, tag, "opacity scale 1.0 -> 0.5 "
+                                  "(K5b, the full wedge re-bake)",
+                                  lambda: set_opacity(pl, 0.5))}
+    lut = lut0.copy()
+    lut[: lut.shape[0] // 2, 3] = 0.0
+    edit["curve"] = timed_edit(pl, tag, "curve, lower half transparent",
+                               lambda: set_lut(pl, lut))
+    print(f"{tag} tf_edit_s {edit['opacity'] / 1e3:.4f} (opacity), "
+          f"{edit['curve'] / 1e3:.4f} (curve)")
+    set_lut(pl, lut0)
+    set_opacity(pl, 1.0)
+    cells, loc = s["cells"], s["locator"]
+    packed, bands = s["get_packed_wedge"](), s["get_bands_wedge"]()
+    lp = launch_params(pl)
+    perm = pl.frame["perm"]
+    render = lambda: fast.render_frame_fast(
+        cells, packed, loc, bands, lp, acc, pl.frame["fb"], width=MAIN_W,
+        height=MAIN_H, pixel_perm=perm, n_active=n, samples=MAIN_SPL,
+        sampler="wedge")
+    profile_render(render, pl.frame["fb"], f"{tag} steady launch",
+                   "track_wedge_kernel")
+    gib = peak_memory(tag)
+
+    pix = perm[:n].contiguous()
+    accf = torch.zeros(n, 4, device=dev)
+    fbf = torch.zeros(n, dtype=torch.int32, device=dev)
+    ms = time_cuda(lambda: fast.track_wedge(
+        packed, loc, bands, lp, pix, accf, fbf, width=MAIN_W, height=MAIN_H,
+        samples=MAIN_SPL), reps=3)
+    head = perm[:CHECK_LANES].contiguous()
+    err, plain_ms, _ = compare_track_wedge(
+        packed, loc, bands, lp, head, MAIN_W, MAIN_H, MAIN_SPL, True,
+        f"{tag} first {CHECK_LANES} covered lanes")
+    strided = strided_lanes(perm, n)
+    err2, plain2, tier = compare_track_wedge(
+        packed, loc, bands, lp, strided, MAIN_W, MAIN_H, MAIN_SPL, True,
+        f"{tag} {CHECK_LANES} strided lanes", count=True)
+    errs["track_wedge"] = max(errs.get("track_wedge", 0.0), err, err2)
+    bnd = tier.bound("track_wedge", n, lambda c: packed.test[c, 14],
+                     scale=n / strided.shape[0])
+    print(f"time K9-w kernel {ms:.3f} ms ({MAIN_SPL} samples, {n} lanes, "
+          f"{MAIN_W * MAIN_H * MAIN_SPL / (ms * 1e-3) / 1e6:.3f} Mray/s full "
+          f"frame, no host copy); plain {plain_ms:.1f} ms on {CHECK_LANES} "
+          f"lanes; bound {bnd[0]:.4f} ms ({bnd[1]}), the work of "
+          f"{strided.shape[0]} strided lanes scaled by "
+          f"{n / strided.shape[0]:.2f}")
+    rows = []
+    kernel_row(rows, counts, errs, "track_wedge", "cuda",
+               "icon_rt_tpu_torch/csrc/track_wedge.cu",
+               "icon_rt_tpu/ops/fast.py:451", ms, plain_ms, bnd,
+               samples=MAIN_SPL, plain_lanes=CHECK_LANES,
+               launch_ms=med, mray_s=mray, covered=covered,
+               tf_edit_s=edit["opacity"] / 1e3, peak_gib=gib)
+    del pl
+    return counts, rows
+
+
+def main_parity_wedge(dev, raygen, errs):
+    """`main accel w` / `main ae w`, BASELINE configs[2] (bench.py:945),
+    and `main grid w`: the app with -mode 2 and --raygen accel
+    --accel-mode sphere, --raygen ae, or --raygen accel --accel-mode grid,
+    at subdiv 7 x 16 (the r2b7 scene), 1024x1024, the closeup
+    camera, one sample per launch (W7_LIMIT launches), after every earlier
+    table is freed: build seconds of cells, locator, wedges and the shell
+    accel, ms per launch (fb on the host), Mray/s, coverage, peak memory,
+    layer_pad and K9-p's launch count.  Returns (counts, the K9-p row's
+    numbers, check): check() holds K9-p against its plain version on
+    WEDGE_CHECK_LANES lanes strided over the frame, whose counted work,
+    scaled to the frame, gives the bound."""
+    import torch
+    from icon_rt_tpu_torch import app
+    from icon_rt_tpu_torch.models import accel as accel_mod
+    from icon_rt_tpu_torch.ops import render
+    tag = {"ae": "main ae w", "sphere": "main accel w",
+           "grid": "main grid w"}[raygen]
+    name = f"parity_{raygen}_wedge"
+    W = H = W7_W
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    pl = app.build(parity_argv(raygen, raygen, "wedge", W7_SUB, W7_LAYERS, W,
+                               H, W7_LIMIT[raygen], f"chip_smoke_{raygen}_w"))
+    build_s = time.perf_counter() - t0
+    launch_ms = []
+    run_loop(pl, launch_ms)
+    pl.present()
+    s = pl.scene
+    w = s["get_wedges"]()
+    secs = {k: round(v, 3) for k, v in s["timings"].items()}
+    fb = pl.frame["fb"].cpu().numpy().view(np.uint32)
+    covered = float(((fb >> 24) > 0).mean())
+    if covered < 0.5 or not bool(torch.isfinite(pl.frame["accum"]).all()):
+        raise AssertionError(f"{tag}: image covers {covered:.4f} (< 0.5) or "
+                             f"accum is not finite")
+    steady = np.array(launch_ms[1:])
+    med = float(np.median(steady))
+    spread = float((steady.max() - steady.min()) / med)
+    print(f"{tag} subdiv {W7_SUB} x {W7_LAYERS} "
+          f"({s['get_f32']()[0].num_cells} columns, {w.verts.shape[0]} "
+          f"wedges, layer_pad {w.layer_pad}), {W}x{H}: build {build_s:.3f} "
+          f"s (app.build: cells and locator), build seconds "
+          f"{json.dumps(secs)} (wedges{' and the accel' if raygen != 'ae' else ''}"
+          f" in the first launch); {len(launch_ms)} launches of 1 sample, ms "
+          f"{[round(x, 3) for x in launch_ms]}; steady median {med:.3f} ms,"
+          f" spread {spread:.3f}: {W * H / (med * 1e-3) / 1e6:.3f} Mray/s "
+          f"full frame (fb copied to the host); covered {covered:.4f}")
+    counts = {name: render.launches[name]}
+    if raygen != "ae":
+        counts["max_opacity"] = accel_mod.launches
+    require_counts(tag, counts)
+    if counts[name] != len(launch_ms):
+        raise AssertionError(f"{tag}: K9-p launched {counts[name]} times in "
+                             f"{len(launch_ms)} launches")
+    cells, loc = s["get_f32"]()
+    tf = s["tf"]()
+    accel = s["get_accel"](raygen) if raygen != "ae" else None
+    tabs = dict(cells=cells, loc=loc, tf=tf, wedges=w,
+                accel={} if accel is None else {raygen: accel})
+    lp = launch_params_wh(pl, W, H)
+    ms = time_cuda(lambda: render.parity_track(
+        cells, tf, lp, pl.frame["accum"], pl.frame["fb"], width=W, height=H,
+        raygen=raygen, sampler="wedge", locator=loc, accel=accel, wedges=w),
+        reps=1)
+    gib = peak_memory(tag)
+    row = dict(ms=ms, lanes=W * H, launch_ms=med, peak_gib=gib,
+               layer_pad=w.layer_pad, covered=covered,
+               mray_s=W * H / (med * 1e-3) / 1e6,
+               build_s={**secs, "app_build": round(build_s, 3)})
+    n_chk = WEDGE_CHECK_LANES[raygen]
+    full = torch.arange(W * H, dtype=torch.int32, device=dev)
+    strided = full[::W * H // n_chk][:n_chk].contiguous()
+    del pl, full
+
+    def check():
+        err, ps, ks, wk = compare_parity(
+            f"{tag} K9-p on {n_chk} lanes strided by {W * H // n_chk}",
+            tabs, lp, raygen, "wedge", strided, W, H, 1, count=True)
+        errs[name] = max(errs.get(name, 0.0), err)
+        bnd = parity_bound(raygen, "wedge", W * H, wk, W * H / n_chk)
+        print(f"bound {name}: {bnd[0]:.4f} ms ({bnd[1]}), the work of "
+              f"{n_chk} strided lanes scaled by {W * H / n_chk:.1f}")
+        row.update(bnd=bnd, plain_ms=ps * 1e3, plain_lanes=n_chk,
+                   ms_check_lanes=ks * 1e3)
+    return counts, row, check
+
+
+def launch_params_wh(pl, width, height):
+    """The launch parameters of an app pipeline of width x height at
+    accum_id 0."""
+    from icon_rt_tpu_torch.ops.render import make_launch_params
+    s = pl.scene
+    return make_launch_params(s["camera"].basis(width, height),
+                              s["stats"].world_bounds_lo,
+                              s["stats"].world_bounds_hi,
+                              unit_distance=s["unit_distance"](),
+                              device=pl.frame["accum"].device)
+
+
+def check_parity_wedge(dev, errs):
+    """`check parity` for the wedge sampler: K9-p x {ae, accel sphere,
+    accel grid} against the plain version at subdiv 3 x 8, 64x64, the
+    closeup camera, the app's unit distance, 2 samples, on
+    WEDGE_CHECK_LANES lanes strided over the frame."""
+    import torch
+    from icon_rt_tpu_torch.data import synthetic
+    from icon_rt_tpu_torch.models.wedges import build_wedges
+    t0 = time.perf_counter()
+    tabs, stats, _ = parity_tables(PARITY_SUB, PARITY_LAYERS, dev)
+    tabs["wedges"] = build_wedges(synthetic.icosphere(PARITY_SUB,
+                                                      PARITY_LAYERS),
+                                  device=dev)
+    W = H = 64
+    lp = parity_lp(stats, W, H, dev)
+    print(f"check parity wedge scene subdiv {PARITY_SUB} x {PARITY_LAYERS}, "
+          f"{W}x{H}, layer_pad {tabs['wedges'].layer_pad}")
+    for raygen in PARITY_RAYGENS:
+        n = WEDGE_CHECK_LANES[raygen]
+        pix = torch.arange(0, W * H, W * H // n, dtype=torch.int32,
+                           device=dev)
+        err, _, _, _ = compare_parity(
+            f"check parity {n} strided lanes", tabs, lp, raygen, "wedge",
+            pix, W, H, PARITY_SAMPLES)
+        name = f"parity_{raygen}_wedge"
+        errs[name] = max(errs.get(name, 0.0), err)
+    print(f"check parity wedge {time.perf_counter() - t0:.1f} s")
+
+
+def wedge_rows(w_rows, p_rows, k9n, errs, counts):
+    """The kernels line's K9-p rows (from `main accel w`, `main ae w` and
+    `main grid w`) and the K9-n row (no app path launches it: 0 launches
+    on the main path; its numbers come from `check w`)."""
+    rows = list(w_rows)
+    for raygen, r in p_rows.items():
+        r = dict(r)
+        kernel_row(rows, counts, errs, f"parity_{raygen}_wedge", "cuda",
+                   "icon_rt_tpu_torch/csrc/parity.cu",
+                   "icon_rt_tpu/models/wedges.py:104", r.pop("ms"),
+                   r.pop("plain_ms"), r.pop("bnd"), **r)
+    r = dict(k9n)
+    kernel_row(rows, {"uelems_points": 0}, errs, "uelems_points", "cuda",
+               "icon_rt_tpu_torch/csrc/uelems.cu",
+               "icon_rt_tpu/ops/uelems.py:126", r.pop("ms"),
+               r.pop("plain_ms"), r.pop("bnd"),
+               path="none: check w only (no app path calls it)", **r)
+    return rows
+
+
 def build_all():
     """nvcc of every csrc/*.cu kernel, started together; prints seconds and
     the ptxas register/spill lines."""
@@ -2830,6 +3332,7 @@ def build_all():
     from icon_rt_tpu_torch.data.device_scene import build_scene_kernel
     from icon_rt_tpu_torch.models.locator import build_locator_kernel
     from icon_rt_tpu_torch.ops.render import build_parity
+    from icon_rt_tpu_torch.ops.uelems import build_uelems
     from icon_rt_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(CU_SOURCES)) as ex:
@@ -2837,7 +3340,10 @@ def build_all():
                                           build_finemap_kernel,
                                           build_march, build_scene_kernel,
                                           build_locator_kernel,
-                                          build_parity)]:
+                                          build_parity,
+                                          lambda: build_track_f32(
+                                              "track_wedge"),
+                                          build_uelems)]:
             f.result()
     for name in CU_SOURCES:
         info = cuda_build.info(name)
@@ -2869,6 +3375,8 @@ def main() -> int:
     q_errs, qtabs = check_q_kernels(sc, dev)
     errs.update(q_errs)
     errs.update(check_march(sc, qtabs, dev))
+    w_errs, k9n = check_wedge(sc, dev)
+    errs.update(w_errs)
     del sc, qtabs
     print(f"build+check Triton compiles and checks "
           f"{time.perf_counter() - t1:.2f} s")
@@ -2880,6 +3388,12 @@ def main() -> int:
     del pl
     torch.cuda.empty_cache()
     peak_memory("main")
+
+    # the fast wedge tier (-mode 2) at the main path's scale
+    t0 = time.perf_counter()
+    counts_w, w_rows = main_wedge(dev, errs)
+    torch.cuda.empty_cache()
+    print(f"time main w {time.perf_counter() - t0:.1f} s")
 
     # the quantized paths build their fine map into an empty cache (K7-fm)
     bigscene.CACHE_DIR = tempfile.mkdtemp(
@@ -2949,14 +3463,32 @@ def main() -> int:
         torch.cuda.empty_cache()
     counts_p.update(main_brute(dev))
     torch.cuda.empty_cache()
+    # BASELINE configs[2] (the wedge sampler on the sphere accel and AE),
+    # then the grid accel at the same scene
+    t1 = time.perf_counter()
+    p_rows, w_checks = {}, []
+    for raygen in ("sphere", "ae", "grid"):
+        c, p_rows[raygen], chk = main_parity_wedge(dev, raygen, errs)
+        counts_p.update(c)
+        w_checks.append(chk)
+        torch.cuda.empty_cache()
+    print(f"time main accel w, main ae w, main grid w "
+          f"{time.perf_counter() - t1:.1f} s")
     brute_rows = check_parity(dev, errs)
     for chk in checks:
         chk()
     del checks
+    t1 = time.perf_counter()
+    check_parity_wedge(dev, errs)
+    for chk in w_checks:
+        chk()
+    del w_checks
+    print(f"time K9-p checks {time.perf_counter() - t1:.1f} s")
     torch.cuda.empty_cache()
     peak_memory("check parity, the parity paths' checks")
     print(f"time parity phases {time.perf_counter() - t0:.1f} s")
     rows += parity_rows(loc_rows, brute_rows, errs, counts_p)
+    rows += wedge_rows(w_rows, p_rows, k9n, errs, {**counts_p, **counts_w})
     for r in rows:              # the R2B9 checks ran after the first rows
         r["max_abs_err"] = errs[r["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s")

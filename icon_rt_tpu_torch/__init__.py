@@ -19,12 +19,19 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
          (csrc/scene.cu; with field_lod > 0 the value-space mip tier)
   K7-loc models/locator.py locator_bins   CUDA C++ (csrc/locator.cu)
   K8     ops/render.py     parity_track   CUDA C++ (csrc/parity.cu)
+  K9-w   ops/fast.py       track_wedge    CUDA C++ (csrc/track_wedge.cu)
+  K9-p   ops/render.py     parity_track(sampler="wedge")  CUDA C++
+         (csrc/parity.cu with the Newton of csrc/uelems.cuh)
+  K9-n   ops/uelems.py     uelems_points  CUDA C++ (csrc/uelems.cu)
 
 K1, K2 and K3 share the lane setup of csrc/track_common.cuh and the storage
-tiers of csrc/tier_f32.cuh and csrc/tier_q.cuh; K1 and K2 also share its
-Woodcock tracking machine.  K3 is the deterministic march (the app's
---march).  K8 is the reference-parity raygens (--raygen ae / accel), the
-renderer's ground truth.
+tiers of csrc/tier_f32.cuh and csrc/tier_q.cuh; K1, K2 and K9-w (the wedge
+tier, csrc/tier_wedge.cuh) also share its Woodcock tracking machine.  K3
+is the deterministic march (the app's --march).  K8 is the
+reference-parity raygens (--raygen ae / accel), the renderer's ground
+truth; K9-p is K8 with the cuBQL mode's Newton wedge sampler (-mode 2),
+and K9-n holds the Newton intersectors of all three element types
+against their plain version.
 
 Every kernel has a plain-PyTorch version in the same module.  A wrapper
 launches its kernel for a CUDA tensor and runs the plain version for a CPU
@@ -38,11 +45,12 @@ Layer map (bottom-up), mirroring icon_rt_tpu:
                built on the device (build_q_scene), its LOD mip tiers
                (lod.py), the locator and fine-map caches
   models/    — cells, quantized cells, transfer function, locator (dense
-               and CSR), fine map, radial bands, majorant grids
+               and CSR), fine map, radial bands, majorant grids, wedges
   ops/       — camera, ray ordering and the measured-cost re-sort,
                launch params, the fast trackers
-               (f32 and quantized tiers), the march and the parity
-               raygens (Woodcock tracking, majorant traversals)
+               (f32, quantized and wedge tiers), the march, the parity
+               raygens (Woodcock tracking, majorant traversals) and the
+               Newton intersectors of unstructured elements
   pipeline/  — frame loop, CLI flags, .xf IO, TF editor
   app.py     — the icon_rt application (apps/icon_rt_torch.py)
 """

@@ -2,7 +2,8 @@
 
 Same CLI as apps/icon_rt.py (ref: icon_rt/hostCode.cu:703-968):
   positional <file>.ic, --num-cells N, --lat-range lo:hi, --lon-range lo:hi,
-  -mode M, plus the common pipeline flags (--bgcolor --sample-limit --xf
+  -mode M (0, 1: analytic column sampling; 2: the cuBQL mode, the wedge
+  sampler), plus the common pipeline flags (--bgcolor --sample-limit --xf
   -win/--win/--size -fovy --camera), and:
   --synthetic SUBDIV[:LAYERS]  render a generated icosphere field (no .ic)
   --samples N                  progressive samples per launch (default 8)
@@ -21,17 +22,23 @@ Same CLI as apps/icon_rt.py (ref: icon_rt/hostCode.cu:703-968):
                                the reference-parity raygens (K8, one
                                sample per launch, f32 cells)
   --accel-mode {sphere,grid}   the accel raygen's majorant grid
-  --sampler {locator,brute}    the parity raygens' point sampler (brute:
-                               a scan of every cell per sample, meant for
-                               small scenes)
+  --sampler {locator,brute,wedge}  the point sampler (brute: a scan of
+                               every cell per sample, meant for small
+                               scenes; wedge, as -mode 2: the parity
+                               raygens invert the column layers' flat
+                               wedges by Newton, the fast raygen renders
+                               the wedge tier)
 
 This port renders the fast radial-band raygen with the locator sampler on
 the f32 tier and, with --quantized, on the quantized tier, by Woodcock
-tracking (K1, K2) or, with --march, by the march (K3), and the
-reference-parity raygens (K8) on the f32 cells.  An opacity-scale edit of
+tracking (K1, K2) or, with --march, by the march (K3), the wedge sampler
+(-mode 2) on the fast raygen's wedge tier (K9-w; --quantized takes
+precedence over it, and --march with it renders the tracker), and the
+reference-parity raygens (K8; K9-p with the wedge sampler) on the f32
+cells.  An opacity-scale edit of
 the f32 tier re-bakes only the alpha half (K5c-f32).  The UI parameters
-"Raygen", "Accel mode", "Sampler mode" and "Use naive accel" switch the
-path at run time and reset accumulation; "Use naive accel" off renders the
+"Raygen", "Accel mode", "Sampler mode" (2: the wedge sampler) and "Use
+naive accel" switch the path at run time and reset accumulation; "Use naive accel" off renders the
 accel raygen as AE.  Flags that select anything else raise
 NotImplementedError naming the ROADMAP item that will port them.
 
@@ -47,8 +54,6 @@ import numpy as np
 
 #: flags and values this port does not render yet -> the ROADMAP item
 _NOT_PORTED = {
-    ("--sampler", "wedge"): "ROADMAP Queue 1 item 7 (unstructured elements)",
-    ("-mode", "2"): "ROADMAP Queue 1 item 7 (unstructured elements)",
     ("--preview", None): "ROADMAP Queue 1 item 2 (preview tier)",
     ("--samples", "auto"): "ROADMAP Queue 1 item 2 (auto samples)",
 }
@@ -91,10 +96,10 @@ def parse_app_args(argv):
             cfg["lon_range"] = (float(lo), float(hi)); i += 1
         elif a == "-mode":
             # reference sampler modes (ref: Params.h:29-31): 0 = user geom,
-            # 1 = triangles (both: analytic column sampling), 2 = cuBQL
-            if argv[i + 1] == "2":
-                _not_ported("-mode", "2")
+            # 1 = triangles (both: analytic column sampling), 2 = cuBQL, the
+            # wedge sampler on every raygen (apps/icon_rt.py:49-61)
             cfg["mode"] = int(argv[i + 1])
+            cfg["sampler"] = "wedge" if cfg["mode"] == 2 else "locator"
             i += 1
         elif a == "--synthetic":
             s = argv[i + 1].split(":")
@@ -107,9 +112,9 @@ def parse_app_args(argv):
             cfg["accel_mode"] = _choice(a, argv[i + 1], ("sphere", "grid"))
             i += 1
         elif a == "--sampler":
-            if argv[i + 1] == "wedge":
-                _not_ported("--sampler", "wedge")
-            cfg["sampler"] = _choice(a, argv[i + 1], ("locator", "brute"))
+            cfg["sampler"] = _choice(a, argv[i + 1],
+                                     ("locator", "brute", "wedge"))
+            cfg["sampler_explicit"] = True
             i += 1
         elif a == "-o":
             cfg["out"] = argv[i + 1].removesuffix(".png"); i += 1
@@ -172,11 +177,15 @@ def build(argv):
                                update_majorants)
     from .models.cells import build_cells, compute_stats
     from .models.locator import build_locator
-    from .models.shells import build_radial_bands, update_band_majorants
+    from .models.shells import (build_radial_bands,
+                                build_radial_bands_wedge,
+                                update_band_majorants)
+    from .models.wedges import build_wedges
     from .models.transfunc import DEFAULT_COLORS
     from .ops.camera import Camera
     from .ops.fast import (apply_opacity_scale, pack_alpha_scale_parts,
-                           pack_cells, render_frame_fast)
+                           pack_cells, pack_cells_wedge, render_frame_fast,
+                           wedge_rows)
     from .ops.fastq import render_frame_fast_q
     from .ops.march import render_frame_march, render_frame_march_q
     from .ops.order import inverse_order, pixel_order
@@ -257,8 +266,6 @@ def build(argv):
 
     def setter(key, options):
         def set_(v):
-            if key == "mode" and v == 2:
-                _not_ported("-mode", "2")
             if v not in options:
                 raise ValueError(f"{key} {v!r}: expected one of {options}")
             state[key] = v
@@ -272,7 +279,7 @@ def build(argv):
                 setter("raygen", ("fast", "accel", "ae")),
                 options=["fast", "accel", "ae"])
     pl.ui_param("Sampler mode", lambda: state["mode"],
-                setter("mode", (0, 1)),
+                setter("mode", (0, 1, 2)),
                 options=["user geom mode", "triangle mode", "cuBQL mode"])
     pl.ui_param("Accel mode", lambda: state["accel_mode"],
                 setter("accel_mode", ("sphere", "grid")),
@@ -298,7 +305,8 @@ def build(argv):
     device = {}
     struct = {"bands": None, "packed": None, "q": None, "loc_q": None,
               "q_tf": None, "fm": None, "alpha_parts": None, "sphere": None,
-              "grid": None}
+              "grid": None, "wedges": None, "bands_w": None,
+              "rows_w": None, "packed_w": None}
 
     def get_bands():
         if struct["bands"] is None:
@@ -311,6 +319,34 @@ def build(argv):
         if struct["packed"] is None:
             struct["packed"] = pack_cells(cells, device["tf"])
         return struct["packed"]
+
+    # the wedge sampler's tables (apps/icon_rt.py:247-276, :326-332): the
+    # wedges of the parity raygens, the fast wedge tier's bands and baked
+    # rows, each built on first use
+    def get_wedges():
+        if struct["wedges"] is None:
+            t0 = time.perf_counter()
+            struct["wedges"] = build_wedges(ds, device=dev)
+            timings["wedges_s"] = time.perf_counter() - t0
+        return struct["wedges"]
+
+    def get_bands_wedge():
+        if struct["bands_w"] is None:
+            t0 = time.perf_counter()
+            struct["bands_w"] = update_band_majorants(
+                build_radial_bands_wedge(ds, cfg["bands"], device=dev),
+                device["tf"].values, device["tf"].value_range)
+            timings["bands_w_s"] = time.perf_counter() - t0
+        return struct["bands_w"]
+
+    def get_packed_wedge():
+        if struct["packed_w"] is None:
+            t0 = time.perf_counter()
+            struct["rows_w"] = wedge_rows(get_f32()[0])
+            struct["packed_w"] = pack_cells_wedge(get_f32()[0], device["tf"],
+                                                  struct["rows_w"])
+            timings["packed_w_s"] = time.perf_counter() - t0
+        return struct["packed_w"]
 
     def get_q():
         """Quantized tier (--quantized): cells, the locator (K7-loc) and
@@ -371,7 +407,11 @@ def build(argv):
         (LUT and ranges as before) re-derives the baked alpha from parts
         baked once per LUT and range (K5c-f32, apps/icon_rt.py:334-374);
         any other edit re-runs the full bake (K5a).  The quantized tier
-        re-bakes its alpha table in get_q at the next launch."""
+        re-bakes its alpha table in get_q at the next launch.  The wedge
+        tier's bands get their majorants again (K5b) and its rows are baked
+        again in full (pack_cells_wedge: no scale-only shortcut, as
+        apps/icon_rt.py:374-381) over the TF-independent test rows and bv
+        kept from the first build."""
         sig = (tf_state.lut.tobytes(), tf_state.value_range.tobytes(),
                tf_state.rel_range.tobytes())
         scale_only = device.get("tf_sig") == sig
@@ -398,6 +438,13 @@ def build(argv):
                     device["tf"].opacity_scale)
             else:
                 struct["packed"] = pack_cells(cells, device["tf"])
+        if struct["bands_w"] is not None:
+            struct["bands_w"] = update_band_majorants(
+                struct["bands_w"], device["tf"].values,
+                device["tf"].value_range)
+        if struct["packed_w"] is not None:
+            struct["packed_w"] = pack_cells_wedge(get_f32()[0], device["tf"],
+                                                  struct["rows_w"])
 
     pl.set_transfunc_update_handler(on_tf_update)
     on_tf_update(pl.transfunc, 0)
@@ -408,6 +455,11 @@ def build(argv):
 
     def render(frame_id):
         raygen = state["raygen"]
+        # the reference's sampler modes (ref: Params.h:29-31): 2 = cuBQL ->
+        # the wedge sampler; 0/1 -> analytic column sampling (locator),
+        # unless --sampler chose one (apps/icon_rt.py:392-396)
+        sampler = "wedge" if state["mode"] == 2 else (
+            cfg["sampler"] if cfg.get("sampler_explicit") else "locator")
         # samples per launch, clamped so batch mode honors --sample-limit;
         # the parity raygens render one sample per launch (the oracle)
         want = cfg["samples"] if raygen == "fast" else 1
@@ -426,7 +478,8 @@ def build(argv):
             device=dev)
         if raygen != "fast":
             c, loc = get_f32()
-            kw = dict(width=W, height=H, sampler=cfg["sampler"], locator=loc)
+            kw = dict(width=W, height=H, sampler=sampler, locator=loc,
+                      wedges=get_wedges() if sampler == "wedge" else None)
             if raygen == "accel" and state["accel_active"]:
                 mode = state["accel_mode"]
                 render_frame_accel(c, device["tf"], get_accel(mode), lp,
@@ -443,9 +496,10 @@ def build(argv):
             frame["inv"] = inverse_order(p).cpu().numpy()
             frame["perm"] = p
             frame["n_active"] = n_cov
-        if cfg["march"]:
+        if cfg["march"] and sampler != "wedge":
             # one converged pass per launch (apps/icon_rt.py:480-500); the
-            # quantized march runs without the fine map, as there
+            # quantized march runs without the fine map, as there; with the
+            # wedge sampler --march falls through to the tracker
             pl.samples_per_launch = 1
             kw = dict(width=W, height=H, pixel_perm=frame["perm"],
                       n_active=frame["n_active"])
@@ -457,12 +511,23 @@ def build(argv):
                 render_frame_march(cells, get_packed(), locator, get_bands(),
                                    lp, frame["accum"], frame["fb"], **kw)
         elif cfg["quantized"]:
+            # --quantized takes precedence over the wedge sampler
+            # (apps/icon_rt.py:501-509)
             q, loc_q, _ = get_q()
             render_frame_fast_q(q, loc_q, get_bands(), device["tf"], lp,
                                 frame["accum"], frame["fb"], width=W,
                                 height=H, pixel_perm=frame["perm"],
                                 n_active=frame["n_active"], samples=spl,
                                 finemap=struct["fm"])
+        elif sampler == "wedge":
+            # mode 2 on the fast raygen: the wedge tier (K9-w,
+            # apps/icon_rt.py:510-518)
+            render_frame_fast(cells, get_packed_wedge(), locator,
+                              get_bands_wedge(), lp, frame["accum"],
+                              frame["fb"], width=W, height=H,
+                              pixel_perm=frame["perm"],
+                              n_active=frame["n_active"], samples=spl,
+                              sampler="wedge")
         else:
             render_frame_fast(cells, get_packed(), locator, get_bands(), lp,
                               frame["accum"], frame["fb"], width=W,
@@ -486,5 +551,6 @@ def build(argv):
                 "fm": lambda: struct["fm"], "tf": lambda: device["tf"],
                 "unit_distance": lambda: state["unit_distance"],
                 "get_f32": get_f32, "get_accel": get_accel,
-                "timings": timings}
+                "get_wedges": get_wedges, "get_bands_wedge": get_bands_wedge,
+                "get_packed_wedge": get_packed_wedge, "timings": timings}
     return pl

@@ -5,9 +5,10 @@
 // icon_rt_tpu/ops/woodcock.py `woodcock_track`, icon_rt_tpu/ops/traverse.py
 // (`_woodcock_step`, `trace_dda3`, `trace_sdda` and their helpers),
 // icon_rt_tpu/models/cells.py (`find_layer`, `sample_one_cell`,
-// `sample_brute_force`) and icon_rt_tpu/models/locator.py
-// `sample_locator`.  Its plain-PyTorch version is `_parity_torch` in
-// ops/render.py.
+// `sample_brute_force`), icon_rt_tpu/models/locator.py `sample_locator` and,
+// as the wedge sampler (K9-p), icon_rt_tpu/models/wedges.py `sample_wedges`
+// with icon_rt_tpu/ops/uelems.py `_newton` and `intersect_wedge`.  Its
+// plain-PyTorch version is `_parity_torch` in ops/render.py.
 //
 // The shape is the reference's own (deviceCode.cu:239-341): each thread
 // takes its pixel's LCG seed and jittered ray, clips it to the volume box,
@@ -15,7 +16,7 @@
 // classifies through the (S, 4) LUT and finalizes (running-average lerp,
 // sRGB, RGBA8 pack; a ray that misses the box leaves accum and fb as they
 // were).  One template covers raygen {AE, SPHERE, GRID} x sampler
-// {LOCATOR, BRUTE}:
+// {LOCATOR, BRUTE, WEDGE}:
 //   AE      Woodcock tracking of the whole box segment at majorant 1;
 //   GRID    the Cartesian 3-DDA over per-bin majorants (DDA.h:37-136);
 //   SPHERE  the spherical-shell DDA with the reference's degenerate r = 0
@@ -25,6 +26,14 @@
 // The traversals are the JAX package's state machines, one Woodcock step
 // and at most one advance per iteration, so a lane's iteration count (the
 // debug output) is the plain version's.
+// The WEDGE sampler (the reference's cuBQL mode) takes the point's locator
+// bin, and for each candidate column in bin order the window of layer_pad
+// wedges upward from find_layer(r), and returns the value of the first
+// wedge whose Newton inversion (csrc/uelems.cuh) contains the point: the
+// JAX package's argmax order.  No candidate is skipped before the hit on
+// any other test (a side-plane pre-test would change results at boundary
+// ties); the window stops at the column's top layer, where the JAX
+// version masks.
 //
 // Bit for bit with the plain version: built with -fmad=false and without
 // --use_fast_math (IEEE division and square root), every expression in the
@@ -39,6 +48,7 @@
 // crosses the box beside the globe takes ~1e4 steps at the app's unit
 // distance).  No shared-memory staging yet.
 #include "track_common.cuh"
+#include "uelems.cuh"
 
 struct ParityParams {
   const float* planes;       // (N, 3, 4)
@@ -65,12 +75,17 @@ struct ParityParams {
   int dims[3];
   int n_cells, n_lat, n_lon, k_cap, lut_size;
   int n_lanes, width, height, accum_id, max_iters;
+  const float* wverts;         // (W, 6, 3) wedge vertices (WEDGE sampler)
+  const float* wscalars;       // (W, 6)
+  const int32_t* woffset;      // (N,) first wedge of each column
+  int layer_pad;               // the radial window's width
 };
 
 namespace {
 
 constexpr int kAE = 0, kSphere = 1, kGrid = 2;
-constexpr int kLocator = 0, kBrute = 1;
+constexpr int kLocator = 0, kBrute = 1, kWedge = 2;
+constexpr int kSamplers = 3;
 constexpr float kFltMax = 3.40282347e38f;
 
 __device__ __forceinline__ float min3(const float v[3]) {
@@ -92,15 +107,48 @@ __device__ __forceinline__ bool inside_cell(const ParityParams& p, int c,
   return true;
 }
 
-// The value of cell c's layer at radius r: the layer is the number of
-// ceilings height[1..num_layers] below r (find_layer's masked count).
-__device__ __forceinline__ float layer_value(const ParityParams& p, int c,
-                                             float r) {
-  const int nl = __ldg(p.num_layers + c);
+// The layer of cell c at radius r: the number of ceilings
+// height[1..num_layers] below r (find_layer's masked count).
+__device__ __forceinline__ int find_layer(const ParityParams& p, int c,
+                                          int nl, float r) {
   const float* h = p.heights + static_cast<size_t>(c) * 32;
   int layer = 0;
   for (int k = 1; k < 32 && k <= nl; ++k) layer += (__ldg(h + k) < r) ? 1 : 0;
+  return layer;
+}
+
+// The value of cell c's layer at radius r.
+__device__ __forceinline__ float layer_value(const ParityParams& p, int c,
+                                             float r) {
+  const int layer = find_layer(p, c, __ldg(p.num_layers + c), r);
   return __ldg(p.value + static_cast<size_t>(c) * 32 + layer);
+}
+
+// The wedge sampler's test of column c: the window of layer_pad wedges
+// upward from find_layer(r), each inverted by Newton; true and the value
+// of the first that contains the point.
+__device__ __forceinline__ bool wedge_column(const ParityParams& p, int c,
+                                             float px, float py, float pz,
+                                             float r, float& value) {
+  const int nl = __ldg(p.num_layers + c);
+  const int base = find_layer(p, c, nl, r);
+  const int w0 = __ldg(p.woffset + c);
+  for (int d = 0; d < p.layer_pad; ++d) {
+    const int layer = base + d;
+    if (layer >= nl) return false;    // the rest of the window is above
+    const size_t w = static_cast<size_t>(w0 + layer);
+    float V[6][3], S[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        V[k][j] = __ldg(p.wverts + w * 18 + k * 3 + j);
+      S[k] = __ldg(p.wscalars + w * 6 + k);
+    }
+    int iters;
+    if (uelems::newton<6>(px, py, pz, V, S, value, iters)) return true;
+  }
+  return false;
 }
 
 // Point sample: true and the value if a cell contains the point.
@@ -128,7 +176,9 @@ __device__ bool sample(const ParityParams& p, float px, float py, float pz,
     for (int s = 0; s < p.k_cap; ++s) {
       const int c = __ldg(row + s);
       if (c < 0) break;
-      if (inside_cell(p, c, px, py, pz, r)) {
+      if (SAMPLER == kWedge) {
+        if (wedge_column(p, c, px, py, pz, r, value)) return true;
+      } else if (inside_cell(p, c, px, py, pz, r)) {
         value = layer_value(p, c, r);
         return true;
       }
@@ -509,21 +559,26 @@ void launch(const ParityParams& p, cudaStream_t stream) {
 }  // namespace
 
 // Launches raygen (0 AE, 1 SPHERE, 2 GRID) with sampler (0 LOCATOR,
-// 1 BRUTE) on `stream` (PyTorch's current stream); allocates nothing and
-// does not synchronise.  Returns cudaGetLastError(), or
+// 1 BRUTE, 2 WEDGE) on `stream` (PyTorch's current stream); allocates
+// nothing and does not synchronise.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an unknown mode.
 extern "C" int parity_launch(const ParityParams* params, int raygen,
                              int sampler, void* stream) {
   if (params->n_lanes <= 0) return 0;
+  if (sampler < 0 || sampler >= kSamplers)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const int mode = raygen * 2 + sampler;
-  switch (mode) {
-    case kAE * 2 + kLocator: launch<kAE, kLocator>(*params, s); break;
-    case kAE * 2 + kBrute: launch<kAE, kBrute>(*params, s); break;
-    case kSphere * 2 + kLocator: launch<kSphere, kLocator>(*params, s); break;
-    case kSphere * 2 + kBrute: launch<kSphere, kBrute>(*params, s); break;
-    case kGrid * 2 + kLocator: launch<kGrid, kLocator>(*params, s); break;
-    case kGrid * 2 + kBrute: launch<kGrid, kBrute>(*params, s); break;
+  constexpr int n = kSamplers;
+  switch (raygen * n + sampler) {
+    case kAE * n + kLocator: launch<kAE, kLocator>(*params, s); break;
+    case kAE * n + kBrute: launch<kAE, kBrute>(*params, s); break;
+    case kAE * n + kWedge: launch<kAE, kWedge>(*params, s); break;
+    case kSphere * n + kLocator: launch<kSphere, kLocator>(*params, s); break;
+    case kSphere * n + kBrute: launch<kSphere, kBrute>(*params, s); break;
+    case kSphere * n + kWedge: launch<kSphere, kWedge>(*params, s); break;
+    case kGrid * n + kLocator: launch<kGrid, kLocator>(*params, s); break;
+    case kGrid * n + kBrute: launch<kGrid, kBrute>(*params, s); break;
+    case kGrid * n + kWedge: launch<kGrid, kWedge>(*params, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

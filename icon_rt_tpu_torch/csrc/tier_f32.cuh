@@ -66,6 +66,12 @@ struct F32Tier {
     w = c.pl[4 * j + 3];
   }
 
+  // The coordinate a column's layers are looked up by: the radius.
+  __device__ __forceinline__ float coord(const Col&, float, float, float,
+                                         float r) const {
+    return r;
+  }
+
   __device__ __forceinline__ bool inside(const Col& c, float px, float py,
                                          float pz, float r) const {
     const float ev1 = c.pl[0] * px + c.pl[1] * py + c.pl[2] * pz - c.pl[3];

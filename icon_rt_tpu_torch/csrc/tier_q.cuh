@@ -70,6 +70,12 @@ struct QTier {
     w = 0.0f;
   }
 
+  // The coordinate a column's layers are looked up by: the radius.
+  __device__ __forceinline__ float coord(const Col&, float, float, float,
+                                         float r) const {
+    return r;
+  }
+
   __device__ __forceinline__ bool inside(const Col& c, float px, float py,
                                          float pz, float r) const {
     const float ev1 = c.n[0] * px + c.n[1] * py + c.n[2] * pz;

@@ -23,13 +23,17 @@
 // direction components with |d| < 1e-5 become +1e-5; the seed is
 // (accum_id + samp) * W * H + x with u32 wrap-around.
 //
-// A storage tier (csrc/tier_f32.cuh, csrc/tier_q.cuh) plugs in as a `Tier`
-// type with
+// A storage tier (csrc/tier_f32.cuh, csrc/tier_q.cuh, csrc/tier_wedge.cuh)
+// plugs in as a `Tier` type with
 //   struct Col;                                    // a cached column
-//   bool  inside(const Col&, px, py, pz, r) const; // containment test
+//   float coord(const Col&, px, py, pz, r) const;  // the coordinate its
+//                                                  // layers are looked up
+//                                                  // by: r, or the wedge
+//                                                  // tier's dot(P, n')
+//   bool  inside(const Col&, px, py, pz, c) const; // containment at coord c
 //   int   locate(px, py, pz, r, Col& out) const;   // cell id or -1
-//   float alpha(int cid, float r) const;           // classified alpha
-//   void  shade(int cid, float r, float& r, float& g, float& b) const;
+//   float alpha(int cid, float c) const;           // classified alpha
+//   void  shade(int cid, float c, float& r, float& g, float& b) const;
 // Built with -fmad=false and without --use_fast_math: every operation
 // rounds on its own, as in eager PyTorch.
 #pragma once
@@ -279,8 +283,10 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
           t = t_new;
           const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
           const float r = r_of(t, od, oo);
-          const bool in0 = valid0 && T.inside(col0, px, py, pz, r);
-          const bool in1 = valid1 && T.inside(col1, px, py, pz, r);
+          const bool in0 = valid0 && T.inside(col0, px, py, pz,
+                                              T.coord(col0, px, py, pz, r));
+          const bool in1 = valid1 && T.inside(col1, px, py, pz,
+                                              T.coord(col1, px, py, pz, r));
           bool hit_vol = true;
           if (in0 || in1) {
             mru = mru ? (in1 ? 1 : 0) : ((in1 && !in0) ? 1 : 0);
@@ -302,7 +308,9 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
             }
           }
           if (hit_vol) {
-            const float a = T.alpha(mru ? cid1 : cid0, r);
+            const float a =
+                T.alpha(mru ? cid1 : cid0, mru ? T.coord(col1, px, py, pz, r)
+                                               : T.coord(col0, px, py, pz, r));
             const float uu = lcg_next(rng);
             if (a >= uu * m) {
               alpha = a;
@@ -341,7 +349,11 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
     // -- shade (ref: deviceCode.cu:333-340) and accumulate (:267-274) -------
     float cr = 0.0f, cg = 0.0f, cb = 0.0f, ca = 0.0f;
     if (alpha > 0.0f) {
-      T.shade(mru ? cid1 : cid0, r_of(t, od, oo), cr, cg, cb);
+      const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
+      const float r = r_of(t, od, oo);
+      T.shade(mru ? cid1 : cid0, mru ? T.coord(col1, px, py, pz, r)
+                                     : T.coord(col0, px, py, pz, r),
+              cr, cg, cb);
       cr = cr * amb_r;
       cg = cg * amb_g;
       cb = cb * amb_b;

@@ -1,0 +1,40 @@
+// K9-w `track_wedge`: the reference's cuBQL mode (-mode 2) on the fast
+// raygen -- radial-band Woodcock tracking on the wedge tier, with the frame
+// epilogue (accumulate lerp, sRGB, RGBA8 pack) fused in.
+//
+// Replaces the XLA-fused loops of icon_rt_tpu/ops/fast.py with
+// flat_vert=True: `step_core` :451 (its flat branch :507-513),
+// `_test_and_fill_f32` :703 (:722-724), `_shade` :1445 (:1456-1460) and
+// `render_frame_fast(sampler="wedge")` :1481.  Its plain-PyTorch version is
+// `_track_torch` on `_WedgeTier` in ops/fast.py.  The per-lane machine is
+// K1's (csrc/track_common.cuh); the storage tier is csrc/tier_wedge.cuh:
+// the cached column holds n', containment and the layer pick compare
+// s = dot(P, n') with the heights, the band traversal stays radial.  No
+// fine-map primary.
+//
+// What bounds it on the H100: as K1, divergence and the dependent reads of
+// a cache miss (bins row -> candidate test rows -> heights and alpha); the
+// cached columns are 3 floats wider than K1's.
+#include "tier_wedge.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(128)
+track_wedge_kernel(const TrackParams p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= p.c.n_lanes) return;
+  track::track_lane(p.c, WedgeTier{p}, lane);
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` (PyTorch's current stream); allocates
+// nothing and does not synchronise.  Returns cudaGetLastError().
+extern "C" int track_wedge_launch(const TrackParams* params, void* stream) {
+  if (params->c.n_lanes <= 0) return 0;
+  constexpr int kBlock = 128;
+  const int grid = (params->c.n_lanes + kBlock - 1) / kBlock;
+  track_wedge_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      *params);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -25,6 +25,7 @@ from .models.locator import Locator
 from .models.qcells import QuantizedCells
 from .models.shells import RadialBands
 from .models.transfunc import Transfunc
+from .models.wedges import Wedges
 from .ops.fast import PackedCells
 from .ops.render import LaunchParams
 
@@ -75,7 +76,18 @@ def transfunc(tf, device="cpu") -> Transfunc:
 
 
 def packed_cells(p, device="cpu") -> PackedCells:
+    """A JAX PackedCells: the f32 tier's (N, 16) test rows, or the wedge
+    tier's (N, 32) ones (pack_cells_wedge), with prof and rgb."""
     return _convert(p, PackedCells, device)
+
+
+def wedges(w, device="cpu") -> Wedges:
+    """A JAX Wedges (verts, scalars, cell_offset and the static layer_pad)
+    as this package's Wedges."""
+    return Wedges(verts=to_tensor(w.verts, device),
+                  scalars=to_tensor(w.scalars, device),
+                  cell_offset=to_tensor(w.cell_offset, device),
+                  layer_pad=int(w.layer_pad))
 
 
 def launch_params(lp, device="cpu") -> LaunchParams:

@@ -76,6 +76,53 @@ def build_radial_bands(ds: ICDataset, num_bands: int = 64,
     )
 
 
+
+def build_radial_bands_wedge(ds: ICDataset, num_bands: int = 64,
+                             device="cpu") -> RadialBands:
+    """Radial bands of the fast WEDGE tier (ops/fast.py sampler='wedge'),
+    bit-equal to the JAX package's icon_rt_tpu/models/shells.py
+    `build_radial_bands_wedge`.  Unlike build_radial_bands, the per-layer
+    values are the reference's per-wedge constants bv (models/wedges.py
+    `bv_all`, ref: hostCode.cu:574,583-586), and each wedge's radial
+    extent is inflated downward by its column's flat-face sagitta (a flat
+    face at height h spans radii [h * mn, h]), the global band range
+    included."""
+    from .wedges import bv_all, column_min_norm
+
+    mn = column_min_norm(ds.lat, ds.lon)
+    bv = bv_all(ds.value, ds.num_layers)
+    idx = np.arange(ds.num_cells)
+    r_lo = float((ds.height[:, 0] * mn).min()) if ds.num_cells else 0.0
+    r_hi = float(ds.height[idx, ds.num_layers].max()) if ds.num_cells else 1.0
+    edges = np.linspace(r_lo, r_hi, num_bands + 1).astype(F)
+    vr_lo = np.full(num_bands, np.finfo(F).max, F)
+    vr_hi = np.full(num_bands, -np.finfo(F).max, F)
+    max_l = int(ds.num_layers.max()) if ds.num_cells else 0
+    span = max(r_hi - r_lo, 1e-30)
+    for L in range(max_l):
+        sel = ds.num_layers > L
+        h0 = ds.height[sel, L] * mn[sel]
+        h1 = ds.height[sel, L + 1]
+        v = bv[sel, L].astype(F)
+        b0 = np.clip(((h0 - r_lo) / span * num_bands).astype(np.int64),
+                     0, num_bands - 1)
+        b1 = np.clip(((h1 - r_lo) / span * num_bands).astype(np.int64),
+                     0, num_bands - 1)
+        n = b0.shape[0]
+        lo_idx = np.zeros((n, 3), np.int64)
+        up_idx = np.zeros((n, 3), np.int64)
+        lo_idx[:, 0] = b0
+        up_idx[:, 0] = b1
+        _rasterize(vr_lo, vr_hi, lo_idx, up_idx, v, v,
+                   np.array([num_bands, 1, 1], np.int64))
+    return RadialBands(
+        edges=torch.from_numpy(edges).to(device),
+        value_ranges=torch.from_numpy(np.stack([vr_lo, vr_hi], axis=1)
+                                      ).to(device),
+        max_opacities=torch.zeros(num_bands, dtype=torch.float32,
+                                  device=device),
+    )
+
 def update_band_majorants(bands: RadialBands, lut,
                           tf_value_range) -> RadialBands:
     """TF-edit handler for the radial bands (kernel K5b, the reference's

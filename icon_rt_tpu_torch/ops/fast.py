@@ -21,8 +21,15 @@ Kernels of this module (each beside its plain-PyTorch version):
         the lock-step loop `_track_torch` over the lanes with the same
         per-lane order of operations and RNG draws; the quantized tier
         (ops/fastq.py) runs the same loop on its own storage tier.
+  K9-w  `track_wedge` (CUDA C++, csrc/track_wedge.cu, the same machine on
+        the wedge tier csrc/tier_wedge.cuh) — the reference's cuBQL mode
+        (-mode 2) on the fast raygen: containment and the layer pick
+        compare the flat-face coordinate s = dot(P, n') with the heights,
+        the radial bands stay radial.  Plain version: `_track_torch` on
+        `_WedgeTier`, over the tables of `pack_cells_wedge`.
   K5a   `classify_bake` (Triton) — the TF-edit bake of per-(cell, layer)
-        heights, classified alpha and RGB.  Plain version:
+        heights, classified alpha and RGB (of the cells' values, or of the
+        wedge tier's per-wedge constants).  Plain version:
         `_profile_rows_torch` / `_classify_channels_torch`.
   K5c-f32 `pack_alpha_scale_parts` and `apply_opacity_scale` (Triton) —
         the scale-only opacity re-bake: alpha = A + B * scale, equal to a
@@ -56,6 +63,7 @@ from .render import _finalize
 F32 = torch.float32
 PROF_W = MAX_LAYERS * 2   # heights (32) + classified alpha (32)
 TEST_W = 16
+TEST_W_WEDGE = 32         # the f32 test row in 0..14, n' in 16..18
 RGB_W = MAX_LAYERS * 3
 
 #: per-sample step cap of a lane (the JAX loop's max_outer=16384 outer
@@ -63,11 +71,12 @@ RGB_W = MAX_LAYERS * 3
 #: collision.  No lane of the tests or of chip_smoke.py comes near it.
 MAX_STEPS = 16384 * 8
 
-#: kernel launches of K1 (track_f32), K5a (classify_bake) and the two
-#: K5c-f32 kernels (alpha_scale_parts, apply_opacity_scale); the wrappers
-#: count only launches of the CUDA/Triton kernels
-launches = {"track_f32": 0, "classify_bake": 0, "alpha_scale_parts": 0,
-            "apply_opacity_scale": 0}
+#: kernel launches of K1 (track_f32), K9-w (track_wedge), K5a
+#: (classify_bake) and the two K5c-f32 kernels (alpha_scale_parts,
+#: apply_opacity_scale); the wrappers count only launches of the
+#: CUDA/Triton kernels
+launches = {"track_f32": 0, "track_wedge": 0, "classify_bake": 0,
+            "alpha_scale_parts": 0, "apply_opacity_scale": 0}
 
 tl = None          # triton.language, bound on the first Triton launch
 _JITTED: dict = {}
@@ -184,9 +193,10 @@ def _classify_kernel(height_ptr, value_ptr, nl_ptr, lut_ptr, tfr_ptr,
     tl.store(rgb_ptr + n * 96 + 64 + k, b, mask=msk)
 
 
-def classify_bake(cells: Cells, tf: Transfunc):
+def classify_bake(cells: Cells, tf: Transfunc, values=None):
     """K5a wrapper: (prof (N, 64), rgb (N, 96)) from the cells' heights and
-    values and the transfer function.  The Triton kernel runs for CUDA
+    values (or `values`, (N, 32) f32: the wedge tier bakes its per-wedge
+    constants) and the transfer function.  The Triton kernel runs for CUDA
     tensors, the plain version for CPU tensors; anything else raises.
 
     Replaces the XLA-fused icon_rt_tpu/ops/fast.py `pack_profile_rows`
@@ -196,7 +206,8 @@ def classify_bake(cells: Cells, tf: Transfunc):
     alpha and three RGB entries.  Bound by device-memory traffic (256 bytes read and 640
     written per cell); the 4.8 KB LUT stays in L1/L2, so the TPU's one-hot
     compare-sum over the 300 levels is replaced by plain cached loads."""
-    height, value, nl = cells.height, cells.value, cells.num_layers
+    height, nl = cells.height, cells.num_layers
+    value = cells.value if values is None else values
     dev = height.device
     n = height.shape[0]
     for name, x, shape, dt in (
@@ -232,6 +243,52 @@ def pack_cells(cells: Cells, tf: Transfunc) -> PackedCells:
     the bake re-runs on TF edits (ref: hostCode.cu:878-909)."""
     prof, rgb = classify_bake(cells, tf)
     return PackedCells(test=pack_test_rows(cells), prof=prof, rgb=rgb)
+
+
+def wedge_rows(cells: Cells):
+    """The TF-independent half of the fast WEDGE tier's tables (the
+    reference's mode 2 / cuBQL path), as the JAX package's
+    icon_rt_tpu/ops/fast.py `pack_cells_wedge` (ref: hostCode.cu:556-600):
+      * test (N, 32): the pack_test_rows layout in 0..14 and, in 16..18,
+        n' = cross(u2 - u1, u3 - u1) / det(u1, u2, u3): a column's flat
+        faces share this normal, so the face at height h is exactly
+        {x : dot(x, n') = h} and the layer lookup compares the flat
+        coordinate s = dot(P, n') with the heights (computed in host numpy
+        as JAX does; 15 and 19..31 pad);
+      * bv (N, 32): the per-wedge constant scalars (models/wedges.py
+        `bv_all`) -- the reference's '#if 1' branch gives all six wedge
+        vertices the BOTTOM scalar, so K5a bakes the per-layer alpha and
+        RGB from bv instead of the values.
+    Built once per scene; `pack_cells_wedge` bakes a TF over them."""
+    import numpy as np
+    from ..models.wedges import bv_all
+
+    n = cells.num_cells
+    dev = cells.lat.device
+    rows = torch.zeros((n, TEST_W_WEDGE), dtype=F32, device=dev)
+    rows[:, :TEST_W] = pack_test_rows(cells)
+    lat = cells.lat.cpu().numpy()
+    lon = cells.lon.cpu().numpy()
+    cl = np.cos(lat)
+    u = np.stack([cl * np.cos(lon), cl * np.sin(lon), np.sin(lat)],
+                 axis=-1)                                  # (N, 3, 3)
+    nrm = np.cross(u[:, 1] - u[:, 0], u[:, 2] - u[:, 0])
+    det = np.einsum("ij,ij->i", u[:, 0], nrm)
+    nprime = (nrm / np.where(np.abs(det) < 1e-30, 1e-30, det)[:, None]
+              ).astype(np.float32)
+    rows[:, 16:19] = torch.from_numpy(nprime).to(dev)
+    bv = bv_all(cells.value.cpu().numpy(), cells.num_layers.cpu().numpy())
+    return rows, torch.from_numpy(np.ascontiguousarray(bv)).to(dev)
+
+
+def pack_cells_wedge(cells: Cells, tf: Transfunc, rows=None) -> PackedCells:
+    """Packed tables of the fast WEDGE tier: the test rows of `wedge_rows`
+    (or `rows`, its result, kept across TF edits) and the full K5a bake of
+    its bv -- prof (N, 64) heights | bv alpha, rgb (N, 96) bv RGB.  Every
+    TF edit bakes again in full (no scale-only shortcut, as JAX)."""
+    test, bv = wedge_rows(cells) if rows is None else rows
+    prof, rgb = classify_bake(cells, tf, values=bv)
+    return PackedCells(test=test, prof=prof, rgb=rgb)
 
 
 # ===========================================================================
@@ -478,19 +535,24 @@ def _layer_pick(heights, table_rows, r):
     return torch.where(layer < MAX_LAYERS, got[:, 0], 0.0)
 
 
-def _first_inside(rows_fn, cand, px, py, pz, r, return_rows: bool = False):
+def _first_inside(rows_fn, cand, px, py, pz, r, return_rows: bool = False,
+                  coord=None):
     """The FIRST candidate (in row order) of the (M, K) cell ids `cand`
     (-1 = empty) whose column contains the point; rows_fn maps cell ids to
-    (..., 16) test rows.  Returns (cid, hit), and with return_rows also the
-    candidates' (M, K, 16) rows and their validity."""
+    (..., 16) test rows.  The radial test compares r, or with `coord` (a
+    tier's coord(rows, px, py, pz, r)) each candidate's own coordinate.
+    Returns (cid, hit), and with return_rows also the candidates' (M, K,
+    16) rows and their validity."""
     safe = torch.clamp(cand, min=0).long()
     rows = rows_fn(safe)                                  # (M, K, 16)
     ev = [rows[..., 4 * j] * px[:, None] + rows[..., 4 * j + 1] * py[:, None]
           + rows[..., 4 * j + 2] * pz[:, None] - rows[..., 4 * j + 3]
           for j in range(3)]
     valid = cand >= 0
-    inside = (valid & (r[:, None] >= rows[..., 12])
-              & (r[:, None] <= rows[..., 13])
+    c = r[:, None] if coord is None else coord(
+        rows, px[:, None], py[:, None], pz[:, None], r[:, None])
+    inside = (valid & (c >= rows[..., 12])
+              & (c <= rows[..., 13])
               & (ev[0] <= 0.0) & (ev[1] <= 0.0) & (ev[2] <= 0.0))
     slot = torch.argmax(inside.to(torch.int32), dim=1)
     cid, hit = safe.gather(1, slot[:, None])[:, 0], inside.any(1)
@@ -504,19 +566,19 @@ def _grid_bin(a, lo, hi, n: int):
 
 
 def _locate_torch(loc: Locator, dims, rows_fn, px, py, pz, r,
-                  return_rows: bool = False):
+                  return_rows: bool = False, coord=None):
     """Locator query on (M,) points: bin row, then the first candidate (in
-    bin order) whose column contains the point.  Returns (cid, hit), and
-    with return_rows also the bin's (M, K, 16) candidate rows, their
-    validity and the bin (bl, bo) -- JAX's `return_rows=True`, for the
-    march's gap skip."""
+    bin order) whose column contains the point (`coord` as
+    `_first_inside`).  Returns (cid, hit), and with return_rows also the
+    bin's (M, K, 16) candidate rows, their validity and the bin (bl, bo)
+    -- JAX's `return_rows=True`, for the march's gap skip."""
     n_lat, n_lon = dims
     lat = torch.asin(torch.clamp(pz / r, -1.0, 1.0))
     lon = torch.atan2(py, px)
     bl = _grid_bin(lat, loc.lat_lo, loc.lat_hi, n_lat)
     bo = _grid_bin(lon, loc.lon_lo, loc.lon_hi, n_lon)
     out = _first_inside(rows_fn, loc.bins[(bl * n_lon + bo).long()], px, py,
-                        pz, r, return_rows)
+                        pz, r, return_rows, coord)
     return (*out, bl, bo) if return_rows else out
 
 
@@ -528,6 +590,8 @@ class _F32Tier:
     w_cols = True
     #: layers of a march prof row
     ml = MAX_LAYERS
+    #: width of a cached test row
+    test_w = TEST_W
 
     def __init__(self, packed: PackedCells, loc: Locator):
         self.packed, self.loc = packed, loc
@@ -535,6 +599,11 @@ class _F32Tier:
 
     def test_rows(self, cid):
         return self.packed.test[cid]
+
+    @staticmethod
+    def coord(rows, px, py, pz, r):
+        """The coordinate a column's layers are looked up by: the radius."""
+        return r
 
     def locate(self, px, py, pz, r, return_rows: bool = False):
         """(cid, hit); with return_rows also (rows, valid, bl, bo) of the
@@ -563,6 +632,25 @@ class _F32Tier:
                             r) for ch in range(3)]
 
 
+class _WedgeTier(_F32Tier):
+    """The fast wedge tier of the plain tracker (K9-w): the f32 tier's
+    machinery on `pack_cells_wedge` tables, whose (N, 32) test rows carry
+    each column's flat-face normal n' in 16..18.  Containment and the
+    layer pick compare the flat coordinate dot(P, n') (icon_rt_tpu/ops/
+    fast.py `step_core(flat_vert=True)`, `_test_and_fill_f32`, `_shade`)."""
+
+    test_w = TEST_W_WEDGE
+
+    @staticmethod
+    def coord(rows, px, py, pz, r):
+        """s = dot(P, n') of the columns of `rows`, summed x, y, z."""
+        return rows[..., 16] * px + rows[..., 17] * py + rows[..., 18] * pz
+
+    def locate(self, px, py, pz, r, return_rows: bool = False):
+        return _locate_torch(self.loc, self.dims, self.test_rows, px, py, pz,
+                             r, return_rows, self.coord)
+
+
 def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
                  height: int, samples: int, preserve_cache: bool, cost=None):
     """Plain-PyTorch tracking machine over the lanes of `pix` (pixel ids)
@@ -580,8 +668,11 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
     over when preserve_cache is set.  This is the per-lane order of
     csrc/track_common.cuh and of icon_rt_tpu/ops/fast.py `step_core`.
 
-    The tier gives test_rows(cid) -> (M, 16), locate(px, py, pz, r) ->
-    (cid, hit), alpha(cid, r) -> (M,) and shade(cid, r) -> [R, G, B]."""
+    The tier gives test_rows(cid) -> (M, test_w), coord(rows, px, py, pz,
+    r) -> (M,) (the coordinate the column's containment and layer pick
+    compare: r, or the wedge tier's flat coordinate), locate(px, py, pz, r)
+    -> (cid, hit), alpha(cid, coord) -> (M,) and shade(cid, coord) -> [R,
+    G, B]."""
     dev = pix.device
     L = pix.shape[0]
     nb = bands.max_opacities.shape[0]
@@ -595,7 +686,7 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
     zero = torch.zeros((), dtype=F32, device=dev)
 
     acc, pixels = accum.clone(), fb.clone()
-    new_test = lambda: torch.zeros((L, TEST_W), dtype=F32, device=dev)
+    new_test = lambda: torch.zeros((L, tier.test_w), dtype=F32, device=dev)
     new_i = lambda: torch.zeros(L, dtype=torch.int64, device=dev)
     new_b = lambda: torch.zeros(L, dtype=torch.bool, device=dev)
     c_test = [new_test(), new_test()]
@@ -645,8 +736,11 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
                 pz = oz + dz[b] * tb
                 r = _r_of(tb, od[b], oo)
                 v0b = c_valid[0][b]
-                in0 = v0b & _inside(c_test[0][b], px, py, pz, r)
-                in1 = c_valid[1][b] & _inside(c_test[1][b], px, py, pz, r)
+                rows0, rows1 = c_test[0][b], c_test[1][b]
+                in0 = v0b & _inside(rows0, px, py, pz,
+                                    tier.coord(rows0, px, py, pz, r))
+                in1 = c_valid[1][b] & _inside(
+                    rows1, px, py, pz, tier.coord(rows1, px, py, pz, r))
                 in_cache = in0 | in1
                 mru_b = c_mru[b]
                 use1 = torch.where(mru_b, in1, in1 & ~in0)
@@ -669,9 +763,12 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
                 rng_b = rng_a[samp_m]
                 if hv.numel():
                     lanes = b[hv]
-                    cid = torch.where(mru_b[hv], c_cid[1][lanes],
-                                      c_cid[0][lanes])
-                    aa_v = tier.alpha(cid, r[hv])
+                    mh = mru_b[hv]
+                    cid = torch.where(mh, c_cid[1][lanes], c_cid[0][lanes])
+                    rows = torch.where(mh[:, None], c_test[1][lanes],
+                                       c_test[0][lanes])
+                    aa_v = tier.alpha(cid, tier.coord(
+                        rows, px[hv], py[hv], pz[hv], r[hv]))
                     rng_v, uu = lcg_next(rng_b[hv])
                     rng_b[hv] = rng_v
                     hit = aa_v >= uu * m_a[samp_m][hv]
@@ -710,8 +807,12 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
         cg, cb = cr.clone(), cr.clone()
         g = torch.nonzero(alpha > 0.0).squeeze(1)
         if g.numel():
-            cid = torch.where(c_mru[g], c_cid[1][g], c_cid[0][g])
-            rgb = tier.shade(cid, _r_of(t[g], od[g], oo))
+            mg, tg = c_mru[g], t[g]
+            cid = torch.where(mg, c_cid[1][g], c_cid[0][g])
+            rows = torch.where(mg[:, None], c_test[1][g], c_test[0][g])
+            rgb = tier.shade(cid, tier.coord(
+                rows, ox + dx[g] * tg, oy + dy[g] * tg, oz + dz[g] * tg,
+                _r_of(tg, od[g], oo)))
             for ch, out in enumerate((cr, cg, cb)):
                 out[g] = rgb[ch] * amb[ch]
         ca = torch.where(alpha > 0.0, 1.0, zero)
@@ -729,10 +830,12 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
 def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
                              bands: RadialBands, lp, pix, accum, fb,
                              width: int, height: int, samples: int,
-                             preserve_cache: bool, cost=None):
-    """Plain-PyTorch K1+K4 over the lanes of `pix` (pixel ids): the
-    tracking machine `_track_torch` on the f32 tier."""
-    _track_torch(_F32Tier(packed, loc), bands, lp, pix, accum, fb, width,
+                             preserve_cache: bool, cost=None,
+                             tier=_F32Tier):
+    """Plain-PyTorch K1+K4 (or, with tier=_WedgeTier, K9-w) over the lanes
+    of `pix` (pixel ids): the tracking machine `_track_torch` on the f32
+    tier (the wedge tier)."""
+    _track_torch(tier(packed, loc), bands, lp, pix, accum, fb, width,
                  height, samples, preserve_cache, cost)
 
 
@@ -805,13 +908,14 @@ def track_params(packed: PackedCells, loc: Locator,
         n_lat=n_lat, n_lon=n_lon, k_cap=loc.bins.shape[1])
 
 
-def build_track_f32():
-    """Compile csrc/track_f32.cu for sm_90a (utils/cuda_build.py) and bind
-    its C entry point; returns the ctypes library."""
-    lib = cuda_build.build("track_f32")
-    lib.track_f32_launch.argtypes = [ctypes.POINTER(_TrackParams),
-                                     ctypes.c_void_p]
-    lib.track_f32_launch.restype = ctypes.c_int
+def build_track_f32(name: str = "track_f32"):
+    """Compile csrc/<name>.cu (track_f32: K1; track_wedge: K9-w) for sm_90a
+    (utils/cuda_build.py) and bind its C entry point; returns the ctypes
+    library."""
+    lib = cuda_build.build(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [ctypes.POINTER(_TrackParams), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -827,6 +931,46 @@ def _check(name, x, dtype, shape, device, fn="track_f32"):
                          f"expected {shape}")
 
 
+def _track_packed(name: str, tier, packed: PackedCells, loc: Locator,
+                  bands: RadialBands, lp, pix, accum, fb, width: int,
+                  height: int, samples: int, preserve_cache: bool, cost):
+    """K1 (name track_f32, tier _F32Tier) or K9-w (track_wedge,
+    _WedgeTier): check the tables, then launch csrc/<name>.cu for CUDA
+    tensors or run the plain version on `tier` for CPU tensors."""
+    dev = pix.device
+    n = packed.test.shape[0]
+    nb = bands.max_opacities.shape[0]
+    L = pix.shape[0]
+    ck = lambda what, x, dt, shape: _check(what, x, dt, shape, dev, fn=name)
+    ck("packed.test", packed.test, F32, (n, tier.test_w))
+    ck("packed.prof", packed.prof, F32, (n, PROF_W))
+    ck("packed.rgb", packed.rgb, F32, (n, RGB_W))
+    ck("loc.bins", loc.bins, torch.int32, (None, None))
+    ck("bands.edges", bands.edges, F32, (nb + 1,))
+    ck("bands.max_opacities", bands.max_opacities, F32, (nb,))
+    ck("pix", pix, torch.int32, (L,))
+    ck("accum", accum, F32, (L, 4))
+    ck("fb", fb, torch.int32, (L,))
+    if cost is not None:
+        ck("cost", cost, torch.int32, (width * height,))
+    if samples < 1:
+        raise ValueError(f"{name}: samples must be >= 1")
+    if dev.type == "cpu":
+        _render_frame_fast_torch(packed, loc, bands, lp, pix, accum, fb,
+                                 width, height, samples, preserve_cache, cost,
+                                 tier)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    lib = build_track_f32(name)
+    p = track_params(packed, loc, track_common(
+        bands, lp, pix, accum, fb, width=width, height=height,
+        samples=samples, preserve_cache=preserve_cache, cost=cost))
+    cuda_build.check(name, getattr(lib, f"{name}_launch")(
+        ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
+    launches[name] += 1
+
+
 def track_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
               pix, accum, fb, *, width: int, height: int, samples: int = 1,
               preserve_cache: bool = True, cost=None):
@@ -835,36 +979,28 @@ def track_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
     int32 IN PLACE; with `cost` ((W*H,) int32) also store each lane's
     tracking steps at its pixel.  CUDA tensors launch csrc/track_f32.cu; CPU
     tensors run `_render_frame_fast_torch`; anything else raises."""
-    dev = pix.device
-    n = packed.test.shape[0]
-    nb = bands.max_opacities.shape[0]
-    L = pix.shape[0]
-    _check("packed.test", packed.test, F32, (n, TEST_W), dev)
-    _check("packed.prof", packed.prof, F32, (n, PROF_W), dev)
-    _check("packed.rgb", packed.rgb, F32, (n, RGB_W), dev)
-    _check("loc.bins", loc.bins, torch.int32, (None, None), dev)
-    _check("bands.edges", bands.edges, F32, (nb + 1,), dev)
-    _check("bands.max_opacities", bands.max_opacities, F32, (nb,), dev)
-    _check("pix", pix, torch.int32, (L,), dev)
-    _check("accum", accum, F32, (L, 4), dev)
-    _check("fb", fb, torch.int32, (L,), dev)
-    if cost is not None:
-        _check("cost", cost, torch.int32, (width * height,), dev)
-    if samples < 1:
-        raise ValueError("track_f32: samples must be >= 1")
-    if dev.type == "cpu":
-        _render_frame_fast_torch(packed, loc, bands, lp, pix, accum, fb,
-                                 width, height, samples, preserve_cache, cost)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"track_f32: unsupported device {dev}")
-    lib = build_track_f32()
-    p = track_params(packed, loc, track_common(
-        bands, lp, pix, accum, fb, width=width, height=height,
-        samples=samples, preserve_cache=preserve_cache, cost=cost))
-    cuda_build.check("track_f32", lib.track_f32_launch(
-        ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
-    launches["track_f32"] += 1
+    _track_packed("track_f32", _F32Tier, packed, loc, bands, lp, pix, accum,
+                  fb, width, height, samples, preserve_cache, cost)
+
+
+def track_wedge(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
+                pix, accum, fb, *, width: int, height: int, samples: int = 1,
+                preserve_cache: bool = True, cost=None):
+    """K9-w wrapper: `track_f32` on the fast wedge tier -- packed from
+    `pack_cells_wedge` ((N, 32) test rows), bands from models/shells.py
+    `build_radial_bands_wedge`.  CUDA tensors launch csrc/track_wedge.cu;
+    CPU tensors run `_track_torch` on `_WedgeTier`; anything else raises.
+
+    Replaces the XLA-fused icon_rt_tpu/ops/fast.py `step_core(flat_vert=
+    True)` :451, `_test_and_fill_f32` :703 (its flat branch :722-724),
+    `_shade(flat_vert=True)` :1445 and `render_frame_fast(sampler="wedge")`.
+    Kernel design: K1's per-lane machine (csrc/track_common.cuh) on the
+    storage tier csrc/tier_wedge.cuh, whose cached column also holds n' and
+    whose `coord` hook returns dot(P, n') where the f32 tier returns r; no
+    fine-map primary.  Bound like K1 by divergence and the dependent reads
+    of a cache miss."""
+    _track_packed("track_wedge", _WedgeTier, packed, loc, bands, lp, pix,
+                  accum, fb, width, height, samples, preserve_cache, cost)
 
 
 # ===========================================================================
@@ -875,8 +1011,14 @@ def render_frame_fast(cells: Cells, packed: PackedCells, loc: Locator,
                       bands: RadialBands, lp, accum, fb, *,
                       width: int, height: int, pixel_perm=None,
                       n_active: int | None = None, samples: int = 1,
-                      preserve_cache: bool = True, return_cost: bool = False):
+                      preserve_cache: bool = True, return_cost: bool = False,
+                      sampler: str = "locator"):
     """Full-frame progressive step on the fast path.
+
+    sampler: 'locator' (the f32 tier, K1) or 'wedge' (the reference's
+    mode 2 made gather-free, K9-w: packed must come from
+    `pack_cells_wedge` and bands from models/shells.py
+    `build_radial_bands_wedge`).
 
     pixel_perm: optional (H*W,) int32 permutation (ops/order.pixel_order);
     when given, lane i renders pixel pixel_perm[i] and accum/fb are in
@@ -901,11 +1043,14 @@ def render_frame_fast(cells: Cells, packed: PackedCells, loc: Locator,
     version donates them) and returned."""
     pix, n_proc = frame_lanes(width, height, pixel_perm, n_active,
                               accum.device)
+    if sampler not in ("locator", "wedge"):
+        raise ValueError(f"unknown fast sampler {sampler!r}")
     cost = torch.zeros(width * height, dtype=torch.int32,
                        device=accum.device) if return_cost else None
-    track_f32(packed, loc, bands, lp, pix, accum[:n_proc], fb[:n_proc],
-              width=width, height=height, samples=samples,
-              preserve_cache=preserve_cache, cost=cost)
+    track = track_wedge if sampler == "wedge" else track_f32
+    track(packed, loc, bands, lp, pix, accum[:n_proc], fb[:n_proc],
+          width=width, height=height, samples=samples,
+          preserve_cache=preserve_cache, cost=cost)
     return (accum, fb, cost) if return_cost else (accum, fb)
 
 

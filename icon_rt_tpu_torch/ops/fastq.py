@@ -49,6 +49,10 @@ class _QTier:
 
     #: the march's candidate rows are the 12-float storage rows (w = 0)
     w_cols = False
+    #: width of a cached test row (the storage row laid out as 16 floats)
+    test_w = 16
+    #: the layers are looked up by the radius
+    coord = staticmethod(lambda rows, px, py, pz, r: r)
 
     def __init__(self, q: QuantizedCells, loc: Locator, tf: Transfunc,
                  fm: FineMap | None):

@@ -16,13 +16,17 @@ sample against the reference's CUDA semantics (tests/refimpl.py):
                             per-cell majorants by the spherical-shell DDA
                             (accel_mode 'sphere') or the Cartesian 3-DDA
                             ('grid');
-each with the brute-force or the locator point sampler.  One sample per
-call, over the pixels in natural order.
+each with the brute-force, the locator or the wedge point sampler (the
+reference's cuBQL mode: the Newton inversion of the column layers' flat
+wedges, models/wedges.py).  One sample per call, over the pixels in
+natural order.
 
 Kernel K8 `parity_track` (CUDA C++, csrc/parity.cu) runs one thread per
 pixel: ray generation, the box test, the tracking loop with its sampler,
-postClassify and the finalize.  Its plain version is `_parity_torch` (the
-lock-step loops of ops/woodcock.py and ops/traverse.py).  The wrapper
+postClassify and the finalize; with the wedge sampler it is K9-p, whose
+Newton device functions are csrc/uelems.cuh.  Its plain version is
+`_parity_torch` (the lock-step loops of ops/woodcock.py and
+ops/traverse.py).  The wrapper
 launches the kernel for CUDA tensors and the plain version for CPU
 tensors; anything else raises.
 """
@@ -37,6 +41,7 @@ import torch
 from ..models.cells import Cells, sample_brute_force
 from ..models.locator import Locator, sample_locator
 from ..models.transfunc import Transfunc, post_classify
+from ..models.wedges import Wedges, sample_wedges
 from ..utils import color as colorlib
 from ..utils import cuda_build
 from ..utils.lcg import lcg_init, lcg_next
@@ -49,7 +54,7 @@ F32 = torch.float32
 #: K8 launches per raygen x sampler (the wrapper adds one per kernel
 #: launch; plain-version runs on the CPU do not count)
 launches = {f"parity_{g}_{s}": 0 for g in ("ae", "sphere", "grid")
-            for s in ("locator", "brute")}
+            for s in ("locator", "brute", "wedge")}
 
 
 class LaunchParams(NamedTuple):
@@ -96,12 +101,14 @@ def _finalize(wrote, color_alpha, accum, fb, accum_id):
     return accum_out, fb_out
 
 
-def make_sample_fn(cells: Cells, locator: Locator | None, sampler: str):
+def make_sample_fn(cells: Cells, locator: Locator | None, sampler: str,
+                   wedges: Wedges | None = None):
     """Volume point-sampler dispatch (ref: deviceCode.cu:58-125), batched
     over lanes: 'brute' is the linear scan (the reference's no-RT
     fallback), 'locator' the grid-of-lists query (the reference's
     user-geometry and triangle modes both resolve to this analytic column
-    sampling)."""
+    sampling), 'wedge' the Newton wedge inversion of the cuBQL mode
+    (models/wedges.py `sample_wedges`)."""
     if sampler == "brute":
         return lambda pos: sample_brute_force(cells, pos)
     if sampler == "locator":
@@ -110,9 +117,10 @@ def make_sample_fn(cells: Cells, locator: Locator | None, sampler: str):
         dims = tuple(int(d) for d in locator.dims.tolist())
         return lambda pos: sample_locator(cells, locator, pos, dims)
     if sampler == "wedge":
-        raise NotImplementedError(
-            "the wedge sampler is not ported to icon_rt_tpu_torch yet: "
-            "ROADMAP Queue 1 item 7 (unstructured elements)")
+        if locator is None or wedges is None:
+            raise ValueError("sampler='wedge' needs a Locator and Wedges")
+        dims = tuple(int(d) for d in locator.dims.tolist())
+        return lambda pos: sample_wedges(cells, wedges, locator, pos, dims)
     raise ValueError(f"unknown sampler {sampler!r}")
 
 
@@ -138,12 +146,13 @@ def generate_ray(lp: LaunchParams, x, y, rng):
 
 def _pixels(cells: Cells, tf: Transfunc, lp: LaunchParams, xs, ys,
             width: int, height: int, raygen: str, sampler: str,
-            locator: Locator | None, accel, work: Work | None = None):
+            locator: Locator | None, accel, work: Work | None = None,
+            wedges: Wedges | None = None):
     """One parity sample of the pixels (xs, ys): (wrote (L,), color_alpha
     (L, 4), final rng (L,), loop iterations (L,)).  `wrote` is False
     where the ray misses the volume bounds (the reference returns without
     writing).  `work`, if given, counts the tracking loop's events."""
-    sample_fn = make_sample_fn(cells, locator, sampler)
+    sample_fn = make_sample_fn(cells, locator, sampler, wedges)
     classify_fn = lambda value: post_classify(tf, value)
     seed0 = ((lp.accum_id.to(torch.int64) & 0xFFFFFFFF)
              * ((width * height) & 0xFFFFFFFF) + xs) & 0xFFFFFFFF
@@ -178,28 +187,31 @@ def _pixels(cells: Cells, tf: Transfunc, lp: LaunchParams, xs, ys,
 
 def frame_pixels_ae(cells: Cells, tf: Transfunc, lp: LaunchParams, xs, ys,
                     width: int, height: int, sampler: str = "brute",
-                    locator: Locator | None = None):
+                    locator: Locator | None = None,
+                    wedges: Wedges | None = None):
     """The AE raygen over pixel index tensors, plain version: (wrote (P,),
     color_alpha (P, 4))."""
     return _pixels(cells, tf, lp, xs, ys, width, height, "ae", sampler,
-                   locator, None)[:2]
+                   locator, None, wedges=wedges)[:2]
 
 
 def frame_pixels_accel(cells: Cells, tf: Transfunc, accel, lp: LaunchParams,
                        xs, ys, width: int, height: int,
                        accel_mode: str = "sphere", sampler: str = "brute",
-                       locator: Locator | None = None):
+                       locator: Locator | None = None,
+                       wedges: Wedges | None = None):
     """The accel raygen over pixel index tensors, plain version: (wrote
     (P,), color_alpha (P, 4))."""
     if accel_mode not in ("sphere", "grid"):
         raise ValueError(f"unknown accel_mode {accel_mode!r}")
     return _pixels(cells, tf, lp, xs, ys, width, height, accel_mode,
-                   sampler, locator, accel)[:2]
+                   sampler, locator, accel, wedges=wedges)[:2]
 
 
 def _parity_torch(cells: Cells, tf: Transfunc, lp: LaunchParams, pix,
                   accum, fb, debug, width: int, height: int, raygen: str,
-                  sampler: str, locator, accel, work: Work | None = None):
+                  sampler: str, locator, accel, work: Work | None = None,
+                  wedges: Wedges | None = None):
     """Plain-PyTorch K8 over the lanes of `pix`: one sample, then the
     finalize into accum/fb IN PLACE; debug (L, 2) i32 gets each lane's
     final LCG state (u32 bits) and loop iterations; `work`, if given,
@@ -207,7 +219,7 @@ def _parity_torch(cells: Cells, tf: Transfunc, lp: LaunchParams, pix,
     pix = pix.long()
     wrote, ca, rng, steps = _pixels(cells, tf, lp, pix % width,
                                     pix // width, width, height, raygen,
-                                    sampler, locator, accel, work)
+                                    sampler, locator, accel, work, wedges)
     acc, out = _finalize(wrote, ca, accum, fb, lp.accum_id)
     accum.copy_(acc)
     fb.copy_(out)
@@ -221,7 +233,7 @@ def _parity_torch(cells: Cells, tf: Transfunc, lp: LaunchParams, pix,
 # ===========================================================================
 
 _RAYGENS = {"ae": 0, "sphere": 1, "grid": 2}
-_SAMPLERS = {"locator": 0, "brute": 1}
+_SAMPLERS = {"locator": 0, "brute": 1, "wedge": 2}
 
 
 class _ParityParams(ctypes.Structure):
@@ -245,6 +257,8 @@ class _ParityParams(ctypes.Structure):
         ("lut_size", ctypes.c_int), ("n_lanes", ctypes.c_int),
         ("width", ctypes.c_int), ("height", ctypes.c_int),
         ("accum_id", ctypes.c_int), ("max_iters", ctypes.c_int),
+        ("wverts", ctypes.c_void_p), ("wscalars", ctypes.c_void_p),
+        ("woffset", ctypes.c_void_p), ("layer_pad", ctypes.c_int),
     ]
 
 
@@ -267,20 +281,21 @@ def _host_floats(*tensors):
 def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
                  *, width: int, height: int, raygen: str = "ae",
                  sampler: str = "brute", locator: Locator | None = None,
-                 accel=None, pix=None, debug=None):
+                 accel=None, pix=None, debug=None,
+                 wedges: Wedges | None = None):
     """K8 wrapper: one parity sample (raygen 'ae', 'sphere' or 'grid' with
-    sampler 'locator' or 'brute') for the lanes of `pix` ((L,) int32
-    pixel ids; None = every pixel in natural order), updating accum (L, 4)
-    f32 and fb (L,) int32 IN PLACE; lanes whose ray misses the volume
-    bounds keep both.  debug, optional (L, 2) int32, receives each lane's
-    final LCG state (u32 bits) and loop iterations.  CUDA tensors launch
-    csrc/parity.cu; CPU tensors run `_parity_torch`; anything else
-    raises."""
+    sampler 'locator', 'brute' or 'wedge', the last K9-p and needing
+    `wedges`) for the lanes of `pix` ((L,) int32 pixel ids; None = every
+    pixel in natural order), updating accum (L, 4) f32 and fb (L,) int32
+    IN PLACE; lanes whose ray misses the volume bounds keep both.  debug,
+    optional (L, 2) int32, receives each lane's final LCG state (u32 bits)
+    and loop iterations.  CUDA tensors launch csrc/parity.cu; CPU tensors
+    run `_parity_torch`; anything else raises."""
     from .fast import _check as check    # ops/fast.py imports this module
     _check = lambda *a: check(*a, fn="parity_track")
     if raygen not in _RAYGENS:
         raise ValueError(f"unknown raygen {raygen!r}")
-    make_sample_fn(cells, locator, sampler)       # validates the sampler
+    make_sample_fn(cells, locator, sampler, wedges)   # validates it
     if raygen != "ae" and accel is None:
         raise ValueError(f"raygen {raygen!r} needs an accel")
     dev = accum.device
@@ -302,8 +317,14 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
         _check("pix", pix, torch.int32, (L,), dev)
     if debug is not None:
         _check("debug", debug, torch.int32, (L, 2), dev)
-    if sampler == "locator":
+    if sampler in ("locator", "wedge"):
         _check("locator.bins", locator.bins, torch.int32, (None, None), dev)
+    if sampler == "wedge":
+        nw = wedges.verts.shape[0]
+        _check("wedges.verts", wedges.verts, F32, (nw, 6, 3), dev)
+        _check("wedges.scalars", wedges.scalars, F32, (nw, 6), dev)
+        _check("wedges.cell_offset", wedges.cell_offset, torch.int32, (n,),
+               dev)
     if accel is not None:
         _check("accel.max_opacities", accel.max_opacities, F32, (None,),
                dev)
@@ -311,7 +332,7 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
         if pix is None:
             pix = torch.arange(L, dtype=torch.int32)
         _parity_torch(cells, tf, lp, pix, accum, fb, debug, width, height,
-                      raygen, sampler, locator, accel)
+                      raygen, sampler, locator, accel, wedges=wedges)
         return
     if dev.type != "cuda":
         raise ValueError(f"parity_track: unsupported device {dev}")
@@ -333,7 +354,7 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
         opacity_scale=h[25], n_cells=n, lut_size=tf.values.shape[0],
         n_lanes=L, width=width, height=height, accum_id=int(lp.accum_id),
         max_iters=MAX_ITERS)
-    if sampler == "locator":
+    if sampler in ("locator", "wedge"):
         n_lat, n_lon = (int(d) for d in locator.dims.tolist())
         if locator.bins.shape[0] != n_lat * n_lon:
             raise ValueError("parity_track: locator.bins rows != n_lat * "
@@ -342,6 +363,11 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
         p.win = fa(4, _host_floats(locator.lat_lo, locator.lat_hi,
                                    locator.lon_lo, locator.lon_hi))
         p.n_lat, p.n_lon, p.k_cap = n_lat, n_lon, locator.bins.shape[1]
+    if sampler == "wedge":
+        p.wverts, p.wscalars = wedges.verts.data_ptr(), \
+            wedges.scalars.data_ptr()
+        p.woffset, p.layer_pad = wedges.cell_offset.data_ptr(), \
+            wedges.layer_pad
     if accel is not None:
         dims = [int(d) for d in accel.dims.tolist()]
         if accel.max_opacities.shape[0] != dims[0] * dims[1] * dims[2]:
@@ -361,30 +387,34 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
 
 def render_frame_ae(cells: Cells, tf: Transfunc, lp: LaunchParams, accum,
                     fb, *, width: int, height: int, sampler: str = "brute",
-                    locator: Locator | None = None):
+                    locator: Locator | None = None,
+                    wedges: Wedges | None = None):
     """One progressive sample over the whole frame at the global majorant 1
-    (reference raygen 'woodcockTrackingAE'), through K8.  accum (H*W, 4)
-    f32 and fb (H*W,) int32 in natural pixel order (row 0 = bottom) are
-    updated IN PLACE and returned."""
+    (reference raygen 'woodcockTrackingAE'), through K8 (K9-p with the
+    wedge sampler and `wedges`).  accum (H*W, 4) f32 and fb (H*W,) int32
+    in natural pixel order (row 0 = bottom) are updated IN PLACE and
+    returned."""
     parity_track(cells, tf, lp, accum, fb, width=width, height=height,
-                 raygen="ae", sampler=sampler, locator=locator)
+                 raygen="ae", sampler=sampler, locator=locator,
+                 wedges=wedges)
     return accum, fb
 
 
 def render_frame_accel(cells: Cells, tf: Transfunc, accel, lp: LaunchParams,
                        accum, fb, *, width: int, height: int,
                        accel_mode: str = "sphere", sampler: str = "brute",
-                       locator: Locator | None = None):
+                       locator: Locator | None = None,
+                       wedges: Wedges | None = None):
     """One progressive sample with per-cell majorants driven by a traversal
-    (reference raygen 'woodcockTrackingWithAccel'), through K8.  accel: a
-    ShellAccel (accel_mode 'sphere') or GridAccel ('grid') whose
-    max_opacities are up to date for the transfer function.  accum/fb as
-    `render_frame_ae`."""
+    (reference raygen 'woodcockTrackingWithAccel'), through K8 (K9-p with
+    the wedge sampler and `wedges`).  accel: a ShellAccel (accel_mode
+    'sphere') or GridAccel ('grid') whose max_opacities are up to date for
+    the transfer function.  accum/fb as `render_frame_ae`."""
     if accel_mode not in ("sphere", "grid"):
         raise ValueError(f"unknown accel_mode {accel_mode!r}")
     parity_track(cells, tf, lp, accum, fb, width=width, height=height,
                  raygen=accel_mode, sampler=sampler, locator=locator,
-                 accel=accel)
+                 accel=accel, wedges=wedges)
     return accum, fb
 
 

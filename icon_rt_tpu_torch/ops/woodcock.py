@@ -20,6 +20,7 @@ import torch
 
 from ..models.cells import _BRUTE_CHUNK, Cells, _radius, candidate_tests
 from ..models.locator import Locator, locator_rows
+from ..models.wedges import Wedges, wedge_candidates
 from ..utils.lcg import lcg_next
 
 #: iteration cap of the tracking loops (the JAX traversals' max_iters); no
@@ -106,26 +107,36 @@ class Work:
     compare), "plane1".."plane3" (the first failing plane), "hit" (the
     containing cell; one per sample that finds a cell) -- and
     "hit_layers", the layers of the hit cells (their layer select).  The
-    masks mark the cells whose radii, planes and layer rows were read and
-    the locator entries read.  Counting adds no host sync and no host
-    copy to the loop (which a CUDA graph captures)."""
+    wedge sampler instead counts, up to its first hit, "wcol" the
+    candidate columns it visits, "wcol_layers" their layer counts (each
+    visit's find_layer), "newton" the wedges it inverts and
+    "newton_iters" their Newton iterations, and "hit".  The masks mark the
+    cells whose radii, planes and layer rows were read (with the wedge
+    sampler: the visited columns' heights and the inverted wedges) and
+    the locator entries read.  Counting adds no host sync and no host copy
+    to the loop (which a CUDA graph captures)."""
 
     EVENTS = ("draw", "advance", "eval", "radial", "plane1", "plane2",
-              "plane3", "hit", "hit_layers")
+              "plane3", "hit", "hit_layers", "wcol", "wcol_layers",
+              "newton", "newton_iters")
 
     def __init__(self, cells: Cells, sampler: str,
-                 locator: Locator | None = None):
+                 locator: Locator | None = None,
+                 wedges: Wedges | None = None):
         dev = cells.planes.device
         n = cells.num_cells
         self.cells, self.sampler, self.locator = cells, sampler, locator
+        self.wedges = wedges
         self.n = torch.zeros(len(self.EVENTS), dtype=torch.int64, device=dev)
         # one spare slot each takes the writes of the lanes not counted
         flag = lambda k: torch.zeros(k + 1, dtype=torch.bool, device=dev)
         self.radial_read, self.planes_read, self.hit_read = (
             flag(n), flag(n), flag(n))
-        if sampler == "locator":
+        if sampler in ("locator", "wedge"):
             self.dims = tuple(int(d) for d in locator.dims.tolist())
             self.entries_read = flag(locator.bins.numel())
+        if sampler == "wedge":
+            self.wedge_read = flag(wedges.verts.shape[0])
 
     def add(self, event: str, rows) -> None:
         """Count `event` once for each True of `rows`, or `rows` times."""
@@ -136,6 +147,9 @@ class Work:
         """Count one sample at pos (L, 3) for the rows of `mask`: the
         locate, and every candidate test up to the first containing cell."""
         self.add("eval", mask)
+        if self.sampler == "wedge":
+            self._wedge_scan(pos, mask)
+            return
         if self.sampler == "locator":
             r, row = locator_rows(self.locator, pos, self.dims)
             k = self.locator.bins.shape[1]
@@ -192,6 +206,49 @@ class Work:
             self.entries_read.index_fill_(
                 0, torch.where(read, slots, spare).reshape(-1), True)
 
+    def _wedge_scan(self, pos, mask) -> None:
+        """The wedge sampler's scan as the kernel runs it: the candidate
+        columns in bin order, in each the window's in-range wedges upward,
+        up to the first inversion that contains the point."""
+        c = wedge_candidates(self.cells, self.wedges, self.locator, pos,
+                             self.dims)
+        cand, hit, in_range = c["cand"], c["hit"], c["in_range"]
+        L, K, pad = hit.shape
+        valid = cand >= 0
+        idx = torch.clamp(cand, min=0).long()
+        flat = hit.reshape(L, K * pad).to(torch.int32)
+        tested = (in_range.reshape(L, K * pad)
+                  & (torch.cumsum(flat, dim=1) - flat == 0)
+                  & mask[:, None])
+        col_hit = hit.any(dim=2).to(torch.int32)
+        visited = valid & (torch.cumsum(col_hit, dim=1) - col_hit == 0) \
+            & mask[:, None]
+        it = c["iters"].reshape(L, K * pad).to(torch.int64)
+        i = self.EVENTS.index("wcol")
+        self.n[i:i + 4] += torch.stack([
+            visited.sum(),
+            torch.where(visited, self.cells.num_layers[idx], 0).sum(),
+            tested.sum(), torch.where(tested, it, 0).sum()])
+        got = mask & hit.reshape(L, -1).any(dim=1)
+        self.add("hit", got)
+        n = self.cells.num_cells
+        self.hit_read.index_fill_(0, torch.where(visited, idx, n).reshape(-1),
+                                  True)
+        spare = self.wedge_read.shape[0] - 1
+        self.wedge_read.index_fill_(
+            0, torch.where(tested, c["wid"].reshape(L, -1), spare).reshape(-1),
+            True)
+        # the entries visited and, after a scan without a hit, the -1 that
+        # ends it
+        r, row = locator_rows(self.locator, pos, self.dims)
+        slots = row[:, None] * K + torch.arange(K, device=pos.device)
+        first_pad = ~valid & (torch.cumsum((~valid).to(torch.int32),
+                                           dim=1) == 1)
+        read = visited | (first_pad & (mask & ~got)[:, None])
+        self.entries_read.index_fill_(
+            0, torch.where(read, slots, self.entries_read.shape[0] - 1
+                           ).reshape(-1), True)
+
     def counts(self) -> dict:
         """The counts by event and the reads (one host read)."""
         c = dict(zip(self.EVENTS, self.n.tolist()))
@@ -201,7 +258,9 @@ class Work:
                  hit_cells=int(read.sum()),
                  hit_cell_layers=int(self.cells.num_layers[read].sum()),
                  entries=int(self.entries_read[:-1].sum())
-                 if self.sampler == "locator" else 0)
+                 if self.sampler in ("locator", "wedge") else 0,
+                 wedges_read=int(self.wedge_read[:-1].sum())
+                 if self.sampler == "wedge" else 0)
         return c
 
 

@@ -54,12 +54,93 @@ def test_torch_app_build_runs_and_counts_frames(tmp_path):
     assert os.path.exists(str(tmp_path / "x.png"))
 
 
-@pytest.mark.parametrize("flags", [
-    ["--sampler", "wedge"], ["-mode", "2"], ["--raygen", "ae", "-mode", "2"],
-    ["--preview", "4"], ["--samples", "auto"]])
+@pytest.mark.parametrize("flags", [["--preview", "4"], ["--samples", "auto"]])
 def test_torch_app_out_of_slice_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         app.build(["--device", "cpu", *ARGS, *flags])
+
+
+#: the AE raygen's wedge case: PARITY_ARGS's camera, frame and samples on
+#: the subdivision-4 globe.  PARITY_ARGS's own subdivision 1 (triangles of
+#: ~4000 km) puts the flat wedge faces up to ~300 km below its 30 km shell,
+#: so the search window is the full 32 layers and the plain AE loop takes
+#: ~400 s on the CPU; at subdivision 4 the window is 2 layers
+WEDGE_AE_ARGS = ["--synthetic", "4:3", "--size", "16", "16",
+                 "--sample-limit", "2", "--camera", "1.6e7", "0", "0", "0",
+                 "0", "0", "0", "0", "1", "-fovy", "12"]
+#: per-pixel PNG mismatch bound of the wedge paths against the JAX app;
+#: measured 1 of 4096 pixels for -mode 2 and --sampler wedge (the fast
+#: wedge tier, a libm ULP as in test_torch_fast.py) and 0 of 256 for the
+#: AE case.  The Newton inversion at the globe's scale converges on f32
+#: noise (coordinates of ~6e6 m have an ULP of 0.5 m, layers are ~4 km
+#: thick, so t moves by ~1e-4 per ULP, the convergence threshold), and
+#: JAX's FMA-contracted sums walk other noise: 2.4% of random shell points
+#: at subdivision 3 x 8 change their hit, so the AE bound allows 3%
+WEDGE_MISMATCH = {"fast": FB_MISMATCH_BOUND, "ae": 8}
+#: the JAX app's wedge images by path, rendered once per module
+_JAX_WEDGE_PNG = {}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--sampler", "wedge"], ["-mode", "2"], ["--raygen", "ae", "-mode", "2"]],
+    ids=["sampler-wedge", "mode-2", "ae-mode-2"])
+def test_torch_app_wedge_flags_render(tmp_path, flags):
+    """The wedge sampler renders where it used to raise: on the fast
+    raygen the wedge tier (K9-w's plain version, --samples 8 clamped to
+    --sample-limit 4: one launch), on --raygen ae the Newton wedge sampler
+    (K9-p's plain version, one sample per launch); the PNG agrees with the
+    JAX app's within WEDGE_MISMATCH pixels and is not blank."""
+    ae = flags[0] == "--raygen"
+    args = WEDGE_AE_ARGS if ae else ARGS
+    out_t, out_j = str(tmp_path / "tw"), str(tmp_path / "jw")
+    pl = app.build(["--device", "cpu", *args, *flags, "-o", out_t])
+    assert _run_loop(pl) == (2 if ae else 1)
+    pl.present()
+    built = pl.scene["timings"]
+    assert ("wedges_s" in built) == ae
+    assert ("packed_w_s" in built and "bands_w_s" in built) == (not ae)
+    # -mode 2 and --sampler wedge select the same JAX path: render it once
+    key = "ae" if ae else "fast"
+    if key not in _JAX_WEDGE_PNG:
+        assert icon_rt.main([*args, *flags, "-o", out_j]) == 0
+        _JAX_WEDGE_PNG[key] = read_png(out_j + ".png")
+    img_t, img_j = read_png(out_t + ".png"), _JAX_WEDGE_PNG[key]
+    assert img_t.shape == img_j.shape
+    differ = (img_t != img_j).any(axis=-1)
+    assert differ.sum() <= WEDGE_MISMATCH["ae" if ae else "fast"], \
+        differ.sum()
+    assert (img_t[..., :3] != img_t[0, 0, :3]).any(axis=-1).sum() > 50
+
+
+def test_torch_app_wedge_precedence_and_tf_edit(tmp_path):
+    """apps/icon_rt.py:480-518: --march with the wedge sampler renders the
+    wedge tracker (K9-w), --quantized takes precedence over it; a TF edit
+    refreshes the wedge tier's band majorants (K5b) and bakes its rows
+    again in full (pack_cells_wedge)."""
+    from icon_rt_tpu_torch.models.accel import compute_max_opacities_torch
+    from icon_rt_tpu_torch.ops import fast
+    small = ["--synthetic", "2:4", "--size", "24", "24", "--sample-limit",
+             "2", "-o", str(tmp_path / "p")]
+    pl = app.build(["--device", "cpu", *small, "-mode", "2", "--march"])
+    _run_loop(pl)
+    assert pl.samples_per_launch == 2 and pl.frame_id == 2   # the tracker
+    packed = pl.scene["get_packed_wedge"]()
+    assert packed.test.shape[1] == fast.TEST_W_WEDGE
+    pl.set_ui_param("Opacity scale", 0.5)
+    pl.is_running()
+    tf = pl.scene["tf"]()
+    packed2 = pl.scene["get_packed_wedge"]()
+    assert packed2 is not packed
+    want = fast.pack_cells_wedge(pl.scene["cells"], tf)
+    assert torch.equal(packed2.prof, want.prof)
+    bw = pl.scene["get_bands_wedge"]()
+    assert torch.equal(bw.max_opacities, compute_max_opacities_torch(
+        bw.value_ranges, tf.values, tf.value_range))
+    pl = app.build(["--device", "cpu", *small, "-mode", "2", "--quantized",
+                    "--no-finemap"])
+    _run_loop(pl)
+    assert pl.scene["cells"] is None and "packed_w_s" not in \
+        pl.scene["timings"]
 
 
 def _run_loop(pl):
@@ -283,7 +364,13 @@ def test_torch_app_parity_matches_jax_app(tmp_path, flags):
 def spy(monkeypatch):
     """The render function each frame dispatches to."""
     from icon_rt_tpu_torch.ops import fast, render
-    calls = []
+
+    class Calls(list):
+        """Names of the calls, and in `samplers` each call's sampler."""
+        samplers: list
+
+    calls = Calls()
+    calls.samplers = []
     for mod, name in ((fast, "render_frame_fast"),
                       (render, "render_frame_accel"),
                       (render, "render_frame_ae")):
@@ -291,6 +378,7 @@ def spy(monkeypatch):
 
         def wrapper(*a, _orig=orig, _name=name, **k):
             calls.append(_name)
+            calls.samplers.append(k.get("sampler", "locator"))
             return _orig(*a, **k)
         monkeypatch.setattr(mod, name, wrapper)
     return calls
@@ -346,9 +434,12 @@ def test_torch_app_raygen_toggle(tmp_path, spy):
 def test_torch_app_accel_mode_and_naive_toggles(tmp_path, spy):
     """"Accel mode" swaps sphere and grid (a different majorant
     segmentation, so other collisions) and resets accumulation; "Use naive
-    accel" off renders the accel raygen as AE; "Sampler mode" 2 (the
-    wedge sampler) raises and changes nothing, 0 keeps the locator."""
-    pl, out = _toggle_app(tmp_path, "--raygen", "accel")
+    accel" off renders the accel raygen as AE; "Sampler mode" 2 resets
+    accumulation and renders through the wedge sampler (shown on the fast
+    raygen's wedge tier: this scene's 32-layer search window makes the
+    parity raygens' Newton loop take minutes on the CPU, see
+    WEDGE_AE_ARGS), 0 goes back to the locator."""
+    pl, out = _toggle_app(tmp_path, "--raygen", "accel", "--samples", "2")
     img_sphere = _frame(pl, out)
     assert spy[-1] == "render_frame_accel"
     assert pl.scene["get_accel"]("sphere") is not None
@@ -360,11 +451,19 @@ def test_torch_app_accel_mode_and_naive_toggles(tmp_path, spy):
     pl.set_ui_param("Use naive accel", False)
     _frame(pl, out)
     assert spy[-1] == "render_frame_ae"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pl.set_ui_param("Sampler mode", 2)
+    assert spy.samplers[-1] == "locator"
+    assert pl.is_running() and pl.frame_id == 1
+    pl.set_ui_param("Sampler mode", 2)
+    assert pl.frame_id == 0
+    pl.set_ui_param("Raygen", "fast")
+    img_wedge = _frame(pl, out)
+    assert spy[-1] == "render_frame_fast" and spy.samplers[-1] == "wedge"
+    assert pl.is_running() and pl.frame_id == pl.samples_per_launch > 1
+    assert (img_wedge[..., 3] > 0).any()
     pl.set_ui_param("Sampler mode", 0)
+    pl.set_ui_param("Raygen", "accel")
     _frame(pl, out)
-    assert spy[-1] == "render_frame_ae"
+    assert spy[-1] == "render_frame_ae" and spy.samplers[-1] == "locator"
     # a TF edit refreshes both built accels' majorants (K5b)
     pl.set_ui_param("Opacity scale", 0.5)
     pl.is_running()

@@ -1,7 +1,8 @@
 """PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q,
 K7-fm, K3 (both tiers), K5c-f32, K7-scene (lod 0 and the mip tier), K7-loc,
-K8 and K6b, and K1's and K2's cost output, against their plain PyTorch
-versions on the same CUDA inputs.  Marked `cuda`: they
+K8 and K6b, K1's and K2's cost output, and the unstructured elements' K9-w,
+K9-p and K9-n, against their plain PyTorch versions on the same CUDA
+inputs.  Marked `cuda`: they
 skip where no GPU is present (CUDA and Triton kernels have no CPU mode).
 On a GPU machine:  python -m pytest tests/test_torch_kernels_cuda.py"""
 import numpy as np
@@ -518,3 +519,119 @@ def test_cuda_refine_matches_plain(dev):
     assert torch.equal(a2, pa) and torch.equal(f2, pf)
     assert order.refine_launches == {k: v + (1 if k == "repermute" else 2)
                                      for k, v in before.items()}
+
+
+@pytest.fixture(scope="module")
+def wscene(dev, scene):
+    """The fast wedge tier of the subdiv-4 scene: pack_cells_wedge (K5a
+    over bv) and the wedge bands."""
+    from icon_rt_tpu_torch.models.shells import build_radial_bands_wedge
+    ds = synthetic.icosphere(4, 8)
+    bands = update_band_majorants(build_radial_bands_wedge(ds, 64,
+                                                           device=dev),
+                                  scene["tf"].values, scene["tf"].value_range)
+    return dict(packed=fast.pack_cells_wedge(scene["cells"], scene["tf"]),
+                bands=bands)
+
+
+@pytest.mark.parametrize("preserve_cache", [True, False])
+def test_cuda_track_wedge_matches_plain(scene, wscene, preserve_cache):
+    """K9-w: 4 samples on the covered lanes; fb identical on >= 99.9% of
+    lanes, accum within 1e-6; the image not blank."""
+    n = scene["n_cov"]
+    pix = scene["perm"][:n].contiguous()
+    before = fast.launches["track_wedge"]
+    outs = []
+    for kernel in (True, False):
+        acc, fb = alloc_frame(96, 96, device=pix.device)
+        args = (wscene["packed"], scene["loc"], wscene["bands"],
+                scene["lp"], pix, acc[:n], fb[:n])
+        if kernel:
+            fast.track_wedge(*args, width=96, height=96, samples=4,
+                             preserve_cache=preserve_cache)
+        else:
+            fast._render_frame_fast_torch(*args, 96, 96, 4, preserve_cache,
+                                          tier=fast._WedgeTier)
+        torch.cuda.synchronize()
+        outs.append((acc, fb))
+    assert fast.launches["track_wedge"] == before + 1
+    (ak, fk), (ap, fp) = outs
+    assert (fk == fp).float().mean() >= 0.999
+    assert float((ak - ap).abs().max()) <= 1e-6
+    assert int((fk != 0).sum()) > n // 4
+
+
+#: K9-p's plain check lanes per raygen: the plain Newton window is slow in
+#: lock step, and an AE lane beside the globe walks the whole box
+WEDGE_CHECK_LANES = {"ae": 256, "sphere": 1024, "grid": 1024}
+
+
+@pytest.mark.parametrize("raygen", ["ae", "sphere", "grid"])
+def test_cuda_parity_wedge_matches_plain(pscene, raygen):
+    """K9-p (K8 with the wedge sampler): two samples on lanes strided over
+    the frame; the first sample's final LCG state and loop iterations
+    equal on every lane, fb identical on >= 99.9%, accum within 1e-6."""
+    from icon_rt_tpu_torch.models.wedges import build_wedges
+    from icon_rt_tpu_torch.ops import render
+    s = pscene
+    lp = s["lp"]
+    dev = lp.accum_id.device
+    w = build_wedges(synthetic.icosphere(3, 8), device=dev)
+    accel = s["accels"].get(raygen)
+    key = f"parity_{raygen}_wedge"
+    before = render.launches[key]
+    n = WEDGE_CHECK_LANES[raygen]
+    pix = torch.arange(0, 64 * 64, 64 * 64 // n, dtype=torch.int32,
+                       device=dev)
+    outs = []
+    for kernel in (True, False):
+        acc = torch.zeros(n, 4, device=dev)
+        fb = torch.zeros(n, dtype=torch.int32, device=dev)
+        dbg = torch.zeros(n, 2, dtype=torch.int32, device=dev)
+        for k in range(2):
+            lpk = lp._replace(accum_id=torch.tensor(k, dtype=torch.int32,
+                                                    device=dev))
+            if kernel:
+                render.parity_track(s["cells"], s["tf"], lpk, acc, fb,
+                                    width=64, height=64, raygen=raygen,
+                                    sampler="wedge", locator=s["loc"],
+                                    accel=accel, pix=pix, wedges=w,
+                                    debug=dbg if k == 0 else None)
+            else:
+                render._parity_torch(s["cells"], s["tf"], lpk, pix, acc, fb,
+                                     dbg if k == 0 else None, 64, 64,
+                                     raygen, "wedge", s["loc"], accel,
+                                     wedges=w)
+        torch.cuda.synchronize()
+        outs.append((acc, fb, dbg))
+    assert render.launches[key] == before + 2
+    (ak, fk, dk), (ap, fp, dp) = outs
+    assert torch.equal(dk, dp)
+    assert (fk == fp).float().mean() >= 0.999
+    assert float((ak - ap).abs().max()) <= 1e-6
+    assert int((fk != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("nv", [5, 6, 8])
+def test_cuda_uelems_points_match_plain(dev, nv):
+    """K9-n: 65,536 seeded points on jittered unit elements of each shape;
+    inside flags and values bit-equal to the plain Newton."""
+    from icon_rt_tpu_torch.ops import uelems
+    base = {5: [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0.5, 0.5, 1]],
+            6: [[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 0, 1],
+                [0, 1, 1]],
+            8: [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0, 0, 1],
+                [1, 0, 1], [1, 1, 1], [0, 1, 1]]}[nv]
+    rs = np.random.default_rng(nv)
+    m = 65536
+    V = (np.asarray(base, np.float32)[None]
+         + rs.normal(size=(m, nv, 3)) * 0.15).astype(np.float32)
+    S = rs.random((m, nv)).astype(np.float32)
+    P = (rs.normal(size=(m, 3)) * 0.5 + 0.45).astype(np.float32)
+    P, V, S = (torch.from_numpy(a).to(dev) for a in (P, V, S))
+    before = uelems.launches["uelems_points"]
+    hk, vk = uelems.uelems_points(P, V, S)
+    hp, vp = uelems.newton(P, V, S)
+    assert uelems.launches["uelems_points"] == before + 1
+    assert torch.equal(hk, hp) and torch.equal(vk, vp)
+    assert 0.05 < float(hk.float().mean()) < 0.95

@@ -97,9 +97,12 @@ def test_torch_png_roundtrip(tmp_path):
 
 def test_torch_port_never_imports_jax(tmp_path):
     """In a fresh interpreter: import every module of the port (the march,
-    ops/march.py, and the LOD module, data/lod.py, by name too; frame_lod
-    picks its level) and run tiny renders through the app, the Woodcock
-    tracker and the march; neither jax nor icon_rt_tpu may load."""
+    ops/march.py, the LOD module, data/lod.py, and the unstructured
+    elements, ops/uelems.py and models/wedges.py, by name too; frame_lod
+    picks its level, the wedge sampler and the intersectors run on a few
+    points) and run tiny renders through the app, the Woodcock tracker,
+    the march and the fast wedge tier (-mode 2); neither jax nor
+    icon_rt_tpu may load."""
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -112,8 +115,21 @@ for m in pkgutil.walk_packages(icon_rt_tpu_torch.__path__, 'icon_rt_tpu_torch.')
 import icon_rt_tpu_torch.ops.march
 from icon_rt_tpu_torch.data.lod import frame_lod
 assert frame_lod(11, 'viewall', 1920, 1080) == 3
+from icon_rt_tpu_torch.data.synthetic import icosphere
+from icon_rt_tpu_torch.models.cells import build_cells
+from icon_rt_tpu_torch.models.locator import build_locator
+from icon_rt_tpu_torch.models.wedges import build_wedges, sample_wedges
+from icon_rt_tpu_torch.ops.uelems import uelems_points
+ds = icosphere(1, 2)
+pos = torch.from_numpy(ds.height[:8, 1:2] * 1.0).float() * torch.tensor(
+    [[0.3, 0.5, 0.81]])
+hit, val = sample_wedges(build_cells(ds), build_wedges(ds),
+                         build_locator(ds), pos)
+assert hit.shape == (8,)
+ins, v = uelems_points(torch.zeros(2, 3), torch.rand(2, 8, 3),
+                       torch.rand(2, 8))
 from icon_rt_tpu_torch import app
-for extra, out in (([], 'x'), (['--march'], 'm')):
+for extra, out in (([], 'x'), (['--march'], 'm'), (['-mode', '2'], 'w')):
     assert app.main(['--device', 'cpu', '--synthetic', '1:2', '--size', '16',
                      '16', '--sample-limit', '2', *extra,
                      '-o', {str(tmp_path)!r} + '/' + out]) == 0
@@ -130,3 +146,4 @@ print('CLEAN')
     assert "CLEAN" in res.stdout
     assert os.path.exists(tmp_path / "x.png")
     assert os.path.exists(tmp_path / "m.png")
+    assert os.path.exists(tmp_path / "w.png")
