@@ -34,6 +34,14 @@ script exits non-zero without printing a result):
           preserve_cache settings (fb identical on >= 99.9%, accum <=
           1e-6); K9-n on 65,536 seeded points per element shape (pyramid,
           wedge, hexahedron): inside flags and values bit-equal
+  check composite  K10 (csrc/composite.cu): its three masks and two
+          finalizes against their plain versions on crafted inputs (ties
+          of equal t, every slab +inf, lanes without a write) of 2,073,600
+          and 8,294,400 lanes, bit-equal; K1 and K2 in raw mode with
+          rng_salt 0, 1, 2 against their plain versions on the check scene
+          (wrote identical, colour and t identical on >= 99.9% of lanes,
+          colour <= 1e-6); a raw sample through K10's finalize bit-equal to
+          the finalizing launch of the same sample
   main    the app's main path (icon_rt_tpu_torch.app.build, then the
           launch / is_running / present loop of apps/icon_rt.py) at subdiv
           8 x 16 layers, 1920x1080, 16 samples (8 per launch), closeup
@@ -168,6 +176,35 @@ script exits non-zero without printing a result):
           w's and main grid w's K9-p against the plain version on 1024,
           256 and 1024 lanes strided over the frame, whose counted work,
           scaled, gives their bounds
+  main anim r2b9q 4k  BASELINE configs[4] at full size, after every
+          earlier table is freed: build_q_scene(11, 16) (83,886,080
+          columns, fine map on), the closeup camera at 3840x2160, two
+          timesteps (the second value_q halved on the card), 8 samples per
+          frame through data/animation.py `animate_fastq_sharded`: (a) in
+          this process, (b) tiles=1 over NCCL (world size 1), (c) tiles=2
+          over gloo (two ranks sharing the card, each with the whole scene).
+          The frames of (a), (b) and (c) bit-equal, the timesteps different,
+          coverage >= 0.5; per rank the ms per frame, K2's ms per sample
+          launch, the gather's ms, Mray/s and peak GiB; the frames as
+          chip_smoke_anim_t{0,1}.png in OUT_DIR
+  main slabs  the scene shard (parallel/scene_shard.py) at subdiv 8 x 16,
+          1080p, closeup, quantized, 16 samples: 2 slabs x 1 tile (two gloo
+          ranks) beside rank 0's unsharded K2 image, then 2 x 2 (four
+          ranks); the 2 x 2 accum and fb bit-equal to the 2 x 1 ones, the
+          composite's coverage equal to the unsharded image's and its RMSE
+          over covered pixels < 0.55 / sqrt(16); ms per sample of the
+          tracking, the three collectives and K10
+  main samples  the samples axis (parallel/sharded.py) on the f32 tier,
+          subdiv 8 x 16, 1080p: tiles=1 x samples=2 (two gloo ranks), 4
+          steps of 2 samples; K10's mean equal to the plain mean on each
+          rank; pixels all of whose 8 samples wrote equal the sequential
+          frame to accum 1e-6
+  time K10  each mode of K10 and its plain version at 2,073,600 lanes
+          (CUDA events) beside its bytes at 3.35 TB/s
+Each multi-device phase prints its backend, world size and how many ranks
+share a card, and fails if a rank raises, dies or outlives 300 s (the
+ranks are then terminated).  The counts of K10, K1 and K2 on those paths
+come from the ranks, zeroed before each path and read after it.
 
 Every phase prints the device's peak memory (torch.cuda.max_memory_allocated
 since the phase began).
@@ -175,6 +212,7 @@ since the phase began).
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line {"kernels": [...]}, and {"ok": true, "device": {...}}.
 """
+import functools
 import json
 import os
 import shutil
@@ -208,7 +246,8 @@ FINEMAP_TOL = 1e-4          # K3-q fine map on vs off (tests/test_march.py:366)
 #: (scripts/torch_march_vs_jax.py tie --tf default).
 FINEMAP_SHARE = 1e-3
 CU_SOURCES = ("track_f32", "track_q", "finemap", "march", "scene",
-              "locator", "parity", "track_wedge", "uelems")   # csrc/*.cu
+              "locator", "parity", "track_wedge", "uelems",
+              "composite")   # csrc/*.cu
 R2B9_SUB, R2B9_LAYERS = 11, 16    # bench.py r2b9q_closeup / r2b9m_closeup
 R2B9_SPL, R2B9_LIMIT = 8, 64      # r2b9q: samples per launch, in all
 PREVIEW_W, PREVIEW_H = 480, 270   # bench.py's preview frame (W/4 x H/4)
@@ -3322,6 +3361,409 @@ def wedge_rows(w_rows, p_rows, k9n, errs, counts):
     return rows
 
 
+# ===========================================================================
+# Multi-device phases: K10, the tile x sample mesh, the scene shard and the
+# time-animated R2B9 4K sequence (BASELINE configs[4])
+# ===========================================================================
+
+#: seconds a run of ranks may take before the phase fails
+MD_TIMEOUT = 300
+ANIM_W, ANIM_H, ANIM_SPF = 3840, 2160, 8   # BASELINE configs[4]'s frame
+SLAB_SPP = 16                # main slabs: samples per run
+SAMPLES_LAUNCHES = 4         # main samples: steps of 2 samples
+#: lanes of the K10 checks: 1080p and 4K frames
+K10_LANES = (MAIN_W * MAIN_H, ANIM_W * ANIM_H)
+#: K10's bytes per lane by mode: what it reads and writes once (t 4, t_min
+#: 4, win 4, ca 16, wrote 1, cand 4, the send buffers 16 / 20, accum 16 in
+#: and 16 out, fb 4)
+K10_BYTES = {"cand": 12, "payload": 44, "mean": 37, "first_hit": 57,
+             "mean_fin": 56}
+K10_REPLACES = ("icon_rt_tpu/parallel/scene_shard.py:162; "
+                "icon_rt_tpu/parallel/sharded.py:243")
+
+
+def k10_inputs(dev, L, D=3, seed=0):
+    """Crafted K10 inputs of L lanes on the card: this slab's t with +inf
+    lanes, t_min tied with it on every 5th lane and +inf on every 11th (no
+    slab collides), random winners, NaN-free payloads, a reduced (L, 5)
+    mean buffer with counts 0-2."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    t = torch.rand(L, generator=g)
+    t[torch.rand(L, generator=g) < 0.3] = float("inf")
+    t_min = torch.minimum(t, torch.rand(L, generator=g))
+    t_min[::5] = t[::5]
+    t_min[::11] = float("inf")
+    t[::11] = float("inf")
+    x = dict(t=t, t_min=t_min,
+             win=torch.randint(0, D, (L,), generator=g, dtype=torch.int32),
+             ca=torch.rand(L, 4, generator=g),
+             wrote=torch.rand(L, generator=g) > 0.3,
+             accum=torch.rand(L, 4, generator=g),
+             fb=torch.randint(0, 2 ** 31 - 1, (L,), generator=g,
+                              dtype=torch.int32),
+             total=torch.cat([torch.rand(L, 4, generator=g) * 2,
+                              torch.randint(0, 3, (L, 1), generator=g)
+                              .float()], 1))
+    return {k: v.to(dev) for k, v in x.items()}
+
+
+def k10_calls(x, aid, copy=True):
+    """{mode: (kernel call, plain call)} of K10 on inputs x; each call
+    returns its outputs.  The finalizes update copies of x's accum and fb,
+    or (copy=False, for timing) x's own in place."""
+    from icon_rt_tpu_torch.ops import composite as c
+
+    def fin(kernel, mode):
+        def run():
+            a, f = x["accum"], x["fb"]
+            if copy:
+                a, f = a.clone(), f.clone()
+            if mode == c.FIRST_HIT and kernel:
+                c.finalize_first_hit(x["ca"], x["t_min"], x["wrote"], a, f,
+                                     aid)
+            elif mode == c.FIRST_HIT:
+                c._finalize_torch(mode, x["ca"], a, f, aid, t_min=x["t_min"],
+                                  wrote=x["wrote"])
+            elif kernel:
+                c.finalize_mean(x["total"], a, f, aid)
+            else:
+                c._finalize_torch(mode, x["total"], a, f, aid)
+            return a, f
+        return run
+
+    return {
+        "cand": (lambda: c.select_candidates(x["t"], x["t_min"], 1, 3),
+                 lambda: c._mask_torch(c.CAND, 1, 3, t=x["t"],
+                                       t_min=x["t_min"])),
+        "payload": (lambda: c.select_payload(x["t"], x["t_min"], x["win"],
+                                             x["ca"], 1),
+                    lambda: c._mask_torch(c.PAYLOAD, 1, 3, t=x["t"],
+                                          t_min=x["t_min"], win=x["win"],
+                                          ca=x["ca"])),
+        "mean": (lambda: c.mean_payload(x["wrote"], x["ca"]),
+                 lambda: c._mask_torch(c.MEAN, 0, 0, ca=x["ca"],
+                                       wrote=x["wrote"])),
+        "first_hit": (fin(True, c.FIRST_HIT), fin(False, c.FIRST_HIT)),
+        "mean_fin": (fin(True, c.MEAN_FIN), fin(False, c.MEAN_FIN))}
+
+
+def compare_raw(label, kern, plain, n, dev, salt):
+    """K1/K2 raw mode with `salt` against the plain version on n lanes:
+    wrote and t identical on >= 99.9%, the colour as the fb gate (identical
+    on >= 99.9% of lanes) and within ACCUM_TOL.  Returns (max abs err, the
+    kernel's RawSample)."""
+    import torch
+    from icon_rt_tpu_torch.ops.fast import alloc_raw
+    rk, rp = alloc_raw(n, dev), alloc_raw(n, dev)
+    kern(rk, salt)
+    plain(rp, salt)
+    torch.cuda.synchronize()
+    same = float((rk.ca == rp.ca).all(1).float().mean())
+    same_t = float((rk.t == rp.t).float().mean())
+    err = float((rk.ca - rp.ca).abs().max())
+    print(f"check composite {label} raw rng_salt={salt}: wrote "
+          f"{'identical' if torch.equal(rk.wrote, rp.wrote) else 'DIFFER'}, "
+          f"colour identical on {same:.6f} and t on {same_t:.6f} of {n} "
+          f"lanes, colour max abs diff {err:.3e}")
+    if not torch.equal(rk.wrote, rp.wrote) or same < 0.999 \
+            or same_t < 0.999 or not err <= ACCUM_TOL:
+        raise AssertionError(f"{label} raw mode disagrees with its plain "
+                             f"version")
+    return err, rk
+
+
+def check_composite(sc, qtabs, dev):
+    """`check composite`: K10's masks and finalizes against their plain
+    versions on crafted inputs of K10_LANES lanes, exact; K1 and K2 in raw
+    mode, with and without rng_salt, against their plain versions on the
+    check scene; a raw sample through K10's mean finalize bit-equal to the
+    finalizing launch of the same sample.  Returns {kernel: max abs err}."""
+    import torch
+    from icon_rt_tpu_torch.ops import composite, fast, fastq
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    t0 = time.perf_counter()
+    aid = torch.tensor(3, dtype=torch.int32, device=dev)
+    for L in K10_LANES:
+        x = k10_inputs(dev, L, seed=L)
+        for mode, (kern, plain) in k10_calls(x, aid).items():
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"check composite K10 {mode} on {L} lanes: "
+                  f"{'bit-equal' if same else 'DIFFERS'}")
+            if not same:
+                raise AssertionError(f"K10 {mode} differs from its plain "
+                                     f"version")
+    q, loc, fm = qtabs
+    n, size = sc.n_cov, sc.width
+    pix = sc.perm[:n].contiguous()
+    f32 = (sc.packed, sc.loc, sc.bands, sc.lp)
+    qt = (q, loc, sc.bands, sc.tf, sc.lp)
+    tiers = {
+        "K1 track_f32": (
+            lambda out, s: fast.track_f32(*f32, pix, None, None, width=size,
+                                          height=size, rng_salt=s, out=out),
+            lambda out, s: fast._render_frame_fast_torch(
+                *f32, pix, None, None, size, size, 1, True, None,
+                fast._F32Tier, s, out),
+            lambda a, f: fast.track_f32(*f32, pix, a, f, width=size,
+                                        height=size)),
+        "K2 track_q": (
+            lambda out, s: fastq.track_q(*qt, pix, None, None, width=size,
+                                         height=size, finemap=fm,
+                                         rng_salt=s, out=out),
+            lambda out, s: fastq._render_frame_fast_q_torch(
+                *qt, pix, None, None, size, size, 1, True, fm, None, s, out),
+            lambda a, f: fastq.track_q(*qt, pix, a, f, width=size,
+                                       height=size, finemap=fm))}
+    errs = {"track_f32": 0.0, "track_q": 0.0}
+    for (label, (kern, plain, launch)), name in zip(tiers.items(), errs):
+        for salt in (0, 1, 2):
+            err, rk = compare_raw(label, kern, plain, n, dev, salt)
+            errs[name] = max(errs[name], err)
+            if salt:
+                continue
+            a, f = (x[:n] for x in alloc_frame(size, size, device=dev))
+            launch(a, f)
+            ar, fr = (x[:n] for x in alloc_frame(size, size, device=dev))
+            composite.finalize_mean(composite.mean_payload(rk.wrote, rk.ca),
+                                    ar, fr, sc.lp.accum_id)
+            same = torch.equal(a, ar) and torch.equal(f, fr)
+            print(f"check composite {label}: the raw sample through K10's "
+                  f"finalize and the finalizing launch "
+                  f"{'bit-equal' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"{label}: raw + finalize differs from "
+                                     f"the finalizing launch")
+    errs.update(composite_mask=0.0, composite_finalize=0.0)
+    print(f"check composite {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def time_composite(dev, errs, counts):
+    """K10's kernels and plain versions timed at the 1080p slab frame's
+    lanes (CUDA events), each mode; the rows carry the slab path's modes
+    (the payload mask, the first-hit finalize) and list the others."""
+    import torch
+    L = MAIN_W * MAIN_H
+    x = k10_inputs(dev, L, seed=1)
+    aid = torch.tensor(3, dtype=torch.int32, device=dev)
+    t = {}
+    for mode, (kern, plain) in k10_calls(x, aid, copy=False).items():
+        t[mode] = (time_cuda(kern, reps=50, warmup=3),
+                   time_cuda(plain, reps=20, warmup=2),
+                   bound(K10_BYTES[mode] * L, 0))
+        print(f"time K10 {mode} ({L} lanes): kernel {t[mode][0]:.4f} ms, "
+              f"plain {t[mode][1]:.4f} ms, bound {t[mode][2][0]:.4f} ms "
+              f"(bytes)")
+    rows = []
+    for name, mode, others in (("composite_mask", "payload",
+                                ("cand", "mean")),
+                               ("composite_finalize", "first_hit",
+                                ("mean_fin",))):
+        kernel_row(rows, counts, errs, name, "cuda",
+                   "icon_rt_tpu_torch/csrc/composite.cu", K10_REPLACES,
+                   t[mode][0], t[mode][1], t[mode][2], mode=mode, lanes=L,
+                   other_modes={m: dict(ms=t[m][0], plain_ms=t[m][1],
+                                        bound_ms=t[m][2][0])
+                                for m in others})
+    return rows
+
+
+def run_md(tag, job, world, backend, **kw):
+    """run_ranks of `job` with kw on `world` new ranks over `backend`,
+    printing the backend, the world size and how many cards they share.
+    Returns the ranks' results."""
+    import torch
+    from icon_rt_tpu_torch.parallel import ranks
+    cards = torch.cuda.device_count()
+    print(f"{tag} backend {backend}, world size {world}, "
+          f"{min(world, cards)} card(s) shared by {-(-world // cards)} "
+          f"rank(s) each")
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    t0 = time.perf_counter()
+    try:
+        out = ranks.run_ranks(functools.partial(job, **kw), world, backend,
+                              timeout=MD_TIMEOUT, rendezvous_dir=rdv)
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+    print(f"{tag} {world} rank(s) ran {time.perf_counter() - t0:.1f} s "
+          f"(start, build and path)")
+    return out
+
+
+def sum_counts(results):
+    out = {}
+    for r in results:
+        for k, v in r["counts"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def main_anim(dev):
+    """`main anim r2b9q 4k`: BASELINE configs[4] at full size --
+    build_q_scene(11, 16), the closeup camera at 3840x2160, two timesteps
+    (the second value_q halved on the card), ANIM_SPF samples per frame,
+    the fine map on -- through data/animation.py `animate_fastq_sharded`:
+    (a) one process, (b) tiles=1 over NCCL (world size 1), (c) tiles=2 over
+    gloo (two ranks sharing the card, each with the whole scene).  The
+    frames of (a), (b) and (c) bit-equal, the two timesteps different.
+    Returns the launch counts of the three runs."""
+    import torch
+    from icon_rt_tpu_torch.ops.render import fb_to_image
+    from icon_rt_tpu_torch.parallel import ranks
+    from icon_rt_tpu_torch.utils.png import write_png
+    tag = "main anim r2b9q 4k"
+    W, H = ANIM_W, ANIM_H
+    kw = dict(inputs=functools.partial(ranks.r2b9_animation, W, H),
+              tier="q", width=W, height=H, samples_per_frame=ANIM_SPF,
+              finemap=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{tag} (a) one process, no process group")
+    runs = {"a": [ranks.animate_job(0, 1, None, dev, mesh=False, **kw)]}
+    torch.cuda.empty_cache()
+    runs["b"] = run_md(f"{tag} (b)", ranks.animate_job, 1, "nccl", tiles=1,
+                       **kw)
+    runs["c"] = run_md(f"{tag} (c)", ranks.animate_job, 2, "gloo", tiles=2,
+                       **kw)
+    frames = runs["a"][0]["frames"]
+    for name, rs in runs.items():
+        for r, res in enumerate(rs):
+            tm, n_f = res["timings"], len(frames)
+            n_s = n_f * ANIM_SPF
+            print(f"{tag} ({name}) rank {r}: build {res['build_s']:.2f} s; "
+                  f"{res['seconds'] / n_f * 1e3:.1f} ms per frame "
+                  f"({ANIM_SPF} samples; bake "
+                  f"{tm['bake'] / n_f * 1e3:.2f} ms, order and deal "
+                  f"{tm['order'] / n_f * 1e3:.2f} ms, K2 "
+                  f"{tm['track'] / n_s * 1e3:.3f} ms per sample launch, "
+                  f"gather and scatter {tm['gather'] / n_f * 1e3:.2f} ms); "
+                  f"{W * H * n_s / res['seconds'] / 1e6:.1f} Mray/s; peak "
+                  f"{res['peak_gib']:.2f} GiB")
+        if name == "a":
+            continue
+        got = rs[0]["frames"]
+        same = len(got) == 2 and all(np.array_equal(g, f)
+                                     for g, f in zip(got, frames))
+        verdict = "bit-equal to" if same else "DIFFER from"
+        print(f"{tag} ({name}) frames {verdict} (a)'s")
+        if not same:
+            raise AssertionError(f"{tag}: run ({name}) differs from (a)")
+    cov = [float(((f >> 24) > 0).mean()) for f in frames]
+    differ = not np.array_equal(frames[0], frames[1])
+    n_diff = int((frames[0] != frames[1]).sum())
+    print(f"{tag} covered {cov[0]:.4f}, {cov[1]:.4f}; timesteps "
+          f"{'differ' if differ else 'IDENTICAL'} ({n_diff} pixels)")
+    if not differ or min(cov) < MIN_COVERED["closeup"]:
+        raise AssertionError(f"{tag}: the timesteps do not differ or the "
+                             f"image covers too little")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for t, f in enumerate(frames):
+        write_png(os.path.join(OUT_DIR, f"chip_smoke_anim_t{t}.png"),
+                  fb_to_image(f.view(np.int32), W, H))
+    counts = sum_counts([r for rs in runs.values() for r in rs])
+    require_counts(tag, {k: counts[k] for k in ("track_q", "bake_alpha_q",
+                                                "chord_keys")})
+    peak_memory(tag)
+    return counts
+
+
+def per_step(tag, tm, n, keys, unit="sample"):
+    """Print the seconds per part of `tm` over n steps as ms per step."""
+    print(f"{tag} ms per {unit}: " + ", ".join(
+        f"{k} {tm.get(k, 0.0) / n * 1e3:.3f}" for k in keys))
+
+
+def main_slabs(dev):
+    """`main slabs`: the scene shard at subdiv 8 x 16, 1080p, closeup,
+    quantized: D=2 slabs x 1 tile (two gloo ranks, with rank 0's unsharded
+    K2 image of the same field), then 2 x 2 (four ranks); SLAB_SPP samples.
+    The 2 x 2 accum and fb bit-equal to the 2 x 1 ones; the composite's
+    coverage equal to the unsharded image's and its RMSE over covered
+    pixels below 0.55 / sqrt(spp) (tests/test_scene_shard.py:100-104).
+    Returns the launch counts of both runs."""
+    from icon_rt_tpu_torch.parallel import ranks
+    tag = "main slabs"
+    W, H = MAIN_W, MAIN_H
+    kw = dict(inputs=functools.partial(ranks.synthetic_scene, "slab",
+                                       MAIN_SUB, MAIN_LAYERS, W, H),
+              slabs=2, width=W, height=H, spp=SLAB_SPP)
+    one = run_md(f"{tag} 2x1", ranks.slab_job, 2, "gloo", reference=True,
+                 **kw)
+    two = run_md(f"{tag} 2x2", ranks.slab_job, 4, "gloo", tiles=2, **kw)
+    keys = ("track", "t_min", "cand", "payload", "composite")
+    for name, rs in (("2x1", one), ("2x2", two)):
+        for r, res in enumerate(rs):
+            per_step(f"{tag} {name} rank {r} (build {res['build_s']:.1f} "
+                       f"s, peak {res['peak_gib']:.2f} GiB)",
+                       res["timings"], SLAB_SPP, keys)
+    r0, r2 = one[0], two[0]
+    print(f"{tag} K2 raw mode (rng_salt 1, one sample, slab 0 of 2): "
+          f"{r0['k2_raw_ms']:.3f} ms per launch over {W * H} lanes (2x1), "
+          f"{r2['k2_raw_ms']:.3f} ms over {W * H // 2} (2x2), CUDA events")
+    same = np.array_equal(r0["accum"], r2["accum"]) \
+        and np.array_equal(r0["fb"], r2["fb"])
+    verdict = "bit-equal to" if same else "DIFFER from"
+    print(f"{tag} 2x2 accum and fb {verdict} 2x1")
+    acc, ref = r0["accum"], r0["ref_accum"]
+    cov, cov_r = acc[:, 3] > 0, ref[:, 3] > 0
+    rmse = float(np.sqrt(np.mean((acc[cov_r] - ref[cov_r]) ** 2)))
+    limit = 0.55 / np.sqrt(SLAB_SPP)
+    cov_same = np.array_equal(cov, cov_r)
+    print(f"{tag} composite against the unsharded K2 image after "
+          f"{SLAB_SPP} samples: coverage "
+          f"{'equal' if cov_same else 'DIFFERS'} ({float(cov_r.mean()):.4f}),"
+          f" RMSE {rmse:.5f} over covered pixels (bound {limit:.5f})")
+    if not same or not cov_same or not rmse < limit \
+            or not np.isfinite(acc).all():
+        raise AssertionError(f"{tag}: the slab composite fails its checks")
+    counts = sum_counts(one + two)
+    require_counts(tag, {k: counts[k] for k in (
+        "track_q", "composite_mask", "composite_finalize")})
+    return counts
+
+
+def main_samples(dev):
+    """`main samples`: the samples axis on the f32 tier, subdiv 8 x 16,
+    1080p, closeup: tiles=1 x samples=2 (two gloo ranks),
+    SAMPLES_LAUNCHES steps.  Each rank's K10 mean composite equals the
+    plain mean on the card; pixels every one of whose samples wrote equal
+    the sequential frame of the same samples to accum 1e-6
+    (icon_rt_tpu/parallel/sharded.py:14-20).  Returns the launch counts."""
+    from icon_rt_tpu_torch.parallel import ranks
+    tag = "main samples"
+    rs = run_md(f"{tag} 1x2", ranks.samples_job, 2, "gloo",
+                inputs=functools.partial(ranks.synthetic_scene, "f32",
+                                         MAIN_SUB, MAIN_LAYERS, MAIN_W,
+                                         MAIN_H),
+                width=MAIN_W, height=MAIN_H, launches=SAMPLES_LAUNCHES,
+                samples=2, reference=True)
+    for r, res in enumerate(rs):
+        per_step(f"{tag} rank {r} (build {res['build_s']:.1f} s, peak "
+                 f"{res['peak_gib']:.2f} GiB)", res["timings"],
+                 SAMPLES_LAUNCHES, ("track", "composite", "all_reduce"),
+                 unit="step of 2 samples")
+    r0 = rs[0]
+    aw = r0["all_wrote"]
+    err = float(np.abs(r0["accum"][aw] - r0["ref_accum"][aw]).max())
+    equal = all(r["mean_equal"] for r in rs)
+    verdict = "equals" if equal else "DIFFERS from"
+    print(f"{tag} K10 mean composite {verdict} the plain mean on every "
+          f"rank; {int(aw.sum())} pixels all of "
+          f"whose {2 * SAMPLES_LAUNCHES} samples wrote: accum max abs diff "
+          f"{err:.3e} against the sequential frame; fb differs on "
+          f"{int((r0['fb'] != r0['ref_fb']).sum())} pixels (silhouettes)")
+    if not equal or not err <= 1e-6 or aw.sum() < 0.5 * MAIN_W * MAIN_H:
+        raise AssertionError(f"{tag}: the samples axis fails its checks")
+    counts = sum_counts(rs)
+    require_counts(tag, {k: counts[k] for k in (
+        "track_f32", "composite_mask", "composite_finalize")})
+    return counts
+
+
 def build_all():
     """nvcc of every csrc/*.cu kernel, started together; prints seconds and
     the ptxas register/spill lines."""
@@ -3333,6 +3775,7 @@ def build_all():
     from icon_rt_tpu_torch.models.locator import build_locator_kernel
     from icon_rt_tpu_torch.ops.render import build_parity
     from icon_rt_tpu_torch.ops.uelems import build_uelems
+    from icon_rt_tpu_torch.ops.composite import build_composite
     from icon_rt_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(CU_SOURCES)) as ex:
@@ -3343,7 +3786,7 @@ def build_all():
                                           build_parity,
                                           lambda: build_track_f32(
                                               "track_wedge"),
-                                          build_uelems)]:
+                                          build_uelems, build_composite)]:
             f.result()
     for name in CU_SOURCES:
         info = cuda_build.info(name)
@@ -3377,6 +3820,8 @@ def main() -> int:
     errs.update(check_march(sc, qtabs, dev))
     w_errs, k9n = check_wedge(sc, dev)
     errs.update(w_errs)
+    for k, v in check_composite(sc, qtabs, dev).items():
+        errs[k] = max(errs.get(k, 0.0), v)
     del sc, qtabs
     print(f"build+check Triton compiles and checks "
           f"{time.perf_counter() - t1:.2f} s")
@@ -3489,6 +3934,22 @@ def main() -> int:
     print(f"time parity phases {time.perf_counter() - t0:.1f} s")
     rows += parity_rows(loc_rows, brute_rows, errs, counts_p)
     rows += wedge_rows(w_rows, p_rows, k9n, errs, {**counts_p, **counts_w})
+
+    # the multi-device phases, every earlier table freed; their ranks are
+    # processes of their own (icon_rt_tpu_torch/parallel/ranks.py)
+    t0 = time.perf_counter()
+    main_anim(dev)
+    t1 = time.perf_counter()
+    counts_s = main_slabs(dev)
+    t2 = time.perf_counter()
+    counts_x = main_samples(dev)
+    t3 = time.perf_counter()
+    rows += time_composite(dev, errs, {
+        k: counts_s[k] + counts_x[k]
+        for k in ("composite_mask", "composite_finalize")})
+    print(f"time multi-device phases {time.perf_counter() - t0:.1f} s: main "
+          f"anim r2b9q 4k {t1 - t0:.1f} s, main slabs {t2 - t1:.1f} s, main "
+          f"samples {t3 - t2:.1f} s")
     for r in rows:              # the R2B9 checks ran after the first rows
         r["max_abs_err"] = errs[r["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s")

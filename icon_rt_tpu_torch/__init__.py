@@ -23,6 +23,8 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
   K9-p   ops/render.py     parity_track(sampler="wedge")  CUDA C++
          (csrc/parity.cu with the Newton of csrc/uelems.cuh)
   K9-n   ops/uelems.py     uelems_points  CUDA C++ (csrc/uelems.cu)
+  K10    ops/composite.py  composite_mask, composite_finalize  CUDA C++
+         (csrc/composite.cu: the multi-device composites)
 
 K1, K2 and K3 share the lane setup of csrc/track_common.cuh and the storage
 tiers of csrc/tier_f32.cuh and csrc/tier_q.cuh; K1, K2 and K9-w (the wedge
@@ -31,7 +33,9 @@ is the deterministic march (the app's --march).  K8 is the
 reference-parity raygens (--raygen ae / accel), the renderer's ground
 truth; K9-p is K8 with the cuBQL mode's Newton wedge sampler (-mode 2),
 and K9-n holds the Newton intersectors of all three element types
-against their plain version.
+against their plain version.  K10 joins the ranks of a sharded frame
+around `torch.distributed` collectives: the first hit over latitude slabs
+and the mean over the samples axis, from K1's and K2's raw mode.
 
 Every kernel has a plain-PyTorch version in the same module.  A wrapper
 launches its kernel for a CUDA tensor and runs the plain version for a CPU
@@ -43,7 +47,8 @@ Layer map (bottom-up), mirroring icon_rt_tpu:
                module loader
   data/      — .ic IO, synthetic icosphere scenes, the north-star scene
                built on the device (build_q_scene), its LOD mip tiers
-               (lod.py), the locator and fine-map caches
+               (lod.py), the locator and fine-map caches, time series
+               (animation.py)
   models/    — cells, quantized cells, transfer function, locator (dense
                and CSR), fine map, radial bands, majorant grids, wedges
   ops/       — camera, ray ordering and the measured-cost re-sort,
@@ -51,6 +56,9 @@ Layer map (bottom-up), mirroring icon_rt_tpu:
                (f32, quantized and wedge tiers), the march, the parity
                raygens (Woodcock tracking, majorant traversals) and the
                Newton intersectors of unstructured elements
+  parallel/  — the tile x sample mesh (sharded.py), the latitude-slab
+               scene shard (scene_shard.py), the ranks' launcher and jobs
+               (ranks.py), over torch.distributed
   pipeline/  — frame loop, CLI flags, .xf IO, TF editor
   app.py     — the icon_rt application (apps/icon_rt_torch.py)
 """

@@ -50,12 +50,17 @@ struct TrackCommon {
   int32_t* fb;           // (n_lanes,) in/out, u32 bits
   int32_t* cost;         // (width * height,) out in natural pixel order, or
                          // null: each lane's tracking steps (K1, K2)
+  uint8_t* raw_wrote;    // raw mode (K1, K2; null = finalize): per lane the
+  float* raw_ca;         // sample's wrote flag (L,), its colour and alpha
+  float* raw_t;          // (L, 4) and (or null) the accepted collision's t
+                         // (L,), +inf without one; accum and fb untouched
   float cam[12];         // org | dir00 | du | dv
   float amb[3];
   float amb_rad;
   float ud;
   int nb, n_lanes, width, height, accum_id, samples, preserve_cache,
       max_steps;
+  uint32_t rng_salt;     // != 0 re-keys each lane's tracking stream
 };
 
 namespace track {
@@ -148,6 +153,13 @@ __device__ __forceinline__ Lane init_lane(const TrackCommon& p, int x, int y,
       static_cast<uint32_t>(y));
   const float jx = lcg_next(L.rng);
   const float jy = lcg_next(L.rng);
+  // rng_salt re-keys the tracking stream after the jitter draws: every slab
+  // of a scene-sharded frame traces the same ray with an independent stream
+  // (icon_rt_tpu/ops/fast.py:601-604; the product wraps in u32 by design)
+  if (p.rng_salt != 0u) {
+    L.rng ^= p.rng_salt * 2654435761u;
+    lcg_next(L.rng);
+  }
   const float u = static_cast<float>(x) + 0.5f + jx;
   const float v = static_cast<float>(y) + 0.5f + jy;
   float dx = p.cam[3] + u * p.cam[6] + v * p.cam[9];
@@ -198,22 +210,29 @@ __device__ __forceinline__ float blend(float sc, float c, float acc) {
   return sc * c + (1.0f - sc) * acc;
 }
 
-// The lane's running average into accum and, if any of its samples wrote,
-// its sRGB RGBA8 pack into fb (K4).
-__device__ __forceinline__ void store_lane(const TrackCommon& p, int lane,
-                                           float ar, float ag, float ab,
-                                           float aa, bool wany) {
-  p.accum[lane * 4 + 0] = ar;
-  p.accum[lane * 4 + 1] = ag;
-  p.accum[lane * 4 + 2] = ab;
-  p.accum[lane * 4 + 3] = aa;
+// A lane's running average into accum and, if any of its samples wrote,
+// its sRGB RGBA8 pack into fb (K4; also the K10 composites' epilogue,
+// csrc/composite.cu).
+__device__ __forceinline__ void store_pixel(float* accum, int32_t* fb,
+                                            int lane, float ar, float ag,
+                                            float ab, float aa, bool wany) {
+  accum[lane * 4 + 0] = ar;
+  accum[lane * 4 + 1] = ag;
+  accum[lane * 4 + 2] = ab;
+  accum[lane * 4 + 3] = aa;
   if (wany) {
     const uint32_t packed = make_8bit(linear_to_srgb(ar)) |
                             (make_8bit(linear_to_srgb(ag)) << 8) |
                             (make_8bit(linear_to_srgb(ab)) << 16) |
                             (make_8bit(aa) << 24);
-    p.fb[lane] = static_cast<int32_t>(packed);
+    fb[lane] = static_cast<int32_t>(packed);
   }
+}
+
+__device__ __forceinline__ void store_lane(const TrackCommon& p, int lane,
+                                           float ar, float ag, float ab,
+                                           float aa, bool wany) {
+  store_pixel(p.accum, p.fb, lane, ar, ag, ab, aa, wany);
 }
 
 // One lane: `samples` progressive samples of pixel p.pix[lane], then the
@@ -223,7 +242,10 @@ __device__ __forceinline__ void store_lane(const TrackCommon& p, int lane,
 // measured cost the re-sort K6b orders the next launch's lanes by (the
 // reference's `return_cost`, ops/fast.py:1190-1191, counts wavefront
 // iterations instead).  The count lives in a register; the one store is
-// skipped when p.cost is null, as on the main path.
+// skipped when p.cost is null, as on the main path.  In raw mode (p.raw_ca
+// set, one sample) the lane stores its sample's wrote, colour and t for a
+// composite across ranks (csrc/composite.cu) and reads and writes neither
+// accum nor fb.
 template <class Tier>
 __device__ __forceinline__ void track_lane(const TrackCommon& p,
                                            const Tier& T, int lane) {
@@ -238,8 +260,14 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
   const float amb_b = p.amb[2] * p.amb_rad;
   const int nb = p.nb;
 
-  float ar = p.accum[lane * 4 + 0], ag = p.accum[lane * 4 + 1];
-  float ab = p.accum[lane * 4 + 2], aa = p.accum[lane * 4 + 3];
+  const bool raw = p.raw_ca != nullptr;
+  float ar = 0.0f, ag = 0.0f, ab = 0.0f, aa = 0.0f;
+  if (!raw) {
+    ar = p.accum[lane * 4 + 0];
+    ag = p.accum[lane * 4 + 1];
+    ab = p.accum[lane * 4 + 2];
+    aa = p.accum[lane * 4 + 3];
+  }
   bool wany = false;
 
   // two-slot column cache (registers); slot 0 pinned to the first column
@@ -359,7 +387,15 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
       cb = cb * amb_b;
       ca = 1.0f;
     }
-    if (wrote) {
+    if (raw) {
+      p.raw_wrote[lane] = wrote ? 1 : 0;
+      p.raw_ca[lane * 4 + 0] = cr;
+      p.raw_ca[lane * 4 + 1] = cg;
+      p.raw_ca[lane * 4 + 2] = cb;
+      p.raw_ca[lane * 4 + 3] = ca;
+      if (p.raw_t != nullptr)
+        p.raw_t[lane] = alpha > 0.0f ? t : __int_as_float(0x7f800000);
+    } else if (wrote) {
       const float sc =
           1.0f / (static_cast<float>(p.accum_id + samp) + 1.0f);
       ar = blend(sc, cr, ar);
@@ -369,7 +405,7 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
       wany = true;
     }
   }
-  store_lane(p, lane, ar, ag, ab, aa, wany);
+  if (!raw) store_lane(p, lane, ar, ag, ab, aa, wany);
   if (p.cost != nullptr) p.cost[pixel] = steps;
 }
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .data.animation import Animation
 from .data.device_scene import DeviceScene
 from .data.icfile import ICDataset
 from .models.accel import GridAccel, ShellAccel
@@ -28,6 +29,7 @@ from .models.transfunc import Transfunc
 from .models.wedges import Wedges
 from .ops.fast import PackedCells
 from .ops.render import LaunchParams
+from .parallel.scene_shard import ShardedScene
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -163,3 +165,36 @@ def device_scene(dsc, n: int, device="cpu") -> DeviceScene:
                         for f in CellStats._fields))
     return DeviceScene(cells=quantized_cells(dsc.cells, device, n),
                        bands=radial_bands(dsc.bands, device), stats=stats)
+
+
+def sharded_scene(scene, slab: int, n: int, k_cap: int,
+                  device="cpu") -> ShardedScene:
+    """Slab `slab` of a JAX ShardedScene (every slab's tables stacked and
+    padded to a common shape, packed as pack_table rows) as this package's
+    one-slab ShardedScene: the slab's n cells and its locator's n_lat *
+    n_lon rows of k_cap candidates, padding dropped."""
+    dims = np.asarray(scene.dims)[slab]
+    hf = np.asarray(scene.h_frac)[slab]
+    lm = hf.shape[1]
+    t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
+    f32 = lambda v: torch.tensor(float(np.float32(v)), dtype=torch.float32,
+                                 device=device)
+    return ShardedScene(
+        test12=t(_unpack_table(np.asarray(scene.test12)[slab], 12, n)),
+        h_frac=t(hf.astype(np.float32) if hf.shape[0] == 1
+                 else hf[:n].astype(np.float32)),
+        value_q=t(_unpack_table(np.asarray(scene.value_q)[slab], lm, n)),
+        alpha_q=t(_unpack_table(np.asarray(scene.alpha_q)[slab], lm, n)),
+        value_lo=f32(scene.value_lo), value_hi=f32(scene.value_hi),
+        alpha_max=f32(np.asarray(scene.alpha_max)[slab]),
+        bins=t(_unpack_table(np.asarray(scene.bins)[slab], k_cap,
+                             int(dims[0]) * int(dims[1])).astype(np.int32)),
+        **{f: f32(np.asarray(getattr(scene, f))[slab])
+           for f in ("lat_lo", "lat_hi", "lon_lo", "lon_hi")},
+        dims=t(dims.astype(np.int32)))
+
+
+def animation(anim) -> Animation:
+    """A JAX Animation (numpy geometry and values) as this package's."""
+    return Animation([dataset(anim.dataset_at(t))
+                      for t in range(anim.num_timesteps)])

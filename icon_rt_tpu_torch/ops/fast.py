@@ -17,9 +17,12 @@ Kernels of this module (each beside its plain-PyTorch version):
   K1+K4 `track_f32` (CUDA C++, csrc/track_f32.cu on the machine of
         csrc/track_common.cuh) — one thread per lane runs its pixel's
         `samples` samples to completion and writes the running average,
-        sRGB and RGBA8 pack.  Plain version: `_render_frame_fast_torch`,
-        the lock-step loop `_track_torch` over the lanes with the same
-        per-lane order of operations and RNG draws; the quantized tier
+        sRGB and RGBA8 pack; in raw mode (`out=`) it stores one sample per
+        lane for the multi-device composites (ops/composite.py) instead,
+        and `rng_salt` re-keys the tracking streams.  Plain version:
+        `_render_frame_fast_torch`, the lock-step loop `_track_torch` over
+        the lanes with the same per-lane order of operations and RNG
+        draws; the quantized tier
         (ops/fastq.py) runs the same loop on its own storage tier.
   K9-w  `track_wedge` (CUDA C++, csrc/track_wedge.cu, the same machine on
         the wedge tier csrc/tier_wedge.cuh) — the reference's cuBQL mode
@@ -470,17 +473,21 @@ class _Lanes(NamedTuple):
 
 
 def _init_lanes(lp, xs, ys, width: int, height: int, edges, majors, oo,
-                nb: int, aid) -> _Lanes:
+                nb: int, aid, rng_salt: int = 0) -> _Lanes:
     """Ray setup of sample `aid` ((), int64) of the pixels (xs, ys): the
     jittered pinhole ray (ref: deviceCode.cu:36-49), its clip to the shell
     (up to two segments, t >= 0) and the first band -- icon_rt_tpu/ops/
     fast.py `_raygen_soa` and `_init_lanes`, and csrc/track_common.cuh
-    `init_lane`."""
+    `init_lane`.  rng_salt != 0 re-keys the tracking stream after the two
+    jitter draws (icon_rt_tpu/ops/fast.py:601-604): the scene shard's slabs
+    trace the same ray with independent streams."""
     ox, oy, oz = lp.cam_org[0], lp.cam_org[1], lp.cam_org[2]
     seed0 = ((aid & 0xFFFFFFFF) * (width * height) + xs) & 0xFFFFFFFF
     rng = lcg_init(seed0, ys)
     rng, jx = lcg_next(rng)
     rng, jy = lcg_next(rng)
+    if rng_salt:
+        rng = lcg_next(rng ^ ((rng_salt * 2654435761) & 0xFFFFFFFF))[0]
     u = xs.to(F32) + 0.5 + jx
     v = ys.to(F32) + 0.5 + jy
     dx = lp.cam_dir00[0] + u * lp.cam_du[0] + v * lp.cam_dv[0]
@@ -652,11 +659,14 @@ class _WedgeTier(_F32Tier):
 
 
 def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
-                 height: int, samples: int, preserve_cache: bool, cost=None):
+                 height: int, samples: int, preserve_cache: bool, cost=None,
+                 rng_salt: int = 0, out=None):
     """Plain-PyTorch tracking machine over the lanes of `pix` (pixel ids)
     for a storage tier (`_F32Tier`, ops/fastq.py `_QTier`); updates accum
     (L, 4) and fb (L,) in place, and with `cost` ((W*H,) int32) writes each
-    lane's tracking steps over its samples at its pixel.
+    lane's tracking steps over its samples at its pixel.  With `out` (a
+    `RawSample`, one sample) it stores the sample there instead and leaves
+    accum and fb (then None) alone; rng_salt as `_init_lanes`.
 
     All lanes advance in lock step, one tracking step per iteration: a
     step draws the flight uniform xi; an overshoot (or a zero majorant)
@@ -685,7 +695,8 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
     amb = lp.ambient_color * lp.ambient_radiance
     zero = torch.zeros((), dtype=F32, device=dev)
 
-    acc, pixels = accum.clone(), fb.clone()
+    if out is None:
+        acc, pixels = accum.clone(), fb.clone()
     new_test = lambda: torch.zeros((L, tier.test_w), dtype=F32, device=dev)
     new_i = lambda: torch.zeros(L, dtype=torch.int64, device=dev)
     new_b = lambda: torch.zeros(L, dtype=torch.bool, device=dev)
@@ -703,7 +714,7 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
             c_mru = new_b()
         # -- ray setup: jittered pinhole ray, shell clip, first band --------
         ln = _init_lanes(lp, xs, ys, width, height, edges, majors, oo, nb,
-                         lp.accum_id.to(torch.int64) + samp)
+                         lp.accum_id.to(torch.int64) + samp, rng_salt)
         dx, dy, dz, od, rng = ln.dx, ln.dy, ln.dz, ln.od, ln.rng
         t, seg_hi, si, s1_lo, s1_hi = (ln.t, ln.seg_hi, ln.si, ln.s1_lo,
                                        ln.s1_hi)
@@ -813,16 +824,23 @@ def _track_torch(tier, bands: RadialBands, lp, pix, accum, fb, width: int,
             rgb = tier.shade(cid, tier.coord(
                 rows, ox + dx[g] * tg, oy + dy[g] * tg, oz + dz[g] * tg,
                 _r_of(tg, od[g], oo)))
-            for ch, out in enumerate((cr, cg, cb)):
-                out[g] = rgb[ch] * amb[ch]
+            for ch, chan in enumerate((cr, cg, cb)):
+                chan[g] = rgb[ch] * amb[ch]
         ca = torch.where(alpha > 0.0, 1.0, zero)
+        color = torch.stack([cr, cg, cb, ca], dim=1)
+        if out is not None:
+            out.wrote.copy_(wrote)
+            out.ca.copy_(color)
+            out.t.copy_(torch.where(alpha > 0.0, t, float("inf")))
+            continue
         # fb is repacked after every sample; a lane's last write packs its
         # final accum, as the kernel's single pack at the end does
-        acc, pixels = _finalize(wrote, torch.stack([cr, cg, cb, ca], dim=1),
-                                acc, pixels, lp.accum_id + samp)
+        acc, pixels = _finalize(wrote, color, acc, pixels,
+                                lp.accum_id + samp)
 
-    accum.copy_(acc)
-    fb.copy_(pixels)
+    if out is None:
+        accum.copy_(acc)
+        fb.copy_(pixels)
     if cost is not None:
         cost[pix.long()] = steps_l.to(torch.int32)
 
@@ -831,12 +849,12 @@ def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
                              bands: RadialBands, lp, pix, accum, fb,
                              width: int, height: int, samples: int,
                              preserve_cache: bool, cost=None,
-                             tier=_F32Tier):
+                             tier=_F32Tier, rng_salt: int = 0, out=None):
     """Plain-PyTorch K1+K4 (or, with tier=_WedgeTier, K9-w) over the lanes
     of `pix` (pixel ids): the tracking machine `_track_torch` on the f32
     tier (the wedge tier)."""
     _track_torch(tier(packed, loc), bands, lp, pix, accum, fb, width,
-                 height, samples, preserve_cache, cost)
+                 height, samples, preserve_cache, cost, rng_salt, out)
 
 
 # ===========================================================================
@@ -849,35 +867,80 @@ class _TrackCommon(ctypes.Structure):
         ("edges", ctypes.c_void_p), ("majors", ctypes.c_void_p),
         ("pix", ctypes.c_void_p), ("accum", ctypes.c_void_p),
         ("fb", ctypes.c_void_p), ("cost", ctypes.c_void_p),
+        ("raw_wrote", ctypes.c_void_p), ("raw_ca", ctypes.c_void_p),
+        ("raw_t", ctypes.c_void_p),
         ("cam", ctypes.c_float * 12), ("amb", ctypes.c_float * 3),
         ("amb_rad", ctypes.c_float), ("ud", ctypes.c_float),
         ("nb", ctypes.c_int), ("n_lanes", ctypes.c_int),
         ("width", ctypes.c_int), ("height", ctypes.c_int),
         ("accum_id", ctypes.c_int), ("samples", ctypes.c_int),
         ("preserve_cache", ctypes.c_int), ("max_steps", ctypes.c_int),
+        ("rng_salt", ctypes.c_uint),
     ]
+
+
+class RawSample(NamedTuple):
+    """One sample of K1/K2 in raw mode, per lane, before any composite:
+    wrote (L,) bool (the ray met the shell), ca (L, 4) f32 (its colour and
+    alpha, 0 without a collision) and t (L,) f32 (the accepted collision's
+    ray parameter, +inf without one: icon_rt_tpu/ops/fastq.py:268-271)."""
+    wrote: torch.Tensor
+    ca: torch.Tensor
+    t: torch.Tensor
+
+
+def alloc_raw(n_lanes: int, device) -> RawSample:
+    """An uninitialised RawSample of n_lanes lanes on `device`."""
+    return RawSample(
+        wrote=torch.empty(n_lanes, dtype=torch.bool, device=device),
+        ca=torch.empty((n_lanes, 4), dtype=F32, device=device),
+        t=torch.empty(n_lanes, dtype=F32, device=device))
+
+
+def check_raw(fn, out: RawSample, accum, fb, n_lanes: int, samples: int,
+              dev):
+    """Raise ValueError unless accum and fb are given without `out`, or
+    `out` is a RawSample of n_lanes lanes on `dev` for one sample."""
+    if out is None:
+        if accum is None or fb is None:
+            raise ValueError(f"{fn}: accum and fb are needed without out=")
+        return
+    if samples != 1:
+        raise ValueError(f"{fn}: raw mode (out=) takes one sample")
+    ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev, fn=fn)
+    ck("out.wrote", out.wrote, torch.bool, (n_lanes,))
+    ck("out.ca", out.ca, F32, (n_lanes, 4))
+    ck("out.t", out.t, F32, (n_lanes,))
 
 
 def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
                  height: int, samples: int, preserve_cache: bool,
-                 cost=None) -> _TrackCommon:
+                 cost=None, rng_salt: int = 0,
+                 out: RawSample | None = None) -> _TrackCommon:
     """The tier-independent launch arguments of K1, K2 and K3 (one host
     read of the launch scalars); `cost` is K1's and K2's optional (W*H,)
-    int32 step-count output."""
+    int32 step-count output, `out` their raw mode's RawSample and rng_salt
+    their tracking streams' salt."""
     host = torch.cat([
         lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv, lp.ambient_color,
         lp.ambient_radiance.reshape(1), lp.unit_distance.reshape(1),
     ]).to(F32).tolist()
     return _TrackCommon(
         edges=bands.edges.data_ptr(), majors=bands.max_opacities.data_ptr(),
-        pix=pix.data_ptr(), accum=accum.data_ptr(), fb=fb.data_ptr(),
+        pix=pix.data_ptr(),
+        accum=None if accum is None else accum.data_ptr(),
+        fb=None if fb is None else fb.data_ptr(),
         cost=None if cost is None else cost.data_ptr(),
+        raw_wrote=None if out is None else out.wrote.data_ptr(),
+        raw_ca=None if out is None else out.ca.data_ptr(),
+        raw_t=None if out is None else out.t.data_ptr(),
         cam=(ctypes.c_float * 12)(*host[0:12]),
         amb=(ctypes.c_float * 3)(*host[12:15]),
         amb_rad=host[15], ud=host[16], nb=bands.max_opacities.shape[0],
         n_lanes=pix.shape[0], width=width, height=height,
         accum_id=int(lp.accum_id), samples=samples,
-        preserve_cache=int(bool(preserve_cache)), max_steps=MAX_STEPS)
+        preserve_cache=int(bool(preserve_cache)), max_steps=MAX_STEPS,
+        rng_salt=rng_salt & 0xFFFFFFFF)
 
 
 class _TrackParams(ctypes.Structure):
@@ -933,7 +996,8 @@ def _check(name, x, dtype, shape, device, fn="track_f32"):
 
 def _track_packed(name: str, tier, packed: PackedCells, loc: Locator,
                   bands: RadialBands, lp, pix, accum, fb, width: int,
-                  height: int, samples: int, preserve_cache: bool, cost):
+                  height: int, samples: int, preserve_cache: bool, cost,
+                  rng_salt: int = 0, out: RawSample | None = None):
     """K1 (name track_f32, tier _F32Tier) or K9-w (track_wedge,
     _WedgeTier): check the tables, then launch csrc/<name>.cu for CUDA
     tensors or run the plain version on `tier` for CPU tensors."""
@@ -949,8 +1013,10 @@ def _track_packed(name: str, tier, packed: PackedCells, loc: Locator,
     ck("bands.edges", bands.edges, F32, (nb + 1,))
     ck("bands.max_opacities", bands.max_opacities, F32, (nb,))
     ck("pix", pix, torch.int32, (L,))
-    ck("accum", accum, F32, (L, 4))
-    ck("fb", fb, torch.int32, (L,))
+    check_raw(name, out, accum, fb, L, samples, dev)
+    if out is None:
+        ck("accum", accum, F32, (L, 4))
+        ck("fb", fb, torch.int32, (L,))
     if cost is not None:
         ck("cost", cost, torch.int32, (width * height,))
     if samples < 1:
@@ -958,14 +1024,15 @@ def _track_packed(name: str, tier, packed: PackedCells, loc: Locator,
     if dev.type == "cpu":
         _render_frame_fast_torch(packed, loc, bands, lp, pix, accum, fb,
                                  width, height, samples, preserve_cache, cost,
-                                 tier)
+                                 tier, rng_salt, out)
         return
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     lib = build_track_f32(name)
     p = track_params(packed, loc, track_common(
         bands, lp, pix, accum, fb, width=width, height=height,
-        samples=samples, preserve_cache=preserve_cache, cost=cost))
+        samples=samples, preserve_cache=preserve_cache, cost=cost,
+        rng_salt=rng_salt, out=out))
     cuda_build.check(name, getattr(lib, f"{name}_launch")(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches[name] += 1
@@ -973,14 +1040,19 @@ def _track_packed(name: str, tier, packed: PackedCells, loc: Locator,
 
 def track_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
               pix, accum, fb, *, width: int, height: int, samples: int = 1,
-              preserve_cache: bool = True, cost=None):
+              preserve_cache: bool = True, cost=None, rng_salt: int = 0,
+              out: RawSample | None = None):
     """K1+K4 wrapper: trace `samples` progressive samples for the lanes of
     `pix` ((L,) int32 pixel ids) and update accum (L, 4) f32 and fb (L,)
     int32 IN PLACE; with `cost` ((W*H,) int32) also store each lane's
-    tracking steps at its pixel.  CUDA tensors launch csrc/track_f32.cu; CPU
-    tensors run `_render_frame_fast_torch`; anything else raises."""
+    tracking steps at its pixel.  Raw mode (`out`, a RawSample; accum and
+    fb None, one sample) stores the sample for a composite across ranks
+    instead (ops/composite.py); rng_salt != 0 re-keys the tracking streams.
+    CUDA tensors launch csrc/track_f32.cu; CPU tensors run
+    `_render_frame_fast_torch`; anything else raises."""
     _track_packed("track_f32", _F32Tier, packed, loc, bands, lp, pix, accum,
-                  fb, width, height, samples, preserve_cache, cost)
+                  fb, width, height, samples, preserve_cache, cost, rng_salt,
+                  out)
 
 
 def track_wedge(packed: PackedCells, loc: Locator, bands: RadialBands, lp,

@@ -28,9 +28,9 @@ from ..models.qcells import QuantizedCells
 from ..models.shells import RadialBands
 from ..models.transfunc import Transfunc, post_classify
 from ..utils import cuda_build
-from .fast import (F32, _check, _first_inside, _grid_bin,
-                   _locate_torch, _TrackCommon, _track_torch, frame_lanes,
-                   track_common)
+from .fast import (F32, RawSample, _check, _first_inside, _grid_bin,
+                   _locate_torch, _TrackCommon, _track_torch, check_raw,
+                   frame_lanes, track_common)
 
 #: K2 kernel launches (the wrapper counts only CUDA launches)
 launches = 0
@@ -194,11 +194,13 @@ def _render_frame_fast_q_torch(q: QuantizedCells, loc: Locator,
                                bands: RadialBands, tf: Transfunc, lp, pix,
                                accum, fb, width: int, height: int,
                                samples: int, preserve_cache: bool,
-                               fm: FineMap | None, cost=None):
+                               fm: FineMap | None, cost=None,
+                               rng_salt: int = 0, out=None):
     """Plain-PyTorch K2 over the lanes of `pix`: the tracking machine
-    `_track_torch` on the quantized tier; updates accum and fb in place."""
+    `_track_torch` on the quantized tier; updates accum and fb in place (or,
+    in raw mode, fills `out`)."""
     _track_torch(_QTier(q, loc, tf, fm), bands, lp, pix, accum, fb, width,
-                 height, samples, preserve_cache, cost)
+                 height, samples, preserve_cache, cost, rng_salt, out)
 
 
 # ===========================================================================
@@ -300,14 +302,18 @@ def track_q_params(q: QuantizedCells, loc: Locator, tf: Transfunc,
 def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
             tf: Transfunc, lp, pix, accum, fb, *, width: int, height: int,
             samples: int = 1, preserve_cache: bool = True,
-            finemap: FineMap | None = None, cost=None):
+            finemap: FineMap | None = None, cost=None, rng_salt: int = 0,
+            out: RawSample | None = None):
     """K2 wrapper: trace `samples` progressive samples for the lanes of
     `pix` ((L,) int32 pixel ids) on the quantized tier and update accum
     (L, 4) f32 and fb (L,) int32 IN PLACE; with `cost` ((W*H,) int32) also
     store each lane's tracking steps at its pixel.  With `finemap` a cache
-    miss locates through the fine map first.  CUDA tensors launch
-    csrc/track_q.cu; CPU tensors run `_render_frame_fast_q_torch`;
-    anything else raises."""
+    miss locates through the fine map first.  Raw mode (`out`, a
+    RawSample; accum and fb None, one sample) stores the sample, with its
+    collision's t, for a composite across ranks instead (ops/composite.py);
+    rng_salt != 0 re-keys the tracking streams (the scene shard's slabs).
+    CUDA tensors launch csrc/track_q.cu; CPU tensors run
+    `_render_frame_fast_q_torch`; anything else raises."""
     global launches
     dev = pix.device
     nb = bands.max_opacities.shape[0]
@@ -318,8 +324,10 @@ def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     ck("bands.edges", bands.edges, F32, (nb + 1,))
     ck("bands.max_opacities", bands.max_opacities, F32, (nb,))
     ck("pix", pix, torch.int32, (L,))
-    ck("accum", accum, F32, (L, 4))
-    ck("fb", fb, torch.int32, (L,))
+    check_raw("track_q", out, accum, fb, L, samples, dev)
+    if out is None:
+        ck("accum", accum, F32, (L, 4))
+        ck("fb", fb, torch.int32, (L,))
     if cost is not None:
         ck("cost", cost, torch.int32, (width * height,))
     if samples < 1:
@@ -327,14 +335,15 @@ def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     if dev.type == "cpu":
         _render_frame_fast_q_torch(q, loc, bands, tf, lp, pix, accum, fb,
                                    width, height, samples, preserve_cache,
-                                   finemap, cost)
+                                   finemap, cost, rng_salt, out)
         return
     if dev.type != "cuda":
         raise ValueError(f"track_q: unsupported device {dev}")
     lib = build_track_q()
     p = track_q_params(q, loc, tf, finemap, track_common(
         bands, lp, pix, accum, fb, width=width, height=height,
-        samples=samples, preserve_cache=preserve_cache, cost=cost))
+        samples=samples, preserve_cache=preserve_cache, cost=cost,
+        rng_salt=rng_salt, out=out))
     cuda_build.check("track_q", lib.track_q_launch(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches += 1

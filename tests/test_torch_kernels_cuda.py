@@ -1,7 +1,8 @@
 """PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q,
 K7-fm, K3 (both tiers), K5c-f32, K7-scene (lod 0 and the mip tier), K7-loc,
-K8 and K6b, K1's and K2's cost output, and the unstructured elements' K9-w,
-K9-p and K9-n, against their plain PyTorch versions on the same CUDA
+K8 and K6b, K1's and K2's cost output and raw mode (with rng_salt), the
+unstructured elements' K9-w, K9-p and K9-n, and the multi-device
+composites K10, against their plain PyTorch versions on the same CUDA
 inputs.  Marked `cuda`: they
 skip where no GPU is present (CUDA and Triton kernels have no CPU mode).
 On a GPU machine:  python -m pytest tests/test_torch_kernels_cuda.py"""
@@ -18,7 +19,7 @@ from icon_rt_tpu_torch.models.shells import (build_radial_bands,
 from icon_rt_tpu_torch.models.transfunc import make_transfunc
 from icon_rt_tpu_torch.models import finemap, qcells
 from icon_rt_tpu_torch.models.locator import build_locator_csr, densify_csr
-from icon_rt_tpu_torch.ops import fast, fastq, march, order
+from icon_rt_tpu_torch.ops import composite, fast, fastq, march, order
 from icon_rt_tpu_torch.ops.camera import Camera
 from icon_rt_tpu_torch.ops.render import alloc_frame, make_launch_params
 
@@ -635,3 +636,109 @@ def test_cuda_uelems_points_match_plain(dev, nv):
     assert uelems.launches["uelems_points"] == before + 1
     assert torch.equal(hk, hp) and torch.equal(vk, vp)
     assert 0.05 < float(hk.float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("salt", [0, 2])
+@pytest.mark.parametrize("tier", ["f32", "q"])
+def test_cuda_track_raw_matches_plain(scene, qscene, tier, salt):
+    """K1/K2 raw mode (one sample, wrote, colour and t per lane, no
+    finalize) with and without rng_salt against the plain versions: wrote
+    and t identical, colour identical on >= 99.9% of lanes and within 1e-6;
+    the raw sample through K10's finalize equals the finalizing launch of
+    the same sample bit for bit."""
+    n = scene["n_cov"]
+    pix = scene["perm"][:n].contiguous()
+    dev = pix.device
+    if tier == "f32":
+        tabs = (scene["packed"], scene["loc"], scene["bands"], scene["lp"])
+        kern = lambda *a, **k: fast.track_f32(*tabs, *a, width=96,
+                                              height=96, **k)
+        plain = lambda pix, acc, fb, salt, out: fast._render_frame_fast_torch(
+            *tabs, pix, acc, fb, 96, 96, 1, True, None, fast._F32Tier, salt,
+            out)
+    else:
+        tabs = (qscene["q"], qscene["loc"], scene["bands"], scene["tf"],
+                scene["lp"])
+        kern = lambda *a, **k: fastq.track_q(*tabs, *a, width=96, height=96,
+                                             finemap=qscene["fm"], **k)
+        plain = lambda pix, acc, fb, salt, out: \
+            fastq._render_frame_fast_q_torch(*tabs, pix, acc, fb, 96, 96, 1,
+                                             True, qscene["fm"], None, salt,
+                                             out)
+    rk, rp = fast.alloc_raw(n, dev), fast.alloc_raw(n, dev)
+    kern(pix, None, None, rng_salt=salt, out=rk)
+    plain(pix, None, None, salt, rp)
+    torch.cuda.synchronize()
+    assert torch.equal(rk.wrote, rp.wrote)
+    assert (rk.ca == rp.ca).all(1).float().mean() >= 0.999
+    assert float((rk.ca - rp.ca).abs().max()) <= 1e-6
+    assert (rk.t == rp.t).float().mean() >= 0.999
+    if salt:
+        return
+    acc, fb = alloc_frame(96, 96, device=dev)
+    acc, fb = acc[:n], fb[:n]
+    kern(pix, acc, fb)
+    acc_r, fb_r = alloc_frame(96, 96, device=dev)
+    acc_r, fb_r = acc_r[:n], fb_r[:n]
+    composite.finalize_mean(composite.mean_payload(rk.wrote, rk.ca), acc_r,
+                            fb_r, scene["lp"].accum_id)
+    assert torch.equal(acc_r, acc) and torch.equal(fb_r, fb)
+
+
+def _k10_inputs(dev, L, D=3, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    t = torch.rand(L, generator=g)
+    t[torch.rand(L, generator=g) < 0.3] = float("inf")
+    t_min = torch.minimum(t, torch.rand(L, generator=g))
+    t_min[::5] = t[::5]                       # ties with this slab
+    t_min[::11] = float("inf")                # every slab +inf
+    t[::11] = float("inf")
+    return dict(
+        t=t.to(dev), t_min=t_min.to(dev),
+        win=torch.randint(0, D, (L,), generator=g, dtype=torch.int32).to(dev),
+        ca=torch.rand(L, 4, generator=g).to(dev),
+        wrote=(torch.rand(L, generator=g) > 0.3).to(dev),
+        accum=torch.rand(L, 4, generator=g).to(dev),
+        fb=torch.randint(0, 2 ** 31 - 1, (L,), generator=g,
+                         dtype=torch.int32).to(dev),
+        total5=torch.cat([torch.rand(L, 4, generator=g) * 2,
+                          torch.randint(0, 3, (L, 1), generator=g).float()],
+                         1).to(dev))
+
+
+@pytest.mark.parametrize("L", [1000, 2_073_600])
+def test_cuda_composite_matches_plain(dev, L):
+    """K10: the three masks and the two finalizes bit-equal to their plain
+    versions (ties of equal t, all-+inf lanes, lanes without a write)."""
+    x = _k10_inputs(dev, L)
+    aid = torch.tensor(3, dtype=torch.int32, device=dev)
+    before = dict(composite.launches)
+    pairs = [
+        (composite.select_candidates(x["t"], x["t_min"], 1, 3),
+         composite._mask_torch(composite.CAND, 1, 3, t=x["t"],
+                               t_min=x["t_min"])),
+        (composite.select_payload(x["t"], x["t_min"], x["win"], x["ca"], 1),
+         composite._mask_torch(composite.PAYLOAD, 1, 3, t=x["t"],
+                               t_min=x["t_min"], win=x["win"], ca=x["ca"])),
+        (composite.mean_payload(x["wrote"], x["ca"]),
+         composite._mask_torch(composite.MEAN, 0, 0, ca=x["ca"],
+                               wrote=x["wrote"]))]
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    for mode in (composite.FIRST_HIT, composite.MEAN_FIN):
+        ak, fk = x["accum"].clone(), x["fb"].clone()
+        ap, fp = x["accum"].clone(), x["fb"].clone()
+        if mode == composite.FIRST_HIT:
+            composite.finalize_first_hit(x["ca"], x["t_min"], x["wrote"], ak,
+                                         fk, aid)
+            composite._finalize_torch(mode, x["ca"], ap, fp, aid,
+                                      t_min=x["t_min"], wrote=x["wrote"])
+        else:
+            composite.finalize_mean(x["total5"], ak, fk, aid)
+            composite._finalize_torch(mode, x["total5"], ap, fp, aid)
+        assert torch.equal(ak, ap) and torch.equal(fk, fp)
+        assert not torch.equal(fk, x["fb"])
+    assert composite.launches["composite_mask"] == \
+        before["composite_mask"] + 3
+    assert composite.launches["composite_finalize"] == \
+        before["composite_finalize"] + 2

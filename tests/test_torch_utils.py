@@ -100,9 +100,10 @@ def test_torch_port_never_imports_jax(tmp_path):
     ops/march.py, the LOD module, data/lod.py, and the unstructured
     elements, ops/uelems.py and models/wedges.py, by name too; frame_lod
     picks its level, the wedge sampler and the intersectors run on a few
-    points) and run tiny renders through the app, the Woodcock tracker,
-    the march and the fast wedge tier (-mode 2); neither jax nor
-    icon_rt_tpu may load."""
+    points; the multi-device modules, parallel/ and data/animation.py, by
+    name too, a one-process animation through them) and run tiny renders
+    through the app, the Woodcock tracker, the march and the fast wedge
+    tier (-mode 2); neither jax nor icon_rt_tpu may load."""
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -128,6 +129,15 @@ hit, val = sample_wedges(build_cells(ds), build_wedges(ds),
 assert hit.shape == (8,)
 ins, v = uelems_points(torch.zeros(2, 3), torch.rand(2, 8, 3),
                        torch.rand(2, 8))
+import functools
+import icon_rt_tpu_torch.data.animation
+import icon_rt_tpu_torch.parallel.scene_shard
+import icon_rt_tpu_torch.parallel.sharded
+from icon_rt_tpu_torch.parallel import ranks
+got = ranks.animate_job(0, 1, None, torch.device('cpu'), inputs=functools.partial(
+    ranks.synthetic_scene, 'q', 1, 2, 16, 16), tier='q', width=16, height=16,
+    samples_per_frame=1, mesh=False)
+assert got['frames'][0].shape == (256,)
 from icon_rt_tpu_torch import app
 for extra, out in (([], 'x'), (['--march'], 'm'), (['-mode', '2'], 'w')):
     assert app.main(['--device', 'cpu', '--synthetic', '1:2', '--size', '16',
