@@ -29,6 +29,10 @@ script exits non-zero without printing a result):
                 accum <= 1e-6; K3-q fine map on against off: accum <= 1e-4
             K5c-f32 parts and apply exact; a scale-only edit's prof against
                 a full K5a bake at the new scale: its ULP printed, <= 1
+          check march cost: K3's cost output (each lane's iterations at its
+          pixel) on both tiers (K3-q with the fine map on and off) against
+          its plain version, exact, and the frame with the cost bit-equal
+          to the frame without; at 1080p again in `time`
   check w the unstructured elements' kernels at the same shape: K5a over
           the per-wedge constants bv (<= 1 ULP); K9-w samples=4, both
           preserve_cache settings (fb identical on >= 99.9%, accum <=
@@ -162,7 +166,11 @@ script exits non-zero without printing a result):
           subdiv 3 x 8, 128x128, closeup camera, the app's unit distance,
           2 samples: the first sample's final LCG state and loop
           iterations equal on every lane, fb identical on >= 99.9% of
-          pixels, accum <= 1e-6; then each main parity path's K8 against
+          pixels, accum <= 1e-6; `check parity raw`: K8's raw mode (one
+          sample per lane, no finalize) of each combination against its
+          plain version (wrote bit-equal, colour identical on >= 99.9% and
+          <= 1e-6), and the raw sample through K10's mean finalize bit-equal
+          to K8's finalizing launch; then each main parity path's K8 against
           its plain version on the first 4096 lanes of pixel_order's
           covered prefix and on 4096 lanes strided over the frame.  The
           bound of each K8 row comes from the events that the plain run
@@ -199,6 +207,22 @@ script exits non-zero without printing a result):
           steps of 2 samples; K10's mean equal to the plain mean on each
           rank; pixels all of whose 8 samples wrote equal the sequential
           frame to accum 1e-6
+  main mesh accel sphere, main mesh ae, main mesh fast
+          parallel/sharded.py `render_frame_sharded` (ranks.py
+          `parity_job`; row tiles) at subdiv 8 x 16, 1080p closeup, the
+          locator sampler, on the tables main accel sphere saved (each rank
+          loads them from the gitignored _build/): the ShellAccel, 8 steps,
+          as one process, NCCL world 1 and gloo tiles 2 x samples 1 (fb and
+          accum bit-equal to one process's render_frame_accel), and gloo
+          tiles 1 x samples 2 (K8 raw mode, K10's mean; accum within 1e-6
+          of the sequential frame where all 16 samples wrote, the same
+          coverage, 8-bit RMSE < 2 per channel); the AE raygen, 2 steps on
+          gloo 2 x 1, bit-equal to render_frame_ae; the fast raygen (K1),
+          8 steps on gloo 2 x 1 (bit-equal to render_frame_fast) and on
+          gloo 2 x 2 (four ranks; the samples gates).  Per rank the ms per
+          step by part, the gather, Mray/s and peak GiB; K8's raw launch at
+          1080p beside its finalizing launch (CUDA events) and against its
+          plain version on 4096 strided lanes
   time K10  each mode of K10 and its plain version at 2,073,600 lanes
           (CUDA events) beside its bytes at 3.35 TB/s
 Each multi-device phase prints its backend, world size and how many ranks
@@ -382,6 +406,15 @@ def time_cuda(fn, reps: int, warmup: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def time_turns(fa, fb, reps: int):
+    """(ms of fa, ms of fb) per call, each the mean of two `time_cuda` runs
+    of `reps` calls taken in turns a, b, b, a, so that a clock or cache
+    state that drifts over the four favours neither."""
+    a1, b1 = time_cuda(fa, reps), time_cuda(fb, reps)
+    b2, a2 = time_cuda(fb, reps), time_cuda(fa, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
 def bound(nbytes: float, flops: float):
     """(least ms on the card, "bytes" or "operations")."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
@@ -424,12 +457,14 @@ class CountingTier:
         self.n["cross"] += cid.shape[0]
         return self._tier.march_prof(cid)
 
-    def bound(self, kernel, n_lanes, nl_of_cells, scale=1.0):
+    def bound(self, kernel, n_lanes, nl_of_cells, scale=1.0,
+              lane_bytes=LANE_BYTES):
         """(ms, by) of `kernel` (a ROW_BYTES key) for this run's data;
         nl_of_cells maps cell ids to their layer counts.  With `scale` the
         run covered n_lanes / scale lanes of the frame: its events count
         scale times, its reads once (fewer than the frame's, so the bound
-        stays a least time)."""
+        stays a least time).  lane_bytes: each lane's own reads and
+        writes."""
         import torch
         cids = torch.cat(self.cids) if self.cids else torch.zeros(0)
         cells = torch.unique(cids[cids >= 0])
@@ -438,7 +473,7 @@ class CountingTier:
             if self.bins else 0
         k_cap = self._tier.loc.bins.shape[1]
         per_cell, per_layer = ROW_BYTES[kernel]
-        nbytes = (LANE_BYTES * n_lanes + per_cell * cells.numel()
+        nbytes = (lane_bytes * n_lanes + per_cell * cells.numel()
                   + per_layer * nl + 4 * k_cap * n_bins)
         n = self.n
         if kernel.startswith("march"):
@@ -750,34 +785,72 @@ def compare_march(label, run, width, height, n, dev):
 
 def march_runs(packed, loc, bands, lp, pix, width, height, qtabs=None,
                fm=None, counter=None):
-    """run(acc, fb, kernel) of K3 on the f32 tier (qtabs None) or the
-    quantized tier (qtabs = (q, loc_q, tf)); the plain version goes through
-    `counter` (a callable wrapping the plain tier) when given."""
+    """run(acc, fb, kernel, cost=None) of K3 on the f32 tier (qtabs None)
+    or the quantized tier (qtabs = (q, loc_q, tf)), with the cost output
+    when `cost` is given; the plain version goes through `counter` (a
+    callable wrapping the plain tier) when given."""
     from icon_rt_tpu_torch.ops import march
     from icon_rt_tpu_torch.ops.fast import _F32Tier
     from icon_rt_tpu_torch.ops.fastq import _QTier
     wrap = counter or (lambda t: t)
     kw = dict(width=width, height=height)
     if qtabs is None:
-        def run(acc, fb, kernel):
+        def run(acc, fb, kernel, cost=None):
             if kernel:
-                march.march_f32(packed, loc, bands, lp, pix, acc, fb, **kw)
+                march.march_f32(packed, loc, bands, lp, pix, acc, fb,
+                                cost=cost, **kw)
             else:
                 march._march_frame_torch(
                     wrap(_F32Tier(packed, loc)), bands, lp, pix, acc, fb,
-                    width, height)
+                    width, height, cost)
     else:
         q, loc_q, tf = qtabs
 
-        def run(acc, fb, kernel):
+        def run(acc, fb, kernel, cost=None):
             if kernel:
                 march.march_q(q, loc_q, bands, tf, lp, pix, acc, fb,
-                              finemap=fm, **kw)
+                              finemap=fm, cost=cost, **kw)
             else:
                 march._march_frame_torch(
                     wrap(_QTier(q, loc_q, tf, fm)), bands, lp, pix, acc, fb,
-                    width, height)
+                    width, height, cost)
     return run
+
+
+def compare_march_cost(label, run, width, height, n, dev):
+    """K3's cost output (run from `march_runs`) against its plain version
+    on the same lanes: exact on every pixel (the untraced ones untouched),
+    and the kernel's frame with the cost bit-equal to its frame without.
+    Raises otherwise; returns the plain version's ms."""
+    import torch
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    frames, costs, plain_ms = [], [], 0.0
+    for kernel, with_cost in ((True, True), (True, False), (False, True)):
+        acc, fb = alloc_frame(width, height, device=dev)
+        cost = torch.full((width * height,), -1, dtype=torch.int32,
+                          device=dev) if with_cost else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(acc[:n], fb[:n], kernel, cost)
+        torch.cuda.synchronize()
+        if not kernel:
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        frames.append((acc, fb))
+        costs.append(cost)
+    (ak, fk), (a0, f0), _ = frames
+    ck, cp = costs[0], costs[2]
+    exact = torch.equal(ck, cp)
+    same = torch.equal(ak, a0) and torch.equal(fk, f0)
+    traced = ck[ck >= 0]
+    print(f"{label}: cost {'exact' if exact else 'DIFFERS'} on "
+          f"{width * height} pixels ({traced.numel()} traced, max "
+          f"{int(traced.max())}, mean {float(traced.double().mean()):.3f} "
+          f"iterations); the frame with the cost "
+          f"{'bit-equal to' if same else 'DIFFERS from'} the frame without")
+    if not exact or not same or traced.numel() != n:
+        raise AssertionError(f"{label}: K3's cost disagrees with its plain "
+                             f"version or changes the frame")
+    return plain_ms
 
 
 def check_opacity_scale(cells, packed, tf, label):
@@ -851,6 +924,17 @@ def check_march(sc, qtabs, dev):
                           f"check m accum_id={aid}")
     errs["opacity_scale"] = check_opacity_scale(sc.cells, sc.packed, sc.tf,
                                                 "check m")
+    # check march cost: the cost output on both tiers (exact, else raises)
+    compare_march_cost("check march cost K3 march_f32", march_runs(
+        sc.packed, sc.loc, sc.bands, sc.lp, pix, size, size), size, size, n,
+        dev)
+    for f in (None, fm):
+        compare_march_cost(
+            f"check march cost K3 march_q finemap="
+            f"{'on' if f is not None else 'off'}",
+            march_runs(None, None, sc.bands, sc.lp, pix, size, size,
+                       qtabs=(q, loc_q, sc.tf), fm=f), size, size, n, dev)
+    errs.update(march_f32_cost=0.0, march_q_cost=0.0)
     return errs
 
 
@@ -896,6 +980,8 @@ def read_counters(quantized, marching):
         tracker = "track_q" if quantized else "track_f32"
         absent[tracker] = fastq.launches if quantized \
             else fast.launches["track_f32"]
+        cost = f"march_{'q' if quantized else 'f32'}_cost"
+        absent[cost] = march.launches[cost]     # nothing asks for the cost
         if quantized:
             counts["march_q"] = march.launches["march_q"]
         else:
@@ -1405,11 +1491,17 @@ def bench_march(pl_mq):
     return fm
 
 
+#: the launches of K3's cost output on a main path
+COST_PATH = ("none: check march cost only (no JAX app or bench path asks "
+             "for the cost)")
+
+
 def time_march_kernels(pl_m, pl_mq, fm, errs, counts_m, counts_mq):
     """K3 (f32; quantized with the fine map off, as the app, and on, as the
     bench row) and K5c-f32 against their plain versions at the march
     paths' shapes; torch.addcmul(A, B, s) as the library call of the
-    K5c-f32 apply."""
+    K5c-f32 apply.  Returns (rows, the counting plain tiers of K3's rows
+    by kernel, for `time_march_cost`)."""
     import torch
     from icon_rt_tpu_torch.ops import fast
     from icon_rt_tpu_torch.ops.render import alloc_frame
@@ -1441,6 +1533,7 @@ def time_march_kernels(pl_m, pl_mq, fm, errs, counts_m, counts_mq):
                "icon_rt_tpu_torch/csrc/march.cu",
                "icon_rt_tpu/ops/march.py:301", km, pm,
                tiers[-1].bound("march_f32", n, lambda c: packed.test[c, 14]))
+    counted = {"march_f32": tiers[-1]}
 
     # -- K5c-f32 --------------------------------------------------------------
     cells = s["cells"]
@@ -1502,8 +1595,52 @@ def time_march_kernels(pl_m, pl_mq, fm, errs, counts_m, counts_mq):
                "icon_rt_tpu/ops/march.py:449", kms[False], pms[False],
                qtiers[False].bound("march_q", n, lambda c: q.test12[c, 11]),
                ms_finemap=kms[True], plain_ms_finemap=pms[True])
+    counted["march_q"] = qtiers[False]
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
+    return rows, counted
+
+
+def time_march_cost(pl_m, pl_mq, errs, counted):
+    """K3 with its cost output (JAX's return_cost) at the march paths'
+    shapes: timed beside the launch without it, held against its plain
+    version (`compare_march_cost`), the bound that of the counted plain run
+    (`counted`, by kernel, from `time_march_kernels`) with 4 bytes more a
+    lane.  No main path asks for the cost (main m and main mq read its
+    count as 0).  Runs after the march paths' profiles: the plain
+    versions' long loops leave the profiler without device events."""
+    import torch
+    W, H = MAIN_W, MAIN_H
+    rows = []
+    for name, pl in (("march_f32", pl_m), ("march_q", pl_mq)):
+        s, frame = pl.scene, pl.frame
+        bands, lp = s["get_bands"](), launch_params(pl)
+        n = frame["n_active"]
+        pix = frame["perm"][:n].contiguous()
+        if name == "march_f32":
+            packed, loc = s["get_packed"](), s["locator"]
+            run = march_runs(packed, loc, bands, lp, pix, W, H)
+            nl = lambda c: packed.test[c, 14]
+        else:
+            q, loc_q, _ = s["get_q"]()
+            run = march_runs(None, None, bands, lp, pix, W, H,
+                             qtabs=(q, loc_q, s["tf"]()))
+            nl = lambda c: q.test12[c, 11]
+        acc, fb = (x[:n] for x in (frame["accum"].clone(),
+                                   frame["fb"].clone()))
+        cost = torch.empty(W * H, dtype=torch.int32, device=pix.device)
+        kc, k0 = time_turns(lambda: run(acc, fb, True, cost),
+                            lambda: run(acc, fb, True), reps=5)
+        pc = compare_march_cost(f"time 1080p K3 {name} cost", run, W, H, n,
+                                pix.device)
+        print(f"time K3 {name} with the cost {kc:.4f} ms, without "
+              f"{k0:.4f} ms (CUDA events, in turns)")
+        kernel_row(rows, {f"{name}_cost": 0}, errs, f"{name}_cost", "cuda",
+                   "icon_rt_tpu_torch/csrc/march.cu",
+                   "icon_rt_tpu/ops/march.py:302, :444-445", kc, pc,
+                   counted[name].bound(name, n, nl,
+                                       lane_bytes=LANE_BYTES + 4),
+                   path=COST_PATH, ms_without_cost=k0)
     return rows
 
 
@@ -1564,7 +1701,8 @@ def rmse_q(dev):
           f"{MAIN_SUB} x {MAIN_LAYERS}; K3 launches {ran}; "
           f"{time.perf_counter() - t0:.1f} s; docs/ROUND5.md:116 records "
           f"0.0016 for this scene)")
-    if ran != {"march_f32": 1, "march_q": 1} or not np.isfinite(rmse):
+    if ran != {"march_f32": 1, "march_q": 1, "march_f32_cost": 0,
+               "march_q_cost": 0} or not np.isfinite(rmse):
         raise AssertionError("rmse_q did not run both marches' kernels")
     return rmse
 
@@ -1655,12 +1793,13 @@ def parity_run(tabs, lp, raygen, sampler, pix, width, height, samples,
     return acc, fb, dbg, secs
 
 
-def parity_bound(raygen, sampler, lanes, w, scale):
+def parity_bound(raygen, sampler, lanes, w, scale,
+                 lane_bytes=PARITY_BYTES["lane"]):
     """(ms, by) of one K8 sample of `lanes` lanes from the work `w`
     (`Work.counts()`) of a plain run on lanes/scale of them: the events
     scaled to the frame, each by its own operations; the bytes of every
-    lane, and the reads of the counted lanes (fewer than the frame's, so
-    the bound stays a least time)."""
+    lane (`lane_bytes` each), and the reads of the counted lanes (fewer
+    than the frame's, so the bound stays a least time)."""
     o, b = PARITY_OPS, PARITY_BYTES
     if sampler == "wedge":
         return wedge_bound(raygen, lanes, w, scale)
@@ -1674,7 +1813,7 @@ def parity_bound(raygen, sampler, lanes, w, scale):
                       + w["hit"]) * o["radial"]
                    + plane_tests * o["plane"]
                    + w["hit"] * o["hit"] + w["hit_layers"] * o["hit_layer"])
-    nbytes = (b["lane"] * lanes + b["radial"] * w["radial_cells"]
+    nbytes = (lane_bytes * lanes + b["radial"] * w["radial_cells"]
               + b["planes"] * w["plane_cells"] + b["hit"] * w["hit_cells"]
               + b["layer"] * w["hit_cell_layers"] + b["entry"] * w["entries"])
     return bound(nbytes, ops)
@@ -1725,9 +1864,60 @@ def compare_parity(label, tabs, lp, raygen, sampler, pix, width, height,
     return err, ps[-1], ks[-1], w
 
 
+def check_parity_raw(label, tabs, lp, raygen, sampler, pix, width, height):
+    """K8's raw mode against its plain version on the lanes `pix` at sample
+    1: wrote bit-equal, the colour identical on >= 99.9% of lanes and
+    within ACCUM_TOL; then the raw sample through K10's mean finalize over
+    one rank bit-equal (accum and fb) to K8's finalizing launch of the same
+    sample on a seeded accum history.  Raises past them; returns (max abs
+    err, plain seconds, kernel seconds)."""
+    import torch
+    from icon_rt_tpu_torch.ops import composite, render
+    from icon_rt_tpu_torch.ops.fast import alloc_raw
+    dev, n = pix.device, pix.shape[0]
+    lp1 = with_id(lp, 1)
+    cells, tf, loc = tabs["cells"], tabs["tf"], tabs["loc"]
+    accel = tabs["accel"].get(raygen)
+    kw = dict(width=width, height=height, raygen=raygen, sampler=sampler,
+              locator=loc, accel=accel, pix=pix)
+    rk, rp = alloc_raw(n, dev), alloc_raw(n, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render.parity_track(cells, tf, lp1, None, None, out=rk, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    render._parity_torch(cells, tf, lp1, pix, None, None, None, width,
+                         height, raygen, sampler, loc, accel, out=rp)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    wrote_eq = torch.equal(rk.wrote, rp.wrote)
+    same = float((rk.ca == rp.ca).all(1).float().mean())
+    err = float((rk.ca - rp.ca).abs().max())
+    acc0 = torch.rand(n, 4, generator=torch.Generator().manual_seed(n)).to(
+        dev)
+    acc, fb = acc0.clone(), torch.zeros(n, dtype=torch.int32, device=dev)
+    render.parity_track(cells, tf, lp1, acc, fb, **kw)
+    acc_r, fb_r = acc0.clone(), torch.zeros_like(fb)
+    composite.finalize_mean(composite.mean_payload(rk.wrote, rk.ca), acc_r,
+                            fb_r, lp1.accum_id)
+    fin = torch.equal(acc, acc_r) and torch.equal(fb, fb_r)
+    print(f"{label} {raygen} x {sampler}: raw wrote "
+          f"{'bit-equal' if wrote_eq else 'DIFFERS'} ({int(rk.wrote.sum())} "
+          f"of {n} lanes), colour identical on {same:.6f}, max abs diff "
+          f"{err:.3e}; raw + K10 mean finalize "
+          f"{'bit-equal to' if fin else 'DIFFERS from'} K8's finalize; "
+          f"kernel {(t1 - t0) * 1e3:.3f} ms, plain {(t2 - t1) * 1e3:.3f} ms")
+    if not wrote_eq or same < 0.999 or not err <= ACCUM_TOL or not fin:
+        raise AssertionError(f"{label}: K8 raw {raygen} x {sampler} "
+                             f"disagrees with its plain version or with "
+                             f"K8's finalize")
+    return err, t2 - t1, t1 - t0
+
+
 def check_parity(dev, errs):
     """K8's six raygen x sampler combinations against the plain version at
-    subdiv 3 x 8, 128x128, closeup camera, app unit distance, 2 samples.
+    subdiv 3 x 8, 128x128, closeup camera, app unit distance, 2 samples,
+    and K8's raw mode against its plain version (`check parity raw`).
     Returns the brute-force rows' timings and bounds (they run here only)."""
     import torch
     t0 = time.perf_counter()
@@ -1746,6 +1936,9 @@ def check_parity(dev, errs):
                 "check parity", tabs, lp, raygen, sampler, pix, W, H,
                 PARITY_SAMPLES, count=sampler == "brute")
             errs[name] = max(errs.get(name, 0.0), err)
+            err = check_parity_raw("check parity raw", tabs, lp, raygen,
+                                   sampler, pix, W, H)[0]
+            errs[f"{name}_raw"] = max(errs.get(f"{name}_raw", 0.0), err)
             if sampler == "brute":
                 # one sample of the whole frame, kernel and plain; the
                 # work counted on every lane
@@ -1782,7 +1975,7 @@ def parity_argv(raygen, accel_mode, sampler, sub, layers, width, height,
     return argv
 
 
-def main_parity(dev, raygen, errs):
+def main_parity(dev, raygen, errs, mesh_path=None):
     """A parity raygen through the app (icon_rt_tpu_torch.app.build, the
     launch / is_running / present loop) at subdiv 8 x 16, 1920x1080, the
     closeup camera, the locator sampler and the app's unit distance:
@@ -1796,7 +1989,9 @@ def main_parity(dev, raygen, errs):
     frame, whose plain run counts the work of the bound, scaled to the
     frame; it runs after every profile of the script, because the plain
     version's long loops leave the profiler without device events for
-    several windows."""
+    several windows.  With `mesh_path` the path's tables (cells, locator,
+    TF, accel, the app's radial bands and launch params) are saved there
+    for the mesh phases' ranks (`main_mesh`)."""
     import torch
     from icon_rt_tpu_torch import app
     from icon_rt_tpu_torch.models import accel as accel_mod
@@ -1851,6 +2046,12 @@ def main_parity(dev, raygen, errs):
     tabs = dict(cells=cells, loc=loc, tf=tf,
                 accel={} if accel is None else {raygen: accel})
     lp = launch_params(pl)
+    if mesh_path is not None:
+        t0 = time.perf_counter()
+        torch.save(dict(tabs, bands=s["get_bands"](), lp=lp), mesh_path)
+        print(f"{tag} tables saved for the mesh phases in "
+              f"{time.perf_counter() - t0:.2f} s "
+              f"({os.path.getsize(mesh_path) / 2 ** 20:.0f} MiB)")
     full = torch.arange(W * H, dtype=torch.int32, device=dev)
     _, _, dbg, _ = parity_run(tabs, lp, raygen, "locator", full, W, H, 1,
                               True)
@@ -1915,7 +2116,7 @@ def main_parity(dev, raygen, errs):
               f"{CHECK_LANES} strided lanes scaled by "
               f"{W * H / CHECK_LANES:.2f}")
         row.update(bnd=bnd, plain_ms=ps * 1e3, plain_lanes=CHECK_LANES,
-                   ms_check_lanes=ks * 1e3)
+                   ms_check_lanes=ks * 1e3, work=w)
     return counts, row, check
 
 
@@ -1945,6 +2146,7 @@ def parity_rows(loc_rows, brute_rows, errs, counts):
         for sampler in PARITY_SAMPLERS:
             name = f"parity_{raygen}_{sampler}"
             r = dict((loc_rows if sampler == "locator" else brute_rows)[name])
+            r.pop("work", None)
             kernel_row(rows, counts, errs, name, "cuda",
                        "icon_rt_tpu_torch/csrc/parity.cu",
                        PARITY_REPLACES[raygen], r.pop("ms"),
@@ -3764,6 +3966,232 @@ def main_samples(dev):
     return counts
 
 
+#: main mesh accel sphere and main mesh fast: steps of every layout
+MESH_STEPS = 8
+#: main mesh ae: steps (the AE raygen takes ~230 ms per 1080p launch)
+MESH_AE_STEPS = 2
+#: 8-bit RMSE per channel of a samples layout's image against the
+#: sequential one (tests/test_sharded.py:359-396)
+MESH_RMSE = 2.0
+#: K8 raw mode's bytes per lane: pix read, wrote and colour written
+PARITY_RAW_LANE_BYTES = 21
+MESH_REPLACES = ("icon_rt_tpu/parallel/sharded.py:124 (frame_pixels_accel "
+                 "without _finalize)")
+
+
+def mesh_frames(tabs, raygen, n, width, height, dev, raw=False):
+    """One process's frame of n samples (accum_id 0..n-1) of raygen
+    ("sphere", "ae" or "fast") in natural order: the finalizing launches
+    (render_frame_accel / render_frame_ae / render_frame_fast, one sample
+    each) or, with `raw`, raw-mode launches each finalized by K10's mean
+    over one rank (bit-equal to the finalizing launch: check parity raw,
+    check composite), which also count the samples each pixel wrote.
+    Returns numpy (accum, fb, wrote count or None)."""
+    import torch
+    from icon_rt_tpu_torch.ops import composite, render
+    from icon_rt_tpu_torch.ops.fast import (alloc_raw, pack_cells,
+                                            render_frame_fast, track_f32)
+    L = width * height
+    cells, tf, loc = tabs["cells"], tabs["tf"], tabs["loc"]
+    accel = tabs["accel"].get(raygen)
+    acc, fb = render.alloc_frame(width, height, device=dev)
+    pix = torch.arange(L, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(L, dtype=torch.int32, device=dev)
+    out = alloc_raw(L, dev) if raw else None
+    packed = pack_cells(cells, tf) if raygen == "fast" else None
+    kw = dict(width=width, height=height)
+    for k in range(n):
+        lpk = with_id(tabs["lp"], k)
+        if raygen == "fast" and raw:
+            track_f32(packed, loc, tabs["bands"], lpk, pix, None, None,
+                      out=out, **kw)
+        elif raygen == "fast":
+            render_frame_fast(cells, packed, loc, tabs["bands"], lpk, acc,
+                              fb, **kw)
+        else:
+            render.parity_track(cells, tf, lpk, None if raw else acc,
+                                None if raw else fb, raygen=raygen,
+                                sampler="locator", locator=loc, accel=accel,
+                                out=out, **kw)
+        if raw:
+            cnt += out.wrote
+            composite.finalize_mean(composite.mean_payload(out.wrote, out.ca),
+                                    acc, fb, lpk.accum_id)
+    return (acc.cpu().numpy(), fb.cpu().numpy(),
+            cnt.cpu().numpy() if raw else None)
+
+
+def mesh_report(tag, res, run, width, height):
+    """Print a run of parity_job per rank: ms per step by part, the gather,
+    Mray/s of the mesh (rank 0's clock) and peak GiB."""
+    steps, n_s = run["steps"], run["samples"]
+    for r, rr in enumerate(res):
+        x = rr["runs"][run["i"]]
+        tm = x["timings"]
+        print(f"{tag} rank {r}: ms per step: " + ", ".join(
+            f"{k} {tm.get(k, 0.0) / steps * 1e3:.3f}"
+            for k in ("track", "composite", "all_reduce"))
+            + f"; gather {tm['gather'] * 1e3:.2f} ms; "
+            f"{width * height * n_s * steps / x['seconds'] / 1e6:.1f} "
+            f"Mray/s ({steps} steps of {n_s} sample(s) over the frame in "
+            f"{x['seconds'] * 1e3:.1f} ms); peak {x['peak_gib']:.3f} GiB "
+            f"(build {rr['build_s']:.1f} s)")
+
+
+def mesh_gate_equal(tag, x, ref):
+    """A tile layout's gathered frame bit-equal to one process's."""
+    same = np.array_equal(x["accum"], ref[0]) and np.array_equal(x["fb"],
+                                                                 ref[1])
+    print(f"{tag}: fb and accum {'bit-equal to' if same else 'DIFFER from'}"
+          f" one process's frame")
+    if not same:
+        raise AssertionError(f"{tag}: the tile layout differs from one "
+                             f"process")
+
+
+def mesh_gate_samples(tag, x, seq, width, height):
+    """A samples layout against the sequential frame of the same samples:
+    accum within 1e-6 where every sample wrote, the same coverage and the
+    8-bit image within MESH_RMSE per channel (tests/test_sharded.py:359)."""
+    from icon_rt_tpu_torch.ops.render import fb_to_image
+    acc_s, fb_s, cnt = seq
+    aw = cnt == cnt.max()
+    err = float(np.abs(x["accum"][aw] - acc_s[aw]).max())
+    img_m, img_s = fb_to_image(x["fb"], width, height), \
+        fb_to_image(fb_s, width, height)
+    cov_m, cov_s = img_m[..., 3] > 0, img_s[..., 3] > 0
+    d = img_m.astype(np.float64) - img_s.astype(np.float64)
+    rmse = np.sqrt((d * d).mean(axis=(0, 1)))
+    print(f"{tag}: {int(aw.sum())} pixels all of whose {int(cnt.max())} "
+          f"samples wrote, accum max abs diff {err:.3e} against the "
+          f"sequential frame; coverage "
+          f"{'equal' if np.array_equal(cov_m, cov_s) else 'DIFFERS'} "
+          f"({float(cov_s.mean()):.4f}); 8-bit RMSE per channel "
+          f"{[round(float(v), 4) for v in rmse]} (bound {MESH_RMSE}); fb "
+          f"differs on {int((x['fb'] != fb_s).sum())} pixels")
+    if not err <= 1e-6 or not np.array_equal(cov_m, cov_s) \
+            or not rmse.max() < MESH_RMSE or aw.mean() < 0.5 \
+            or cov_s.mean() < MIN_COVERED["closeup"]:
+        raise AssertionError(f"{tag}: the samples layout fails its gates")
+
+
+def main_mesh(dev, path, errs, work):
+    """`main mesh accel sphere`, `main mesh ae`, `main mesh fast`:
+    parallel/sharded.py `render_frame_sharded` (ranks.py `parity_job`) on
+    the tables that main accel sphere saved at `path` (subdiv 8 x 16, the
+    closeup camera at 1080p, the locator sampler, the ShellAccel; each
+    rank loads them).  Sphere, MESH_STEPS steps: one process, NCCL world 1
+    and gloo tiles 2 x samples 1 bit-equal to one process's
+    render_frame_accel; gloo tiles 1 x samples 2 against the sequential
+    frame of the same samples.  AE, MESH_AE_STEPS steps on gloo 2 x 1,
+    bit-equal to render_frame_ae.  Fast (K1), MESH_STEPS steps: gloo 2 x 1
+    bit-equal to render_frame_fast, gloo 2 x 2 against the sequential
+    frame.  Then K8's raw mode timed at the frame and held against its
+    plain version on CHECK_LANES strided lanes; `work` is the main accel
+    sphere row's counted work for its bound.  Returns (launch counts of
+    every run, the raw row's numbers)."""
+    import torch
+    from icon_rt_tpu_torch.ops import render
+    from icon_rt_tpu_torch.ops.fast import alloc_raw
+    from icon_rt_tpu_torch.ops.render import fb_to_image
+    from icon_rt_tpu_torch.parallel import ranks
+    from icon_rt_tpu_torch.utils.png import write_png
+    W, H = MAIN_W, MAIN_H
+    sphere = dict(raygen="accel", accel_mode="sphere", steps=MESH_STEPS)
+    ae = dict(raygen="ae", steps=MESH_AE_STEPS)
+    fast = dict(raygen="fast", steps=MESH_STEPS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tabs = ranks.saved(path, dev)
+    print(f"main mesh tables loaded in {time.perf_counter() - t0:.2f} s")
+    ref = {g: mesh_frames(tabs, g, steps, W, H, dev) for g, steps in (
+        ("sphere", MESH_STEPS), ("ae", MESH_AE_STEPS), ("fast", MESH_STEPS))}
+    seq = {g: mesh_frames(tabs, g, 2 * MESH_STEPS, W, H, dev, raw=True)
+           for g in ("sphere", "fast")}
+    inputs = functools.partial(ranks.saved, path)
+    kw = dict(inputs=inputs, width=W, height=H)
+    one_runs = [dict(sphere, tiles=1, samples=1, i=0),
+                dict(ae, tiles=1, samples=1, i=1),
+                dict(fast, tiles=1, samples=1, i=2)]
+    one = [ranks.parity_job(0, 1, None, dev, mesh=False, runs=one_runs,
+                            **kw)]
+    nccl_runs = [dict(sphere, tiles=1, samples=1, i=0)]
+    nccl = run_md("main mesh accel sphere NCCL world 1", ranks.parity_job, 1,
+                  "nccl", runs=nccl_runs, **kw)
+    gloo2_runs = [dict(sphere, tiles=2, samples=1, i=0),
+                  dict(sphere, tiles=1, samples=2, i=1),
+                  dict(ae, tiles=2, samples=1, i=2),
+                  dict(fast, tiles=2, samples=1, i=3)]
+    gloo2 = run_md("main mesh gloo 2 ranks", ranks.parity_job, 2, "gloo",
+                   runs=gloo2_runs, **kw)
+    gloo4_runs = [dict(fast, tiles=2, samples=2, i=0)]
+    gloo4 = run_md("main mesh fast gloo 4 ranks", ranks.parity_job, 4,
+                   "gloo", runs=gloo4_runs, **kw)
+    checks = (
+        ("main mesh accel sphere one process", one, one_runs[0], "sphere"),
+        ("main mesh accel sphere NCCL world 1", nccl, nccl_runs[0],
+         "sphere"),
+        ("main mesh accel sphere gloo tiles 2 x samples 1", gloo2,
+         gloo2_runs[0], "sphere"),
+        ("main mesh accel sphere gloo tiles 1 x samples 2", gloo2,
+         gloo2_runs[1], "sphere seq"),
+        ("main mesh ae one process", one, one_runs[1], "ae"),
+        ("main mesh ae gloo tiles 2 x samples 1", gloo2, gloo2_runs[2],
+         "ae"),
+        ("main mesh fast one process", one, one_runs[2], "fast"),
+        ("main mesh fast gloo tiles 2 x samples 1", gloo2, gloo2_runs[3],
+         "fast"),
+        ("main mesh fast gloo tiles 2 x samples 2", gloo4, gloo4_runs[0],
+         "fast seq"))
+    for tag, res, run, gate in checks:
+        mesh_report(tag, res, run, W, H)
+        x = res[0]["runs"][run["i"]]
+        if not np.isfinite(x["accum"]).all():
+            raise AssertionError(f"{tag}: accum is not finite")
+        if gate.endswith("seq"):
+            mesh_gate_samples(tag, x, seq[gate.split()[0]], W, H)
+        else:
+            mesh_gate_equal(tag, x, ref[gate])
+    os.makedirs(OUT_DIR, exist_ok=True)
+    write_png(os.path.join(OUT_DIR, "chip_smoke_mesh_sphere.png"),
+              fb_to_image(gloo2[0]["runs"][1]["fb"], W, H))
+    counts = sum_counts([x for res in (nccl, gloo2, gloo4)
+                         for rr in res for x in rr["runs"]])
+    require_counts("main mesh", {k: counts[k] for k in (
+        "parity_sphere_locator", "parity_sphere_locator_raw",
+        "parity_ae_locator", "track_f32", "composite_mask",
+        "composite_finalize")})
+
+    # K8's raw mode at the frame: the samples layout's launch
+    name = "parity_sphere_locator_raw"
+    acc, fb = render.alloc_frame(W, H, device=dev)
+    raw = alloc_raw(W * H, dev)
+    kw = dict(width=W, height=H, raygen="sphere", sampler="locator",
+              locator=tabs["loc"], accel=tabs["accel"]["sphere"])
+    cells, tf, lp = tabs["cells"], tabs["tf"], tabs["lp"]
+    ms, ms_fin = time_turns(
+        lambda: render.parity_track(cells, tf, lp, None, None, out=raw,
+                                    **kw),
+        lambda: render.parity_track(cells, tf, lp, acc, fb, **kw), reps=10)
+    stride = W * H // CHECK_LANES
+    strided = torch.arange(0, W * H, stride, dtype=torch.int32,
+                           device=dev)[:CHECK_LANES].contiguous()
+    err, ps, _ = check_parity_raw(
+        f"main mesh K8 raw on {CHECK_LANES} lanes strided by {stride}",
+        tabs, lp, "sphere", "locator", strided, W, H)
+    errs[name] = max(errs.get(name, 0.0), err)
+    bnd = parity_bound("sphere", "locator", W * H, work,
+                       W * H / CHECK_LANES, lane_bytes=PARITY_RAW_LANE_BYTES)
+    print(f"main mesh K8 raw sphere x locator at {W}x{H}: {ms:.4f} ms per "
+          f"launch against {ms_fin:.4f} ms for the finalizing launch (CUDA "
+          f"events, in turns); bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del tabs, raw, acc, fb
+    torch.cuda.empty_cache()
+    peak_memory("main mesh")
+    return counts, dict(ms=ms, plain_ms=ps * 1e3, bnd=bnd, lanes=W * H,
+                        plain_lanes=CHECK_LANES, finalize_ms=ms_fin)
+
+
 def build_all():
     """nvcc of every csrc/*.cu kernel, started together; prints seconds and
     the ptxas register/spill lines."""
@@ -3855,10 +4283,12 @@ def main() -> int:
         pl_m, counts_m, _ = main_path(dev, marching=True)
         pl_mq, counts_mq, _ = main_path(dev, quantized=True, marching=True)
         fm = bench_march(pl_mq)
-        rows += time_march_kernels(pl_m, pl_mq, fm, errs, counts_m,
-                                   counts_mq)
+        m_rows, counted = time_march_kernels(pl_m, pl_mq, fm, errs,
+                                             counts_m, counts_mq)
+        rows += m_rows
         profile_launch(pl_m, marching=True)
         profile_launch(pl_mq, quantized=True, marching=True)
+        rows += time_march_cost(pl_m, pl_mq, errs, counted)
         del pl_m, pl_mq, fm
         torch.cuda.empty_cache()
         peak_memory("main m, main mq, bench m")
@@ -3900,9 +4330,13 @@ def main() -> int:
     # plain versions' long loops come after every profile of the script
     t0 = time.perf_counter()
     counts_p, loc_rows, checks = {}, {}, []
+    mesh_path = os.path.join(ROOT, "icon_rt_tpu_torch", "_build",
+                             "chip_smoke_mesh_tables.pt")
+    os.makedirs(os.path.dirname(mesh_path), exist_ok=True)
     for raygen in PARITY_RAYGENS:
         c, loc_rows[f"parity_{raygen}_locator"], chk = main_parity(
-            dev, raygen, errs)
+            dev, raygen, errs,
+            mesh_path=mesh_path if raygen == "sphere" else None)
         counts_p.update(c)
         checks.append(chk)
         torch.cuda.empty_cache()
@@ -3944,12 +4378,22 @@ def main() -> int:
     t2 = time.perf_counter()
     counts_x = main_samples(dev)
     t3 = time.perf_counter()
+    try:
+        counts_mesh, raw_row = main_mesh(
+            dev, mesh_path, errs, loc_rows["parity_sphere_locator"]["work"])
+    finally:
+        os.remove(mesh_path)
+    t4 = time.perf_counter()
     rows += time_composite(dev, errs, {
-        k: counts_s[k] + counts_x[k]
+        k: counts_s[k] + counts_x[k] + counts_mesh[k]
         for k in ("composite_mask", "composite_finalize")})
+    kernel_row(rows, counts_mesh, errs, "parity_sphere_locator_raw", "cuda",
+               "icon_rt_tpu_torch/csrc/parity.cu", MESH_REPLACES,
+               raw_row.pop("ms"), raw_row.pop("plain_ms"),
+               raw_row.pop("bnd"), **raw_row)
     print(f"time multi-device phases {time.perf_counter() - t0:.1f} s: main "
           f"anim r2b9q 4k {t1 - t0:.1f} s, main slabs {t2 - t1:.1f} s, main "
-          f"samples {t3 - t2:.1f} s")
+          f"samples {t3 - t2:.1f} s, main mesh {t4 - t3:.1f} s")
     for r in rows:              # the R2B9 checks ran after the first rows
         r["max_abs_err"] = errs[r["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s")

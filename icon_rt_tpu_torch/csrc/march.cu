@@ -20,7 +20,13 @@
 // [t, t_exit] in closed form or, on a miss, jumps to the exact next event
 // (the bin's candidates' next entry, the locator-bin boundary, the band
 // exit).  The lane ends on exhausting the shell, at transmittance below
-// et_eps, or after max_outer iterations of its own.
+// et_eps, or after max_outer iterations of its own.  With a non-null
+// `cost` ((W*H,) int32, natural pixel order) the lane stores how many
+// iterations it entered, the one that ends it included, 0 for a lane that
+// misses the shell: per lane the JAX march's `n_it` of that lane alone
+// (icon_rt_tpu/ops/march.py `return_cost`, :444-445) wherever every lane
+// is served, as without the fine map, up to the f32 ties of ops/march.py's
+// docstring (one zero-width gap iteration more or less).
 //
 // The TPU scheduling of the JAX march is not ported: generational
 // compaction, the fine map's two-stage tail cap with its rank-gather
@@ -340,8 +346,10 @@ __device__ __forceinline__ void march_lane(const TrackCommon& p,
   float t = L.t, seg_hi = L.seg_hi;
   int si = L.si;
   float tr = 1.0f, ar = 0.0f, ag = 0.0f, ab = 0.0f;
+  int it = 0;   // iterations entered, the one that ends the lane included
   if (!L.done) {
-    for (int it = 0; it < m.max_outer; ++it) {
+    while (it < m.max_outer) {
+      ++it;
       // shell-segment advance / exhaustion
       if (t >= seg_hi) {
         if (si == 0 && L.s1_hi > L.s1_lo) {
@@ -415,6 +423,7 @@ __device__ __forceinline__ void march_lane(const TrackCommon& p,
     acca = track::blend(sc, ca, acca);
   }
   track::store_lane(p, lane, accr, accg, accb, acca, L.wrote);
+  if (p.cost != nullptr) p.cost[pixel] = it;
 }
 
 __global__ void __launch_bounds__(128)

@@ -15,8 +15,11 @@
 // runs the tracking loop with its point sampler as a device function,
 // classifies through the (S, 4) LUT and finalizes (running-average lerp,
 // sRGB, RGBA8 pack; a ray that misses the box leaves accum and fb as they
-// were).  One template covers raygen {AE, SPHERE, GRID} x sampler
-// {LOCATOR, BRUTE, WEDGE}:
+// were).  In raw mode (non-null raw_ca) it stores the sample instead --
+// wrote = the box test, the colour and alpha it would blend, 0 without a
+// box hit -- and leaves the finalize to K10's mean over a samples axis
+// (icon_rt_tpu/parallel/sharded.py:127-132).  One template covers raygen
+// {AE, SPHERE, GRID} x sampler {LOCATOR, BRUTE, WEDGE}:
 //   AE      Woodcock tracking of the whole box segment at majorant 1;
 //   GRID    the Cartesian 3-DDA over per-bin majorants (DDA.h:37-136);
 //   SPHERE  the spherical-shell DDA with the reference's degenerate r = 0
@@ -79,6 +82,9 @@ struct ParityParams {
   const float* wscalars;       // (W, 6)
   const int32_t* woffset;      // (N,) first wedge of each column
   int layer_pad;               // the radial window's width
+  uint8_t* raw_wrote;          // raw mode (null = finalize): per lane
+  float* raw_ca;               // wrote (L,) and colour, alpha (L, 4); accum
+                               // and fb untouched
 };
 
 namespace {
@@ -477,7 +483,9 @@ __device__ void track_sphere(const ParityParams& p, Ray& R, float tmin) {
   }
 }
 
-template <int RAYGEN, int SAMPLER>
+// RAW: raw mode, an instantiation of its own so that the finalizing one
+// compiles as it did without the raw branch
+template <int RAYGEN, int SAMPLER, bool RAW>
 __global__ void __launch_bounds__(128) parity_kernel(const ParityParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.n_lanes) return;
@@ -527,21 +535,33 @@ __global__ void __launch_bounds__(128) parity_kernel(const ParityParams p) {
       track_grid<SAMPLER>(p, R, t0, t1);
     else
       track_sphere<SAMPLER>(p, R, t0);
-    // finalize (render.py:127-139): running average, sRGB, RGBA8
-    const float sc = 1.0f / (static_cast<float>(p.accum_id) + 1.0f);
-    float* acc = p.accum + static_cast<size_t>(lane) * 4;
-    float out[4];
+    if (!RAW) {
+      // finalize (render.py:127-139): running average, sRGB, RGBA8
+      const float sc = 1.0f / (static_cast<float>(p.accum_id) + 1.0f);
+      float* acc = p.accum + static_cast<size_t>(lane) * 4;
+      float out[4];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        out[k] = track::blend(sc, R.color[k] * p.amb[k] * p.amb_rad, acc[k]);
+      out[3] = track::blend(sc, R.alpha, acc[3]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] = out[k];
+      p.fb[lane] = static_cast<int32_t>(
+          track::make_8bit(track::linear_to_srgb(out[0])) |
+          (track::make_8bit(track::linear_to_srgb(out[1])) << 8) |
+          (track::make_8bit(track::linear_to_srgb(out[2])) << 16) |
+          (track::make_8bit(out[3]) << 24));
+    }
+  }
+  if (RAW) {
+    // the sample itself, the colour the finalize blends; 0 where the ray
+    // misses the box
+    float* ca = p.raw_ca + static_cast<size_t>(lane) * 4;
 #pragma unroll
     for (int k = 0; k < 3; ++k)
-      out[k] = track::blend(sc, R.color[k] * p.amb[k] * p.amb_rad, acc[k]);
-    out[3] = track::blend(sc, R.alpha, acc[3]);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[k] = out[k];
-    p.fb[lane] = static_cast<int32_t>(
-        track::make_8bit(track::linear_to_srgb(out[0])) |
-        (track::make_8bit(track::linear_to_srgb(out[1])) << 8) |
-        (track::make_8bit(track::linear_to_srgb(out[2])) << 16) |
-        (track::make_8bit(out[3]) << 24));
+      ca[k] = wrote ? R.color[k] * p.amb[k] * p.amb_rad : 0.0f;
+    ca[3] = wrote ? R.alpha : 0.0f;
+    p.raw_wrote[lane] = wrote ? 1 : 0;
   }
   if (p.dbg) {
     p.dbg[lane * 2] = static_cast<int32_t>(R.rng);
@@ -553,7 +573,10 @@ template <int RAYGEN, int SAMPLER>
 void launch(const ParityParams& p, cudaStream_t stream) {
   constexpr int kBlock = 128;
   const int grid = (p.n_lanes + kBlock - 1) / kBlock;
-  parity_kernel<RAYGEN, SAMPLER><<<grid, kBlock, 0, stream>>>(p);
+  if (p.raw_ca)
+    parity_kernel<RAYGEN, SAMPLER, true><<<grid, kBlock, 0, stream>>>(p);
+  else
+    parity_kernel<RAYGEN, SAMPLER, false><<<grid, kBlock, 0, stream>>>(p);
 }
 
 }  // namespace

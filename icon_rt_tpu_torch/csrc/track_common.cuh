@@ -49,7 +49,8 @@ struct TrackCommon {
   float* accum;          // (n_lanes, 4) in/out
   int32_t* fb;           // (n_lanes,) in/out, u32 bits
   int32_t* cost;         // (width * height,) out in natural pixel order, or
-                         // null: each lane's tracking steps (K1, K2)
+                         // null: each lane's tracking steps (K1, K2) or
+                         // march iterations (K3)
   uint8_t* raw_wrote;    // raw mode (K1, K2; null = finalize): per lane the
   float* raw_ca;         // sample's wrote flag (L,), its colour and alpha
   float* raw_t;          // (L, 4) and (or null) the accepted collision's t

@@ -45,7 +45,19 @@ remains: JAX's `max_outer` counts global iterations, in which a lane that
 the tail cap did not serve retries; here it counts the lane's own
 iterations.  The two agree whenever every pending lane is served, which
 holds without the fine map, and no lane of the tests or of chip_smoke.py
-comes near the cap.
+comes near the cap.  The same holds for the cost (`cost=` of the
+wrappers, JAX's `return_cost`): JAX returns `n_it`, the batch's global
+iterations; the port stores per lane the iterations the lane entered,
+counting the one in which it ends -- at the start of a body, where its
+shell segments run out, or at its end, where T < ET_EPS -- as JAX counts
+the body that sets `done`, and 0 for a lane that misses the shell.  So
+without the fine map a lane's cost is JAX's `n_it` of that lane marched
+alone, and the batch maximum is `n_it`, up to f32 ties: a locate at t +
+eps just past a column's exit face may fall between two columns in one
+package's rounding and in the next column in the other's (XLA contracts
+the plane tests into FMAs), and that miss costs one zero-width gap-skip
+iteration (41 and 43 of 2,304 lanes differ by one at the scene of
+tests/test_torch_march.py).
 """
 from __future__ import annotations
 
@@ -72,8 +84,10 @@ ET_EPS = 1e-3
 #: iteration cap of a lane (the JAX march's max_outer)
 MAX_OUTER = 8192
 
-#: kernel launches of K3 per tier (the wrappers count only CUDA launches)
-launches = {"march_f32": 0, "march_q": 0}
+#: kernel launches of K3 per tier, those with the cost output apart (the
+#: wrappers count only CUDA launches)
+launches = {"march_f32": 0, "march_q": 0, "march_f32_cost": 0,
+            "march_q_cost": 0}
 
 _BIG = torch.finfo(torch.float32).max
 
@@ -279,8 +293,11 @@ def _march_torch(tier, bands: RadialBands, lp, pix, width: int,
                  height: int):
     """The march of the rays of `pix` ((L,) pixel ids) on a storage tier
     (ops/fast.py `_F32Tier` or ops/fastq.py `_QTier`).  Returns (wrote (L,)
-    bool, color_alpha (L, 4) f32): the converged expected radiance of the
-    jittered ray of sample lp.accum_id, alpha = 1 - transmittance.
+    bool, color_alpha (L, 4) f32, cost (L,) int32): the converged expected
+    radiance of the jittered ray of sample lp.accum_id, alpha = 1 -
+    transmittance, and the iterations each lane entered, the one that ends
+    it included (0 for a lane that misses the shell; the module docstring
+    has how its maximum relates to JAX's `n_it`).
 
     All still-active lanes take one iteration together; the set shrinks as
     lanes end.  The tier gives test_rows(cid) -> (M, 16), locate(px, py,
@@ -304,9 +321,11 @@ def _march_torch(tier, bands: RadialBands, lp, pix, width: int,
     eps_abs = ud * 1e-4
 
     a = torch.nonzero(~ln.done).squeeze(1)
+    cost = torch.zeros(L, dtype=torch.int32, device=dev)
     it = 0
     while a.numel() and it < MAX_OUTER:
         it += 1
+        cost[a] += 1
         # shell-segment advance; a lane past its last segment ends
         ta, sha = t[a], seg_hi[a]
         at_end = ta >= sha
@@ -362,17 +381,20 @@ def _march_torch(tier, bands: RadialBands, lp, pix, width: int,
 
     amb = lp.ambient_color * lp.ambient_radiance
     ca = torch.cat([rgb * amb, (1.0 - trans)[:, None]], dim=1)
-    return ln.wrote, torch.where(ln.wrote[:, None], ca, 0.0)
+    return ln.wrote, torch.where(ln.wrote[:, None], ca, 0.0), cost
 
 
 def _march_frame_torch(tier, bands: RadialBands, lp, pix, accum, fb,
-                       width: int, height: int):
+                       width: int, height: int, cost=None):
     """Plain-PyTorch K3: `_march_torch` and the epilogue (`_finalize`);
-    updates accum (L, 4) and fb (L,) in place."""
-    wrote, ca = _march_torch(tier, bands, lp, pix, width, height)
+    updates accum (L, 4) and fb (L,) in place, and with `cost` ((W*H,)
+    int32) stores each lane's iterations at its pixel."""
+    wrote, ca, steps = _march_torch(tier, bands, lp, pix, width, height)
     acc, pixels = _finalize(wrote, ca, accum, fb, lp.accum_id)
     accum.copy_(acc)
     fb.copy_(pixels)
+    if cost is not None:
+        cost[pix.long()] = steps
 
 
 # ===========================================================================
@@ -401,7 +423,7 @@ def build_march():
     return lib
 
 
-def _check_lanes(fn, bands: RadialBands, pix, accum, fb):
+def _check_lanes(fn, bands: RadialBands, pix, accum, fb, cost, n_pixels):
     dev = pix.device
     nb = bands.max_opacities.shape[0]
     L = pix.shape[0]
@@ -411,17 +433,22 @@ def _check_lanes(fn, bands: RadialBands, pix, accum, fb):
             ("pix", pix, torch.int32, (L,)), ("accum", accum, F32, (L, 4)),
             ("fb", fb, torch.int32, (L,))):
         _check(name, x, dt, shape, dev, fn=fn)
+    if cost is not None:
+        _check("cost", cost, torch.int32, (n_pixels,), dev, fn=fn)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn}: unsupported device {dev}")
 
 
 def march_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
-              pix, accum, fb, *, width: int, height: int):
+              pix, accum, fb, *, width: int, height: int, cost=None):
     """K3 wrapper, f32 tier: one converged pass of sample lp.accum_id for
     the lanes of `pix` ((L,) int32 pixel ids), averaged into accum (L, 4)
-    f32 and packed into fb (L,) int32 IN PLACE.  CUDA tensors launch
-    csrc/march.cu; CPU tensors run `_march_frame_torch`; anything else
-    raises."""
+    f32 and packed into fb (L,) int32 IN PLACE; with `cost` ((W*H,) int32,
+    natural pixel order) also each lane's march iterations at its pixel
+    (the counterpart of icon_rt_tpu/ops/march.py `march_rays(...,
+    return_cost=True)`, per lane where JAX returns the batch maximum).
+    CUDA tensors launch csrc/march.cu; CPU tensors run
+    `_march_frame_torch`; anything else raises."""
     dev = pix.device
     n = packed.test.shape[0]
     for name, x, w in (("packed.test", packed.test, TEST_W),
@@ -430,49 +457,51 @@ def march_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
         _check(name, x, F32, (n, w), dev, fn="march_f32")
     _check("loc.bins", loc.bins, torch.int32, (None, None), dev,
            fn="march_f32")
-    _check_lanes("march_f32", bands, pix, accum, fb)
+    _check_lanes("march_f32", bands, pix, accum, fb, cost, width * height)
     if dev.type == "cpu":
         _march_frame_torch(_F32Tier(packed, loc), bands, lp, pix, accum, fb,
-                           width, height)
+                           width, height, cost)
         return
     lib = build_march()
     p = track_params(packed, loc, track_common(
         bands, lp, pix, accum, fb, width=width, height=height, samples=1,
-        preserve_cache=False))
+        preserve_cache=False, cost=cost))
     m = _MarchArgs(tab=None, a_scale=0.0, v_scale=0.0, inv_span=0.0,
                    et_eps=ET_EPS, max_outer=MAX_OUTER)
     cuda_build.check("march_f32", lib.march_f32_launch(
         ctypes.byref(p), ctypes.byref(m),
         torch.cuda.current_stream(dev).cuda_stream))
-    launches["march_f32"] += 1
+    launches["march_f32" if cost is None else "march_f32_cost"] += 1
 
 
 def march_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
             tf: Transfunc, lp, pix, accum, fb, *, width: int, height: int,
-            finemap: FineMap | None = None):
-    """K3 wrapper, quantized tier: as `march_f32`, on the u8/u16 tables;
-    with `finemap` a locate tries the fine map first.  The layer colours go
+            finemap: FineMap | None = None, cost=None):
+    """K3 wrapper, quantized tier: as `march_f32` (`cost` too; JAX's
+    `march_rays_q(..., return_cost=True)`), on the u8/u16 tables; with
+    `finemap` a locate tries the fine map first.  The layer colours go
     through the (256, 4) code table of the live TF, built here in plain
     PyTorch (256 postClassify evaluations, as in JAX)."""
     dev = pix.device
     check_q_tables("march_q", q, loc, tf, finemap, dev)
-    _check_lanes("march_q", bands, pix, accum, fb)
+    _check_lanes("march_q", bands, pix, accum, fb, cost, width * height)
     tier = _QTier(q, loc, tf, finemap)
     if dev.type == "cpu":
-        _march_frame_torch(tier, bands, lp, pix, accum, fb, width, height)
+        _march_frame_torch(tier, bands, lp, pix, accum, fb, width, height,
+                           cost)
         return
     lib = build_march()
     tab = tier.code_table.contiguous()
     scal = torch.stack([tier.a_scale, tier.v_scale, tier.inv_span]).tolist()
     p = track_q_params(q, loc, tf, finemap, track_common(
         bands, lp, pix, accum, fb, width=width, height=height, samples=1,
-        preserve_cache=False))
+        preserve_cache=False, cost=cost))
     m = _MarchArgs(tab=tab.data_ptr(), a_scale=scal[0], v_scale=scal[1],
                    inv_span=scal[2], et_eps=ET_EPS, max_outer=MAX_OUTER)
     cuda_build.check("march_q", lib.march_q_launch(
         ctypes.byref(p), ctypes.byref(m),
         torch.cuda.current_stream(dev).cuda_stream))
-    launches["march_q"] += 1
+    launches["march_q" if cost is None else "march_q_cost"] += 1
 
 
 # ===========================================================================

@@ -53,8 +53,8 @@ F32 = torch.float32
 
 #: K8 launches per raygen x sampler (the wrapper adds one per kernel
 #: launch; plain-version runs on the CPU do not count)
-launches = {f"parity_{g}_{s}": 0 for g in ("ae", "sphere", "grid")
-            for s in ("locator", "brute", "wedge")}
+launches = {f"parity_{g}_{s}{m}": 0 for g in ("ae", "sphere", "grid")
+            for s in ("locator", "brute", "wedge") for m in ("", "_raw")}
 
 
 class LaunchParams(NamedTuple):
@@ -211,18 +211,25 @@ def frame_pixels_accel(cells: Cells, tf: Transfunc, accel, lp: LaunchParams,
 def _parity_torch(cells: Cells, tf: Transfunc, lp: LaunchParams, pix,
                   accum, fb, debug, width: int, height: int, raygen: str,
                   sampler: str, locator, accel, work: Work | None = None,
-                  wedges: Wedges | None = None):
+                  wedges: Wedges | None = None, out=None):
     """Plain-PyTorch K8 over the lanes of `pix`: one sample, then the
-    finalize into accum/fb IN PLACE; debug (L, 2) i32 gets each lane's
-    final LCG state (u32 bits) and loop iterations; `work`, if given,
-    counts the sample's events (ops/woodcock.py `Work`)."""
+    finalize into accum/fb IN PLACE, or in raw mode (`out`, an ops/fast.py
+    RawSample) the sample's wrote and colour (0 where the ray misses the
+    box) into out.wrote and out.ca, accum and fb unused and out.t left
+    as it is; debug (L, 2) i32 gets each lane's final LCG state (u32 bits)
+    and loop iterations; `work`, if given, counts the sample's events
+    (ops/woodcock.py `Work`)."""
     pix = pix.long()
     wrote, ca, rng, steps = _pixels(cells, tf, lp, pix % width,
                                     pix // width, width, height, raygen,
                                     sampler, locator, accel, work, wedges)
-    acc, out = _finalize(wrote, ca, accum, fb, lp.accum_id)
-    accum.copy_(acc)
-    fb.copy_(out)
+    if out is not None:
+        out.wrote.copy_(wrote)
+        out.ca.copy_(torch.where(wrote[:, None], ca, 0.0))
+    else:
+        acc, pixels = _finalize(wrote, ca, accum, fb, lp.accum_id)
+        accum.copy_(acc)
+        fb.copy_(pixels)
     if debug is not None:
         debug[:, 0] = colorlib._u32_to_i32(rng)
         debug[:, 1] = steps
@@ -259,6 +266,7 @@ class _ParityParams(ctypes.Structure):
         ("accum_id", ctypes.c_int), ("max_iters", ctypes.c_int),
         ("wverts", ctypes.c_void_p), ("wscalars", ctypes.c_void_p),
         ("woffset", ctypes.c_void_p), ("layer_pad", ctypes.c_int),
+        ("raw_wrote", ctypes.c_void_p), ("raw_ca", ctypes.c_void_p),
     ]
 
 
@@ -282,28 +290,35 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
                  *, width: int, height: int, raygen: str = "ae",
                  sampler: str = "brute", locator: Locator | None = None,
                  accel=None, pix=None, debug=None,
-                 wedges: Wedges | None = None):
+                 wedges: Wedges | None = None, out=None):
     """K8 wrapper: one parity sample (raygen 'ae', 'sphere' or 'grid' with
     sampler 'locator', 'brute' or 'wedge', the last K9-p and needing
     `wedges`) for the lanes of `pix` ((L,) int32 pixel ids; None = every
     pixel in natural order), updating accum (L, 4) f32 and fb (L,) int32
-    IN PLACE; lanes whose ray misses the volume bounds keep both.  debug,
-    optional (L, 2) int32, receives each lane's final LCG state (u32 bits)
-    and loop iterations.  CUDA tensors launch csrc/parity.cu; CPU tensors
-    run `_parity_torch`; anything else raises."""
-    from .fast import _check as check    # ops/fast.py imports this module
+    IN PLACE; lanes whose ray misses the volume bounds keep both.  Raw mode
+    (`out`, an ops/fast.py RawSample of L lanes; accum and fb None) stores
+    the sample instead -- out.wrote the box test, out.ca the colour and
+    alpha the finalize would blend, 0 without a box hit -- for K10's mean
+    over a samples axis (parallel/sharded.py); out.t is not written.
+    debug, optional (L, 2) int32, receives each lane's final LCG state
+    (u32 bits) and loop iterations.  CUDA tensors launch csrc/parity.cu;
+    CPU tensors run `_parity_torch`; anything else raises."""
+    from .fast import _check as check, check_raw   # fast.py imports this
     _check = lambda *a: check(*a, fn="parity_track")
     if raygen not in _RAYGENS:
         raise ValueError(f"unknown raygen {raygen!r}")
     make_sample_fn(cells, locator, sampler, wedges)   # validates it
     if raygen != "ae" and accel is None:
         raise ValueError(f"raygen {raygen!r} needs an accel")
-    dev = accum.device
+    dev = (accum if out is None else out.ca).device
     n = cells.num_cells
-    L = accum.shape[0] if pix is None else pix.shape[0]
-    if pix is None and L != width * height:
-        raise ValueError("parity_track: without pix, accum must hold "
-                         "width * height lanes")
+    if pix is not None:
+        L = pix.shape[0]
+    else:
+        L = width * height if out is not None else accum.shape[0]
+        if L != width * height:
+            raise ValueError("parity_track: without pix, accum must hold "
+                             "width * height lanes")
     _check("cells.planes", cells.planes, F32, (n, 3, 4), dev)
     for name in ("h_bot", "h_top"):
         _check(f"cells.{name}", getattr(cells, name), F32, (n,), dev)
@@ -311,8 +326,10 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
     _check("cells.value", cells.value, F32, (n, 32), dev)
     _check("cells.num_layers", cells.num_layers, torch.int32, (n,), dev)
     _check("tf.values", tf.values, F32, (None, 4), dev)
-    _check("accum", accum, F32, (L, 4), dev)
-    _check("fb", fb, torch.int32, (L,), dev)
+    check_raw("parity_track", out, accum, fb, L, 1, dev)
+    if out is None:
+        _check("accum", accum, F32, (L, 4), dev)
+        _check("fb", fb, torch.int32, (L,), dev)
     if pix is not None:
         _check("pix", pix, torch.int32, (L,), dev)
     if debug is not None:
@@ -332,7 +349,8 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
         if pix is None:
             pix = torch.arange(L, dtype=torch.int32)
         _parity_torch(cells, tf, lp, pix, accum, fb, debug, width, height,
-                      raygen, sampler, locator, accel, wedges=wedges)
+                      raygen, sampler, locator, accel, wedges=wedges,
+                      out=out)
         return
     if dev.type != "cuda":
         raise ValueError(f"parity_track: unsupported device {dev}")
@@ -347,8 +365,12 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
         h_top=cells.h_top.data_ptr(), heights=cells.height.data_ptr(),
         value=cells.value.data_ptr(),
         num_layers=cells.num_layers.data_ptr(), lut=tf.values.data_ptr(),
-        pix=0 if pix is None else pix.data_ptr(), accum=accum.data_ptr(),
-        fb=fb.data_ptr(), dbg=0 if debug is None else debug.data_ptr(),
+        pix=0 if pix is None else pix.data_ptr(),
+        accum=0 if out is not None else accum.data_ptr(),
+        fb=0 if out is not None else fb.data_ptr(),
+        dbg=0 if debug is None else debug.data_ptr(),
+        raw_wrote=0 if out is None else out.wrote.data_ptr(),
+        raw_ca=0 if out is None else out.ca.data_ptr(),
         cam=fa(12, h[0:12]), blo=fa(3, h[12:15]), bhi=fa(3, h[15:18]),
         amb=fa(3, h[18:21]), amb_rad=h[21], ud=h[22], vr=fa(2, h[23:25]),
         opacity_scale=h[25], n_cells=n, lut_size=tf.values.shape[0],
@@ -382,7 +404,8 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
     cuda_build.check("parity_track", lib.parity_launch(
         ctypes.byref(p), _RAYGENS[raygen], _SAMPLERS[sampler],
         torch.cuda.current_stream(dev).cuda_stream))
-    launches[f"parity_{raygen}_{sampler}"] += 1
+    launches[f"parity_{raygen}_{sampler}"
+             + ("" if out is None else "_raw")] += 1
 
 
 def render_frame_ae(cells: Cells, tf: Transfunc, lp: LaunchParams, accum,

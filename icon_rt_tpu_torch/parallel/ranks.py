@@ -13,12 +13,17 @@ neither a test module nor anything outside this package:
   * `animate_job` -- an animation (or, with one timestep, a frame) through
     data/animation.py on a ("tiles", "samples") mesh, f32 or quantized tier;
   * `slab_job` -- samples of the scene shard (parallel/scene_shard.py) on a
-    ("slabs", "tiles") mesh, optionally with the unsharded K2 image beside.
+    ("slabs", "tiles") mesh, optionally with the unsharded K2 image beside;
+  * `samples_job` -- the f32 tier's dealt frame on a samples axis, held
+    against its sequential frame;
+  * `parity_job` -- `render_frame_sharded` (the parity raygens through K8,
+    the fast one through K1, row tiles) in one or more mesh layouts.
 
 A job takes its inputs from a picklable `inputs(device)` callable: the
-tables themselves (`given`, for small scenes handed over by a test) or a
-builder that makes them on the rank's device (`r2b9_animation`,
-`synthetic_scene`).
+tables themselves (`given`, for small scenes handed over by a test), a file
+of them (`saved`, for tables too slow to build on every rank and too large
+for the spawn's pickles) or a function that builds them on the rank's
+device (`r2b9_animation`, `synthetic_scene`).
 """
 from __future__ import annotations
 
@@ -129,7 +134,7 @@ def launch_counts() -> dict:
     """{kernel: launches} of the kernels the multi-device paths run."""
     from ..data import device_scene
     from ..models import accel, finemap, locator, qcells
-    from ..ops import composite, fast, fastq, order
+    from ..ops import composite, fast, fastq, order, render
     return {"track_f32": fast.launches["track_f32"],
             "classify_bake": fast.launches["classify_bake"],
             "track_q": fastq.launches,
@@ -138,17 +143,17 @@ def launch_counts() -> dict:
             "locator_bins": sum(locator.launches.values()),
             "build_finemap": finemap.launches,
             "synth_scene": sum(device_scene.launches.values()),
-            **composite.launches}
+            **composite.launches, **render.launches}
 
 
 def zero_launch_counts():
     """Every counter of `launch_counts` to 0."""
     from ..data import device_scene
     from ..models import accel, finemap, locator, qcells
-    from ..ops import composite, fast, fastq, order
+    from ..ops import composite, fast, fastq, order, render
     fastq.launches = order.launches = accel.launches = finemap.launches = 0
     for d in (fast.launches, qcells.launches, locator.launches,
-              device_scene.launches, composite.launches):
+              device_scene.launches, composite.launches, render.launches):
         for k in d:
             d[k] = 0
 
@@ -163,17 +168,28 @@ def _peak_gib(dev) -> float:
 # Inputs
 # ===========================================================================
 
+def _to(v, device):
+    """v with its tensors on `device` (a tensor, a NamedTuple of tensors, a
+    dict of either; anything else as it is)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*(_to(x, device) for x in v))
+    if isinstance(v, dict):
+        return {k: _to(x, device) for k, x in v.items()}
+    return v
+
+
 def given(tables: dict, device) -> dict:
     """Inputs handed over as they are (tensors moved to `device`)."""
-    out = {}
-    for k, v in tables.items():
-        if isinstance(v, torch.Tensor):
-            v = v.to(device)
-        elif isinstance(v, tuple) and hasattr(v, "_fields"):
-            v = type(v)(*(x.to(device) if isinstance(x, torch.Tensor) else x
-                          for x in v))
-        out[k] = v
-    return out
+    return _to(tables, device)
+
+
+def saved(path: str, device) -> dict:
+    """Inputs from a file that `torch.save` wrote (the tables as `given`
+    takes them), loaded onto `device`."""
+    return given(torch.load(path, map_location=device, weights_only=False),
+                 device)
 
 
 def closeup_lp(stats, width: int, height: int, device):
@@ -193,8 +209,10 @@ def synthetic_scene(tier: str, sub: int, layers: int, width: int,
     """A synthetic icosphere scene built on `device` with the closeup camera:
     tier "f32" (cells, locator, packed tables, bands; a one-timestep
     animation), "q" (the app's quantized tier with its fine map; one
-    timestep of value_q) or "slab" (the dataset, TF and camera the scene
-    shard builds its slabs from)."""
+    timestep of value_q), "slab" (the dataset, TF and camera the scene
+    shard builds its slabs from) or "parity" (the f32 tables and the
+    accel of `parity_job`, a 1 x 64 x 64 ShellAccel built on the host:
+    small scenes only)."""
     from ..data import synthetic
     from ..data.animation import Animation
     from ..models.cells import build_cells, compute_stats
@@ -210,10 +228,18 @@ def synthetic_scene(tier: str, sub: int, layers: int, width: int,
         return dict(out, ds=ds)
     bands = update_band_majorants(build_radial_bands(ds, 64, device=device),
                                   tf.values, tf.value_range)
+    if tier in ("f32", "parity"):
+        out.update(cells=build_cells(ds, device=device),
+                   loc=build_locator(ds, device=device), bands=bands)
     if tier == "f32":
-        return dict(out, anim=Animation([ds]),
-                    cells=build_cells(ds, device=device),
-                    loc=build_locator(ds, device=device), bands=bands)
+        return dict(out, anim=Animation([ds]))
+    if tier == "parity":
+        from ..models.accel import build_shell_accel, update_majorants
+        sph = build_shell_accel(ds, stats.spherical_bounds_lo,
+                                stats.spherical_bounds_hi, (1, 64, 64),
+                                device=device)
+        return dict(out, accel={"sphere": update_majorants(
+            sph, tf.values, tf.value_range)})
     from ..data.bigscene import build_locator_csr_from_scene
     from ..models.finemap import build_finemap
     from ..models.qcells import (bake_alpha_q, quantize_cells,
@@ -307,8 +333,8 @@ def slab_job(rank, world, backend, dev, inputs, *, slabs: int, tiles=None,
     field ("ref_accum", "ref_fb"; its launches come after "counts")."""
     from ..models.shells import build_radial_bands, update_band_majorants
     from .scene_shard import (build_sharded_scene, make_slab_mesh,
-                              render_frame_scene_sharded, tile_pixels)
-    from .sharded import axis_index, gather_frame
+                              render_frame_scene_sharded)
+    from .sharded import axis_index, gather_frame, tile_pixels
     t0 = time.perf_counter()
     inp = inputs(dev)
     mesh = make_slab_mesh(backend, slabs, tiles)
@@ -356,8 +382,7 @@ def _time_raw_q(scene, bands, tf, lp, mesh, width: int, height: int,
     tile against its slab, CUDA events around `reps` launches."""
     from ..ops.fast import alloc_raw
     from ..ops.fastq import track_q
-    from .scene_shard import tile_pixels
-    from .sharded import axis_index
+    from .sharded import axis_index, tile_pixels
     pix = tile_pixels(mesh, width, height, lp.accum_id.device)
     raw = alloc_raw(pix.shape[0], pix.device)
     q, loc = scene.cells(), scene.locator()
@@ -497,4 +522,58 @@ def samples_job(rank, world, backend, dev, inputs, *, width: int,
         out["all_wrote"] = np.zeros(total_px, bool)
         out["all_wrote"][nat] = (wrote == launches * samples).cpu().numpy()
     out["peak_gib"] = _peak_gib(dev)
+    return out
+
+
+def parity_job(rank, world, backend, dev, inputs, *, width: int,
+               height: int, runs, mesh: bool = True):
+    """Runs of parallel/sharded.py `render_frame_sharded` on the tables of
+    inputs(dev): "cells", "loc", "tf", "lp", "accel" (a dict by accel mode)
+    and, for the fast raygen, "bands".  Each run is a dict of "tiles",
+    "samples" (a tiles x samples mesh over `backend`; mesh=False: one
+    process without a mesh), "raygen" ("ae", "accel" or "fast"),
+    "accel_mode", "sampler" (default "locator") and "steps": that many
+    progressive steps, step a at accum_id a, after every launch counter is
+    zeroed.  Returns {"build_s", "runs": per run {"accum", "fb": rank 0's
+    natural-order frame (None elsewhere), "counts", "timings" (seconds by
+    part: track, composite, all_reduce, gather), "seconds", "peak_gib"}}."""
+    from ..ops.fast import pack_cells
+    from .sharded import gather_frame, make_mesh, render_frame_sharded
+    t0 = time.perf_counter()
+    inp = inputs(dev)
+    packed = pack_cells(inp["cells"], inp["tf"]) \
+        if any(r["raygen"] == "fast" for r in runs) else None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out = dict(build_s=time.perf_counter() - t0, runs=[])
+    for run in runs:
+        m = make_mesh(backend, tiles=run["tiles"],
+                      samples=run["samples"]) if mesh else None
+        p_local = width * height // (run["tiles"] if mesh else 1)
+        accum = torch.zeros((p_local, 4), dtype=torch.float32, device=dev)
+        fb = torch.zeros(p_local, dtype=torch.int32, device=dev)
+        mode = run.get("accel_mode", "grid")
+        timings: dict = {}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        for a in range(run["steps"]):
+            render_frame_sharded(
+                m, inp["cells"], inp["tf"], inp.get("accel", {}).get(mode),
+                with_id(inp["lp"], a), accum, fb, width=width, height=height,
+                accel_mode=mode, sampler=run.get("sampler", "locator"),
+                locator=inp["loc"], raygen=run["raygen"], packed=packed,
+                bands=inp.get("bands"), timings=timings)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        t1 = time.perf_counter()
+        acc_all, fb_all = gather_frame(m, accum), gather_frame(m, fb)
+        timings["gather"] = time.perf_counter() - t1
+        out["runs"].append(dict(
+            accum=acc_all if rank == 0 else None,
+            fb=fb_all if rank == 0 else None, counts=counts,
+            timings=timings, seconds=seconds, peak_gib=_peak_gib(dev)))
     return out

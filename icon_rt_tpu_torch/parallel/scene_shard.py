@@ -38,7 +38,7 @@ from ..ops.composite import (finalize_first_hit, select_candidates,
 from ..ops.fast import alloc_raw
 from ..ops.fastq import track_q
 from .sharded import MIN, SUM, Timer, all_reduce, axis_index, axis_size, \
-    device_mesh
+    device_mesh, tile_pixels
 
 
 class ShardedScene(NamedTuple):
@@ -134,19 +134,6 @@ def build_sharded_scene(ds: ICDataset, tf: Transfunc, n_slabs: int,
         lat_hi=loc.lat_hi, lon_lo=loc.lon_lo, lon_hi=loc.lon_hi,
         dims=loc.dims)
     return scene, k_cap, ds_q
-
-
-def tile_pixels(mesh, width: int, height: int, device) -> torch.Tensor:
-    """This rank's pixel ids: row block `tile` of the frame's natural order
-    (all of it on a ("slabs",) mesh)."""
-    total = width * height
-    n_tiles = axis_size(mesh, "tiles")
-    if total % n_tiles:
-        raise ValueError("pixel count must divide the tiles axis")
-    p_local = total // n_tiles
-    base = axis_index(mesh, "tiles") * p_local
-    return torch.arange(base, base + p_local, dtype=torch.int32,
-                        device=device)
 
 
 def render_frame_scene_sharded(mesh, scene: ShardedScene, bands,

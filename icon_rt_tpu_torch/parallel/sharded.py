@@ -1,28 +1,33 @@
 """Multi-device rendering over a `torch.distributed` device mesh.
 
 The counterpart of icon_rt_tpu/parallel/sharded.py.  One process is one
-rank, and every rank holds the whole scene (cells, LUT, locator, bands);
-only framebuffer state is sharded.  Two mesh axes:
+rank, and every rank holds the whole scene (cells, LUT, locator, accel,
+bands); only framebuffer state is sharded.  Two mesh axes:
 
-  * "tiles"   — the frame's covered pixels, sorted by expected ray cost
-                (ops/order.py `pixel_order`), are dealt round-robin over the
-                tiles (`plan_fast_sharding`), so every rank gets the same
-                cost mix and the uncovered tail is dealt to no one.  No
-                communication until the frame is gathered.
+  * "tiles"   — `render_frame_sharded` (every raygen: the parity raygens
+                through K8, the fast one through K1) gives each tile a
+                block of rows in natural order (`tile_pixels`).  The fast
+                paths instead deal the frame's covered pixels, sorted by
+                expected ray cost (ops/order.py `pixel_order`), round-robin
+                over the tiles (`plan_fast_sharding`), so every rank gets
+                the same cost mix and the uncovered tail is dealt to no
+                one.  No communication until the frame is gathered.
   * "samples" — the ranks of one tile render the SAME lanes at different
-                sample ids (accum_id * S + s) in raw mode; K10's mean
-                composite (ops/composite.py) joins them with one
+                sample ids (accum_id * S + s) in raw mode (K1, K2 or K8);
+                K10's mean composite (ops/composite.py) joins them with one
                 all_reduce(SUM).  For pixels whose rays all hit (or all
                 miss) the shell this equals sequential accumulation; at
                 silhouette pixels the batch average weights the written
                 samples uniformly where a running average would weight them
                 by arrival order -- the JAX package's documented difference.
 
-A rank's lanes and its dealt accum (p_local, 4) / fb (p_local,) follow
-JAX's plan; the plan's -1 padding lanes sit at the tail of each rank's row
-and are left out of the launch, since K1 and K2 take their lane count at
-run time.  `gather_frame` brings the dealt framebuffers to one rank, and
-`scatter_fast_frame` restores natural pixel order on the host.
+A rank's lanes and its accum (p_local, 4) / fb (p_local,) follow JAX's row
+tiles or its dealing plan; the plan's -1 padding lanes sit at the tail of
+each rank's row and are left out of the launch, since K1, K2 and K8 take
+their lane count at run time.  `gather_frame` brings the tiles' frames to
+one rank (the row tiles then are the natural frame), and
+`scatter_fast_frame` restores natural pixel order of a dealt frame on the
+host.
 
 `mesh=None` everywhere means one process without a process group: a 1 x 1
 mesh whose collectives are no-ops (the single-process path the sharded
@@ -42,6 +47,7 @@ import torch.distributed as dist
 from ..ops.composite import finalize_mean, mean_payload
 from ..ops.fast import alloc_raw, track_f32
 from ..ops.fastq import track_q
+from ..ops.render import parity_track
 
 SUM, MIN = dist.ReduceOp.SUM, dist.ReduceOp.MIN
 
@@ -140,7 +146,62 @@ class Timer:
 
 
 # ===========================================================================
-# The fast raygen over the mesh
+# Row tiles: every raygen over the mesh
+# ===========================================================================
+
+def tile_pixels(mesh, width: int, height: int, device) -> torch.Tensor:
+    """This rank's pixel ids: row block `tile` of the frame's natural order
+    (all of it without a "tiles" axis).  The pixel count must divide the
+    tiles axis (icon_rt_tpu/parallel/sharded.py:105)."""
+    total = width * height
+    n_tiles = axis_size(mesh, "tiles")
+    if total % n_tiles:
+        raise ValueError("pixel count must divide the tiles axis")
+    p_local = total // n_tiles
+    base = axis_index(mesh, "tiles") * p_local
+    return torch.arange(base, base + p_local, dtype=torch.int32,
+                        device=device)
+
+
+def render_frame_sharded(mesh, cells, tf, accel, lp, accum, fb, *,
+                         width: int, height: int, accel_mode: str = "grid",
+                         sampler: str = "locator", locator=None,
+                         raygen: str = "accel", packed=None, bands=None,
+                         timings: dict | None = None):
+    """One progressive step over the ("tiles", "samples") mesh
+    (icon_rt_tpu/parallel/sharded.py:87-141): rank (t, s) renders row tile
+    t (`tile_pixels`) at sample accum_id * S + s; a samples axis of S > 1
+    joins the S samples by K10's mean and one all_reduce(SUM).
+
+    raygen "ae" (or `accel` None) runs K8's AE raygen, "accel" K8 on
+    `accel` (a ShellAccel for accel_mode "sphere", a GridAccel for "grid"),
+    both with `sampler` ("locator" needs `locator`, or "brute"); "fast"
+    runs K1 on `packed`, `locator` and `bands` (cells and tf unused).
+    accum (p_local, 4) f32 and fb (p_local,) int32 are this rank's tile,
+    updated IN PLACE and returned; `gather_frame` gives the natural frame.
+    mesh None is one process.  timings: a dict of seconds per part
+    ("track", "composite", "all_reduce"), or None."""
+    pix = tile_pixels(mesh, width, height, accum.device)
+    if raygen == "fast":
+        def track(lp_, pix_, acc, fb_, n, out):
+            track_f32(packed, locator, bands, lp_, pix_, acc, fb_,
+                      width=width, height=height, samples=n, out=out)
+    elif raygen in ("ae", "accel"):
+        mode = "ae" if raygen == "ae" or accel is None else accel_mode
+
+        def track(lp_, pix_, acc, fb_, n, out):
+            parity_track(cells, tf, lp_, acc, fb_, width=width,
+                         height=height, raygen=mode, sampler=sampler,
+                         locator=locator,
+                         accel=None if mode == "ae" else accel, pix=pix_,
+                         out=out)
+    else:
+        raise ValueError(f"unknown raygen {raygen!r}")
+    return _fast_sharded(mesh, track, lp, accum, fb, pix, 1, timings)
+
+
+# ===========================================================================
+# The fast raygen over the mesh, dealt by cost
 # ===========================================================================
 
 def plan_fast_sharding(perm: np.ndarray, n_active: int, n_tiles: int,
@@ -185,10 +246,10 @@ def scatter_fast_frame(fb_dealt: np.ndarray, local_pix: np.ndarray,
 
 def _fast_sharded(mesh, track, lp, accum, fb, pix, samples: int,
                   timings: dict | None):
-    """The frame step of both tiers (icon_rt_tpu/parallel/sharded.py:
-    188-256).
+    """The frame step of every mesh path (icon_rt_tpu/parallel/sharded.py:
+    87-141, 188-256).
 
-    track(lp, pix, accum, fb, samples, out) runs K1 or K2 over `pix`.  On a
+    track(lp, pix, accum, fb, samples, out) runs K1, K2 or K8 over `pix`.  On a
     samples axis of one rank the lanes are tracked into accum/fb as on one
     card, `samples` in-lane samples per launch.  Otherwise the rank tracks
     sample accum_id * S + s in raw mode, and K10's mean composite with one

@@ -1,6 +1,7 @@
 """PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q,
 K7-fm, K3 (both tiers), K5c-f32, K7-scene (lod 0 and the mip tier), K7-loc,
-K8 and K6b, K1's and K2's cost output and raw mode (with rng_salt), the
+K8 (and its raw mode) and K6b, K1's, K2's and K3's cost output, K1's and
+K2's raw mode (with rng_salt), the
 unstructured elements' K9-w, K9-p and K9-n, and the multi-device
 composites K10, against their plain PyTorch versions on the same CUDA
 inputs.  Marked `cuda`: they
@@ -683,6 +684,90 @@ def test_cuda_track_raw_matches_plain(scene, qscene, tier, salt):
     composite.finalize_mean(composite.mean_payload(rk.wrote, rk.ca), acc_r,
                             fb_r, scene["lp"].accum_id)
     assert torch.equal(acc_r, acc) and torch.equal(fb_r, fb)
+
+
+@pytest.mark.parametrize("sampler", ["locator", "brute"])
+@pytest.mark.parametrize("raygen", ["ae", "sphere", "grid"])
+def test_cuda_parity_raw_matches_plain(pscene, raygen, sampler):
+    """K8's raw mode (out=, no finalize): wrote identical and colour
+    identical on >= 99.9% of lanes and within 1e-6 of the plain version's,
+    every lane's final LCG state and iterations equal; the raw sample
+    through K10's mean finalize over one rank equals K8's finalizing
+    launch bit for bit (a ParityParams mirror out of step would show)."""
+    from icon_rt_tpu_torch.ops import render
+    s = pscene
+    lp = s["lp"]._replace(accum_id=torch.tensor(
+        2, dtype=torch.int32, device=s["lp"].accum_id.device))
+    dev = lp.accum_id.device
+    L = 64 * 64
+    pix = torch.arange(L, dtype=torch.int32, device=dev)
+    accel = s["accels"].get(raygen)
+    kw = dict(width=64, height=64, raygen=raygen, sampler=sampler,
+              locator=s["loc"], accel=accel)
+    key = f"parity_{raygen}_{sampler}_raw"
+    before = render.launches[key]
+    rk, rp = fast.alloc_raw(L, dev), fast.alloc_raw(L, dev)
+    dk, dp = (torch.zeros(L, 2, dtype=torch.int32, device=dev)
+              for _ in range(2))
+    render.parity_track(s["cells"], s["tf"], lp, None, None, debug=dk,
+                        out=rk, **kw)
+    assert render.launches[key] == before + 1
+    render._parity_torch(s["cells"], s["tf"], lp, pix, None, None, dp, 64,
+                         64, raygen, sampler, s["loc"], accel, out=rp)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dp)
+    assert torch.equal(rk.wrote, rp.wrote)
+    assert (rk.ca == rp.ca).all(1).float().mean() >= 0.999
+    assert float((rk.ca - rp.ca).abs().max()) <= 1e-6
+    g = torch.Generator().manual_seed(3)
+    acc0 = torch.rand(L, 4, generator=g).to(dev)
+    acc, fb = acc0.clone(), torch.zeros(L, dtype=torch.int32, device=dev)
+    render.parity_track(s["cells"], s["tf"], lp, acc, fb, **kw)
+    acc_r, fb_r = acc0.clone(), torch.zeros_like(fb)
+    composite.finalize_mean(composite.mean_payload(rk.wrote, rk.ca), acc_r,
+                            fb_r, lp.accum_id)
+    assert torch.equal(acc_r, acc) and torch.equal(fb_r, fb)
+
+
+@pytest.mark.parametrize("tier", ["f32", "q"])
+def test_cuda_march_cost_matches_plain(scene, qscene, tier):
+    """K3's cost output (each lane's march iterations at its pixel): equal
+    to the plain version's on every pixel, untraced pixels untouched; the
+    frame with the cost equal to the frame without, bit for bit."""
+    n = scene["n_cov"]
+    pix = scene["perm"][:n].contiguous()
+    dev = pix.device
+    if tier == "f32":
+        tabs = (scene["packed"], scene["loc"], scene["bands"], scene["lp"])
+        kern = lambda *a, **k: march.march_f32(*tabs, *a, width=96,
+                                               height=96, **k)
+        plain = lambda *a: march._march_frame_torch(
+            fast._F32Tier(scene["packed"], scene["loc"]), scene["bands"],
+            scene["lp"], *a)
+    else:
+        tabs = (qscene["q"], qscene["loc"], scene["bands"], scene["tf"],
+                scene["lp"])
+        kern = lambda *a, **k: march.march_q(*tabs, *a, width=96,
+                                             height=96, **k)
+        plain = lambda *a: march._march_frame_torch(
+            fastq._QTier(qscene["q"], qscene["loc"], scene["tf"], None),
+            scene["bands"], scene["lp"], *a)
+    key = f"march_{tier}_cost"
+    before = march.launches[key]
+    ck, cp = (torch.full((96 * 96,), -1, dtype=torch.int32, device=dev)
+              for _ in range(2))
+    acc, fb = (x[:n] for x in alloc_frame(96, 96, device=dev))
+    kern(pix, acc, fb, cost=ck)
+    assert march.launches[key] == before + 1
+    acc0, fb0 = (x[:n] for x in alloc_frame(96, 96, device=dev))
+    kern(pix, acc0, fb0)
+    accp, fbp = (x[:n] for x in alloc_frame(96, 96, device=dev))
+    plain(pix, accp, fbp, 96, 96, cp)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc0) and torch.equal(fb, fb0)
+    assert torch.equal(ck, cp)
+    assert int((ck[pix.long()] > 0).sum()) > n // 2
+    assert int((ck == -1).sum()) == 96 * 96 - n
 
 
 def _k10_inputs(dev, L, D=3, seed=0):

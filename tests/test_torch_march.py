@@ -553,7 +553,7 @@ def test_torch_march_matches_dense_scan_oracle():
     tlp = interop.launch_params(lp)
     worst = 0.0
     for px_id in (W * H // 2 + W // 2, 17 * W + 23, 31 * W + 14, 12 * W + 21):
-        wrote, ca = tm._march_torch(tier, tabs[2], tlp, torch.tensor(
+        wrote, ca, _ = tm._march_torch(tier, tabs[2], tlp, torch.tensor(
             [px_id], dtype=torch.int32), W, H)
         want = oracle(jnp.asarray([px_id % W], jnp.int32),
                       jnp.asarray([px_id // W], jnp.int32))
@@ -652,3 +652,67 @@ def test_torch_march_wrappers_reject_bad_inputs(scene):
                      *fa[1:], pix, acc, fb, **kw)
     with pytest.raises(ValueError):
         tm.march_f32(*fa, pix, acc, fb.long(), **kw)
+
+
+# ---------------------------------------------------------------------------
+# the cost output (JAX's return_cost)
+# ---------------------------------------------------------------------------
+
+#: lanes of 48 * 48 whose march cost differs from JAX's (by one iteration
+#: each), measured once: 41 (f32 tier) and 43 (quantized).  A locate at
+#: t + eps just past a column's exit face falls between two columns in one
+#: package's rounding and inside the next column in the other's (XLA
+#: contracts the plane tests into FMAs), and the miss costs one zero-width
+#: gap-skip iteration; mostly in JAX (40 lanes), on 1-2 lanes in the port.
+COST_MISMATCH_BOUND = 64
+
+
+@pytest.mark.parametrize("tier", ["f32", "q"])
+def test_torch_march_cost_vs_jax(scene, tier):
+    """The plain K3's per-lane cost (the iterations a lane entered, the one
+    that ends it included) against JAX's `march_rays(_q)(...,
+    return_cost=True)` without the fine map: JAX counts a batch's global
+    iterations, so each lane is marched there as a batch of its own.  Equal
+    on all but COST_MISMATCH_BOUND lanes, within one iteration on those,
+    so the frame's maximum is within one of the frame's `n_it`; 0 on every
+    lane that misses the shell, >= 1 on every other; the frame is the one
+    the wrapper renders without `cost`, bit for bit."""
+    import jax
+    t, j = scene["t"], scene["j"]
+    pix = torch.arange(W * H, dtype=torch.int32)
+    ys, xs = np.divmod(np.arange(W * H, dtype=np.int32), W)
+    lp = j["lp"]._replace(accum_id=jnp.int32(0))
+    if tier == "q":
+        march = lambda x, y: jm.march_rays_q(
+            j["q"], j["loc"], j["k_cap"], j["bands"], j["tf"], lp, x, y, W,
+            H, return_cost=True)
+        run = lambda acc, fb, **kw: tm.march_q(
+            t["q"], t["loc"], t["bands"], t["tf"], t["lp"], pix, acc, fb,
+            width=W, height=H, **kw)
+    else:
+        march = lambda x, y: jm.march_rays(
+            j["cells"], j["packed"], j["locf"], j["bands"], lp, x, y, W, H,
+            return_cost=True)
+        run = lambda acc, fb, **kw: tm.march_f32(
+            t["packed"], t["locf"], t["bands"], t["lp"], pix, acc, fb,
+            width=W, height=H, **kw)
+    wrote, _, n_it = march(jnp.asarray(xs), jnp.asarray(ys))
+    lane = jax.jit(lambda x, y: march(x, y)[2])
+    want = np.array([int(lane(jnp.asarray(xs[i:i + 1]),
+                              jnp.asarray(ys[i:i + 1])))
+                     for i in range(W * H)])
+    assert want.max() == int(n_it)
+    cost = torch.full((W * H,), -1, dtype=torch.int32)
+    acc, fb = alloc_frame(W, H)
+    run(acc, fb, cost=cost)
+    acc0, fb0 = alloc_frame(W, H)
+    run(acc0, fb0)
+    assert torch.equal(acc, acc0) and torch.equal(fb, fb0)
+    c = cost.numpy()
+    wrote = np.asarray(wrote)
+    assert wrote.sum() > 300 and (~wrote).sum() > 100
+    assert (c[~wrote] == 0).all() and (c[wrote] >= 1).all()
+    d = c - want
+    assert np.abs(d).max() <= 1
+    assert int((d != 0).sum()) <= COST_MISMATCH_BOUND, int((d != 0).sum())
+    assert abs(int(c.max()) - int(n_it)) <= 1

@@ -264,6 +264,48 @@ def test_torch_parity_render_matches_jax_and_oracle(sc, oracle, raygen,
     assert (fb_ref != 0).mean() > 0.05                # not a blank image
 
 
+@pytest.mark.parametrize("sampler", ["brute", "locator"])
+@pytest.mark.parametrize("raygen", ["ae", "sphere", "grid"])
+def test_torch_parity_raw_mode(sc, raygen, sampler):
+    """K8's raw mode (`out=`, plain version): wrote and colour equal to
+    `_pixels`' own sample (colour 0 where the ray misses the box), the
+    debug output as with the finalize; and each raw sample through K10's
+    mean finalize over one rank (composite.mean_payload, finalize_mean)
+    equals parity_track's own finalize bit for bit, accum and fb, over two
+    samples on every pixel and on a strided subset of lanes."""
+    from icon_rt_tpu_torch.ops import composite
+    from icon_rt_tpu_torch.ops.fast import alloc_raw
+    accel = sc["t_acc"].get(raygen)
+    kw = dict(width=W, height=H, raygen=raygen, sampler=sampler,
+              locator=sc["t_loc"], accel=accel)
+    for pix in (None, torch.arange(3, W * H, 7, dtype=torch.int32)):
+        L = W * H if pix is None else pix.shape[0]
+        a_f, f_f = torch.zeros(L, 4), torch.zeros(L, dtype=torch.int32)
+        a_r, f_r = a_f.clone(), f_f.clone()
+        for k in range(2):
+            tlp = interop.launch_params(sc["lp"])._replace(
+                accum_id=torch.tensor(k, dtype=torch.int32))
+            d_f, d_r = (torch.zeros(L, 2, dtype=torch.int32)
+                        for _ in range(2))
+            render.parity_track(sc["t_cells"], sc["t_tf"], tlp, a_f, f_f,
+                                pix=pix, debug=d_f, **kw)
+            raw = alloc_raw(L, torch.device("cpu"))
+            render.parity_track(sc["t_cells"], sc["t_tf"], tlp, None, None,
+                                pix=pix, debug=d_r, out=raw, **kw)
+            lanes = torch.arange(W * H) if pix is None else pix.long()
+            wrote, ca = render._pixels(
+                sc["t_cells"], sc["t_tf"], tlp, lanes % W, lanes // W, W, H,
+                raygen, sampler, sc["t_loc"], accel)[:2]
+            assert torch.equal(raw.wrote, wrote) and bool(wrote.any())
+            assert torch.equal(raw.ca, torch.where(wrote[:, None], ca, 0.0))
+            assert torch.equal(d_r, d_f)
+            composite.finalize_mean(composite.mean_payload(raw.wrote,
+                                                           raw.ca),
+                                    a_r, f_r, tlp.accum_id)
+            assert torch.equal(a_r, a_f) and torch.equal(f_r, f_f)
+        assert int((f_f != 0).sum()) > L // 20
+
+
 def test_torch_golden_framebuffer():
     """tests/test_golden.py's pinned framebuffer through the port (AE,
     brute force, 2 samples, 8x8): at most 2 mismatching pixels, the
