@@ -10,9 +10,10 @@ script exits non-zero without printing a result):
   build   the nvcc builds of K1 (csrc/track_f32.cu), K2 (csrc/track_q.cu),
           K7-fm (csrc/finemap.cu), K3 (csrc/march.cu), K7-scene
           (csrc/scene.cu), K7-loc (csrc/locator.cu), K8 and K9-p
-          (csrc/parity.cu), K9-w (csrc/track_wedge.cu) and K9-n
-          (csrc/uelems.cu), started together,
-          and the first Triton compile of K5a, K5b, K6, K5c-q and K5c-f32,
+          (csrc/parity.cu), K9-w (csrc/track_wedge.cu), K9-n
+          (csrc/uelems.cu), K10 (csrc/composite.cu) and K5b
+          (csrc/majorant.cu), started together,
+          and the first Triton compile of K5a, K6, K5c-q and K5c-f32,
           with their seconds and the ptxas register/spill lines
   check   every kernel against its plain PyTorch version on the card, at
           subdiv 5 x 16 layers, 256x256, closeup camera:
@@ -104,7 +105,9 @@ script exits non-zero without printing a result):
                 invariants (counts sum to the rectangles' area, rows
                 ascending with -1 only at the tail, every cell listed), and
                 the bins of the host synthesizer's lat/lon against the device
-                scene's at subdiv 8 (a count, not a check)
+                scene's at subdiv 8 (a count, not a check); one R2B9 call
+                under torch.profiler (`profile_window`): each device
+                event in order, its time by part and the host's share
             K7-fm at R2B9: seconds and fine bins
   main r2b9q  bench.py `_measure_row_q` at LOD 0: build_q_scene(11, 16)
           with every launch counter zeroed before and read after, the
@@ -271,7 +274,7 @@ FINEMAP_TOL = 1e-4          # K3-q fine map on vs off (tests/test_march.py:366)
 FINEMAP_SHARE = 1e-3
 CU_SOURCES = ("track_f32", "track_q", "finemap", "march", "scene",
               "locator", "parity", "track_wedge", "uelems",
-              "composite")   # csrc/*.cu
+              "composite", "majorant")   # csrc/*.cu
 R2B9_SUB, R2B9_LAYERS = 11, 16    # bench.py r2b9q_closeup / r2b9m_closeup
 R2B9_SPL, R2B9_LIMIT = 8, 64      # r2b9q: samples per launch, in all
 PREVIEW_W, PREVIEW_H = 480, 270   # bench.py's preview frame (W/4 x H/4)
@@ -327,6 +330,10 @@ F64_FLOPS = 34e12           # NVIDIA's H100 SXM data sheet, FP64 outside
 #: scale, clip and add
 SCENE_OPS = {"step": 36, "orient": 40, "latlon": 120, "field": 240,
              "layer": 12, "normals": 72, "pool": 4}
+#: K5b f32 operations a bin: two differences and divisions, two multiplies
+#: and conversions, the clamps, the +1, the level, the index and the two
+#: table reads' maximum, the empty test
+K5B_OPS = 16
 #: K7-loc f64 operations per cell (edge extrema, 2 bulge points per edge,
 #: the interior tests and the bin indices)
 LOCATOR_OPS = 300
@@ -1251,6 +1258,14 @@ def kernel_row(rows, counts, errs, name, route, source, replaces, ms,
           f"{bnd[0]:.4f} ms ({bnd[1]}){lib}")
 
 
+def k5b_bound(nb, S):
+    """(ms, by) of K5b's function over nb bins and an S-entry LUT: it
+    reads each bin's range (8 bytes), the LUT's alpha column and the TF
+    range, and writes each majorant (4 bytes); its operations are the
+    sparse table's S * (floor(log2 S) + 1) maxima and K5B_OPS a bin."""
+    return bound(nb * 12 + S * 4 + 8, S * S.bit_length() + nb * K5B_OPS)
+
+
 def time_kernels(pl, errs, counts):
     """Each kernel and its plain version at the main path's shapes."""
     import torch
@@ -1334,12 +1349,9 @@ def time_kernels(pl, errs, counts):
                              "main shape")
     km = time_cuda(lambda: max_opacity(*mo_args), reps=50)
     pm = time_cuda(lambda: compute_max_opacities_torch(*mo_args), reps=20)
-    nb, S = bands.value_ranges.shape[0], tf.size
-    # reads the (nb, 2) ranges and the (S, 4) LUT, writes (nb,); at most S
-    # compares per band
-    row("max_opacity", "triton", "icon_rt_tpu_torch/models/accel.py",
+    row("max_opacity", "cuda", "icon_rt_tpu_torch/csrc/majorant.cu",
         "icon_rt_tpu/models/accel.py:201", km, pm,
-        bound(nb * 8 + S * 16 + nb * 4, nb * S))
+        k5b_bound(bands.value_ranges.shape[0], tf.size))
 
     cam = _camera_vector(lp)
     r_in, r_out = stats.spherical_bounds_lo[0], stats.spherical_bounds_hi[0]
@@ -2071,9 +2083,13 @@ def main_parity(dev, raygen, errs, mesh_path=None):
         want = compute_max_opacities_torch(*mo_args)
         km = time_cuda(lambda: max_opacity(*mo_args), reps=5)
         pm = time_cuda(lambda: compute_max_opacities_torch(*mo_args), reps=1)
-        print(f"{tag} K5b at {accel.value_ranges.shape[0]} bins: "
+        nb = accel.value_ranges.shape[0]
+        k5b = dict(ms=km, plain_ms=pm, bnd=k5b_bound(nb, tf.size), bins=nb,
+                   launches=counts["max_opacity"])
+        print(f"{tag} K5b at {nb} bins: "
               f"{'exact' if torch.equal(got, want) else 'DIFFERS'}; kernel "
-              f"{km:.4f} ms, plain {pm:.4f} ms")
+              f"{km:.4f} ms, plain {pm:.4f} ms, bound {k5b['bnd'][0]:.4f} "
+              f"ms ({k5b['bnd'][1]})")
         if not torch.equal(got, want):
             raise AssertionError(f"{tag}: K5b differs from its plain "
                                  f"version at {got.shape[0]} bins")
@@ -2095,6 +2111,8 @@ def main_parity(dev, raygen, errs, mesh_path=None):
     row = dict(ms=ms, lanes=W * H, launch_ms=med,
                max_iters=int(dbg[:, 1].max()), tf_edit_s=edit_ms / 1e3,
                peak_gib=gib)
+    if accel is not None:
+        row["k5b"] = k5b
     perm, _ = pixel_order(lp, s["stats"].spherical_bounds_lo[0],
                           s["stats"].spherical_bounds_hi[0], W, H)
     pix = perm[:CHECK_LANES].contiguous()
@@ -2147,6 +2165,7 @@ def parity_rows(loc_rows, brute_rows, errs, counts):
             name = f"parity_{raygen}_{sampler}"
             r = dict((loc_rows if sampler == "locator" else brute_rows)[name])
             r.pop("work", None)
+            r.pop("k5b", None)
             kernel_row(rows, counts, errs, name, "cuda",
                        "icon_rt_tpu_torch/csrc/parity.cu",
                        PARITY_REPLACES[raygen], r.pop("ms"),
@@ -2193,51 +2212,73 @@ def profile_launch(pl, quantized=False, marching=False):
                    f"{kernel}_kernel")
 
 
-def profile_render(render, fb, what, kernel):
-    """One call of `render` and the copy of fb to the host, after a warm
-    call, under torch.profiler: device time by kernel and the device's idle
-    share of the call's wall time.  The profiler may drop a kernel from a
-    one-launch window, and after the plain versions' long loops its
-    windows can hold no device event for several tries (PERF.md §7); a
-    window without a device event named `kernel` is reported and profiled
-    again, and none in PROFILE_WINDOWS tries raises, so no idle share is
-    printed from a window that lacks the kernel."""
+def profile_window(call, require, what):
+    """`call()` under torch.profiler, the device synchronised around it:
+    (wall ms, [(name, start ms, length ms)] of its device events in start
+    order, the first at 0).  The profiler may drop a window's first device
+    events, and after the plain versions' long loops its windows can hold
+    no device event for several tries (PERF.md §7): so each window runs
+    `call` once as a primer and keeps the events of a second, marked run,
+    and a window that lacks a device event whose name holds each entry of
+    `require` (one of its "|"-separated strings) is reported and profiled
+    again; none complete in PROFILE_WINDOWS tries raises."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    for attempt in range(1, PROFILE_WINDOWS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+            with record_function("profile_window"):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        events = list(prof.events())
+        mark = min(e.time_range.start for e in events
+                   if e.name == "profile_window")
+        # the mark's own range shows on the device's timeline too
+        ev = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                    for e in events if e.device_type == DeviceType.CUDA
+                    and e.time_range.start >= mark
+                    and e.name != "profile_window")
+        lacking = [r for r in require
+                   if not any(alt in name for _, _, name in ev
+                              for alt in r.split("|"))]
+        if ev and not lacking:
+            t_first = ev[0][0]
+            return wall, [(name, (s0 - t_first) / 1e3, us / 1e3)
+                          for s0, us, name in ev]
+        print(f"profile {what}: window {attempt} holds no {lacking} (device "
+              f"events {sorted({name for _, _, name in ev})}); profiled "
+              f"again")
+    raise AssertionError(f"profile {what}: no profiled window held "
+                         f"{list(require)} in {PROFILE_WINDOWS} windows")
+
+
+def profile_render(render, fb, what, kernel):
+    """One call of `render` and the copy of fb to the host under
+    `profile_window`: device time by kernel and the device's idle share of
+    the call's wall time, printed only from a window that holds a device
+    event named `kernel`."""
     def launch():
         render()
         return fb.cpu()
 
-    launch()
-    torch.cuda.synchronize()
-    for attempt in range(1, PROFILE_WINDOWS + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            launch()
-            wall = (time.perf_counter() - t0) * 1e3
-        by_name, spans = {}, []
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:    # kernels and copies
-                by_name[e.name] = by_name.get(e.name, 0.0) \
-                    + e.time_range.elapsed_us() / 1e3
-                spans.append((e.time_range.start, e.time_range.end))
-        if any(kernel in k for k in by_name):
-            break
-        print(f"profile {what}: window {attempt} holds no {kernel} (device "
-              f"events {sorted(by_name)}); profiled again")
-    else:
-        raise AssertionError(f"profile {what}: the profiler saw no {kernel} "
-                             f"in {PROFILE_WINDOWS} windows")
+    wall, timeline = profile_window(launch, (kernel,), what)
+    by_name = {}
+    for name, _, ms in timeline:
+        by_name[name] = by_name.get(name, 0.0) + ms
     # busy: the union of the device spans, so an event reported twice
     # counts once
     busy, end = 0.0, -float("inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += (b - max(a, end)) / 1e3
-            end = b
+    for _, a, ms in sorted(timeline, key=lambda x: x[1]):
+        if a + ms > end:
+            busy += a + ms - max(a, end)
+            end = a + ms
     top = ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in
                     sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
     print(f"profile {what}: wall {wall:.3f} ms, device busy "
@@ -2323,18 +2364,77 @@ def locator_bound(n, n_bins, k_cap):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def compare_locator(got, want, label):
+def short_name(name):
+    """A device event's name without its return type, namespaces, template
+    arguments and parameters."""
+    name = name.split("(anonymous namespace)::")[-1]
+    name = name.split("<")[0].split("(")[0]
+    return name.replace("void ", "").split("::")[-1].strip()
+
+
+#: K7-loc's kernels, each of which a profiled window of bin_locator must
+#: hold (csrc/locator.cu)
+LOCATOR_KERNELS = ("locator_window_kernel", "locator_rects_kernel",
+                   "locator_big_kernel", "locator_lists_kernel",
+                   "locator_counts_kernel", "locator_rows_kernel")
+
+
+def locator_split(call, tag):
+    """One `call` (bin_locator) under `profile_window`: its wall time, each
+    device event in the order it ran (start and length, ms) and the device
+    ms by event name, printed; returns {"wall_ms", "device_ms", "by_name":
+    {short event name: ms}}."""
+    wall, timeline = profile_window(call, LOCATOR_KERNELS, tag)
+    dev_ms = sum(ms for _, _, ms in timeline)
+    print(f"{tag} split: wall {wall:.3f} ms, device events {dev_ms:.3f} ms "
+          f"(the rest is host work and the host reads' waits); events "
+          + "; ".join(f"{short_name(n)} at {s0:.3f} for {ms:.4f}"
+                      for n, s0, ms in timeline))
+    split = {}
+    for n, _, ms in timeline:
+        split[short_name(n)] = split.get(short_name(n), 0.0) + ms
+    print(f"{tag} split by name: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in sorted(split.items(),
+                                            key=lambda kv: -kv[1])))
+    return dict(wall_ms=wall, device_ms=dev_ms, by_name=split)
+
+
+def plain_locator_args(lat, lon, label):
+    """The plain version's (n_lat, n_lon, window) of bin_locator(lat, lon):
+    sqrt(N/2) bins per axis and `_locator_window_torch`'s window.  K7-loc's
+    window kernel must return that window exactly, or this raises."""
+    from icon_rt_tpu_torch.models import locator
+    side = max(1, int(np.sqrt(max(lat.shape[0], 1) / 2)))
+    window = locator._locator_window_torch(lat, lon)
+    got = locator.locator_window(lat, lon)
+    print(f"{label}: window kernel {got}, plain {window}; exact "
+          f"{got == window}")
+    if got != window:
+        raise AssertionError(f"{label}: K7-loc's window kernel differs from "
+                             f"its plain version")
+    return side, side, window
+
+
+def compare_locator(got, want, args, label):
     """K7-loc's (loc, k_cap, counts, rect) against the plain version's
-    (bins, k_cap, counts, rect): everything exact.  On a mismatch the first
-    differing cells' rectangles are printed."""
+    (bins, k_cap, counts, rect), and the Locator's dims and window against
+    `args`, the plain (n_lat, n_lon, window) the plain side binned over:
+    everything exact.  On a mismatch the first differing cells' rectangles
+    are printed."""
     import torch
     loc, k, counts, rect = got
     bins_p, k_p, counts_p, rect_p = want
+    n_lat, n_lon, window = args
     same_rect = torch.equal(rect, rect_p)
-    ok = (k == k_p and same_rect and torch.equal(counts, counts_p)
-          and torch.equal(loc.bins, bins_p))
+    same_grid = (loc.dims.tolist() == [n_lat, n_lon]
+                 and [float(v) for v in (loc.lat_lo, loc.lat_hi, loc.lon_lo,
+                                         loc.lon_hi)]
+                 == [float(np.float32(v)) for v in window])
+    ok = (k == k_p and same_rect and same_grid
+          and torch.equal(counts, counts_p) and torch.equal(loc.bins, bins_p))
     print(f"{label}: {rect.shape[0]} cells, {tuple(loc.bins.shape)} bins, "
-          f"k_cap {k} (plain {k_p}); rectangles, counts and bins exact {ok}")
+          f"k_cap {k} (plain {k_p}); dims and window exact {same_grid}; "
+          f"rectangles, counts and bins exact {ok}")
     if not same_rect:
         bad = torch.nonzero((rect != rect_p).any(1)).squeeze(1)[:5]
         for c in bad.tolist():
@@ -2396,11 +2496,11 @@ def scene9(dev, errs):
         f"scene9 K7-scene subdiv {MAIN_SUB} whole", True)
     lat8, lon8 = out8[4], out8[5]
     got8 = locator.bin_locator(lat8, lon8)
-    n_lat, n_lon = (int(d) for d in got8[0].dims.tolist())
-    win8 = locator.locator_window(lat8, lon8)
+    label8 = f"scene9 K7-loc subdiv {MAIN_SUB} whole"
+    args8 = plain_locator_args(lat8, lon8, label8)
+    n_lat, n_lon, win8 = args8
     errs["locator_bins"] = compare_locator(
-        got8, locator._locator_bins_torch(lat8, lon8, n_lat, n_lon, win8),
-        f"scene9 K7-loc subdiv {MAIN_SUB} whole")
+        got8, locator._locator_bins_torch(lat8, lon8, *args8), args8, label8)
     t["locator_ms_sub8"] = time_cuda(lambda: locator.bin_locator(lat8, lon8),
                                      reps=3)
     torch.cuda.synchronize()
@@ -2486,20 +2586,23 @@ def scene9(dev, errs):
     loc_s = time.perf_counter() - t0
     loc, k_cap, counts, rect = got
     n_lat, n_lon = (int(d) for d in loc.dims.tolist())
-    print(f"scene9 K7-loc R2B9: {loc_s:.3f} s (three launches, one host "
-          f"read); dims {n_lat} x {n_lon}, k_cap {k_cap}, table "
+    print(f"scene9 K7-loc R2B9: {loc_s:.3f} s (the window and three "
+          f"steps, three host reads); dims {n_lat} x {n_lon}, k_cap {k_cap}, table "
           f"{loc.bins.numel() * 4 / 1e9:.3f} GB")
     locator_invariants(loc, k_cap, counts, rect, c.n, "scene9 K7-loc R2B9")
     kl = time_cuda(lambda: locator.bin_locator(lat, lon), reps=2)
-    win = locator.locator_window(lat, lon)
+    split = locator_split(lambda: locator.bin_locator(lat, lon),
+                          "scene9 K7-loc R2B9")
+    label = "scene9 K7-loc R2B9 whole"
+    args = plain_locator_args(lat, lon, label)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = locator._locator_bins_torch(lat, lon, n_lat, n_lon, win)
+    want = locator._locator_bins_torch(lat, lon, *args)
     torch.cuda.synchronize()
     pl = (time.perf_counter() - t0) * 1e3
-    compare_locator(got, want, "scene9 K7-loc R2B9 whole")
+    compare_locator(got, want, args, label)
     del want, got, rect, counts
-    t["locator"] = dict(ms=kl, plain_ms=pl, build_s=loc_s,
+    t["locator"] = dict(ms=kl, plain_ms=pl, build_s=loc_s, split=split,
                         bnd=locator_bound(c.n, n_lat * n_lon, k_cap),
                         dims=[n_lat, n_lon], k_cap=k_cap,
                         ms_subdiv8=t["locator_ms_sub8"],
@@ -2888,7 +2991,7 @@ def scene_rows(t, errs, counts):
                "icon_rt_tpu/models/locator.py:239 (host binning, no TPU "
                "kernel)", lo["ms"], lo["plain_ms"], lo["bnd"],
                **{k: lo[k] for k in ("build_s", "dims", "k_cap", "ms_subdiv8",
-                                     "plain_ms_subdiv8")})
+                                     "plain_ms_subdiv8", "split")})
     return rows
 
 
@@ -4204,6 +4307,7 @@ def build_all():
     from icon_rt_tpu_torch.ops.render import build_parity
     from icon_rt_tpu_torch.ops.uelems import build_uelems
     from icon_rt_tpu_torch.ops.composite import build_composite
+    from icon_rt_tpu_torch.models.accel import build_majorant_kernel
     from icon_rt_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(CU_SOURCES)) as ex:
@@ -4214,7 +4318,8 @@ def build_all():
                                           build_parity,
                                           lambda: build_track_f32(
                                               "track_wedge"),
-                                          build_uelems, build_composite)]:
+                                          build_uelems, build_composite,
+                                          build_majorant_kernel)]:
             f.result()
     for name in CU_SOURCES:
         info = cuda_build.info(name)
@@ -4367,6 +4472,14 @@ def main() -> int:
     peak_memory("check parity, the parity paths' checks")
     print(f"time parity phases {time.perf_counter() - t0:.1f} s")
     rows += parity_rows(loc_rows, brute_rows, errs, counts_p)
+    # K5b at the grid accel's 256^3 bins, as main accel grid ran it
+    k5b = loc_rows["parity_grid_locator"]["k5b"]
+    errs["max_opacity_grid"] = 0.0             # held exact in main_parity
+    kernel_row(rows, {"max_opacity_grid": k5b["launches"]}, errs,
+               "max_opacity_grid", "cuda",
+               "icon_rt_tpu_torch/csrc/majorant.cu",
+               "icon_rt_tpu/models/accel.py:201", k5b["ms"],
+               k5b["plain_ms"], k5b["bnd"], bins=k5b["bins"])
     rows += wedge_rows(w_rows, p_rows, k9n, errs, {**counts_p, **counts_w})
 
     # the multi-device phases, every earlier table freed; their ranks are

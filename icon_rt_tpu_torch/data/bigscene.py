@@ -296,8 +296,9 @@ def build_q_scene(subdiv: int, num_layers: int, *, device="cuda",
     subdivision-`subdiv` descendants; the locator and the fine map are
     those of the subdivision-eff geometry.
 
-    The pre-bake all-zero alpha_q and the corners' lat/lon are dropped as
-    soon as they are spent, before the fine map's scratch is allocated.
+    The pre-bake all-zero alpha_q is dropped before the locator is binned
+    and the corners' lat/lon right after it, before the fine map's scratch
+    is allocated.
     cache: the locator and the fine map go through the npz caches
     (build_*_cached) under the key f"s{eff}_l{num_layers}": both are
     functions of the geometry alone, so a mip tier shares the plain
@@ -334,8 +335,10 @@ def build_q_scene(subdiv: int, num_layers: int, *, device="cuda",
     q = bake_alpha_q(dsc.cells, tf)
     bands = update_band_majorants(dsc.bands, tf.values, tf.value_range)
     mark("bake")
-    loc, k_cap = build_locator_csr_from_scene(dsc, cache_key=cache_key)
-    del dsc          # the zero alpha_q and the corners (2 GB at R2B9)
+    corners = dsc._replace(cells=None, bands=None)
+    del dsc          # the zero alpha_q (1.3 GB at R2B9)
+    loc, k_cap = build_locator_csr_from_scene(corners, cache_key=cache_key)
+    del corners      # the corners (2 GB at R2B9)
     mark("locator")
     fm = None
     if finemap_factor:

@@ -335,7 +335,8 @@ def densify_csr(loc: LocatorCSR, k_cap: int, device="cpu") -> Locator:
 # ---------------------------------------------------------------------------
 
 #: K7-loc kernel launches (the wrapper counts only CUDA launches)
-launches = {"locator_count": 0, "locator_fill": 0, "locator_sort": 0}
+launches = {"locator_window": 0, "locator_rects": 0, "locator_lists": 0,
+            "locator_rows": 0}
 
 
 def _rect_torch(lat, lon, n_lat: int, n_lon: int, window):
@@ -475,24 +476,37 @@ class _LocatorParams(ctypes.Structure):
     """Mirror of `LocatorParams` in csrc/locator.cu (same field order)."""
     _fields_ = [
         ("lat", ctypes.c_void_p), ("lon", ctypes.c_void_p),
-        ("rect", ctypes.c_void_p), ("counts", ctypes.c_void_p),
-        ("cursor", ctypes.c_void_p), ("bins", ctypes.c_void_p),
-        ("big", ctypes.c_void_p), ("n_big", ctypes.c_void_p),
+        ("rect", ctypes.c_void_p), ("tile_count", ctypes.c_void_p),
+        ("tile_fill", ctypes.c_void_p), ("tile_start", ctypes.c_void_p),
+        ("entries", ctypes.c_void_p), ("big", ctypes.c_void_p),
+        ("n_big", ctypes.c_void_p), ("k_max", ctypes.c_void_p),
+        ("counts", ctypes.c_void_p), ("bins", ctypes.c_void_p),
         ("lat_lo", ctypes.c_double), ("lat_hi", ctypes.c_double),
         ("lon_lo", ctypes.c_double), ("lon_hi", ctypes.c_double),
         ("n", ctypes.c_longlong),
         ("n_lat", ctypes.c_int), ("n_lon", ctypes.c_int),
-        ("k_cap", ctypes.c_int),
+        ("k_cap", ctypes.c_int), ("big_cap", ctypes.c_int),
     ]
+
+
+#: most cells of many tiles that `locator_bins` lists in its first try (the
+#: list lives in the counts' buffer until the counts land; more such cells
+#: rerun the first step with a list of their number)
+_BIG_CAP = 1 << 30
 
 
 def build_locator_kernel():
     """Compile csrc/locator.cu for sm_90a and bind its entry points."""
     lib = cuda_build.build("locator")
-    for fn in (lib.locator_count_launch, lib.locator_fill_launch,
-               lib.locator_sort_launch):
+    for fn in (lib.locator_rects_launch, lib.locator_lists_launch,
+               lib.locator_rows_launch):
         fn.argtypes = [ctypes.POINTER(_LocatorParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.locator_tile.restype = ctypes.c_int
+    lib.locator_window_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_longlong, ctypes.c_void_p,
+                                          ctypes.c_void_p]
+    lib.locator_window_launch.restype = ctypes.c_int
     return lib
 
 
@@ -500,8 +514,9 @@ def locator_bins(lat, lon, n_lat: int, n_lon: int, window):
     """K7-loc wrapper: the dense (n_lat * n_lon, k_cap) bins of cells with
     (N, 3) f32 corner lat/lon over `window` (lat_lo, lat_hi, lon_lo,
     lon_hi); returns (bins, k_cap, counts, rect) as `_locator_bins_torch`.
-    CUDA tensors launch csrc/locator.cu; CPU tensors run the plain
-    version; anything else raises."""
+    CUDA tensors launch csrc/locator.cu (three steps, a host read after
+    each of the first two); CPU tensors run the plain version; anything
+    else raises."""
     dev = lat.device
     for name, x in (("lat", lat), ("lon", lon)):
         if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 \
@@ -521,38 +536,90 @@ def locator_bins(lat, lon, n_lat: int, n_lon: int, window):
     lib = build_locator_kernel()
     n = lat.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rect = torch.empty((n, 8), dtype=torch.int32, device=dev)
-    counts = torch.zeros(n_bins, dtype=torch.int32, device=dev)
-    big = torch.empty(n, dtype=torch.int32, device=dev)
-    n_big = torch.zeros(1, dtype=torch.int32, device=dev)
+    tile = lib.locator_tile()
+    n_tiles = -(-n_lat // tile) * -(-n_lon // tile)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rect = torch.empty((n, 8), **i32)
+    counts = torch.empty(n_bins, **i32)
+    tile_count = torch.zeros(n_tiles, **i32)
+    scalars = torch.zeros(2, **i32)                  # n_big, k_max
+    big, big_cap = counts, min(n_bins, _BIG_CAP)
     p = _LocatorParams(lat=lat.data_ptr(), lon=lon.data_ptr(),
-                       rect=rect.data_ptr(), counts=counts.data_ptr(),
-                       big=big.data_ptr(), n_big=n_big.data_ptr(),
+                       rect=rect.data_ptr(), tile_count=tile_count.data_ptr(),
+                       n_big=scalars.data_ptr(),
+                       k_max=scalars.data_ptr() + 4,
+                       counts=counts.data_ptr(),
                        lat_lo=window[0], lat_hi=window[1],
                        lon_lo=window[2], lon_hi=window[3], n=n,
                        n_lat=n_lat, n_lon=n_lon)
-    cuda_build.check("locator_count", lib.locator_count_launch(
+    while True:
+        p.big, p.big_cap = big.data_ptr(), big_cap
+        cuda_build.check("locator_rects", lib.locator_rects_launch(
+            ctypes.byref(p), stream))
+        launches["locator_rects"] += n > 0
+        end = torch.cumsum(tile_count, 0, dtype=torch.int64)
+        n_big, total = torch.stack([scalars[0].long(), end[-1]]).tolist()
+        if n_big <= big_cap:
+            break
+        # more cells of many tiles than the list holds: count again with
+        # a list of their number
+        big, big_cap = torch.empty(n_big, **i32), n_big
+        tile_count.zero_()
+        scalars.zero_()
+    start = end - tile_count
+    entries = torch.empty(max(total, 1), dtype=torch.int64, device=dev)
+    tile_fill = torch.zeros(n_tiles, **i32)
+    p.tile_start, p.entries = start.data_ptr(), entries.data_ptr()
+    p.tile_fill = tile_fill.data_ptr()
+    cuda_build.check("locator_lists", lib.locator_lists_launch(
         ctypes.byref(p), stream))
-    launches["locator_count"] += 1
-    k_cap = int(counts.max()) if n else 1
-    cursor = torch.zeros(n_bins, dtype=torch.int32, device=dev)
-    bins = torch.full((n_bins, k_cap), -1, dtype=torch.int32, device=dev)
-    p.cursor, p.bins, p.k_cap = cursor.data_ptr(), bins.data_ptr(), k_cap
-    cuda_build.check("locator_fill", lib.locator_fill_launch(
+    launches["locator_lists"] += 1
+    k_cap = max(1, int(scalars[1]))
+    bins = torch.empty((n_bins, k_cap), **i32)
+    p.bins, p.k_cap = bins.data_ptr(), k_cap
+    cuda_build.check("locator_rows", lib.locator_rows_launch(
         ctypes.byref(p), stream))
-    launches["locator_fill"] += 1
-    cuda_build.check("locator_sort", lib.locator_sort_launch(
-        ctypes.byref(p), stream))
-    launches["locator_sort"] += 1
+    launches["locator_rows"] += 1
     return bins, k_cap, counts, rect
 
 
+def _locator_window_torch(lat, lon):
+    """Plain `locator_window`: torch's min and max of the corners."""
+    mm = torch.stack([lat.min(), lat.max(), lon.min(), lon.max()]).tolist()
+    return mm[0] - 1e-4, mm[1] + 1e-4, mm[2] - 1e-4, mm[3] + 1e-4
+
+
 def locator_window(lat, lon):
-    """(lat_lo, lat_hi, lon_lo, lon_hi) of (N, 3) corner lat/lon tensors,
-    padded by 1e-4 as `_window`; the whole sphere for no cells."""
+    """(lat_lo, lat_hi, lon_lo, lon_hi) of (N, 3) f32 corner lat/lon
+    tensors, padded by 1e-4 as `_window`; the whole sphere for no cells.
+    CUDA tensors launch csrc/locator.cu's one-pass extremes (one host
+    read); CPU tensors run the plain version; anything else raises."""
     if not lat.shape[0]:
         return -np.pi / 2, np.pi / 2, -np.pi, np.pi
-    mm = torch.stack([lat.min(), lat.max(), lon.min(), lon.max()]).tolist()
+    dev = lat.device
+    for name, x in (("lat", lat), ("lon", lon)):
+        if x.dtype != torch.float32 or x.shape != lat.shape \
+                or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"locator_window: {name} must be a contiguous "
+                             f"float32 tensor of lat's shape on {dev}")
+    if dev.type == "cpu":
+        return _locator_window_torch(lat, lon)
+    if dev.type != "cuda":
+        raise ValueError(f"locator_window: unsupported device {dev}")
+    lib = build_locator_kernel()
+    out = torch.tensor([2 ** 31 - 1, -2 ** 31] * 2 + [0, 0],
+                       dtype=torch.int32, device=dev)
+    cuda_build.check("locator_window", lib.locator_window_launch(
+        lat.data_ptr(), lon.data_ptr(), lat.numel(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream))
+    launches["locator_window"] += 1
+    got = np.array(out.tolist(), np.int32)
+    keys = got[:4]
+    mm = np.where(keys >= 0, keys, keys ^ 0x7FFFFFFF).astype(np.int32) \
+        .view(np.float32).tolist()
+    for a in (0, 1):              # a NaN makes both extremes NaN
+        if got[4 + a]:
+            mm[2 * a] = mm[2 * a + 1] = float("nan")
     return mm[0] - 1e-4, mm[1] + 1e-4, mm[2] - 1e-4, mm[3] + 1e-4
 
 

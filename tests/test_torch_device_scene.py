@@ -175,10 +175,12 @@ def _bins_equal(loc, want, k_want):
         assert torch.equal(getattr(loc, f), getattr(want, f)), f
 
 
-@pytest.mark.parametrize("dims_scale", [1.0, 0.5])
+@pytest.mark.parametrize("dims_scale", [1.0, 0.5, 0.25])
 def test_torch_bin_locator_equals_jax_host_binning(scenes, dims_scale):
     """The plain binning of JAX's host-scene lat/lon equals JAX's
-    build_locator_csr_from_scene bins bit for bit: k_cap, window, dims."""
+    build_locator_csr_from_scene bins bit for bit: k_cap, window, dims.
+    k_cap is 17, 34 and 88: rows of up to 32 ids, past 32, and too wide
+    for K7-loc's rows in shared memory."""
     sc = scenes[0]
     jloc, jk = jbig.build_locator_csr_from_scene(sc, dims_scale=dims_scale)
     want = interop.locator_packed(jloc, jk)

@@ -72,19 +72,51 @@ def test_cuda_classify_bake_matches_plain(scene):
     assert torch.equal(prof, p_prof) and torch.equal(rgb, p_rgb)
 
 
-def test_cuda_max_opacity_matches_plain(scene, dev):
-    """K5b: exact, on the bands and on random ranges with empty rows."""
+#: K5b's LUT sizes: the smallest, the app's default 300, the largest whose
+#: sparse table a block keeps in shared memory (1117 at 11 levels; 1024
+#: here) and one past it (the table in global memory)
+K5B_SIZES = [1, 2, 3, 300, 1024, 4096]
+
+
+def _k5b_ranges(kind, scene, pscene, dev):
+    """(M, 2) value ranges of one K5b case: the radial bands, random ranges
+    with empty rows, the grid accel's 256^3 bins (mostly empty) or rows
+    with +-inf, NaN and +-f32-max ends."""
+    if kind == "bands":
+        return scene["bands"].value_ranges
+    if kind == "grid":
+        return pscene["accels"]["grid"].value_ranges
     rng = np.random.default_rng(2)
-    lo = rng.uniform(-0.2, 1.1, 70_000).astype(np.float32)
-    ranges = np.stack([lo, lo + rng.uniform(-0.1, 0.6, lo.size)
-                       .astype(np.float32)], axis=1)
-    tf = scene["tf"]
-    for vr in (scene["bands"].value_ranges,
-               torch.from_numpy(ranges).to(dev)):
-        got = accel.max_opacity(vr, tf.values, tf.value_range)
-        want = accel.compute_max_opacities_torch(vr, tf.values,
-                                                 tf.value_range)
-        assert torch.equal(got, want)
+    if kind == "random":
+        lo = rng.uniform(-0.2, 1.1, 70_000).astype(np.float32)
+        hi = lo + rng.uniform(-0.1, 0.6, lo.size).astype(np.float32)
+    else:
+        ends = np.array([np.inf, -np.inf, np.nan, np.finfo(np.float32).max,
+                         -np.finfo(np.float32).max, 0.0, 0.5, 1.0],
+                        np.float32)
+        lo, hi = (a.ravel() for a in np.meshgrid(ends, ends))
+    return torch.from_numpy(np.stack([lo, hi], axis=1)).to(dev)
+
+
+@pytest.mark.parametrize("size", K5B_SIZES)
+@pytest.mark.parametrize("kind", ["bands", "random", "grid", "special"])
+def test_cuda_max_opacity_matches_plain(scene, pscene, dev, size, kind):
+    """K5b: exact against the plain version on the card (both convert
+    float to int alike there), for each LUT size and kind of ranges, with
+    a random LUT and, at the app's size, the scene's own."""
+    vr = _k5b_ranges(kind, scene, pscene, dev)
+    luts = [torch.from_numpy(np.random.default_rng(size).random(
+        (size, 4), np.float32)).to(dev)]
+    if size == scene["tf"].values.shape[0]:
+        luts.append(scene["tf"].values)
+    for lut in luts:
+        for trange in (scene["tf"].value_range,
+                       torch.tensor([0.1, 0.9], device=dev)):
+            before = accel.launches
+            got = accel.max_opacity(vr, lut, trange)
+            assert accel.launches == before + 1
+            want = accel.compute_max_opacities_torch(vr, lut, trange)
+            assert torch.equal(got, want)
 
 
 def test_cuda_chord_keys_match_plain(scene, dev):
@@ -308,24 +340,63 @@ def test_cuda_scene_matches_plain(scene5):
     assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
 
 
-def test_cuda_locator_bins_match_plain(scene5):
+@pytest.mark.parametrize("dims_scale,big_cap", [
+    (1.0, None),    # k_cap 18; the two cells flagged with the far pole
+    (0.5, None),    # k_cap 38: rows past 32 ids, still in shared memory
+    (0.25, None),   # k_cap 92: rows too wide for shared memory
+    (3.0, None),    # 303^2 bins: polar cells of more than kBigTiles tiles
+    (1.0, 1),       # more cells of many tiles than the first list holds
+])
+def test_cuda_locator_bins_match_plain(scene5, monkeypatch, dims_scale,
+                                       big_cap):
     """K7-loc: rectangles, counts, k_cap and the dense bins exactly equal
     to the plain version's on the subdivision-5 scene's corners."""
     from icon_rt_tpu_torch.data import device_scene as ds
     from icon_rt_tpu_torch.models import locator
+    if big_cap is not None:
+        monkeypatch.setattr(locator, "_BIG_CAP", big_cap)
     agg = ds.scene_pass1(scene5)
     lo, hi = float(agg[0]), float(agg[1])
     _, _, _, _, lat, lon = ds.scene_pass2(
         scene5, lo, float(ds.quant_scale(lo, hi)), latlon=True)
     before = dict(locator.launches)
-    loc, k, counts, rect = locator.bin_locator(lat, lon)
-    assert locator.launches == {k_: v + 1 for k_, v in before.items()}
+    loc, k, counts, rect = locator.bin_locator(lat, lon,
+                                               dims_scale=dims_scale)
+    reruns = 1 if big_cap is not None else 0
+    assert locator.launches == {
+        k_: v + 1 + (reruns if k_ == "locator_rects" else 0)
+        for k_, v in before.items()}
     n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    window = locator.locator_window(lat, lon)
+    assert window == locator._locator_window_torch(lat, lon)
     bins_p, k_p, counts_p, rect_p = locator._locator_bins_torch(
-        lat, lon, n_lat, n_lon, locator.locator_window(lat, lon))
+        lat, lon, n_lat, n_lon, window)
     assert k == k_p
     assert torch.equal(rect, rect_p) and torch.equal(counts, counts_p)
     assert torch.equal(loc.bins, bins_p)
+
+
+@pytest.mark.parametrize("case", ["one", "signed zeros", "nan lat",
+                                  "nan lon"])
+def test_cuda_locator_window_matches_plain(dev, case):
+    """K7-loc's window (one read of both arrays): equal to torch's min and
+    max, NaN where torch's is, on random corners."""
+    from icon_rt_tpu_torch.models import locator
+    rng = np.random.default_rng(5)
+    n = 1 if case == "one" else 300_001
+    lat = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    lon = rng.uniform(-3.1, 3.1, (n, 3)).astype(np.float32)
+    if case == "signed zeros":
+        lat[lat > 0] = 0.0
+        lon[lon < 0] = -0.0
+    if case.startswith("nan"):
+        (lat if case == "nan lat" else lon)[n // 2, 1] = np.nan
+    lat, lon = torch.from_numpy(lat).to(dev), torch.from_numpy(lon).to(dev)
+    before = locator.launches["locator_window"]
+    got = locator.locator_window(lat, lon)
+    assert locator.launches["locator_window"] == before + 1
+    np.testing.assert_array_equal(got, locator._locator_window_torch(lat,
+                                                                     lon))
 
 
 @pytest.fixture(scope="module")

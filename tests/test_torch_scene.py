@@ -85,10 +85,13 @@ def test_torch_camera_basis_equal(scenes):
     assert tc.to_cli_string() == jc.to_cli_string()
 
 
-def test_torch_max_opacity_plain_exact():
+@pytest.mark.parametrize("size", [1, 2, 3, 300, 1024, 4096])
+def test_torch_max_opacity_plain_exact(size):
     """K5b plain version: exact against the JAX sparse-table range-max, on
-    the bands of a scene and on random ranges (empty rows, ranges past the
-    TF range, a random 300-entry LUT)."""
+    the bands of a scene and on random finite ranges (empty rows, ranges
+    past the TF range), for random LUTs of each size K5b's kernel
+    branches on (the smallest, the shared-memory table, the global one)
+    and the scene's own 300-entry LUT."""
     rng = np.random.default_rng(11)
     jds = jsyn.icosphere(3, 8)
     st = jstats(jds)
@@ -98,8 +101,9 @@ def test_torch_max_opacity_plain_exact():
     hi = lo + rng.uniform(-0.2, 0.8, 4000).astype(np.float32)
     rand = np.stack([lo, hi], axis=1)
     rand[::97] = [np.finfo(np.float32).max, -np.finfo(np.float32).max]
-    luts = [np.asarray(tf.values),
-            rng.random((300, 4), np.float32)]
+    luts = [rng.random((size, 4), np.float32)]
+    if size == np.asarray(tf.values).shape[0]:
+        luts.append(np.asarray(tf.values))
     for ranges in (vr, rand):
         for lut in luts:
             for trange in (np.asarray(tf.value_range),
