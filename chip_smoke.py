@@ -11,8 +11,9 @@ script exits non-zero without printing a result):
           K7-fm (csrc/finemap.cu), K3 (csrc/march.cu), K7-scene
           (csrc/scene.cu), K7-loc (csrc/locator.cu), K8 and K9-p
           (csrc/parity.cu), K9-w (csrc/track_wedge.cu), K9-n
-          (csrc/uelems.cu), K10 (csrc/composite.cu) and K5b
-          (csrc/majorant.cu), started together,
+          (csrc/uelems.cu), K10 (csrc/composite.cu), K5b
+          (csrc/majorant.cu) and K6b refine_keys (csrc/order.cu), started
+          together,
           and the first Triton compile of K5a, K6, K5c-q and K5c-f32,
           with their seconds and the ptxas register/spill lines
   check   every kernel against its plain PyTorch version on the card, at
@@ -108,7 +109,14 @@ script exits non-zero without printing a result):
                 scene's at subdiv 8 (a count, not a check); one R2B9 call
                 under torch.profiler (`profile_window`): each device
                 event in order, its time by part and the host's share
-            K7-fm at R2B9: seconds and fine bins
+            K7-fm at R2B9: the first call's seconds (its allocation
+                included) and the peak above what the scene holds, the
+                warm time (CUDA events), one call under torch.profiler
+                (its launches), and the slots exact against the plain
+                version's `_finemap_bins_torch` on sampled fine bins:
+                2^20 random bins, every bin of the first and last fine
+                rows and of the longitude seam's two columns, and the edge
+                bins of 2048 random tiles of the kernel
   main r2b9q  bench.py `_measure_row_q` at LOD 0: build_q_scene(11, 16)
           with every launch counter zeroed before and read after, the
           closeup camera at 1920x1080, 8 samples per launch to 64 samples
@@ -141,7 +149,10 @@ script exits non-zero without printing a result):
           and every launch's cost, identical; both runs' launch times
           printed beside each other; K1's cost against its plain version;
           K6b's kernels exact against their plain versions, timed beside
-          index_select and the torch.sort + index_select re-sort
+          index_select and the torch.sort + index_select re-sort;
+          refine_keys and index_select also in turns, both as 20
+          back-to-back calls (CUDA events: the host's launch rate) and as
+          device time (profiled windows of 10 calls)
   main ae, main accel sphere, main accel grid  the reference-parity
           raygens (K8, csrc/parity.cu) through the app (--raygen ae /
           accel, --accel-mode, the locator sampler) at subdiv 8 x 16,
@@ -274,7 +285,7 @@ FINEMAP_TOL = 1e-4          # K3-q fine map on vs off (tests/test_march.py:366)
 FINEMAP_SHARE = 1e-3
 CU_SOURCES = ("track_f32", "track_q", "finemap", "march", "scene",
               "locator", "parity", "track_wedge", "uelems",
-              "composite", "majorant")   # csrc/*.cu
+              "composite", "majorant", "order")   # csrc/*.cu
 R2B9_SUB, R2B9_LAYERS = 11, 16    # bench.py r2b9q_closeup / r2b9m_closeup
 R2B9_SPL, R2B9_LIMIT = 8, 64      # r2b9q: samples per launch, in all
 PREVIEW_W, PREVIEW_H = 480, 270   # bench.py's preview frame (W/4 x H/4)
@@ -286,6 +297,8 @@ LOD_WINDOW = 1 << 16              # the mip tier's windows of the K7-scene check
 #: radius at 1080p, 0.04 of the frame
 MIN_COVERED = {"closeup": 0.5, "viewall": 0.02}
 CHECK_LANES = 4096                # K2 / K3-q against plain at R2B9
+FM_RANDOM_BINS = 1 << 20          # K7-fm at R2B9: random fine bins checked
+FM_EDGE_TILES = 2048              # ... and the edge bins of these tiles
 PROFILE_WINDOWS = 20              # profiler windows tried for a kernel
 SCENE_THICKNESS = 3.0e4           # data/device_scene.py's default
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -2259,6 +2272,14 @@ def profile_window(call, require, what):
                          f"{list(require)} in {PROFILE_WINDOWS} windows")
 
 
+def device_ms(call, n, require, what):
+    """Device time of one `call`: the device events of a profiled window
+    (`profile_window`) of n calls in a row, summed, over n."""
+    _, timeline = profile_window(lambda: [call() for _ in range(n)],
+                                 require, what)
+    return sum(ms for _, _, ms in timeline) / n
+
+
 def profile_render(render, fb, what, kernel):
     """One call of `render` and the copy of fb to the host under
     `profile_window`: device time by kernel and the device's idle share of
@@ -2610,17 +2631,89 @@ def scene9(dev, errs):
     print(f"scene9 K7-loc R2B9 kernel {kl:.3f} ms, plain {pl:.1f} ms")
     peak_memory("scene9 K7-loc R2B9")
 
-    del lat, lon               # the corners go before the fine map's scratch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    slots = finemap.finemap_slots(loc, test12)
-    torch.cuda.synchronize()
-    print(f"scene9 K7-fm R2B9: {time.perf_counter() - t0:.3f} s, "
-          f"{slots.shape[0]} fine bins ({slots.numel() / 1e9:.3f} GB)")
-    del slots, loc, test12
+    del lat, lon
+    t["finemap"] = finemap_r2b9(loc, test12, errs)
+    del loc, test12
     torch.cuda.empty_cache()
     peak_memory("scene9 K7-fm R2B9")
     return t
+
+
+def finemap_check_bins(f_lat, f_lon, dev):
+    """The fine bins of K7-fm's check at R2B9: FM_RANDOM_BINS random bins,
+    every bin of the first and last fine rows and of the longitude seam's
+    two columns, and the edge bins of FM_EDGE_TILES random tiles of the
+    kernel (finemap.TILE, which the launcher keeps at k_cap 18)."""
+    import torch
+    from icon_rt_tpu_torch.models import finemap
+    rng = np.random.default_rng(12)
+    t_lat, t_lon = finemap.TILE
+    rows = np.arange(f_lat, dtype=np.int64)[:, None] * f_lon
+    cols = np.arange(f_lon, dtype=np.int64)
+    tl = rng.integers(0, -(-f_lat // t_lat), FM_EDGE_TILES)
+    to = rng.integers(0, -(-f_lon // t_lon), FM_EDGE_TILES)
+    a, b = np.meshgrid(np.arange(t_lat), np.arange(t_lon), indexing="ij")
+    edge = (a == 0) | (a == t_lat - 1) | (b == 0) | (b == t_lon - 1)
+    fl = tl[:, None] * t_lat + a[edge][None, :]
+    fo = to[:, None] * t_lon + b[edge][None, :]
+    inside = (fl < f_lat) & (fo < f_lon)
+    ids = np.concatenate([
+        rng.integers(0, f_lat * f_lon, FM_RANDOM_BINS), cols,
+        (f_lat - 1) * f_lon + cols, rows[:, 0], rows[:, 0] + f_lon - 1,
+        (fl * f_lon + fo)[inside]])
+    return torch.from_numpy(np.unique(ids)).to(dev)
+
+
+def finemap_r2b9(loc, test12, errs):
+    """K7-fm on the R2B9 locator: the first call's seconds (the slots'
+    allocation included) and its peak above what the scene holds, the warm
+    time, one profiled call, and the slots exact against
+    `_finemap_bins_torch` on finemap_check_bins.  Returns the timing
+    entry of the kernels line."""
+    import torch
+    from icon_rt_tpu_torch.models import finemap
+    tag = "scene9 K7-fm R2B9"
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    slots = finemap.finemap_slots(loc, test12)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    above = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    F = slots.shape[0]
+    f_lat, f_lon = (2 * int(d) for d in loc.dims.tolist())
+    ms = time_cuda(lambda: finemap.finemap_slots(loc, test12), reps=3)
+    wall, timeline = profile_window(
+        lambda: finemap.finemap_slots(loc, test12), ("finemap",), tag)
+    split = {}
+    for n, _, e_ms in timeline:
+        split[short_name(n)] = split.get(short_name(n), 0.0) + e_ms
+    fb = finemap_check_bins(f_lat, f_lon, loc.bins.device)
+    t0 = time.perf_counter()
+    want = finemap._finemap_bins_torch(loc, test12, 2, fb)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    exact = torch.equal(slots[fb], want)
+    k_cap = loc.bins.shape[1]
+    bnd = bound(loc.bins.numel() * 4 + test12.numel() * 4 + F * 4,
+                4 * F * 20)
+    print(f"{tag}: {f_lat} x {f_lon} fine bins ({slots.numel() / 1e9:.3f} "
+          f"GB), k_cap {k_cap}; first call {first_s:.4f} s, its peak "
+          f"{above:.3f} GiB above the {held / 2 ** 30:.3f} GiB held; warm "
+          f"{ms:.3f} ms (CUDA events), bound {bnd[0]:.3f} ms ({bnd[1]}); "
+          f"profiled call wall {wall:.3f} ms, device "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+          + f"; slots exact on {fb.numel()} sampled bins {exact} (plain "
+          f"{plain_s:.2f} s)")
+    if not exact:
+        bad = fb[(slots[fb] != want).any(1)][:5].tolist()
+        raise AssertionError(f"{tag}: K7-fm differs from its plain version "
+                             f"on fine bins {bad}")
+    errs["build_finemap_r2b9"] = 0.0
+    return dict(ms=ms, plain_ms=plain_s * 1e3, plain_fine_bins=fb.numel(),
+                first_s=first_s, peak_gib_above_scene=above, split=split,
+                profiled_wall_ms=wall, fine_bins=F, bnd=bnd, k_cap=k_cap)
 
 
 def scene9lod(dev, errs):
@@ -2992,6 +3085,17 @@ def scene_rows(t, errs, counts):
                "kernel)", lo["ms"], lo["plain_ms"], lo["bnd"],
                **{k: lo[k] for k in ("build_s", "dims", "k_cap", "ms_subdiv8",
                                      "plain_ms_subdiv8", "split")})
+    # K7-fm at R2B9: the whole plain image does not fit beside the scene
+    # (its slot search alone gathers 12 GB of rows), so its plain time is
+    # `_finemap_bins_torch` on the plain_fine_bins sampled bins
+    fm = t["finemap"]
+    kernel_row(rows, {"build_finemap_r2b9": counts["build_finemap"]}, errs,
+               "build_finemap_r2b9", "cuda",
+               "icon_rt_tpu_torch/csrc/finemap.cu",
+               "icon_rt_tpu/models/finemap.py:174", fm["ms"], fm["plain_ms"],
+               fm["bnd"], **{k: fm[k] for k in (
+                   "fine_bins", "plain_fine_bins", "k_cap", "first_s",
+                   "peak_gib_above_scene", "split", "profiled_wall_ms")})
     return rows
 
 
@@ -3169,11 +3273,20 @@ def order_refine(dev, errs):
     if not (torch.equal(lib_out[0], moved_k[0])
             and torch.equal(lib_out[1], moved_k[1])):
         raise AssertionError("K6b's re-sort differs from the library's")
+    keys = lambda: order.refine_keys(p, n_act, cost)
+    keys_lib = lambda: cost.index_select(0, head)
+    keys_ms, keys_lib_ms = time_turns(keys, keys_lib, reps=20)
+    dev_ms = {}
+    for name, fn, need in (("keys", keys, ("refine_keys_kernel",)),
+                           ("lib", keys_lib, ()), ("lib", keys_lib, ()),
+                           ("keys", keys, ("refine_keys_kernel",))):
+        ms = device_ms(fn, 10, need, f"{tag} K6b {name}")
+        dev_ms[name] = dev_ms.get(name, 0.0) + ms / 2
     t = dict(
-        keys=time_cuda(lambda: order.refine_keys(p, n_act, cost), reps=20),
+        keys=keys_ms, keys_device=dev_ms["keys"],
         keys_plain=time_cuda(lambda: order._refine_keys_torch(p, n_act,
                                                               cost), reps=20),
-        keys_lib=time_cuda(lambda: cost.index_select(0, head), reps=20),
+        keys_lib=keys_lib_ms, keys_lib_device=dev_ms["lib"],
         perm=time_cuda(lambda: order.refine_perm(p, n_act, srt), reps=20),
         perm_plain=time_cuda(lambda: order._refine_perm_torch(p, n_act, srt),
                              reps=20),
@@ -3190,7 +3303,9 @@ def order_refine(dev, errs):
         resort_lib=time_cuda(library_resort, reps=20),
         n_active=n_act, lanes=p.shape[0])
     print(f"{tag} K6b at {W}x{H}: refine_keys {t['keys']:.4f} ms (plain "
-          f"{t['keys_plain']:.4f}, index_select {t['keys_lib']:.4f}); "
+          f"{t['keys_plain']:.4f}, index_select {t['keys_lib']:.4f}; in "
+          f"turns, 20 calls; device time a call {t['keys_device']:.4f}, "
+          f"index_select's {t['keys_lib_device']:.4f}); "
           f"refine_perm {t['perm']:.4f} ms (plain {t['perm_plain']:.4f}, "
           f"index_select + cat {t['perm_lib']:.4f}); repermute {t['move']:.4f} ms (plain {t['move_plain']:.4f}, "
           f"index_select {t['move_lib']:.4f}); the whole re-sort "
@@ -3217,10 +3332,12 @@ def lod_rows(t9l, t_o, errs, counts):
     # lane; refine_perm: the order read per covered lane, perm read and the
     # new perm written per lane; repermute: new_perm, inv_old, accum and fb
     # read, accum and fb written, per lane (no arithmetic to speak of)
-    kernel_row(rows, counts, errs, "refine_keys", "triton",
-               "icon_rt_tpu_torch/ops/order.py",
+    kernel_row(rows, counts, errs, "refine_keys", "cuda",
+               "icon_rt_tpu_torch/csrc/order.cu",
                "icon_rt_tpu/ops/order.py:109", t_o["keys"], t_o["keys_plain"],
                bound(12 * n, 0), library_ms=t_o["keys_lib"],
+               device_ms=t_o["keys_device"],
+               library_device_ms=t_o["keys_lib_device"],
                resort_ms=t_o["resort"], resort_library_ms=t_o["resort_lib"])
     kernel_row(rows, counts, errs, "refine_perm", "triton",
                "icon_rt_tpu_torch/ops/order.py",
@@ -4308,6 +4425,7 @@ def build_all():
     from icon_rt_tpu_torch.ops.uelems import build_uelems
     from icon_rt_tpu_torch.ops.composite import build_composite
     from icon_rt_tpu_torch.models.accel import build_majorant_kernel
+    from icon_rt_tpu_torch.ops.order import build_order_kernel
     from icon_rt_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(CU_SOURCES)) as ex:
@@ -4319,7 +4437,8 @@ def build_all():
                                           lambda: build_track_f32(
                                               "track_wedge"),
                                           build_uelems, build_composite,
-                                          build_majorant_kernel)]:
+                                          build_majorant_kernel,
+                                          build_order_kernel)]:
             f.result()
     for name in CU_SOURCES:
         info = cuda_build.info(name)

@@ -297,8 +297,8 @@ def build_q_scene(subdiv: int, num_layers: int, *, device="cuda",
     those of the subdivision-eff geometry.
 
     The pre-bake all-zero alpha_q is dropped before the locator is binned
-    and the corners' lat/lon right after it, before the fine map's scratch
-    is allocated.
+    and the corners' lat/lon right after it, before the fine map is
+    built.
     cache: the locator and the fine map go through the npz caches
     (build_*_cached) under the key f"s{eff}_l{num_layers}": both are
     functions of the geometry alone, so a mip tier shares the plain

@@ -18,8 +18,12 @@ K7-fm `build_finemap` (CUDA C++, csrc/finemap.cu) replaces the XLA-fused
 icon_rt_tpu/models/finemap.py `_centers_c0`, `_second_candidates`,
 `_first_distinct4` and `build_finemap`; its plain version is
 `_build_finemap_torch`.  The TPU build's latitude slabs, `gather_budget`
-and `max_call_lanes` bounded TPU HBM temporaries and are not ported: the
-whole-image result is the same.
+and `max_call_lanes` bounded TPU HBM temporaries; on the card one block
+owns a `TILE` of fine bins and keeps its sub-center image with a one-center
+halo in shared memory, so no sub-center image exists in device memory.
+`_finemap_bins_torch` computes the slots of chosen fine bins only, for
+exact checks of the kernel at scales where the whole plain image does not
+fit beside the scene.
 """
 from __future__ import annotations
 
@@ -39,6 +43,12 @@ launches = 0
 
 #: sub-centers per chunk of the plain version's candidate gather
 _CHUNK = 1 << 20
+
+#: fine bins (lat, lon) a block of csrc/finemap.cu owns: 32 x 64 sub-centers
+#: and a 128-byte run of slot words per tile row, 24 KB of shared memory at
+#: factor 2 and k_cap 18 (the launcher halves the tile where it would pass
+#: 48 KB).  Picked by timing at R2B9 (scripts/time_locator.py --tiles)
+TILE = (16, 32)
 
 
 class FineMap(NamedTuple):
@@ -123,6 +133,44 @@ def _first_distinct4_torch(pool):
     return torch.stack(out, dim=-1)
 
 
+def _finemap_bins_torch(loc, test12, factor: int, fbids) -> torch.Tensor:
+    """Plain K7-fm on chosen fine bins: the (M, 4) u8 slots of the fine
+    bins `fbids` (flat ids on the (f_lat, f_lon) grid), equal to those rows
+    of `_build_finemap_torch`.  Each bin's 4 x 4 patch of sub-centers (its
+    2 x 2 and their 8-neighbourhood; latitude clamps, longitude wraps) takes
+    `_centers_c0_torch`, then c1, the first 4 distinct and the slot search
+    follow the whole-image rules."""
+    n_lat, n_lon, s_lat, s_lon = _sub_grid(loc, factor)
+    f_lon = s_lon // 2
+    fbids = fbids.to(torch.int64)
+    fl = torch.div(fbids, f_lon, rounding_mode="floor")
+    fo = fbids - fl * f_lon
+    d = torch.arange(-1, 3, device=fbids.device)
+    rows = torch.clamp(2 * fl[:, None] + d, 0, s_lat - 1)
+    cols = torch.remainder(2 * fo[:, None] + d, s_lon)
+    ids = (rows[:, :, None] * s_lon + cols[:, None, :]).reshape(-1)
+    c0 = torch.cat([_centers_c0_torch(loc, test12, factor, ids[i:i + _CHUNK])
+                    for i in range(0, ids.numel(), _CHUNK)])
+    c0 = c0.reshape(-1, 4, 4).to(torch.int32)
+    pool = [c0[:, 1 + k // 2, 1 + k % 2] for k in range(4)]
+    for k in range(4):
+        i, j = 1 + k // 2, 1 + k % 2
+        c1 = torch.full_like(pool[k], -1)
+        for dl, do in ((0, 1), (0, -1), (1, 0), (-1, 0),
+                       (1, 1), (1, -1), (-1, 1), (-1, -1)):
+            nb = c0[:, i + dl, j + do]
+            c1 = torch.where((c1 < 0) & (nb != pool[k]) & (nb >= 0), nb, c1)
+        pool.append(c1)
+    sel = _first_distinct4_torch(torch.stack(pool, dim=-1))
+    bid = torch.div(fl, factor, rounding_mode="floor") * n_lon \
+        + torch.div(fo, factor, rounding_mode="floor")
+    row = loc.bins[bid]                                    # (M, K)
+    eq = row[:, None, :] == sel[..., None]                 # (M, 4, K)
+    found = eq.any(-1) & (sel >= 0)
+    slot = torch.argmax(eq.to(torch.int32), dim=-1)
+    return torch.where(found, slot, 255).to(torch.uint8)
+
+
 def _build_finemap_torch(loc, test12, factor: int = 2) -> torch.Tensor:
     """Plain-PyTorch K7-fm: (f_lat * f_lon, 4) u8 slots."""
     n_lat, n_lon, s_lat, s_lon = _sub_grid(loc, factor)
@@ -154,11 +202,12 @@ class _FinemapParams(ctypes.Structure):
     """Mirror of `FinemapParams` in csrc/finemap.cu (same field order)."""
     _fields_ = [
         ("bins", ctypes.c_void_p), ("test12", ctypes.c_void_p),
-        ("c0", ctypes.c_void_p), ("slots", ctypes.c_void_p),
+        ("slots", ctypes.c_void_p),
         ("lat_lo", ctypes.c_float), ("lat_hi", ctypes.c_float),
         ("lon_lo", ctypes.c_float), ("lon_hi", ctypes.c_float),
         ("n_lat", ctypes.c_int), ("n_lon", ctypes.c_int),
         ("k_cap", ctypes.c_int), ("factor", ctypes.c_int),
+        ("tile_lat", ctypes.c_int), ("tile_lon", ctypes.c_int),
     ]
 
 
@@ -192,8 +241,8 @@ def finemap_slots(loc, test12, factor: int = 2) -> torch.Tensor:
         raise ValueError(f"build_finemap: k_cap {k_cap} overflows the u8 "
                          f"slot encoding")
     n_lat, n_lon, s_lat, s_lon = _sub_grid(loc, factor)
-    # csrc/finemap.cu indexes the (s_lat, s_lon) sub grid in 64 bits, but
-    # the trackers' fine bin id (csrc/tier_q.cuh `fbid`) is an int
+    # csrc/finemap.cu indexes the slots in 64 bits, but the trackers' fine
+    # bin id (csrc/tier_q.cuh `fbid`) is an int
     if (s_lat // 2) * (s_lon // 2) >= 2 ** 31:
         raise ValueError(f"build_finemap: {s_lat // 2} x {s_lon // 2} fine "
                          f"bins overflow the trackers' 32-bit fine bin ids")
@@ -203,17 +252,19 @@ def finemap_slots(loc, test12, factor: int = 2) -> torch.Tensor:
         return _build_finemap_torch(loc, test12, factor)
     if dev.type != "cuda":
         raise ValueError(f"build_finemap: unsupported device {dev}")
+    if test12.data_ptr() % 16:
+        raise ValueError("build_finemap: the kernel reads test12 rows as "
+                         "16-byte vectors; its data must be 16-byte aligned")
     lib = build_finemap_kernel()
-    c0 = torch.empty(s_lat * s_lon, dtype=torch.int32, device=dev)
     slots = torch.empty((s_lat * s_lon // 4, K_CAND), dtype=torch.uint8,
                         device=dev)
     win = torch.stack([loc.lat_lo, loc.lat_hi, loc.lon_lo,
                        loc.lon_hi]).to(torch.float32).tolist()
     p = _FinemapParams(bins=loc.bins.data_ptr(), test12=test12.data_ptr(),
-                       c0=c0.data_ptr(), slots=slots.data_ptr(),
+                       slots=slots.data_ptr(),
                        lat_lo=win[0], lat_hi=win[1], lon_lo=win[2],
                        lon_hi=win[3], n_lat=n_lat, n_lon=n_lon, k_cap=k_cap,
-                       factor=factor)
+                       factor=factor, tile_lat=TILE[0], tile_lon=TILE[1])
     cuda_build.check("build_finemap", lib.finemap_launch(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches += 1

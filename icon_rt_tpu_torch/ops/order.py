@@ -20,23 +20,29 @@ K6b, the measured-cost re-sort (icon_rt_tpu/ops/order.py
 `refine_order_device` :109 and `repermute_device` :124), re-sorts the
 covered prefix by the steps each lane took in the last launch
 (render_frame_fast's `return_cost`) and carries accum and fb over to the
-new order.  Three Triton kernels, all pure gathers with no reuse, so bound
-by their bytes: `refine_keys` gathers cost_nat[perm[i]] for the covered
-prefix; `torch.sort(stable=True)` orders the keys, as K6; `refine_perm`
-writes the new permutation, perm[order[i]] on the prefix and perm[i] on
-the tail; `repermute` moves each lane's 16-byte accum row and 4-byte fb
-word in one launch, lane i reading the old lane inv_old[new_perm[i]]
-(JAX's scatter into natural order and gather out of it, in one step).  At
-1080p these launches are a few tens of microseconds, about the launch
-latency, so they are no faster than their plain versions.  The
+new order.  Three kernels, all pure gathers with no reuse, so bound by
+their bytes: `refine_keys` (CUDA C++, csrc/order.cu) gathers
+cost_nat[perm[i]] for the covered prefix; `torch.sort(stable=True)` orders
+the keys, as K6; `refine_perm` (Triton) writes the new permutation,
+perm[order[i]] on the prefix and perm[i] on the tail; `repermute` (Triton)
+moves each lane's 16-byte accum row and 4-byte fb word in one launch, lane
+i reading the old lane inv_old[new_perm[i]] (JAX's scatter into natural
+order and gather out of it, in one step).  At 1080p these launches are a
+few tens of microseconds, about the launch latency, so a call's host work
+decides its time: `refine_keys` binds its C entry point through ctypes and
+does one check and one allocation a call.  The
 pixel's RNG stream is keyed by the pixel (track_common.cuh `init_lane`)
 and the column cache lives within one launch, so a re-sort between
 launches leaves the unpermuted image bit-identical.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from ..utils import cuda_build
 
 #: K6 launches (kernel launches only; CPU plain-version runs do not count)
 launches = 0
@@ -47,6 +53,7 @@ tl = None          # triton.language, bound on first launch
 _KERNEL = None
 _K6B = {}
 _BLOCK = 1024
+_KEYS_LAUNCH = None  # csrc/order.cu refine_keys_launch, bound on first use
 
 
 def _triton():
@@ -232,14 +239,6 @@ def repermute(arr, old_perm, new_perm):
     return nat[np.asarray(new_perm)]
 
 
-def _refine_keys_kernel(perm_ptr, cost_ptr, out_ptr, n, BLOCK: tl.constexpr):
-    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    msk = i < n
-    pix = tl.load(perm_ptr + i, mask=msk, other=0)
-    tl.store(out_ptr + i, tl.load(cost_ptr + pix, mask=msk, other=0),
-             mask=msk)
-
-
 def _refine_perm_kernel(perm_ptr, order_ptr, out_ptr, n_active, total,
                         BLOCK: tl.constexpr):
     i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
@@ -265,8 +264,7 @@ def _repermute_kernel(new_ptr, inv_ptr, acc_ptr, fb_ptr, acc_out, fb_out, n,
 
 def _k6b(name: str):
     if name not in _K6B:
-        fn = {"refine_keys": _refine_keys_kernel,
-              "refine_perm": _refine_perm_kernel,
+        fn = {"refine_perm": _refine_perm_kernel,
               "repermute": _repermute_kernel}[name]
         _K6B[name] = _triton().jit(fn)
     return _K6B[name]
@@ -284,24 +282,41 @@ def _refine_keys_torch(perm, n_active: int, cost_nat):
     return cost_nat[perm[:n_active].long()]
 
 
+def build_order_kernel():
+    """Compile csrc/order.cu for sm_90a and bind its entry point."""
+    lib = cuda_build.build("order")
+    lib.refine_keys_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    lib.refine_keys_launch.restype = ctypes.c_int
+    return lib
+
+
 def refine_keys(perm, n_active: int, cost_nat):
     """K6b wrapper, the keys of the re-sort: (n_active,) int32
-    cost_nat[perm[i]].  A CUDA perm launches the Triton kernel, a CPU one
-    runs the plain version."""
+    cost_nat[perm[i]].  perm and cost_nat: contiguous (total,) int32 on one
+    device, perm 16-byte aligned on the card.  A CUDA perm launches
+    csrc/order.cu, a CPU one runs the plain version."""
+    global _KEYS_LAUNCH
     dev = perm.device
-    total = perm.shape[0]
-    _check_perm("refine_keys", "perm", perm, total, dev)
-    _check_perm("refine_keys", "cost_nat", cost_nat, total, dev)
-    if not 0 <= n_active <= total:
-        raise ValueError("refine_keys: n_active outside [0, total]")
+    if perm.dtype != torch.int32 or cost_nat.dtype != torch.int32 \
+            or perm.dim() != 1 or cost_nat.shape != perm.shape \
+            or not (perm.is_contiguous() and cost_nat.is_contiguous()) \
+            or cost_nat.device != dev or not 0 <= n_active <= perm.shape[0] \
+            or (dev.type == "cuda" and perm.data_ptr() % 16):
+        raise ValueError("refine_keys: perm and cost_nat must be contiguous "
+                         "(total,) int32 tensors on one device (perm 16-byte "
+                         "aligned on the card), 0 <= n_active <= total")
     if dev.type == "cpu":
         return _refine_keys_torch(perm, n_active, cost_nat)
     if dev.type != "cuda":
         raise ValueError(f"refine_keys: unsupported device {dev}")
     out = torch.empty(n_active, dtype=torch.int32, device=dev)
     if n_active:
-        _k6b("refine_keys")[(-(-n_active // _BLOCK),)](
-            perm, cost_nat, out, n_active, BLOCK=_BLOCK)
+        if _KEYS_LAUNCH is None:
+            _KEYS_LAUNCH = build_order_kernel().refine_keys_launch
+        cuda_build.check("refine_keys", _KEYS_LAUNCH(
+            perm.data_ptr(), cost_nat.data_ptr(), out.data_ptr(), n_active,
+            torch._C._cuda_getCurrentRawStream(dev.index)))
         refine_launches["refine_keys"] += 1
     return out
 

@@ -1,5 +1,6 @@
 """PyTorch port, the fine map (models/finemap.py, K7-fm plain version):
-the slots against JAX build_finemap on the same locator and test rows, the
+the slots against JAX build_finemap on the same locator and test rows at
+factors 1-3, the sampled-bin plain version against the whole image, the
 invariants of tests/test_finemap.py, and the npz cache."""
 import numpy as np
 import pytest
@@ -31,7 +32,7 @@ def scene(request):
     n = ds_q.num_cells
     tq = interop.quantized_cells(jq, n=n)
     tloc = interop.locator_packed(jloc, k_cap)
-    return dict(jloc=jloc, k_cap=k_cap, jfm=jfm, tq=tq, tloc=tloc,
+    return dict(jloc=jloc, k_cap=k_cap, jfm=jfm, jq=jq, tq=tq, tloc=tloc,
                 fm=build_finemap(tloc, tq.test12, factor=2), n=n)
 
 
@@ -48,6 +49,35 @@ def test_torch_finemap_matches_jax(scene):
     for f in ("lat_lo", "lat_hi", "lon_lo", "lon_hi", "dims"):
         np.testing.assert_array_equal(getattr(fm, f).numpy(),
                                       getattr(ifm, f).numpy())
+
+
+@pytest.mark.parametrize("factor", [1, 3])
+def test_torch_finemap_factor_matches_jax(scene, factor):
+    """_build_finemap_torch at factors 1 and 3 (the fixture holds 2): the
+    u8 slots byte-equal to JAX's build_finemap at the same factor, and the
+    same dims."""
+    jfm = jbuild_finemap(scene["jloc"], scene["jq"].test12, scene["k_cap"],
+                         factor=factor)
+    fm = build_finemap(scene["tloc"], scene["tq"].test12, factor=factor)
+    ifm = interop.finemap(jfm)
+    np.testing.assert_array_equal(fm.slots.numpy(), ifm.slots.numpy())
+    np.testing.assert_array_equal(fm.dims.numpy(), ifm.dims.numpy())
+
+
+@pytest.mark.parametrize("factor", [1, 2, 3])
+def test_torch_finemap_bins_equal_whole_image(scene, factor):
+    """_finemap_bins_torch (the slots of chosen fine bins, the card's
+    check at R2B9) on every fine bin, in a shuffled order, equals the
+    whole-image _build_finemap_torch row for row: the first and last
+    fine rows (latitude clamps) and the seam columns (longitude wraps)
+    included."""
+    loc, test12 = scene["tloc"], scene["tq"].test12
+    want = finemap._build_finemap_torch(loc, test12, factor)
+    fb = torch.from_numpy(np.random.default_rng(factor).permutation(
+        want.shape[0]))
+    got = finemap._finemap_bins_torch(loc, test12, factor, fb)
+    assert got.dtype == torch.uint8
+    assert torch.equal(got, want[fb])
 
 
 def _planes(scene):

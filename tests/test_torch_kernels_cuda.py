@@ -1,12 +1,13 @@
 """PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q,
-K7-fm, K3 (both tiers), K5c-f32, K7-scene (lod 0 and the mip tier), K7-loc,
-K8 (and its raw mode) and K6b, K1's, K2's and K3's cost output, K1's and
+K7-fm (factors 1-3, cut edge tiles, a band locator), K3 (both tiers),
+K5c-f32, K7-scene (lod 0 and the mip tier), K7-loc, K8 (and its raw
+mode) and K6b, K1's, K2's and K3's cost output, K1's and
 K2's raw mode (with rng_salt), the
 unstructured elements' K9-w, K9-p and K9-n, and the multi-device
 composites K10, against their plain PyTorch versions on the same CUDA
 inputs.  Marked `cuda`: they
 skip where no GPU is present (CUDA and Triton kernels have no CPU mode).
-On a GPU machine:  python -m pytest tests/test_torch_kernels_cuda.py"""
+On a GPU machine:  python -m pytest --noconftest tests/test_torch_kernels_cuda.py"""
 import numpy as np
 import pytest
 import torch
@@ -191,6 +192,53 @@ def test_cuda_build_finemap_matches_plain(qscene):
     assert finemap.launches == before + 1
     want = finemap._build_finemap_torch(qscene["loc"], qscene["q"].test12)
     assert torch.equal(slots, want) and torch.equal(fm.slots, want)
+
+
+def _finemap_matches(loc, test12, factor):
+    before = finemap.launches
+    slots = finemap.finemap_slots(loc, test12, factor)
+    assert finemap.launches == before + 1
+    want = finemap._build_finemap_torch(loc, test12, factor)
+    assert slots.shape == want.shape and torch.equal(slots, want)
+    fb = torch.arange(want.shape[0], device=want.device)
+    assert torch.equal(finemap._finemap_bins_torch(loc, test12, factor, fb),
+                       want)
+
+
+@pytest.mark.parametrize("factor", [1, 2, 3])
+def test_cuda_build_finemap_factors_match_plain(qscene, factor):
+    """K7-fm at factors 1-3 on the subdivision-4 locator (50 x 50 coarse
+    bins: fine grids of 50-150 bins a side, no multiple of the kernel's
+    16 x 32 tile, so every row and column of tiles has a cut edge tile):
+    the slots byte-equal to the plain version's, and to the sampled-bin
+    plain version on every bin."""
+    loc = qscene["loc"]
+    assert loc.dims.tolist() == [50, 50]
+    _finemap_matches(loc, qscene["q"].test12, factor)
+
+
+@pytest.mark.parametrize("factor", [1, 2])
+def test_cuda_build_finemap_band_locator_matches_plain(scene5, factor):
+    """K7-fm over a locator binned from a latitude band of cells only
+    (corners within [-0.5, 0.7] rad of the subdivision-5 scene), so that
+    its clamped edge rows lie inside the sphere, not at the poles, and
+    over the whole scene's locator at a quarter of its bins (k_cap 92:
+    the launcher halves the tile to fit shared memory at factor 1)."""
+    from icon_rt_tpu_torch.data import device_scene as ds
+    from icon_rt_tpu_torch.models import locator
+    agg = ds.scene_pass1(scene5)
+    lo, hi = float(agg[0]), float(agg[1])
+    test12, _, _, _, lat, lon = ds.scene_pass2(
+        scene5, lo, float(ds.quant_scale(lo, hi)), latlon=True)
+    band = ((lat >= -0.5) & (lat <= 0.7)).all(1)
+    t_band = test12[band].contiguous()
+    loc = locator.bin_locator(lat[band].contiguous(),
+                              lon[band].contiguous())[0]
+    assert -1.0 < float(loc.lat_lo) and float(loc.lat_hi) < 1.0
+    _finemap_matches(loc, t_band, factor)
+    loc_q, k_cap = locator.bin_locator(lat, lon, dims_scale=0.25)[:2]
+    assert k_cap > 64
+    _finemap_matches(loc_q, test12, factor)
 
 
 @pytest.mark.parametrize("patch", [False, True], ids=["lookup", "patch"])
@@ -592,6 +640,24 @@ def test_cuda_refine_matches_plain(dev):
     assert torch.equal(a2, pa) and torch.equal(f2, pf)
     assert order.refine_launches == {k: v + (1 if k == "repermute" else 2)
                                      for k, v in before.items()}
+
+
+@pytest.mark.parametrize("n_act", [0, 1, 3, 4, 70_001])
+def test_cuda_refine_keys_tails_match_plain(dev, n_act):
+    """K6b refine_keys (csrc/order.cu, 4 keys a thread) at the prefix
+    sizes of its tail: none, 1 and 3 keys, one full vector and 70,001
+    (17,500 vectors and a key); exact against the plain version, one
+    launch for each call with a key and none without."""
+    rng = np.random.default_rng(n_act)
+    total = max(n_act, 8) + 5
+    t = lambda a: torch.from_numpy(a).to(dev)
+    perm = t(rng.permutation(total).astype(np.int32))
+    cost = t(rng.integers(-2 ** 31, 2 ** 31 - 1, total).astype(np.int32))
+    before = order.refine_launches["refine_keys"]
+    keys = order.refine_keys(perm, n_act, cost)
+    assert order.refine_launches["refine_keys"] == before + (n_act > 0)
+    assert keys.shape == (n_act,) and keys.dtype == torch.int32
+    assert torch.equal(keys, order._refine_keys_torch(perm, n_act, cost))
 
 
 @pytest.fixture(scope="module")

@@ -144,6 +144,25 @@ def test_torch_refine_order_and_repermute_equal_jax(total, n_active, levels):
     np.testing.assert_array_equal(f2.numpy(), jrepermute(fb, perm, want))
 
 
+@pytest.mark.parametrize("n_active", [0, 1, 3])
+def test_torch_refine_keys_tail_sizes_equal_jax(n_active):
+    """refine_keys at the CUDA kernel's tail sizes (n_active % 4 != 0, and
+    no key at all): cost[perm[:n_active]], and refine_order_device on
+    those keys gives JAX's numpy refine_order."""
+    from icon_rt_tpu.ops.order import refine_order as jrefine
+    from icon_rt_tpu_torch.ops.order import refine_keys, refine_order_device
+    rng = np.random.default_rng(40 + n_active)
+    perm = rng.permutation(37).astype(np.int32)
+    cost = rng.integers(0, 3, 37).astype(np.int32)
+    tp, tc = torch.from_numpy(perm), torch.from_numpy(cost)
+    keys = refine_keys(tp, n_active, tc)
+    assert keys.dtype == torch.int32 and keys.shape == (n_active,)
+    np.testing.assert_array_equal(keys.numpy(), cost[perm[:n_active]])
+    np.testing.assert_array_equal(refine_order_device(tp, n_active,
+                                                      tc).numpy(),
+                                  jrefine(perm, n_active, cost))
+
+
 def test_torch_refine_rejects_bad_inputs():
     from icon_rt_tpu_torch.ops.order import (refine_keys, refine_perm,
                                              repermute_device)
