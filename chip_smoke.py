@@ -97,10 +97,12 @@ script exits non-zero without printing a result):
   scene9  the R2B9 scene's kernels (subdiv 11 x 16, 83,886,080 columns),
           after every earlier table is freed:
             K7-scene against its plain version on the whole subdiv-8 x 16
-                scene, on the first and the last 2^20-cell index windows of
-                R2B9 and on the whole of R2B9: test12 and corner lat/lon
-                bit-equal, value_q exact on >= 99.999% of entries and within
-                1 level, value range and per-layer u8 ranges equal
+                scene, on the first, the last and an ancestor-period-
+                straddling 2^20-cell index window of R2B9 and on the whole
+                of R2B9: pass 1's aggregates, test12, corner lat/lon and
+                field stash bit-equal; value_q exact on >= 99.999% of
+                entries and within 1 level, value range and per-layer u8
+                ranges equal; pass 1 and both passes timed with CUDA events
             K7-loc against its plain version on the subdiv-8 scene and on
                 R2B9 (rectangles, counts, k_cap and bins exact), the R2B9
                 invariants (counts sum to the rectangles' area, rows
@@ -129,12 +131,17 @@ script exits non-zero without printing a result):
           quantized march with the fine map, one converged pass per launch
           (median of 3), tf_edit_s; the pass with the fine map against the
           pass without (<= FINEMAP_SHARE of lanes beyond FINEMAP_TOL); K3-q
-          against its plain version on the first 4096 covered lanes
+          against its plain version on the first 4096 covered lanes; the
+          K3-q R2B9 row: the kernel over the covered lanes (CUDA events), a
+          steady call under torch.cuda.set_sync_debug_mode("error") (no
+          device-to-host read), and the plain version with its counted
+          bound on 4096 lanes strided over the covered prefix
   scene9lod  K7-scene's mip tier as r2b9q_viewall builds it (subdiv 8 x
           16, each cell the mean of its 64 subdivision-11 descendants)
-          against its plain version: pass 1 on the whole tier, pass 2 on
-          the whole tier and on a head and a tail window of 65,536 cells,
-          under the K7-scene contract; both passes timed with CUDA events
+          against its plain version: pass 1 on the whole tier (pooled
+          field bit-equal), pass 2 on the whole tier, both passes on a
+          head, an ancestor-period and a tail window of 65,536 cells, under
+          the K7-scene contract; both passes timed with CUDA events
   main r2b9qv  bench.py `_measure_row_q` for r2b9q_viewall: frame_lod(11,
           "viewall", 1920, 1080) must be level 3, then the main r2b9q
           phase's contract on build_q_scene(11, 16, field_lod=3) with the
@@ -2350,21 +2357,64 @@ def compare_scene(got, want, label, whole):
     return float(mx)
 
 
+def period_start(c, window):
+    """The start of a `window`-cell index window centred on a multiple of
+    K7-scene's ancestor period c.n_anc (where cell i's ancestor i %
+    n_anc wraps), at or past window / 2 so that the window starts >= 0."""
+    m = -(-(window // 2) // c.n_anc) * c.n_anc
+    return m - window // 2
+
+
+def compare_pass1(got, want, label, stash=None):
+    """K7-scene pass 1 against its plain version: the aggregates, test12,
+    the corner lat/lon and the field (the w stash at lod 0, given apart
+    when pass 2 has quantized over it; the pooled values otherwise)
+    bit-equal."""
+    import torch
+    field = (stash if stash is not None else got.field_term()) \
+        if want.field is None else got.field
+    want_field = want.field_term() if want.field is None else want.field
+    same = {"agg": torch.equal(got.agg, want.agg),
+            "test12": torch.equal(got.test12, want.test12),
+            "lat/lon": torch.equal(got.lat, want.lat)
+            and torch.equal(got.lon, want.lon),
+            "field": torch.equal(field, want_field)}
+    print(f"{label} pass 1: bit-equal {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{label}: K7-scene pass 1 differs from its "
+                             f"plain version: {got.agg.tolist()} vs "
+                             f"{want.agg.tolist()}")
+
+
+def scene_times(c, lo, scale):
+    """(pass 1 ms, pass 2 ms) of K7-scene over the scene of `c` (the
+    corners' lat/lon kept): CUDA events around pass 1 alone and around
+    both passes (pass 2 quantizes over pass 1's stash, so it is timed as
+    the difference)."""
+    from icon_rt_tpu_torch.data import device_scene as ds
+    k1 = time_cuda(lambda: ds.scene_pass1(c, latlon=True), reps=3)
+    k12 = time_cuda(lambda: ds.scene_pass2(c, ds.scene_pass1(
+        c, latlon=True), lo, scale), reps=3)
+    return k1, k12 - k1
+
+
 def scene_bound(c):
     """(ms, by) of K7-scene's function over the scene of `c` as the main
-    path asks for it: test12, value_q and the corner lat/lon written once,
-    one subdivision walk, orientation and corner lat/lon per cell (the
-    kernel's two passes do them twice).  A cell of a mip tier (c.lod > 0)
-    takes no field of its own; its 4**lod descendants share the cell's walk
-    and then each other's, so the least walk is a tree of 4 + 16 + ... +
-    4**lod steps per cell (the kernel takes lod steps per descendant), and
-    each descendant adds its corner lat/lon, its centroid field and the
-    per-layer clip and sum, but no orientation or quantization."""
+    path asks for it: test12, value_q and the corner lat/lon written once;
+    the subdivision walk as a tree (cells share their prefixes, so the
+    least walk is one step per cell of each depth, 20 * (4 + 16 + ... +
+    4**s) steps), then orientation and corner lat/lon per cell.  A cell of
+    a mip tier (c.lod > 0) takes no field of its own; its 4**lod
+    descendants share the cell's walk and then each other's, a tree of 4 +
+    16 + ... + 4**lod steps per cell, and each descendant adds its corner
+    lat/lon, its centroid field and the per-layer clip and sum, but no
+    orientation or quantization."""
     n, nl, s, lod = c.n, c.num_layers, c.subdivisions, c.lod
     nbytes = n * (48 + c.lm + 24)
     op = SCENE_OPS
-    ops = n * (op["step"] * s + op["orient"] + op["latlon"]
-               + nl * op["layer"] + op["normals"])
+    walk = sum(20 * 4 ** k for k in range(1, s + 1))
+    ops = op["step"] * walk + n * (op["orient"] + op["latlon"]
+                                   + nl * op["layer"] + op["normals"])
     if lod:
         tree = sum(4 ** k for k in range(1, lod + 1))
         ops += n * (op["step"] * tree
@@ -2505,16 +2555,16 @@ def scene9(dev, errs):
 
     # -- subdiv 8: the whole scene against the plain version ----------------
     c8 = scene_consts(MAIN_SUB, dev)
-    agg_k, agg_p = ds.scene_pass1(c8), ds._scene_pass1_torch(c8, 0, c8.n)
-    if not torch.equal(agg_k, agg_p):
-        raise AssertionError(f"K7-scene pass 1 differs: {agg_k.tolist()} "
-                             f"vs {agg_p.tolist()}")
-    lo, hi = (float(v) for v in agg_k[:2])
+    label8 = f"scene9 K7-scene subdiv {MAIN_SUB} whole"
+    p1k = ds.scene_pass1(c8, latlon=True)
+    p1p = ds._scene_pass1_torch(c8, 0, c8.n, True)
+    compare_pass1(p1k, p1p, label8)
+    lo, hi = (float(v) for v in p1k.agg[:2])
     scale = float(ds.quant_scale(lo, hi))
-    out8 = ds.scene_pass2(c8, lo, scale, latlon=True)
+    out8 = ds.scene_pass2(c8, p1k, lo, scale)
     errs["synth_scene"] = compare_scene(
-        out8, ds._scene_pass2_torch(c8, 0, c8.n, lo, scale, True),
-        f"scene9 K7-scene subdiv {MAIN_SUB} whole", True)
+        out8, ds._scene_pass2_torch(c8, p1p, lo, scale), label8, True)
+    del p1k, p1p
     lat8, lon8 = out8[4], out8[5]
     got8 = locator.bin_locator(lat8, lon8)
     label8 = f"scene9 K7-loc subdiv {MAIN_SUB} whole"
@@ -2551,10 +2601,13 @@ def scene9(dev, errs):
     c = scene_consts(R2B9_SUB, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    agg = ds.scene_pass1(c)
+    p1 = ds.scene_pass1(c, latlon=True)
+    agg = p1.agg
     lo, hi = (float(v) for v in agg[:2])
     scale = float(ds.quant_scale(lo, hi))
-    out = ds.scene_pass2(c, lo, scale, latlon=True)
+    stash = p1.field_term().clone()
+    out = ds.scene_pass2(c, p1, lo, scale)
+    del p1
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     tables = (out[0].numel() * 4 + out[1].numel()) / 1e9
@@ -2564,19 +2617,11 @@ def scene9(dev, errs):
           f"{2 * out[4].numel() * 4 / 1e9:.3f} GB; value range [{lo:.7f}, "
           f"{hi:.7f}]; per-layer u8 min {out[2].tolist()} max "
           f"{out[3].tolist()}")
-    k1 = time_cuda(lambda: ds.scene_pass1(c), reps=3)
-    k2 = time_cuda(lambda: ds.scene_pass2(c, lo, scale, latlon=True),
-                   reps=2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    agg_p = ds._scene_pass1_torch(c, 0, c.n)
-    torch.cuda.synchronize()
-    p1 = (time.perf_counter() - t0) * 1e3
-    if not torch.equal(agg, agg_p):
-        raise AssertionError(f"K7-scene pass 1 differs at R2B9: "
-                             f"{agg.tolist()} vs {agg_p.tolist()}")
-    for name, s0 in (("first", 0), ("last", c.n - WINDOW_CELLS)):
-        w = ds._scene_pass2_torch(c, s0, WINDOW_CELLS, lo, scale, True)
+    k1, k2 = scene_times(c, lo, scale)
+    for name, s0 in (("first", 0),
+                     ("ancestor period", period_start(c, WINDOW_CELLS)),
+                     ("last", c.n - WINDOW_CELLS)):
+        w = ds._scene_window_torch(c, s0, WINDOW_CELLS, lo, scale, True)
         rows = slice(s0, s0 + WINDOW_CELLS)
         compare_scene(tuple(x[rows] for x in out[:2]) + w[2:4]
                       + tuple(x[rows] for x in out[4:]), w,
@@ -2585,11 +2630,21 @@ def scene9(dev, errs):
         del w
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    whole = ds._scene_pass2_torch(c, 0, c.n, lo, scale, True)
+    p1p = ds._scene_pass1_torch(c, 0, c.n, True)
+    torch.cuda.synchronize()
+    p1 = (time.perf_counter() - t0) * 1e3
+    label = "scene9 K7-scene R2B9 whole"
+    compare_pass1(ds.Pass1(agg, out[0], None, None, out[4], out[5]), p1p,
+                  label, stash)
+    del stash
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = ds._scene_pass2_torch(c, p1p, lo, scale)
     torch.cuda.synchronize()
     p2 = (time.perf_counter() - t0) * 1e3
+    del p1p
     errs["synth_scene"] = max(errs["synth_scene"], compare_scene(
-        out, whole, f"scene9 K7-scene R2B9 whole", True))
+        out, whole, label, True))
     del whole
     t["scene"] = dict(ms=k1 + k2, plain_ms=p1 + p2, pass1_ms=k1,
                       pass2_ms=k2, plain_pass1_ms=p1, plain_pass2_ms=p2,
@@ -2719,46 +2774,47 @@ def finemap_r2b9(loc, test12, errs):
 def scene9lod(dev, errs):
     """K7-scene's mip tier as r2b9q_viewall builds it (subdiv 8 x 16, each
     cell pooled over its 64 subdivision-11 descendants) against its plain
-    version: pass 1 on the whole tier, pass 2 on the whole tier and on a
-    head and a tail window of LOD_WINDOW coarse cells (test12 and lat/lon
-    bit-equal, value_q within 1 level on >= 99.999%, per-layer u8 ranges
-    equal).  Returns the timing entry of the kernels line."""
+    version: pass 1 on the whole tier (aggregates, test12, lat/lon and the
+    pooled field bit-equal), pass 2 on the whole tier, and both passes on a
+    head, an ancestor-period and a tail window of LOD_WINDOW coarse cells
+    (test12 and lat/lon bit-equal, value_q within 1 level on >= 99.999%,
+    per-layer u8 ranges equal).  Returns the timing entry of the kernels
+    line."""
     import torch
     from icon_rt_tpu_torch.data import device_scene as ds
     tag = "scene9lod"
     c = scene_consts(R2B9_SUB - R2B9V_LOD, dev, lod=R2B9V_LOD)
-    agg = ds.scene_pass1(c)
+    p1k = ds.scene_pass1(c, latlon=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    agg_p = ds._scene_pass1_torch(c, 0, c.n)
+    p1p = ds._scene_pass1_torch(c, 0, c.n, True)
     torch.cuda.synchronize()
     p1 = (time.perf_counter() - t0) * 1e3
+    agg = p1k.agg
     print(f"{tag} K7-scene lod {c.lod} subdiv {c.subdivisions} x "
           f"{c.num_layers}: {c.n} cells of {4 ** c.lod} descendants each; "
-          f"pass 1 {agg.tolist()} (plain equal {torch.equal(agg, agg_p)})")
-    if not torch.equal(agg, agg_p):
-        raise AssertionError(f"{tag}: K7-scene pass 1 differs: "
-                             f"{agg.tolist()} vs {agg_p.tolist()}")
+          f"pass 1 {agg.tolist()}")
+    compare_pass1(p1k, p1p, f"{tag} whole")
     lo, hi = (float(v) for v in agg[:2])
     scale = float(ds.quant_scale(lo, hi))
-    for name, s0 in (("head", 0), ("tail", c.n - LOD_WINDOW)):
+    for name, s0 in (("head", 0),
+                     ("ancestor period", period_start(c, LOD_WINDOW)),
+                     ("tail", c.n - LOD_WINDOW)):
         errs["synth_scene_lod"] = max(errs.get("synth_scene_lod", 0.0),
                                       compare_scene(
-            ds.scene_pass2(c, lo, scale, s0, LOD_WINDOW, latlon=True),
-            ds._scene_pass2_torch(c, s0, LOD_WINDOW, lo, scale, True),
+            ds.scene_window(c, s0, LOD_WINDOW, lo, scale, latlon=True),
+            ds._scene_window_torch(c, s0, LOD_WINDOW, lo, scale, True),
             f"{tag} {name} window [{s0}, {s0 + LOD_WINDOW})", True))
-    out = ds.scene_pass2(c, lo, scale, latlon=True)
+    out = ds.scene_pass2(c, p1k, lo, scale)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    whole = ds._scene_pass2_torch(c, 0, c.n, lo, scale, True)
+    whole = ds._scene_pass2_torch(c, p1p, lo, scale)
     torch.cuda.synchronize()
     p2 = (time.perf_counter() - t0) * 1e3
     errs["synth_scene_lod"] = max(errs["synth_scene_lod"], compare_scene(
         out, whole, f"{tag} whole", True))
-    del out, whole
-    k1 = time_cuda(lambda: ds.scene_pass1(c), reps=3)
-    k2 = time_cuda(lambda: ds.scene_pass2(c, lo, scale, latlon=True),
-                   reps=3)
+    del out, whole, p1k, p1p
+    k1, k2 = scene_times(c, lo, scale)
     bnd = scene_bound(c)
     print(f"{tag} kernel pass 1 {k1:.3f} ms + pass 2 {k2:.3f} ms; plain "
           f"{p1:.1f} + {p2:.1f} ms; bound {bnd[0]:.3f} ms ({bnd[1]})")
@@ -2849,8 +2905,9 @@ def scene_counts(lod=0):
     from icon_rt_tpu_torch.data import device_scene
     from icon_rt_tpu_torch.models import accel, finemap, locator, qcells
     dl = device_scene.launches
-    scene = {"synth_scene_lod": dl["scene_lod_pass1"] + dl["scene_lod_pass2"]} \
-        if lod else {"synth_scene": dl["scene_pass1"] + dl["scene_pass2"]}
+    pre = "scene_lod_" if lod else "scene_"
+    scene = {"synth_scene_lod" if lod else "synth_scene": sum(
+        dl[pre + k] for k in ("ancestors", "pass1", "pass2"))}
     return {**scene,
             "locator_bins": sum(locator.launches.values()),
             "build_finemap": finemap.launches,
@@ -3017,6 +3074,11 @@ def main_r2b9m(dev, errs):
         return acc, fb.cpu().numpy().view(np.uint32)
 
     frame = alloc_frame(W, H, device=dev)
+    # the kernels line's launches of K3-q at R2B9 are the main path's own
+    # passes (the warm one and the 3 timed), not the profiled window's
+    # (which retries) nor the TF edits'
+    for k in march.launches:
+        march.launches[k] = 0
     _, fb_host = sweep(q, bands, tf, 0, frame)           # warm + coverage
     covered = float(((fb_host >> 24) > 0).mean())
     times = []
@@ -3025,6 +3087,7 @@ def main_r2b9m(dev, errs):
         t0 = time.perf_counter()
         sweep(q, bands, tf, k, frame)
         times.append(time.perf_counter() - t0)
+    main_launches = march.launches["march_q"]
     dt = float(np.median(times))
     spread = float((max(times) - min(times)) / dt)
     print(f"{tag} converged pass (fine map on) median {dt * 1e3:.3f} ms of "
@@ -3051,7 +3114,7 @@ def main_r2b9m(dev, errs):
     print(f"{tag} tf_edit_s {edit_s:.4f} (gain 0.9, opacity 0.8, to the next "
           f"converged frame's fb on the host)")
     counts = dict(scene_counts(), chord_keys=order.launches,
-                  march_q=march.launches["march_q"])
+                  march_q=main_launches)
     require_counts(tag, counts)
 
     acc_on, _ = sweep(q, bands, tf, 0)
@@ -3065,7 +3128,41 @@ def main_r2b9m(dev, errs):
             march_runs(None, None, bands, lp, pix, W, H,
                        qtabs=(q, loc, tf), fm=f), W, H, CHECK_LANES, dev)
         errs["march_q"] = max(errs["march_q"], err)
+
+    # K3-q's R2B9 row: the kernel over the covered lanes (CUDA events), a
+    # steady call under sync debug mode "error" (it reads nothing back), and
+    # the bound counted by the plain version on CHECK_LANES strided lanes
+    lanes_all = perm[:n_active].contiguous()
+    acc, fb = alloc_frame(W, H, device=dev)
+    run = march_runs(None, None, bands, lp, lanes_all, W, H,
+                     qtabs=(q, loc, tf), fm=fm)
+    km = time_cuda(lambda: run(acc[:n_active], fb[:n_active], True), reps=10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(acc[:n_active], fb[:n_active], True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"{tag} a steady K3-q call under sync debug mode 'error': no "
+          f"device-to-host read")
+    lanes = strided_lanes(perm, n_active)
+    tiers = []
+    err, pm, _ = compare_march(
+        f"{tag} K3 march_q finemap=on on {lanes.shape[0]} strided lanes",
+        march_runs(None, None, bands, lp, lanes, W, H, qtabs=(q, loc, tf),
+                   fm=fm, counter=lambda t: tiers.append(CountingTier(t))
+                   or tiers[-1]), W, H, lanes.shape[0], dev)
+    errs["march_q_r2b9"] = max(errs["march_q"], err)
+    rows = []
+    kernel_row(rows, {"march_q_r2b9": main_launches}, errs,
+               "march_q_r2b9", "cuda", "icon_rt_tpu_torch/csrc/march.cu",
+               "icon_rt_tpu/ops/march.py:449", km, pm,
+               tiers[-1].bound("march_q", n_active,
+                               lambda c: q.test12[c, 11],
+                               scale=n_active / lanes.shape[0]),
+               n_active=n_active, plain_lanes=lanes.shape[0])
     peak_memory(tag)
+    return rows
 
 
 def scene_rows(t, errs, counts):
@@ -4529,11 +4626,11 @@ def main() -> int:
     counts9 = main_r2b9q(dev, errs)
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    main_r2b9m(dev, errs)
+    rows_m9 = main_r2b9m(dev, errs)
     torch.cuda.empty_cache()
     print(f"time R2B9 phases: scene9 {t1 - t0:.1f} s, main r2b9q "
           f"{t2 - t1:.1f} s, main r2b9m {time.perf_counter() - t2:.1f} s")
-    rows += scene_rows(t9, errs, counts9)
+    rows += scene_rows(t9, errs, counts9) + rows_m9
 
     # the mip tier of the reference's default framing, and the re-sort
     t0 = time.perf_counter()

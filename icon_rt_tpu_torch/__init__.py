@@ -16,8 +16,9 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
   K6b    ops/order.py      refine_keys    CUDA C++ (csrc/order.cu);
                            refine_perm, repermute    Triton
   K7-fm  models/finemap.py build_finemap  CUDA C++ (csrc/finemap.cu)
-  K7-scene data/device_scene.py scene_pass1, scene_pass2  CUDA C++
-         (csrc/scene.cu; with field_lod > 0 the value-space mip tier)
+  K7-scene data/device_scene.py scene_ancestors, scene_pass1, scene_pass2
+         CUDA C++ (csrc/scene.cu; with field_lod > 0 the value-space mip
+         tier)
   K7-loc models/locator.py locator_bins   CUDA C++ (csrc/locator.cu)
   K8     ops/render.py     parity_track   CUDA C++ (csrc/parity.cu)
   K9-w   ops/fast.py       track_wedge    CUDA C++ (csrc/track_wedge.cu)

@@ -36,14 +36,35 @@
 //
 // What bounds it on the H100: the latency of the dependent reads of each
 // crossing (bins row -> candidate test rows -> the winner's prof and rgb
-// rows, or on the q tier the u8 rows and the 256-entry code table) and
-// divergence between rays of very different crossing counts; per crossing
-// ~20 flops per layer of nonzero length.  The design streams every
-// per-layer table entry through __ldg in both passes of the integral
-// instead of holding a row in registers, skips layers past the column's
-// num_layers and layers of zero optical depth (both add exactly nothing),
-// and carries each sphere crossing from one layer to the next, so every
-// ceiling's square root is taken once per pass.
+// rows, or on the q tier its u8 rows) and divergence between rays of very
+// different crossing counts; per crossing ~20 flops per layer of nonzero
+// length.  The design:
+//   * a lane's radial band is a binary search over the sorted band edges
+//     (the count of edges below r, as the plain version's `_band_of`), not
+//     a scan of all nb + 1 of them at every iteration;
+//   * every per-layer table entry is streamed through __ldg in both pieces
+//     of the integral, and each piece takes its spheres' half chords as it
+//     goes: a variant that kept the chords and the column's bytes in
+//     registers for both pieces needed 95-127 registers and was 1.3-1.8x
+//     slower (PERF.md), one that kept the chords in shared memory
+//     was no faster at R2B9;
+//   * on the q tier the (256, 4) code table of the live TF is built on the
+//     card by a one-block kernel launched ahead of the march on the same
+//     stream (the f32 expressions of models/transfunc.py `post_classify`,
+//     so the table is bit-equal to the plain version's), and every colour
+//     is read from it through __ldg: built in each block's shared memory
+//     instead, a prologue and a barrier a block, the march was 5% slower
+//     at R2B8 and R2B9 (PERF.md);
+//   * layers past the column's num_layers and layers of zero optical depth
+//     add exactly nothing and are skipped.
+// Lanes stay one a thread: refilling a warp's finished lanes from a block
+// queue was slower at R2B9 at every queue length tried (2-16 lanes a
+// thread; PERF.md).
+// A K3 launch reads nothing back from the card: the camera, the frame's
+// accum_id, the ambient terms, the unit distance and (q tier) the TF's
+// value range are read by the kernel from their tensors (`MarchFrame`),
+// and the tables' scalars come from host copies refreshed only when those
+// tensors change (ops/fast.py `host_values`).
 //
 // Built with -fmad=false, full-precision expf/sinf/cosf/asinf/atan2f and
 // IEEE division and square root: every operation rounds as in eager
@@ -53,7 +74,7 @@
 
 // Mirror of `_MarchArgs` in ops/march.py (same field order).
 struct MarchArgs {
-  const float* tab;   // (256, 4) RGBA of every u8 value code (q tier)
+  float* tab;         // (256, 4) RGB_ of every u8 value code (q tier)
   float a_scale;      // alpha_max / 255 (q tier)
   float v_scale;      // (value_hi - value_lo) / 255 (q tier)
   float inv_span;     // 255 / max(value_hi - value_lo, 1e-30) (q tier)
@@ -61,7 +82,27 @@ struct MarchArgs {
   int max_outer;      // iteration cap of a lane
 };
 
+// Mirror of `_MarchFrame` in ops/march.py (same field order): K3's
+// per-frame scalars, read on the card from the launch params' tensors.
+struct MarchFrame {
+  const float* cam_org;     // (3,)
+  const float* cam_dir00;   // (3,)
+  const float* cam_du;      // (3,)
+  const float* cam_dv;      // (3,)
+  const float* amb;         // (3,) ambient colour
+  const float* amb_rad;     // () ambient radiance
+  const float* ud;          // () unit distance
+  const int32_t* accum_id;  // ()
+  const float* tf_range;    // (2,) the TF's value range (q tier)
+};
+
 namespace {
+
+constexpr int kBlock = 128;
+// K3-q's blocks an SM must hold: 64 registers a thread, half the SM's
+// threads (at 72 registers, 7 blocks an SM or unbounded, it was 1-2%
+// slower, with no spill; PERF.md)
+constexpr int kQMinBlocks = 8;
 
 __device__ __forceinline__ float big() { return __int_as_float(0x7f7fffff); }
 
@@ -76,18 +117,16 @@ struct F32Layers {
   const float* h;     // 32 inf-padded ceilings, then 32 alpha
   const float* rgb;   // R | G | B
   float h_bot;
-  int nl;
+  int kn;             // the layers that can hold extinction
   __device__ F32Layers(const F32Tier& T, const MarchArgs&, int cid,
                        const F32Tier::Col& col)
       : h(T.p.prof + static_cast<size_t>(cid) * F32Tier::kProfW),
         rgb(T.p.rgb + static_cast<size_t>(cid) * F32Tier::kRgbW),
         h_bot(col.h_bot),
-        nl(static_cast<int>(
-            __ldg(T.p.test + static_cast<size_t>(cid) * F32Tier::kTestW +
-                  14))) {}
-  static __device__ __forceinline__ int lm(const F32Tier&) {
-    return F32Tier::kLayers;
-  }
+        kn(min(static_cast<int>(
+                   __ldg(T.p.test + static_cast<size_t>(cid) *
+                                        F32Tier::kTestW + 14)),
+               F32Tier::kLayers)) {}
   __device__ __forceinline__ float height(int k) const {
     return __ldg(h + k);
   }
@@ -110,7 +149,7 @@ struct QLayers {
   const MarchArgs& m;
   int cid;
   float h_bot, s;
-  int nl;
+  int nl, kn;
   const uint8_t* aq;
   const uint8_t* vq;
   __device__ QLayers(const QTier& T_, const MarchArgs& m_, int cid_,
@@ -120,11 +159,9 @@ struct QLayers {
         nl(static_cast<int>(__ldg(T_.p.test12 +
                                   static_cast<size_t>(cid_) * QTier::kTestW +
                                   11))),
+        kn(min(nl, T_.p.lm)),   // layers past nl have zero extinction
         aq(T_.p.aq + static_cast<size_t>(cid_) * T_.p.lm),
         vq(T_.p.vq + static_cast<size_t>(cid_) * T_.p.lm) {}
-  static __device__ __forceinline__ int lm(const QTier& T_) {
-    return T_.p.lm;
-  }
   __device__ __forceinline__ float height(int k) const {
     return T.height(cid, k, h_bot, s, nl);
   }
@@ -148,16 +185,16 @@ struct QLayers {
 // (icon_rt_tpu/ops/march.py `_integrate_column`), in the plain version's
 // order: the descending piece [t0, tm] with k from the top (suffix depth
 // `suf`), then the ascending piece [tm, t1] with k from the bottom
-// (prefix depth `c2`); colours accumulate inside both passes.
+// (prefix depth `c2`); colours accumulate inside both passes, and each
+// pass carries a sphere's half chord from one layer to the next.
 template <class Lay>
-__device__ __forceinline__ void integrate(const Lay& c, int lm, float t0,
-                                          float t1, float od, float oo,
-                                          float ud, float& tmul, float& cr,
-                                          float& cg, float& cb) {
+__device__ __forceinline__ void integrate(const Lay& c, float t0, float t1,
+                                          float od, float oo, float ud,
+                                          float& tmul, float& cr, float& cg,
+                                          float& cb) {
   const float tm = fminf(fmaxf(-od, t0), t1);
-  const int kn = min(c.nl, lm);   // layers past nl have zero extinction
+  const int kn = c.kn;
   cr = cg = cb = 0.0f;
-  // descending piece: layer k spans [t_dec(h_k), t_dec(h_{k-1})]
   float suf = 0.0f;
   float s_hi = kn > 0 ? half_chord(c.height(kn - 1), od, oo) : 0.0f;
   for (int k = kn - 1; k >= 0; --k) {
@@ -179,7 +216,6 @@ __device__ __forceinline__ void integrate(const Lay& c, int lm, float t0,
     cb = cb + w1 * b;
   }
   const float tau1 = suf;
-  // ascending piece: layer k spans [t_inc(h_{k-1}), t_inc(h_k)]
   float c2 = 0.0f;
   float s_lo = half_chord(c.h_bot, od, oo);
   for (int k = 0; k < kn; ++k) {
@@ -201,6 +237,7 @@ __device__ __forceinline__ void integrate(const Lay& c, int lm, float t0,
   }
   tmul = expf(-(tau1 + c2));
 }
+
 
 // Where the ray leaves the located column: the side-plane crossings with
 // n.D > 0 (even at or before t0: then an f32 tie re-located the column the
@@ -327,21 +364,55 @@ __device__ __forceinline__ float bin_exit(const Params& p, int bid,
   return out;
 }
 
+// The radial band of radius r: the count of the sorted edges below r, less
+// one, clamped to [0, nb - 1] (track::band_of's value), by binary search.
+__device__ __forceinline__ int band_search(const float* edges, int nb,
+                                           float r) {
+  int lo = 0, hi = nb + 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(edges + mid) < r)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return min(max(lo - 1, 0), nb - 1);
+}
+
+// A lane's per-frame scalars, read on the card from the launch params'
+// tensors (`MarchFrame`).
+struct DeviceFrame {
+  const MarchFrame& f;
+  __device__ __forceinline__ float operator[](int i) const {
+    const float* v = i < 3 ? f.cam_org
+                           : (i < 6 ? f.cam_dir00
+                                    : (i < 9 ? f.cam_du : f.cam_dv));
+    return __ldg(v + i % 3);
+  }
+  __device__ __forceinline__ float amb(int i) const {
+    return __ldg(f.amb + i) * __ldg(f.amb_rad);
+  }
+  __device__ __forceinline__ float ud() const { return __ldg(f.ud); }
+  __device__ __forceinline__ int accum_id() const {
+    return __ldg(f.accum_id);
+  }
+};
+
 // One ray of pixel p.pix[lane]: the march, then the K4 epilogue.
 template <class Tier, class Lay>
 __device__ __forceinline__ void march_lane(const TrackCommon& p,
                                            const Tier& T, const MarchArgs& m,
-                                           int lane) {
+                                           const DeviceFrame& F, int lane) {
   using Col = typename Tier::Col;
   const int pixel = p.pix[lane];
   const int x = pixel % p.width;
   const int y = pixel / p.width;
-  const float ox = p.cam[0], oy = p.cam[1], oz = p.cam[2];
+  const float ox = F[0], oy = F[1], oz = F[2];
   const float oo = ox * ox + oy * oy + oz * oz;
-  const track::Lane L = track::init_lane(p, x, y, p.accum_id, oo);
+  const track::Lane L = track::init_lane(p, F, x, y, F.accum_id(), oo);
   const float dx = L.dx, dy = L.dy, dz = L.dz, od = L.od;
-  const float eps_abs = 1e-4f * p.ud;
-  const int lm = Lay::lm(T);
+  const float ud = F.ud();
+  const float eps_abs = 1e-4f * ud;
 
   float t = L.t, seg_hi = L.seg_hi;
   int si = L.si;
@@ -363,7 +434,7 @@ __device__ __forceinline__ void march_lane(const TrackCommon& p,
       const float eps = fmaxf(eps_abs, fabsf(t) * 4e-7f);
       const float tl = t + eps;
       const float r = track::r_of(tl, od, oo);
-      const int band = track::band_of(p.edges, p.nb, r);
+      const int band = band_search(p.edges, p.nb, r);
       bool was_in;
       const float seg_end =
           track::band_exit(tl, __ldg(p.edges + band),
@@ -382,8 +453,8 @@ __device__ __forceinline__ void march_lane(const TrackCommon& p,
                                       seg_hi),
                     tl);
           float tmul, cr, cg, cb;
-          integrate(Lay(T, m, c, col), lm, t, t_exit, od, oo, p.ud, tmul, cr,
-                    cg, cb);
+          integrate(Lay(T, m, c, col), t, t_exit, od, oo, ud, tmul, cr, cg,
+                    cb);
           ar = ar + tr * cr;
           ag = ag + tr * cg;
           ab = ab + tr * cb;
@@ -408,15 +479,15 @@ __device__ __forceinline__ void march_lane(const TrackCommon& p,
 
   float cr = 0.0f, cg = 0.0f, cb = 0.0f, ca = 0.0f;
   if (L.wrote) {
-    cr = ar * (p.amb[0] * p.amb_rad);
-    cg = ag * (p.amb[1] * p.amb_rad);
-    cb = ab * (p.amb[2] * p.amb_rad);
+    cr = ar * F.amb(0);
+    cg = ag * F.amb(1);
+    cb = ab * F.amb(2);
     ca = 1.0f - tr;
   }
   float accr = p.accum[lane * 4 + 0], accg = p.accum[lane * 4 + 1];
   float accb = p.accum[lane * 4 + 2], acca = p.accum[lane * 4 + 3];
   if (L.wrote) {
-    const float sc = 1.0f / (static_cast<float>(p.accum_id) + 1.0f);
+    const float sc = 1.0f / (static_cast<float>(F.accum_id()) + 1.0f);
     accr = track::blend(sc, cr, accr);
     accg = track::blend(sc, cg, accg);
     accb = track::blend(sc, cb, accb);
@@ -426,40 +497,66 @@ __device__ __forceinline__ void march_lane(const TrackCommon& p,
   if (p.cost != nullptr) p.cost[pixel] = it;
 }
 
-__global__ void __launch_bounds__(128)
-march_f32_kernel(const TrackParams p, const MarchArgs m) {
+__global__ void __launch_bounds__(kBlock)
+march_f32_kernel(const TrackParams p, const MarchArgs m, const MarchFrame f) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.c.n_lanes) return;
-  march_lane<F32Tier, F32Layers>(p.c, F32Tier{p}, m, lane);
+  march_lane<F32Tier, F32Layers>(p.c, F32Tier{p}, m, DeviceFrame{f}, lane);
 }
 
-__global__ void __launch_bounds__(128)
-march_q_kernel(const TrackQParams p, const MarchArgs m) {
+// The code table of the live TF, one thread a code: code k's value
+// value_lo + k * v_scale through postClassify (models/transfunc.py
+// `post_classify`, ref: deviceCode.cu:127-135), RGB, in its f32 order.
+__global__ void __launch_bounds__(256)
+code_table_kernel(const TrackQParams p, const MarchArgs m,
+                  const MarchFrame f) {
+  const int code = threadIdx.x;
+  const float tf_lo = __ldg(f.tf_range), tf_hi = __ldg(f.tf_range + 1);
+  const int S = p.lut_size;
+  const float v = p.value_lo + static_cast<float>(code) * m.v_scale;
+  const float vn = (v - tf_lo) / (tf_hi - tf_lo);
+  const float vs = vn * static_cast<float>(S);
+  const int idx = static_cast<int>(vs);
+  const float frac = vs - static_cast<float>(idx);
+  const float* l1 = p.lut + min(max(idx, 0), S - 1) * 4;
+  const float* l2 = p.lut + min(max(idx + 1, 0), S - 1) * 4;
+  const float w2 = 1.0f - frac;
+  reinterpret_cast<float4*>(m.tab)[code] =
+      make_float4(__ldg(l1 + 0) * frac + __ldg(l2 + 0) * w2,
+                  __ldg(l1 + 1) * frac + __ldg(l2 + 1) * w2,
+                  __ldg(l1 + 2) * frac + __ldg(l2 + 2) * w2, 0.0f);
+}
+
+__global__ void __launch_bounds__(kBlock, kQMinBlocks)
+march_q_kernel(const TrackQParams p, const MarchArgs m, const MarchFrame f) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.c.n_lanes) return;
-  march_lane<QTier, QLayers>(p.c, QTier{p}, m, lane);
+  march_lane<QTier, QLayers>(p.c, QTier{p}, m, DeviceFrame{f}, lane);
 }
-
-constexpr int kBlock = 128;
 
 }  // namespace
 
 // Launch the f32 / quantized march on `stream` (PyTorch's current stream);
-// they allocate nothing and do not synchronise.  Return cudaGetLastError().
+// the quantized one first writes the code table into margs->tab, which the
+// caller allocates.  They allocate nothing and do not synchronise.  Return
+// cudaGetLastError().
 extern "C" int march_f32_launch(const TrackParams* params,
-                                const MarchArgs* margs, void* stream) {
+                                const MarchArgs* margs,
+                                const MarchFrame* frame, void* stream) {
   if (params->c.n_lanes <= 0) return 0;
   const int grid = (params->c.n_lanes + kBlock - 1) / kBlock;
   march_f32_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      *params, *margs);
+      *params, *margs, *frame);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int march_q_launch(const TrackQParams* params,
-                              const MarchArgs* margs, void* stream) {
+                              const MarchArgs* margs,
+                              const MarchFrame* frame, void* stream) {
   if (params->c.n_lanes <= 0) return 0;
   const int grid = (params->c.n_lanes + kBlock - 1) / kBlock;
-  march_q_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      *params, *margs);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  code_table_kernel<<<1, 256, 0, s>>>(*params, *margs, *frame);
+  march_q_kernel<<<grid, kBlock, 0, s>>>(*params, *margs, *frame);
   return static_cast<int>(cudaGetLastError());
 }

@@ -138,10 +138,13 @@ struct Lane {
 
 // Ray setup of sample `aid` of pixel (x, y) (ref: deviceCode.cu:36-49): the
 // jittered pinhole ray, its clip to the shell and its first band; the
-// lane's tracking stream continues from `rng`.
-__device__ __forceinline__ Lane init_lane(const TrackCommon& p, int x, int y,
+// lane's tracking stream continues from `rng`.  cam[i] gives the camera
+// (org | dir00 | du | dv): p.cam, or the march's frame read on the card.
+template <class Cam>
+__device__ __forceinline__ Lane init_lane(const TrackCommon& p,
+                                          const Cam& cam, int x, int y,
                                           int aid_i, float oo) {
-  const float ox = p.cam[0], oy = p.cam[1], oz = p.cam[2];
+  const float ox = cam[0], oy = cam[1], oz = cam[2];
   const int nb = p.nb;
   const float r_in = __ldg(p.edges);
   const float r_out = __ldg(p.edges + nb);
@@ -163,9 +166,9 @@ __device__ __forceinline__ Lane init_lane(const TrackCommon& p, int x, int y,
   }
   const float u = static_cast<float>(x) + 0.5f + jx;
   const float v = static_cast<float>(y) + 0.5f + jy;
-  float dx = p.cam[3] + u * p.cam[6] + v * p.cam[9];
-  float dy = p.cam[4] + u * p.cam[7] + v * p.cam[10];
-  float dz = p.cam[5] + u * p.cam[8] + v * p.cam[11];
+  float dx = cam[3] + u * cam[6] + v * cam[9];
+  float dy = cam[4] + u * cam[7] + v * cam[10];
+  float dz = cam[5] + u * cam[8] + v * cam[11];
   const float inv = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
   dx = dx * inv;
   dy = dy * inv;
@@ -283,7 +286,7 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
       valid0 = valid1 = false;
       mru = 0;
     }
-    const Lane L = init_lane(p, x, y, p.accum_id + samp, oo);
+    const Lane L = init_lane(p, p.cam, x, y, p.accum_id + samp, oo);
     const float dx = L.dx, dy = L.dy, dz = L.dz, od = L.od;
     const float s1_lo = L.s1_lo, s1_hi = L.s1_hi;
     const bool wrote = L.wrote;

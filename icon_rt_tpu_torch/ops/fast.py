@@ -913,18 +913,43 @@ def check_raw(fn, out: RawSample, accum, fb, n_lanes: int, samples: int,
     ck("out.t", out.t, F32, (n_lanes,))
 
 
+def host_values(t: torch.Tensor):
+    """t.tolist(), read from the device once per tensor: the copy rides on
+    the tensor and is read again only after an in-place write through
+    PyTorch (which bumps t._version) or a rebind of its storage, so a
+    launch whose tables did not change reads nothing back.  The tables
+    whose scalars go through it (a Locator's or FineMap's dims and window,
+    a QuantizedCells' value and alpha range, a TF's value range) are
+    immutable once built: every builder and every TF edit makes new
+    tensors.  A write through a raw device pointer (a ctypes kernel) is
+    not seen; nothing in the package writes these tensors so."""
+    key = (t._version, t.data_ptr())
+    memo = getattr(t, "_icon_host_copy", None)
+    if memo is None or memo[0] != key:
+        memo = (key, t.tolist())
+        t._icon_host_copy = memo
+    return memo[1]
+
+
 def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
                  height: int, samples: int, preserve_cache: bool,
                  cost=None, rng_salt: int = 0,
-                 out: RawSample | None = None) -> _TrackCommon:
+                 out: RawSample | None = None,
+                 host_frame: bool = True) -> _TrackCommon:
     """The tier-independent launch arguments of K1, K2 and K3 (one host
     read of the launch scalars); `cost` is K1's and K2's optional (W*H,)
     int32 step-count output, `out` their raw mode's RawSample and rng_salt
-    their tracking streams' salt."""
-    host = torch.cat([
-        lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv, lp.ambient_color,
-        lp.ambient_radiance.reshape(1), lp.unit_distance.reshape(1),
-    ]).to(F32).tolist()
+    their tracking streams' salt.  Without `host_frame` the camera,
+    ambient terms, unit distance and accum_id are left 0 and nothing is
+    read (K3's kernels read them from lp's tensors)."""
+    if host_frame:
+        host = torch.cat([
+            lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv,
+            lp.ambient_color, lp.ambient_radiance.reshape(1),
+            lp.unit_distance.reshape(1)]).to(F32).tolist()
+        accum_id = int(lp.accum_id)
+    else:
+        host, accum_id = [0.0] * 17, 0
     return _TrackCommon(
         edges=bands.edges.data_ptr(), majors=bands.max_opacities.data_ptr(),
         pix=pix.data_ptr(),
@@ -938,7 +963,7 @@ def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
         amb=(ctypes.c_float * 3)(*host[12:15]),
         amb_rad=host[15], ud=host[16], nb=bands.max_opacities.shape[0],
         n_lanes=pix.shape[0], width=width, height=height,
-        accum_id=int(lp.accum_id), samples=samples,
+        accum_id=accum_id, samples=samples,
         preserve_cache=int(bool(preserve_cache)), max_steps=MAX_STEPS,
         rng_salt=rng_salt & 0xFFFFFFFF)
 
@@ -958,12 +983,13 @@ class _TrackParams(ctypes.Structure):
 
 def track_params(packed: PackedCells, loc: Locator,
                  c: _TrackCommon) -> _TrackParams:
-    """The f32 tier's launch arguments of K1 and K3 (csrc/tier_f32.cuh)."""
-    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    """The f32 tier's launch arguments of K1 and K3 (csrc/tier_f32.cuh):
+    the locator's scalars from their host copies (`host_values`)."""
+    n_lat, n_lon = host_values(loc.dims)
     if loc.bins.shape[0] != n_lat * n_lon:
         raise ValueError("loc.bins rows != n_lat * n_lon")
-    win = torch.stack([loc.lat_lo, loc.lat_hi, loc.lon_lo,
-                       loc.lon_hi]).to(F32).tolist()
+    win = [host_values(x) for x in (loc.lat_lo, loc.lat_hi, loc.lon_lo,
+                                    loc.lon_hi)]
     return _TrackParams(
         c=c, test=packed.test.data_ptr(), prof=packed.prof.data_ptr(),
         rgb=packed.rgb.data_ptr(), bins=loc.bins.data_ptr(),

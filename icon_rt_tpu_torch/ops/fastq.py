@@ -30,7 +30,7 @@ from ..models.transfunc import Transfunc, post_classify
 from ..utils import cuda_build
 from .fast import (F32, RawSample, _check, _first_inside, _grid_bin,
                    _locate_torch, _TrackCommon, _track_torch, check_raw,
-                   frame_lanes, track_common)
+                   frame_lanes, host_values, track_common)
 
 #: K2 kernel launches (the wrapper counts only CUDA launches)
 launches = 0
@@ -246,7 +246,7 @@ def check_q_tables(fn, q: QuantizedCells, loc: Locator, tf: Transfunc,
     """Raise ValueError unless the quantized tier's tables are what K2 and
     K3 take."""
     n, lm = q.num_cells, q.lm
-    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    n_lat, n_lon = host_values(loc.dims)
     ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev, fn=fn)
     ck("q.test12", q.test12, F32, (n, 12))
     ck("q.h_frac", q.h_frac, F32, (None, lm))
@@ -261,7 +261,7 @@ def check_q_tables(fn, q: QuantizedCells, loc: Locator, tf: Transfunc,
     ck("tf.value_range", tf.value_range, F32, (2,))
     if finemap is None:
         return
-    f_lat, f_lon = (int(d) for d in finemap.dims.tolist())
+    f_lat, f_lon = host_values(finemap.dims)
     ck("finemap.slots", finemap.slots, torch.uint8, (f_lat * f_lon, K_CAND))
     factor = f_lat // n_lat
     if factor < 1 or f_lat != factor * n_lat or f_lon != factor * n_lon:
@@ -273,17 +273,19 @@ def track_q_params(q: QuantizedCells, loc: Locator, tf: Transfunc,
                    finemap: FineMap | None,
                    c: _TrackCommon) -> _TrackQParams:
     """The quantized tier's launch arguments of K2 and K3
-    (csrc/tier_q.cuh); one host read of the scalars."""
-    n_lat, n_lon = (int(d) for d in loc.dims.tolist())
+    (csrc/tier_q.cuh): the scalars from their host copies (`host_values`,
+    read again only after the tensors change)."""
+    n_lat, n_lon = host_values(loc.dims)
     f_lat = f_lon = factor = 0
     if finemap is not None:
-        f_lat, f_lon = (int(d) for d in finemap.dims.tolist())
+        f_lat, f_lon = host_values(finemap.dims)
         factor = f_lat // n_lat
     fm = finemap if finemap is not None else loc
-    host = torch.stack([
-        q.value_lo, q.value_hi, q.alpha_max, tf.value_range[0],
-        tf.value_range[1], loc.lat_lo, loc.lat_hi, loc.lon_lo, loc.lon_hi,
-        fm.lat_lo, fm.lat_hi, fm.lon_lo, fm.lon_hi]).to(F32).tolist()
+    host = [host_values(x) for x in (
+        q.value_lo, q.value_hi, q.alpha_max)] + host_values(
+        tf.value_range) + [host_values(x) for x in (
+            loc.lat_lo, loc.lat_hi, loc.lon_lo, loc.lon_hi, fm.lat_lo,
+            fm.lat_hi, fm.lon_lo, fm.lon_hi)]
     return _TrackQParams(
         c=c, test12=q.test12.data_ptr(), hfrac=q.h_frac.data_ptr(),
         vq=q.value_q.data_ptr(), aq=q.alpha_q.data_ptr(),

@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..models.cells import Cells
@@ -74,9 +75,9 @@ from ..models.transfunc import Transfunc
 from ..utils import cuda_build
 from .fast import (F32, PROF_W, RGB_W, TEST_W, PackedCells, _band_exit,
                    _band_of, _check, _F32Tier, _init_lanes, _r_of,
-                   _select_band, _TrackParams, frame_lanes, track_common,
-                   track_params)
-from .fastq import (_QTier, _TrackQParams, check_q_tables, track_q_params)
+                   _select_band, _TrackParams, frame_lanes, host_values,
+                   track_common, track_params)
+from .fastq import _QTier, _TrackQParams, check_q_tables, track_q_params
 from .render import _finalize
 
 #: early-ray-termination transmittance floor: the tail below it is dropped
@@ -404,23 +405,65 @@ def _march_frame_torch(tier, bands: RadialBands, lp, pix, accum, fb,
 class _MarchArgs(ctypes.Structure):
     """Mirror of `MarchArgs` in csrc/march.cu (same field order)."""
     _fields_ = [
-        ("tab", ctypes.c_void_p), ("a_scale", ctypes.c_float),
-        ("v_scale", ctypes.c_float), ("inv_span", ctypes.c_float),
-        ("et_eps", ctypes.c_float), ("max_outer", ctypes.c_int),
+        ("tab", ctypes.c_void_p),
+        ("a_scale", ctypes.c_float), ("v_scale", ctypes.c_float),
+        ("inv_span", ctypes.c_float), ("et_eps", ctypes.c_float),
+        ("max_outer", ctypes.c_int),
     ]
+
+
+class _MarchFrame(ctypes.Structure):
+    """Mirror of `MarchFrame` in csrc/march.cu (same field order): the
+    device addresses of K3-q's per-frame scalars."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "cam_org", "cam_dir00", "cam_du", "cam_dv", "amb", "amb_rad", "ud",
+        "accum_id", "tf_range")]
 
 
 def build_march():
     """Compile csrc/march.cu for sm_90a (utils/cuda_build.py) and bind its
     two C entry points; returns the ctypes library."""
     lib = cuda_build.build("march")
-    for fn, params in (("march_f32_launch", _TrackParams),
-                       ("march_q_launch", _TrackQParams)):
-        f = getattr(lib, fn)
+    for f, params in ((lib.march_f32_launch, _TrackParams),
+                      (lib.march_q_launch, _TrackQParams)):
         f.argtypes = [ctypes.POINTER(params), ctypes.POINTER(_MarchArgs),
-                      ctypes.c_void_p]
+                      ctypes.POINTER(_MarchFrame), ctypes.c_void_p]
         f.restype = ctypes.c_int
     return lib
+
+
+def march_q_scales(q: QuantizedCells):
+    """(a_scale, v_scale, inv_span) of the q tier from host copies of its
+    scalars (`host_values`), in f32 as `_QTier` computes them: alpha_max /
+    255, (hi - lo) / 255 and 255 / max(hi - lo, 1e-30)."""
+    f = np.float32
+    lo, hi, amax = (f(host_values(x)) for x in (q.value_lo, q.value_hi,
+                                                q.alpha_max))
+    span = f(hi - lo)
+    return (float(f(amax / f(255.0))), float(f(span / f(255.0))),
+            float(f(f(255.0) / max(span, f(1e-30)))))
+
+
+def march_frame(lp, tf: Transfunc | None, dev) -> _MarchFrame:
+    """K3's per-frame scalars as device addresses: lp's camera, ambient
+    terms, unit distance and accum_id, and the TF's value range (q tier;
+    tf None on the f32 tier, whose colours are baked); raises unless each
+    is a contiguous tensor of its shape on `dev`."""
+    fn = "march_f32" if tf is None else "march_q"
+    ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev, fn=fn)
+    for name in ("cam_org", "cam_dir00", "cam_du", "cam_dv",
+                 "ambient_color"):
+        ck(f"lp.{name}", getattr(lp, name), F32, (3,))
+    ck("lp.ambient_radiance", lp.ambient_radiance, F32, ())
+    ck("lp.unit_distance", lp.unit_distance, F32, ())
+    ck("lp.accum_id", lp.accum_id, torch.int32, ())
+    return _MarchFrame(
+        cam_org=lp.cam_org.data_ptr(), cam_dir00=lp.cam_dir00.data_ptr(),
+        cam_du=lp.cam_du.data_ptr(), cam_dv=lp.cam_dv.data_ptr(),
+        amb=lp.ambient_color.data_ptr(),
+        amb_rad=lp.ambient_radiance.data_ptr(),
+        ud=lp.unit_distance.data_ptr(), accum_id=lp.accum_id.data_ptr(),
+        tf_range=None if tf is None else tf.value_range.data_ptr())
 
 
 def _check_lanes(fn, bands: RadialBands, pix, accum, fb, cost, n_pixels):
@@ -448,7 +491,9 @@ def march_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
     (the counterpart of icon_rt_tpu/ops/march.py `march_rays(...,
     return_cost=True)`, per lane where JAX returns the batch maximum).
     CUDA tensors launch csrc/march.cu; CPU tensors run
-    `_march_frame_torch`; anything else raises."""
+    `_march_frame_torch`; anything else raises.  A launch reads nothing
+    back from the card: the kernel reads lp's scalars from their tensors
+    (`march_frame`), and the tables' scalars come from `host_values`."""
     dev = pix.device
     n = packed.test.shape[0]
     for name, x, w in (("packed.test", packed.test, TEST_W),
@@ -462,14 +507,15 @@ def march_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
         _march_frame_torch(_F32Tier(packed, loc), bands, lp, pix, accum, fb,
                            width, height, cost)
         return
+    frame = march_frame(lp, None, dev)
     lib = build_march()
     p = track_params(packed, loc, track_common(
         bands, lp, pix, accum, fb, width=width, height=height, samples=1,
-        preserve_cache=False, cost=cost))
-    m = _MarchArgs(tab=None, a_scale=0.0, v_scale=0.0, inv_span=0.0,
-                   et_eps=ET_EPS, max_outer=MAX_OUTER)
+        preserve_cache=False, cost=cost, host_frame=False))
+    m = _MarchArgs(a_scale=0.0, v_scale=0.0, inv_span=0.0, et_eps=ET_EPS,
+                   max_outer=MAX_OUTER)
     cuda_build.check("march_f32", lib.march_f32_launch(
-        ctypes.byref(p), ctypes.byref(m),
+        ctypes.byref(p), ctypes.byref(m), ctypes.byref(frame),
         torch.cuda.current_stream(dev).cuda_stream))
     launches["march_f32" if cost is None else "march_f32_cost"] += 1
 
@@ -480,26 +526,31 @@ def march_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     """K3 wrapper, quantized tier: as `march_f32` (`cost` too; JAX's
     `march_rays_q(..., return_cost=True)`), on the u8/u16 tables; with
     `finemap` a locate tries the fine map first.  The layer colours go
-    through the (256, 4) code table of the live TF, built here in plain
-    PyTorch (256 postClassify evaluations, as in JAX)."""
+    through the (256, 4) code table of the live TF, which a one-block
+    kernel writes into a buffer of this call ahead of the march, on the
+    same stream (the plain version: `_QTier`'s `code_table`).  A launch reads nothing back from the card, as
+    `march_f32`'s: the TF's range is read by the kernel too."""
     dev = pix.device
     check_q_tables("march_q", q, loc, tf, finemap, dev)
     _check_lanes("march_q", bands, pix, accum, fb, cost, width * height)
-    tier = _QTier(q, loc, tf, finemap)
     if dev.type == "cpu":
-        _march_frame_torch(tier, bands, lp, pix, accum, fb, width, height,
-                           cost)
+        _march_frame_torch(_QTier(q, loc, tf, finemap), bands, lp, pix,
+                           accum, fb, width, height, cost)
         return
+    if q.lm > 32:
+        raise ValueError("march_q: the kernel takes at most 32 layers a "
+                         "column (q.lm <= 32)")
+    frame = march_frame(lp, tf, dev)
     lib = build_march()
-    tab = tier.code_table.contiguous()
-    scal = torch.stack([tier.a_scale, tier.v_scale, tier.inv_span]).tolist()
     p = track_q_params(q, loc, tf, finemap, track_common(
         bands, lp, pix, accum, fb, width=width, height=height, samples=1,
-        preserve_cache=False, cost=cost))
-    m = _MarchArgs(tab=tab.data_ptr(), a_scale=scal[0], v_scale=scal[1],
-                   inv_span=scal[2], et_eps=ET_EPS, max_outer=MAX_OUTER)
+        preserve_cache=False, cost=cost, host_frame=False))
+    a_scale, v_scale, inv_span = march_q_scales(q)
+    tab = torch.empty((256, 4), dtype=F32, device=dev)
+    m = _MarchArgs(tab=tab.data_ptr(), a_scale=a_scale, v_scale=v_scale,
+                   inv_span=inv_span, et_eps=ET_EPS, max_outer=MAX_OUTER)
     cuda_build.check("march_q", lib.march_q_launch(
-        ctypes.byref(p), ctypes.byref(m),
+        ctypes.byref(p), ctypes.byref(m), ctypes.byref(frame),
         torch.cuda.current_stream(dev).cuda_stream))
     launches["march_q" if cost is None else "march_q_cost"] += 1
 

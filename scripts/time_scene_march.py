@@ -1,0 +1,518 @@
+#!/usr/bin/env python
+"""K7-scene `synth_scene` and K3 `march_q` / `march_f32` on the card: their
+times, their splits, their host reads and the builds and passes they sit
+in, for one tree of the repository or two in turns.
+
+    python scripts/time_scene_march.py                  # this tree
+    python scripts/time_scene_march.py --turns A B      # trees A, B, B, A
+    python scripts/time_scene_march.py --turns A B C    # A, B, C, C, B, A
+    python scripts/time_scene_march.py --phases         # K3-q by phase too
+
+Each tree runs in a process of its own that imports that tree's
+icon_rt_tpu_torch (its kernels build into the tree's own _build/):
+
+  1. K7-scene at R2B9 (synth_quantized_device(11, 16), corners' lat/lon
+     kept, as build_q_scene asks): one call, then REPS calls timed with
+     CUDA events (mean ms of the whole build: every pass and the one host
+     read of the value range), the peak device memory of a call above what
+     is held before it, one call under chip_smoke.py's `profile_window`
+     (device ms by kernel: each pass apart) and the ptxas lines of
+     csrc/scene.cu; then the same for the subdivision-8 mip tier of level
+     3 (r2b9q_viewall's);
+  2. the app's main m and main mq paths (chip_smoke.py `main_path`:
+     subdiv 8 x 16, 1920x1080, closeup; steady launch median with the fb
+     on the host), then K3-f32 and K3-q (fine map off, as the app) 20
+     launches timed with CUDA events, one launch under `profile_window`,
+     the host reads of a steady call and, for K3-q, the divergence factor
+     as in 4;
+  3. build_q_scene(11, 16) by phase, with the device's peak after each;
+  4. K3-q on that scene at main r2b9m's 1920x1080 closeup (fine map on):
+     20 launches timed with CUDA events; the converged pass (launch and
+     fb to the host) median of 3; one pass under `profile_window` (wall,
+     device busy, idle share, device ms by event); the host reads of one
+     steady call (torch.cuda.set_sync_debug_mode("warn"), one warning a
+     read) and its wrapper's host wall; the warp divergence factor of the
+     per-lane cost output in pixel_perm order (the sum over warps of 32 x
+     their largest cost over the sum of the costs); its bound, counted by
+     chip_smoke.py's `CountingTier` on CHECK_LANES strided covered lanes
+     with `scale`, and the plain version's ms on those lanes (last: the
+     profiler's windows lose their device events after a plain loop).
+
+With --phases, steps 2 and 4's K3-q also run an instrumented copy of the
+tree's csrc/march.cu, written at run time into the tree's _build/ and not
+kept: clock64() counters around the locate, the column exit, the integral,
+the gap skip and the band lookup of each iteration and around the lane's
+setup and epilogue, summed over the lanes, beside each lane's whole
+march ("other": the rest of the loop).
+
+Each process prints `time_scene_march {json}` lines; --turns prints a
+summary of each tree's runs after them.  Needs a CUDA card: without one it
+exits non-zero.
+"""
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+import warnings
+
+REPS = 5
+R2B9_SUB, R2B9_LAYERS, LOD_SUB, LOD = 11, 16, 8, 3
+W, H = 1920, 1080
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: a profiled window of a scene build holds both passes
+SCENE_CALL = ("scene_pass1_kernel", "scene_pass2_kernel")
+
+
+def chip_smoke():
+    """This repository's chip_smoke.py as a module (its `profile_window`,
+    `CountingTier`, `main_path`), loaded from its file so that the tree
+    being measured keeps the first place on sys.path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    path = list(sys.path)
+    spec.loader.exec_module(mod)
+    sys.path[:] = path
+    return mod
+
+
+def events_ms(call, reps=REPS):
+    """Mean ms of `reps` calls, CUDA events around them (one warm call
+    first)."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        call()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def profiled(cs, call, require, tag):
+    """{"profiled_wall_ms", "device_ms", "busy_ms", "idle_share",
+    "by_name"} of one `call` under chip_smoke.py's `profile_window`."""
+    wall, timeline = cs.profile_window(call, require, tag)
+    by_name = {}
+    for name, _, ms in timeline:
+        k = cs.short_name(name)
+        by_name[k] = by_name.get(k, 0.0) + ms
+    busy, end = 0.0, -float("inf")
+    for _, a, ms in sorted(timeline, key=lambda x: x[1]):
+        if a + ms > end:
+            busy += a + ms - max(a, end)
+            end = a + ms
+    return dict(profiled_wall_ms=wall,
+                device_ms=sum(ms for _, _, ms in timeline), busy_ms=busy,
+                idle_share=1.0 - busy / wall,
+                by_name={k: round(v, 4) for k, v in by_name.items()})
+
+
+def host_reads(call):
+    """(device syncs of one `call` under set_sync_debug_mode("warn"), the
+    call's host wall ms up to its return)."""
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            call()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the mode's own notice, once a process, that it is a prototype is not
+    # a read
+    return sum("synchroniz" in str(w.message)
+               and "prototype" not in str(w.message) for w in got), wall
+
+
+def divergence(cost, perm, n_active):
+    """Sum over warps (32 consecutive lanes of the pixel order) of 32 x
+    their largest cost, over the sum of the costs."""
+    import torch
+    c = cost[perm[:n_active].long()].to(torch.int64)
+    pad = (-c.numel()) % 32
+    c = torch.cat([c, c.new_zeros(pad)]).view(-1, 32)
+    return float(32 * c.amax(1).sum()) / max(float(c.sum()), 1.0)
+
+
+def ptxas(name):
+    from icon_rt_tpu_torch.utils import cuda_build
+    return [line.strip() for line in cuda_build.info(name)["log"].splitlines()
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "stack"))]
+
+
+# ---------------------------------------------------------------------------
+# K3's phase probe: an instrumented copy of csrc/march.cu, not kept
+# ---------------------------------------------------------------------------
+
+_PROBE_TAIL = r"""
+__device__ unsigned long long g_phase[64 * 8];
+extern "C" int march_phase_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase,
+                                               sizeof(g_phase)));
+}
+extern "C" int march_phase_zero() {
+  static unsigned long long z[64 * 8];
+  return static_cast<int>(cudaMemcpyToSymbol(g_phase, z, sizeof(z)));
+}
+"""
+
+
+def _instrument(src):
+    """The march.cu source with clock64() counters around the four phases
+    of march_lane's loop and its whole body; raises if a phase's statement
+    is not found."""
+    body = src.index("__device__ __forceinline__ void march_lane(")
+    head, lane = src[:body], src[body:]
+    end = lane.index("\n}\n") + 2
+    lane, tail = lane[:end], lane[end:]
+    marks = [
+        ("locate", r"(\n[ \t]*)(const int c = T\.locate\([^;]*;)"),
+        ("exit", r"(\n[ \t]*)(const float t_exit =[^;]*;)"),
+        ("integral", r"(\n[ \t]*)(integrate[<\w, >]*\([^;]*;)"),
+        ("gap", r"(\n[ \t]*)(float skip = bin_exit\(.*?"
+                r"t = fmaxf\(fminf\(skip, seg_end\), tl\);)"),
+    ]
+    marks.append(("band", r"(\n[ \t]*)(const float r = track::r_of\(tl, "
+                          r"od, oo\);.*?const float seg_end =[^;]*;)"))
+    for k, (name, pat) in zip((0, 1, 2, 3, 7), marks):
+        m = re.search(pat, lane, flags=re.S)
+        if m is None:
+            raise SystemExit(f"time_scene_march --phases: no {name} "
+                             f"statement in march_lane")
+        ind = m.group(1)
+        lane = (lane[:m.start()] + f"{ind}long long _ph_t{k} = clock64();"
+                + ind + m.group(2)
+                + f"{ind}_ph[{k}] += clock64() - _ph_t{k};"
+                + lane[m.end():])
+    # the lane's setup ends where its march state starts; its epilogue
+    # starts at the colour's ambient terms
+    for k, (pat, at_end) in ((5, ("float t = L.t", False)),
+                             (6, ("float cr = 0.0f, cg = 0.0f", True))):
+        i = lane.index(pat)
+        i = lane.rindex("\n", 0, i) + 1
+        ins = (f"  const long long _ph_t{k} = clock64();\n" if at_end else
+               f"  _ph[{k}] += clock64() - _ph_lane;\n")
+        lane = lane[:i] + ins + lane[i:]
+    open_brace = lane.index("{") + 1
+    lane = (lane[:open_brace]
+            + "\n  long long _ph[8] = {0, 0, 0, 0, 0, 0, 0, 0};"
+            + "\n  const long long _ph_lane = clock64();"
+            + lane[open_brace:])
+    close = lane.rindex("\n}")
+    lane = (lane[:close]
+            + "\n  _ph[6] += clock64() - _ph_t6;"
+            + "\n  _ph[4] = clock64() - _ph_lane;"
+            + "\n  {\n    unsigned long long* g = g_phase + "
+              "(blockIdx.x % 64) * 8;"
+            + "\n    for (int k = 0; k < 8; ++k) atomicAdd(g + k, "
+              "static_cast<unsigned long long>(_ph[k]));\n  }"
+            + lane[close:])
+    decl = "__device__ unsigned long long g_phase[64 * 8];\n"
+    return head.replace("namespace {", decl + "namespace {", 1) + lane \
+        + tail + _PROBE_TAIL.replace(decl, "", 1)
+
+
+def phase_probe(call):
+    """K3's time by phase in one `call` of the march, through the
+    instrumented copy: {phase: share of the lanes' cycles, "lane_cycles":
+    the sum over lanes}.  The build's ptxas lines are printed."""
+    import ctypes
+    import torch
+    from icon_rt_tpu_torch.utils import cuda_build
+    src = open(os.path.join(cuda_build.CSRC, "march.cu")).read()
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=cuda_build.BUILD_DIR, prefix="phase_")
+    cu = os.path.join(tmp, "march_phase.cu")
+    with open(cu, "w") as f:
+        f.write(_instrument(src))
+    so = os.path.join(tmp, "libmarch_phase.so")
+    res = subprocess.run(
+        [cuda_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
+         "-Xcompiler", "-fPIC", "-I", cuda_build.CSRC, "-o", so, cu],
+        capture_output=True, text=True)
+    if res.returncode != 0:
+        raise SystemExit(f"time_scene_march: the phase probe's nvcc "
+                         f"failed:\n{res.stderr[-3000:]}")
+    lib = ctypes.CDLL(so)
+    saved = cuda_build._BUILT.pop("march", None)
+    cuda_build._BUILT["march"] = {"lib": lib, "seconds": 0.0, "log": ""}
+    try:
+        call()                       # binds the entry points, warms up
+        torch.cuda.synchronize()
+        lib.march_phase_zero()
+        call()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (64 * 8))()
+        lib.march_phase_read(buf)
+    finally:
+        cuda_build._BUILT.pop("march")
+        if saved is not None:
+            cuda_build._BUILT["march"] = saved
+    sums = [sum(buf[b * 8 + k] for b in range(64)) for k in range(8)]
+    lane = max(sums[4], 1)
+    out = {name: round(sums[k] / lane, 4) for k, name in
+           ((0, "locate"), (1, "exit"), (2, "integral"), (3, "gap"),
+            (5, "setup"), (6, "epilogue"), (7, "band"))}
+    out["other"] = round(1.0 - sum(sums[k] for k in (0, 1, 2, 3, 5, 6, 7))
+                         / lane, 4)
+    out["lane_cycles"] = sums[4]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# One tree
+# ---------------------------------------------------------------------------
+
+def scene_times(cs, dev, sub, lod, tag):
+    """Step 1 for one scene: {"ms", "first_ms", "peak_gib_above_held",
+    profiled split, "ptxas"}."""
+    import torch
+    from icon_rt_tpu_torch.data.device_scene import synth_quantized_device
+
+    def call():
+        return synth_quantized_device(sub, R2B9_LAYERS, device=dev,
+                                      latlon=True, field_lod=lod)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    out = {"first_ms": (time.perf_counter() - t0) * 1e3}
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = call()
+    torch.cuda.synchronize()
+    out["peak_gib_above_held"] = (torch.cuda.max_memory_allocated()
+                                  - held) / 2 ** 30
+    del res
+    out["ms"] = events_ms(call)
+    out.update(profiled(cs, call, SCENE_CALL, tag))
+    out["ptxas"] = ptxas("scene")
+    return out
+
+
+def march_q_times(cs, q, loc, bands, tf, lp, perm, n_active, fm, phases,
+                  tag, plain=False):
+    """Step 3 / 4's K3-q numbers on one scene and frame."""
+    import torch
+    from icon_rt_tpu_torch.ops import march
+    from icon_rt_tpu_torch.ops.fastq import _QTier
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    kw = dict(width=W, height=H, pixel_perm=perm, n_active=n_active,
+              finemap=fm)
+    acc, fb = alloc_frame(W, H, device=perm.device)
+    lps = [cs.with_id(lp, k) for k in range(8)]
+
+    def launch(k=1):
+        march.render_frame_march_q(q, loc, bands, tf, lps[k], acc, fb, **kw)
+    out = {"ms": events_ms(launch, reps=20)}
+    passes = []
+    for k in range(1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launch(k)
+        fb.cpu()
+        passes.append((time.perf_counter() - t0) * 1e3)
+    out["pass_ms"] = passes
+    out["pass_median_ms"] = sorted(passes)[1]
+    out.update(profiled(cs, lambda: (launch(4), fb.cpu()),
+                        ("march_q_kernel",), tag))
+    out["host_reads"], out["wrapper_wall_ms"] = host_reads(
+        lambda: launch(5))
+    pix = perm[:n_active].contiguous()
+    cost = torch.zeros(W * H, dtype=torch.int32, device=perm.device)
+    march.march_q(q, loc, bands, tf, lps[1], pix, acc[:n_active],
+                  fb[:n_active], width=W, height=H, finemap=fm, cost=cost)
+    out["divergence"] = divergence(cost, perm, n_active)
+    out["cost_mean"] = float(cost[pix.long()].double().mean())
+    out["cost_max"] = int(cost.max())
+    if plain:
+        lanes = cs.strided_lanes(perm, n_active)
+        tier = cs.CountingTier(_QTier(q, loc, tf, fm))
+        a2, f2 = alloc_frame(W, H, device=perm.device)
+        n = lanes.shape[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        march._march_frame_torch(tier, bands, lps[1], lanes, a2[:n], f2[:n],
+                                 W, H)
+        torch.cuda.synchronize()
+        out["plain_ms_sampled"] = (time.perf_counter() - t0) * 1e3
+        out["sampled_lanes"] = n
+        out["bound_ms"], out["bound_by"] = tier.bound(
+            "march_q", n_active, lambda c: q.test12[c, 11],
+            scale=n_active / n)
+    if phases:
+        out["phases"] = phase_probe(launch)
+    return out
+
+
+def measure(root, phases):
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("time_scene_march: no CUDA card")
+    from icon_rt_tpu_torch.data import bigscene
+    from icon_rt_tpu_torch.ops import march
+    if not march.__file__.startswith(os.path.abspath(root) + os.sep):
+        raise SystemExit(f"time_scene_march: imported {march.__file__}, not "
+                         f"the package under {root}")
+    cs = chip_smoke()
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.splitlines()[0]
+    out = {"root": os.path.abspath(root), "card": card}
+    bigscene.CACHE_DIR = tempfile.mkdtemp(prefix="time_scene_march_")
+
+    # 1. K7-scene
+    out["scene_r2b9"] = scene_times(cs, dev, R2B9_SUB, 0, "scene R2B9")
+    out["scene_lod3"] = scene_times(cs, dev, LOD_SUB, LOD, "scene lod 3")
+    print("time_scene_march scene " + json.dumps(
+        {k: out[k] for k in ("scene_r2b9", "scene_lod3")}), flush=True)
+    torch.cuda.empty_cache()
+
+    # 2. R2B8 1080p, the app's march paths (before any plain loop: the
+    # profiler's windows lose their device events after one)
+    res = {}
+    for quantized in (False, True):
+        pl, _, met = cs.main_path(dev, quantized=quantized, marching=True)
+        steady = sorted(met["launch_ms"][1:cs.MARCH_LIMIT])
+        name = "march_q" if quantized else "march_f32"
+        r = {"steady_launch_median_ms": steady[len(steady) // 2]}
+        s, frame = pl.scene, pl.frame
+        lp = cs.launch_params(pl)
+        n = frame["n_active"]
+        pix = frame["perm"][:n].contiguous()
+        acc, fb = frame["accum"][:n], frame["fb"][:n]
+        if quantized:
+            q, loc_q, _ = s["get_q"]()
+            tabs = (q, loc_q, s["get_bands"](), s["tf"]())
+            r.update(march_q_times(cs, *tabs, lp, frame["perm"], n, None,
+                                   phases, "march_q R2B8"))
+            r["ms_render"] = r.pop("ms")
+
+            def launch():
+                march.march_q(*tabs, lp, pix, acc, fb, width=W, height=H)
+        else:
+            tabs = (s["get_packed"](), s["locator"], s["get_bands"]())
+
+            def launch():
+                march.march_f32(*tabs, lp, pix, acc, fb, width=W, height=H)
+            r.update(profiled(cs, lambda: (launch(), fb.cpu()),
+                              ("march_f32_kernel",), "march_f32 R2B8"))
+            r["host_reads"], r["wrapper_wall_ms"] = host_reads(launch)
+        r["ms"] = events_ms(launch, reps=20)
+        res[name] = r
+        del pl
+        torch.cuda.empty_cache()
+    out["r2b8"] = res
+    # 3. the R2B9 build
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    q, loc, _, bands, tf, stats, fm, _, _ = bigscene.build_q_scene(
+        R2B9_SUB, R2B9_LAYERS, device=dev, timings=timings)
+    out["build_s"] = time.perf_counter() - t0
+    out["build_held_gib"] = held / 2 ** 30
+    out["build_phases"] = {
+        k: (round(v / 2 ** 30, 3) if k.endswith("bytes") else round(v, 4))
+        for k, v in timings.items()}
+
+    # 4. K3-q at R2B9, its plain version last
+    lp, perm, n_active = cs.r2b9_frame(stats, W, H, dev)
+    out["march_q_r2b9"] = march_q_times(cs, q, loc, bands, tf, lp, perm,
+                                        n_active, fm, phases,
+                                        "march_q R2B9", plain=True)
+    out["march_q_r2b9"]["n_active"] = n_active
+    print("time_scene_march march_q_r2b9 " + json.dumps(
+        out["march_q_r2b9"]), flush=True)
+    del q, loc, bands, tf, fm, lp, perm
+    torch.cuda.empty_cache()
+
+    out["ptxas_march"] = ptxas("march")
+    print("time_scene_march " + json.dumps(out), flush=True)
+
+
+def turns(trees, phases):
+    """Each tree of `trees` in turns, forth and back (a, b, b, a for two),
+    each run in a process of its own; prints each run's line and a
+    summary."""
+    order = list(trees) + list(reversed(trees))
+    runs = []
+    for root in order:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--root", root]
+                             + (["--phases"] if phases else []),
+                             capture_output=True, text=True)
+        sys.stdout.write(res.stdout)
+        sys.stderr.write(res.stderr[-4000:])
+        if res.returncode != 0:
+            raise SystemExit(f"time_scene_march: {root} exited "
+                             f"{res.returncode}")
+        line = [x for x in res.stdout.splitlines()
+                if x.startswith("time_scene_march {")][-1]
+        runs.append(json.loads(line[len("time_scene_march "):]))
+    for root in trees:
+        mine = [r for r in runs if r["root"] == os.path.abspath(root)]
+        pick = lambda f: [f(r) for r in mine]
+        r2 = lambda f: pick(lambda r: round(f(r), 4))
+        print(f"time_scene_march summary {root}: K7-scene R2B9 ms "
+              f"{r2(lambda r: r['scene_r2b9']['ms'])}, by kernel "
+              f"{pick(lambda r: r['scene_r2b9']['by_name'])}, peak GiB "
+              f"{r2(lambda r: r['scene_r2b9']['peak_gib_above_held'])}; "
+              f"lod 3 ms {r2(lambda r: r['scene_lod3']['ms'])}, by kernel "
+              f"{pick(lambda r: r['scene_lod3']['by_name'])}; build "
+              f"{pick(lambda r: r['build_phases'])}")
+        print(f"time_scene_march summary {root}: K3-q R2B9 ms "
+              f"{r2(lambda r: r['march_q_r2b9']['ms'])}, pass median "
+              f"{r2(lambda r: r['march_q_r2b9']['pass_median_ms'])}, kernel "
+              f"{pick(lambda r: r['march_q_r2b9']['by_name'].get('march_q_kernel'))}"
+              f", idle {r2(lambda r: r['march_q_r2b9']['idle_share'])}, "
+              f"host reads {pick(lambda r: r['march_q_r2b9']['host_reads'])}")
+        for k in ("march_q", "march_f32"):
+            print(f"time_scene_march summary {root}: {k} R2B8 ms "
+                  f"{r2(lambda r: r['r2b8'][k]['ms'])}, steady launch "
+                  f"{r2(lambda r: r['r2b8'][k]['steady_launch_median_ms'])}"
+                  f", kernel "
+                  f"{pick(lambda r: r['r2b8'][k]['by_name'].get(k + '_kernel'))}"
+                  f", idle {r2(lambda r: r['r2b8'][k]['idle_share'])}"
+                  f", host reads {pick(lambda r: r['r2b8'][k]['host_reads'])}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE,
+                    help="the tree whose package to time")
+    ap.add_argument("--turns", nargs="+", metavar="TREE",
+                    help="time two or more trees in turns, forth and back "
+                         "(A, B, B, A)")
+    ap.add_argument("--phases", action="store_true",
+                    help="K3-q's split by phase through an instrumented "
+                         "copy of csrc/march.cu")
+    args = ap.parse_args()
+    if args.turns:
+        if len(args.turns) < 2:
+            ap.error("--turns takes two or more trees")
+        turns(args.turns, args.phases)
+    else:
+        measure(args.root, args.phases)
+
+
+if __name__ == "__main__":
+    main()

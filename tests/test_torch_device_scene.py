@@ -138,7 +138,7 @@ def test_torch_device_scene_band_ranges_conservative(scenes):
 
 
 def test_torch_device_scene_windows_and_latlon(scenes):
-    """The plain pass 2 of an index window equals the same rows of the
+    """The plain passes over an index window equal the same rows of the
     whole scene; the corner lat/lon are those of the oriented corners
     (within 5e-7 of the host synthesizer's, which normalizes through
     einsum)."""
@@ -147,15 +147,80 @@ def test_torch_device_scene_windows_and_latlon(scenes):
     c = ds._Consts(SUBDIV, LAYERS, float(td.stats.spherical_bounds_lo[0]),
                    3.0e4, "cpu")
     lo, hi = float(td.cells.value_lo), float(td.cells.value_hi)
-    t12, vq, _, _, lat, lon = ds.scene_pass2(c, lo, float(ds.quant_scale(
-        lo, hi)), start=N - 100, count=100, latlon=True)
+    t12, vq, _, _, lat, lon = ds.scene_window(
+        c, N - 100, 100, lo, float(ds.quant_scale(lo, hi)), latlon=True)
     assert torch.equal(t12, td.cells.test12[N - 100:])
     assert torch.equal(vq, td.cells.value_q[N - 100:])
     assert torch.equal(lat, td.lat[N - 100:])
     assert torch.equal(lon, td.lon[N - 100:])
     np.testing.assert_allclose(td.lat.numpy(), sc.lat, rtol=0, atol=5e-7)
     with pytest.raises(ValueError):
-        ds.scene_pass2(c, lo, 1.0, start=N - 10, count=11)
+        ds.scene_pass1(c, start=N - 10, count=11)
+
+
+@pytest.mark.parametrize("s,d", [(2, 0), (3, 0), (4, 1), (5, 0), (5, 2),
+                                 (5, 5)])
+def test_torch_cell_corners_resume_from_ancestors(s, d):
+    """The ancestor identity K7-scene's walk rests on: cell i's corners are
+    its depth-d ancestor's (cell i % (20 * 4**d)) walked along the
+    remaining s - d digits, bit for bit (d = 0: the base faces; d = s: the
+    cells themselves)."""
+    from icon_rt_tpu_torch.data import device_scene as ds
+    base = torch.from_numpy(ds._base_triangles())
+    idx = torch.arange(20 * 4 ** s, dtype=torch.int64)
+    want = ds._cell_corners(idx, s, base)
+    anc = torch.stack(ds._cell_corners(
+        torch.arange(20 * 4 ** d, dtype=torch.int64), d, base), dim=1)
+    got = ds._cell_corners_from(anc, idx, d, s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def scenes4():
+    """JAX's device build of a subdivision-4 scene (ancestors of depth 1,
+    80 of them) and the port's plain whole build."""
+    jd = jdevice(4, LAYERS, chunk_cells=1024)
+    td = synth_quantized_device(4, LAYERS, device="cpu", latlon=True)
+    return interop.device_scene(jd, 20 * 4 ** 4), td
+
+
+@pytest.mark.parametrize("where", ["head", "ancestor period", "tail"])
+def test_torch_scene_split_windows_match_jax(scenes4, where):
+    """The pass split's plain versions over index windows that start at 0,
+    straddle the ancestor table's period and end at the last cell: pass 1
+    and pass 2 of the window equal the whole build's rows bit for bit
+    (test12, value_q, lat/lon), the window's aggregates bound the whole
+    scene's, and the rows match JAX's device build as the whole scene's
+    do (test12 within the geometry test's tolerance, u8 levels within
+    1)."""
+    from icon_rt_tpu_torch.data import device_scene as ds
+    jd, td = scenes4
+    c = ds._Consts(4, LAYERS, float(td.stats.spherical_bounds_lo[0]), 3.0e4,
+                   "cpu")
+    assert (c.anc_depth, c.n_anc) == (1, 80)
+    count = 60
+    start = {"head": 0, "ancestor period": c.n_anc - count // 2,
+             "tail": c.n - count}[where]
+    lo, hi = float(td.cells.value_lo), float(td.cells.value_hi)
+    p1 = ds._scene_pass1_torch(c, start, count, True)
+    agg = p1.agg.tolist()
+    whole = dict(zip(ds.AGG, (lo, hi)))
+    assert agg[0] >= whole["v_min"] and agg[1] <= whole["v_max"]
+    t12, vq, qmin, qmax, lat, lon = ds._scene_pass2_torch(
+        c, p1, lo, float(ds.quant_scale(lo, hi)))
+    rows = slice(start, start + count)
+    assert torch.equal(t12, td.cells.test12[rows])
+    assert torch.equal(vq, td.cells.value_q[rows])
+    assert torch.equal(lat, td.lat[rows]) and torch.equal(lon, td.lon[rows])
+    assert torch.equal(qmin, vq[:, :LAYERS].amin(0).int())
+    assert torch.equal(qmax, vq[:, :LAYERS].amax(0).int())
+    want = jd.cells.test12.numpy()[rows]
+    np.testing.assert_allclose(t12.numpy()[:, :9], want[:, :9], rtol=2e-5,
+                               atol=2e-2 * np.abs(want[:, :9]).max())
+    dv = np.abs(vq.numpy().astype(int)
+                - jd.cells.value_q.numpy()[rows].astype(int))
+    assert dv.max() <= 1
 
 
 def test_torch_device_scene_field_lod_raises():

@@ -1,6 +1,7 @@
 """PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q,
-K7-fm (factors 1-3, cut edge tiles, a band locator), K3 (both tiers),
-K5c-f32, K7-scene (lod 0 and the mip tier), K7-loc, K8 (and its raw
+K7-fm (factors 1-3, cut edge tiles, a band locator), K3 (both tiers; K3-q
+after TF edits and its steady call without a host read), K5c-f32,
+K7-scene (lod 0 and the mip tier, whole and windows), K7-loc, K8 (and its raw
 mode) and K6b, K1's, K2's and K3's cost output, K1's and
 K2's raw mode (with rng_salt), the
 unstructured elements' K9-w, K9-p and K9-n, and the multi-device
@@ -226,10 +227,10 @@ def test_cuda_build_finemap_band_locator_matches_plain(scene5, factor):
     the launcher halves the tile to fit shared memory at factor 1)."""
     from icon_rt_tpu_torch.data import device_scene as ds
     from icon_rt_tpu_torch.models import locator
-    agg = ds.scene_pass1(scene5)
-    lo, hi = float(agg[0]), float(agg[1])
+    p1 = ds.scene_pass1(scene5, latlon=True)
+    lo, hi = float(p1.agg[0]), float(p1.agg[1])
     test12, _, _, _, lat, lon = ds.scene_pass2(
-        scene5, lo, float(ds.quant_scale(lo, hi)), latlon=True)
+        scene5, p1, lo, float(ds.quant_scale(lo, hi)))
     band = ((lat >= -0.5) & (lat <= 0.7)).all(1)
     t_band = test12[band].contiguous()
     loc = locator.bin_locator(lat[band].contiguous(),
@@ -341,6 +342,112 @@ def test_cuda_march_q_matches_plain(scene, qscene, use_fm):
     assert float((ak - ap).abs().max()) <= 1e-6
 
 
+def _march_q_vs_plain(scene, qscene, tf, lp, fm=None):
+    """K3-q and its plain version on the covered lanes: fb identical on
+    >= 99.9%, accum within 1e-6."""
+    n = scene["n_cov"]
+    pix = scene["perm"][:n].contiguous()
+    outs = []
+    for kernel in (True, False):
+        acc, fb = alloc_frame(96, 96, device=pix.device)
+        if kernel:
+            march.march_q(qscene["q"], qscene["loc"], scene["bands"], tf, lp,
+                          pix, acc[:n], fb[:n], width=96, height=96,
+                          finemap=fm)
+        else:
+            march._march_frame_torch(
+                fastq._QTier(qscene["q"], qscene["loc"], tf, fm),
+                scene["bands"], lp, pix, acc[:n], fb[:n], 96, 96)
+        torch.cuda.synchronize()
+        outs.append((acc, fb))
+    (ak, fk), (ap, fp) = outs
+    assert (fk == fp).float().mean() >= 0.999
+    assert float((ak - ap).abs().max()) <= 1e-6
+    return ak
+
+
+@pytest.mark.parametrize("edit", ["lut in place", "new range"])
+def test_cuda_march_q_after_tf_edit_matches_plain(scene, qscene, edit):
+    """K3-q builds its code table from the live TF on the card: after a TF
+    edit between two launches (the LUT rewritten in place, or a TF with a
+    new value range) the next launch equals the plain version on the
+    edited TF, and differs from the launch before the edit."""
+    tf = make_transfunc(value_range=tuple(scene["tf"].value_range.tolist()),
+                        device=scene["lp"].cam_org.device)
+    before = _march_q_vs_plain(scene, qscene, tf, scene["lp"])
+    if edit == "lut in place":
+        tf.values.copy_(torch.flip(tf.values, dims=[0]))
+    else:
+        lo, hi = tf.value_range.tolist()
+        tf = tf._replace(value_range=torch.tensor(
+            [lo, lo + 0.5 * (hi - lo)], dtype=torch.float32,
+            device=tf.values.device))
+    after = _march_q_vs_plain(scene, qscene, tf, scene["lp"])
+    assert float((after - before).abs().max()) > 1e-3
+
+
+def test_cuda_march_q_steady_call_reads_nothing_back(scene, qscene):
+    """A steady K3-q call (the tables, TF and camera of the call before it,
+    a new accum_id) does no device-to-host read: it runs under
+    torch.cuda.set_sync_debug_mode("error"); and a camera move and the new
+    accum_id reach the launch (the frame equals the plain version's)."""
+    n = scene["n_cov"]
+    pix = scene["perm"][:n].contiguous()
+    dev = pix.device
+    tabs = (qscene["q"], qscene["loc"], scene["bands"], scene["tf"])
+    acc, fb = (x[:n] for x in alloc_frame(96, 96, device=dev))
+    lps = [scene["lp"]._replace(accum_id=torch.tensor(
+        k, dtype=torch.int32, device=dev)) for k in range(3)]
+    march.march_q(*tabs, lps[0], pix, acc, fb, width=96, height=96,
+                  finemap=qscene["fm"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        march.march_q(*tabs, lps[1], pix, acc, fb, width=96, height=96,
+                      finemap=qscene["fm"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    moved = lps[2]._replace(cam_org=lps[2].cam_org * 1.01)
+    for lp in (lps[2], moved):
+        _march_q_vs_plain(scene, qscene, scene["tf"], lp, qscene["fm"])
+
+
+def test_cuda_march_f32_steady_call_reads_nothing_back(scene):
+    """A steady K3-f32 call (the tables and camera of the call before it, a
+    new accum_id) does no device-to-host read, and a camera move and the
+    new accum_id reach the launch: its frames equal the plain version's
+    (fb identical on >= 99.9% of lanes, accum within 1e-6, as
+    `test_cuda_march_f32_matches_plain`) and the move changes them."""
+    n = scene["n_cov"]
+    pix = scene["perm"][:n].contiguous()
+    dev = pix.device
+    tabs = (scene["packed"], scene["loc"], scene["bands"])
+    lps = [scene["lp"]._replace(accum_id=torch.tensor(
+        k, dtype=torch.int32, device=dev)) for k in range(3)]
+    lps.append(lps[2]._replace(cam_org=lps[2].cam_org * 1.01))
+    acc, fb = (x[:n] for x in alloc_frame(96, 96, device=dev))
+    march.march_f32(*tabs, lps[0], pix, acc, fb, width=96, height=96)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        march.march_f32(*tabs, lps[1], pix, acc, fb, width=96, height=96)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = []
+    for lp in lps[2:]:
+        ak, fk = alloc_frame(96, 96, device=dev)
+        ap, fp = alloc_frame(96, 96, device=dev)
+        march.march_f32(*tabs, lp, pix, ak[:n], fk[:n], width=96, height=96)
+        march._march_frame_torch(fast._F32Tier(scene["packed"], scene["loc"]),
+                                 scene["bands"], lp, pix, ap[:n], fp[:n], 96,
+                                 96)
+        torch.cuda.synchronize()
+        assert (fk == fp).float().mean() >= 0.999
+        assert float((ak - ap).abs().max()) <= 1e-6
+        got.append(ak)
+    assert float((got[1] - got[0]).abs().max()) > 1e-3
+
+
 def test_cuda_opacity_scale_matches_plain(scene):
     """K5c-f32: parts and apply bitwise equal to the plain versions, and the
     scale-only re-bake bitwise equal to a full K5a bake at the new scale."""
@@ -366,26 +473,79 @@ def scene5(dev):
                                 dev)
 
 
-def test_cuda_scene_matches_plain(scene5):
-    """K7-scene: pass 1's aggregates and pass 2's test12 rows and corner
-    lat/lon bit-equal to the plain version's; value_q within 1 level and
-    exact on >= 99.999% of entries; the per-layer u8 ranges equal."""
-    from icon_rt_tpu_torch.data import device_scene as ds
-    c = scene5
-    before = dict(ds.launches)
-    agg = ds.scene_pass1(c)
-    assert torch.equal(agg, ds._scene_pass1_torch(c, 0, c.n))
-    lo, hi = float(agg[0]), float(agg[1])
-    scale = float(ds.quant_scale(lo, hi))
-    got = ds.scene_pass2(c, lo, scale, latlon=True)
-    want = ds._scene_pass2_torch(c, 0, c.n, lo, scale, True)
-    assert ds.launches == {k: v + (not k.startswith("scene_lod"))
-                           for k, v in before.items()}
+def _pass1_equal(got, want):
+    """K7-scene pass 1 outputs bit-equal: aggregates, test12, lat/lon and
+    the field (the w stash at lod 0, the pooled values otherwise)."""
+    assert torch.equal(got.agg, want.agg)
+    assert torch.equal(got.test12, want.test12)
+    assert torch.equal(got.lat, want.lat) and torch.equal(got.lon, want.lon)
+    if want.field is None:
+        assert torch.equal(got.field_term(), want.field_term())
+    else:
+        assert torch.equal(got.field, want.field)
+
+
+def _tables_match(got, want):
+    """K7-scene pass 2 outputs: test12 and the corner lat/lon bit-equal,
+    value_q within 1 level and exact on >= 99.999% of entries, the
+    per-layer u8 ranges equal."""
     for k in (0, 4, 5):
         assert torch.equal(got[k], want[k])
     dv = (got[1].int() - want[1].int()).abs()
     assert int(dv.max()) <= 1 and float((dv == 0).float().mean()) >= 0.99999
     assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+
+
+def test_cuda_scene_matches_plain(scene5):
+    """K7-scene: the ancestors' launch and pass 1's aggregates, test12
+    rows, corner lat/lon and field stash bit-equal to the plain version's;
+    pass 2's value_q within 1 level and exact on >= 99.999% of entries;
+    the per-layer u8 ranges equal."""
+    from icon_rt_tpu_torch.data import device_scene as ds
+    c = scene5
+    before = dict(ds.launches)
+    p1 = ds.scene_pass1(c, latlon=True)
+    p1p = ds._scene_pass1_torch(c, 0, c.n, True)
+    _pass1_equal(p1, p1p)
+    lo, hi = float(p1.agg[0]), float(p1.agg[1])
+    scale = float(ds.quant_scale(lo, hi))
+    got = ds.scene_pass2(c, p1, lo, scale)
+    want = ds._scene_pass2_torch(c, p1p, lo, scale)
+    assert ds.launches == {k: v + (not k.startswith("scene_lod"))
+                           for k, v in before.items()}
+    _tables_match(got, want)
+
+
+@pytest.mark.parametrize("lod", [0, 3])
+@pytest.mark.parametrize("where", ["head", "ancestor period", "tail"])
+def test_cuda_scene_windows_match_plain(dev, lod, where):
+    """K7-scene over index windows that start at 0, that straddle the
+    ancestor table's period (cell n_anc, where the ancestors wrap) and that
+    end at the last cell, at lod 0 (subdivision 5) and lod 3 (subdivision
+    4, 64 descendants a cell): both passes bit-equal to the plain version's
+    window, and the lod-0 windows equal to the same rows of the whole
+    scene."""
+    from icon_rt_tpu_torch.data import device_scene as ds
+    sub = 5 if lod == 0 else 4
+    c = ds._Consts(sub, 16, float(synthetic.EARTH_RADIUS), 3.0e4, dev,
+                   lod=lod)
+    count = 200 if lod == 0 else 64
+    start = {"head": 0, "ancestor period": c.n_anc - count // 2,
+             "tail": c.n - count}[where]
+    assert 0 <= start and start + count <= c.n
+    whole = ds.scene_pass1(c, latlon=True)
+    lo, hi = float(whole.agg[0]), float(whole.agg[1])
+    scale = float(ds.quant_scale(lo, hi))
+    p1 = ds.scene_pass1(c, start, count, latlon=True)
+    p1p = ds._scene_pass1_torch(c, start, count, True)
+    _pass1_equal(p1, p1p)
+    got = ds.scene_pass2(c, p1, lo, scale)
+    _tables_match(got, ds._scene_pass2_torch(c, p1p, lo, scale))
+    if lod == 0:
+        rows = slice(start, start + count)
+        assert torch.equal(got[0], whole.test12[rows])
+        tabs = ds.scene_pass2(c, whole, lo, scale)
+        assert torch.equal(got[1], tabs[1][rows])
 
 
 @pytest.mark.parametrize("dims_scale,big_cap", [
@@ -403,10 +563,10 @@ def test_cuda_locator_bins_match_plain(scene5, monkeypatch, dims_scale,
     from icon_rt_tpu_torch.models import locator
     if big_cap is not None:
         monkeypatch.setattr(locator, "_BIG_CAP", big_cap)
-    agg = ds.scene_pass1(scene5)
-    lo, hi = float(agg[0]), float(agg[1])
+    p1 = ds.scene_pass1(scene5, latlon=True)
+    lo, hi = float(p1.agg[0]), float(p1.agg[1])
     _, _, _, _, lat, lon = ds.scene_pass2(
-        scene5, lo, float(ds.quant_scale(lo, hi)), latlon=True)
+        scene5, p1, lo, float(ds.quant_scale(lo, hi)))
     before = dict(locator.launches)
     loc, k, counts, rect = locator.bin_locator(lat, lon,
                                                dims_scale=dims_scale)
@@ -599,19 +759,16 @@ def test_cuda_scene_lod_matches_plain(dev):
     from icon_rt_tpu_torch.data import device_scene as ds
     c = ds._Consts(4, 16, float(synthetic.EARTH_RADIUS), 3.0e4, dev, lod=2)
     before = dict(ds.launches)
-    agg = ds.scene_pass1(c)
-    assert torch.equal(agg, ds._scene_pass1_torch(c, 0, c.n))
-    lo, hi = float(agg[0]), float(agg[1])
+    p1 = ds.scene_pass1(c, latlon=True)
+    p1p = ds._scene_pass1_torch(c, 0, c.n, True)
+    _pass1_equal(p1, p1p)
+    lo, hi = float(p1.agg[0]), float(p1.agg[1])
     scale = float(ds.quant_scale(lo, hi))
-    got = ds.scene_pass2(c, lo, scale, latlon=True)
-    want = ds._scene_pass2_torch(c, 0, c.n, lo, scale, True)
-    assert ds.launches == dict(before, scene_lod_pass1=before[
-        "scene_lod_pass1"] + 1, scene_lod_pass2=before["scene_lod_pass2"] + 1)
-    for k in (0, 4, 5):
-        assert torch.equal(got[k], want[k])
-    dv = (got[1].int() - want[1].int()).abs()
-    assert int(dv.max()) <= 1 and float((dv == 0).float().mean()) >= 0.99999
-    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    got = ds.scene_pass2(c, p1, lo, scale)
+    want = ds._scene_pass2_torch(c, p1p, lo, scale)
+    assert ds.launches == {k: v + k.startswith("scene_lod")
+                           for k, v in before.items()}
+    _tables_match(got, want)
 
 
 def test_cuda_refine_matches_plain(dev):

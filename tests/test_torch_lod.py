@@ -134,6 +134,36 @@ def test_torch_field_lod_matches_jax(tiers):
                                jd.bands.value_ranges.numpy(), atol=1.5 * lvl)
 
 
+@pytest.mark.parametrize("lvl", [1, 2])
+def test_torch_field_lod_windows_match_jax(lvl):
+    """The pass split's plain versions of the mip tier over index windows
+    (subdivision 4, ancestors of depth 1: a window at the head, one across
+    the ancestor table's period, one at the tail): each window's pooled
+    field, test12 and value_q bit-equal to the whole plain build's rows,
+    and value_q equal to JAX's device build on every entry."""
+    from icon_rt_tpu_torch.data import device_scene as ds
+    sub = 4
+    n = 20 * 4 ** sub
+    jd = interop.device_scene(jdevice(sub, LAYERS, chunk_cells=1024,
+                                      field_lod=lvl), n)
+    td = synth_quantized_device(sub, LAYERS, device="cpu", field_lod=lvl)
+    c = ds._Consts(sub, LAYERS, float(td.stats.spherical_bounds_lo[0]),
+                   3.0e4, "cpu", lod=lvl)
+    lo, hi = float(td.cells.value_lo), float(td.cells.value_hi)
+    scale = float(ds.quant_scale(lo, hi))
+    whole = ds._scene_pass1_torch(c, 0, n)
+    count = 40
+    for start in (0, c.n_anc - count // 2, n - count):
+        p1 = ds._scene_pass1_torch(c, start, count)
+        rows = slice(start, start + count)
+        assert torch.equal(p1.field, whole.field[rows])
+        t12, vq = ds._scene_pass2_torch(c, p1, lo, scale)[:2]
+        assert torch.equal(t12, td.cells.test12[rows])
+        assert torch.equal(vq, td.cells.value_q[rows])
+        np.testing.assert_array_equal(vq.numpy(),
+                                      jd.cells.value_q.numpy()[rows])
+
+
 def test_torch_field_lod_is_mean_pool_of_fine(tiers):
     """tests/test_lod.py's contract for the port: each mip cell's
     dequantized layer values are the mean of its 4**l descendants' values

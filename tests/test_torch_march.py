@@ -716,3 +716,118 @@ def test_torch_march_cost_vs_jax(scene, tier):
     assert np.abs(d).max() <= 1
     assert int((d != 0).sum()) <= COST_MISMATCH_BOUND, int((d != 0).sum())
     assert abs(int(c.max()) - int(n_it)) <= 1
+
+
+def _tf_range(tf_t, tf_j, which):
+    """Both packages' TFs at one of three value ranges: the scene's, a
+    narrower one inside the values and one past their top."""
+    lo, hi = (float(v) for v in tf_t.value_range)
+    rng = {"scene": (lo, hi), "narrow": (lo + 0.25 * (hi - lo),
+                                         lo + 0.5 * (hi - lo)),
+           "past top": (hi, hi + 0.7 * (hi - lo))}[which]
+    r = np.array(rng, np.float32)
+    return (tf_t._replace(value_range=torch.from_numpy(r.copy())),
+            tf_j._replace(value_range=jnp.asarray(r)))
+
+
+def _code_table_kernel_way(value_lo, v_scale, lut, tf_range):
+    """The (256, 3) RGB code table the way K3-q's card builds it
+    (csrc/march.cu `code_table_kernel`): code k one f32 scalar at a time,
+    v = value_lo + k * v_scale through postClassify, from the tier's host
+    scalars value_lo and v_scale (floats) and the TF's (S, 4) LUT and (2,)
+    range."""
+    f = lambda x: torch.tensor(x, dtype=torch.float32)
+    lut, rng = lut.cpu(), tf_range.cpu()
+    S = lut.shape[0]
+    lo, v_scale = f(value_lo), f(v_scale)
+    out = torch.empty((256, 3), dtype=torch.float32)
+    for k in range(256):
+        v = lo + f(float(k)) * v_scale
+        vn = (v - rng[0]) / (rng[1] - rng[0])
+        vs = vn * f(float(S))
+        idx = int(vs.to(torch.int32))
+        frac = vs - f(float(idx))
+        l1 = lut[min(max(idx, 0), S - 1), :3]
+        l2 = lut[min(max(idx + 1, 0), S - 1), :3]
+        out[k] = l1 * frac + l2 * (f(1.0) - frac)
+    return out
+
+
+@pytest.mark.parametrize("which", ["scene", "narrow", "past top"])
+def test_torch_march_q_code_table_kernel_way_bit_equal(scene, which):
+    """The code table the way K3-q's card builds it
+    (`_code_table_kernel_way`: one f32 scalar at a time from the tier's
+    host scalars, `march_q_scales`) is bit-equal to the plain version's
+    (`_QTier.code_table`, post_classify on tensors) and to JAX's
+    `_vq_rgb_table`, RGB; the host scales equal the plain tier's.  On the
+    card, `test_cuda_march_q_after_tf_edit_matches_plain` holds the
+    kernel's own table to the plain version through its frames."""
+    from icon_rt_tpu_torch.ops import fastq
+    t, j = scene["t"], scene["j"]
+    tf_t, tf_j = _tf_range(t["tf"], j["tf"], which)
+    tier = fastq._QTier(t["q"], t["loc"], tf_t, None)
+    scales = tm.march_q_scales(t["q"])
+    for got, want in zip(scales, (tier.a_scale, tier.v_scale,
+                                  tier.inv_span)):
+        assert np.float32(got) == want.numpy()
+    tab = _code_table_kernel_way(float(t["q"].value_lo), scales[1],
+                                 tf_t.values, tf_t.value_range)
+    assert torch.equal(tab, tier.code_table[:, :3])
+    jtab = np.asarray(jm._vq_rgb_table(j["q"], tf_j)).reshape(256, 4)
+    np.testing.assert_array_equal(tab.numpy(), jtab[:, :3])
+
+
+def test_torch_march_q_launch_args_follow_edits(scene):
+    """K3-q's launch arguments, built without a device read: a new
+    accum_id, a camera move and a TF edit each reach them (the kernel reads
+    lp's and the TF's tensors at the addresses given; an in-place LUT edit
+    through tf.values' own address), and the tables' host copies
+    (`host_values`) are read once and again after an in-place write or a
+    rebind of the storage; K3-f32's frame has no TF range, and its
+    locator scalars (`track_params`, K1's too) equal a host read's."""
+    from icon_rt_tpu_torch.ops.fast import (host_values, track_common,
+                                            track_params)
+    from icon_rt_tpu_torch.ops.fastq import track_q_params
+    t = scene["t"]
+    cpu = torch.device("cpu")
+    lp, tf = t["lp"], t["tf"]
+    f0 = tm.march_frame(lp, tf, cpu)
+    lp_id = lp._replace(accum_id=torch.tensor(5, dtype=torch.int32))
+    f1 = tm.march_frame(lp_id, tf, cpu)
+    assert f1.accum_id == lp_id.accum_id.data_ptr() != f0.accum_id
+    assert f1.cam_org == f0.cam_org == lp.cam_org.data_ptr()
+    lp_mv = lp._replace(cam_org=lp.cam_org * 1.01)
+    f2 = tm.march_frame(lp_mv, tf, cpu)
+    assert f2.cam_org == lp_mv.cam_org.data_ptr() != f0.cam_org
+    tf2 = tf._replace(value_range=tf.value_range * 0.5)
+    assert tm.march_frame(lp, tf2, cpu).tf_range == \
+        tf2.value_range.data_ptr() != f0.tf_range
+    with pytest.raises(ValueError, match="accum_id"):
+        tm.march_frame(lp._replace(accum_id=torch.tensor(1)), tf, cpu)
+    f32 = tm.march_frame(lp_id, None, cpu)       # K3-f32: no TF range
+    assert f32.tf_range is None and f32.accum_id == f1.accum_id
+
+    q = t["q"]._replace(value_lo=t["q"].value_lo.clone())
+    pix = torch.arange(W * H, dtype=torch.int32)
+    acc, fb = alloc_frame(W, H)
+    c = track_common(t["bands"], lp, pix, acc, fb, width=W, height=H,
+                     samples=1, preserve_cache=False, host_frame=False)
+    assert (c.accum_id, list(c.cam)) == (0, [0.0] * 12)
+    p0 = track_q_params(q, t["loc"], tf2, t["fm"], c)
+    assert p0.lut == tf2.values.data_ptr() and p0.use_fine == 1
+    assert host_values(q.value_lo) is host_values(q.value_lo)
+    s0 = tm.march_q_scales(q)
+    q.value_lo.sub_(0.25)                        # an in-place write
+    p1 = track_q_params(q, t["loc"], tf2, t["fm"], c)
+    assert p1.value_lo == pytest.approx(p0.value_lo - 0.25, abs=1e-6)
+    assert tm.march_q_scales(q)[1] > s0[1]
+    q.value_lo.data = torch.tensor(0.125)        # a rebind of its storage
+    assert host_values(q.value_lo) == 0.125
+    assert (p1.n_lat, p1.n_lon) == tuple(t["loc"].dims.tolist())
+    # K1's and K3-f32's: the locator's scalars, as a host read gives them
+    locf = t["locf"]
+    pf = track_params(t["packed"], locf, c)
+    win = torch.stack([locf.lat_lo, locf.lat_hi, locf.lon_lo,
+                       locf.lon_hi]).to(torch.float32).tolist()
+    assert [pf.lat_lo, pf.lat_hi, pf.lon_lo, pf.lon_hi] == win
+    assert [pf.n_lat, pf.n_lon] == locf.dims.tolist()
