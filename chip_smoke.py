@@ -89,7 +89,11 @@ script exits non-zero without printing a result):
           and launch arguments (same tolerances as `check`), both timed
           with CUDA events; beside them the least time the card could take
           (bound) and, where one PyTorch call computes the same function,
-          that call's time
+          that call's time; the K1 and K2 rows also give the kernel's
+          registers, local bytes, spill stores and resident blocks an SM
+          (its library's occupancy query), the host reads of a steady call
+          (0: it runs under torch.cuda.set_sync_debug_mode("error")) and
+          the warp divergence factor of its step counts
   profile one steady launch of each main path under torch.profiler:
           device time by kernel and the device's idle share of the
           launch's wall time, from a window that holds the path's tracker
@@ -126,7 +130,10 @@ script exits non-zero without printing a result):
           tf_edit_s, tf_stroke_s, tf_preview_s; coverage >= 0.5; K2 against
           its plain version on the first 4096 covered lanes, fine map on
           and off, and with its cost output on 4096 lanes strided over the
-          covered prefix
+          covered prefix (8 samples); the K2 R2B9 row: the kernel over the
+          covered lanes (CUDA events; the profiled launch's kernel ms and
+          idle share), the K1/K2 rows' extra keys, and the bound counted by
+          the plain version on the strided lanes
   main r2b9m  bench.py `_measure_row_m`: the scene built again, the
           quantized march with the fine map, one converged pass per launch
           (median of 3), tf_edit_s; the pass with the fine map against the
@@ -307,6 +314,9 @@ CHECK_LANES = 4096                # K2 / K3-q against plain at R2B9
 FM_RANDOM_BINS = 1 << 20          # K7-fm at R2B9: random fine bins checked
 FM_EDGE_TILES = 2048              # ... and the edge bins of these tiles
 PROFILE_WINDOWS = 20              # profiler windows tried for a kernel
+LEAD_IN_SPINS = 4                 # spin kernels opening a window, a try
+SPIN_CYCLES = 100_000             # device cycles of each
+LEAD_IN_S = 0.02                  # host seconds after them, a try
 SCENE_THICKNESS = 3.0e4           # data/device_scene.py's default
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PARITY_SUB, PARITY_LAYERS, PARITY_W = 3, 8, 128   # the K8 check scene
@@ -1286,6 +1296,47 @@ def k5b_bound(nb, S):
     return bound(nb * 12 + S * 4 + 8, S * S.bit_length() + nb * K5B_OPS)
 
 
+def divergence(cost, perm, n_active):
+    """The warp divergence factor of a launch's per-pixel cost output:
+    the sum over warps (32 consecutive lanes of the pixel order) of 32 x
+    their largest cost, over the sum of the costs."""
+    import torch
+    c = cost[perm[:n_active].long()].to(torch.int64)
+    c = torch.cat([c, c.new_zeros((-c.numel()) % 32)]).view(-1, 32)
+    return float(32 * c.amax(1).sum()) / max(float(c.sum()), 1.0)
+
+
+def tracker_extras(name, tag, launch, perm, n_active):
+    """The K1/K2 row's keys beyond the contract: registers, local bytes
+    and resident blocks an SM (the library's occupancy query), the ptxas
+    spill stores, the host reads of a steady `launch(None)` (run under
+    torch.cuda.set_sync_debug_mode("error"): any read raises, so 0), and
+    the divergence factor of `launch(cost)`'s step counts."""
+    import re
+    import torch
+    from icon_rt_tpu_torch.utils import cuda_build
+    occ = cuda_build.occupancy(name)
+    m = re.search(r"(\d+) bytes spill stores", cuda_build.info(name)["log"])
+    launch(None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        launch(None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cost = torch.zeros(MAIN_W * MAIN_H, dtype=torch.int32,
+                       device=perm.device)
+    launch(cost)
+    out = dict(occ, spill_store_bytes=int(m.group(1)) if m else None,
+               host_reads=0, divergence=divergence(cost, perm, n_active))
+    print(f"{tag} {name}: {out['registers']} registers, "
+          f"{out['local_bytes']} local bytes, {out['spill_store_bytes']} B "
+          f"spill stores, {out['blocks_per_sm']} blocks an SM; a steady "
+          f"call under sync debug mode 'error': no device-to-host read; "
+          f"divergence factor {out['divergence']:.3f}")
+    return out
+
+
 def time_kernels(pl, errs, counts):
     """Each kernel and its plain version at the main path's shapes."""
     import torch
@@ -1337,9 +1388,14 @@ def time_kernels(pl, errs, counts):
           f"Mray/s full frame ({MAIN_SPL} samples, {k8:.3f} ms, no host "
           f"copy)")
     nl_f32 = lambda c: packed.test[c, 14]
+    extras = tracker_extras(
+        "track_f32", "time", lambda c: fast.track_f32(
+            packed, loc, bands, lp, pix, acc[:n], fb[:n], width=W, height=H,
+            samples=MAIN_SPL, preserve_cache=True, cost=c),
+        frame["perm"], n)
     row("track_f32", "cuda", "icon_rt_tpu_torch/csrc/track_f32.cu",
         "icon_rt_tpu/ops/fast.py:451", k8, p8,
-        tier.bound("track_f32", n, nl_f32), samples=MAIN_SPL)
+        tier.bound("track_f32", n, nl_f32), samples=MAIN_SPL, **extras)
 
     args = (cells.height, cells.value, cells.num_layers, tf)
     prof_k, rgb_k = fast.classify_bake(cells, tf)
@@ -1431,10 +1487,16 @@ def time_q_kernels(pl, errs, counts):
     print(f"time K2 kernel rate {W * H * MAIN_SPL / (kms[True] * 1e-3) / 1e6:.3f}"
           f" Mray/s full frame ({MAIN_SPL} samples, fine map on, "
           f"{kms[True]:.3f} ms; off {kms[False]:.3f} ms; no host copy)")
+    extras = tracker_extras(
+        "track_q", "time", lambda c: fastq.track_q(
+            *tabs, lp, pix, acc[:n], fb[:n], width=W, height=H,
+            samples=MAIN_SPL, preserve_cache=True, finemap=fm, cost=c),
+        pl.frame["perm"], n)
     row("track_q", "cuda", "icon_rt_tpu_torch/csrc/track_q.cu",
         "icon_rt_tpu/ops/fastq.py:80", kms[True], plain_ms[True],
         tiers[True].bound("track_q", n, nl_q), samples=MAIN_SPL,
-        ms_no_finemap=kms[False], plain_ms_no_finemap=plain_ms[False])
+        ms_no_finemap=kms[False], plain_ms_no_finemap=plain_ms[False],
+        **extras)
 
     errs["bake_alpha_q"] = max(errs["bake_alpha_q"],
                                check_bakes(q, tf, dev, "time main shape"))
@@ -2236,20 +2298,28 @@ def profile_window(call, require, what):
     """`call()` under torch.profiler, the device synchronised around it:
     (wall ms, [(name, start ms, length ms)] of its device events in start
     order, the first at 0).  The profiler may drop a window's first device
-    events, and after the plain versions' long loops its windows can hold
-    no device event for several tries (PERF.md §7): so each window runs
-    `call` once as a primer and keeps the events of a second, marked run,
-    and a window that lacks a device event whose name holds each entry of
-    `require` (one of its "|"-separated strings) is reported and profiled
-    again; none complete in PROFILE_WINDOWS tries raises."""
+    events, a prefix that can reach past a whole short launch, and after
+    the plain versions' long loops its windows can hold no device event
+    for several tries (PERF.md §7): so each window opens with a lead-in of
+    spin kernels (`torch.cuda._sleep`) and host time, longer at each try,
+    then runs `call` once as a primer and keeps the device events of a
+    second run that start after a host-side mark.  A window that lacks a
+    device event whose name holds each entry of `require` (one of its
+    "|"-separated strings) is reported and profiled again; none complete
+    in PROFILE_WINDOWS tries raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for attempt in range(1, PROFILE_WINDOWS + 1):
+        spins = LEAD_IN_SPINS * attempt
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(spins):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(LEAD_IN_S * attempt)
             call()
             torch.cuda.synchronize()
             with record_function("profile_window"):
@@ -2260,11 +2330,12 @@ def profile_window(call, require, what):
         events = list(prof.events())
         mark = min(e.time_range.start for e in events
                    if e.name == "profile_window")
-        # the mark's own range shows on the device's timeline too
-        ev = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
-                    for e in events if e.device_type == DeviceType.CUDA
-                    and e.time_range.start >= mark
-                    and e.name != "profile_window")
+        # the host mark's own range shows on the device's timeline too
+        dev_ev = sorted((e.time_range.start, e.time_range.elapsed_us(),
+                         e.name) for e in events
+                        if e.device_type == DeviceType.CUDA
+                        and e.name != "profile_window")
+        ev = [e for e in dev_ev if e[0] >= mark and "spin_kernel" not in e[2]]
         lacking = [r for r in require
                    if not any(alt in name for _, _, name in ev
                               for alt in r.split("|"))]
@@ -2272,8 +2343,14 @@ def profile_window(call, require, what):
             t_first = ev[0][0]
             return wall, [(name, (s0 - t_first) / 1e3, us / 1e3)
                           for s0, us, name in ev]
-        print(f"profile {what}: window {attempt} holds no {lacking} (device "
-              f"events {sorted({name for _, _, name in ev})}); profiled "
+        seen = {r: [round((s0 - mark) / 1e3, 3) for s0, _, name in dev_ev
+                    if any(alt in name for alt in r.split("|"))]
+                for r in lacking}
+        kept = sum("spin_kernel" in name for _, _, name in dev_ev)
+        print(f"profile {what}: window {attempt} holds no {lacking} after "
+              f"the mark (seen at ms from it: {seen}; {kept} of the "
+              f"{spins} lead-in spins kept; device events "
+              f"{sorted({name[:50] for _, _, name in dev_ev})}); profiled "
               f"again")
     raise AssertionError(f"profile {what}: no profiled window held "
                          f"{list(require)} in {PROFILE_WINDOWS} windows")
@@ -2314,6 +2391,8 @@ def profile_render(render, fb, what, kernel):
     if not 0.0 < busy <= wall:
         raise AssertionError(f"device busy {busy:.3f} ms is not within the "
                              f"launch's wall time {wall:.3f} ms")
+    return {"wall_ms": wall, "idle_share": 1 - busy / wall,
+            "kernel_ms": sum(v for k, v in by_name.items() if kernel in k)}
 
 
 def scene_consts(sub, dev, lod=0):
@@ -2915,13 +2994,16 @@ def scene_counts(lod=0):
             "max_opacity": accel.launches}
 
 
-def main_r2b9q(dev, errs, framing="closeup"):
+def main_r2b9q(dev, errs, framing="closeup", rows=None):
     """bench.py `_measure_row_q` (bench.py:581-743) through the port, for
     the row r2b9q_closeup (framing "closeup", LOD 0) or r2b9q_viewall
     ("viewall", the reference's default framing, whose auto-LOD level
     frame_lod must be R2B9V_LOD): the build, the steady launches, fps1 and
     the three edit latencies; K2 and its cost output against the plain
-    version on the first CHECK_LANES covered lanes.  Returns the launch
+    version on the first CHECK_LANES covered lanes.  With `rows` the K2
+    R2B9 row is appended to it: the kernel over the covered lanes (CUDA
+    events, and profiled), its tracker_extras, and the bound counted by
+    the plain version on CHECK_LANES strided lanes.  Returns the launch
     counts of the path."""
     import torch
     from icon_rt_tpu_torch.data.lod import frame_lod
@@ -2957,6 +3039,7 @@ def main_r2b9q(dev, errs, framing="closeup"):
         e1.record()
         torch.cuda.synchronize()
         launch_ms.append(e0.elapsed_time(e1))
+    main_launches = fastq.launches
     covered = float(((fb_host >> 24) > 0).mean())
     if not bool(torch.isfinite(accum).all()) \
             or covered < MIN_COVERED[framing]:
@@ -2979,7 +3062,7 @@ def main_r2b9q(dev, errs, framing="closeup"):
           f"{mray:.3f} Mray/s full, {mray_t:.3f} Mray/s traced ({n_active} "
           f"covered lanes); image covered fraction {covered:.4f}")
 
-    profile_render(lambda: render_frame_fast_q(
+    prof = profile_render(lambda: render_frame_fast_q(
         q, loc, bands, tf, with_id(lp, R2B9_LIMIT), accum, fb,
         samples=R2B9_SPL, **kw), fb, f"{tag} steady launch",
         "track_q_kernel")
@@ -3039,10 +3122,30 @@ def main_r2b9q(dev, errs, framing="closeup"):
                                     CHECK_LANES, W, H, 4, True, f, tag)
         errs["track_q"] = max(errs["track_q"], err)
     pix = strided_lanes(perm, n_active)
-    err, _, _ = compare_track_q((q, loc, bands, tf), lp, pix, pix.shape[0],
-                                W, H, 4, True, fm, f"{tag} strided",
-                                cost=True)
+    err, pm, tier = compare_track_q((q, loc, bands, tf), lp, pix,
+                                    pix.shape[0], W, H, R2B9_SPL, True, fm,
+                                    f"{tag} strided", cost=True)
     errs["track_q"] = max(errs["track_q"], err)
+    if rows is not None:
+        # K2's R2B9 row: the main path's launch over the covered lanes
+        lanes = perm[:n_active].contiguous()
+        a9, f9 = alloc_frame(W, H, device=dev)
+        launch = lambda c: fastq.track_q(
+            q, loc, bands, tf, lp, lanes, a9[:n_active], f9[:n_active],
+            width=W, height=H, samples=R2B9_SPL, finemap=fm, cost=c)
+        km = time_cuda(lambda: launch(None), reps=5)
+        errs["track_q_r2b9"] = err
+        kernel_row(rows, {"track_q_r2b9": main_launches}, errs,
+                   "track_q_r2b9", "cuda",
+                   "icon_rt_tpu_torch/csrc/track_q.cu",
+                   "icon_rt_tpu/ops/fastq.py:80", km, pm,
+                   tier.bound("track_q", n_active, lambda c: q.test12[c, 11],
+                              scale=n_active / pix.shape[0]),
+                   samples=R2B9_SPL, n_active=n_active,
+                   plain_lanes=pix.shape[0],
+                   profiled_kernel_ms=prof["kernel_ms"],
+                   launch_idle_share=prof["idle_share"],
+                   **tracker_extras("track_q", tag, launch, perm, n_active))
     peak_memory(tag)
     return counts
 
@@ -4623,14 +4726,15 @@ def main() -> int:
     t0 = time.perf_counter()
     t9 = scene9(dev, errs)
     t1 = time.perf_counter()
-    counts9 = main_r2b9q(dev, errs)
+    rows_q9 = []
+    counts9 = main_r2b9q(dev, errs, rows=rows_q9)
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     rows_m9 = main_r2b9m(dev, errs)
     torch.cuda.empty_cache()
     print(f"time R2B9 phases: scene9 {t1 - t0:.1f} s, main r2b9q "
           f"{t2 - t1:.1f} s, main r2b9m {time.perf_counter() - t2:.1f} s")
-    rows += scene_rows(t9, errs, counts9) + rows_m9
+    rows += scene_rows(t9, errs, counts9) + rows_q9 + rows_m9
 
     # the mip tier of the reference's default framing, and the re-sort
     t0 = time.perf_counter()

@@ -40,8 +40,9 @@
 // different crossing counts; per crossing ~20 flops per layer of nonzero
 // length.  The design:
 //   * a lane's radial band is a binary search over the sorted band edges
-//     (the count of edges below r, as the plain version's `_band_of`), not
-//     a scan of all nb + 1 of them at every iteration;
+//     (csrc/track_common.cuh `band_of`, the count of edges below r, as the
+//     plain version's `_band_of`), not a scan of all nb + 1 of them at
+//     every iteration;
 //   * every per-layer table entry is streamed through __ldg in both pieces
 //     of the integral, and each piece takes its spheres' half chords as it
 //     goes: a variant that kept the chords and the column's bytes in
@@ -61,10 +62,11 @@
 // queue was slower at R2B9 at every queue length tried (2-16 lanes a
 // thread; PERF.md).
 // A K3 launch reads nothing back from the card: the camera, the frame's
-// accum_id, the ambient terms, the unit distance and (q tier) the TF's
-// value range are read by the kernel from their tensors (`MarchFrame`),
-// and the tables' scalars come from host copies refreshed only when those
-// tensors change (ops/fast.py `host_values`).
+// accum_id, the ambient terms and the unit distance (csrc/track_common.cuh
+// `TrackFrame`, shared with K1 and K2) and (q tier) the TF's value range
+// are read by the kernel from their tensors, and the tables' scalars come
+// from host copies refreshed only when those tensors change (ops/fast.py
+// `host_values`).
 //
 // Built with -fmad=false, full-precision expf/sinf/cosf/asinf/atan2f and
 // IEEE division and square root: every operation rounds as in eager
@@ -80,20 +82,8 @@ struct MarchArgs {
   float inv_span;     // 255 / max(value_hi - value_lo, 1e-30) (q tier)
   float et_eps;       // early-termination transmittance
   int max_outer;      // iteration cap of a lane
-};
-
-// Mirror of `_MarchFrame` in ops/march.py (same field order): K3's
-// per-frame scalars, read on the card from the launch params' tensors.
-struct MarchFrame {
-  const float* cam_org;     // (3,)
-  const float* cam_dir00;   // (3,)
-  const float* cam_du;      // (3,)
-  const float* cam_dv;      // (3,)
-  const float* amb;         // (3,) ambient colour
-  const float* amb_rad;     // () ambient radiance
-  const float* ud;          // () unit distance
-  const int32_t* accum_id;  // ()
-  const float* tf_range;    // (2,) the TF's value range (q tier)
+  const float* tf_range;  // (2,) the TF's value range, read on the card
+                          // (q tier)
 };
 
 namespace {
@@ -364,46 +354,13 @@ __device__ __forceinline__ float bin_exit(const Params& p, int bid,
   return out;
 }
 
-// The radial band of radius r: the count of the sorted edges below r, less
-// one, clamped to [0, nb - 1] (track::band_of's value), by binary search.
-__device__ __forceinline__ int band_search(const float* edges, int nb,
-                                           float r) {
-  int lo = 0, hi = nb + 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(edges + mid) < r)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return min(max(lo - 1, 0), nb - 1);
-}
-
-// A lane's per-frame scalars, read on the card from the launch params'
-// tensors (`MarchFrame`).
-struct DeviceFrame {
-  const MarchFrame& f;
-  __device__ __forceinline__ float operator[](int i) const {
-    const float* v = i < 3 ? f.cam_org
-                           : (i < 6 ? f.cam_dir00
-                                    : (i < 9 ? f.cam_du : f.cam_dv));
-    return __ldg(v + i % 3);
-  }
-  __device__ __forceinline__ float amb(int i) const {
-    return __ldg(f.amb + i) * __ldg(f.amb_rad);
-  }
-  __device__ __forceinline__ float ud() const { return __ldg(f.ud); }
-  __device__ __forceinline__ int accum_id() const {
-    return __ldg(f.accum_id);
-  }
-};
-
 // One ray of pixel p.pix[lane]: the march, then the K4 epilogue.
 template <class Tier, class Lay>
 __device__ __forceinline__ void march_lane(const TrackCommon& p,
                                            const Tier& T, const MarchArgs& m,
-                                           const DeviceFrame& F, int lane) {
+                                           int lane) {
   using Col = typename Tier::Col;
+  const track::DeviceFrame F{p.frame};
   const int pixel = p.pix[lane];
   const int x = pixel % p.width;
   const int y = pixel / p.width;
@@ -434,7 +391,7 @@ __device__ __forceinline__ void march_lane(const TrackCommon& p,
       const float eps = fmaxf(eps_abs, fabsf(t) * 4e-7f);
       const float tl = t + eps;
       const float r = track::r_of(tl, od, oo);
-      const int band = band_search(p.edges, p.nb, r);
+      const int band = track::band_of(p.edges, p.nb, r);
       bool was_in;
       const float seg_end =
           track::band_exit(tl, __ldg(p.edges + band),
@@ -498,20 +455,19 @@ __device__ __forceinline__ void march_lane(const TrackCommon& p,
 }
 
 __global__ void __launch_bounds__(kBlock)
-march_f32_kernel(const TrackParams p, const MarchArgs m, const MarchFrame f) {
+march_f32_kernel(const TrackParams p, const MarchArgs m) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.c.n_lanes) return;
-  march_lane<F32Tier, F32Layers>(p.c, F32Tier{p}, m, DeviceFrame{f}, lane);
+  march_lane<F32Tier, F32Layers>(p.c, F32Tier{p}, m, lane);
 }
 
 // The code table of the live TF, one thread a code: code k's value
 // value_lo + k * v_scale through postClassify (models/transfunc.py
 // `post_classify`, ref: deviceCode.cu:127-135), RGB, in its f32 order.
 __global__ void __launch_bounds__(256)
-code_table_kernel(const TrackQParams p, const MarchArgs m,
-                  const MarchFrame f) {
+code_table_kernel(const TrackQParams p, const MarchArgs m) {
   const int code = threadIdx.x;
-  const float tf_lo = __ldg(f.tf_range), tf_hi = __ldg(f.tf_range + 1);
+  const float tf_lo = __ldg(m.tf_range), tf_hi = __ldg(m.tf_range + 1);
   const int S = p.lut_size;
   const float v = p.value_lo + static_cast<float>(code) * m.v_scale;
   const float vn = (v - tf_lo) / (tf_hi - tf_lo);
@@ -528,10 +484,10 @@ code_table_kernel(const TrackQParams p, const MarchArgs m,
 }
 
 __global__ void __launch_bounds__(kBlock, kQMinBlocks)
-march_q_kernel(const TrackQParams p, const MarchArgs m, const MarchFrame f) {
+march_q_kernel(const TrackQParams p, const MarchArgs m) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.c.n_lanes) return;
-  march_lane<QTier, QLayers>(p.c, QTier{p}, m, DeviceFrame{f}, lane);
+  march_lane<QTier, QLayers>(p.c, QTier{p}, m, lane);
 }
 
 }  // namespace
@@ -541,22 +497,20 @@ march_q_kernel(const TrackQParams p, const MarchArgs m, const MarchFrame f) {
 // caller allocates.  They allocate nothing and do not synchronise.  Return
 // cudaGetLastError().
 extern "C" int march_f32_launch(const TrackParams* params,
-                                const MarchArgs* margs,
-                                const MarchFrame* frame, void* stream) {
+                                const MarchArgs* margs, void* stream) {
   if (params->c.n_lanes <= 0) return 0;
   const int grid = (params->c.n_lanes + kBlock - 1) / kBlock;
   march_f32_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      *params, *margs, *frame);
+      *params, *margs);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int march_q_launch(const TrackQParams* params,
-                              const MarchArgs* margs,
-                              const MarchFrame* frame, void* stream) {
+                              const MarchArgs* margs, void* stream) {
   if (params->c.n_lanes <= 0) return 0;
   const int grid = (params->c.n_lanes + kBlock - 1) / kBlock;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  code_table_kernel<<<1, 256, 0, s>>>(*params, *margs, *frame);
-  march_q_kernel<<<grid, kBlock, 0, s>>>(*params, *margs, *frame);
+  code_table_kernel<<<1, 256, 0, s>>>(*params, *margs);
+  march_q_kernel<<<grid, kBlock, 0, s>>>(*params, *margs);
   return static_cast<int>(cudaGetLastError());
 }

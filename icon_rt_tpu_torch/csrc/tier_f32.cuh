@@ -2,12 +2,14 @@
 // (csrc/track_f32.cu) and the f32 march K3 (csrc/march.cu).
 //
 // A column is its packed test row (ops/fast.py `pack_test_rows`): three
-// side planes (n, w), h_bot, h_top, float(num_layers).  The locate takes
-// the first candidate of the point's locator bin (in bin order) whose
-// column contains the point.  Per-layer data are the K5a bake: `prof`
-// holds the 32 inf-padded ceilings then the classified alpha, `rgb` the
-// classified R | G | B; the layer of radius r is #(h < r) and index 32
-// classifies to 0.
+// side planes (n, w), h_bot, h_top, float(num_layers), read as four
+// float4.  The locate takes the first candidate of the point's locator bin
+// (in bin order) whose column contains the point.  Per-layer data are the
+// K5a bake: `prof` holds the 32 inf-padded ceilings then the classified
+// alpha, `rgb` the classified R | G | B; the layer of radius r is #(h < r)
+// and index 32 classifies to 0.  The trackers keep each cache slot's layer
+// and its bracket of ceilings (`Layer`) and search a column only when r
+// leaves it; the march reads its layers in order (csrc/march.cu).
 #pragma once
 
 #include "track_common.cuh"
@@ -36,6 +38,10 @@ struct F32Tier {
   };
   const TrackParams& p;
 
+  // the trackers' slots keep cell ids and re-read test rows (csrc/
+  // track_common.cuh `contains`), so K1 fits 10 blocks an SM
+  static constexpr bool kRereadRow = true;
+
   // Layer of radius r in a prof row (#(h < r) over the inf-padded heights),
   // then the entry of that layer in `values` (0 above the top layer).
   static __device__ __forceinline__ float layer_pick(const float* heights,
@@ -50,10 +56,14 @@ struct F32Tier {
 
   __device__ __forceinline__ void load(int c, Col& col) const {
     const float* row = p.test + static_cast<size_t>(c) * kTestW;
-#pragma unroll
-    for (int j = 0; j < 12; ++j) col.pl[j] = __ldg(row + j);
-    col.h_bot = __ldg(row + 12);
-    col.h_top = __ldg(row + 13);
+    const float4* v = reinterpret_cast<const float4*>(row);
+    const float4 a = __ldg(v), b = __ldg(v + 1), d = __ldg(v + 2),
+                 e = __ldg(v + 3);
+    col.pl[0] = a.x, col.pl[1] = a.y, col.pl[2] = a.z, col.pl[3] = a.w;
+    col.pl[4] = b.x, col.pl[5] = b.y, col.pl[6] = b.z, col.pl[7] = b.w;
+    col.pl[8] = d.x, col.pl[9] = d.y, col.pl[10] = d.z, col.pl[11] = d.w;
+    col.h_bot = e.x;
+    col.h_top = e.y;
   }
 
   // Side plane j (0..2) of a column: normal and offset.
@@ -111,17 +121,66 @@ struct F32Tier {
     return locate(px, py, pz, r, col, bid);
   }
 
-  __device__ __forceinline__ float alpha(int cid, float r) const {
-    const float* row = p.prof + static_cast<size_t>(cid) * kProfW;
-    return layer_pick(row, row + kLayers, r);
+  // A slot's cached layer: index l, its bracket (lo, hi] = (h[l - 1],
+  // h[l]] (-inf below the first ceiling, +inf above the last) and its
+  // classified alpha.  For ascending ceilings (models/cells.py
+  // `check_ceilings`) every r in the bracket has #(h < r) = l.
+  struct Layer {
+    float lo, hi, a;
+    int l;
+  };
+
+  // x if b, else y: field by field, so that both slots stay in registers
+  static __device__ __forceinline__ Layer pick(bool b, const Layer& x,
+                                               const Layer& y) {
+    return Layer{b ? x.lo : y.lo, b ? x.hi : y.hi, b ? x.a : y.a,
+                 b ? x.l : y.l};
   }
 
-  __device__ __forceinline__ void shade(int cid, float r, float& cr,
-                                        float& cg, float& cb) const {
-    const float* heights = p.prof + static_cast<size_t>(cid) * kProfW;
+  __device__ __forceinline__ void forget(Layer& lay) const {
+    lay.lo = __int_as_float(0x7f800000);   // no r is above +inf
+    lay.hi = -lay.lo;
+    lay.a = 0.0f;
+    lay.l = 0;
+  }
+
+  // Classified alpha of radius r in column cid: from the slot's bracket
+  // when r lies in it, else from the layer #(h < r) of the column's prof
+  // row, found by binary search over its first num_layers ceilings (the
+  // rest are +inf), which refills the bracket.
+  __device__ __forceinline__ float alpha(int cid, float r, Layer& lay) const {
+    if (lay.lo < r && r <= lay.hi) return lay.a;
+    const float* row = p.prof + static_cast<size_t>(cid) * kProfW;
+    const int n = min(max(static_cast<int>(__ldg(
+                              p.test + static_cast<size_t>(cid) * kTestW +
+                              14)), 0), kLayers);
+    int lo = 0, hi = n;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(row + mid) < r)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    const int l = lo;
+    const float inf = __int_as_float(0x7f800000);
+    lay.l = l;
+    lay.lo = l > 0 ? __ldg(row + l - 1) : -inf;
+    lay.hi = l < kLayers ? __ldg(row + l) : inf;
+    lay.a = l < kLayers ? __ldg(row + kLayers + l) : 0.0f;
+    return lay.a;
+  }
+
+  // The baked RGB of the layer of alpha's last evaluation in the slot.
+  __device__ __forceinline__ void shade(int cid, float, const Layer& lay,
+                                        float& cr, float& cg,
+                                        float& cb) const {
     const float* rgb = p.rgb + static_cast<size_t>(cid) * kRgbW;
-    cr = layer_pick(heights, rgb, r);
-    cg = layer_pick(heights, rgb + kLayers, r);
-    cb = layer_pick(heights, rgb + 2 * kLayers, r);
+    cr = cg = cb = 0.0f;
+    if (lay.l < kLayers) {
+      cr = __ldg(rgb + lay.l);
+      cg = __ldg(rgb + kLayers + lay.l);
+      cb = __ldg(rgb + 2 * kLayers + lay.l);
+    }
   }
 };

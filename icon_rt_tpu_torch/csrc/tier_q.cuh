@@ -2,8 +2,10 @@
 // (csrc/track_q.cu) and the quantized march K3 (csrc/march.cu).
 //
 //   * a column is its 12-float storage row: 3 side-plane normals (the
-//     planes pass through the origin, w == 0), h_bot, h_top, num_layers;
-//   * locate: with the fine map, the point's fine bin gives 4 u8 slots into
+//     planes pass through the origin, w == 0), h_bot, h_top, num_layers,
+//     read as three float4;
+//   * locate: with the fine map, the point's fine bin gives 4 u8 slots (one
+//     uint32 load) into
 //     the coarse locator row of the integer-divided parent bin; the first
 //     slot whose column contains the point wins.  Otherwise (no fine map,
 //     or no slot contains the point) the full coarse query over k_cap
@@ -16,7 +18,10 @@
 //     v = value_lo + vq * ((value_hi - value_lo) / 255);
 //   * shading classifies the accepted layer's value through the live LUT
 //     (postClassify with the reference's asymmetric lerp; RGB only, so the
-//     opacity scale does not enter).
+//     opacity scale does not enter);
+//   * the trackers keep each cache slot's layer and its bracket of
+//     dequantized ceilings (`Layer`) and search a column only when r
+//     leaves it, as the f32 tier.
 #pragma once
 
 #include "track_common.cuh"
@@ -51,12 +56,19 @@ struct QTier {
   };
   const TrackQParams& p;
 
+  // the trackers' slots keep cell ids and re-read test rows (csrc/
+  // track_common.cuh `contains`), so K2 fits 9 blocks an SM
+  static constexpr bool kRereadRow = true;
+
   __device__ __forceinline__ void load(int c, Col& col) const {
     const float* row = p.test12 + static_cast<size_t>(c) * kTestW;
-#pragma unroll
-    for (int j = 0; j < 9; ++j) col.n[j] = __ldg(row + j);
-    col.h_bot = __ldg(row + 9);
-    col.h_top = __ldg(row + 10);
+    const float4* v = reinterpret_cast<const float4*>(row);
+    const float4 a = __ldg(v), b = __ldg(v + 1), d = __ldg(v + 2);
+    col.n[0] = a.x, col.n[1] = a.y, col.n[2] = a.z, col.n[3] = a.w;
+    col.n[4] = b.x, col.n[5] = b.y, col.n[6] = b.z, col.n[7] = b.w;
+    col.n[8] = d.x;
+    col.h_bot = d.y;
+    col.h_top = d.z;
   }
 
   // Side plane j (0..2) of a column: normal and offset (0: the side planes
@@ -109,10 +121,11 @@ struct QTier {
       const int fbid = fl * p.f_lon + fo;
       const int pbid = (fbid / p.f_lon / p.factor) * p.n_lon +
                        (fbid % p.f_lon) / p.factor;
-      const uint8_t* slots = p.fslots + static_cast<size_t>(fbid) * kCand;
+      const uint32_t word = __ldg(reinterpret_cast<const unsigned int*>(
+          p.fslots) + fbid);
 #pragma unroll
       for (int s = 0; s < kCand; ++s) {
-        const int slot = __ldg(slots + s);
+        const int slot = static_cast<int>((word >> (8 * s)) & 0xFFu);
         if (slot == 255 || slot >= p.k_cap) continue;
         const int c = cand(pbid, slot);
         if (c < 0) continue;
@@ -145,36 +158,74 @@ struct QTier {
                          : __int_as_float(0x7f800000);
   }
 
-  // Layer of radius r in column cid: #(h < r) over the dequantized
-  // ceilings (+inf past num_layers); lm means above the top layer.
-  __device__ __forceinline__ int layer(int cid, float r) const {
-    const float* row = p.test12 + static_cast<size_t>(cid) * kTestW;
-    const float h_bot = __ldg(row + 9);
-    const float h_top = __ldg(row + 10);
-    const int nl = static_cast<int>(__ldg(row + 11));
-    const float s = (h_top - h_bot) * kInv65535;
-    int layer = 0;
-#pragma unroll 8
-    for (int k = 0; k < p.lm; ++k)
-      layer += (r > height(cid, k, h_bot, s, nl)) ? 1 : 0;
-    return layer;
+  // A slot's cached layer, as the f32 tier's (csrc/tier_f32.cuh): index
+  // l, its bracket (lo, hi] of dequantized ceilings and its alpha.  The
+  // ceilings ascend when each column's h_frac row does over its
+  // num_layers and h_top >= h_bot (models/qcells.py
+  // `check_q_ceilings`): h_bot + hf * s rounds monotonically in hf.
+  struct Layer {
+    float lo, hi, a;
+    int l;
+  };
+
+  // x if b, else y: field by field, so that both slots stay in registers
+  static __device__ __forceinline__ Layer pick(bool b, const Layer& x,
+                                               const Layer& y) {
+    return Layer{b ? x.lo : y.lo, b ? x.hi : y.hi, b ? x.a : y.a,
+                 b ? x.l : y.l};
   }
 
-  __device__ __forceinline__ float alpha(int cid, float r) const {
-    const int l = layer(cid, r);
-    if (l >= p.lm) return 0.0f;
-    const float aq = static_cast<float>(
-        __ldg(p.aq + static_cast<size_t>(cid) * p.lm + l));
-    return aq * (p.alpha_max / 255.0f);
+  __device__ __forceinline__ void forget(Layer& lay) const {
+    lay.lo = __int_as_float(0x7f800000);   // no r is above +inf
+    lay.hi = -lay.lo;
+    lay.a = 0.0f;
+    lay.l = 0;
   }
 
-  __device__ __forceinline__ void shade(int cid, float r, float& cr,
-                                        float& cg, float& cb) const {
-    const int l = layer(cid, r);
+  // Classified alpha of radius r in column cid: from the slot's bracket
+  // when r lies in it, else from the layer #(h < r) over the dequantized
+  // ceilings (+inf past num_layers; lm means above the top layer), found
+  // by binary search over the first min(num_layers, lm), each probed
+  // ceiling dequantized in the JAX expression order; refills the bracket.
+  __device__ __forceinline__ float alpha(int cid, float r, Layer& lay) const {
+    if (lay.lo < r && r <= lay.hi) return lay.a;
+    const float4 t = __ldg(reinterpret_cast<const float4*>(
+                               p.test12 + static_cast<size_t>(cid) * kTestW) +
+                           2);                  // n[8], h_bot, h_top, nl
+    const float h_bot = t.y;
+    const float s = (t.z - t.y) * kInv65535;
+    const int nl = static_cast<int>(t.w);
+    const float* hf = p.hfrac + static_cast<size_t>(cid) * p.hf_stride;
+    const float inf = __int_as_float(0x7f800000);
+    const int n = min(max(nl, 0), p.lm);
+    int lo = 0, hi = n;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (h_bot + __ldg(hf + mid) * s < r)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    const int l = lo;
+    lay.l = l;
+    lay.lo = l > 0 ? h_bot + __ldg(hf + l - 1) * s : -inf;
+    lay.hi = (l < p.lm && l + 1 <= nl) ? h_bot + __ldg(hf + l) * s : inf;
+    lay.a = l < p.lm ? static_cast<float>(__ldg(
+                           p.aq + static_cast<size_t>(cid) * p.lm + l)) *
+                           (p.alpha_max / 255.0f)
+                     : 0.0f;
+    return lay.a;
+  }
+
+  // The colour of the layer of alpha's last evaluation in the slot: its
+  // dequantized value through the live LUT.
+  __device__ __forceinline__ void shade(int cid, float, const Layer& lay,
+                                        float& cr, float& cg,
+                                        float& cb) const {
     float v = 0.0f;
-    if (l < p.lm) {
+    if (lay.l < p.lm) {
       const float vq = static_cast<float>(
-          __ldg(p.vq + static_cast<size_t>(cid) * p.lm + l));
+          __ldg(p.vq + static_cast<size_t>(cid) * p.lm + lay.l));
       v = p.value_lo + vq * ((p.value_hi - p.value_lo) / 255.0f);
     }
     // postClassify (ref: deviceCode.cu:127-135), RGB channels

@@ -25,6 +25,10 @@ struct WedgeTier {
   };
   const TrackParams& p;
 
+  // the slots keep their rows in registers: re-read at each test, these
+  // 128-byte rows made K9-w 9% slower (PERF.md)
+  static constexpr bool kRereadRow = false;
+
   __device__ __forceinline__ void load(int c, Col& col) const {
     const float* row = p.test + static_cast<size_t>(c) * kTestW;
 #pragma unroll
@@ -69,13 +73,22 @@ struct WedgeTier {
     return -1;
   }
 
-  __device__ __forceinline__ float alpha(int cid, float s) const {
+  // No layer is cached: every evaluation counts the ceilings below s.
+  struct Layer {};
+  static __device__ __forceinline__ Layer pick(bool, const Layer&,
+                                               const Layer&) {
+    return Layer{};
+  }
+  __device__ __forceinline__ void forget(Layer&) const {}
+
+  __device__ __forceinline__ float alpha(int cid, float s, Layer&) const {
     const float* row = p.prof + static_cast<size_t>(cid) * F32Tier::kProfW;
     return F32Tier::layer_pick(row, row + F32Tier::kLayers, s);
   }
 
-  __device__ __forceinline__ void shade(int cid, float s, float& cr,
-                                        float& cg, float& cb) const {
+  __device__ __forceinline__ void shade(int cid, float s, const Layer&,
+                                        float& cr, float& cg,
+                                        float& cb) const {
     const float* heights = p.prof + static_cast<size_t>(cid) * F32Tier::kProfW;
     const float* rgb = p.rgb + static_cast<size_t>(cid) * F32Tier::kRgbW;
     cr = F32Tier::layer_pick(heights, rgb, s);

@@ -14,21 +14,34 @@
 //
 // What bounds it on the H100.  Not arithmetic: a lane spends ~20 flops per
 // step.  It is bound by divergence (lanes of a warp take different numbers
-// of steps and only some of them miss the cache) and by the latency of
-// dependent random reads on a miss (bins row -> K candidate test rows ->
-// the winner's heights and alpha).  The pixel order from K6 groups lanes
-// of similar chord length into warps, which trims the divergence.  This
-// first version keeps the two cached columns' 14-float test rows and cell
-// ids in registers and reads heights and alpha from the `prof` table
-// through __ldg on every cached evaluation: the tables do not change
-// during a launch, so that is value-identical to caching the 64-float
-// rows, at the price of 32 L1/L2-resident loads per collision candidate.
-// Keeping the rows in shared memory is the next step.
+// of steps and only some of them miss the cache; 1.91 at 1080p, subdiv 8)
+// and by the latency of dependent random reads (bins row -> candidate test
+// rows -> the winner's ceilings and alpha), which only warps in flight
+// hide.  The pixel order from K6 groups lanes of similar chord length into
+// warps.  The design (PERF.md, each part measured in turns):
+//   * each cache slot keeps the layer of its last evaluation, its alpha
+//     and the bracket (h[l - 1], h[l]] of ceilings around it; an
+//     evaluation inside the bracket reads nothing, any other
+//     binary-searches the column's num_layers ceilings (at most 5-6
+//     dependent loads, where the count over all 32 read 33), and the shade
+//     reads the accepted layer's RGB (3 loads, where three counts read
+//     99);
+//   * a slot keeps its cell id, not its test row, which each containment
+//     test re-reads as four float4 (L1 or L2 hits): with
+//     __launch_bounds__(128, 10) the kernel takes 48 registers (80 bytes
+//     of stack) and 10 blocks an SM, where 126 registers allowed 4; 8 and
+//     12 blocks were slower;
+//   * the frame's scalars are read on the card (csrc/track_common.cuh
+//     `TrackFrame`), so a launch reads nothing back;
+//   * the first band of a sample is a binary search over the band edges.
 #include "tier_f32.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(128)
+// the blocks an SM the kernel must fit (see above)
+constexpr int kMinBlocks = 10;
+
+__global__ void __launch_bounds__(128, kMinBlocks)
 track_f32_kernel(const TrackParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.c.n_lanes) return;
@@ -46,4 +59,9 @@ extern "C" int track_f32_launch(const TrackParams* params, void* stream) {
   track_f32_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       *params);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's blocks an SM, registers and local bytes (track::occupancy).
+extern "C" int track_f32_occupancy(int* out) {
+  return track::occupancy(track_f32_kernel, 128, out);
 }

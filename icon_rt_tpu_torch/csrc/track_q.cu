@@ -20,15 +20,22 @@
 // What bounds it on the H100: as K1, divergence and the latency of
 // dependent random reads on a cache miss (fine-map row -> coarse bins row
 // -> 4 candidate rows; on a fine-map miss the k_cap candidate rows).  The
-// quantized rows are small (48 B test row, 2 x Lm bytes of value/alpha,
-// one shared or per-cell height row), so an evaluation reads Lm heights'
-// worth of L1-resident data instead of K1's 32 f32 heights; the cache
-// holds 11 floats per slot in registers.
+// design is K1's (csrc/track_f32.cu; PERF.md): each slot's layer and its
+// bracket of dequantized ceilings, a binary search over them on a miss
+// that dequantizes only the ceilings it probes, the shade from the
+// accepted layer's u8 value; slots keep cell ids and re-read their 48-byte
+// test rows as three float4; the fine map's 4 slots come in one uint32;
+// with __launch_bounds__(128, 9) the kernel takes 56 registers and 9
+// blocks an SM (5 before, at 96 registers; 7 and 8 blocks were 2-8%
+// slower at 1080p, subdiv 8, and within 0.3% at R2B9).
 #include "tier_q.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(128)
+// the blocks an SM the kernel must fit (see above)
+constexpr int kMinBlocks = 9;
+
+__global__ void __launch_bounds__(128, kMinBlocks)
 track_q_kernel(const TrackQParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.c.n_lanes) return;
@@ -46,4 +53,9 @@ extern "C" int track_q_launch(const TrackQParams* params, void* stream) {
   track_q_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       *params);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's blocks an SM, registers and local bytes (track::occupancy).
+extern "C" int track_q_occupancy(int* out) {
+  return track::occupancy(track_q_kernel, 128, out);
 }

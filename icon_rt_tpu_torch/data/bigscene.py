@@ -182,7 +182,7 @@ def to_device(sc: QuantScene, device="cuda"):
     """(QuantizedCells, RadialBands) of a host scene on `device`: unpacked
     tables, one shared h_frac row where the layer spacing is uniform, and
     alpha_q all zero (bake it with models/qcells.bake_alpha_q)."""
-    from ..models.qcells import QuantizedCells
+    from ..models.qcells import QuantizedCells, check_q_ceilings
     from ..models.shells import RadialBands
     hf = sc.h_frac
     if hf.shape[0] and bool((hf == hf[0]).all()):
@@ -196,6 +196,7 @@ def to_device(sc: QuantScene, device="cuda"):
                        alpha_q=torch.zeros_like(value_q),
                        value_lo=f32(sc.value_lo), value_hi=f32(sc.value_hi),
                        alpha_max=f32(1.0))
+    check_q_ceilings(q.h_frac, q.test12)
     bands = RadialBands(edges=t(sc.band_edges), value_ranges=t(sc.band_ranges),
                         max_opacities=torch.zeros(sc.band_ranges.shape[0],
                                                   dtype=torch.float32,

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ..models.cells import CellStats
-from ..models.qcells import QuantizedCells
+from ..models.qcells import QuantizedCells, check_q_ceilings
 from ..models.shells import RadialBands
 from ..utils import cuda_build
 from .bigscene import _ICO_FACES, _ICO_VERTS
@@ -546,6 +546,7 @@ def synth_quantized_device(subdivisions: int, num_layers: int,
         value_q=value_q,
         alpha_q=torch.zeros_like(value_q),
         value_lo=f32(lo), value_hi=f32(hi), alpha_max=f32(1.0))
+    check_q_ceilings(q.h_frac, q.test12)
 
     # radial band ranges from the tables' own per-layer u8 extrema
     # (conservative for exactly the field the renderer samples)

@@ -20,10 +20,10 @@ from .data.animation import Animation
 from .data.device_scene import DeviceScene
 from .data.icfile import ICDataset
 from .models.accel import GridAccel, ShellAccel
-from .models.cells import Cells, CellStats
+from .models.cells import Cells, CellStats, check_ceilings
 from .models.finemap import FineMap
 from .models.locator import Locator
-from .models.qcells import QuantizedCells
+from .models.qcells import QuantizedCells, check_q_ceilings
 from .models.shells import RadialBands
 from .models.transfunc import Transfunc
 from .models.wedges import Wedges
@@ -52,6 +52,7 @@ def dataset(ds) -> ICDataset:
 
 
 def cells(c, device="cpu") -> Cells:
+    check_ceilings(np.asarray(c.height), np.asarray(c.num_layers))
     return _convert(c, Cells, device)
 
 
@@ -129,12 +130,14 @@ def quantized_cells(q, device="cpu", n: int | None = None) -> QuantizedCells:
     f32 = lambda v: torch.tensor(float(np.float32(v)), dtype=torch.float32,
                                  device=device)
     tab = getattr(q, "alpha_tab", None)
-    return QuantizedCells(
+    out = QuantizedCells(
         test12=t(t12[:n]), h_frac=t(hf.astype(np.float32)),
         value_q=t(vq[:n]), alpha_q=t(aq[:n]),
         value_lo=f32(q.value_lo), value_hi=f32(q.value_hi),
         alpha_max=f32(q.alpha_max),
         alpha_tab=None if tab is None else np.asarray(tab, np.uint8).copy())
+    check_q_ceilings(out.h_frac, out.test12)
+    return out
 
 
 def locator_packed(loc, k_cap: int, device="cpu") -> Locator:
@@ -179,7 +182,7 @@ def sharded_scene(scene, slab: int, n: int, k_cap: int,
     t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
     f32 = lambda v: torch.tensor(float(np.float32(v)), dtype=torch.float32,
                                  device=device)
-    return ShardedScene(
+    out = ShardedScene(
         test12=t(_unpack_table(np.asarray(scene.test12)[slab], 12, n)),
         h_frac=t(hf.astype(np.float32) if hf.shape[0] == 1
                  else hf[:n].astype(np.float32)),
@@ -192,6 +195,8 @@ def sharded_scene(scene, slab: int, n: int, k_cap: int,
         **{f: f32(np.asarray(getattr(scene, f))[slab])
            for f in ("lat_lo", "lat_hi", "lon_lo", "lon_hi")},
         dims=t(dims.astype(np.int32)))
+    check_q_ceilings(out.h_frac, out.test12)
+    return out
 
 
 def animation(anim) -> Animation:

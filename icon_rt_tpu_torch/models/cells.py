@@ -61,8 +61,28 @@ def _np_plane(a, b, c):
     return np.concatenate([n, w[..., None]], axis=-1)
 
 
+def check_ceilings(height, num_layers):
+    """Raise ValueError naming the first column whose layer ceilings
+    height[1..num_layers] do not ascend (ties allowed).  height (N, 32)
+    and num_layers (N,) numpy, compared in f32 as the K5a bake stores them:
+    the f32 tracker K1 finds the layer #(h < r) of a radius by binary
+    search over a column's ceilings and keeps its bracket
+    (csrc/tier_f32.cuh), which equals the count only over ascending
+    ceilings (the reference's binary search assumes them too,
+    ICONGrid.h:117-145)."""
+    h = np.asarray(height, np.float32)
+    k = np.arange(2, h.shape[1])
+    bad = ~(h[:, 2:] >= h[:, 1:-1]) \
+        & (k[None, :] <= np.asarray(num_layers)[:, None])
+    cols = np.flatnonzero(bad.any(1))
+    if cols.size:
+        raise ValueError(f"column {cols[0]}: its layer ceilings do not "
+                         f"ascend ({cols.size} such columns)")
+
+
 def build_cells(ds: ICDataset, device="cpu") -> Cells:
     n = ds.num_cells
+    check_ceilings(ds.height, ds.num_layers)
     idx = np.arange(n)
     h_bot = ds.height[:, 0].astype(np.float32)
     h_top = ds.height[idx, ds.num_layers].astype(np.float32)

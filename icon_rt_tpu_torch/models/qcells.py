@@ -77,6 +77,33 @@ class QuantizedCells(NamedTuple):
         return self.h_frac.shape[1]
 
 
+def check_q_ceilings(h_frac, test12):
+    """Raise ValueError naming the first column whose dequantized ceilings
+    h_bot + hf[k] * s (k < num_layers, s = (h_top - h_bot) / 65535) do not
+    ascend: its h_frac row (or the shared one) descends somewhere below its
+    num_layers, or h_top < h_bot.  IEEE rounding is monotone, so the two
+    conditions are enough.  The quantized tracker K2 finds a layer by
+    binary search over these ceilings and keeps its bracket
+    (csrc/tier_q.cuh).  h_frac (1 or N, Lm) and test12 (N, 12) f32 tensors
+    on any device; one host read."""
+    nl = test12[:, 11]
+    desc = ~(h_frac[:, 1:] >= h_frac[:, :-1])          # pair (k - 1, k)
+    k = torch.arange(1, h_frac.shape[1], device=h_frac.device,
+                     dtype=nl.dtype)
+    if h_frac.shape[0] == 1:
+        first = k[desc[0]]
+        bad = nl > first[0] if first.numel() else torch.zeros_like(
+            nl, dtype=torch.bool)
+    else:
+        bad = (desc & (k[None, :] < nl[:, None])).any(1)
+    bad = bad | ~(test12[:, 10] >= test12[:, 9])
+    if bool(bad.any()):
+        cols = torch.nonzero(bad)[:, 0]
+        raise ValueError(f"column {int(cols[0])}: its quantized layer "
+                         f"ceilings do not ascend ({cols.numel()} such "
+                         f"columns)")
+
+
 def quantize_dataset_values(ds: ICDataset) -> tuple[ICDataset, float, float]:
     """Round ds.value to the 256-level grid IN the dataset, so every
     consumer (band value ranges, stats, renders) sees the field the
@@ -144,6 +171,8 @@ def quantize_cells(ds: ICDataset,
                          * (np.float32(255.0) / np.float32(hi - lo))),
                  0, 255).astype(np.uint8)
 
+    check_q_ceilings(torch.from_numpy(hf.astype(F)),
+                     torch.from_numpy(test12))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     f32 = lambda v: torch.tensor(v, dtype=F32, device=device)
     return QuantizedCells(

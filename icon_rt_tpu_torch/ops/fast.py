@@ -861,6 +861,15 @@ def _render_frame_fast_torch(packed: PackedCells, loc: Locator,
 # K1+K4 kernel: build, bind, launch
 # ===========================================================================
 
+class _TrackFrame(ctypes.Structure):
+    """Mirror of `TrackFrame` in csrc/track_common.cuh (same field order):
+    the device addresses of a frame's scalars, which K1, K2, K9-w and K3
+    read on the card."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "cam_org", "cam_dir00", "cam_du", "cam_dv", "amb", "amb_rad", "ud",
+        "accum_id")]
+
+
 class _TrackCommon(ctypes.Structure):
     """Mirror of `TrackCommon` in csrc/track_common.cuh (same field order)."""
     _fields_ = [
@@ -868,14 +877,11 @@ class _TrackCommon(ctypes.Structure):
         ("pix", ctypes.c_void_p), ("accum", ctypes.c_void_p),
         ("fb", ctypes.c_void_p), ("cost", ctypes.c_void_p),
         ("raw_wrote", ctypes.c_void_p), ("raw_ca", ctypes.c_void_p),
-        ("raw_t", ctypes.c_void_p),
-        ("cam", ctypes.c_float * 12), ("amb", ctypes.c_float * 3),
-        ("amb_rad", ctypes.c_float), ("ud", ctypes.c_float),
+        ("raw_t", ctypes.c_void_p), ("frame", _TrackFrame),
         ("nb", ctypes.c_int), ("n_lanes", ctypes.c_int),
         ("width", ctypes.c_int), ("height", ctypes.c_int),
-        ("accum_id", ctypes.c_int), ("samples", ctypes.c_int),
-        ("preserve_cache", ctypes.c_int), ("max_steps", ctypes.c_int),
-        ("rng_salt", ctypes.c_uint),
+        ("samples", ctypes.c_int), ("preserve_cache", ctypes.c_int),
+        ("max_steps", ctypes.c_int), ("rng_salt", ctypes.c_uint),
     ]
 
 
@@ -931,25 +937,50 @@ def host_values(t: torch.Tensor):
     return memo[1]
 
 
+#: the launch params' fields the kernels read on the card (`track_frame`)
+FRAME_FIELDS = ("cam_org", "cam_dir00", "cam_du", "cam_dv", "ambient_color",
+                "ambient_radiance", "unit_distance", "accum_id")
+
+
+def frame_on(lp, dev):
+    """lp with the frame's scalars on `dev`: a tensor held elsewhere (a
+    host accum_id) is copied to the card, never read back.  The caller
+    keeps the result until its launch is enqueued."""
+    moved = {f: getattr(lp, f).to(dev) for f in FRAME_FIELDS
+             if getattr(lp, f).device != dev}
+    return lp._replace(**moved) if moved else lp
+
+
+def track_frame(lp, dev, fn: str = "track_f32") -> _TrackFrame:
+    """A frame's scalars as device addresses: lp's camera, ambient terms,
+    unit distance and accum_id, which the kernels read on the card, so a
+    launch reads nothing back; raises unless each is a contiguous tensor
+    of its shape on `dev`."""
+    ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev, fn=fn)
+    for name in ("cam_org", "cam_dir00", "cam_du", "cam_dv",
+                 "ambient_color"):
+        ck(f"lp.{name}", getattr(lp, name), F32, (3,))
+    ck("lp.ambient_radiance", lp.ambient_radiance, F32, ())
+    ck("lp.unit_distance", lp.unit_distance, F32, ())
+    ck("lp.accum_id", lp.accum_id, torch.int32, ())
+    return _TrackFrame(
+        cam_org=lp.cam_org.data_ptr(), cam_dir00=lp.cam_dir00.data_ptr(),
+        cam_du=lp.cam_du.data_ptr(), cam_dv=lp.cam_dv.data_ptr(),
+        amb=lp.ambient_color.data_ptr(),
+        amb_rad=lp.ambient_radiance.data_ptr(),
+        ud=lp.unit_distance.data_ptr(), accum_id=lp.accum_id.data_ptr())
+
+
 def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
                  height: int, samples: int, preserve_cache: bool,
                  cost=None, rng_salt: int = 0,
                  out: RawSample | None = None,
-                 host_frame: bool = True) -> _TrackCommon:
-    """The tier-independent launch arguments of K1, K2 and K3 (one host
-    read of the launch scalars); `cost` is K1's and K2's optional (W*H,)
-    int32 step-count output, `out` their raw mode's RawSample and rng_salt
-    their tracking streams' salt.  Without `host_frame` the camera,
-    ambient terms, unit distance and accum_id are left 0 and nothing is
-    read (K3's kernels read them from lp's tensors)."""
-    if host_frame:
-        host = torch.cat([
-            lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv,
-            lp.ambient_color, lp.ambient_radiance.reshape(1),
-            lp.unit_distance.reshape(1)]).to(F32).tolist()
-        accum_id = int(lp.accum_id)
-    else:
-        host, accum_id = [0.0] * 17, 0
+                 fn: str = "track_f32") -> _TrackCommon:
+    """The tier-independent launch arguments of K1, K2, K9-w and K3, built
+    without a device read: the frame's scalars as device addresses
+    (`track_frame`, raising in the name of `fn`); `cost` is K1's and K2's
+    optional (W*H,) int32 step-count output, `out` their raw mode's
+    RawSample and rng_salt their tracking streams' salt."""
     return _TrackCommon(
         edges=bands.edges.data_ptr(), majors=bands.max_opacities.data_ptr(),
         pix=pix.data_ptr(),
@@ -959,13 +990,21 @@ def track_common(bands: RadialBands, lp, pix, accum, fb, *, width: int,
         raw_wrote=None if out is None else out.wrote.data_ptr(),
         raw_ca=None if out is None else out.ca.data_ptr(),
         raw_t=None if out is None else out.t.data_ptr(),
-        cam=(ctypes.c_float * 12)(*host[0:12]),
-        amb=(ctypes.c_float * 3)(*host[12:15]),
-        amb_rad=host[15], ud=host[16], nb=bands.max_opacities.shape[0],
-        n_lanes=pix.shape[0], width=width, height=height,
-        accum_id=accum_id, samples=samples,
+        frame=track_frame(lp, pix.device, fn),
+        nb=bands.max_opacities.shape[0], n_lanes=pix.shape[0], width=width,
+        height=height, samples=samples,
         preserve_cache=int(bool(preserve_cache)), max_steps=MAX_STEPS,
         rng_salt=rng_salt & 0xFFFFFFFF)
+
+
+def check_rows(fn: str, name: str, x, nbytes: int):
+    """Raise ValueError unless x's storage and each of its rows start on an
+    `nbytes` boundary: the kernels read the tier's rows as float4 (test
+    rows, 16 bytes) or one uint32 (the fine map's 4 slots)."""
+    if x.data_ptr() % nbytes or (x.stride(0) * x.element_size()) % nbytes:
+        raise ValueError(f"{fn}: {name}'s rows must start on {nbytes}-byte "
+                         f"boundaries (the kernel reads them in "
+                         f"{nbytes}-byte words)")
 
 
 class _TrackParams(ctypes.Structure):
@@ -1033,6 +1072,7 @@ def _track_packed(name: str, tier, packed: PackedCells, loc: Locator,
     L = pix.shape[0]
     ck = lambda what, x, dt, shape: _check(what, x, dt, shape, dev, fn=name)
     ck("packed.test", packed.test, F32, (n, tier.test_w))
+    check_rows(name, "packed.test", packed.test, 16)
     ck("packed.prof", packed.prof, F32, (n, PROF_W))
     ck("packed.rgb", packed.rgb, F32, (n, RGB_W))
     ck("loc.bins", loc.bins, torch.int32, (None, None))
@@ -1055,10 +1095,11 @@ def _track_packed(name: str, tier, packed: PackedCells, loc: Locator,
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     lib = build_track_f32(name)
+    lp = frame_on(lp, dev)
     p = track_params(packed, loc, track_common(
         bands, lp, pix, accum, fb, width=width, height=height,
         samples=samples, preserve_cache=preserve_cache, cost=cost,
-        rng_salt=rng_salt, out=out))
+        rng_salt=rng_salt, out=out, fn=name))
     cuda_build.check(name, getattr(lib, f"{name}_launch")(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches[name] += 1
@@ -1075,7 +1116,9 @@ def track_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
     fb None, one sample) stores the sample for a composite across ranks
     instead (ops/composite.py); rng_salt != 0 re-keys the tracking streams.
     CUDA tensors launch csrc/track_f32.cu; CPU tensors run
-    `_render_frame_fast_torch`; anything else raises."""
+    `_render_frame_fast_torch`; anything else raises.  A launch reads
+    nothing back from the card: the kernel reads lp's scalars from their
+    tensors (`track_frame`), the locator's come from `host_values`."""
     _track_packed("track_f32", _F32Tier, packed, loc, bands, lp, pix, accum,
                   fb, width, height, samples, preserve_cache, cost, rng_salt,
                   out)

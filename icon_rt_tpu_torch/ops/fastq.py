@@ -30,7 +30,8 @@ from ..models.transfunc import Transfunc, post_classify
 from ..utils import cuda_build
 from .fast import (F32, RawSample, _check, _first_inside, _grid_bin,
                    _locate_torch, _TrackCommon, _track_torch, check_raw,
-                   frame_lanes, host_values, track_common)
+                   check_rows, frame_lanes, frame_on, host_values,
+                   track_common)
 
 #: K2 kernel launches (the wrapper counts only CUDA launches)
 launches = 0
@@ -249,6 +250,7 @@ def check_q_tables(fn, q: QuantizedCells, loc: Locator, tf: Transfunc,
     n_lat, n_lon = host_values(loc.dims)
     ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev, fn=fn)
     ck("q.test12", q.test12, F32, (n, 12))
+    check_rows(fn, "q.test12", q.test12, 16)
     ck("q.h_frac", q.h_frac, F32, (None, lm))
     if q.h_frac.shape[0] not in (1, n):
         raise ValueError(f"{fn}: q.h_frac must have 1 or N rows")
@@ -263,6 +265,7 @@ def check_q_tables(fn, q: QuantizedCells, loc: Locator, tf: Transfunc,
         return
     f_lat, f_lon = host_values(finemap.dims)
     ck("finemap.slots", finemap.slots, torch.uint8, (f_lat * f_lon, K_CAND))
+    check_rows(fn, "finemap.slots", finemap.slots, 4)
     factor = f_lat // n_lat
     if factor < 1 or f_lat != factor * n_lat or f_lon != factor * n_lon:
         raise ValueError(f"{fn}: the fine map must refine the locator's "
@@ -315,7 +318,10 @@ def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     collision's t, for a composite across ranks instead (ops/composite.py);
     rng_salt != 0 re-keys the tracking streams (the scene shard's slabs).
     CUDA tensors launch csrc/track_q.cu; CPU tensors run
-    `_render_frame_fast_q_torch`; anything else raises."""
+    `_render_frame_fast_q_torch`; anything else raises.  A launch reads
+    nothing back from the card: the kernel reads lp's scalars from their
+    tensors (ops/fast.py `track_frame`), the tables', the locator's, the
+    fine map's and the TF's come from `host_values`."""
     global launches
     dev = pix.device
     nb = bands.max_opacities.shape[0]
@@ -342,10 +348,11 @@ def track_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     if dev.type != "cuda":
         raise ValueError(f"track_q: unsupported device {dev}")
     lib = build_track_q()
+    lp = frame_on(lp, dev)
     p = track_q_params(q, loc, tf, finemap, track_common(
         bands, lp, pix, accum, fb, width=width, height=height,
         samples=samples, preserve_cache=preserve_cache, cost=cost,
-        rng_salt=rng_salt, out=out))
+        rng_salt=rng_salt, out=out, fn="track_q"))
     cuda_build.check("track_q", lib.track_q_launch(
         ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream))
     launches += 1

@@ -75,8 +75,8 @@ from ..models.transfunc import Transfunc
 from ..utils import cuda_build
 from .fast import (F32, PROF_W, RGB_W, TEST_W, PackedCells, _band_exit,
                    _band_of, _check, _F32Tier, _init_lanes, _r_of,
-                   _select_band, _TrackParams, frame_lanes, host_values,
-                   track_common, track_params)
+                   _select_band, _TrackParams, check_rows, frame_lanes,
+                   frame_on, host_values, track_common, track_params)
 from .fastq import _QTier, _TrackQParams, check_q_tables, track_q_params
 from .render import _finalize
 
@@ -408,16 +408,8 @@ class _MarchArgs(ctypes.Structure):
         ("tab", ctypes.c_void_p),
         ("a_scale", ctypes.c_float), ("v_scale", ctypes.c_float),
         ("inv_span", ctypes.c_float), ("et_eps", ctypes.c_float),
-        ("max_outer", ctypes.c_int),
+        ("max_outer", ctypes.c_int), ("tf_range", ctypes.c_void_p),
     ]
-
-
-class _MarchFrame(ctypes.Structure):
-    """Mirror of `MarchFrame` in csrc/march.cu (same field order): the
-    device addresses of K3-q's per-frame scalars."""
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "cam_org", "cam_dir00", "cam_du", "cam_dv", "amb", "amb_rad", "ud",
-        "accum_id", "tf_range")]
 
 
 def build_march():
@@ -427,7 +419,7 @@ def build_march():
     for f, params in ((lib.march_f32_launch, _TrackParams),
                       (lib.march_q_launch, _TrackQParams)):
         f.argtypes = [ctypes.POINTER(params), ctypes.POINTER(_MarchArgs),
-                      ctypes.POINTER(_MarchFrame), ctypes.c_void_p]
+                      ctypes.c_void_p]
         f.restype = ctypes.c_int
     return lib
 
@@ -444,26 +436,19 @@ def march_q_scales(q: QuantizedCells):
             float(f(f(255.0) / max(span, f(1e-30)))))
 
 
-def march_frame(lp, tf: Transfunc | None, dev) -> _MarchFrame:
-    """K3's per-frame scalars as device addresses: lp's camera, ambient
-    terms, unit distance and accum_id, and the TF's value range (q tier;
-    tf None on the f32 tier, whose colours are baked); raises unless each
-    is a contiguous tensor of its shape on `dev`."""
-    fn = "march_f32" if tf is None else "march_q"
-    ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev, fn=fn)
-    for name in ("cam_org", "cam_dir00", "cam_du", "cam_dv",
-                 "ambient_color"):
-        ck(f"lp.{name}", getattr(lp, name), F32, (3,))
-    ck("lp.ambient_radiance", lp.ambient_radiance, F32, ())
-    ck("lp.unit_distance", lp.unit_distance, F32, ())
-    ck("lp.accum_id", lp.accum_id, torch.int32, ())
-    return _MarchFrame(
-        cam_org=lp.cam_org.data_ptr(), cam_dir00=lp.cam_dir00.data_ptr(),
-        cam_du=lp.cam_du.data_ptr(), cam_dv=lp.cam_dv.data_ptr(),
-        amb=lp.ambient_color.data_ptr(),
-        amb_rad=lp.ambient_radiance.data_ptr(),
-        ud=lp.unit_distance.data_ptr(), accum_id=lp.accum_id.data_ptr(),
-        tf_range=None if tf is None else tf.value_range.data_ptr())
+def march_args(q: QuantizedCells | None, tf: Transfunc | None,
+               tab) -> _MarchArgs:
+    """K3's own launch arguments: on the q tier (q, tf and the (256, 4)
+    code-table buffer `tab` given) its scales from host copies
+    (`march_q_scales`) and the TF's value range as a device address, which
+    the code-table kernel reads on the card; on the f32 tier (all None)
+    zeros."""
+    if q is None:
+        return _MarchArgs(et_eps=ET_EPS, max_outer=MAX_OUTER)
+    a_scale, v_scale, inv_span = march_q_scales(q)
+    return _MarchArgs(tab=tab.data_ptr(), a_scale=a_scale, v_scale=v_scale,
+                      inv_span=inv_span, et_eps=ET_EPS, max_outer=MAX_OUTER,
+                      tf_range=tf.value_range.data_ptr())
 
 
 def _check_lanes(fn, bands: RadialBands, pix, accum, fb, cost, n_pixels):
@@ -493,13 +478,15 @@ def march_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
     CUDA tensors launch csrc/march.cu; CPU tensors run
     `_march_frame_torch`; anything else raises.  A launch reads nothing
     back from the card: the kernel reads lp's scalars from their tensors
-    (`march_frame`), and the tables' scalars come from `host_values`."""
+    (ops/fast.py `track_frame`), and the tables' scalars come from
+    `host_values`."""
     dev = pix.device
     n = packed.test.shape[0]
     for name, x, w in (("packed.test", packed.test, TEST_W),
                        ("packed.prof", packed.prof, PROF_W),
                        ("packed.rgb", packed.rgb, RGB_W)):
         _check(name, x, F32, (n, w), dev, fn="march_f32")
+    check_rows("march_f32", "packed.test", packed.test, 16)
     _check("loc.bins", loc.bins, torch.int32, (None, None), dev,
            fn="march_f32")
     _check_lanes("march_f32", bands, pix, accum, fb, cost, width * height)
@@ -507,15 +494,13 @@ def march_f32(packed: PackedCells, loc: Locator, bands: RadialBands, lp,
         _march_frame_torch(_F32Tier(packed, loc), bands, lp, pix, accum, fb,
                            width, height, cost)
         return
-    frame = march_frame(lp, None, dev)
-    lib = build_march()
+    lp = frame_on(lp, dev)
     p = track_params(packed, loc, track_common(
         bands, lp, pix, accum, fb, width=width, height=height, samples=1,
-        preserve_cache=False, cost=cost, host_frame=False))
-    m = _MarchArgs(a_scale=0.0, v_scale=0.0, inv_span=0.0, et_eps=ET_EPS,
-                   max_outer=MAX_OUTER)
-    cuda_build.check("march_f32", lib.march_f32_launch(
-        ctypes.byref(p), ctypes.byref(m), ctypes.byref(frame),
+        preserve_cache=False, cost=cost, fn="march_f32"))
+    m = march_args(None, None, None)
+    cuda_build.check("march_f32", build_march().march_f32_launch(
+        ctypes.byref(p), ctypes.byref(m),
         torch.cuda.current_stream(dev).cuda_stream))
     launches["march_f32" if cost is None else "march_f32_cost"] += 1
 
@@ -528,8 +513,9 @@ def march_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     `finemap` a locate tries the fine map first.  The layer colours go
     through the (256, 4) code table of the live TF, which a one-block
     kernel writes into a buffer of this call ahead of the march, on the
-    same stream (the plain version: `_QTier`'s `code_table`).  A launch reads nothing back from the card, as
-    `march_f32`'s: the TF's range is read by the kernel too."""
+    same stream (the plain version: `_QTier`'s `code_table`).  A launch
+    reads nothing back from the card, as `march_f32`'s: the TF's range is
+    read by the kernel too (`march_args`)."""
     dev = pix.device
     check_q_tables("march_q", q, loc, tf, finemap, dev)
     _check_lanes("march_q", bands, pix, accum, fb, cost, width * height)
@@ -540,17 +526,14 @@ def march_q(q: QuantizedCells, loc: Locator, bands: RadialBands,
     if q.lm > 32:
         raise ValueError("march_q: the kernel takes at most 32 layers a "
                          "column (q.lm <= 32)")
-    frame = march_frame(lp, tf, dev)
-    lib = build_march()
+    lp = frame_on(lp, dev)
     p = track_q_params(q, loc, tf, finemap, track_common(
         bands, lp, pix, accum, fb, width=width, height=height, samples=1,
-        preserve_cache=False, cost=cost, host_frame=False))
-    a_scale, v_scale, inv_span = march_q_scales(q)
+        preserve_cache=False, cost=cost, fn="march_q"))
     tab = torch.empty((256, 4), dtype=F32, device=dev)
-    m = _MarchArgs(tab=tab.data_ptr(), a_scale=a_scale, v_scale=v_scale,
-                   inv_span=inv_span, et_eps=ET_EPS, max_outer=MAX_OUTER)
-    cuda_build.check("march_q", lib.march_q_launch(
-        ctypes.byref(p), ctypes.byref(m), ctypes.byref(frame),
+    m = march_args(q, tf, tab)
+    cuda_build.check("march_q", build_march().march_q_launch(
+        ctypes.byref(p), ctypes.byref(m),
         torch.cuda.current_stream(dev).cuda_stream))
     launches["march_q" if cost is None else "march_q_cost"] += 1
 

@@ -80,3 +80,17 @@ def check(fn: str, err: int):
     """Raise if a launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{fn}: kernel launch failed (cudaError {err})")
+
+
+def occupancy(name: str) -> dict:
+    """{'blocks_per_sm', 'registers', 'local_bytes'} of the kernel of the
+    built library csrc/<name>.cu, from its C entry point
+    <name>_occupancy (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its
+    launch's 128 threads, cudaFuncGetAttributes)."""
+    out = (ctypes.c_int * 3)()
+    fn = getattr(_BUILT[name]["lib"], f"{name}_occupancy")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    check(f"{name}_occupancy", fn(out))
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2]}

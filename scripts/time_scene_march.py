@@ -137,16 +137,6 @@ def host_reads(call):
                and "prototype" not in str(w.message) for w in got), wall
 
 
-def divergence(cost, perm, n_active):
-    """Sum over warps (32 consecutive lanes of the pixel order) of 32 x
-    their largest cost, over the sum of the costs."""
-    import torch
-    c = cost[perm[:n_active].long()].to(torch.int64)
-    pad = (-c.numel()) % 32
-    c = torch.cat([c, c.new_zeros(pad)]).view(-1, 32)
-    return float(32 * c.amax(1).sum()) / max(float(c.sum()), 1.0)
-
-
 def ptxas(name):
     from icon_rt_tpu_torch.utils import cuda_build
     return [line.strip() for line in cuda_build.info(name)["log"].splitlines()
@@ -338,7 +328,7 @@ def march_q_times(cs, q, loc, bands, tf, lp, perm, n_active, fm, phases,
     cost = torch.zeros(W * H, dtype=torch.int32, device=perm.device)
     march.march_q(q, loc, bands, tf, lps[1], pix, acc[:n_active],
                   fb[:n_active], width=W, height=H, finemap=fm, cost=cost)
-    out["divergence"] = divergence(cost, perm, n_active)
+    out["divergence"] = cs.divergence(cost, perm, n_active)
     out["cost_mean"] = float(cost[pix.long()].double().mean())
     out["cost_max"] = int(cost.max())
     if plain:

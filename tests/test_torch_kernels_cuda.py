@@ -1,4 +1,5 @@
-"""PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2, K5c-q,
+"""PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2 (K1 and
+K2 also on ragged columns with rays grazing a ceiling), K5c-q,
 K7-fm (factors 1-3, cut edge tiles, a band locator), K3 (both tiers; K3-q
 after TF edits and its steady call without a host read), K5c-f32,
 K7-scene (lod 0 and the mip tier, whole and windows), K7-loc, K8 (and its raw
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from icon_rt_tpu_torch.data import synthetic
+from icon_rt_tpu_torch.data.icfile import ICDataset
 from icon_rt_tpu_torch.models import accel
 from icon_rt_tpu_torch.models.cells import build_cells, compute_stats
 from icon_rt_tpu_torch.models.locator import build_locator
@@ -748,6 +750,112 @@ def test_cuda_track_cost_matches_plain(scene, qscene, tier):
     untraced = torch.ones(96 * 96, dtype=torch.bool, device=dev)
     untraced[pix.long()] = False
     assert int(ck[untraced].abs().max()) == 0 and int(ck.max()) > 0
+
+
+def _ragged_scene(dev):
+    """An icosphere (subdivision 4) whose columns hold 1..24 layers of
+    random thickness, a quarter of them of zero thickness, so that most
+    columns have fewer layers than the quantized tier's Lm (24); the camera
+    sits on the x axis and looks at the point where its ray grazes the
+    sphere of the third ceiling, so the rays around the frame's centre
+    skim that ceiling."""
+    rng = np.random.default_rng(7)
+    ds = synthetic.icosphere(4, 8)
+    n = ds.num_cells
+    nl = rng.integers(1, 25, n).astype(np.int32)
+    step = rng.uniform(500.0, 4000.0, (n, 32)).astype(np.float32)
+    step[rng.random((n, 32)) < 0.25] = 0.0
+    step[:, 0] = 0.0
+    height = (ds.height[:, :1] + np.cumsum(step, axis=1)).astype(np.float32)
+    ds = ICDataset(lat=ds.lat, lon=ds.lon, num_layers=nl, height=height,
+                   value=ds.value)
+    st = compute_stats(ds)
+    tf = make_transfunc(value_range=tuple(st.data_range), opacity_scale=0.7,
+                        device=dev)
+    bands = update_band_majorants(build_radial_bands(ds, 64, device=dev),
+                                  tf.values, tf.value_range)
+    cells = build_cells(ds, device=dev)
+    q = qcells.bake_alpha_q(qcells.quantize_cells(ds, device=dev), tf)
+    csr, k_cap = build_locator_csr(ds)
+    loc_q = densify_csr(csr, k_cap, device=dev)
+    r_k = float(np.median(height[:, 3]))
+    d = 1.5 * float(st.spherical_bounds_hi[0])
+    cam = Camera()
+    pos = np.array([d, 0, 0], np.float32)
+    touch = np.array([r_k * r_k / d, r_k * np.sqrt(1 - (r_k / d) ** 2), 0],
+                     np.float32)
+    cam.set_orientation(pos, touch, np.array([0, 0, 1], np.float32),
+                        np.radians(20.0))
+    lp = make_launch_params(cam.basis(96, 96), st.world_bounds_lo,
+                            st.world_bounds_hi, unit_distance=1e3,
+                            device=dev)
+    perm, n_cov = order.pixel_order(lp, st.spherical_bounds_lo[0],
+                                    st.spherical_bounds_hi[0], 96, 96)
+    return dict(packed=fast.pack_cells(cells, tf), loc=build_locator(
+        ds, device=dev), q=q, loc_q=loc_q,
+        fm=finemap.build_finemap(loc_q, q.test12), tf=tf, bands=bands,
+        lp=lp, perm=perm, n_cov=n_cov)
+
+
+@pytest.fixture(scope="module")
+def rscene(dev):
+    return _ragged_scene(dev)
+
+
+@pytest.mark.parametrize("case", ["graze 8 samples", "graze raw salted"])
+@pytest.mark.parametrize("tier", ["f32", "q"])
+def test_cuda_track_ragged_layers_match_plain(rscene, tier, case):
+    """K1 and K2 (the layer from each slot's cached bracket, else a binary
+    search) against their plain versions on columns of 1..24 layers with
+    zero-thickness layers (most below the q tier's Lm) and rays grazing a
+    ceiling: 8 samples with the column cache kept and the cost output
+    (fb identical on >= 99.9% of lanes, accum within 1e-6, cost on >=
+    99.9%), and one raw sample with rng_salt, raw_t and the cost output
+    (wrote identical, colour and t identical on >= 99.9% of lanes, colour
+    within 1e-6, cost on >= 99.9%)."""
+    s = rscene
+    n = s["n_cov"]
+    pix = s["perm"][:n].contiguous()
+    dev = pix.device
+    if tier == "f32":
+        tabs = (s["packed"], s["loc"], s["bands"], s["lp"])
+        kern = lambda *a, **k: fast.track_f32(*tabs, *a, width=96,
+                                              height=96, **k)
+        plain = lambda *a, **k: fast._render_frame_fast_torch(
+            *tabs, *a, 96, 96, k["samples"], True, k["cost"],
+            fast._F32Tier, k["rng_salt"], k["out"])
+    else:
+        tabs = (s["q"], s["loc_q"], s["bands"], s["tf"], s["lp"])
+        kern = lambda *a, **k: fastq.track_q(*tabs, *a, width=96, height=96,
+                                             finemap=s["fm"], **k)
+        plain = lambda *a, **k: fastq._render_frame_fast_q_torch(
+            *tabs, *a, 96, 96, k["samples"], True, s["fm"], k["cost"],
+            k["rng_salt"], k["out"])
+    raw = case.endswith("raw salted")
+    outs = []
+    for run in (kern, plain):
+        cost = torch.zeros(96 * 96, dtype=torch.int32, device=dev)
+        if raw:
+            out = fast.alloc_raw(n, dev)
+            run(pix, None, None, samples=1, cost=cost, rng_salt=5, out=out)
+        else:
+            acc, fb = (x[:n] for x in alloc_frame(96, 96, device=dev))
+            run(pix, acc, fb, samples=8, cost=cost, rng_salt=0, out=None)
+            out = (acc, fb)
+        torch.cuda.synchronize()
+        outs.append((out, cost))
+    (ok, ck), (op, cp) = outs
+    assert float((ck == cp).float().mean()) >= 0.999 and int(ck.max()) > 0
+    if raw:
+        assert torch.equal(ok.wrote, op.wrote)
+        assert (ok.ca == op.ca).all(1).float().mean() >= 0.999
+        assert float((ok.ca - op.ca).abs().max()) <= 1e-6
+        assert (ok.t == op.t).float().mean() >= 0.999
+        assert bool(torch.isfinite(ok.t).any())
+    else:
+        assert (ok[1] == op[1]).float().mean() >= 0.999
+        assert float((ok[0] - op[0]).abs().max()) <= 1e-6
+        assert int((ok[1] != 0).sum()) > n // 4
 
 
 def test_cuda_scene_lod_matches_plain(dev):

@@ -783,36 +783,38 @@ def test_torch_march_q_launch_args_follow_edits(scene):
     lp's and the TF's tensors at the addresses given; an in-place LUT edit
     through tf.values' own address), and the tables' host copies
     (`host_values`) are read once and again after an in-place write or a
-    rebind of the storage; K3-f32's frame has no TF range, and its
+    rebind of the storage; K3-f32's arguments have no TF range, and its
     locator scalars (`track_params`, K1's too) equal a host read's."""
     from icon_rt_tpu_torch.ops.fast import (host_values, track_common,
-                                            track_params)
+                                            track_frame, track_params)
     from icon_rt_tpu_torch.ops.fastq import track_q_params
     t = scene["t"]
     cpu = torch.device("cpu")
     lp, tf = t["lp"], t["tf"]
-    f0 = tm.march_frame(lp, tf, cpu)
+    f0 = track_frame(lp, cpu)
     lp_id = lp._replace(accum_id=torch.tensor(5, dtype=torch.int32))
-    f1 = tm.march_frame(lp_id, tf, cpu)
+    f1 = track_frame(lp_id, cpu)
     assert f1.accum_id == lp_id.accum_id.data_ptr() != f0.accum_id
     assert f1.cam_org == f0.cam_org == lp.cam_org.data_ptr()
     lp_mv = lp._replace(cam_org=lp.cam_org * 1.01)
-    f2 = tm.march_frame(lp_mv, tf, cpu)
+    f2 = track_frame(lp_mv, cpu)
     assert f2.cam_org == lp_mv.cam_org.data_ptr() != f0.cam_org
     tf2 = tf._replace(value_range=tf.value_range * 0.5)
-    assert tm.march_frame(lp, tf2, cpu).tf_range == \
-        tf2.value_range.data_ptr() != f0.tf_range
+    tab = torch.empty((256, 4))
+    assert tm.march_args(t["q"], tf2, tab).tf_range == \
+        tf2.value_range.data_ptr() != tm.march_args(t["q"], tf, tab).tf_range
     with pytest.raises(ValueError, match="accum_id"):
-        tm.march_frame(lp._replace(accum_id=torch.tensor(1)), tf, cpu)
-    f32 = tm.march_frame(lp_id, None, cpu)       # K3-f32: no TF range
-    assert f32.tf_range is None and f32.accum_id == f1.accum_id
+        track_frame(lp._replace(accum_id=torch.tensor(1)), cpu, "march_q")
+    m32 = tm.march_args(None, None, None)          # K3-f32: no TF range
+    assert m32.tf_range is None and m32.tab is None
 
     q = t["q"]._replace(value_lo=t["q"].value_lo.clone())
     pix = torch.arange(W * H, dtype=torch.int32)
     acc, fb = alloc_frame(W, H)
     c = track_common(t["bands"], lp, pix, acc, fb, width=W, height=H,
-                     samples=1, preserve_cache=False, host_frame=False)
-    assert (c.accum_id, list(c.cam)) == (0, [0.0] * 12)
+                     samples=1, preserve_cache=False)
+    assert (c.frame.accum_id, c.frame.cam_org) == (
+        lp.accum_id.data_ptr(), lp.cam_org.data_ptr())
     p0 = track_q_params(q, t["loc"], tf2, t["fm"], c)
     assert p0.lut == tf2.values.data_ptr() and p0.use_fine == 1
     assert host_values(q.value_lo) is host_values(q.value_lo)
