@@ -177,7 +177,10 @@ script exits non-zero without printing a result):
           coverage >= 0.5, the maximum loop iterations per lane over the
           frame, K5b against its plain version at the accel's bin count
           (exact), a profiled launch, tf_edit_s (a gain edit to the next
-          frame's fb on the host)
+          frame's fb on the host); the K8 row's block, registers, spill
+          stores and blocks an SM, the host reads of a steady launch (run
+          under torch.cuda.set_sync_debug_mode("error"), so 0) and the
+          warp divergence factor of its iterations
   main brute  the brute-force sampler through the app on the check scene,
           each raygen, 2 launches (its launch counts)
   main accel w, main ae w  BASELINE configs[2] (bench.py:945): the app
@@ -203,7 +206,9 @@ script exits non-zero without printing a result):
           covered prefix and on 4096 lanes strided over the frame.  The
           bound of each K8 row comes from the events that the plain run
           of the brute rows' 128x128 lanes, or of the strided lanes
-          (scaled to the frame), counts (ops/woodcock.py `Work`).  These
+          (scaled to the frame), counts (ops/woodcock.py `Work`; with the
+          share of samples that the whole-shell test rejects); the brute
+          rows get the locator rows' extra keys at 128x128.  These
           plain runs come last: after their long loops the profiler
           reports no device event for several windows.  Then K9-p (the
           wedge sampler) x {ae, accel sphere, accel grid} at subdiv 3 x 8,
@@ -386,13 +391,15 @@ FLOPS = {"eval": 40, "locate": 60, "layer": 20, "cross": 60, "skip_cand": 50,
 #: 20, a division or square root 1): a free-path draw (the LCG, the log,
 #: two divisions, the compare), a DDA advance (grid: the closest crossing,
 #: the stepping axes, the next segment and bin; sphere: the same with the
-#: floored bin wrap), a sample (position and radius), its locate (asin,
-#: atan2, two bins), a candidate test by where it stops (the radial compare
-#: 2, then 7 per plane evaluated), and a hit (classification, acceptance
-#: draw, collision window) plus 2 per layer of its layer select
+#: floored bin wrap), a sample (position and radius), its whole-shell test
+#: (two compares; the locator and brute samplers), the locate of a sample
+#: that passes it (asin, atan2, two bins), a candidate test by where it
+#: stops (the radial compare 2, then 7 per plane evaluated), and a hit
+#: (classification, acceptance draw, collision window) plus 2 per layer of
+#: its layer select
 PARITY_OPS = {"draw": 30, "advance": {"ae": 0, "grid": 18, "sphere": 27},
-              "eval": 12, "locate": 55, "radial": 2, "plane": 7, "hit": 40,
-              "hit_layer": 2}
+              "eval": 12, "shell": 2, "locate": 55, "radial": 2, "plane": 7,
+              "hit": 40, "hit_layer": 2}
 #: K8's bytes per lane (accum read and written, fb written) and per read:
 #: a cell's radii 8 when its radial test runs, its planes 48 when a plane
 #: test runs, num_layers, one value and 4 per layer ceiling when it is hit,
@@ -1312,11 +1319,10 @@ def tracker_extras(name, tag, launch, perm, n_active):
     spill stores, the host reads of a steady `launch(None)` (run under
     torch.cuda.set_sync_debug_mode("error"): any read raises, so 0), and
     the divergence factor of `launch(cost)`'s step counts."""
-    import re
     import torch
     from icon_rt_tpu_torch.utils import cuda_build
     occ = cuda_build.occupancy(name)
-    m = re.search(r"(\d+) bytes spill stores", cuda_build.info(name)["log"])
+    spill = spill_stores(ptxas_lines(cuda_build.info(name)["log"]))
     launch(None)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1327,7 +1333,7 @@ def tracker_extras(name, tag, launch, perm, n_active):
     cost = torch.zeros(MAIN_W * MAIN_H, dtype=torch.int32,
                        device=perm.device)
     launch(cost)
-    out = dict(occ, spill_store_bytes=int(m.group(1)) if m else None,
+    out = dict(occ, spill_store_bytes=spill,
                host_reads=0, divergence=divergence(cost, perm, n_active))
     print(f"{tag} {name}: {out['registers']} registers, "
           f"{out['local_bytes']} local bytes, {out['spill_store_bytes']} B "
@@ -1891,7 +1897,8 @@ def parity_bound(raygen, sampler, lanes, w, scale,
                  lane_bytes=PARITY_BYTES["lane"]):
     """(ms, by) of one K8 sample of `lanes` lanes from the work `w`
     (`Work.counts()`) of a plain run on lanes/scale of them: the events
-    scaled to the frame, each by its own operations; the bytes of every
+    scaled to the frame, each by its own operations (the locate only for
+    the samples that the whole-shell test keeps); the bytes of every
     lane (`lane_bytes` each), and the reads of the counted lanes (fewer
     than the frame's, so the bound stays a least time)."""
     o, b = PARITY_OPS, PARITY_BYTES
@@ -1899,10 +1906,11 @@ def parity_bound(raygen, sampler, lanes, w, scale,
         return wedge_bound(raygen, lanes, w, scale)
     plane_tests = w["plane1"] + 2 * w["plane2"] + 3 * (w["plane3"]
                                                        + w["hit"])
-    per_sample = o["eval"] + (o["locate"] if sampler == "locator" else 0)
+    located = w["eval"] - w["shell"]        # the samples the shell kept
     ops = scale * (w["draw"] * o["draw"]
                    + w["advance"] * o["advance"][raygen]
-                   + w["eval"] * per_sample
+                   + w["eval"] * (o["eval"] + o["shell"])
+                   + (located * o["locate"] if sampler == "locator" else 0)
                    + (w["radial"] + w["plane1"] + w["plane2"] + w["plane3"]
                       + w["hit"]) * o["radial"]
                    + plane_tests * o["plane"]
@@ -1956,6 +1964,85 @@ def compare_parity(label, tabs, lp, raygen, sampler, pix, width, height,
     if sampler == "wedge" and not int((fk != 0).sum()):
         raise AssertionError(f"{label}: K9-p {raygen} wrote no pixel")
     return err, ps[-1], ks[-1], w
+
+
+def ptxas_lines(log, entry=None):
+    """The lines of a build's ptxas report (`-Xptxas=-v`) of each entry
+    function whose mangled name holds `entry` (every one where None): its
+    "Compiling entry function" line, then its stack, spill and register
+    lines."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = line if entry is None or entry in line else None
+            if cur is not None:
+                out.append(line.strip())
+        elif cur is not None and any(k in line for k in (
+                "registers", "spill", "stack")):
+            out.append(line.strip())
+    return out
+
+
+def spill_stores(lines):
+    """The spill store bytes in `ptxas_lines` of one entry function, or
+    None where the report has none."""
+    import re
+    for line in lines:
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            return int(m.group(1))
+    return None
+
+
+def parity_instance(raygen, sampler):
+    """The part of the mangled name of csrc/parity.cu's finalizing kernel
+    `parity_kernel<RAYGEN, SAMPLER, false>` that names its instance."""
+    return "parity_kernelILi%dELi%dELb0E" % (
+        {"ae": 0, "sphere": 1, "grid": 2}[raygen],
+        {"locator": 0, "brute": 1, "wedge": 2}[sampler])
+
+
+def parity_extras(tag, raygen, sampler, launch, dbg):
+    """The K8 row's keys beyond the contract: the kernel's registers,
+    local bytes and resident blocks an SM (ops/render.py
+    `parity_occupancy`), the ptxas spill stores of its instance, the host
+    reads of a steady `launch()` (run under
+    torch.cuda.set_sync_debug_mode("error"): any read raises, so 0), and
+    the warp divergence factor of the debug output's iterations `dbg`
+    (warps of 32 consecutive lanes)."""
+    import torch
+    from icon_rt_tpu_torch.ops import render
+    from icon_rt_tpu_torch.utils import cuda_build
+    n = dbg.shape[0]
+    occ = render.parity_occupancy(raygen, sampler)
+    spill = spill_stores(ptxas_lines(cuda_build.info("parity")["log"],
+                                     parity_instance(raygen, sampler)))
+    launch()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        launch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    out = dict(occ, spill_store_bytes=spill, host_reads=0,
+               divergence=divergence(dbg[:, 1], torch.arange(
+                   n, device=dbg.device), n))
+    print(f"{tag} K8 {raygen} x {sampler}: {out['registers']} registers, "
+          f"{out['local_bytes']} local bytes, {out['spill_store_bytes']} B "
+          f"spill stores, {out['blocks_per_sm']} blocks an SM; a steady "
+          f"launch under sync "
+          f"debug mode 'error': no device-to-host read; divergence factor "
+          f"{out['divergence']:.3f} (iterations a lane: mean "
+          f"{float(dbg[:, 1].double().mean()):.1f}, max "
+          f"{int(dbg[:, 1].max())})")
+    return out
+
+
+def shell_share(w):
+    """The share of a run's samples that K8's whole-shell test rejects
+    (`Work.counts()`)."""
+    return w["shell"] / max(w["eval"], 1)
 
 
 def check_parity_raw(label, tabs, lp, raygen, sampler, pix, width, height):
@@ -2014,6 +2101,7 @@ def check_parity(dev, errs):
     and K8's raw mode against its plain version (`check parity raw`).
     Returns the brute-force rows' timings and bounds (they run here only)."""
     import torch
+    from icon_rt_tpu_torch.ops import render
     t0 = time.perf_counter()
     tabs, stats, secs = parity_tables(PARITY_SUB, PARITY_LAYERS, dev)
     W = H = PARITY_W
@@ -2036,13 +2124,25 @@ def check_parity(dev, errs):
             if sampler == "brute":
                 # one sample of the whole frame, kernel and plain; the
                 # work counted on every lane
+                acc = torch.zeros(W * H, 4, device=dev)
+                fb = torch.zeros(W * H, dtype=torch.int32, device=dev)
+                launch = lambda: render.parity_track(
+                    tabs["cells"], tabs["tf"], lp, acc, fb, width=W,
+                    height=H, raygen=raygen, sampler=sampler,
+                    accel=tabs["accel"].get(raygen))
                 ms = time_cuda(lambda: parity_run(
                     tabs, lp, raygen, sampler, pix, W, H, 1, True), reps=3)
                 bnd = parity_bound(raygen, sampler, W * H, w, 1.0)
                 print(f"bound {name}: {bnd[0]:.4f} ms ({bnd[1]}), the work "
-                      f"of all {W * H} lanes")
+                      f"of all {W * H} lanes; the whole-shell test rejects "
+                      f"{shell_share(w):.6f} of {w['eval']} samples")
+                dbg = parity_run(tabs, lp, raygen, sampler, pix, W, H, 1,
+                                 True)[2]
+                extra = parity_extras("check parity", raygen, sampler,
+                                      launch, dbg)
                 brute[name] = dict(ms=ms, plain_ms=ps * 1e3, bnd=bnd,
-                                   lanes=W * H, scene=f"subdiv {PARITY_SUB}")
+                                   lanes=W * H, scene=f"subdiv {PARITY_SUB}",
+                                   shell_share=shell_share(w), **extra)
     print(f"check parity {time.perf_counter() - t0:.1f} s")
     return brute
 
@@ -2154,10 +2254,11 @@ def main_parity(dev, raygen, errs, mesh_path=None):
           f"{float(dbg[:, 1].double().mean()):.1f} (cap {render.MAX_ITERS})")
     if int(dbg[:, 1].max()) >= render.MAX_ITERS:
         raise AssertionError(f"{tag}: a lane reached the iteration cap")
-    ms = time_cuda(lambda: render.parity_track(
+    steady = lambda: render.parity_track(
         cells, tf, lp, acc, pl.frame["fb"], width=W, height=H,
-        raygen=raygen, sampler="locator", locator=loc, accel=accel),
-        reps=3)
+        raygen=raygen, sampler="locator", locator=loc, accel=accel)
+    ms = time_cuda(steady, reps=3)
+    extra = parity_extras(tag, raygen, "locator", steady, dbg)
 
     if accel is not None:
         mo_args = (accel.value_ranges, tf.values, tf.value_range)
@@ -2192,7 +2293,7 @@ def main_parity(dev, raygen, errs, mesh_path=None):
     gib = peak_memory(tag)
     row = dict(ms=ms, lanes=W * H, launch_ms=med,
                max_iters=int(dbg[:, 1].max()), tf_edit_s=edit_ms / 1e3,
-               peak_gib=gib)
+               peak_gib=gib, **extra)
     if accel is not None:
         row["k5b"] = k5b
     perm, _ = pixel_order(lp, s["stats"].spherical_bounds_lo[0],
@@ -2214,9 +2315,11 @@ def main_parity(dev, raygen, errs, mesh_path=None):
                            W * H / CHECK_LANES)
         print(f"bound {name}: {bnd[0]:.4f} ms ({bnd[1]}), the work of "
               f"{CHECK_LANES} strided lanes scaled by "
-              f"{W * H / CHECK_LANES:.2f}")
+              f"{W * H / CHECK_LANES:.2f}; the whole-shell test rejects "
+              f"{shell_share(w):.6f} of their {w['eval']} samples")
         row.update(bnd=bnd, plain_ms=ps * 1e3, plain_lanes=CHECK_LANES,
-                   ms_check_lanes=ks * 1e3, work=w)
+                   ms_check_lanes=ks * 1e3, work=w,
+                   shell_share=shell_share(w))
     return counts, row, check
 
 
@@ -4643,10 +4746,8 @@ def build_all():
     for name in CU_SOURCES:
         info = cuda_build.info(name)
         print(f"build {name}.cu nvcc+load {info['seconds']:.2f} s")
-        for line in info["log"].splitlines():
-            if any(k in line for k in ("Compiling entry", "registers",
-                                       "spill", "stack")):
-                print(f"build ptxas {name}: {line.strip()}")
+        for line in ptxas_lines(info["log"]):
+            print(f"build ptxas {name}: {line}")
     print(f"build nvcc total {time.perf_counter() - t0:.2f} s (in parallel)")
 
 

@@ -45,16 +45,36 @@
 // +1e-5; the seed is accum_id * W * H + x in wrapping u32; the sdda bin
 // wraps with a floored modulo.
 //
-// What bounds it on the H100: the dependent random reads of each locate
-// (bins row -> candidate planes -> heights and value) and the divergence of
-// lanes whose paths differ by orders of magnitude in steps (an AE ray that
-// crosses the box beside the globe takes ~1e4 steps at the app's unit
-// distance).  No shared-memory staging yet.
+// The frame's scalars -- the camera, the box bounds, the ambient terms, the
+// unit distance and accum_id (`TrackFrame`, shared with K1-K3), the TF's
+// value range and opacity scale, the cells' radial shell, the locator
+// window and the accel bounds -- are read on the card from the tensors that
+// hold them, so a launch reads nothing back from the card.
+//
+// What bounds it on the H100: the serial chain of each AE lane's free-path
+// draws (an AE ray that crosses the box beside the globe takes ~1e4 steps
+// at the app's unit distance), the dependent reads of each locate (bins row
+// -> candidate planes -> heights and value) and of the brute-force scan,
+// and the divergence of lanes whose paths differ by orders of magnitude in
+// steps.  Two exact short cuts keep the results bit for bit:
+//   * the whole-shell test: a point whose radius lies outside [min h_bot,
+//     max h_top] of the cells (or is NaN) fails every cell's radial test,
+//     so the locator and brute samplers return no cell without a square
+//     root, a locate or a read (it tests the squared radius against the
+//     exact bounds of the squares, `Shell`); the wedge sampler does not
+//     take it (a wedge's flat faces dip below its column's h_bot);
+//   * the brute-force scan reads the radii and first planes of kGroup cells
+//     together, then tests them in id order.
+// Drawing AE's free paths ahead of the samples that consume them gained
+// nothing on top of these (scripts/time_parity.py), so AE draws as the
+// plain loop does.
+#include <type_traits>
+
 #include "track_common.cuh"
 #include "uelems.cuh"
 
 struct ParityParams {
-  const float* planes;       // (N, 3, 4)
+  const float* planes;       // (N, 3, 4), rows read as float4
   const float* h_bot;        // (N,)
   const float* h_top;        // (N,)
   const float* heights;      // (N, 32)
@@ -67,17 +87,19 @@ struct ParityParams {
   float* accum;              // (n_lanes, 4) in/out
   int32_t* fb;               // (n_lanes,) in/out, u32 bits
   int32_t* dbg;              // (n_lanes, 2) final rng, iterations; or null
-  float cam[12];             // org | dir00 | du | dv
-  float blo[3], bhi[3];      // volume world bounds
-  float amb[3];
-  float amb_rad, ud;
-  float vr[2];               // TF value range
-  float opacity_scale;
-  float win[4];              // locator lat_lo, lat_hi, lon_lo, lon_hi
-  float acc_lo[3], acc_hi[3];  // accel bounds (world, or r/lat/lon)
+  TrackFrame frame;          // camera, ambient terms, unit distance, accum_id
+  const float* blo;          // (3,) volume world bounds
+  const float* bhi;          // (3,)
+  const float* vr;           // (2,) TF value range
+  const float* opacity_scale;  // ()
+  const float* shell;        // (4,) min h_bot, max h_top, their squares'
+                             // bounds (models/cells.py `shell_range`)
+  const float* win[4];       // locator lat_lo, lat_hi, lon_lo, lon_hi (())
+  const float* acc_lo;       // (3,) accel bounds (world, or r/lat/lon)
+  const float* acc_hi;       // (3,)
   int dims[3];
   int n_cells, n_lat, n_lon, k_cap, lut_size;
-  int n_lanes, width, height, accum_id, max_iters;
+  int n_lanes, width, height, max_iters;
   const float* wverts;         // (W, 6, 3) wedge vertices (WEDGE sampler)
   const float* wscalars;       // (W, 6)
   const int32_t* woffset;      // (N,) first wedge of each column
@@ -93,9 +115,35 @@ constexpr int kAE = 0, kSphere = 1, kGrid = 2;
 constexpr int kLocator = 0, kBrute = 1, kWedge = 2;
 constexpr int kSamplers = 3;
 constexpr float kFltMax = 3.40282347e38f;
+// cells whose radii and first planes the brute-force scan reads together
+constexpr int kGroup = 4;
+
+// The cells' radial shell [lo, hi] as bounds of the squared radius s,
+// shell[2] and shell[3] of models/cells.py `shell_range`: sqrtf is
+// correctly rounded, so monotone, and lo <= sqrtf(s) <= hi holds exactly
+// when s_lo <= s <= s_hi (NaN in neither).
+struct Shell {
+  float s_lo, s_hi;
+};
 
 __device__ __forceinline__ float min3(const float v[3]) {
   return fminf(fminf(v[0], v[1]), v[2]);
+}
+
+// The side-plane test of cell c (ICONGrid.h:197-208), its first plane's
+// row e0 already read; the other two are read as float4 while they pass.
+__device__ __forceinline__ bool inside_planes(const ParityParams& p, int c,
+                                              float4 e, float px, float py,
+                                              float pz) {
+  const float4* pl =
+      reinterpret_cast<const float4*>(p.planes) + static_cast<size_t>(c) * 3;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k > 0) e = __ldg(pl + k);
+    const float ev = e.x * px + e.y * py + e.z * pz - e.w;
+    if (!(ev <= 0.0f)) return false;
+  }
+  return true;
 }
 
 // Containment of a point with radius r in cell c (ICONGrid.h:181-208).
@@ -103,14 +151,11 @@ __device__ __forceinline__ bool inside_cell(const ParityParams& p, int c,
                                             float px, float py, float pz,
                                             float r) {
   if (!(r >= __ldg(p.h_bot + c) && r <= __ldg(p.h_top + c))) return false;
-  const float* pl = p.planes + static_cast<size_t>(c) * 12;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float ev = __ldg(pl + 4 * k) * px + __ldg(pl + 4 * k + 1) * py +
-                     __ldg(pl + 4 * k + 2) * pz - __ldg(pl + 4 * k + 3);
-    if (!(ev <= 0.0f)) return false;
-  }
-  return true;
+  return inside_planes(
+      p, c,
+      __ldg(reinterpret_cast<const float4*>(p.planes) +
+            static_cast<size_t>(c) * 3),
+      px, py, pz);
 }
 
 // The layer of cell c at radius r: the number of ceilings
@@ -157,13 +202,39 @@ __device__ __forceinline__ bool wedge_column(const ParityParams& p, int c,
   return false;
 }
 
-// Point sample: true and the value if a cell contains the point.
+// Point sample: true and the value if a cell contains the point.  The
+// locator and brute samplers first test the whole shell: a radius outside
+// it (or NaN) fails every cell's radial test below.
 template <int SAMPLER>
-__device__ bool sample(const ParityParams& p, float px, float py, float pz,
-                       float& value) {
-  const float r = sqrtf(px * px + py * py + pz * pz);
+__device__ bool sample(const ParityParams& p, const Shell& sh, float px,
+                       float py, float pz, float& value) {
+  const float s = px * px + py * py + pz * pz;
+  if (SAMPLER != kWedge && !(s >= sh.s_lo && s <= sh.s_hi)) return false;
+  const float r = sqrtf(s);
   if (SAMPLER == kBrute) {
-    for (int c = 0; c < p.n_cells; ++c) {
+    // kGroup cells at a time: their radii and first planes read together,
+    // then tested in id order, so the first containing cell wins
+    const float4* planes = reinterpret_cast<const float4*>(p.planes);
+    int c = 0;
+    for (; c + kGroup <= p.n_cells; c += kGroup) {
+      float hb[kGroup], ht[kGroup];
+      float4 e0[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        hb[j] = __ldg(p.h_bot + c + j);
+        ht[j] = __ldg(p.h_top + c + j);
+        e0[j] = __ldg(planes + static_cast<size_t>(c + j) * 3);
+      }
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (r >= hb[j] && r <= ht[j] &&
+            inside_planes(p, c + j, e0[j], px, py, pz)) {
+          value = layer_value(p, c + j, r);
+          return true;
+        }
+      }
+    }
+    for (; c < p.n_cells; ++c) {
       if (inside_cell(p, c, px, py, pz, r)) {
         value = layer_value(p, c, r);
         return true;
@@ -173,8 +244,10 @@ __device__ bool sample(const ParityParams& p, float px, float py, float pz,
   } else {
     const float lat = asinf(pz / r);
     const float lon = atan2f(py, px);
-    const int bl = track::grid_bin(lat, p.win[0], p.win[1], p.n_lat);
-    const int bo = track::grid_bin(lon, p.win[2], p.win[3], p.n_lon);
+    const int bl = track::grid_bin(lat, __ldg(p.win[0]), __ldg(p.win[1]),
+                                   p.n_lat);
+    const int bo = track::grid_bin(lon, __ldg(p.win[2]), __ldg(p.win[3]),
+                                   p.n_lon);
     const int bin = bl * p.n_lon + bo;
     const int32_t* row = p.bins + static_cast<size_t>(bin) * p.k_cap;
     // candidates ascend by id and -1 pads only the tail, so the first
@@ -198,15 +271,17 @@ __device__ bool sample(const ParityParams& p, float px, float py, float pz,
 __device__ __forceinline__ void classify(const ParityParams& p, float v,
                                          float rgba[4]) {
   const int S = p.lut_size;
-  const float vn = (v - p.vr[0]) / (p.vr[1] - p.vr[0]);
+  const float lo = __ldg(p.vr), hi = __ldg(p.vr + 1);
+  const float vn = (v - lo) / (hi - lo);
   const float vs = vn * static_cast<float>(S);
   const int idx = static_cast<int>(vs);
   const float frac = vs - static_cast<float>(idx);
   const float* a = p.lut + min(max(idx, 0), S - 1) * 4;
   const float* b = p.lut + min(max(idx + 1, 0), S - 1) * 4;
+  const float os = __ldg(p.opacity_scale);
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) {
-    const float sc = ch == 3 ? p.opacity_scale : 1.0f;
+    const float sc = ch == 3 ? os : 1.0f;
     rgba[ch] = __ldg(a + ch) * frac + __ldg(b + ch) * (1.0f - frac) * sc;
   }
 }
@@ -223,16 +298,16 @@ struct Ray {
 // woodcockFunc's window check (:304-323).  Returns seg_over; sets
 // `collided` and the sample's rgba.
 template <int SAMPLER>
-__device__ bool woodcock_step(const ParityParams& p, Ray& R, float& wt,
-                              float seg0, float seg1, float m,
-                              bool& collided, float rgba[4]) {
+__device__ bool woodcock_step(const ParityParams& p, const Shell& sh, Ray& R,
+                              float ud, float& wt, float seg0, float seg1,
+                              float m, bool& collided, float rgba[4]) {
   collided = false;
   if (!(m > 0.0f)) return true;          // a zero majorant draws nothing
   const float xi = track::lcg_next(R.rng);
-  wt = wt - logf(1.0f - xi) / (m / p.ud);
+  wt = wt - logf(1.0f - xi) / (m / ud);
   if (wt > seg1) return true;            // beyond the segment
   float value;
-  if (!sample<SAMPLER>(p, R.o[0] + R.d[0] * wt, R.o[1] + R.d[1] * wt,
+  if (!sample<SAMPLER>(p, sh, R.o[0] + R.d[0] * wt, R.o[1] + R.d[1] * wt,
                        R.o[2] + R.d[2] * wt, value))
     return false;
   classify(p, value, rgba);
@@ -251,8 +326,9 @@ __device__ __forceinline__ void record(Ray& R, const float rgba[4]) {
 
 // AE: the whole box segment [t0, t1] at majorant 1 (woodcock.py:31).
 template <int SAMPLER>
-__device__ void track_ae(const ParityParams& p, Ray& R, float t0, float t1) {
-  const float rate = 1.0f / p.ud;
+__device__ void track_ae(const ParityParams& p, const Shell& sh, Ray& R,
+                         float ud, float t0, float t1) {
+  const float rate = 1.0f / ud;
   float t = t0;
   while (R.it < p.max_iters) {
     ++R.it;
@@ -260,7 +336,7 @@ __device__ void track_ae(const ParityParams& p, Ray& R, float t0, float t1) {
     t = t - logf(1.0f - xi) / rate;
     if (t > t1) return;
     float value;
-    if (!sample<SAMPLER>(p, R.o[0] + R.d[0] * t, R.o[1] + R.d[1] * t,
+    if (!sample<SAMPLER>(p, sh, R.o[0] + R.d[0] * t, R.o[1] + R.d[1] * t,
                          R.o[2] + R.d[2] * t, value))
       continue;
     float rgba[4];
@@ -283,8 +359,8 @@ __device__ __forceinline__ int linear_index(const int cell[3],
 
 // GRID: the Cartesian 3-DDA (traverse.py:84-184).
 template <int SAMPLER>
-__device__ void track_grid(const ParityParams& p, Ray& R, float tmin,
-                           float tmax) {
+__device__ void track_grid(const ParityParams& p, const Shell& sh, Ray& R,
+                           float ud, float tmin, float tmax) {
   const float ray_tmin = tmin;
   const float tmax_s = tmax - ray_tmin;
   int cell[3], step[3], stop[3];
@@ -293,11 +369,12 @@ __device__ void track_grid(const ParityParams& p, Ray& R, float tmin,
   for (int k = 0; k < 3; ++k) {
     const float os = R.o[k] + ray_tmin * R.d[k];     // shifted so tmin = 0
     const float rcp = 1.0f / R.d[k];
-    const float lo = (p.acc_lo[k] - os) * rcp;
-    const float hi = (p.acc_hi[k] - os) * rcp;
+    const float alo = __ldg(p.acc_lo + k), ahi = __ldg(p.acc_hi + k);
+    const float lo = (alo - os) * rcp;
+    const float hi = (ahi - os) * rcp;
     const float tnear = fminf(lo, hi), tfar = fmaxf(lo, hi);
     const float dimf = static_cast<float>(p.dims[k]);
-    const float v01 = (os - p.acc_lo[k]) / (p.acc_hi[k] - p.acc_lo[k]);
+    const float v01 = (os - alo) / (ahi - alo);
     cell[k] = min(max(static_cast<int>(v01 * dimf), 0), p.dims[k] - 1);
     dist[k] = fmaxf(0.0f, (tfar - tnear) / dimf);
     const bool pos = R.d[k] > 0.0f;
@@ -315,7 +392,8 @@ __device__ void track_grid(const ParityParams& p, Ray& R, float tmin,
     bool collided;
     float rgba[4];
     const bool seg_over =
-        woodcock_step<SAMPLER>(p, R, wt, seg0, seg1, m, collided, rgba);
+        woodcock_step<SAMPLER>(p, sh, R, ud, wt, seg0, seg1, m, collided,
+                               rgba);
     if (collided) {
       record(R, rgba);
       return;
@@ -373,8 +451,8 @@ __device__ __forceinline__ void project_point(const ParityParams& p,
   sph[2] = atan2f(y, x);
 #pragma unroll
   for (int k = 0; k < 3; ++k)
-    idx[k] = static_cast<int>((sph[k] - p.acc_lo[k]) /
-                              (p.acc_hi[k] - p.acc_lo[k]) *
+    idx[k] = static_cast<int>((sph[k] - __ldg(p.acc_lo + k)) /
+                              (__ldg(p.acc_hi + k) - __ldg(p.acc_lo + k)) *
                               static_cast<float>(p.dims[k] - 1));
 }
 
@@ -419,10 +497,12 @@ __device__ __forceinline__ float shell_visit(const ParityParams& p,
 
 // SPHERE: the spherical-shell DDA (traverse.py:212-341).
 template <int SAMPLER>
-__device__ void track_sphere(const ParityParams& p, Ray& R, float tmin) {
+__device__ void track_sphere(const ParityParams& p, const Shell& sh, Ray& R,
+                             float ud, float tmin) {
   float ts1, ts4, ts2, ts3;
-  const bool hit1 = intersect_sphere(R, p.acc_hi[0], ts1, ts4);
-  const bool hit2 = intersect_sphere(R, p.acc_lo[0], ts2, ts3);
+  const float r_in = __ldg(p.acc_lo), r_out = __ldg(p.acc_hi);
+  const bool hit1 = intersect_sphere(R, r_out, ts1, ts4);
+  const bool hit2 = intersect_sphere(R, r_in, ts2, ts3);
   if ((!hit1 && !hit2) || ts4 < tmin) return;
   // segment table (ShellAccel.h:94-111)
   const bool outer_only = hit1 && !hit2;
@@ -431,7 +511,7 @@ __device__ void track_sphere(const ParityParams& p, Ray& R, float tmin) {
                          outer_only ? kFltMax : (front ? ts3 : kFltMax)};
   const float r_hi[2] = {outer_only ? ts4 : (front ? ts2 : ts4),
                          outer_only ? -kFltMax : (front ? ts4 : -kFltMax)};
-  const float eps = p.acc_lo[0] * 1e-6f;
+  const float eps = r_in * 1e-6f;
   int cell[3], step[3], stop[3];
   float tnext[3];
   if (!range_setup(p, R, r_lo[0], r_hi[0], eps, cell, step, stop, tnext))
@@ -446,7 +526,7 @@ __device__ void track_sphere(const ParityParams& p, Ray& R, float tmin) {
     bool collided;
     float rgba[4];
     const bool seg_over =
-        woodcock_step<SAMPLER>(p, R, wt, t, t1, m, collided, rgba);
+        woodcock_step<SAMPLER>(p, sh, R, ud, wt, t, t1, m, collided, rgba);
     if (collided) {
       record(R, rgba);
       return;
@@ -492,10 +572,12 @@ __global__ void __launch_bounds__(128) parity_kernel(const ParityParams p) {
   const int pixel = p.pix ? p.pix[lane] : lane;
   const int x = pixel % p.width;
   const int y = pixel / p.width;
+  const track::DeviceFrame F{p.frame};
+  const int aid = F.accum_id();
 
   // seed and jittered pinhole ray (render.py:85-109)
   Ray R;
-  R.rng = track::lcg_init(static_cast<uint32_t>(p.accum_id) *
+  R.rng = track::lcg_init(static_cast<uint32_t>(aid) *
                                   static_cast<uint32_t>(p.width * p.height) +
                               static_cast<uint32_t>(x),
                           static_cast<uint32_t>(y));
@@ -505,14 +587,13 @@ __global__ void __launch_bounds__(128) parity_kernel(const ParityParams p) {
   const float v = static_cast<float>(y) + 0.5f + jy;
   float d[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
-    d[k] = p.cam[3 + k] + u * p.cam[6 + k] + v * p.cam[9 + k];
+  for (int k = 0; k < 3; ++k) d[k] = F[3 + k] + u * F[6 + k] + v * F[9 + k];
   const float n = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const float dk = d[k] / n;
     R.d[k] = fabsf(dk) < 1e-5f ? 1e-5f : dk;
-    R.o[k] = p.cam[k];
+    R.o[k] = F[k];
   }
   R.color[0] = R.color[1] = R.color[2] = 0.0f;
   R.alpha = 0.0f;
@@ -522,44 +603,51 @@ __global__ void __launch_bounds__(128) parity_kernel(const ParityParams p) {
   float t0 = 0.0f, t1 = 1e10f;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float a = (p.blo[k] - R.o[k]) / R.d[k];
-    const float b = (p.bhi[k] - R.o[k]) / R.d[k];
+    const float a = (__ldg(p.blo + k) - R.o[k]) / R.d[k];
+    const float b = (__ldg(p.bhi + k) - R.o[k]) / R.d[k];
     t0 = fmaxf(t0, fminf(a, b));
     t1 = fminf(t1, fmaxf(a, b));
   }
   const bool wrote = t0 < t1;
   if (wrote) {
+    const Shell sh = SAMPLER == kWedge
+                         ? Shell{0.0f, 0.0f}
+                         : Shell{__ldg(p.shell + 2), __ldg(p.shell + 3)};
+    const float ud = F.ud();
     if (RAYGEN == kAE)
-      track_ae<SAMPLER>(p, R, t0, t1);
+      track_ae<SAMPLER>(p, sh, R, ud, t0, t1);
     else if (RAYGEN == kGrid)
-      track_grid<SAMPLER>(p, R, t0, t1);
+      track_grid<SAMPLER>(p, sh, R, ud, t0, t1);
     else
-      track_sphere<SAMPLER>(p, R, t0);
-    if (!RAW) {
-      // finalize (render.py:127-139): running average, sRGB, RGBA8
-      const float sc = 1.0f / (static_cast<float>(p.accum_id) + 1.0f);
-      float* acc = p.accum + static_cast<size_t>(lane) * 4;
-      float out[4];
+      track_sphere<SAMPLER>(p, sh, R, ud, t0);
+  }
+  // the colour the finalize blends (render.py:120-121)
+  float c[3];
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
-        out[k] = track::blend(sc, R.color[k] * p.amb[k] * p.amb_rad, acc[k]);
-      out[3] = track::blend(sc, R.alpha, acc[3]);
+  for (int k = 0; k < 3; ++k)
+    c[k] = R.color[k] * __ldg(p.frame.amb + k) * __ldg(p.frame.amb_rad);
+  if (!RAW && wrote) {
+    // finalize (render.py:127-139): running average, sRGB, RGBA8
+    const float sc = 1.0f / (static_cast<float>(aid) + 1.0f);
+    float* acc = p.accum + static_cast<size_t>(lane) * 4;
+    float out[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] = out[k];
-      p.fb[lane] = static_cast<int32_t>(
-          track::make_8bit(track::linear_to_srgb(out[0])) |
-          (track::make_8bit(track::linear_to_srgb(out[1])) << 8) |
-          (track::make_8bit(track::linear_to_srgb(out[2])) << 16) |
-          (track::make_8bit(out[3]) << 24));
-    }
+    for (int k = 0; k < 3; ++k) out[k] = track::blend(sc, c[k], acc[k]);
+    out[3] = track::blend(sc, R.alpha, acc[3]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = out[k];
+    p.fb[lane] = static_cast<int32_t>(
+        track::make_8bit(track::linear_to_srgb(out[0])) |
+        (track::make_8bit(track::linear_to_srgb(out[1])) << 8) |
+        (track::make_8bit(track::linear_to_srgb(out[2])) << 16) |
+        (track::make_8bit(out[3]) << 24));
   }
   if (RAW) {
     // the sample itself, the colour the finalize blends; 0 where the ray
     // misses the box
     float* ca = p.raw_ca + static_cast<size_t>(lane) * 4;
 #pragma unroll
-    for (int k = 0; k < 3; ++k)
-      ca[k] = wrote ? R.color[k] * p.amb[k] * p.amb_rad : 0.0f;
+    for (int k = 0; k < 3; ++k) ca[k] = wrote ? c[k] : 0.0f;
     ca[3] = wrote ? R.alpha : 0.0f;
     p.raw_wrote[lane] = wrote ? 1 : 0;
   }
@@ -579,30 +667,59 @@ void launch(const ParityParams& p, cudaStream_t stream) {
     parity_kernel<RAYGEN, SAMPLER, false><<<grid, kBlock, 0, stream>>>(p);
 }
 
+template <int RAYGEN, int SAMPLER>
+int occupancy(int* out) {
+  return track::occupancy(parity_kernel<RAYGEN, SAMPLER, false>, 128, out);
+}
+
+template <int V>
+using Mode = std::integral_constant<int, V>;
+
+// f(Mode<RAYGEN>(), Mode<SAMPLER>()) for raygen (0 AE, 1 SPHERE, 2 GRID)
+// and sampler (0 LOCATOR, 1 BRUTE, 2 WEDGE), or cudaErrorInvalidValue for
+// an unknown mode: the one switch over the instances
+template <class F>
+int dispatch(int raygen, int sampler, F&& f) {
+  if (sampler < 0 || sampler >= kSamplers)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int n = kSamplers;
+  switch (raygen * n + sampler) {
+    case kAE * n + kLocator: return f(Mode<kAE>(), Mode<kLocator>());
+    case kAE * n + kBrute: return f(Mode<kAE>(), Mode<kBrute>());
+    case kAE * n + kWedge: return f(Mode<kAE>(), Mode<kWedge>());
+    case kSphere * n + kLocator: return f(Mode<kSphere>(), Mode<kLocator>());
+    case kSphere * n + kBrute: return f(Mode<kSphere>(), Mode<kBrute>());
+    case kSphere * n + kWedge: return f(Mode<kSphere>(), Mode<kWedge>());
+    case kGrid * n + kLocator: return f(Mode<kGrid>(), Mode<kLocator>());
+    case kGrid * n + kBrute: return f(Mode<kGrid>(), Mode<kBrute>());
+    case kGrid * n + kWedge: return f(Mode<kGrid>(), Mode<kWedge>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Launches raygen (0 AE, 1 SPHERE, 2 GRID) with sampler (0 LOCATOR,
 // 1 BRUTE, 2 WEDGE) on `stream` (PyTorch's current stream); allocates
-// nothing and does not synchronise.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unknown mode.
+// nothing, reads nothing back and does not synchronise.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unknown mode.
 extern "C" int parity_launch(const ParityParams* params, int raygen,
                              int sampler, void* stream) {
   if (params->n_lanes <= 0) return 0;
-  if (sampler < 0 || sampler >= kSamplers)
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  constexpr int n = kSamplers;
-  switch (raygen * n + sampler) {
-    case kAE * n + kLocator: launch<kAE, kLocator>(*params, s); break;
-    case kAE * n + kBrute: launch<kAE, kBrute>(*params, s); break;
-    case kAE * n + kWedge: launch<kAE, kWedge>(*params, s); break;
-    case kSphere * n + kLocator: launch<kSphere, kLocator>(*params, s); break;
-    case kSphere * n + kBrute: launch<kSphere, kBrute>(*params, s); break;
-    case kSphere * n + kWedge: launch<kSphere, kWedge>(*params, s); break;
-    case kGrid * n + kLocator: launch<kGrid, kLocator>(*params, s); break;
-    case kGrid * n + kBrute: launch<kGrid, kBrute>(*params, s); break;
-    case kGrid * n + kWedge: launch<kGrid, kWedge>(*params, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int err = dispatch(raygen, sampler, [&](auto rg, auto sp) {
+    launch<decltype(rg)::value, decltype(sp)::value>(*params, s);
+    return 0;
+  });
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+// The finalizing kernel of raygen x sampler (as `parity_launch`): out[0]
+// its resident 128-thread blocks an SM, out[1] its registers, out[2] its
+// local (stack and spill) bytes a thread.  Returns the first CUDA error,
+// or cudaErrorInvalidValue for an unknown mode.
+extern "C" int parity_occupancy(int raygen, int sampler, int* out) {
+  return dispatch(raygen, sampler, [&](auto rg, auto sp) {
+    return occupancy<decltype(rg)::value, decltype(sp)::value>(out);
+  });
 }

@@ -20,7 +20,7 @@ from .data.animation import Animation
 from .data.device_scene import DeviceScene
 from .data.icfile import ICDataset
 from .models.accel import GridAccel, ShellAccel
-from .models.cells import Cells, CellStats, check_ceilings
+from .models.cells import Cells, CellStats, check_ceilings, shell_range
 from .models.finemap import FineMap
 from .models.locator import Locator
 from .models.qcells import QuantizedCells, check_q_ceilings
@@ -52,8 +52,12 @@ def dataset(ds) -> ICDataset:
 
 
 def cells(c, device="cpu") -> Cells:
+    """A JAX Cells, with the radial shell that the port's Cells keep
+    (models/cells.py `shell_range`) computed from its h_bot and h_top."""
     check_ceilings(np.asarray(c.height), np.asarray(c.num_layers))
-    return _convert(c, Cells, device)
+    return Cells(**{f: to_tensor(getattr(c, f), device)
+                    for f in Cells._fields if f != "shell"},
+                 shell=to_tensor(shell_range(c.h_bot, c.h_top), device))
 
 
 def locator(loc, device="cpu") -> Locator:

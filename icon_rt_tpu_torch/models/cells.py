@@ -33,6 +33,7 @@ class Cells(NamedTuple):
     planes: torch.Tensor        # (N, 3, 4) f32 precomputed side planes
     h_bot: torch.Tensor         # (N,) f32 = height[:, 0]
     h_top: torch.Tensor         # (N,) f32 = height[num_layers]
+    shell: torch.Tensor         # (4,) f32 radial shell (`shell_range`)
 
     @property
     def num_cells(self) -> int:
@@ -80,6 +81,50 @@ def check_ceilings(height, num_layers):
                          f"ascend ({cols.size} such columns)")
 
 
+def square_bounds(lo, hi):
+    """(s_lo, s_hi), f32: the least s with sqrt(s) >= lo and the greatest
+    with sqrt(s) <= hi, for the correctly rounded f32 square root (CUDA's
+    sqrtf, utils/vecmath.py `sqrt_rn`), which is monotone: so lo <=
+    sqrt(s) <= hi exactly when s_lo <= s <= s_hi, and a NaN s passes
+    neither.  Stepped from lo * lo and hi * hi an ULP at a time."""
+    f, inf = np.float32, np.float32(np.inf)
+    sq = lambda x: np.float32(np.sqrt(np.float64(x)))
+    lo, hi = f(lo), f(hi)
+    if not lo > 0:
+        s_lo = -inf                   # every radius is >= lo
+    else:
+        a = f(lo * lo)
+        while a > 0 and sq(np.nextafter(a, f(0))) >= lo:
+            a = np.nextafter(a, f(0))
+        while sq(a) < lo:
+            a = np.nextafter(a, inf)
+        s_lo = a
+    if not hi >= 0:
+        s_hi = -inf                   # no radius is <= hi
+    else:
+        b = f(hi * hi)
+        while sq(b) > hi:
+            b = np.nextafter(b, f(0))
+        while b < inf and sq(np.nextafter(b, inf)) <= hi:
+            b = np.nextafter(b, inf)
+        s_hi = b
+    return f(s_lo), f(s_hi)
+
+
+def shell_range(h_bot, h_top) -> np.ndarray:
+    """The cells' radial shell as (4,) f32: [min h_bot, max h_top] (NaNs
+    ignored; [+inf, -inf] without cells), then the same bounds on the
+    squared radius (`square_bounds`).  A point whose radius fails
+    `in_shell` fails every cell's radial test h_bot <= r <= h_top, so the
+    locator and brute samplers may reject it without a locate (K8's
+    pre-test, csrc/parity.cu `sample`, on the squared radius)."""
+    lo = np.fmin.reduce(np.asarray(h_bot, np.float32).reshape(-1),
+                        initial=np.float32(np.inf))
+    hi = np.fmax.reduce(np.asarray(h_top, np.float32).reshape(-1),
+                        initial=np.float32(-np.inf))
+    return np.array([lo, hi, *square_bounds(lo, hi)], np.float32)
+
+
 def build_cells(ds: ICDataset, device="cpu") -> Cells:
     n = ds.num_cells
     check_ceilings(ds.height, ds.num_layers)
@@ -99,7 +144,8 @@ def build_cells(ds: ICDataset, device="cpu") -> Cells:
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return Cells(lat=t(ds.lat), lon=t(ds.lon), num_layers=t(ds.num_layers),
                  height=t(ds.height), value=t(ds.value), planes=t(planes),
-                 h_bot=t(h_bot), h_top=t(h_top))
+                 h_bot=t(h_bot), h_top=t(h_top),
+                 shell=t(shell_range(h_bot, h_top)))
 
 
 def cell_bounds(ds: ICDataset) -> tuple[np.ndarray, np.ndarray]:
@@ -183,6 +229,14 @@ def _eval_planes(planes, pos):
 def _radius(pos):
     return sqrt_rn(pos[:, 0] * pos[:, 0] + pos[:, 1] * pos[:, 1]
                    + pos[:, 2] * pos[:, 2])
+
+
+def in_shell(cells: Cells, r):
+    """The whole-shell radial test of radii r (L,): shell[0] <= r <=
+    shell[1], False for NaN.  A point that fails it lies in no cell (K8
+    tests its squared radius against shell[2:], which rejects the same
+    points)."""
+    return (r >= cells.shell[0]) & (r <= cells.shell[1])
 
 
 def candidate_tests(cells: Cells, idx, pos, r):

@@ -33,6 +33,7 @@ tensors; anything else raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -101,6 +102,18 @@ def _finalize(wrote, color_alpha, accum, fb, accum_id):
     return accum_out, fb_out
 
 
+def check_sampler(sampler: str, locator: Locator | None,
+                  wedges: Wedges | None = None) -> None:
+    """Raise ValueError unless `sampler` is 'brute', 'locator' (with a
+    Locator) or 'wedge' (with a Locator and Wedges); reads nothing."""
+    if sampler == "locator" and locator is None:
+        raise ValueError("sampler='locator' needs a Locator")
+    if sampler == "wedge" and (locator is None or wedges is None):
+        raise ValueError("sampler='wedge' needs a Locator and Wedges")
+    if sampler not in ("brute", "locator", "wedge"):
+        raise ValueError(f"unknown sampler {sampler!r}")
+
+
 def make_sample_fn(cells: Cells, locator: Locator | None, sampler: str,
                    wedges: Wedges | None = None):
     """Volume point-sampler dispatch (ref: deviceCode.cu:58-125), batched
@@ -109,19 +122,13 @@ def make_sample_fn(cells: Cells, locator: Locator | None, sampler: str,
     user-geometry and triangle modes both resolve to this analytic column
     sampling), 'wedge' the Newton wedge inversion of the cuBQL mode
     (models/wedges.py `sample_wedges`)."""
+    check_sampler(sampler, locator, wedges)
     if sampler == "brute":
         return lambda pos: sample_brute_force(cells, pos)
+    dims = tuple(int(d) for d in locator.dims.tolist())
     if sampler == "locator":
-        if locator is None:
-            raise ValueError("sampler='locator' needs a Locator")
-        dims = tuple(int(d) for d in locator.dims.tolist())
         return lambda pos: sample_locator(cells, locator, pos, dims)
-    if sampler == "wedge":
-        if locator is None or wedges is None:
-            raise ValueError("sampler='wedge' needs a Locator and Wedges")
-        dims = tuple(int(d) for d in locator.dims.tolist())
-        return lambda pos: sample_wedges(cells, wedges, locator, pos, dims)
-    raise ValueError(f"unknown sampler {sampler!r}")
+    return lambda pos: sample_wedges(cells, wedges, locator, pos, dims)
 
 
 def generate_ray(lp: LaunchParams, x, y, rng):
@@ -243,47 +250,146 @@ _RAYGENS = {"ae": 0, "sphere": 1, "grid": 2}
 _SAMPLERS = {"locator": 0, "brute": 1, "wedge": 2}
 
 
-class _ParityParams(ctypes.Structure):
-    """Mirror of `ParityParams` in csrc/parity.cu (same field order)."""
-    _fields_ = [
-        ("planes", ctypes.c_void_p), ("h_bot", ctypes.c_void_p),
-        ("h_top", ctypes.c_void_p), ("heights", ctypes.c_void_p),
-        ("value", ctypes.c_void_p), ("num_layers", ctypes.c_void_p),
-        ("bins", ctypes.c_void_p), ("majors", ctypes.c_void_p),
-        ("lut", ctypes.c_void_p), ("pix", ctypes.c_void_p),
-        ("accum", ctypes.c_void_p), ("fb", ctypes.c_void_p),
-        ("dbg", ctypes.c_void_p), ("cam", ctypes.c_float * 12),
-        ("blo", ctypes.c_float * 3),
-        ("bhi", ctypes.c_float * 3), ("amb", ctypes.c_float * 3),
-        ("amb_rad", ctypes.c_float), ("ud", ctypes.c_float),
-        ("vr", ctypes.c_float * 2), ("opacity_scale", ctypes.c_float),
-        ("win", ctypes.c_float * 4), ("acc_lo", ctypes.c_float * 3),
-        ("acc_hi", ctypes.c_float * 3), ("dims", ctypes.c_int * 3),
-        ("n_cells", ctypes.c_int), ("n_lat", ctypes.c_int),
-        ("n_lon", ctypes.c_int), ("k_cap", ctypes.c_int),
-        ("lut_size", ctypes.c_int), ("n_lanes", ctypes.c_int),
-        ("width", ctypes.c_int), ("height", ctypes.c_int),
-        ("accum_id", ctypes.c_int), ("max_iters", ctypes.c_int),
-        ("wverts", ctypes.c_void_p), ("wscalars", ctypes.c_void_p),
-        ("woffset", ctypes.c_void_p), ("layer_pad", ctypes.c_int),
-        ("raw_wrote", ctypes.c_void_p), ("raw_ca", ctypes.c_void_p),
-    ]
+@functools.cache
+def _parity_params_type():
+    """The ctypes mirror of `ParityParams` in csrc/parity.cu (same field
+    order); built on first use, as it holds ops/fast.py's `_TrackFrame`
+    (fast.py imports this module)."""
+    from .fast import _TrackFrame
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fields = [(name, ptr) for name in (
+        "planes", "h_bot", "h_top", "heights", "value", "num_layers", "bins",
+        "majors", "lut", "pix", "accum", "fb", "dbg")]
+    fields += [("frame", _TrackFrame)]
+    fields += [(name, ptr) for name in ("blo", "bhi", "vr", "opacity_scale",
+                                        "shell")]
+    fields += [("win", ptr * 4), ("acc_lo", ptr), ("acc_hi", ptr),
+               ("dims", i32 * 3)]
+    fields += [(name, i32) for name in (
+        "n_cells", "n_lat", "n_lon", "k_cap", "lut_size", "n_lanes", "width",
+        "height", "max_iters")]
+    fields += [("wverts", ptr), ("wscalars", ptr), ("woffset", ptr),
+               ("layer_pad", i32), ("raw_wrote", ptr), ("raw_ca", ptr)]
+    return type("_ParityParams", (ctypes.Structure,), {"_fields_": fields})
 
 
 def build_parity():
     """Compile csrc/parity.cu for sm_90a (utils/cuda_build.py) and bind its
-    C entry point; returns the ctypes library."""
+    C entry points; returns the ctypes library."""
     lib = cuda_build.build("parity")
-    lib.parity_launch.argtypes = [ctypes.POINTER(_ParityParams),
+    lib.parity_launch.argtypes = [ctypes.POINTER(_parity_params_type()),
                                   ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p]
     lib.parity_launch.restype = ctypes.c_int
+    lib.parity_occupancy.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.parity_occupancy.restype = ctypes.c_int
     return lib
 
 
-def _host_floats(*tensors):
-    """One host read of small f32 tensors, flattened."""
-    return torch.cat([t.reshape(-1).to(F32) for t in tensors]).tolist()
+def parity_occupancy(raygen: str, sampler: str) -> dict:
+    """{'blocks_per_sm', 'registers', 'local_bytes'} of the finalizing
+    K8 kernel of raygen x sampler: its resident 128-thread blocks an SM,
+    registers and local (stack and spill) bytes a thread."""
+    lib = build_parity()
+    out = (ctypes.c_int * 3)()
+    cuda_build.check("parity_occupancy", lib.parity_occupancy(
+        _RAYGENS[raygen], _SAMPLERS[sampler], out))
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2]}
+
+
+def parity_params(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
+                  *, width: int, height: int, raygen: str, sampler: str,
+                  locator: Locator | None = None, accel=None, pix=None,
+                  debug=None, wedges: Wedges | None = None, out=None,
+                  locator_dims=(0, 0), accel_dims=(0, 0, 0)):
+    """K8's launch arguments (a `ParityParams` mirror), built without a
+    device read: every scalar of the frame, the TF, the cells' shell, the
+    locator window and the accel bounds as the device address of the
+    tensor that holds it, which the kernel reads on the card
+    (`locator_dims`, `accel_dims`: the host's ints of locator.dims and
+    accel.dims).  Raises unless each tensor is contiguous, of its dtype
+    and shape, on the lanes' device; on the card the planes' rows must
+    start on 16-byte boundaries (the kernel reads them as float4)."""
+    from .fast import _check as check, check_raw, check_rows, track_frame
+    _check = lambda *a: check(*a, fn="parity_track")
+    dev = (accum if out is None else out.ca).device
+    n = cells.num_cells
+    if pix is not None:
+        L = pix.shape[0]
+    else:
+        L = width * height if out is not None else accum.shape[0]
+        if L != width * height:
+            raise ValueError("parity_track: without pix, accum must hold "
+                             "width * height lanes")
+    _check("cells.planes", cells.planes, F32, (n, 3, 4), dev)
+    if dev.type == "cuda":
+        check_rows("parity_track", "cells.planes",
+                   cells.planes.view(n * 3, 4), 16)
+    for name in ("h_bot", "h_top"):
+        _check(f"cells.{name}", getattr(cells, name), F32, (n,), dev)
+    _check("cells.shell", cells.shell, F32, (4,), dev)
+    _check("cells.height", cells.height, F32, (n, 32), dev)
+    _check("cells.value", cells.value, F32, (n, 32), dev)
+    _check("cells.num_layers", cells.num_layers, torch.int32, (n,), dev)
+    _check("tf.values", tf.values, F32, (None, 4), dev)
+    _check("tf.value_range", tf.value_range, F32, (2,), dev)
+    _check("tf.opacity_scale", tf.opacity_scale, F32, (), dev)
+    for name in ("bounds_lo", "bounds_hi"):
+        _check(f"lp.{name}", getattr(lp, name), F32, (3,), dev)
+    check_raw("parity_track", out, accum, fb, L, 1, dev)
+    if out is None:
+        _check("accum", accum, F32, (L, 4), dev)
+        _check("fb", fb, torch.int32, (L,), dev)
+    if pix is not None:
+        _check("pix", pix, torch.int32, (L,), dev)
+    if debug is not None:
+        _check("debug", debug, torch.int32, (L, 2), dev)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    p = _parity_params_type()(
+        planes=ptr(cells.planes), h_bot=ptr(cells.h_bot),
+        h_top=ptr(cells.h_top), heights=ptr(cells.height),
+        value=ptr(cells.value), num_layers=ptr(cells.num_layers),
+        lut=ptr(tf.values), pix=ptr(pix),
+        accum=0 if out is not None else ptr(accum),
+        fb=0 if out is not None else ptr(fb), dbg=ptr(debug),
+        frame=track_frame(lp, dev, fn="parity_track"),
+        blo=ptr(lp.bounds_lo), bhi=ptr(lp.bounds_hi), vr=ptr(tf.value_range),
+        opacity_scale=ptr(tf.opacity_scale), shell=ptr(cells.shell),
+        raw_wrote=0 if out is None else ptr(out.wrote),
+        raw_ca=0 if out is None else ptr(out.ca),
+        n_cells=n, lut_size=tf.values.shape[0], n_lanes=L, width=width,
+        height=height, max_iters=MAX_ITERS)
+    if sampler in ("locator", "wedge"):
+        _check("locator.bins", locator.bins, torch.int32, (None, None), dev)
+        win = (locator.lat_lo, locator.lat_hi, locator.lon_lo,
+               locator.lon_hi)
+        for name, t in zip(("lat_lo", "lat_hi", "lon_lo", "lon_hi"), win):
+            _check(f"locator.{name}", t, F32, (), dev)
+        p.bins = ptr(locator.bins)
+        p.win = (ctypes.c_void_p * 4)(*(ptr(t) for t in win))
+        p.n_lat, p.n_lon = locator_dims
+        p.k_cap = locator.bins.shape[1]
+    if sampler == "wedge":
+        nw = wedges.verts.shape[0]
+        _check("wedges.verts", wedges.verts, F32, (nw, 6, 3), dev)
+        _check("wedges.scalars", wedges.scalars, F32, (nw, 6), dev)
+        _check("wedges.cell_offset", wedges.cell_offset, torch.int32, (n,),
+               dev)
+        p.wverts, p.wscalars = ptr(wedges.verts), ptr(wedges.scalars)
+        p.woffset, p.layer_pad = ptr(wedges.cell_offset), wedges.layer_pad
+    if accel is not None:
+        _check("accel.max_opacities", accel.max_opacities, F32, (None,),
+               dev)
+        lo, hi = ((accel.sph_lo, accel.sph_hi) if raygen == "sphere" else
+                  (accel.world_lo, accel.world_hi))
+        _check("accel bounds", lo, F32, (3,), dev)
+        _check("accel bounds", hi, F32, (3,), dev)
+        p.majors = ptr(accel.max_opacities)
+        p.acc_lo, p.acc_hi = ptr(lo), ptr(hi)
+        p.dims = (ctypes.c_int * 3)(*accel_dims)
+    return p
 
 
 def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
@@ -301,106 +407,44 @@ def parity_track(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
     alpha the finalize would blend, 0 without a box hit -- for K10's mean
     over a samples axis (parallel/sharded.py); out.t is not written.
     debug, optional (L, 2) int32, receives each lane's final LCG state
-    (u32 bits) and loop iterations.  CUDA tensors launch csrc/parity.cu;
-    CPU tensors run `_parity_torch`; anything else raises."""
-    from .fast import _check as check, check_raw   # fast.py imports this
-    _check = lambda *a: check(*a, fn="parity_track")
+    (u32 bits) and loop iterations.  CUDA tensors launch csrc/parity.cu,
+    reading nothing back once the locator's and the accel's dims have been
+    read (`host_values`, once per tensor); CPU tensors run
+    `_parity_torch`; anything else raises."""
+    from .fast import host_values
     if raygen not in _RAYGENS:
         raise ValueError(f"unknown raygen {raygen!r}")
-    make_sample_fn(cells, locator, sampler, wedges)   # validates it
+    check_sampler(sampler, locator, wedges)
     if raygen != "ae" and accel is None:
         raise ValueError(f"raygen {raygen!r} needs an accel")
     dev = (accum if out is None else out.ca).device
-    n = cells.num_cells
-    if pix is not None:
-        L = pix.shape[0]
-    else:
-        L = width * height if out is not None else accum.shape[0]
-        if L != width * height:
-            raise ValueError("parity_track: without pix, accum must hold "
-                             "width * height lanes")
-    _check("cells.planes", cells.planes, F32, (n, 3, 4), dev)
-    for name in ("h_bot", "h_top"):
-        _check(f"cells.{name}", getattr(cells, name), F32, (n,), dev)
-    _check("cells.height", cells.height, F32, (n, 32), dev)
-    _check("cells.value", cells.value, F32, (n, 32), dev)
-    _check("cells.num_layers", cells.num_layers, torch.int32, (n,), dev)
-    _check("tf.values", tf.values, F32, (None, 4), dev)
-    check_raw("parity_track", out, accum, fb, L, 1, dev)
-    if out is None:
-        _check("accum", accum, F32, (L, 4), dev)
-        _check("fb", fb, torch.int32, (L,), dev)
-    if pix is not None:
-        _check("pix", pix, torch.int32, (L,), dev)
-    if debug is not None:
-        _check("debug", debug, torch.int32, (L, 2), dev)
-    if sampler in ("locator", "wedge"):
-        _check("locator.bins", locator.bins, torch.int32, (None, None), dev)
-    if sampler == "wedge":
-        nw = wedges.verts.shape[0]
-        _check("wedges.verts", wedges.verts, F32, (nw, 6, 3), dev)
-        _check("wedges.scalars", wedges.scalars, F32, (nw, 6), dev)
-        _check("wedges.cell_offset", wedges.cell_offset, torch.int32, (n,),
-               dev)
-    if accel is not None:
-        _check("accel.max_opacities", accel.max_opacities, F32, (None,),
-               dev)
-    if dev.type == "cpu":
-        if pix is None:
-            pix = torch.arange(L, dtype=torch.int32)
-        _parity_torch(cells, tf, lp, pix, accum, fb, debug, width, height,
-                      raygen, sampler, locator, accel, wedges=wedges,
-                      out=out)
-        return
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"parity_track: unsupported device {dev}")
-    lib = build_parity()
-    h = _host_floats(lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv,
-                     lp.bounds_lo, lp.bounds_hi, lp.ambient_color,
-                     lp.ambient_radiance, lp.unit_distance, tf.value_range,
-                     tf.opacity_scale)
-    fa = lambda k, v: (ctypes.c_float * k)(*v)
-    p = _ParityParams(
-        planes=cells.planes.data_ptr(), h_bot=cells.h_bot.data_ptr(),
-        h_top=cells.h_top.data_ptr(), heights=cells.height.data_ptr(),
-        value=cells.value.data_ptr(),
-        num_layers=cells.num_layers.data_ptr(), lut=tf.values.data_ptr(),
-        pix=0 if pix is None else pix.data_ptr(),
-        accum=0 if out is not None else accum.data_ptr(),
-        fb=0 if out is not None else fb.data_ptr(),
-        dbg=0 if debug is None else debug.data_ptr(),
-        raw_wrote=0 if out is None else out.wrote.data_ptr(),
-        raw_ca=0 if out is None else out.ca.data_ptr(),
-        cam=fa(12, h[0:12]), blo=fa(3, h[12:15]), bhi=fa(3, h[15:18]),
-        amb=fa(3, h[18:21]), amb_rad=h[21], ud=h[22], vr=fa(2, h[23:25]),
-        opacity_scale=h[25], n_cells=n, lut_size=tf.values.shape[0],
-        n_lanes=L, width=width, height=height, accum_id=int(lp.accum_id),
-        max_iters=MAX_ITERS)
+    kw = dict(width=width, height=height, raygen=raygen, sampler=sampler,
+              locator=locator, accel=accel, pix=pix, debug=debug,
+              wedges=wedges, out=out)
+    if dev.type == "cpu":
+        parity_params(cells, tf, lp, accum, fb, **kw)     # checks only
+        L = pix.shape[0] if pix is not None else width * height
+        _parity_torch(cells, tf, lp,
+                      torch.arange(L, dtype=torch.int32) if pix is None
+                      else pix, accum, fb, debug, width, height, raygen,
+                      sampler, locator, accel, wedges=wedges, out=out)
+        return
     if sampler in ("locator", "wedge"):
-        n_lat, n_lon = (int(d) for d in locator.dims.tolist())
-        if locator.bins.shape[0] != n_lat * n_lon:
+        kw["locator_dims"] = tuple(host_values(locator.dims))
+        if locator.bins.shape[0] != kw["locator_dims"][0] \
+                * kw["locator_dims"][1]:
             raise ValueError("parity_track: locator.bins rows != n_lat * "
                              "n_lon")
-        p.bins = locator.bins.data_ptr()
-        p.win = fa(4, _host_floats(locator.lat_lo, locator.lat_hi,
-                                   locator.lon_lo, locator.lon_hi))
-        p.n_lat, p.n_lon, p.k_cap = n_lat, n_lon, locator.bins.shape[1]
-    if sampler == "wedge":
-        p.wverts, p.wscalars = wedges.verts.data_ptr(), \
-            wedges.scalars.data_ptr()
-        p.woffset, p.layer_pad = wedges.cell_offset.data_ptr(), \
-            wedges.layer_pad
     if accel is not None:
-        dims = [int(d) for d in accel.dims.tolist()]
+        dims = tuple(host_values(accel.dims))
         if accel.max_opacities.shape[0] != dims[0] * dims[1] * dims[2]:
             raise ValueError("parity_track: accel.max_opacities size != "
                              "prod(dims)")
-        lohi = _host_floats(*((accel.sph_lo, accel.sph_hi)
-                              if raygen == "sphere" else
-                              (accel.world_lo, accel.world_hi)))
-        p.majors = accel.max_opacities.data_ptr()
-        p.acc_lo, p.acc_hi = fa(3, lohi[0:3]), fa(3, lohi[3:6])
-        p.dims = (ctypes.c_int * 3)(*dims)
+        kw["accel_dims"] = dims
+    p = parity_params(cells, tf, lp, accum, fb, **kw)
+    lib = build_parity()
     cuda_build.check("parity_track", lib.parity_launch(
         ctypes.byref(p), _RAYGENS[raygen], _SAMPLERS[sampler],
         torch.cuda.current_stream(dev).cuda_stream))

@@ -18,7 +18,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..models.cells import _BRUTE_CHUNK, Cells, _radius, candidate_tests
+from ..models.cells import (_BRUTE_CHUNK, Cells, _radius, candidate_tests,
+                            in_shell)
 from ..models.locator import Locator, locator_rows
 from ..models.wedges import Wedges, wedge_candidates
 from ..utils.lcg import lcg_next
@@ -118,7 +119,7 @@ class Work:
 
     EVENTS = ("draw", "advance", "eval", "radial", "plane1", "plane2",
               "plane3", "hit", "hit_layers", "wcol", "wcol_layers",
-              "newton", "newton_iters")
+              "newton", "newton_iters", "shell")
 
     def __init__(self, cells: Cells, sampler: str,
                  locator: Locator | None = None,
@@ -145,11 +146,16 @@ class Work:
 
     def sample(self, pos, mask) -> None:
         """Count one sample at pos (L, 3) for the rows of `mask`: the
-        locate, and every candidate test up to the first containing cell."""
+        whole-shell test, then for the rows that pass it (every row with
+        the wedge sampler) the locate and every candidate test up to the
+        first containing cell."""
         self.add("eval", mask)
         if self.sampler == "wedge":
             self._wedge_scan(pos, mask)
             return
+        inner = in_shell(self.cells, _radius(pos))
+        self.add("shell", mask & ~inner)
+        mask = mask & inner
         if self.sampler == "locator":
             r, row = locator_rows(self.locator, pos, self.dims)
             k = self.locator.bins.shape[1]

@@ -53,95 +53,25 @@ import argparse
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
-import warnings
+
+import kernel_timing as kt
+from kernel_timing import events_ms, host_reads, profiled
 
 REPS = 5
 R2B9_SUB, R2B9_LAYERS, LOD_SUB, LOD = 11, 16, 8, 3
 W, H = 1920, 1080
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: a profiled window of a scene build holds both passes
 SCENE_CALL = ("scene_pass1_kernel", "scene_pass2_kernel")
+WHO = "time_scene_march"
+SLOTS = 8                         # the phase probe's counters a block slot
 
 
-def chip_smoke():
-    """This repository's chip_smoke.py as a module (its `profile_window`,
-    `CountingTier`, `main_path`), loaded from its file so that the tree
-    being measured keeps the first place on sys.path."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    path = list(sys.path)
-    spec.loader.exec_module(mod)
-    sys.path[:] = path
-    return mod
-
-
-def events_ms(call, reps=REPS):
-    """Mean ms of `reps` calls, CUDA events around them (one warm call
-    first)."""
-    import torch
-    call()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        call()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
-def profiled(cs, call, require, tag):
-    """{"profiled_wall_ms", "device_ms", "busy_ms", "idle_share",
-    "by_name"} of one `call` under chip_smoke.py's `profile_window`."""
-    wall, timeline = cs.profile_window(call, require, tag)
-    by_name = {}
-    for name, _, ms in timeline:
-        k = cs.short_name(name)
-        by_name[k] = by_name.get(k, 0.0) + ms
-    busy, end = 0.0, -float("inf")
-    for _, a, ms in sorted(timeline, key=lambda x: x[1]):
-        if a + ms > end:
-            busy += a + ms - max(a, end)
-            end = a + ms
-    return dict(profiled_wall_ms=wall,
-                device_ms=sum(ms for _, _, ms in timeline), busy_ms=busy,
-                idle_share=1.0 - busy / wall,
-                by_name={k: round(v, 4) for k, v in by_name.items()})
-
-
-def host_reads(call):
-    """(device syncs of one `call` under set_sync_debug_mode("warn"), the
-    call's host wall ms up to its return)."""
-    import torch
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as got:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            t0 = time.perf_counter()
-            call()
-            wall = (time.perf_counter() - t0) * 1e3
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    # the mode's own notice, once a process, that it is a prototype is not
-    # a read
-    return sum("synchroniz" in str(w.message)
-               and "prototype" not in str(w.message) for w in got), wall
-
-
-def ptxas(name):
+def ptxas(cs, name):
     from icon_rt_tpu_torch.utils import cuda_build
-    return [line.strip() for line in cuda_build.info(name)["log"].splitlines()
-            if any(k in line for k in ("Compiling entry", "registers",
-                                       "spill", "stack"))]
+    return cs.ptxas_lines(cuda_build.info(name)["log"])
 
 
 # ---------------------------------------------------------------------------
@@ -150,11 +80,11 @@ def ptxas(name):
 
 _PROBE_TAIL = r"""
 __device__ unsigned long long g_phase[64 * 8];
-extern "C" int march_phase_read(unsigned long long* out) {
+extern "C" int probe_read(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase,
                                                sizeof(g_phase)));
 }
-extern "C" int march_phase_zero() {
+extern "C" int probe_zero() {
   static unsigned long long z[64 * 8];
   return static_cast<int>(cudaMemcpyToSymbol(g_phase, z, sizeof(z)));
 }
@@ -216,44 +146,16 @@ def _instrument(src):
         + tail + _PROBE_TAIL.replace(decl, "", 1)
 
 
-def phase_probe(call):
+def phase_probe(cs, call):
     """K3's time by phase in one `call` of the march, through the
     instrumented copy: {phase: share of the lanes' cycles, "lane_cycles":
     the sum over lanes}.  The build's ptxas lines are printed."""
-    import ctypes
-    import torch
-    from icon_rt_tpu_torch.utils import cuda_build
-    src = open(os.path.join(cuda_build.CSRC, "march.cu")).read()
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=cuda_build.BUILD_DIR, prefix="phase_")
-    cu = os.path.join(tmp, "march_phase.cu")
-    with open(cu, "w") as f:
-        f.write(_instrument(src))
-    so = os.path.join(tmp, "libmarch_phase.so")
-    res = subprocess.run(
-        [cuda_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-         "-Xcompiler", "-fPIC", "-I", cuda_build.CSRC, "-o", so, cu],
-        capture_output=True, text=True)
-    if res.returncode != 0:
-        raise SystemExit(f"time_scene_march: the phase probe's nvcc "
-                         f"failed:\n{res.stderr[-3000:]}")
-    lib = ctypes.CDLL(so)
-    saved = cuda_build._BUILT.pop("march", None)
-    cuda_build._BUILT["march"] = {"lib": lib, "seconds": 0.0, "log": ""}
-    try:
-        call()                       # binds the entry points, warms up
-        torch.cuda.synchronize()
-        lib.march_phase_zero()
-        call()
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (64 * 8))()
-        lib.march_phase_read(buf)
-    finally:
-        cuda_build._BUILT.pop("march")
-        if saved is not None:
-            cuda_build._BUILT["march"] = saved
-    sums = [sum(buf[b * 8 + k] for b in range(64)) for k in range(8)]
+    lib, log = kt.probe_build(
+        "march", lambda f, src: _instrument(src) if f == "march.cu" else src,
+        WHO)
+    print("\n".join(f"{WHO} phase probe ptxas: {line}"
+                    for line in cs.ptxas_lines(log)), flush=True)
+    sums = kt.probe_sums("march", lib, call, SLOTS)
     lane = max(sums[4], 1)
     out = {name: round(sums[k] / lane, 4) for k, name in
            ((0, "locate"), (1, "exit"), (2, "integral"), (3, "gap"),
@@ -292,7 +194,7 @@ def scene_times(cs, dev, sub, lod, tag):
     del res
     out["ms"] = events_ms(call)
     out.update(profiled(cs, call, SCENE_CALL, tag))
-    out["ptxas"] = ptxas("scene")
+    out["ptxas"] = ptxas(cs, "scene")
     return out
 
 
@@ -347,7 +249,7 @@ def march_q_times(cs, q, loc, bands, tf, lp, perm, n_active, fm, phases,
             "march_q", n_active, lambda c: q.test12[c, 11],
             scale=n_active / n)
     if phases:
-        out["phases"] = phase_probe(launch)
+        out["phases"] = phase_probe(cs, launch)
     return out
 
 
@@ -361,12 +263,9 @@ def measure(root, phases):
     if not march.__file__.startswith(os.path.abspath(root) + os.sep):
         raise SystemExit(f"time_scene_march: imported {march.__file__}, not "
                          f"the package under {root}")
-    cs = chip_smoke()
+    cs = kt.chip_smoke()
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.splitlines()[0]
-    out = {"root": os.path.abspath(root), "card": card}
+    out = {"root": os.path.abspath(root), "card": kt.card()}
     bigscene.CACHE_DIR = tempfile.mkdtemp(prefix="time_scene_march_")
 
     # 1. K7-scene
@@ -435,31 +334,16 @@ def measure(root, phases):
     del q, loc, bands, tf, fm, lp, perm
     torch.cuda.empty_cache()
 
-    out["ptxas_march"] = ptxas("march")
+    out["ptxas_march"] = ptxas(cs, "march")
     print("time_scene_march " + json.dumps(out), flush=True)
 
 
 def turns(trees, phases):
-    """Each tree of `trees` in turns, forth and back (a, b, b, a for two),
-    each run in a process of its own; prints each run's line and a
-    summary."""
-    order = list(trees) + list(reversed(trees))
-    runs = []
-    for root in order:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--root", root]
-                             + (["--phases"] if phases else []),
-                             capture_output=True, text=True)
-        sys.stdout.write(res.stdout)
-        sys.stderr.write(res.stderr[-4000:])
-        if res.returncode != 0:
-            raise SystemExit(f"time_scene_march: {root} exited "
-                             f"{res.returncode}")
-        line = [x for x in res.stdout.splitlines()
-                if x.startswith("time_scene_march {")][-1]
-        runs.append(json.loads(line[len("time_scene_march "):]))
+    """Each tree of `trees` in turns, forth and back, each run in a
+    process of its own; prints each run's line and a summary."""
+    runs = kt.turns(__file__, WHO, trees, ["--phases"] if phases else [])
     for root in trees:
-        mine = [r for r in runs if r["root"] == os.path.abspath(root)]
+        mine = runs[root]
         pick = lambda f: [f(r) for r in mine]
         r2 = lambda f: pick(lambda r: round(f(r), 4))
         print(f"time_scene_march summary {root}: K7-scene R2B9 ms "
@@ -487,7 +371,7 @@ def turns(trees, phases):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=HERE,
+    ap.add_argument("--root", default=kt.HERE,
                     help="the tree whose package to time")
     ap.add_argument("--turns", nargs="+", metavar="TREE",
                     help="time two or more trees in turns, forth and back "

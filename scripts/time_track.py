@@ -60,39 +60,21 @@ each tree's runs after them.  Needs a CUDA card: without one it exits
 non-zero.
 """
 import argparse
-import hashlib
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import kernel_timing as kt
+
 W, H, SPL = 1920, 1080, 8
 R2B9_SUB, R2B9_LAYERS = 11, 16
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {"track_f32": "track_f32_kernel", "track_q": "track_q_kernel"}
-
-
-def load_file(name, path):
-    """A module of this repository loaded from its file, so that the tree
-    being measured keeps the first place on sys.path."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    keep = list(sys.path)
-    spec.loader.exec_module(mod)
-    sys.path[:] = keep
-    return mod
-
-
-def digest(*tensors):
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
+WHO = "time_track"
+SLOTS = 16                        # the phase probe's counters a block slot
 
 
 # ---------------------------------------------------------------------------
@@ -164,23 +146,11 @@ _PHASES = [
 #: 12 lanes, 13 steps
 
 
-def _body(src, head):
-    """(start, end) of the body of the function whose signature starts
-    with `head`, braces matched."""
-    i = src.index(head)
-    i = src.index("{", i)
-    depth = 0
-    for j in range(i, len(src)):
-        depth += {"{": 1, "}": -1}.get(src[j], 0)
-        if depth == 0:
-            return i, j
-    raise SystemExit("time_track: unbalanced braces")
-
-
 def instrument(common):
     """track_common.cuh with the probe's counters in track_lane; raises
     if a phase's statement is not found exactly once."""
-    a, b = _body(common, "__device__ __forceinline__ void track_lane(")
+    a, b = kt.function_body(
+        common, "__device__ __forceinline__ void track_lane(", WHO)
     lane = common[a + 1:b]
     for k, name, pat in _PHASES:
         ms = list(re.finditer(pat, lane, flags=re.S))
@@ -222,39 +192,23 @@ def instrument(common):
     return head + lane + common[b:]
 
 
-def probe_build(csrc, build_dir, name, phases):
+def probe_build(name, phases):
     """Build a copy of csrc/<name>.cu with the occupancy query appended
     (and with `phases` the instrumented track_common.cuh); returns (the
     ctypes library, its ptxas log)."""
-    import ctypes
-    from icon_rt_tpu_torch.utils import cuda_build
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=build_dir, prefix=f"probe_{name}_")
-    for f in os.listdir(csrc):
-        if f.endswith((".cuh", ".cu")):
-            src = open(os.path.join(csrc, f)).read()
-            if phases and f == "track_common.cuh":
-                src = instrument(src)
-            if phases and f == "tier_f32.cuh":
-                src += _LAYER_F32
-            if phases and f == "tier_q.cuh":
-                src += _LAYER_Q
-            if f == f"{name}.cu":
-                src += _QUERY % {"kernel": KERNELS[name]}
-                if phases:
-                    src += _PROBE_HOST
-            with open(os.path.join(tmp, f), "w") as out:
-                out.write(src)
-    so = os.path.join(tmp, f"lib{name}.so")
-    res = subprocess.run(
-        [cuda_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-         "-Xcompiler", "-fPIC", "-I", tmp, "-o", so,
-         os.path.join(tmp, f"{name}.cu")], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise SystemExit(f"time_track: the probe build of {name} failed:\n"
-                         f"{res.stderr[-3000:]}")
-    return ctypes.CDLL(so), res.stderr
+    def edit(f, src):
+        if phases and f == "track_common.cuh":
+            src = instrument(src)
+        if phases and f == "tier_f32.cuh":
+            src += _LAYER_F32
+        if phases and f == "tier_q.cuh":
+            src += _LAYER_Q
+        if f == f"{name}.cu":
+            src += _QUERY % {"kernel": KERNELS[name]}
+            if phases:
+                src += _PROBE_HOST
+        return src
+    return kt.probe_build(name, edit, WHO)
 
 
 def occupancy(lib):
@@ -270,24 +224,7 @@ def occupancy(lib):
 def run_probe(name, lib, call):
     """One `call` of the kernel through the instrumented library: the
     phases' shares of the lanes' cycles and the counts a lane."""
-    import ctypes
-    import torch
-    from icon_rt_tpu_torch.utils import cuda_build
-    saved = cuda_build._BUILT.pop(name, None)
-    cuda_build._BUILT[name] = {"lib": lib, "seconds": 0.0, "log": ""}
-    try:
-        call()                          # binds the entry point, warms up
-        torch.cuda.synchronize()
-        lib.probe_zero()
-        call()
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (64 * 16))()
-        lib.probe_read(buf)
-    finally:
-        cuda_build._BUILT.pop(name)
-        if saved is not None:
-            cuda_build._BUILT[name] = saved
-    s = [sum(buf[b * 16 + k] for b in range(64)) for k in range(16)]
+    s = kt.probe_sums(name, lib, call, SLOTS)
     lane = max(s[6], 1)
     out = {nm: round(s[k] / lane, 4) for k, nm, _ in _PHASES}
     out["other"] = round(1.0 - sum(s[k] for k in range(6)) / lane, 4)
@@ -305,7 +242,7 @@ def run_probe(name, lib, call):
 # One tree
 # ---------------------------------------------------------------------------
 
-def tracker_numbers(cs, ts, name, render, track, perm, n, tag, probes):
+def tracker_numbers(cs, name, render, track, perm, n, tag, probes):
     """The numbers of one tracker on one frame: render(k, acc, fb, cost)
     launches lanes perm[:n] with accum_id k (cost None or a (W*H,) int32
     tensor), track(pix, out) runs one raw sample."""
@@ -314,47 +251,35 @@ def tracker_numbers(cs, ts, name, render, track, perm, n, tag, probes):
     from icon_rt_tpu_torch.ops.render import alloc_frame
     dev = perm.device
     acc, fb = alloc_frame(W, H, device=dev)
-    out = {"ms": ts.events_ms(lambda: render(1, acc, fb, None), reps=20)}
+    out = {"ms": kt.events_ms(lambda: render(1, acc, fb, None), reps=20)}
     try:
-        out.update(ts.profiled(cs, lambda: (render(4, acc, fb, None),
+        out.update(kt.profiled(cs, lambda: (render(4, acc, fb, None),
                                             fb.cpu()),
                                (KERNELS[name],), tag))
         out["kernel_ms"] = out["by_name"].get(KERNELS[name])
     except AssertionError as e:   # the profiler lost the kernel's events
         print(f"time_track {tag}: {e}", flush=True)
         out.update(kernel_ms=None, idle_share=None)
-    out["host_reads"], out["wrapper_wall_ms"] = ts.host_reads(
+    out["host_reads"], out["wrapper_wall_ms"] = kt.host_reads(
         lambda: render(5, acc, fb, None))
     acc, fb = alloc_frame(W, H, device=dev)
     cost = torch.zeros(W * H, dtype=torch.int32, device=dev)
     render(0, acc, fb, cost)
-    out["hash"] = {"accum": digest(acc), "fb": digest(fb),
-                   "cost": digest(cost)}
+    out["hash"] = {"accum": kt.digest(acc), "fb": kt.digest(fb),
+                   "cost": kt.digest(cost)}
     out["divergence"] = cs.divergence(cost, perm, n)
     out["cost_mean"] = float(cost[perm[:n].long()].double().mean())
     out["cost_max"] = int(cost.max())
     raw = alloc_raw(n, dev)
     track(perm[:n].contiguous(), raw)
-    out["hash"]["raw"] = digest(raw.wrote, raw.ca, raw.t)
+    out["hash"]["raw"] = kt.digest(raw.wrote, raw.ca, raw.t)
     q_lib, q_log = probes[name]["query"]
     out["occupancy"] = occupancy(q_lib)
-    out["ptxas"] = [ln.strip() for ln in q_log.splitlines()
-                    if any(k in ln for k in ("registers", "spill", "stack"))]
+    out["ptxas"] = cs.ptxas_lines(q_log)
     if "phases" in probes[name]:      # run last (`measure`)
         probes.setdefault("later", []).append(
             (out, name, lambda: render(1, acc, fb, None)))
     return out
-
-
-def kernel_ms(cs, ts, call, kernel, tag):
-    """(events ms, profiled kernel ms) of `call`."""
-    ms = ts.events_ms(call, reps=10)
-    try:
-        prof = ts.profiled(cs, call, (kernel,), tag)
-    except AssertionError as e:   # the profiler lost the kernel's events
-        print(f"time_track {tag}: {e}", flush=True)
-        return {"ms": ms, "kernel_ms": None}
-    return {"ms": ms, "kernel_ms": prof["by_name"].get(kernel)}
 
 
 def measure(root, phases, others, cells):
@@ -365,27 +290,20 @@ def measure(root, phases, others, cells):
         raise SystemExit("time_track: no CUDA card")
     from icon_rt_tpu_torch.data import bigscene
     from icon_rt_tpu_torch.ops import fast, fastq, march
-    from icon_rt_tpu_torch.utils import cuda_build
     if not fast.__file__.startswith(os.path.abspath(root) + os.sep):
         raise SystemExit(f"time_track: imported {fast.__file__}, not the "
                          f"package under {root}")
-    cs = load_file("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    ts = load_file("time_scene_march",
-                   os.path.join(HERE, "scripts", "time_scene_march.py"))
+    cs = kt.chip_smoke()
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.splitlines()[0]
-    res = {"root": os.path.abspath(root), "card": card}
+    res = {"root": os.path.abspath(root), "card": kt.card()}
     bigscene.CACHE_DIR = tempfile.mkdtemp(prefix="time_track_")
 
     # the probe builds, started together
     jobs = [(k, kind) for k in KERNELS
             for kind in (("query", "phases") if phases else ("query",))]
     with ThreadPoolExecutor(len(jobs) + 2) as ex:
-        futs = {job: ex.submit(probe_build, cuda_build.CSRC,
-                               cuda_build.BUILD_DIR, job[0],
-                               job[1] == "phases") for job in jobs}
+        futs = {job: ex.submit(probe_build, job[0], job[1] == "phases")
+                for job in jobs}
         for b in (fast.build_track_f32, fastq.build_track_q):
             ex.submit(b).result()
         probes = {}
@@ -412,19 +330,19 @@ def measure(root, phases, others, cells):
         def raw(p, out, tabs=tabs, lps=lps):
             fast.track_f32(*tabs, lps[0], p, None, None, width=W, height=H,
                            rng_salt=3, out=out)
-        r = tracker_numbers(cs, ts, "track_f32", render, raw, perm, n,
+        r = tracker_numbers(cs, "track_f32", render, raw, perm, n,
                             "K1 r2b8", probes)
         r["steady_launch_ms"] = float(np.median(met["launch_ms"][1:]))
         res["k1_r2b8"] = r
         print("time_track k1_r2b8 " + json.dumps(r), flush=True)
         if others:
             acc, fb = (x[:n] for x in alloc_frame(W, H, device=dev))
-            res["k3f_r2b8"] = kernel_ms(cs, ts, lambda: march.march_f32(
+            res["k3f_r2b8"] = kt.kernel_times(cs, lambda: march.march_f32(
                 *tabs, lps[1], pix, acc, fb, width=W, height=H),
                 "march_f32_kernel", "K3-f32 r2b8")
             tabs_w = (s["get_packed_wedge"](), s["locator"],
                       s["get_bands_wedge"]())
-            res["k9w_r2b8"] = kernel_ms(cs, ts, lambda: fast.track_wedge(
+            res["k9w_r2b8"] = kt.kernel_times(cs, lambda: fast.track_wedge(
                 *tabs_w, lps[1], pix, acc, fb, width=W, height=H,
                 samples=SPL), "track_wedge_kernel", "K9-w r2b8")
             print("time_track others r2b8 " + json.dumps(
@@ -451,14 +369,14 @@ def measure(root, phases, others, cells):
         def raw_q(p, out, qtabs=qtabs, lps=lps, fm=fm):
             fastq.track_q(*qtabs, lps[0], p, None, None, width=W, height=H,
                           finemap=fm, rng_salt=3, out=out)
-        r = tracker_numbers(cs, ts, "track_q", render_q, raw_q, perm, n,
+        r = tracker_numbers(cs, "track_q", render_q, raw_q, perm, n,
                             "K2 r2b8", probes)
         r["steady_launch_ms"] = float(np.median(met["launch_ms"][1:]))
         res["k2_r2b8"] = r
         print("time_track k2_r2b8 " + json.dumps(r), flush=True)
         if others:
             acc, fb = (x[:n] for x in alloc_frame(W, H, device=dev))
-            res["k3q_r2b8"] = kernel_ms(cs, ts, lambda: march.march_q(
+            res["k3q_r2b8"] = kt.kernel_times(cs, lambda: march.march_q(
                 *qtabs, lps[1], pix, acc, fb, width=W, height=H),
                 "march_q_kernel", "K3-q r2b8")
             del acc, fb
@@ -488,14 +406,14 @@ def measure(root, phases, others, cells):
             render_9(k, acc, fb, None)
             fb.cpu()
             walls.append((time.perf_counter() - t0) * 1e3)
-        r = tracker_numbers(cs, ts, "track_q", render_9, raw_9, perm, n,
+        r = tracker_numbers(cs, "track_q", render_9, raw_9, perm, n,
                             "K2 r2b9", probes)
         r["steady_launch_ms"] = float(np.median(walls[1:]))
         r["n_active"] = n
         res["k2_r2b9"] = r
         print("time_track k2_r2b9 " + json.dumps(r), flush=True)
         if others:
-            res["k3q_r2b9"] = kernel_ms(cs, ts, lambda: march.march_q(
+            res["k3q_r2b9"] = kt.kernel_times(cs, lambda: march.march_q(
                 *qtabs, lps9[1], pix, acc[:n], fb[:n], width=W, height=H,
                 finemap=fm), "march_q_kernel", "K3-q r2b9")
             print("time_track others k3q_r2b9 "
@@ -510,27 +428,13 @@ def measure(root, phases, others, cells):
 
 
 def turns(trees, phases, others, cells):
-    """Each tree of `trees` in turns, forth and back (a, b, b, a for two),
-    each run in a process of its own; prints each run's line and a
-    summary."""
-    order = list(trees) + list(reversed(trees))
-    runs = []
-    for root in order:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--root", root]
-                             + (["--phases"] if phases else [])
-                             + (["--others"] if others else [])
-                             + ["--cells", cells],
-                             capture_output=True, text=True)
-        sys.stdout.write(res.stdout)
-        sys.stderr.write(res.stderr[-4000:])
-        if res.returncode != 0:
-            raise SystemExit(f"time_track: {root} exited {res.returncode}")
-        line = [x for x in res.stdout.splitlines()
-                if x.startswith("time_track {")][-1]
-        runs.append(json.loads(line[len("time_track "):]))
+    """Each tree of `trees` in turns, forth and back, each run in a
+    process of its own; prints each run's line and a summary."""
+    runs = kt.turns(__file__, "time_track", trees,
+                    (["--phases"] if phases else [])
+                    + (["--others"] if others else []) + ["--cells", cells])
     for root in trees:
-        mine = [r for r in runs if r["root"] == os.path.abspath(root)]
+        mine = runs[root]
         pick = lambda f: [f(r) for r in mine]
         rnd = lambda f: pick(lambda r: None if f(r) is None
                              else round(f(r), 4))
@@ -554,7 +458,7 @@ def turns(trees, phases, others, cells):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=HERE,
+    ap.add_argument("--root", default=kt.HERE,
                     help="the tree whose package to time")
     ap.add_argument("--turns", nargs="+", metavar="TREE",
                     help="time two or more trees in turns, forth and back "

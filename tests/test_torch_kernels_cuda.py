@@ -3,7 +3,8 @@ K2 also on ragged columns with rays grazing a ceiling), K5c-q,
 K7-fm (factors 1-3, cut edge tiles, a band locator), K3 (both tiers; K3-q
 after TF edits and its steady call without a host read), K5c-f32,
 K7-scene (lod 0 and the mip tier, whole and windows), K7-loc, K8 (and its raw
-mode) and K6b, K1's, K2's and K3's cost output, K1's and
+mode; rays grazing the cells' shell top; its steady launch without a
+host read) and K6b, K1's, K2's and K3's cost output, K1's and
 K2's raw mode (with rng_salt), the
 unstructured elements' K9-w, K9-p and K9-n, and the multi-device
 composites K10, against their plain PyTorch versions on the same CUDA
@@ -638,7 +639,7 @@ def pscene(dev):
                             device=dev)
     return dict(cells=build_cells(ds, device=dev),
                 loc=build_locator(ds, device=dev), tf=tf, accels=accels,
-                lp=lp)
+                lp=lp, cam=cam, lo=st.world_bounds_lo, hi=st.world_bounds_hi)
 
 
 @pytest.mark.parametrize("sampler", ["locator", "brute"])
@@ -1129,6 +1130,135 @@ def test_cuda_parity_raw_matches_plain(pscene, raygen, sampler):
     composite.finalize_mean(composite.mean_payload(rk.wrote, rk.ca), acc_r,
                             fb_r, lp.accum_id)
     assert torch.equal(acc_r, acc) and torch.equal(fb_r, fb)
+
+
+def _grazing_lp(pscene, size, dev):
+    """Launch params of a camera at 1.6 shell tops whose view centre is
+    tangent to the cells' shell top (shell[1]): its rays graze the sphere
+    of radius max h_top, where K8's whole-shell test decides."""
+    c = pscene["cells"]
+    r = float(c.shell[1])
+    d = 1.6 * r
+    tangent = np.array([r * r / d, r * np.sqrt(1.0 - (r / d) ** 2), 0.0],
+                       np.float32)
+    cam = Camera()
+    cam.set_orientation(np.array([d, 0.0, 0.0], np.float32), tangent,
+                        np.array([0, 0, 1], np.float32), 3.0)
+    return make_launch_params(cam.basis(size, size), pscene["lo"],
+                              pscene["hi"], unit_distance=1e3, device=dev)
+
+
+@pytest.mark.parametrize("sampler", ["locator", "brute"])
+@pytest.mark.parametrize("raygen", ["ae", "sphere", "grid"])
+def test_cuda_parity_grazing_shell_matches_plain(pscene, raygen, sampler):
+    """K8 with rays that graze the cells' shell top, where its whole-shell
+    test decides, at 96 x 96 lanes: every lane's final LCG state and
+    iterations, accum and fb bit-equal to the plain version's; then raw
+    mode's wrote, colour and debug output bit-equal too."""
+    from icon_rt_tpu_torch.ops import render
+    s = pscene
+    dev = s["lp"].accum_id.device
+    n = 96
+    lp = _grazing_lp(s, n, dev)
+    accel = s["accels"].get(raygen)
+    kw = dict(width=n, height=n, raygen=raygen, sampler=sampler,
+              locator=s["loc"], accel=accel)
+    pix = torch.arange(n * n, dtype=torch.int32, device=dev)
+    outs = []
+    for kernel in (True, False):
+        acc, fb = alloc_frame(n, n, device=dev)
+        dbg = torch.zeros(n * n, 2, dtype=torch.int32, device=dev)
+        if kernel:
+            render.parity_track(s["cells"], s["tf"], lp, acc, fb, debug=dbg,
+                                **kw)
+        else:
+            render._parity_torch(s["cells"], s["tf"], lp, pix, acc, fb, dbg,
+                                 n, n, raygen, sampler, s["loc"], accel)
+        raw = fast.alloc_raw(n * n, dev)
+        rdbg = torch.zeros_like(dbg)
+        lp1 = lp._replace(accum_id=torch.tensor(1, dtype=torch.int32,
+                                                device=dev))
+        if kernel:
+            render.parity_track(s["cells"], s["tf"], lp1, None, None,
+                                debug=rdbg, out=raw, **kw)
+        else:
+            render._parity_torch(s["cells"], s["tf"], lp1, pix, None, None,
+                                 rdbg, n, n, raygen, sampler, s["loc"],
+                                 accel, out=raw)
+        torch.cuda.synchronize()
+        outs.append((acc, fb, dbg, raw.wrote, raw.ca, rdbg))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    acc, fb, dbg = outs[0][:3]
+    assert int((fb != 0).sum()) > 0 and int(dbg[:, 1].max()) > 0
+
+
+def test_cuda_parity_unknown_mode_is_refused(dev):
+    """parity_launch and parity_occupancy go through one dispatch over the
+    raygen x sampler instances: a mode outside it returns
+    cudaErrorInvalidValue (1) and launches nothing, and every known mode
+    answers the occupancy query."""
+    import ctypes
+    from icon_rt_tpu_torch.ops import render
+    lib = render.build_parity()
+    out = (ctypes.c_int * 3)()
+    params = render._parity_params_type()()
+    params.n_lanes = 1
+    for rg, sp in ((0, 3), (3, 0), (-1, 0), (0, -1), (2, 3)):
+        assert lib.parity_occupancy(rg, sp, out) == 1
+        assert lib.parity_launch(ctypes.byref(params), rg, sp, None) == 1
+    torch.cuda.synchronize()
+    for rg in range(3):
+        for sp in range(3):
+            assert lib.parity_occupancy(rg, sp, out) == 0
+            assert out[0] > 0 and out[1] > 0
+
+
+@pytest.mark.parametrize("raygen,sampler", [
+    ("ae", "locator"), ("sphere", "locator"), ("grid", "locator"),
+    ("ae", "brute"), ("ae", "wedge")])
+def test_cuda_parity_steady_call_reads_nothing_back(pscene, raygen,
+                                                     sampler):
+    """A steady K8 launch (the tables of the launch before it, a new
+    accum_id) does no device-to-host read: the camera, the box, the TF's
+    range and scale, the cells' shell, the locator window and the accel
+    bounds are read on the card; a camera move and the new accum_id reach
+    the kernel (its frames equal the plain version's bit for bit and the
+    move changes them)."""
+    from icon_rt_tpu_torch.models.wedges import build_wedges
+    from icon_rt_tpu_torch.ops import render
+    s = pscene
+    dev = s["lp"].accum_id.device
+    w = (build_wedges(synthetic.icosphere(3, 8), device=dev)
+         if sampler == "wedge" else None)
+    accel = s["accels"].get(raygen)
+    n = 16 if sampler == "wedge" else 64
+    lps = [make_launch_params(s["cam"].basis(n, n), s["lo"], s["hi"],
+                              unit_distance=1e3, accum_id=k, device=dev)
+           for k in range(3)]
+    lps.append(lps[2]._replace(cam_org=lps[2].cam_org * 1.01))
+    kw = dict(width=n, height=n, raygen=raygen, sampler=sampler,
+              locator=s["loc"], accel=accel, wedges=w)
+    acc, fb = alloc_frame(n, n, device=dev)
+    render.parity_track(s["cells"], s["tf"], lps[0], acc, fb, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        render.parity_track(s["cells"], s["tf"], lps[1], acc, fb, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pix = torch.arange(n * n, dtype=torch.int32, device=dev)
+    got = []
+    for lp in lps[2:]:
+        ak, fk = alloc_frame(n, n, device=dev)
+        ap, fp = alloc_frame(n, n, device=dev)
+        render.parity_track(s["cells"], s["tf"], lp, ak, fk, **kw)
+        render._parity_torch(s["cells"], s["tf"], lp, pix, ap, fp, None, n,
+                             n, raygen, sampler, s["loc"], accel, wedges=w)
+        torch.cuda.synchronize()
+        assert torch.equal(ak, ap) and torch.equal(fk, fp)
+        got.append(fk)
+    assert not torch.equal(got[0], got[1])
 
 
 @pytest.mark.parametrize("tier", ["f32", "q"])

@@ -368,11 +368,18 @@ def test_torch_sdda_degenerate_planes_pin_rng(sc):
 
 
 def _scalar_scan(tc, cand, p, r):
-    """The kernel's first-match scan over one point's candidates in plain
-    Python (csrc/parity.cu `sample`, `inside_cell`): the radial compare,
+    """The kernel's sample of one point in plain Python (csrc/parity.cu
+    `sample`, `inside_cell`): the whole-shell test on the squared radius,
+    then the first-match scan over its candidates -- the radial compare,
     then the planes in order, each test stopping at its first failure.
-    Returns the counts of (radial, plane1, plane2, plane3, hit) stops."""
-    out = [0] * 5
+    Returns the counts of (radial, plane1, plane2, plane3, hit, shell)
+    stops."""
+    out = [0] * 6
+    s_lo, s_hi = tc.shell.numpy()[2:]
+    s = p[0] * p[0] + p[1] * p[1] + p[2] * p[2]         # f32, in order
+    if not (s >= s_lo and s <= s_hi):
+        out[5] += 1
+        return out
     hb, ht = tc.h_bot.numpy(), tc.h_top.numpy()
     planes = tc.planes.numpy()
     for c in cand:
@@ -396,9 +403,10 @@ def _scalar_scan(tc, cand, p, r):
 @pytest.mark.parametrize("sampler", ["brute", "locator"])
 def test_torch_work_counts_candidate_tests(sc, sampler):
     """ops/woodcock.py `Work`, the event counts behind K8's bound: on 2000
-    seeded points (half of them not counted), the candidate tests by where
-    each stops, the hits and their layers equal a scalar replay of the
-    kernel's scan; every count exact."""
+    seeded points (half of them not counted, some outside the cells'
+    shell), the samples the whole-shell test rejects, the candidate tests
+    by where each stops, the hits and their layers equal a scalar replay
+    of the kernel's sample; every count exact."""
     from icon_rt_tpu_torch.models.cells import _radius
     from icon_rt_tpu_torch.models.locator import locator_rows
     from icon_rt_tpu_torch.ops.woodcock import Work
@@ -414,11 +422,12 @@ def test_torch_work_counts_candidate_tests(sc, sampler):
     else:
         cands = np.broadcast_to(np.arange(tc.num_cells), (pos.shape[0],
                                                           tc.num_cells))
-    want = np.zeros(5, np.int64)
+    want = np.zeros(6, np.int64)
     for i in np.nonzero(mask.numpy())[0]:
         want += _scalar_scan(tc, cands[i], pos[i].numpy(), r[i])
-    names = ("radial", "plane1", "plane2", "plane3", "hit")
+    names = ("radial", "plane1", "plane2", "plane3", "hit", "shell")
     assert [got[k] for k in names] == want.tolist()
+    assert 0 < got["shell"] < got["eval"]
     hit, _ = sample_brute_force(tc, pos)
     assert got["eval"] == int(mask.sum())
     assert got["hit"] == int((hit & mask).sum()) > 0
@@ -429,9 +438,9 @@ def test_torch_work_counts_candidate_tests(sc, sampler):
 @pytest.mark.parametrize("raygen", ["ae", "sphere", "grid"])
 def test_torch_work_counts_tracking(sc, raygen):
     """`Work` through K8's plain version (one sample, 16x16): both samplers
-    count the same draws, advances, samples and hits (they walk one RNG
-    stream); every AE iteration draws once, and an accel iteration draws,
-    advances or both."""
+    count the same draws, advances, samples, samples outside the shell and
+    hits (they walk one RNG stream); every AE iteration draws once, and an
+    accel iteration draws, advances or both."""
     from icon_rt_tpu_torch.ops.woodcock import Work
     tlp = interop.launch_params(sc["lp"])
     pix = torch.arange(W * H, dtype=torch.int32)
@@ -445,7 +454,8 @@ def test_torch_work_counts_tracking(sc, raygen):
                              sc["t_acc"].get(raygen), work)
         counts[sampler] = work.counts()
         steps = int(dbg[:, 1].sum())
-    same = ("draw", "advance", "eval", "hit", "hit_layers", "hit_cells")
+    same = ("draw", "advance", "eval", "shell", "hit", "hit_layers",
+            "hit_cells")
     assert all(counts["brute"][k] == counts["locator"][k] for k in same)
     c = counts["locator"]
     assert c["eval"] <= c["draw"] and c["hit"] > 0

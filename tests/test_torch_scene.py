@@ -33,14 +33,19 @@ def scenes(request):
 
 def test_torch_icosphere_and_cells_equal(scenes):
     """Exact: the same numpy host code gives the same dataset, cells and
-    stats."""
+    stats; the port's cells also keep their radial shell, [min h_bot,
+    max h_top] of the JAX package's cells."""
     jds, tds = scenes
     for f in ("lat", "lon", "num_layers", "height", "value"):
         np.testing.assert_array_equal(getattr(tds, f), getattr(jds, f))
     jc, tc = jbuild_cells(jds), build_cells(interop.dataset(jds))
-    for f in tc._fields:
+    assert set(tc._fields) == set(jc._fields) | {"shell"}
+    for f in jc._fields:
         np.testing.assert_array_equal(getattr(tc, f).numpy(),
                                       np.asarray(getattr(jc, f)), err_msg=f)
+    np.testing.assert_array_equal(
+        tc.shell.numpy()[:2], [np.asarray(jc.h_bot).min(),
+                               np.asarray(jc.h_top).max()])
     js, ts = jstats(jds), compute_stats(tds)
     for f in ts._fields:
         np.testing.assert_array_equal(getattr(ts, f), getattr(js, f))
