@@ -65,7 +65,9 @@ script exits non-zero without printing a result):
           and a curve edit, each timed to the next fb on the host; a
           profiled launch; K9-w against its plain version on the first 4096
           covered lanes and on 4096 lanes strided over the covered prefix
-          (whose counted work gives the bound)
+          (whose counted work gives the bound); the K9-w row's registers,
+          local bytes, spill stores, blocks an SM, host reads and
+          divergence, as the K1 row's
   main q  the app's --quantized path (fine map on, its cache emptied) at
           the same scale and camera: the counters of K2, K5c-q, K7-loc,
           K7-fm, K5b and K6 are zeroed before and read after, the image
@@ -189,7 +191,11 @@ script exits non-zero without printing a result):
           closeup camera, 4 and 2 launches of samples=1, after every
           earlier table is freed: build seconds of cells, locator, wedges
           and the shell accel, layer_pad, ms per launch (fb on the host),
-          Mray/s, coverage, peak memory, K9-p's launch count
+          Mray/s, coverage, peak memory, K9-p's launch count, the wedge
+          shell (`Wedges.shell`), and the K9-p row's registers, spill
+          stores, blocks an SM, host reads and divergence, as the K8
+          rows'; the share of samples that its wedge shell test rejects
+          comes with its bound in `check parity`
   main grid w  the same with -mode 2 on --raygen accel --accel-mode
           grid, 4 launches of samples=1
   check parity  K8's six raygen x sampler combinations {ae, accel sphere,
@@ -215,8 +221,8 @@ script exits non-zero without printing a result):
           64x64, 2 samples, on 256 (ae) or 1024 lanes strided over the
           frame, under the same contract; then main accel w's, main ae
           w's and main grid w's K9-p against the plain version on 1024,
-          256 and 1024 lanes strided over the frame, whose counted work,
-          scaled, gives their bounds
+          256 and 1024 seeded lanes spread over the frame, whose counted
+          work, scaled, gives their bounds
   main anim r2b9q 4k  BASELINE configs[4] at full size, after every
           earlier table is freed: build_q_scene(11, 16) (83,886,080
           columns, fine map on), the closeup camera at 3840x2160, two
@@ -337,6 +343,9 @@ PARITY_SAMPLERS = ("locator", "brute")
 #: accel at the same scene)
 WEDGE_CHECK_LANES = {"ae": 256, "sphere": 1024, "grid": 1024}
 W7_SUB, W7_LAYERS, W7_W = 7, 16, 1024
+#: seeded columns of models/wedges.py `shell_probes` on which `main ... w`
+#: holds the wedge shell against the search run without it
+WEDGE_SHELL_COLUMNS = 256
 W7_LIMIT = {"sphere": 4, "ae": 2, "grid": 4}
 UELEMS_POINTS = 65536        # K9-n's check points per element shape
 #: the JAX loops each K8 raygen replaces (the samplers' too: models/
@@ -3661,13 +3670,17 @@ def lod_rows(t9l, t_o, errs, counts):
 def wedge_bound(raygen, lanes, w, scale):
     """(ms, by) of one K9-p sample of `lanes` lanes from the work `w`
     (`Work.counts()`, wedge sampler) of a plain run on lanes/scale of them:
-    the events scaled to the frame, the reads of the counted lanes (each
-    visited column's heights, layer count and first wedge, each inverted
-    wedge's 18 vertex floats and 6 scalars, the locator entries)."""
+    the events scaled to the frame (the wedge shell test charged to every
+    sample, the locate only to those that pass it), the reads of the
+    counted lanes (each visited column's heights, layer count and first
+    wedge, each inverted wedge's 18 vertex floats and 6 scalars, the
+    locator entries)."""
     o, b, nw = PARITY_OPS, PARITY_BYTES, NEWTON_OPS
+    located = w["eval"] - w["shell"]        # the samples the shell kept
     ops = scale * (w["draw"] * o["draw"]
                    + w["advance"] * o["advance"][raygen]
-                   + w["eval"] * (o["eval"] + o["locate"])
+                   + w["eval"] * (o["eval"] + o["shell"])
+                   + located * o["locate"]
                    + w["wcol_layers"] * nw["col_layer"]
                    + w["newton"] * nw["newton"]
                    + w["newton_iters"] * nw["iter"] + w["hit"] * o["hit"])
@@ -3904,9 +3917,11 @@ def main_wedge(dev, errs):
     pix = perm[:n].contiguous()
     accf = torch.zeros(n, 4, device=dev)
     fbf = torch.zeros(n, dtype=torch.int32, device=dev)
-    ms = time_cuda(lambda: fast.track_wedge(
+    launch_w = lambda cost: fast.track_wedge(
         packed, loc, bands, lp, pix, accf, fbf, width=MAIN_W, height=MAIN_H,
-        samples=MAIN_SPL), reps=3)
+        samples=MAIN_SPL, cost=cost)
+    ms = time_cuda(lambda: launch_w(None), reps=3)
+    extras = tracker_extras("track_wedge", tag, launch_w, perm, n)
     head = perm[:CHECK_LANES].contiguous()
     err, plain_ms, _ = compare_track_wedge(
         packed, loc, bands, lp, head, MAIN_W, MAIN_H, MAIN_SPL, True,
@@ -3930,9 +3945,44 @@ def main_wedge(dev, errs):
                "icon_rt_tpu/ops/fast.py:451", ms, plain_ms, bnd,
                samples=MAIN_SPL, plain_lanes=CHECK_LANES,
                launch_ms=med, mray_s=mray, covered=covered,
-               tf_edit_s=edit["opacity"] / 1e3, peak_gib=gib)
+               tf_edit_s=edit["opacity"] / 1e3, peak_gib=gib, **extras)
     del pl
     return counts, rows
+
+
+def wedge_shell_holds(tag, cells, loc, w):
+    """The wedge shell (`Wedges.shell`) against the plain wedge search run
+    without it (`wedge_candidates`: every candidate column's window, Newton
+    on each wedge), at the scene K9-p runs: on `shell_probes`' points
+    (WEDGE_SHELL_COLUMNS seeded columns and the extreme ones, dense across
+    their bottom and top faces and vertices, and both shell radii) no
+    accepted point fails `in_wedge_shell`.  Raises if one does, or if the
+    probes give fewer than 100 accepted points or none that the shell
+    rejects; prints how close the accepted points come to the shell's
+    edges."""
+    import torch
+    from icon_rt_tpu_torch.models.wedges import (in_wedge_shell,
+                                                 shell_probes,
+                                                 wedge_candidates)
+    t0 = time.perf_counter()
+    pos = shell_probes(w, WEDGE_SHELL_COLUMNS, seed=16)
+    accepted = torch.cat([
+        wedge_candidates(cells, w, loc, p)["hit"].flatten(1).any(1)
+        for p in pos.split(8192)])
+    inner = in_wedge_shell(w, pos)
+    bad, n_acc = int((accepted & ~inner).sum()), int(accepted.sum())
+    r = torch.linalg.vector_norm(pos[accepted].double(), dim=1)
+    lo, hi = (float(x) for x in w.shell[:2])
+    print(f"{tag} wedge shell held on {pos.shape[0]} probe points "
+          f"({WEDGE_SHELL_COLUMNS} seeded columns): {n_acc} accepted by "
+          f"the search without the shell test, {bad} of them outside it; "
+          f"{int((~inner).sum())} rejected by it; accepted radii "
+          f"[{float(r.min()):.3f}, {float(r.max()):.3f}] m in the shell "
+          f"[{lo:.3f}, {hi:.3f}]; {time.perf_counter() - t0:.2f} s")
+    if bad or n_acc < 100 or bool(inner.all()):
+        raise AssertionError(f"{tag}: {bad} accepted points outside the "
+                             f"wedge shell ({n_acc} accepted, "
+                             f"{int((~inner).sum())} rejected)")
 
 
 def main_parity_wedge(dev, raygen, errs):
@@ -3944,9 +3994,10 @@ def main_parity_wedge(dev, raygen, errs):
     table is freed: build seconds of cells, locator, wedges and the shell
     accel, ms per launch (fb on the host), Mray/s, coverage, peak memory,
     layer_pad and K9-p's launch count.  Returns (counts, the K9-p row's
-    numbers, check): check() holds K9-p against its plain version on
-    WEDGE_CHECK_LANES lanes strided over the frame, whose counted work,
-    scaled to the frame, gives the bound."""
+    numbers, check): check() holds the wedge shell against the search
+    without it (`wedge_shell_holds`), then K9-p against its plain version
+    on WEDGE_CHECK_LANES seeded lanes spread over the frame, whose counted
+    work, scaled to the frame, gives the bound."""
     import torch
     from icon_rt_tpu_torch import app
     from icon_rt_tpu_torch.models import accel as accel_mod
@@ -3998,30 +4049,48 @@ def main_parity_wedge(dev, raygen, errs):
     tabs = dict(cells=cells, loc=loc, tf=tf, wedges=w,
                 accel={} if accel is None else {raygen: accel})
     lp = launch_params_wh(pl, W, H)
-    ms = time_cuda(lambda: render.parity_track(
+    steady = lambda: render.parity_track(
         cells, tf, lp, pl.frame["accum"], pl.frame["fb"], width=W, height=H,
-        raygen=raygen, sampler="wedge", locator=loc, accel=accel, wedges=w),
-        reps=1)
+        raygen=raygen, sampler="wedge", locator=loc, accel=accel, wedges=w)
+    ms = time_cuda(steady, reps=1 if raygen == "ae" else 3)
+    dbg = torch.zeros(W * H, 2, dtype=torch.int32, device=dev)
+    render.parity_track(cells, tf, with_id(lp, W7_LIMIT[raygen]),
+                        pl.frame["accum"], pl.frame["fb"], width=W, height=H,
+                        raygen=raygen, sampler="wedge", locator=loc,
+                        accel=accel, wedges=w, debug=dbg)
+    extra = parity_extras(tag, raygen, "wedge", steady, dbg)
     gib = peak_memory(tag)
+    print(f"{tag} wedge shell [{float(w.shell[0]):.1f}, "
+          f"{float(w.shell[1]):.1f}] m (the cells' [{float(cells.shell[0]):.1f}"
+          f", {float(cells.shell[1]):.1f}])")
     row = dict(ms=ms, lanes=W * H, launch_ms=med, peak_gib=gib,
                layer_pad=w.layer_pad, covered=covered,
                mray_s=W * H / (med * 1e-3) / 1e6,
-               build_s={**secs, "app_build": round(build_s, 3)})
+               wedge_shell=[float(x) for x in w.shell[:2]],
+               build_s={**secs, "app_build": round(build_s, 3)}, **extra)
+    del dbg
     n_chk = WEDGE_CHECK_LANES[raygen]
-    full = torch.arange(W * H, dtype=torch.int32, device=dev)
-    strided = full[::W * H // n_chk][:n_chk].contiguous()
-    del pl, full
+    # seeded lanes spread over the frame (a stride of W * H / n_chk, a
+    # multiple of W, would take column 0 alone: rays beside the globe,
+    # whose counted work scaled to the frame overstates the bound)
+    g = torch.Generator().manual_seed(16)
+    strided = torch.sort(torch.randperm(W * H, generator=g)[:n_chk])[0].to(
+        device=dev, dtype=torch.int32).contiguous()
+    del pl
 
     def check():
+        wedge_shell_holds(tag, cells, loc, w)
         err, ps, ks, wk = compare_parity(
-            f"{tag} K9-p on {n_chk} lanes strided by {W * H // n_chk}",
+            f"{tag} K9-p on {n_chk} seeded lanes spread over the frame",
             tabs, lp, raygen, "wedge", strided, W, H, 1, count=True)
         errs[name] = max(errs.get(name, 0.0), err)
         bnd = parity_bound(raygen, "wedge", W * H, wk, W * H / n_chk)
         print(f"bound {name}: {bnd[0]:.4f} ms ({bnd[1]}), the work of "
-              f"{n_chk} strided lanes scaled by {W * H / n_chk:.1f}")
+              f"{n_chk} seeded lanes scaled by {W * H / n_chk:.1f}; the "
+              f"wedge shell test rejects {shell_share(wk):.6f} of their "
+              f"{wk['eval']} samples")
         row.update(bnd=bnd, plain_ms=ps * 1e3, plain_lanes=n_chk,
-                   ms_check_lanes=ks * 1e3)
+                   ms_check_lanes=ks * 1e3, shell_share=shell_share(wk))
     return counts, row, check
 
 

@@ -61,8 +61,11 @@
 //     max h_top] of the cells (or is NaN) fails every cell's radial test,
 //     so the locator and brute samplers return no cell without a square
 //     root, a locate or a read (it tests the squared radius against the
-//     exact bounds of the squares, `Shell`); the wedge sampler does not
-//     take it (a wedge's flat faces dip below its column's h_bot);
+//     exact bounds of the squares, `Shell`); the wedge sampler tests the
+//     wedges' own shell (models/wedges.py `wedge_shell`: a wedge's flat
+//     faces dip below its column's h_bot, and Newton accepts points a
+//     little outside a wedge's hull), which no point it accepts lies
+//     outside;
 //   * the brute-force scan reads the radii and first planes of kGroup cells
 //     together, then tests them in id order.
 // Drawing AE's free paths ahead of the samples that consume them gained
@@ -93,7 +96,9 @@ struct ParityParams {
   const float* vr;           // (2,) TF value range
   const float* opacity_scale;  // ()
   const float* shell;        // (4,) min h_bot, max h_top, their squares'
-                             // bounds (models/cells.py `shell_range`)
+                             // bounds (models/cells.py `shell_range`);
+                             // the WEDGE sampler's models/wedges.py
+                             // `wedge_shell`
   const float* win[4];       // locator lat_lo, lat_hi, lon_lo, lon_hi (())
   const float* acc_lo;       // (3,) accel bounds (world, or r/lat/lon)
   const float* acc_hi;       // (3,)
@@ -118,8 +123,9 @@ constexpr float kFltMax = 3.40282347e38f;
 // cells whose radii and first planes the brute-force scan reads together
 constexpr int kGroup = 4;
 
-// The cells' radial shell [lo, hi] as bounds of the squared radius s,
-// shell[2] and shell[3] of models/cells.py `shell_range`: sqrtf is
+// The sampler's radial shell [lo, hi] as bounds of the squared radius s,
+// shell[2] and shell[3] of models/cells.py `shell_range` (the WEDGE
+// sampler's: models/wedges.py `wedge_shell`): sqrtf is
 // correctly rounded, so monotone, and lo <= sqrtf(s) <= hi holds exactly
 // when s_lo <= s <= s_hi (NaN in neither).
 struct Shell {
@@ -159,7 +165,11 @@ __device__ __forceinline__ bool inside_cell(const ParityParams& p, int c,
 }
 
 // The layer of cell c at radius r: the number of ceilings
-// height[1..num_layers] below r (find_layer's masked count).
+// height[1..num_layers] below r (find_layer's masked count).  A binary
+// search over the first min(nl, 31) ceilings gives the same layer for
+// ascending ceilings and was measured (PERF.md §6): 3% faster on the
+// wedge sampler's `main ae w` and `main grid w`, 20% slower on grid x
+// brute at the check scene, so the count stays.
 __device__ __forceinline__ int find_layer(const ParityParams& p, int c,
                                           int nl, float r) {
   const float* h = p.heights + static_cast<size_t>(c) * 32;
@@ -202,14 +212,14 @@ __device__ __forceinline__ bool wedge_column(const ParityParams& p, int c,
   return false;
 }
 
-// Point sample: true and the value if a cell contains the point.  The
-// locator and brute samplers first test the whole shell: a radius outside
-// it (or NaN) fails every cell's radial test below.
+// Point sample: true and the value if a cell contains the point.  Each
+// sampler first tests its whole shell: a radius outside it (or NaN) fails
+// every cell's radial test below, or every wedge's Newton inversion.
 template <int SAMPLER>
 __device__ bool sample(const ParityParams& p, const Shell& sh, float px,
                        float py, float pz, float& value) {
   const float s = px * px + py * py + pz * pz;
-  if (SAMPLER != kWedge && !(s >= sh.s_lo && s <= sh.s_hi)) return false;
+  if (!(s >= sh.s_lo && s <= sh.s_hi)) return false;
   const float r = sqrtf(s);
   if (SAMPLER == kBrute) {
     // kGroup cells at a time: their radii and first planes read together,
@@ -610,9 +620,7 @@ __global__ void __launch_bounds__(128) parity_kernel(const ParityParams p) {
   }
   const bool wrote = t0 < t1;
   if (wrote) {
-    const Shell sh = SAMPLER == kWedge
-                         ? Shell{0.0f, 0.0f}
-                         : Shell{__ldg(p.shell + 2), __ldg(p.shell + 3)};
+    const Shell sh{__ldg(p.shell + 2), __ldg(p.shell + 3)};
     const float ud = F.ud();
     if (RAYGEN == kAE)
       track_ae<SAMPLER>(p, sh, R, ud, t0, t1);

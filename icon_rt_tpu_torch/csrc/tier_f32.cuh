@@ -40,7 +40,6 @@ struct F32Tier {
 
   // the trackers' slots keep cell ids and re-read test rows (csrc/
   // track_common.cuh `contains`), so K1 fits 10 blocks an SM
-  static constexpr bool kRereadRow = true;
 
   // Layer of radius r in a prof row (#(h < r) over the inf-padded heights),
   // then the entry of that layer in `values` (0 above the top layer).
@@ -137,23 +136,28 @@ struct F32Tier {
                  b ? x.l : y.l};
   }
 
-  __device__ __forceinline__ void forget(Layer& lay) const {
+  static __device__ __forceinline__ void forget(Layer& lay) {
     lay.lo = __int_as_float(0x7f800000);   // no r is above +inf
     lay.hi = -lay.lo;
     lay.a = 0.0f;
     lay.l = 0;
   }
 
-  // Classified alpha of radius r in column cid: from the slot's bracket
-  // when r lies in it, else from the layer #(h < r) of the column's prof
-  // row, found by binary search over its first num_layers ceilings (the
-  // rest are +inf), which refills the bracket.
-  __device__ __forceinline__ float alpha(int cid, float r, Layer& lay) const {
+  // Classified alpha of coordinate r in column cid: from the slot's
+  // bracket when r lies in it, else from the layer #(h < r) of the
+  // column's prof row, found by binary search over its first num_layers
+  // ceilings (the rest are +inf; num_layers is entry 14 of the column's
+  // test row, kW floats wide), which refills the bracket.  The f32 and
+  // wedge tiers' lookup.
+  template <int kW>
+  static __device__ __forceinline__ float bracket_alpha(const TrackParams& p,
+                                                        int cid, float r,
+                                                        Layer& lay) {
     if (lay.lo < r && r <= lay.hi) return lay.a;
     const float* row = p.prof + static_cast<size_t>(cid) * kProfW;
     const int n = min(max(static_cast<int>(__ldg(
-                              p.test + static_cast<size_t>(cid) * kTestW +
-                              14)), 0), kLayers);
+                              p.test + static_cast<size_t>(cid) * kW + 14)),
+                          0), kLayers);
     int lo = 0, hi = n;
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
@@ -171,10 +175,11 @@ struct F32Tier {
     return lay.a;
   }
 
-  // The baked RGB of the layer of alpha's last evaluation in the slot.
-  __device__ __forceinline__ void shade(int cid, float, const Layer& lay,
-                                        float& cr, float& cg,
-                                        float& cb) const {
+  // The baked RGB of the layer of the slot's last `bracket_alpha`.
+  static __device__ __forceinline__ void layer_rgb(const TrackParams& p,
+                                                   int cid, const Layer& lay,
+                                                   float& cr, float& cg,
+                                                   float& cb) {
     const float* rgb = p.rgb + static_cast<size_t>(cid) * kRgbW;
     cr = cg = cb = 0.0f;
     if (lay.l < kLayers) {
@@ -182,5 +187,16 @@ struct F32Tier {
       cg = __ldg(rgb + kLayers + lay.l);
       cb = __ldg(rgb + 2 * kLayers + lay.l);
     }
+  }
+
+  __device__ __forceinline__ float alpha(int cid, float r, Layer& lay) const {
+    return bracket_alpha<kTestW>(p, cid, r, lay);
+  }
+
+  // The baked RGB of the layer of alpha's last evaluation in the slot.
+  __device__ __forceinline__ void shade(int cid, float, const Layer& lay,
+                                        float& cr, float& cg,
+                                        float& cb) const {
+    layer_rgb(p, cid, lay, cr, cg, cb);
   }
 };

@@ -58,7 +58,6 @@ struct QTier {
 
   // the trackers' slots keep cell ids and re-read test rows (csrc/
   // track_common.cuh `contains`), so K2 fits 9 blocks an SM
-  static constexpr bool kRereadRow = true;
 
   __device__ __forceinline__ void load(int c, Col& col) const {
     const float* row = p.test12 + static_cast<size_t>(c) * kTestW;

@@ -9,7 +9,8 @@
 // and the layer pick compare the coordinate s = dot(P, n') (summed x, y, z,
 // as icon_rt_tpu/ops/fast.py `step_core(flat_vert=True)`) with the heights
 // where the f32 tier compares the radius; the locate bins by the radius
-// and tests each candidate at its own s.
+// and tests each candidate at its own s.  Each cache slot keeps its
+// layer's bracket of ceilings in s, as K1's slots do in r.
 #pragma once
 
 #include "tier_f32.cuh"
@@ -25,9 +26,11 @@ struct WedgeTier {
   };
   const TrackParams& p;
 
-  // the slots keep their rows in registers: re-read at each test, these
-  // 128-byte rows made K9-w 9% slower (PERF.md)
-  static constexpr bool kRereadRow = false;
+  // the slots keep cell ids and re-read their rows at each test, as K1's
+  // (csrc/track_common.cuh `contains`): with the layer bracket, rows kept
+  // in registers took 123 registers (4 blocks an SM, 2.70 ms a 1080p
+  // launch), re-read rows 64 at 8 blocks (track_wedge.cu's launch bounds,
+  // 2.53 ms; PERF.md §6)
 
   __device__ __forceinline__ void load(int c, Col& col) const {
     const float* row = p.test + static_cast<size_t>(c) * kTestW;
@@ -73,26 +76,27 @@ struct WedgeTier {
     return -1;
   }
 
-  // No layer is cached: every evaluation counts the ceilings below s.
-  struct Layer {};
-  static __device__ __forceinline__ Layer pick(bool, const Layer&,
-                                               const Layer&) {
-    return Layer{};
+  // Each slot keeps its layer's bracket of ceilings, as the f32 tier's
+  // (`F32Tier::Layer`), in s: an evaluation whose s stays in it reads
+  // nothing, a miss binary-searches the column's num_layers ceilings
+  // (entry 14 of the 32-float test row), and the shade reads the accepted
+  // layer's three entries.
+  using Layer = F32Tier::Layer;
+  static __device__ __forceinline__ Layer pick(bool b, const Layer& x,
+                                               const Layer& y) {
+    return F32Tier::pick(b, x, y);
   }
-  __device__ __forceinline__ void forget(Layer&) const {}
-
-  __device__ __forceinline__ float alpha(int cid, float s, Layer&) const {
-    const float* row = p.prof + static_cast<size_t>(cid) * F32Tier::kProfW;
-    return F32Tier::layer_pick(row, row + F32Tier::kLayers, s);
+  static __device__ __forceinline__ void forget(Layer& lay) {
+    F32Tier::forget(lay);
   }
 
-  __device__ __forceinline__ void shade(int cid, float s, const Layer&,
+  __device__ __forceinline__ float alpha(int cid, float s, Layer& lay) const {
+    return F32Tier::bracket_alpha<kTestW>(p, cid, s, lay);
+  }
+
+  __device__ __forceinline__ void shade(int cid, float, const Layer& lay,
                                         float& cr, float& cg,
                                         float& cb) const {
-    const float* heights = p.prof + static_cast<size_t>(cid) * F32Tier::kProfW;
-    const float* rgb = p.rgb + static_cast<size_t>(cid) * F32Tier::kRgbW;
-    cr = F32Tier::layer_pick(heights, rgb, s);
-    cg = F32Tier::layer_pick(heights, rgb + F32Tier::kLayers, s);
-    cb = F32Tier::layer_pick(heights, rgb + 2 * F32Tier::kLayers, s);
+    F32Tier::layer_rgb(p, cid, lay, cr, cg, cb);
   }
 };

@@ -29,8 +29,7 @@
 // layer of its last evaluation with the bracket of ceilings around it, so
 // that an evaluation that stays in the bracket reads nothing); its test
 // row is read again at each containment test (`contains`, an L1 or L2
-// hit; the wedge tier, whose rows are twice as wide, keeps them), and the
-// shade reads the accepted layer's entries only.  The
+// hit), and the shade reads the accepted layer's entries only.  The
 // frame's scalars are read from the launch params' tensors (`TrackFrame`,
 // shared with K3), so a launch reads nothing back from the card.
 //
@@ -38,7 +37,6 @@
 // plugs in as a `Tier` type with
 //   struct Col;                                    // a column's test row
 //   void  load(int cid, Col&) const;               // read it
-//   static constexpr bool kRereadRow;              // slots keep ids only
 //   struct Layer;                                  // a slot's cached layer
 //   float coord(const Col&, px, py, pz, r) const;  // the coordinate its
 //                                                  // layers are looked up
@@ -292,21 +290,15 @@ __device__ __forceinline__ void store_lane(const TrackCommon& p, int lane,
   store_pixel(p.accum, p.fb, lane, ar, ag, ab, aa, wany);
 }
 
-// Whether cached column `col` (cell cid) contains the point.  A tier with
-// kRereadRow reads its test row again (an L1 or L2 hit), so that a cache
-// slot holds its cell id in a register and not its row.
+// Whether cached cell cid contains the point: its test row is read again
+// (an L1 or L2 hit), so that a cache slot holds its cell id in a register
+// and not its row.
 template <class Tier>
-__device__ __forceinline__ bool contains(const Tier& T,
-                                         const typename Tier::Col& col,
-                                         int cid, float px, float py,
-                                         float pz, float r) {
-  if constexpr (Tier::kRereadRow) {
-    typename Tier::Col c;
-    T.load(cid, c);
-    return T.inside(c, px, py, pz, T.coord(c, px, py, pz, r));
-  } else {
-    return T.inside(col, px, py, pz, T.coord(col, px, py, pz, r));
-  }
+__device__ __forceinline__ bool contains(const Tier& T, int cid, float px,
+                                         float py, float pz, float r) {
+  typename Tier::Col c;
+  T.load(cid, c);
+  return T.inside(c, px, py, pz, T.coord(c, px, py, pz, r));
 }
 
 // One lane: `samples` progressive samples of pixel p.pix[lane], then the
@@ -346,9 +338,9 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
   bool wany = false;
 
   // two-slot column cache: slot 0 pinned to the first column; each slot
-  // keeps its cell id and the layer of its last evaluation in registers,
-  // and its row unless the tier re-reads it (Tier::kRereadRow: K1 and K2,
-  // for which the compiler drops col0 and col1)
+  // keeps its cell id and the layer of its last evaluation in registers;
+  // of its row only what the tier's coord reads (the wedge tier's n'; the
+  // compiler drops the rest of col0 and col1)
   Col col0, col1;
   Layer lay0, lay1;
   T.forget(lay0);
@@ -392,8 +384,8 @@ __device__ __forceinline__ void track_lane(const TrackCommon& p,
           t = t_new;
           const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
           const float r = r_of(t, od, oo);
-          const bool in0 = valid0 && contains(T, col0, cid0, px, py, pz, r);
-          const bool in1 = valid1 && contains(T, col1, cid1, px, py, pz, r);
+          const bool in0 = valid0 && contains(T, cid0, px, py, pz, r);
+          const bool in1 = valid1 && contains(T, cid1, px, py, pz, r);
           bool hit_vol = true;
           if (in0 || in1) {
             mru = mru ? (in1 ? 1 : 0) : ((in1 && !in0) ? 1 : 0);

@@ -14,12 +14,17 @@
 //
 // What bounds it on the H100: as K1, divergence and the dependent reads of
 // a cache miss (bins row -> candidate test rows -> heights and alpha); the
-// cached columns are 3 floats wider than K1's.
+// cached columns are 3 floats wider than K1's.  As K1's, each cache slot
+// keeps its layer's bracket of ceilings, so an evaluation that stays in it
+// reads nothing and the shade reads only the accepted layer's RGB.
 #include "tier_wedge.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(128)
+// 8 resident blocks an SM: 64 registers and 48 bytes of stack; 10 and 12
+// blocks (48, 40 registers) and the rows kept in registers at 8 ran
+// 2.62-2.92 ms against 2.53 (PERF.md §6)
+__global__ void __launch_bounds__(128, 8)
 track_wedge_kernel(const TrackParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.c.n_lanes) return;
@@ -37,4 +42,9 @@ extern "C" int track_wedge_launch(const TrackParams* params, void* stream) {
   track_wedge_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       *params);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's blocks an SM, registers and local bytes (track::occupancy).
+extern "C" int track_wedge_occupancy(int* out) {
+  return track::occupancy(track_wedge_kernel, 128, out);
 }

@@ -26,7 +26,7 @@ from .models.locator import Locator
 from .models.qcells import QuantizedCells, check_q_ceilings
 from .models.shells import RadialBands
 from .models.transfunc import Transfunc
-from .models.wedges import Wedges
+from .models.wedges import Wedges, wedge_shell
 from .ops.fast import PackedCells
 from .ops.render import LaunchParams
 from .parallel.scene_shard import ShardedScene
@@ -90,11 +90,13 @@ def packed_cells(p, device="cpu") -> PackedCells:
 
 def wedges(w, device="cpu") -> Wedges:
     """A JAX Wedges (verts, scalars, cell_offset and the static layer_pad)
-    as this package's Wedges."""
+    as this package's Wedges, with the radial shell (models/wedges.py
+    `wedge_shell`) that the JAX Wedges does not keep."""
     return Wedges(verts=to_tensor(w.verts, device),
                   scalars=to_tensor(w.scalars, device),
                   cell_offset=to_tensor(w.cell_offset, device),
-                  layer_pad=int(w.layer_pad))
+                  layer_pad=int(w.layer_pad),
+                  shell=to_tensor(wedge_shell(np.asarray(w.verts)), device))
 
 
 def launch_params(lp, device="cpu") -> LaunchParams:

@@ -48,7 +48,7 @@ from ..utils import cuda_build
 from ..utils.lcg import lcg_init, lcg_next
 from ..utils.vecmath import box_test, sqrt_rn
 from .traverse import trace_dda3, trace_sdda
-from .woodcock import MAX_ITERS, Work, woodcock_track
+from .woodcock import MAX_ITERS, Work, make_shell_fn, woodcock_track
 
 F32 = torch.float32
 
@@ -170,7 +170,8 @@ def _pixels(cells: Cells, tf: Transfunc, lp: LaunchParams, xs, ys,
     if raygen == "ae":
         res = woodcock_track(sample_fn, classify_fn, org, direction, t0, t1,
                              1.0, rng, lp.unit_distance, active=hit_box,
-                             work=work)
+                             work=work, shell_fn=make_shell_fn(
+                                 cells, sampler, wedges))
         color = res.albedo
         alpha = torch.where(res.extinction > 0.0, 1.0, 0.0)
     elif raygen == "sphere":
@@ -305,9 +306,10 @@ def parity_params(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
                   debug=None, wedges: Wedges | None = None, out=None,
                   locator_dims=(0, 0), accel_dims=(0, 0, 0)):
     """K8's launch arguments (a `ParityParams` mirror), built without a
-    device read: every scalar of the frame, the TF, the cells' shell, the
-    locator window and the accel bounds as the device address of the
-    tensor that holds it, which the kernel reads on the card
+    device read: every scalar of the frame, the TF, the cells' shell (the
+    wedges' with the wedge sampler), the locator window and the accel
+    bounds as the device address of the tensor that holds it, which the
+    kernel reads on the card
     (`locator_dims`, `accel_dims`: the host's ints of locator.dims and
     accel.dims).  Raises unless each tensor is contiguous, of its dtype
     and shape, on the lanes' device; on the card the planes' rows must
@@ -377,8 +379,10 @@ def parity_params(cells: Cells, tf: Transfunc, lp: LaunchParams, accum, fb,
         _check("wedges.scalars", wedges.scalars, F32, (nw, 6), dev)
         _check("wedges.cell_offset", wedges.cell_offset, torch.int32, (n,),
                dev)
+        _check("wedges.shell", wedges.shell, F32, (4,), dev)
         p.wverts, p.wscalars = ptr(wedges.verts), ptr(wedges.scalars)
         p.woffset, p.layer_pad = ptr(wedges.cell_offset), wedges.layer_pad
+        p.shell = ptr(wedges.shell)     # the wedge shell replaces the cells'
     if accel is not None:
         _check("accel.max_opacities", accel.max_opacities, F32, (None,),
                dev)

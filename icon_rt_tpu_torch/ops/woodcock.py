@@ -21,7 +21,7 @@ import torch
 from ..models.cells import (_BRUTE_CHUNK, Cells, _radius, candidate_tests,
                             in_shell)
 from ..models.locator import Locator, locator_rows
-from ..models.wedges import Wedges, wedge_candidates
+from ..models.wedges import Wedges, in_wedge_shell, wedge_candidates
 from ..utils.lcg import lcg_next
 
 #: iteration cap of the tracking loops (the JAX traversals' max_iters); no
@@ -32,6 +32,9 @@ MAX_ITERS = 1 << 20
 #: loop replays a CUDA graph of one iteration (on the CPU it runs eagerly
 #: and compacts every iteration)
 COMPACT_EVERY = 128
+#: draws a lock-step iteration of `woodcock_track` may take past samples
+#: that the sampler's shell test rejects before its one full sample
+SKIP_DRAWS = 8
 
 
 def _window(state: dict, live, step_fn: Callable, n: int, graph: bool):
@@ -42,7 +45,7 @@ def _window(state: dict, live, step_fn: Callable, n: int, graph: bool):
     loop."""
     def iterate():
         updates, done = step_fn(state, live)
-        updates["steps"] = state["steps"] + 1
+        updates.setdefault("steps", state["steps"] + 1)
         for k, v in updates.items():
             m = live.view(-1, *([1] * (v.dim() - 1)))
             state[k].copy_(torch.where(m, v, state[k]))
@@ -74,8 +77,9 @@ def lockstep(state: dict, ids, step_fn: Callable, out: dict,
     of the live lanes `ids`, with a "steps" counter) until each row is done.
 
     step_fn(state, live) -> (updates, done): new values of some state
-    keys for every row and the rows that finish with this iteration; it
-    must not sync with the host.  A row takes its updates only while it is live, so
+    keys for every row (its "steps" where it takes more than one step) and
+    the rows that finish with this iteration; it must not sync with the
+    host.  A row takes its updates only while it is live, so
     a finished row keeps its final state until the next compaction writes
     the keys of `out` (full-lane tensors) and "steps" back to its lane and
     drops it.  After max_iters iterations the rows still live are written
@@ -97,6 +101,17 @@ def lockstep(state: dict, ids, step_fn: Callable, out: dict,
         state = {k: v[keep] for k, v in state.items()}
 
 
+def make_shell_fn(cells: Cells, sampler: str,
+                  wedges: Wedges | None = None):
+    """The sampler's whole-shell test, batched over lanes: pos (L, 3) ->
+    (L,) bool, False where no cell (with the wedge sampler: no wedge) can
+    contain the point -- K8's pre-test before the locate
+    (models/cells.py `in_shell`, models/wedges.py `in_wedge_shell`)."""
+    if sampler == "wedge":
+        return lambda pos: in_wedge_shell(wedges, pos)
+    return lambda pos: in_shell(cells, _radius(pos))
+
+
 class Work:
     """Event counts of a plain parity run and the table entries it reads:
     what kernel K8 does for the same lanes, since it makes the same draws
@@ -111,7 +126,9 @@ class Work:
     wedge sampler instead counts, up to its first hit, "wcol" the
     candidate columns it visits, "wcol_layers" their layer counts (each
     visit's find_layer), "newton" the wedges it inverts and
-    "newton_iters" their Newton iterations, and "hit".  The masks mark the
+    "newton_iters" their Newton iterations, and "hit".  "shell" counts the
+    samples that the whole-shell test rejects (the cells' shell, or the
+    wedges'), whose locate and scan are not counted.  The masks mark the
     cells whose radii, planes and layer rows were read (with the wedge
     sampler: the visited columns' heights and the inverted wedges) and
     the locator entries read.  Counting adds no host sync and no host copy
@@ -128,6 +145,7 @@ class Work:
         n = cells.num_cells
         self.cells, self.sampler, self.locator = cells, sampler, locator
         self.wedges = wedges
+        self.in_shell = make_shell_fn(cells, sampler, wedges)
         self.n = torch.zeros(len(self.EVENTS), dtype=torch.int64, device=dev)
         # one spare slot each takes the writes of the lanes not counted
         flag = lambda k: torch.zeros(k + 1, dtype=torch.bool, device=dev)
@@ -146,16 +164,16 @@ class Work:
 
     def sample(self, pos, mask) -> None:
         """Count one sample at pos (L, 3) for the rows of `mask`: the
-        whole-shell test, then for the rows that pass it (every row with
-        the wedge sampler) the locate and every candidate test up to the
-        first containing cell."""
+        whole-shell test (the cells' shell, or with the wedge sampler the
+        wedges'), then for the rows that pass it the locate and every
+        candidate test up to the first containing cell or wedge."""
         self.add("eval", mask)
+        inner = self.in_shell(pos)
+        self.add("shell", mask & ~inner)
+        mask = mask & inner
         if self.sampler == "wedge":
             self._wedge_scan(pos, mask)
             return
-        inner = in_shell(self.cells, _radius(pos))
-        self.add("shell", mask & ~inner)
-        mask = mask & inner
         if self.sampler == "locator":
             r, row = locator_rows(self.locator, pos, self.dims)
             k = self.locator.bins.shape[1]
@@ -281,7 +299,8 @@ class WoodcockResult(NamedTuple):
 def woodcock_track(sample_fn: Callable, classify_fn: Callable,
                    org, direction, t0, t1, majorant, rng, unit_distance,
                    active=None, max_iters: int = MAX_ITERS,
-                   work: Work | None = None) -> WoodcockResult:
+                   work: Work | None = None, *,
+                   shell_fn: Callable) -> WoodcockResult:
     """Track the ray segments [t0, t1] of L lanes against a constant
     majorant.
 
@@ -290,7 +309,15 @@ def woodcock_track(sample_fn: Callable, classify_fn: Callable,
     direction (L, 3), t0/t1 (L,), majorant a float or (L,) tensor, rng
     (L,) i64, unit_distance a () tensor; lanes with active False (rays
     that missed the volume) or majorant <= 0 skip the loop.  `work`, if
-    given, counts the run's events."""
+    given, counts the run's events.
+
+    shell_fn(pos (M, 3)) -> (M,) bool is the sampler's exact shell test
+    (`make_shell_fn`: a point that fails it hits nothing).  A lock-step
+    iteration first takes up to SKIP_DRAWS draws whose points fail it --
+    each one whole iteration of the per-lane loop: a draw, no acceptance
+    draw -- before the one draw it samples, so a lane beside the shell
+    needs a ninth of the iterations, each far cheaper than the sampler.
+    The lanes' draws, steps and results are unchanged."""
     L = direction.shape[0]
     dev = direction.device
     majorant = torch.as_tensor(majorant, dtype=torch.float32,
@@ -309,10 +336,26 @@ def woodcock_track(sample_fn: Callable, classify_fn: Callable,
                  **{k: v[ids] for k, v in out.items()})
 
     def step(S, live):
-        rng1, xi = lcg_next(S["rng"])
-        t = S["t"] - torch.log(1.0 - xi) / S["rate"]
+        rng0, t_last, steps = S["rng"], S["t"], S["steps"]
+        skipping = live
+        # SKIP_DRAWS passes that may skip a draw, then the sampled one
+        for k in range(SKIP_DRAWS + 1):
+            rng1, xi = lcg_next(rng0)
+            t = t_last - torch.log(1.0 - xi) / S["rate"]
+            pos = S["org"] + S["d"] * t[:, None]
+            if k == SKIP_DRAWS:
+                break
+            # a miss before the segment end, with a step left after it
+            skip = skipping & ~(t > S["t1"]) & ~shell_fn(pos) \
+                & (steps + 2 <= max_iters)
+            rng0 = torch.where(skip, rng1, rng0)
+            t_last = torch.where(skip, t, t_last)
+            steps = steps + skip.to(steps.dtype)
+            if work is not None:
+                for event in ("draw", "eval", "shell"):
+                    work.add(event, skip)
+            skipping = skip
         beyond = t > S["t1"]
-        pos = S["org"] + S["d"] * t[:, None]
         hit, value = sample_fn(pos)
         if work is not None:
             work.add("draw", live)
@@ -321,11 +364,13 @@ def woodcock_track(sample_fn: Callable, classify_fn: Callable,
         rng2, u = lcg_next(rng1)
         sampled = ~beyond & hit              # the acceptance draw only here
         accept = sampled & (rgba[:, 3] >= u * S["maj"])
+        steps = steps + 1
         return dict(rng=torch.where(sampled, rng2, rng1), t=t,
                     albedo=torch.where(accept[:, None], rgba[:, :3],
                                        S["albedo"]),
-                    ext=torch.where(accept, rgba[:, 3], S["ext"])), \
-            beyond | accept
+                    ext=torch.where(accept, rgba[:, 3], S["ext"]),
+                    steps=steps), \
+            beyond | accept | (steps >= max_iters)
 
     lockstep(state, ids, step, out, max_iters)
     return WoodcockResult(torch.minimum(out["t"], t1), out["albedo"],

@@ -23,7 +23,12 @@ cells are chip_smoke.py's:
               camera: sphere and grid x locator and brute and AE x
               locator at 128x128, raw mode of sphere x locator, and the
               wedge sampler (K9-p) x ae, sphere, grid at 64x64: events and
-              profiled kernel ms and output hashes only.
+              profiled kernel ms and output hashes only;
+  ae_w        `main ae w` (BASELINE configs[2]): the app with --raygen ae
+              and -mode 2 (the wedge sampler, K9-p) at subdiv 7 x 16,
+              1024x1024, the closeup camera, one sample a launch;
+  grid_w      `main grid w`: the same on the grid accel;
+  sphere_w    `main accel w`: the same on the spherical-shell accel.
 
 For each: the wrapper's launch timed with CUDA events (mean ms of REPS
 launches of accum_id 1); one launch and the fb's copy to the host under
@@ -40,7 +45,9 @@ colour (accum_id 1): trees that compute the same bits print the same
 hashes; the ptxas lines, and from a copy of the kernel's source with a
 query appended (written at run time into the tree's _build/, not kept)
 the kernel's registers, local bytes and resident blocks an SM (the
-tree's `parity_occupancy`, where it has one).
+tree's `parity_occupancy`, where it has one).  The wedge cells' hashes
+also cover raw mode (accum_id 1), and their lines give the wedge shell
+(`Wedges.shell`, where the tree has one).
 
 With --phases an instrumented copy of the tree's csrc/parity.cu (built
 the same way, not kept, run after every other measurement of the
@@ -49,7 +56,10 @@ radius, its locate (asin, atan2, the locator row), its candidate scan,
 the classification with the acceptance draw, and the finalize, summed
 over the lanes beside each lane's whole run ("other": the loop, the
 traversal and waiting in the warp), and counts samples and the samples
-whose radius lies outside the cells' shell [min h_bot, max h_top].
+whose radius lies outside the cells' shell [min h_bot, max h_top]; with
+the wedge sampler also the time of each candidate column's find_layer
+and of its Newton inversions (inside the scan), and the samples outside
+the wedge shell (a tree with `Wedges.shell`).
 
 Each process prints `time_parity {json}` lines; --turns prints a summary
 of each tree's runs after them.  Needs a CUDA card: without one it exits
@@ -67,12 +77,16 @@ import kernel_timing as kt
 
 MAIN_SUB, MAIN_LAYERS, W, H = 8, 16, 1920, 1080
 BRUTE_SUB, BRUTE_LAYERS, BRUTE_W = 3, 8, 128
+W7_SUB, W7_LAYERS, W7 = 7, 16, 1024      # chip_smoke.py's main ... w scene
 STEADY = 8                        # the app's launches; the first is cold
-REPS = {"ae_loc": 5, "ae_brute": 2, "sphere_loc": 20}
-CELLS = ("ae_loc", "ae_brute", "sphere_loc", "check")
+REPS = {"ae_loc": 5, "ae_brute": 2, "sphere_loc": 20, "ae_w": 2,
+        "grid_w": 5, "sphere_w": 20}
+CELLS = ("ae_loc", "ae_brute", "sphere_loc", "check", "ae_w", "grid_w",
+         "sphere_w")
 #: (raygen, sampler) of each cell
 MODES = {"ae_loc": ("ae", "locator"), "ae_brute": ("ae", "brute"),
-         "sphere_loc": ("sphere", "locator")}
+         "sphere_loc": ("sphere", "locator"), "ae_w": ("ae", "wedge"),
+         "grid_w": ("grid", "wedge"), "sphere_w": ("sphere", "wedge")}
 KERNEL = "parity_kernel"
 WHO = "time_parity"
 SLOTS = 16                        # the phase probe's counters a block slot
@@ -97,10 +111,12 @@ extern "C" int probe_occupancy(int raygen, int sampler, int block,
 
 #: per-thread counters in shared memory (blocks of at most 128 threads):
 #: 0 draw, 1 radius, 2 locate, 3 scan, 4 classify and accept, 5 finalize,
-#: 6 lane, 8 samples, 9 samples outside the shell, 10 iterations, 11 lanes
+#: 6 lane, 7 samples outside the wedge shell, 8 samples, 9 samples outside
+#: the cells' shell, 10 iterations, 11 lanes, 12 the wedge sampler's
+#: find_layer, 13 its Newton inversions
 _PRELUDE = r"""
 __device__ unsigned long long g_probe[64 * 16];
-__device__ float g_probe_shell[2];
+__device__ float g_probe_shell[4];
 __shared__ unsigned long long s_pr[128 * 16];
 #define PROBE(k) s_pr[threadIdx.x * 16 + (k)]
 struct ProbeTimer {
@@ -132,9 +148,9 @@ extern "C" int probe_read(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_probe,
                                                sizeof(g_probe)));
 }
-extern "C" int probe_zero(float lo, float hi) {
+extern "C" int probe_zero(float lo, float hi, float wlo, float whi) {
   static unsigned long long z[64 * 16];
-  const float s[2] = {lo, hi};
+  const float s[4] = {lo, hi, wlo, whi};
   const int err = static_cast<int>(cudaMemcpyToSymbol(g_probe, z, sizeof(z)));
   return err ? err : static_cast<int>(cudaMemcpyToSymbol(g_probe_shell, s,
                                                          sizeof(s)));
@@ -163,6 +179,10 @@ _BLOCKS = [
     (5, "finalize", r"if \(!RAW(?: && wrote)?\) \{"),
 ]
 PHASES = ("draw", "radius", "locate", "scan", "classify", "finalize")
+#: the wedge sampler's parts of the scan: (counter, name, regex) in
+#: wedge_column
+_WEDGE = [(12, "find_layer", r"const int base =[^;]*;"),
+          (13, "newton", r"if \(uelems::newton<6>\(([^;]*)\)\) return true;")]
 
 
 def instrument(src):
@@ -182,7 +202,9 @@ def instrument(src):
         if name == "radius":
             extra = (" ++PROBE(8); { const float _r = sqrtf(px * px + "
                      "py * py + pz * pz); if (!(_r >= g_probe_shell[0] && "
-                     "_r <= g_probe_shell[1])) ++PROBE(9); }")
+                     "_r <= g_probe_shell[1])) ++PROBE(9); if (!(_r >= "
+                     "g_probe_shell[2] && _r <= g_probe_shell[3])) "
+                     "++PROBE(7); }")
         for m in reversed(ms):
             body = (body[:m.start()] + f"long long _t{k} = clock64(); "
                     + m.group(0) + f" PROBE({k}) += clock64() - _t{k};"
@@ -199,8 +221,25 @@ def instrument(src):
                + out[m.start():end + 1] + " }" + out[end + 1:])
     if found != {"scan", "finalize"}:
         raise SystemExit(f"time_parity --phases: only {found} blocks")
-    a, b = kt.function_body(out, "__global__ void __launch_bounds__(128) "
-                                 "parity_kernel(", WHO)
+    a, b = kt.function_body(out, "__device__ __forceinline__ bool "
+                                 "wedge_column(", WHO)
+    body = out[a:b]
+    for k, name, pat in _WEDGE:
+        m = re.search(pat, body, flags=re.S)
+        if m is None:
+            raise SystemExit(f"time_parity --phases: no {name} statement")
+        if name == "newton":
+            timed = (f"bool _h{k}; {{ ProbeTimer _pt{k}({k}); _h{k} = "
+                     f"uelems::newton<6>({m.group(1)}); }} "
+                     f"if (_h{k}) return true;")
+        else:                        # base stays in the function's scope
+            expr = m.group(0)[len("const int base ="):-1]
+            timed = (f"int base; {{ ProbeTimer _pt{k}({k}); base = {expr}; "
+                     f"}}")
+        body = body[:m.start()] + timed + body[m.end():]
+    out = out[:a] + body + out[b:]
+    a, b = kt.function_body(out, "parity_kernel(const ParityParams p)",
+                            WHO)
     body = out[a:b]
     head = "if (lane >= p.n_lanes) return;"
     if body.count(head) != 1 or body.count("  if (p.dbg) {") != 1:
@@ -250,16 +289,22 @@ def run_probe(lib, call, shell):
     """One `call` of K8 through the instrumented library: the phases'
     shares of the lanes' cycles and the counts."""
     import ctypes
-    lib.probe_zero.argtypes = [ctypes.c_float, ctypes.c_float]
+    lib.probe_zero.argtypes = [ctypes.c_float] * 4
+    wshell = shell[2:] if len(shell) > 2 else (float("nan"),) * 2
     s = kt.probe_sums("parity", lib, call, SLOTS,
-                      zero=lambda: lib.probe_zero(*shell))
+                      zero=lambda: lib.probe_zero(*shell[:2], *wshell))
     lane = max(s[6], 1)
     out = {nm: round(s[k] / lane, 4) for k, nm in enumerate(PHASES)}
     out["other"] = round(1.0 - sum(s[k] for k in range(6)) / lane, 4)
+    for k, nm, _ in _WEDGE:          # inside the scan
+        out[nm] = round(s[k] / lane, 4)
     out.update(lanes=s[11], samples=s[8], outside_shell=s[9],
                outside_share=s[9] / max(s[8], 1), iterations=s[10],
                lane_cycles=s[6],
                cycles_per_iteration=s[6] / max(s[10], 1))
+    if len(shell) > 2:
+        out.update(outside_wedge_shell=s[7],
+                   outside_wedge_share=s[7] / max(s[8], 1))
     return out
 
 
@@ -282,15 +327,19 @@ def cell_tables(cs, cell, dev):
         lp = cs.parity_lp(stats, BRUTE_W, BRUTE_W, dev)
         return (build_cells(ds, device=dev), None, tf, None, lp, BRUTE_W,
                 BRUTE_W, None)
-    raygen = MODES[cell][0]
-    pl = app.build(cs.parity_argv(raygen, raygen, "locator", MAIN_SUB,
-                                  MAIN_LAYERS, W, H, STEADY,
-                                  f"time_parity_{cell}"))
+    raygen, sampler = MODES[cell]
+    if sampler == "wedge":
+        sub, layers, w, h = W7_SUB, W7_LAYERS, W7, W7
+    else:
+        sub, layers, w, h = MAIN_SUB, MAIN_LAYERS, W, H
+    pl = app.build(cs.parity_argv(raygen, raygen, sampler, sub, layers, w,
+                                  h, STEADY, f"time_parity_{cell}"))
     s = pl.scene
     cells, loc = s["get_f32"]()
     accel = s["get_accel"](raygen) if raygen != "ae" else None
     torch.cuda.synchronize()
-    return cells, loc, s["tf"](), accel, cs.launch_params(pl), W, H, pl
+    return (cells, loc, s["tf"](), accel, cs.launch_params_wh(pl, w, h), w,
+            h, pl)
 
 
 def cell_numbers(cs, cell, dev, probes, later):
@@ -302,6 +351,7 @@ def cell_numbers(cs, cell, dev, probes, later):
     cells, loc, tf, accel, lp, w, h, pl = cell_tables(cs, cell, dev)
     raygen, sampler = MODES[cell]
     out = {"build_s": time.perf_counter() - t0}
+    pl_wedges = pl.scene["get_wedges"]() if sampler == "wedge" else None
     if pl is not None:
         walls = []
         cs.run_loop(pl, walls)
@@ -311,6 +361,10 @@ def cell_numbers(cs, cell, dev, probes, later):
     acc, fb = render.alloc_frame(w, h, device=dev)
     kw = dict(width=w, height=h, raygen=raygen, sampler=sampler,
               locator=loc, accel=accel)
+    if sampler == "wedge":
+        kw["wedges"] = wedges = pl_wedges
+        if hasattr(wedges, "shell"):
+            out["wedge_shell"] = [float(x) for x in wedges.shell[:2]]
 
     lps = {k: cs.with_id(lp, k) for k in range(6)}
 
@@ -354,6 +408,8 @@ def cell_numbers(cs, cell, dev, probes, later):
     out["ptxas"] = cs.ptxas_lines(q_log, cs.parity_instance(raygen, sampler))
     if "phases" in probes:            # run last (`measure`)
         shell = (float(cells.h_bot.min()), float(cells.h_top.max()))
+        if "wedge_shell" in out:
+            shell += tuple(out["wedge_shell"])
         later.append((out, cell, lambda: steady(1), shell, dict(
             cells=cells, loc=loc, tf=tf, accel=accel, lps=lps, acc=acc,
             fb=fb)))

@@ -1,12 +1,14 @@
 #!/usr/bin/env python
-"""K1 `track_f32` and K2 `track_q` on the card: their times, host reads,
-registers and occupancy, divergence, work a lane, split by phase and
-output hashes, for one tree of the repository or two or more in turns.
+"""K1 `track_f32`, K2 `track_q` and K9-w `track_wedge` on the card: their
+times, host reads, registers and occupancy, divergence, work a lane, split
+by phase and output hashes, for one tree of the repository or two or more
+in turns.
 
     python scripts/time_track.py                      # this tree
     python scripts/time_track.py --phases             # and by phase
     python scripts/time_track.py --turns A B          # trees A, B, B, A
-    python scripts/time_track.py --turns A B --others # with K3, K9-w
+    python scripts/time_track.py --turns A B --others # with K3
+    python scripts/time_track.py --cells k9w --phases # K9-w
 
 Each tree runs in a process of its own that imports that tree's
 icon_rt_tpu_torch (its kernels build into the tree's own _build/):
@@ -18,9 +20,13 @@ icon_rt_tpu_torch (its kernels build into the tree's own _build/):
   2. r2b8q_closeup: the same on the --quantized path (fine map on), K2;
   3. r2b9q_closeup: build_q_scene(11, 16) and main r2b9q's 1080p closeup
      (fine map on, 8 samples a launch): the steady launch median of 7
-     (launch and fb to the host), then K2 on the covered lanes.
+     (launch and fb to the host), then K2 on the covered lanes;
+  4. k9w_r2b8: K9-w `track_wedge` (-mode 2 on the fast raygen) on the
+     r2b8 scene's wedge tables (ops/fast.py `pack_cells_wedge`, the wedge
+     bands), the lanes and camera of 1 (8 samples a launch, column cache
+     kept), as the numbers of 1 without the raw mode (K9-w has none).
 
---cells picks some of them (default k1,k2,k2r2b9).
+--cells picks some of them (default k1,k2,k2r2b9; k9w adds 4).
 
 For each kernel: 20 launches timed with CUDA events (mean ms); one launch
 and the fb's copy to the host under chip_smoke.py's `profile_window`
@@ -51,9 +57,8 @@ slot's previous evaluation's ("changed") or that are the slot's first
 since its fill ("first").
 
 With --others also K3-f32 and K3-q on the r2b8 tables (one pass; K3-q
-without the fine map, as the app), K3-q on the R2B9 scene (fine map on)
-and K9-w on the r2b8 wedge tables (8 samples): events and profiled
-kernel ms.
+without the fine map, as the app) and K3-q on the R2B9 scene (fine map
+on): events and profiled kernel ms.
 
 Each process prints `time_track {json}` lines; --turns prints a summary of
 each tree's runs after them.  Needs a CUDA card: without one it exits
@@ -72,7 +77,11 @@ import kernel_timing as kt
 
 W, H, SPL = 1920, 1080, 8
 R2B9_SUB, R2B9_LAYERS = 11, 16
-KERNELS = {"track_f32": "track_f32_kernel", "track_q": "track_q_kernel"}
+KERNELS = {"track_f32": "track_f32_kernel", "track_q": "track_q_kernel",
+           "track_wedge": "track_wedge_kernel"}
+#: the cells that run each kernel
+CELL_KERNEL = {"k1": "track_f32", "k2": "track_q", "k2r2b9": "track_q",
+               "k9w": "track_wedge"}
 WHO = "time_track"
 SLOTS = 16                        # the phase probe's counters a block slot
 
@@ -106,10 +115,11 @@ extern "C" int probe_zero() {
 """
 
 #: the full layer count of a column, per tier: the probe's reference for
-#: "changed", from the tables' fields that every tree has
+#: "changed", from the tables' fields that every tree has (the f32 and
+#: wedge tiers' prof rows, in the coordinate c: r, or the wedge tier's s)
 _LAYER_F32 = r"""
-__device__ __forceinline__ int probe_layer(const F32Tier& T, int cid,
-                                           float r) {
+template <class Tier>
+__device__ __forceinline__ int probe_layer(const Tier& T, int cid, float r) {
   const float* h = T.p.prof + static_cast<size_t>(cid) * 64;
   int l = 0;
   for (int k = 0; k < 32; ++k) l += (r > __ldg(h + k)) ? 1 : 0;
@@ -161,7 +171,8 @@ def instrument(common):
         extra = ""
         if name == "layer_alpha":
             extra = ("{ const int _c = mru ? cid1 : cid0;"
-                     " const int _l = probe_layer(T, _c, r);"
+                     " const int _l = probe_layer(T, _c, T.coord(mru ?"
+                     " col1 : col0, px, py, pz, r));"
                      " const int _q = mru ? _pl1 : _pl0; ++_pr[8];"
                      " if (_q < 0) ++_pr[9]; else if (_q != _l) ++_pr[10];"
                      " if (mru) _pl1 = _l; else _pl0 = _l; }")
@@ -245,7 +256,7 @@ def run_probe(name, lib, call):
 def tracker_numbers(cs, name, render, track, perm, n, tag, probes):
     """The numbers of one tracker on one frame: render(k, acc, fb, cost)
     launches lanes perm[:n] with accum_id k (cost None or a (W*H,) int32
-    tensor), track(pix, out) runs one raw sample."""
+    tensor), track(pix, out) runs one raw sample (None: no raw mode)."""
     import torch
     from icon_rt_tpu_torch.ops.fast import alloc_raw
     from icon_rt_tpu_torch.ops.render import alloc_frame
@@ -270,9 +281,10 @@ def tracker_numbers(cs, name, render, track, perm, n, tag, probes):
     out["divergence"] = cs.divergence(cost, perm, n)
     out["cost_mean"] = float(cost[perm[:n].long()].double().mean())
     out["cost_max"] = int(cost.max())
-    raw = alloc_raw(n, dev)
-    track(perm[:n].contiguous(), raw)
-    out["hash"]["raw"] = kt.digest(raw.wrote, raw.ca, raw.t)
+    if track is not None:
+        raw = alloc_raw(n, dev)
+        track(perm[:n].contiguous(), raw)
+        out["hash"]["raw"] = kt.digest(raw.wrote, raw.ca, raw.t)
     q_lib, q_log = probes[name]["query"]
     out["occupancy"] = occupancy(q_lib)
     out["ptxas"] = cs.ptxas_lines(q_log)
@@ -299,20 +311,24 @@ def measure(root, phases, others, cells):
     bigscene.CACHE_DIR = tempfile.mkdtemp(prefix="time_track_")
 
     # the probe builds, started together
-    jobs = [(k, kind) for k in KERNELS
+    names = sorted({CELL_KERNEL[c] for c in cells})
+    jobs = [(k, kind) for k in names
             for kind in (("query", "phases") if phases else ("query",))]
-    with ThreadPoolExecutor(len(jobs) + 2) as ex:
+    builds = {"track_f32": fast.build_track_f32,
+              "track_q": fastq.build_track_q,
+              "track_wedge": lambda: fast.build_track_f32("track_wedge")}
+    with ThreadPoolExecutor(len(jobs) + 3) as ex:
         futs = {job: ex.submit(probe_build, job[0], job[1] == "phases")
                 for job in jobs}
-        for b in (fast.build_track_f32, fastq.build_track_q):
-            ex.submit(b).result()
+        for f in [ex.submit(builds[k]) for k in names]:
+            f.result()
         probes = {}
         for (k, kind), f in futs.items():
             probes.setdefault(k, {})[kind] = f.result()
 
     from icon_rt_tpu_torch.ops.render import alloc_frame
-    # 1. r2b8_closeup, K1
-    if "k1" in cells:
+    # 1. r2b8_closeup, K1; 4. K9-w on its wedge tables
+    if "k1" in cells or "k9w" in cells:
         pl, _, met = cs.main_path(dev)
         s, frame = pl.scene, pl.frame
         lps = [cs.with_id(cs.launch_params(pl), k) for k in range(8)]
@@ -330,24 +346,33 @@ def measure(root, phases, others, cells):
         def raw(p, out, tabs=tabs, lps=lps):
             fast.track_f32(*tabs, lps[0], p, None, None, width=W, height=H,
                            rng_salt=3, out=out)
-        r = tracker_numbers(cs, "track_f32", render, raw, perm, n,
-                            "K1 r2b8", probes)
-        r["steady_launch_ms"] = float(np.median(met["launch_ms"][1:]))
-        res["k1_r2b8"] = r
-        print("time_track k1_r2b8 " + json.dumps(r), flush=True)
+        if "k1" in cells:
+            r = tracker_numbers(cs, "track_f32", render, raw, perm, n,
+                                "K1 r2b8", probes)
+            r["steady_launch_ms"] = float(np.median(met["launch_ms"][1:]))
+            res["k1_r2b8"] = r
+            print("time_track k1_r2b8 " + json.dumps(r), flush=True)
         if others:
             acc, fb = (x[:n] for x in alloc_frame(W, H, device=dev))
             res["k3f_r2b8"] = kt.kernel_times(cs, lambda: march.march_f32(
                 *tabs, lps[1], pix, acc, fb, width=W, height=H),
                 "march_f32_kernel", "K3-f32 r2b8")
+            print("time_track others k3f_r2b8 "
+                  + json.dumps(res["k3f_r2b8"]), flush=True)
+            del acc, fb
+        if "k9w" in cells:
             tabs_w = (s["get_packed_wedge"](), s["locator"],
                       s["get_bands_wedge"]())
-            res["k9w_r2b8"] = kt.kernel_times(cs, lambda: fast.track_wedge(
-                *tabs_w, lps[1], pix, acc, fb, width=W, height=H,
-                samples=SPL), "track_wedge_kernel", "K9-w r2b8")
-            print("time_track others r2b8 " + json.dumps(
-                {k: res[k] for k in ("k3f_r2b8", "k9w_r2b8")}), flush=True)
-            del tabs_w, acc, fb
+
+            def render_w(k, acc, fb, cost, tabs_w=tabs_w, lps=lps, pix=pix,
+                         n=n):
+                fast.track_wedge(*tabs_w, lps[k], pix, acc[:n], fb[:n],
+                                 width=W, height=H, samples=SPL,
+                                 preserve_cache=True, cost=cost)
+            r = tracker_numbers(cs, "track_wedge", render_w, None, perm, n,
+                                "K9-w r2b8", probes)
+            res["k9w_r2b8"] = r
+            print("time_track k9w_r2b8 " + json.dumps(r), flush=True)
 
     # 2. r2b8q_closeup, K2 with the fine map
     if "k2" in cells:
@@ -438,19 +463,19 @@ def turns(trees, phases, others, cells):
         pick = lambda f: [f(r) for r in mine]
         rnd = lambda f: pick(lambda r: None if f(r) is None
                              else round(f(r), 4))
-        for k in [k for k in ("k1_r2b8", "k2_r2b8", "k2_r2b9")
+        for k in [k for k in ("k1_r2b8", "k2_r2b8", "k2_r2b9", "k9w_r2b8")
                   if k in mine[0]]:
             print(f"time_track summary {root}: {k} kernel "
                   f"{rnd(lambda r: r[k]['kernel_ms'])}, events "
                   f"{rnd(lambda r: r[k]['ms'])}, steady launch "
-                  f"{rnd(lambda r: r[k]['steady_launch_ms'])}, idle "
+                  f"{rnd(lambda r: r[k].get('steady_launch_ms'))}, idle "
                   f"{rnd(lambda r: r[k]['idle_share'])}, host reads "
                   f"{pick(lambda r: r[k]['host_reads'])}, occupancy "
                   f"{pick(lambda r: r[k]['occupancy'])}, hashes "
                   f"{pick(lambda r: r[k]['hash'])}")
         if others:
-            for k in [k for k in ("k3f_r2b8", "k3q_r2b8", "k3q_r2b9",
-                                  "k9w_r2b8") if k in mine[0]]:
+            for k in [k for k in ("k3f_r2b8", "k3q_r2b8", "k3q_r2b9")
+                      if k in mine[0]]:
                 print(f"time_track summary {root}: {k} kernel "
                       f"{rnd(lambda r: r[k]['kernel_ms'])}, events "
                       f"{rnd(lambda r: r[k]['ms'])}")
@@ -468,10 +493,11 @@ def main():
                          "through an instrumented copy of "
                          "csrc/track_common.cuh")
     ap.add_argument("--others", action="store_true",
-                    help="also K3-f32, K3-q and K9-w")
+                    help="also K3-f32 and K3-q")
     ap.add_argument("--cells", default="k1,k2,k2r2b9",
                     help="comma-separated cells to run: k1 (r2b8_closeup), "
-                         "k2 (r2b8q_closeup), k2r2b9 (r2b9q_closeup)")
+                         "k2 (r2b8q_closeup), k2r2b9 (r2b9q_closeup), k9w "
+                         "(K9-w on the r2b8 wedge tables)")
     args = ap.parse_args()
     if args.turns:
         if len(args.turns) < 2:

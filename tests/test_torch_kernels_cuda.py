@@ -792,10 +792,14 @@ def _ragged_scene(dev):
                             device=dev)
     perm, n_cov = order.pixel_order(lp, st.spherical_bounds_lo[0],
                                     st.spherical_bounds_hi[0], 96, 96)
+    from icon_rt_tpu_torch.models.shells import build_radial_bands_wedge
+    bands_w = update_band_majorants(build_radial_bands_wedge(
+        ds, 64, device=dev), tf.values, tf.value_range)
     return dict(packed=fast.pack_cells(cells, tf), loc=build_locator(
         ds, device=dev), q=q, loc_q=loc_q,
         fm=finemap.build_finemap(loc_q, q.test12), tf=tf, bands=bands,
-        lp=lp, perm=perm, n_cov=n_cov)
+        lp=lp, perm=perm, n_cov=n_cov,
+        packed_w=fast.pack_cells_wedge(cells, tf), bands_w=bands_w)
 
 
 @pytest.fixture(scope="module")
@@ -857,6 +861,38 @@ def test_cuda_track_ragged_layers_match_plain(rscene, tier, case):
         assert (ok[1] == op[1]).float().mean() >= 0.999
         assert float((ok[0] - op[0]).abs().max()) <= 1e-6
         assert int((ok[1] != 0).sum()) > n // 4
+
+
+@pytest.mark.parametrize("preserve_cache", [True, False])
+def test_cuda_track_wedge_ragged_layers_match_plain(rscene, preserve_cache):
+    """K9-w (each slot's layer bracket in s = dot(P, n'), else a binary
+    search) against its plain version on the ragged scene -- columns of
+    1..24 layers, a quarter of zero thickness, rays grazing the third
+    ceiling -- 8 samples with the cost output: fb identical on >= 99.9% of
+    lanes, accum within 1e-6, cost on >= 99.9%."""
+    s = rscene
+    n = s["n_cov"]
+    pix = s["perm"][:n].contiguous()
+    dev = pix.device
+    outs = []
+    for kernel in (True, False):
+        cost = torch.zeros(96 * 96, dtype=torch.int32, device=dev)
+        acc, fb = (x[:n] for x in alloc_frame(96, 96, device=dev))
+        args = (s["packed_w"], s["loc"], s["bands_w"], s["lp"], pix, acc,
+                fb)
+        if kernel:
+            fast.track_wedge(*args, width=96, height=96, samples=8,
+                             preserve_cache=preserve_cache, cost=cost)
+        else:
+            fast._render_frame_fast_torch(*args, 96, 96, 8, preserve_cache,
+                                          cost, tier=fast._WedgeTier)
+        torch.cuda.synchronize()
+        outs.append((acc, fb, cost))
+    (ak, fk, ck), (ap, fp, cp) = outs
+    assert float((ck == cp).float().mean()) >= 0.999 and int(ck.max()) > 0
+    assert (fk == fp).float().mean() >= 0.999
+    assert float((ak - ap).abs().max()) <= 1e-6
+    assert int((fk != 0).sum()) > n // 4
 
 
 def test_cuda_scene_lod_matches_plain(dev):
@@ -1132,12 +1168,12 @@ def test_cuda_parity_raw_matches_plain(pscene, raygen, sampler):
     assert torch.equal(acc_r, acc) and torch.equal(fb_r, fb)
 
 
-def _grazing_lp(pscene, size, dev):
+def _grazing_lp(pscene, size, dev, r=None):
     """Launch params of a camera at 1.6 shell tops whose view centre is
-    tangent to the cells' shell top (shell[1]): its rays graze the sphere
-    of radius max h_top, where K8's whole-shell test decides."""
+    tangent to the sphere of radius r (the cells' shell top shell[1] where
+    None): its rays graze it, where K8's whole-shell test decides."""
     c = pscene["cells"]
-    r = float(c.shell[1])
+    r = float(c.shell[1]) if r is None else r
     d = 1.6 * r
     tangent = np.array([r * r / d, r * np.sqrt(1.0 - (r / d) ** 2), 0.0],
                        np.float32)
@@ -1148,47 +1184,71 @@ def _grazing_lp(pscene, size, dev):
                               pscene["hi"], unit_distance=1e3, device=dev)
 
 
-@pytest.mark.parametrize("sampler", ["locator", "brute"])
+@pytest.mark.parametrize("sampler", ["locator", "brute", "wedge"])
 @pytest.mark.parametrize("raygen", ["ae", "sphere", "grid"])
 def test_cuda_parity_grazing_shell_matches_plain(pscene, raygen, sampler):
-    """K8 with rays that graze the cells' shell top, where its whole-shell
-    test decides, at 96 x 96 lanes: every lane's final LCG state and
-    iterations, accum and fb bit-equal to the plain version's; then raw
-    mode's wrote, colour and debug output bit-equal too."""
+    """K8 with rays that graze the sampler's shell top, where its
+    whole-shell test decides, at 96 x 96 lanes: every lane's final LCG
+    state and iterations, accum and fb bit-equal to the plain version's;
+    then raw mode's wrote, colour and debug output bit-equal too.  K9-p
+    (the wedge sampler) grazes the top of the wedges' shell
+    (`Wedges.shell`, above the cells' by its margin) on WEDGE_CHECK_LANES
+    lanes strided over the frame (its plain Newton window is slow in lock
+    step), under K9-p's gates: rng and iterations equal on every lane, fb
+    and raw colour identical on >= 99.9%, within 1e-6, wrote equal."""
+    from icon_rt_tpu_torch.models.wedges import build_wedges
     from icon_rt_tpu_torch.ops import render
     s = pscene
     dev = s["lp"].accum_id.device
     n = 96
-    lp = _grazing_lp(s, n, dev)
+    w = build_wedges(synthetic.icosphere(3, 8), device=dev) \
+        if sampler == "wedge" else None
+    lp = _grazing_lp(s, n, dev, None if w is None else float(w.shell[1]))
     accel = s["accels"].get(raygen)
     kw = dict(width=n, height=n, raygen=raygen, sampler=sampler,
-              locator=s["loc"], accel=accel)
+              locator=s["loc"], accel=accel, wedges=w)
     pix = torch.arange(n * n, dtype=torch.int32, device=dev)
+    if w is not None:
+        m = WEDGE_CHECK_LANES[raygen]
+        pix = pix[::n * n // m][:m].contiguous()
+    L = pix.shape[0]
     outs = []
     for kernel in (True, False):
-        acc, fb = alloc_frame(n, n, device=dev)
-        dbg = torch.zeros(n * n, 2, dtype=torch.int32, device=dev)
+        acc = torch.zeros(L, 4, device=dev)
+        fb = torch.zeros(L, dtype=torch.int32, device=dev)
+        dbg = torch.zeros(L, 2, dtype=torch.int32, device=dev)
         if kernel:
             render.parity_track(s["cells"], s["tf"], lp, acc, fb, debug=dbg,
-                                **kw)
+                                pix=None if w is None else pix, **kw)
         else:
             render._parity_torch(s["cells"], s["tf"], lp, pix, acc, fb, dbg,
-                                 n, n, raygen, sampler, s["loc"], accel)
-        raw = fast.alloc_raw(n * n, dev)
+                                 n, n, raygen, sampler, s["loc"], accel,
+                                 wedges=w)
+        raw = fast.alloc_raw(L, dev)
         rdbg = torch.zeros_like(dbg)
         lp1 = lp._replace(accum_id=torch.tensor(1, dtype=torch.int32,
                                                 device=dev))
         if kernel:
             render.parity_track(s["cells"], s["tf"], lp1, None, None,
-                                debug=rdbg, out=raw, **kw)
+                                debug=rdbg, out=raw,
+                                pix=None if w is None else pix, **kw)
         else:
             render._parity_torch(s["cells"], s["tf"], lp1, pix, None, None,
                                  rdbg, n, n, raygen, sampler, s["loc"],
-                                 accel, out=raw)
+                                 accel, wedges=w, out=raw)
         torch.cuda.synchronize()
         outs.append((acc, fb, dbg, raw.wrote, raw.ca, rdbg))
-    for got, want in zip(*outs):
-        assert torch.equal(got, want)
+    if w is None:
+        for got, want in zip(*outs):
+            assert torch.equal(got, want)
+    else:
+        (ak, fk, dk, wk, ck, rk), (ap, fp, dp, wp, cp, rp) = outs
+        assert torch.equal(dk, dp) and torch.equal(rk, rp)
+        assert torch.equal(wk, wp)
+        assert (fk == fp).float().mean() >= 0.999
+        assert (ck == cp).all(1).float().mean() >= 0.999
+        assert float((ak - ap).abs().max()) <= 1e-6
+        assert float((ck - cp).abs().max()) <= 1e-6
     acc, fb, dbg = outs[0][:3]
     assert int((fb != 0).sum()) > 0 and int(dbg[:, 1].max()) > 0
 

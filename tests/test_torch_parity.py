@@ -523,12 +523,13 @@ def test_torch_parity_wedge_matches_jax(sc, wsc, raygen):
 
 def test_torch_work_counts_wedge_scan(sc, wsc):
     """ops/woodcock.py `Work` with the wedge sampler, the counts behind
-    K9-p's bound: on 600 seeded points (half of them counted) the columns
+    K9-p's bound: on 600 seeded points (half of them counted) the samples
+    that the wedge shell test rejects, then for the others the columns
     visited, their layers, the Newtons run and their iterations, and the
-    hits equal a scalar replay of csrc/parity.cu's scan (`wedge_column`:
-    find_layer, the window up to the column's top, the first hit), each
-    inversion run alone.  Then through K9-p's plain AE: one draw per
-    iteration."""
+    hits equal a scalar replay of csrc/parity.cu's `sample<kWedge>` (the
+    shell test on x*x + y*y + z*z, then `wedge_column`: find_layer, the
+    window up to the column's top, the first hit), each inversion run
+    alone.  Then through K9-p's plain AE: one draw per iteration."""
     from icon_rt_tpu_torch.models.cells import _radius
     from icon_rt_tpu_torch.models.locator import locator_rows
     from icon_rt_tpu_torch.ops.uelems import newton
@@ -542,8 +543,15 @@ def test_torch_work_counts_wedge_scan(sc, wsc):
     r = _radius(pos)
     rows = loc.bins[locator_rows(loc, pos)[1]]
     nl_all, off = tc.num_layers, w.cell_offset
-    want = dict(wcol=0, wcol_layers=0, newton=0, newton_iters=0, hit=0)
+    want = dict(shell=0, wcol=0, wcol_layers=0, newton=0, newton_iters=0,
+                hit=0)
+    s_lo, s_hi = w.shell[2].item(), w.shell[3].item()
     for i in np.nonzero(mask.numpy())[0]:
+        x, y, z = pos[i]
+        sq = x * x + y * y + z * z
+        if not (s_lo <= sq.item() <= s_hi):
+            want["shell"] += 1
+            continue
         found = False
         for c in rows[i].tolist():
             if c < 0 or found:
@@ -567,6 +575,7 @@ def test_torch_work_counts_wedge_scan(sc, wsc):
                     break
     assert {k: got[k] for k in want} == want
     assert got["eval"] == int(mask.sum()) and want["hit"] > 0
+    assert 0 < want["shell"] < got["eval"]
     assert 0 < got["wedges_read"] <= want["newton"]
     assert 0 < got["entries"] and got["hit_cells"] <= tc.num_cells
     # through the plain AE raygen: every iteration draws once
@@ -580,3 +589,38 @@ def test_torch_work_counts_wedge_scan(sc, wsc):
     assert c["draw"] == int(dbg[:, 1].sum()) and c["advance"] == 0
     assert 0 < c["hit"] <= c["eval"] <= c["draw"]
     assert c["newton_iters"] >= c["newton"] >= c["hit"]
+
+
+@pytest.mark.parametrize("sampler", ["locator", "wedge"])
+def test_torch_woodcock_skip_draws_change_nothing(sc, wsc, sampler,
+                                                  monkeypatch):
+    """ops/woodcock.py `woodcock_track` through K8's and K9-p's plain AE
+    (one sample, 16x16): the draws that a lock-step iteration skips past
+    the sampler's shell (SKIP_DRAWS of them) leave every lane's t,
+    albedo, extinction, rng and steps, and the counted work, as one draw
+    an iteration (SKIP_DRAWS = 0) gives them; the scene has samples
+    outside the shell, so the skipping ran."""
+    from icon_rt_tpu_torch.ops import woodcock
+    results = []
+
+    def record(*args, **kw):
+        results.append(woodcock.woodcock_track(*args, **kw))
+        return results[-1]
+
+    monkeypatch.setattr(render, "woodcock_track", record)
+    pix = torch.arange(W * H, dtype=torch.int32)
+    counts = []
+    for skip in (woodcock.SKIP_DRAWS, 0):
+        monkeypatch.setattr(woodcock, "SKIP_DRAWS", skip)
+        work = woodcock.Work(sc["t_cells"], sampler, sc["t_loc"],
+                             wsc["t_w"])
+        render._pixels(sc["t_cells"], sc["t_tf"],
+                       interop.launch_params(sc["lp"]), pix % W, pix // W,
+                       W, H, "ae", sampler, sc["t_loc"], None, work,
+                       wsc["t_w"])
+        counts.append(work.counts())
+    a, b = results
+    for field in a._fields:
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+    assert counts[0] == counts[1]
+    assert 0 < counts[0]["shell"] < counts[0]["eval"]

@@ -277,7 +277,8 @@ def test_torch_parity_params_read_nothing(small, monkeypatch, raygen,
     tensors with every way a tensor reaches the host (tolist, item, int,
     float, bool, index, cpu, numpy) made to raise: it reads none, and
     every scalar of the frame, the TF, the cells' shell, the locator
-    window and the accel bounds is passed as its tensor's address."""
+    window and the accel bounds is passed as its tensor's address (with
+    the wedge sampler the shell is the wedges', `Wedges.shell`)."""
     s = small
     accel = s["acc"].get(raygen)
     acc, fb = render.alloc_frame(W, H)
@@ -296,7 +297,8 @@ def test_torch_parity_params_read_nothing(small, monkeypatch, raygen,
     monkeypatch.undo()
     addr = lambda t: t.data_ptr()
     c, tf, lp, loc = s["cells"], s["tf"], s["lp"], s["loc"]
-    assert p.shell == addr(c.shell) and p.planes == addr(c.planes)
+    shell = s["wedges"].shell if sampler == "wedge" else c.shell
+    assert p.shell == addr(shell) and p.planes == addr(c.planes)
     assert (p.vr, p.opacity_scale) == (addr(tf.value_range),
                                        addr(tf.opacity_scale))
     assert (p.blo, p.bhi) == (addr(lp.bounds_lo), addr(lp.bounds_hi))
