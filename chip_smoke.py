@@ -949,6 +949,82 @@ def finemap_agreement(acc_on, acc_off, n, label):
         raise AssertionError("K3-q with the fine map differs from without")
 
 
+#: check m's K3 views beyond the closeup: a camera inside the shell and one
+#: grazing it (`march_view_lp`), at a unit distance at which most rays cross
+#: several columns
+MARCH_VIEWS = ("inside", "grazing")
+VIEW_UD = 1e5
+
+
+def march_view_lp(stats, view, size, dev):
+    """Launch params of a camera inside the shell (half-way up it, looking
+    along the horizon, 8 degrees) or at 1.6 shell tops with its view centre
+    tangent to the sphere half-way up the shell (0.4 degrees): their rays
+    cross columns on both sides of their apex, where both pieces of a
+    crossing's integral are non-empty and a crossing spans many layers (as
+    tests/test_torch_kernels_cuda.py `_march_view_lp`)."""
+    from icon_rt_tpu_torch.ops.camera import Camera
+    from icon_rt_tpu_torch.ops.render import make_launch_params
+    lo, hi = (float(stats.spherical_bounds_lo[0]),
+              float(stats.spherical_bounds_hi[0]))
+    r = 0.5 * (lo + hi)
+    cam = Camera()
+    if view == "inside":
+        org = np.array([r, 0.0, 0.0], np.float32)
+        cam.set_orientation(org, org + np.array([0.0, r, 0.0], np.float32),
+                            np.array([1, 0, 0], np.float32), 8.0)
+    else:
+        d = 1.6 * hi
+        tangent = np.array([r * r / d, r * np.sqrt(1.0 - (r / d) ** 2),
+                            0.0], np.float32)
+        cam.set_orientation(np.array([d, 0.0, 0.0], np.float32), tangent,
+                            np.array([0, 0, 1], np.float32), 0.4)
+    return make_launch_params(cam.basis(size, size), stats.world_bounds_lo,
+                              stats.world_bounds_hi, unit_distance=VIEW_UD,
+                              device=dev)
+
+
+def check_march_views(sc, qtabs, dev):
+    """check m: K3 on both tiers (the quantized one without the fine map)
+    in the MARCH_VIEWS on CHECK_LANES strided pixels of the check frame
+    against the plain version: accum, fb and the cost bit-equal, else
+    raises."""
+    import torch
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    t0 = time.perf_counter()
+    size = sc.width
+    q, loc_q, _ = qtabs
+    lanes = torch.arange(0, size * size, max(size * size // CHECK_LANES, 1),
+                         dtype=torch.int32, device=dev)
+    n = lanes.shape[0]
+    for view in MARCH_VIEWS:
+        lp = march_view_lp(sc.stats, view, size, dev)
+        for tier, run in (
+                ("f32", march_runs(sc.packed, sc.loc, sc.bands, lp, lanes,
+                                   size, size)),
+                ("q", march_runs(None, None, sc.bands, lp, lanes, size, size,
+                                 qtabs=(q, loc_q, sc.tf)))):
+            outs = []
+            for kernel in (True, False):
+                acc, fb = alloc_frame(size, size, device=dev)
+                cost = torch.full((size * size,), -1, dtype=torch.int32,
+                                  device=dev)
+                run(acc[:n], fb[:n], kernel, cost)
+                outs.append((acc, fb, cost))
+            same = all(torch.equal(a, b) for a, b in zip(*outs))
+            acc, _, cost = outs[0]
+            print(f"check m K3 march_{tier} {view} view on {n} strided "
+                  f"pixels: accum, fb and cost "
+                  f"{'bit-equal' if same else 'DIFFER'} to the plain "
+                  f"version's; {int((acc[:n, 3] > 0).sum())} lanes with "
+                  f"alpha > 0, {float(cost[lanes.long()].double().mean()):.2f}"
+                  f" iterations a lane")
+            if not same:
+                raise AssertionError(f"K3 march_{tier} differs from its "
+                                     f"plain version in the {view} view")
+    print(f"check m views {time.perf_counter() - t0:.1f} s")
+
+
 def check_march(sc, qtabs, dev):
     """K3 on both tiers and K5c-f32 against their plain versions on the
     check scene, accum_id 0 and 3."""
@@ -975,6 +1051,7 @@ def check_march(sc, qtabs, dev):
             errs["march_q"] = max(errs["march_q"], e)
         finemap_agreement(acc["on"], acc["off"], n,
                           f"check m accum_id={aid}")
+    check_march_views(sc, qtabs, dev)
     errs["opacity_scale"] = check_opacity_scale(sc.cells, sc.packed, sc.tf,
                                                 "check m")
     # check march cost: the cost output on both tiers (exact, else raises)
@@ -1352,6 +1429,21 @@ def tracker_extras(name, tag, launch, perm, n_active):
     return out
 
 
+def march_extras(tier):
+    """The K3 row's keys beyond the contract: registers, local bytes and
+    resident blocks an SM (the library's occupancy query) and the ptxas
+    spill stores of K3's kernel of `tier` ("f32" or "q")."""
+    from icon_rt_tpu_torch.ops.march import march_occupancy
+    from icon_rt_tpu_torch.utils import cuda_build
+    out = march_occupancy(tier)
+    out["spill_store_bytes"] = spill_stores(ptxas_lines(
+        cuda_build.info("march")["log"], f"march_{tier}_kernel"))
+    print(f"time K3 march_{tier}: {out['registers']} registers, "
+          f"{out['local_bytes']} local bytes, {out['spill_store_bytes']} B "
+          f"spill stores, {out['blocks_per_sm']} blocks an SM")
+    return out
+
+
 def time_kernels(pl, errs, counts):
     """Each kernel and its plain version at the main path's shapes."""
     import torch
@@ -1641,7 +1733,8 @@ def time_march_kernels(pl_m, pl_mq, fm, errs, counts_m, counts_mq):
     kernel_row(rows, counts_m, errs, "march_f32", "cuda",
                "icon_rt_tpu_torch/csrc/march.cu",
                "icon_rt_tpu/ops/march.py:301", km, pm,
-               tiers[-1].bound("march_f32", n, lambda c: packed.test[c, 14]))
+               tiers[-1].bound("march_f32", n, lambda c: packed.test[c, 14]),
+               **march_extras("f32"))
     counted = {"march_f32": tiers[-1]}
 
     # -- K5c-f32 --------------------------------------------------------------
@@ -1703,7 +1796,8 @@ def time_march_kernels(pl_m, pl_mq, fm, errs, counts_m, counts_mq):
                "icon_rt_tpu_torch/csrc/march.cu",
                "icon_rt_tpu/ops/march.py:449", kms[False], pms[False],
                qtiers[False].bound("march_q", n, lambda c: q.test12[c, 11]),
-               ms_finemap=kms[True], plain_ms_finemap=pms[True])
+               ms_finemap=kms[True], plain_ms_finemap=pms[True],
+               **march_extras("q"))
     counted["march_q"] = qtiers[False]
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
@@ -3106,6 +3200,31 @@ def scene_counts(lod=0):
             "max_opacity": accel.launches}
 
 
+def time_bakes_r2b9(q, tag):
+    """K5c-q's two passes over the R2B9 scene's (N, Lm) u8 value table, as
+    main r2b9q's TF edits run them, timed with CUDA events (after its
+    counts are read): the full lookup of the live alpha table and a patch
+    of PATCH_LEVELS levels, each beside its bound (bytes: the lookup reads
+    value_q and writes the new table, the patch reads value_q and alpha_q
+    and writes the new table)."""
+    import torch
+    from icon_rt_tpu_torch.models import qcells
+    dev = q.value_q.device
+    tab = torch.from_numpy(q.alpha_tab).to(dev)
+    lev = torch.arange(0, 256, 256 // qcells.PATCH_LEVELS,
+                       dtype=torch.int32, device=dev)
+    new = tab[lev.long()]
+    n = q.value_q.numel()
+    ms_l = time_cuda(lambda: qcells.bake_lookup(q.value_q, tab), reps=10)
+    ms_p = time_cuda(lambda: qcells.bake_patch(q.value_q, q.alpha_q, lev,
+                                               new), reps=10)
+    b_l, b_p = bound(2 * n, 0), bound(3 * n, 0)
+    print(f"{tag} K5c-q at {tuple(q.value_q.shape)} u8: bake_lookup "
+          f"{ms_l:.4f} ms (bound {b_l[0]:.4f} ms, {b_l[1]}), bake_patch of "
+          f"{qcells.PATCH_LEVELS} levels {ms_p:.4f} ms (bound {b_p[0]:.4f} "
+          f"ms, {b_p[1]}); CUDA events, 10 calls each")
+
+
 def main_r2b9q(dev, errs, framing="closeup", rows=None):
     """bench.py `_measure_row_q` (bench.py:581-743) through the port, for
     the row r2b9q_closeup (framing "closeup", LOD 0) or r2b9q_viewall
@@ -3227,6 +3346,8 @@ def main_r2b9q(dev, errs, framing="closeup", rows=None):
     counts = dict(scene_counts(lod), chord_keys=order.launches,
                   track_q=fastq.launches)
     require_counts(tag, counts)
+    if framing == "closeup":
+        time_bakes_r2b9(q, tag)
 
     pix = perm[:CHECK_LANES].contiguous()
     for f in (fm, None):
@@ -3375,7 +3496,8 @@ def main_r2b9m(dev, errs):
                tiers[-1].bound("march_q", n_active,
                                lambda c: q.test12[c, 11],
                                scale=n_active / lanes.shape[0]),
-               n_active=n_active, plain_lanes=lanes.shape[0])
+               n_active=n_active, plain_lanes=lanes.shape[0],
+               **march_extras("q"))
     peak_memory(tag)
     return rows
 
@@ -4341,6 +4463,7 @@ def time_composite(dev, errs, counts):
     lanes (CUDA events), each mode; the rows carry the slab path's modes
     (the payload mask, the first-hit finalize) and list the others."""
     import torch
+    from icon_rt_tpu_torch.ops import composite
     L = MAIN_W * MAIN_H
     x = k10_inputs(dev, L, seed=1)
     aid = torch.tensor(3, dtype=torch.int32, device=dev)
@@ -4357,12 +4480,16 @@ def time_composite(dev, errs, counts):
                                 ("cand", "mean")),
                                ("composite_finalize", "first_hit",
                                 ("mean_fin",))):
+        occ = composite.composite_occupancy(name.split("_")[1])
+        print(f"time K10 {name}: {occ['registers']} registers, "
+              f"{occ['local_bytes']} local bytes, {occ['blocks_per_sm']} "
+              f"blocks an SM")
         kernel_row(rows, counts, errs, name, "cuda",
                    "icon_rt_tpu_torch/csrc/composite.cu", K10_REPLACES,
                    t[mode][0], t[mode][1], t[mode][2], mode=mode, lanes=L,
                    other_modes={m: dict(ms=t[m][0], plain_ms=t[m][1],
                                         bound_ms=t[m][2][0])
-                                for m in others})
+                                for m in others}, **occ)
     return rows
 
 

@@ -24,8 +24,14 @@
 //
 // What bounds it on the H100: bytes.  One thread per lane reads and writes
 // each input and output once (12-57 bytes a lane) and does a handful of
-// compares; the wrapper times it beside the bytes at 3.35 TB/s.  Built with
-// -fmad=false: the blend rounds each operation as eager PyTorch does.
+// compares; chip_smoke.py times it beside the bytes at 3.35 TB/s.  The
+// finalize reads the launch's sample id on the card, so a call reads
+// nothing back to the host: with a host read (int(accum_id)) a 1080p call
+// took ~0.09 ms around a 0.044 ms kernel.  Moving the rows as float4,
+// 1-4 lanes a thread, and staging the mean mode's 20-byte rows through
+// shared memory were measured and not kept: the kernel was as fast or
+// slower (PERF.md).  Built with -fmad=false: the blend rounds each
+// operation as eager PyTorch does.
 #include "track_common.cuh"
 
 // Mirror of `_CompositeParams` in ops/composite.py (same field order).
@@ -40,7 +46,8 @@ struct CompositeParams {
   float* send;             // (L, 4) or (L, 5) out (kPayload, kMean)
   float* accum;            // (L, 4) in/out (finalize)
   int32_t* fb;             // (L,) in/out (finalize)
-  int n_lanes, mode, rank, n_ranks, accum_id;
+  const int32_t* accum_id; // () the launch's sample id (finalize)
+  int n_lanes, mode, rank, n_ranks;
 };
 
 namespace {
@@ -91,7 +98,7 @@ composite_finalize_kernel(const CompositeParams p) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) a[k] = p.accum[i * 4 + k];
   if (w) {
-    const float sc = 1.0f / (static_cast<float>(p.accum_id) + 1.0f);
+    const float sc = 1.0f / (static_cast<float>(__ldg(p.accum_id)) + 1.0f);
 #pragma unroll
     for (int k = 0; k < 4; ++k) a[k] = track::blend(sc, c[k], a[k]);
   }
@@ -117,4 +124,13 @@ extern "C" int composite_finalize_launch(const CompositeParams* p,
   composite_finalize_kernel<<<grid_of(p->n_lanes), kBlock, 0,
                               static_cast<cudaStream_t>(stream)>>>(*p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The resident 256-thread blocks an SM, registers and local bytes a
+// thread (out[0..2]) of the mask (which 0) or the finalize (1).  Returns
+// the first CUDA error.
+extern "C" int composite_occupancy(int which, int* out) {
+  return which == 0
+             ? track::occupancy(composite_mask_kernel, kBlock, out)
+             : track::occupancy(composite_finalize_kernel, kBlock, out);
 }

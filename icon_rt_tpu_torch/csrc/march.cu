@@ -49,6 +49,15 @@
 //     registers for both pieces needed 95-127 registers and was 1.3-1.8x
 //     slower (PERF.md), one that kept the chords in shared memory
 //     was no faster at R2B9;
+//   * a crossing's integral visits only the layers whose length can be
+//     > 0, found with its own f32 predicates (`integrate`): an empty piece
+//     costs nothing (on the app's closeups every ascending piece is
+//     empty), and a piece runs from the layer where its near end lies to
+//     where it ends (5.0 of the 32 visits of a crossing add anything at
+//     R2B8, 1.6 at R2B9; PERF.md);
+//   * the locate reads its candidates one at a time: reading four rows'
+//     bounds and first planes ahead of the tests took K3-f32 from 64 to 94
+//     registers (5 blocks an SM) and was 19% slower (PERF.md);
 //   * on the q tier the (256, 4) code table of the live TF is built on the
 //     card by a one-block kernel launched ahead of the march on the same
 //     stream (the f32 expressions of models/transfunc.py `post_classify`,
@@ -104,6 +113,7 @@ __device__ __forceinline__ float half_chord(float h, float od, float oo) {
 
 // Per-layer data of a located column on the f32 tier: the K5a rows.
 struct F32Layers {
+  static constexpr bool kSearch = true;   // see `integrate`
   const float* h;     // 32 inf-padded ceilings, then 32 alpha
   const float* rgb;   // R | G | B
   float h_bot;
@@ -135,6 +145,7 @@ struct F32Layers {
 // at use; a layer's colour is its value re-quantized to a u8 code and
 // looked up in the code table (icon_rt_tpu/ops/march.py:478-482).
 struct QLayers {
+  static constexpr bool kSearch = false;  // see `integrate`
   const QTier& T;
   const MarchArgs& m;
   int cid;
@@ -171,12 +182,68 @@ struct QLayers {
   }
 };
 
+// The first layer of a crossing's descending piece, from the top, whose
+// length can be > 0: with Lay::kSearch the count of the ceilings h_j,
+// j < kn - 1, with -od - s(h_j) > t0 (layer j + 1's far end lies after
+// t0), else the top layer kn - 1.  s(h) = half_chord(h) is non-decreasing
+// in h >= 0 under round-to-nearest and the ceilings ascend
+// (models/cells.py `check_ceilings`, models/qcells.py `check_q_ceilings`),
+// so the predicate holds on a prefix of j: binary search with the
+// integral's own expression.  Layers above add nothing.
+template <class Lay>
+__device__ __forceinline__ int desc_top(const Lay& c, int kn, float od,
+                                        float oo, float t0) {
+  if (!Lay::kSearch || kn <= 0) return kn - 1;
+  int lo = 0, hi = kn - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (-od - half_chord(c.height(mid), od, oo) > t0)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The first layer of the ascending piece, from the bottom, whose length
+// can be > 0: with Lay::kSearch the count of the ceilings h_j, j < kn,
+// with !(-od + s(h_j) > tm) (layer j ends before tm), a prefix of j as
+// above, else 0.  Layers below add nothing.
+template <class Lay>
+__device__ __forceinline__ int asc_bottom(const Lay& c, int kn, float od,
+                                          float oo, float tm) {
+  if (!Lay::kSearch) return 0;
+  int lo = 0, hi = kn;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (!(-od + half_chord(c.height(mid), od, oo) > tm))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
 // Closed-form emission-absorption integral of one column crossing [t0, t1]
 // (icon_rt_tpu/ops/march.py `_integrate_column`), in the plain version's
 // order: the descending piece [t0, tm] with k from the top (suffix depth
 // `suf`), then the ascending piece [tm, t1] with k from the bottom
 // (prefix depth `c2`); colours accumulate inside both passes, and each
-// pass carries a sphere's half chord from one layer to the next.
+// pass carries a sphere's half chord from one layer to the next.  A piece
+// visits only the layers whose length can be > 0 and adds what the plain
+// loop adds over all of them:
+//   * an empty piece (!(tm > t0), !(t1 > tm)) is skipped whole: on the
+//     app's closeups every crossing's ascending piece is empty;
+//   * a piece starts at the layer `desc_top` or `asc_bottom` gives, its
+//     half chord computed afresh (the same expression on the same input
+//     as the carry);
+//   * it stops where its near end passes its far end, which then holds
+//     for every later layer (descending: -od - s(h_k) >= tm; ascending,
+//     for k > 0: -od + s(h_{k-1}) >= t1);
+//   * a layer in between whose length is 0 is still skipped.
+// The f32 tier finds a piece's start by binary search; the quantized tier
+// walks from the piece's end, whose empty layers cost it less than the
+// search's probes (PERF.md §6: each won in turns on its tier).
 template <class Lay>
 __device__ __forceinline__ void integrate(const Lay& c, float t0, float t1,
                                           float od, float oo, float ud,
@@ -186,44 +253,52 @@ __device__ __forceinline__ void integrate(const Lay& c, float t0, float t1,
   const int kn = c.kn;
   cr = cg = cb = 0.0f;
   float suf = 0.0f;
-  float s_hi = kn > 0 ? half_chord(c.height(kn - 1), od, oo) : 0.0f;
-  for (int k = kn - 1; k >= 0; --k) {
-    const float s_lo =
-        half_chord(k == 0 ? c.h_bot : c.height(k - 1), od, oo);
-    const float d_hi = -od - s_hi;
-    const float d_lo = -od - s_lo;
-    const float len1 = fmaxf(0.0f, fminf(d_lo, tm) - fmaxf(d_hi, t0));
-    s_hi = s_lo;
-    if (!(len1 > 0.0f)) continue;
-    const float od1 = (c.alpha(k) / ud) * len1;
-    suf = suf + od1;
-    if (!(od1 > 0.0f)) continue;
-    const float w1 = expf(-(suf - od1)) * (1.0f - expf(-od1));
-    float r, g, b;
-    c.color(k, r, g, b);
-    cr = cr + w1 * r;
-    cg = cg + w1 * g;
-    cb = cb + w1 * b;
+  if (tm > t0) {
+    const int top = desc_top(c, kn, od, oo, t0);
+    float s_hi = top >= 0 ? half_chord(c.height(top), od, oo) : 0.0f;
+    for (int k = top; k >= 0; --k) {
+      const float d_hi = -od - s_hi;
+      if (!(d_hi < tm)) break;
+      const float s_lo =
+          half_chord(k == 0 ? c.h_bot : c.height(k - 1), od, oo);
+      const float d_lo = -od - s_lo;
+      const float len1 = fmaxf(0.0f, fminf(d_lo, tm) - fmaxf(d_hi, t0));
+      s_hi = s_lo;
+      if (!(len1 > 0.0f)) continue;
+      const float od1 = (c.alpha(k) / ud) * len1;
+      suf = suf + od1;
+      if (!(od1 > 0.0f)) continue;
+      const float w1 = expf(-(suf - od1)) * (1.0f - expf(-od1));
+      float r, g, b;
+      c.color(k, r, g, b);
+      cr = cr + w1 * r;
+      cg = cg + w1 * g;
+      cb = cb + w1 * b;
+    }
   }
   const float tau1 = suf;
   float c2 = 0.0f;
-  float s_lo = half_chord(c.h_bot, od, oo);
-  for (int k = 0; k < kn; ++k) {
-    const float s_up = half_chord(c.height(k), od, oo);
-    const float i_lo = -od + s_lo;
-    const float i_hi = -od + s_up;
-    const float len2 = fmaxf(0.0f, fminf(i_hi, t1) - fmaxf(i_lo, tm));
-    s_lo = s_up;
-    if (!(len2 > 0.0f)) continue;
-    const float od2 = (c.alpha(k) / ud) * len2;
-    c2 = c2 + od2;
-    if (!(od2 > 0.0f)) continue;
-    const float w2 = expf(-(tau1 + c2 - od2)) * (1.0f - expf(-od2));
-    float r, g, b;
-    c.color(k, r, g, b);
-    cr = cr + w2 * r;
-    cg = cg + w2 * g;
-    cb = cb + w2 * b;
+  if (t1 > tm) {
+    int k = asc_bottom(c, kn, od, oo, tm);
+    float s_lo = half_chord(k == 0 ? c.h_bot : c.height(k - 1), od, oo);
+    for (; k < kn; ++k) {
+      const float i_lo = -od + s_lo;
+      if (k > 0 && !(i_lo < t1)) break;
+      const float s_up = half_chord(c.height(k), od, oo);
+      const float i_hi = -od + s_up;
+      const float len2 = fmaxf(0.0f, fminf(i_hi, t1) - fmaxf(i_lo, tm));
+      s_lo = s_up;
+      if (!(len2 > 0.0f)) continue;
+      const float od2 = (c.alpha(k) / ud) * len2;
+      c2 = c2 + od2;
+      if (!(od2 > 0.0f)) continue;
+      const float w2 = expf(-(tau1 + c2 - od2)) * (1.0f - expf(-od2));
+      float r, g, b;
+      c.color(k, r, g, b);
+      cr = cr + w2 * r;
+      cg = cg + w2 * g;
+      cb = cb + w2 * b;
+    }
   }
   tmul = expf(-(tau1 + c2));
 }
@@ -513,4 +588,12 @@ extern "C" int march_q_launch(const TrackQParams* params,
   code_table_kernel<<<1, 256, 0, s>>>(*params, *margs);
   march_q_kernel<<<grid, kBlock, 0, s>>>(*params, *margs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3's kernel of `tier` (0: f32, 1: quantized): out[0] its resident
+// 128-thread blocks an SM, out[1] its registers, out[2] its local (stack
+// and spill) bytes a thread.  Returns the first CUDA error.
+extern "C" int march_occupancy(int tier, int* out) {
+  return tier == 0 ? track::occupancy(march_f32_kernel, kBlock, out)
+                   : track::occupancy(march_q_kernel, kBlock, out);
 }

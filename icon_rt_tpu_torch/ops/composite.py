@@ -18,10 +18,11 @@ turn what comes back into the frame:
 
 Kernels (CUDA C++, csrc/composite.cu): `composite_mask` (the three send
 buffers) and `composite_finalize` (the two epilogues, through the trackers'
-own blend and RGBA8 pack).  Plain versions: `_mask_torch`,
-`_finalize_torch` (torch.where chains, then ops/render.py `_finalize`).
-CUDA tensors launch the kernels, CPU tensors run the plain versions,
-anything else raises.
+own blend and RGBA8 pack; it reads the launch's sample id, a () int32
+tensor on the card, there, so a call reads nothing back).  Plain versions:
+`_mask_torch`, `_finalize_torch` (torch.where chains, then ops/render.py
+`_finalize`).  CUDA tensors launch the kernels, CPU tensors run the plain
+versions, anything else raises.
 """
 from __future__ import annotations
 
@@ -46,8 +47,8 @@ class _CompositeParams(ctypes.Structure):
     """Mirror of `CompositeParams` in csrc/composite.cu (same field order)."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "t", "t_min", "win", "ca", "wrote", "sum", "cand", "send", "accum",
-        "fb")] + [(n, ctypes.c_int) for n in (
-            "n_lanes", "mode", "rank", "n_ranks", "accum_id")]
+        "fb", "accum_id")] + [(n, ctypes.c_int) for n in (
+            "n_lanes", "mode", "rank", "n_ranks")]
 
 
 def build_composite():
@@ -57,7 +58,22 @@ def build_composite():
     for fn in (lib.composite_mask_launch, lib.composite_finalize_launch):
         fn.argtypes = [ctypes.POINTER(_CompositeParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.composite_occupancy.argtypes = [ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)]
+    lib.composite_occupancy.restype = ctypes.c_int
     return lib
+
+
+def composite_occupancy(kernel: str) -> dict:
+    """{'blocks_per_sm', 'registers', 'local_bytes'} of K10's kernel
+    `kernel` ("mask" or "finalize"): its resident 256-thread blocks an SM,
+    registers and local bytes a thread."""
+    out = (ctypes.c_int * 3)()
+    cuda_build.check("composite_occupancy", build_composite().
+                     composite_occupancy(("mask", "finalize").index(kernel),
+                                         out))
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2]}
 
 
 def _mask_torch(mode: int, rank: int, n_ranks: int, t=None, t_min=None,
@@ -88,11 +104,10 @@ def _finalize_torch(mode: int, total, accum, fb, accum_id, t_min=None,
 
 
 def _launch(kernel: str, mode: int, n: int, dev, *, rank=0, n_ranks=1,
-            accum_id=0, **tensors):
+            **tensors):
     """Launch composite_<kernel> over n lanes with the given tensors."""
     lib = build_composite()
     p = _CompositeParams(n_lanes=n, mode=mode, rank=rank, n_ranks=n_ranks,
-                         accum_id=accum_id,
                          **{k: v.data_ptr() for k, v in tensors.items()})
     name = f"composite_{kernel}"
     cuda_build.check(name, getattr(lib, f"{name}_launch")(
@@ -154,16 +169,18 @@ def mean_payload(wrote, ca):
     return send
 
 
-def _check_frame(fn, accum, fb, L, dev):
+def _check_frame(fn, accum, fb, accum_id, L, dev):
     _check("accum", accum, F32, (L, 4), dev, fn=fn)
     _check("fb", fb, torch.int32, (L,), dev, fn=fn)
+    if dev.type == "cuda":   # the kernel reads it on the card
+        _check("accum_id", accum_id, torch.int32, (), dev, fn=fn)
 
 
 def finalize_first_hit(total, t_min, wrote, accum, fb, accum_id):
     """Accumulate the first hit over the slabs into accum (L, 4) and fb (L,)
     IN PLACE: the reduced payload where t_min is finite, else 0, written
     where the ray met the shell (`wrote`); accum_id the launch's sample id
-    ((), int32 tensor)."""
+    ((), int32 tensor, on the card for CUDA tensors)."""
     dev = _device("finalize_first_hit", total)
     L = total.shape[0]
     ck = lambda name, x, dt, shape: _check(name, x, dt, shape, dev,
@@ -171,13 +188,13 @@ def finalize_first_hit(total, t_min, wrote, accum, fb, accum_id):
     ck("total", total, F32, (L, 4))
     ck("t_min", t_min, F32, (L,))
     ck("wrote", wrote, torch.bool, (L,))
-    _check_frame("finalize_first_hit", accum, fb, L, dev)
+    _check_frame("finalize_first_hit", accum, fb, accum_id, L, dev)
     if dev.type == "cpu":
         _finalize_torch(FIRST_HIT, total, accum, fb, accum_id, t_min=t_min,
                         wrote=wrote)
         return
-    _launch("finalize", FIRST_HIT, L, dev, accum_id=int(accum_id),
-            sum=total, t_min=t_min, wrote=wrote, accum=accum, fb=fb)
+    _launch("finalize", FIRST_HIT, L, dev, accum_id=accum_id, sum=total,
+            t_min=t_min, wrote=wrote, accum=accum, fb=fb)
 
 
 def finalize_mean(total, accum, fb, accum_id):
@@ -187,9 +204,9 @@ def finalize_mean(total, accum, fb, accum_id):
     dev = _device("finalize_mean", total)
     L = total.shape[0]
     _check("total", total, F32, (L, 5), dev, fn="finalize_mean")
-    _check_frame("finalize_mean", accum, fb, L, dev)
+    _check_frame("finalize_mean", accum, fb, accum_id, L, dev)
     if dev.type == "cpu":
         _finalize_torch(MEAN_FIN, total, accum, fb, accum_id)
         return
-    _launch("finalize", MEAN_FIN, L, dev, accum_id=int(accum_id), sum=total,
+    _launch("finalize", MEAN_FIN, L, dev, accum_id=accum_id, sum=total,
             accum=accum, fb=fb)

@@ -421,7 +421,21 @@ def build_march():
         f.argtypes = [ctypes.POINTER(params), ctypes.POINTER(_MarchArgs),
                       ctypes.c_void_p]
         f.restype = ctypes.c_int
+    lib.march_occupancy.argtypes = [ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int)]
+    lib.march_occupancy.restype = ctypes.c_int
     return lib
+
+
+def march_occupancy(tier: str) -> dict:
+    """{'blocks_per_sm', 'registers', 'local_bytes'} of K3's kernel of
+    `tier` ("f32" or "q"): its resident 128-thread blocks an SM, registers
+    and local (stack and spill) bytes a thread."""
+    out = (ctypes.c_int * 3)()
+    cuda_build.check("march_occupancy", build_march().march_occupancy(
+        ("f32", "q").index(tier), out))
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2]}
 
 
 def march_q_scales(q: QuantizedCells):

@@ -6,7 +6,7 @@ in, for one tree of the repository or two in turns.
     python scripts/time_scene_march.py                  # this tree
     python scripts/time_scene_march.py --turns A B      # trees A, B, B, A
     python scripts/time_scene_march.py --turns A B C    # A, B, C, C, B, A
-    python scripts/time_scene_march.py --phases         # K3-q by phase too
+    python scripts/time_scene_march.py --phases         # K3 by phase too
 
 Each tree runs in a process of its own that imports that tree's
 icon_rt_tpu_torch (its kernels build into the tree's own _build/):
@@ -23,8 +23,13 @@ icon_rt_tpu_torch (its kernels build into the tree's own _build/):
      subdiv 8 x 16, 1920x1080, closeup; steady launch median with the fb
      on the host), then K3-f32 and K3-q (fine map off, as the app) 20
      launches timed with CUDA events, one launch under `profile_window`,
-     the host reads of a steady call and, for K3-q, the divergence factor
-     as in 4;
+     the host reads of a steady call, each kernel's registers, local
+     bytes and resident blocks an SM (a copy of csrc/march.cu with an
+     occupancy query appended, cudaOccupancyMaxActiveBlocksPerMultiprocessor
+     at 128 threads) and its ptxas spill stores, sha256 hashes of accum
+     and fb after a launch of accum_id 1 into a zeroed frame and of its
+     cost output (trees that compute the same bits print the same
+     hashes) and, for K3-q, the divergence factor as in 4;
   3. build_q_scene(11, 16) by phase, with the device's peak after each;
   4. K3-q on that scene at main r2b9m's 1920x1080 closeup (fine map on):
      20 launches timed with CUDA events; the converged pass (launch and
@@ -38,12 +43,17 @@ icon_rt_tpu_torch (its kernels build into the tree's own _build/):
      with `scale`, and the plain version's ms on those lanes (last: the
      profiler's windows lose their device events after a plain loop).
 
-With --phases, steps 2 and 4's K3-q also run an instrumented copy of the
-tree's csrc/march.cu, written at run time into the tree's _build/ and not
-kept: clock64() counters around the locate, the column exit, the integral,
-the gap skip and the band lookup of each iteration and around the lane's
+With --phases, step 2's K3-f32 and K3-q and step 4's K3-q also run two
+instrumented copies of the tree's csrc/ (march.cu and the tier headers),
+written at run time into the tree's _build/ and not kept: one with
+clock64() counters around the locate, the column exit, the integral, the
+gap skip and the band lookup of each iteration and around the lane's
 setup and epilogue, summed over the lanes, beside each lane's whole
-march ("other": the rest of the loop).
+march ("other": the rest of the loop); one with counts (warp-aggregated
+atomics): column crossings integrated, those whose descending piece
+[t0, tm] or ascending piece [tm, t1] is empty, the layers the integral's
+two loops visit and those of them with a length > 0, locates, the
+candidate test rows the locates read and those the gap skips read.
 
 Each process prints `time_scene_march {json}` lines; --turns prints a
 summary of each tree's runs after them.  Needs a CUDA card: without one it
@@ -150,9 +160,7 @@ def phase_probe(cs, call):
     """K3's time by phase in one `call` of the march, through the
     instrumented copy: {phase: share of the lanes' cycles, "lane_cycles":
     the sum over lanes}.  The build's ptxas lines are printed."""
-    lib, log = kt.probe_build(
-        "march", lambda f, src: _instrument(src) if f == "march.cu" else src,
-        WHO)
+    lib, log = probe_lib("phases")
     print("\n".join(f"{WHO} phase probe ptxas: {line}"
                     for line in cs.ptxas_lines(log)), flush=True)
     sums = kt.probe_sums("march", lib, call, SLOTS)
@@ -164,6 +172,146 @@ def phase_probe(cs, call):
                          / lane, 4)
     out["lane_cycles"] = sums[4]
     return out
+
+
+#: the count probe's helpers, ahead of march.cu's includes: a
+#: warp-aggregated add to counter k of the block's slot, and the integral's
+#: per-crossing counts, added when it returns
+_COUNT_HEAD = r"""
+__device__ unsigned long long g_phase[64 * 8];
+__device__ __forceinline__ void _probe_count(int k, unsigned v) {
+  const unsigned m = __activemask();
+  const unsigned s = __reduce_add_sync(m, v);
+  if ((threadIdx.x & 31) == __ffs(m) - 1)
+    atomicAdd(g_phase + (blockIdx.x % 64) * 8 + k,
+              static_cast<unsigned long long>(s));
+}
+struct _ProbeLayers {
+  unsigned d, a, v = 0, p = 0;
+  __device__ _ProbeLayers(bool d_, bool a_) : d(d_), a(a_) {}
+  __device__ void visit(float len) { ++v; p += len > 0.0f ? 1u : 0u; }
+  __device__ ~_ProbeLayers() {
+    _probe_count(0, 1u);
+    _probe_count(1, d);
+    _probe_count(2, a);
+    _probe_count(3, v);
+    _probe_count(4, p);
+  }
+};
+"""
+
+#: the count probe's slots
+COUNTS = ("crossings", "desc_empty", "asc_empty", "layers_visited",
+          "layers_positive", "locates", "locate_rows", "gap_rows")
+
+
+def _sub(src, pat, rep, what, count=0):
+    """re.sub that raises where `pat` is not found."""
+    out, n = re.subn(pat, rep, src, count=count, flags=re.S)
+    if n == 0:
+        raise SystemExit(f"time_scene_march --phases: no {what}")
+    return out
+
+
+def _count(f, src):
+    """The count probe's edit of csrc file `f`."""
+    if f in ("tier_f32.cuh", "tier_q.cuh"):
+        # the candidate rows a locate reads
+        return _sub(src, r"(\n[ \t]*)(load\(c, col\);)",
+                    r"\1_probe_count(6, 1u);\1\2", f"locate read in {f}")
+    if f != "march.cu":
+        return src
+    i, j = kt.function_body(src, "__device__ __forceinline__ void integrate(",
+                            WHO)
+    body = _sub(src[i:j], r"(\n[ \t]*)(const float tm = [^;]*;)",
+                r"\1\2\1_ProbeLayers _pl(!(tm > t0), !(t1 > tm));",
+                "tm in integrate", count=1)
+    body = _sub(body, r"(\n[ \t]*)(const float (len[12]) = [^;]*;)",
+                r"\1\2\1_pl.visit(\3);", "len1/len2 in integrate")
+    src = src[:i] + body + src[j:]
+    src = _sub(src, r"(\n[ \t]*)(const int c = T\.locate\()",
+               r"\1_probe_count(5, 1u);\1\2", "locate in march_lane")
+    src = _sub(src, r"(\n[ \t]*)(T\.load\(cc, col\);)",
+               r"\1_probe_count(7, 1u);\1\2", "gap read in march_lane")
+    inc = '#include "tier_f32.cuh"'
+    if inc not in src:
+        raise SystemExit("time_scene_march --phases: no tier include")
+    return src.replace(inc, _COUNT_HEAD + inc, 1) + _PROBE_TAIL.replace(
+        "__device__ unsigned long long g_phase[64 * 8];\n", "", 1)
+
+
+_PROBES = {}
+
+
+def probe_lib(kind):
+    """The tree's probe build of csrc/march.cu of `kind` ("phases",
+    "counts" or "occupancy"), built once a process: (the ctypes library,
+    its ptxas log)."""
+    if kind not in _PROBES:
+        edit = {"phases": lambda f, src: (_instrument(src)
+                                          if f == "march.cu" else src),
+                "counts": _count,
+                "occupancy": lambda f, src: (src + _QUERY
+                                             if f == "march.cu" else src)}
+        _PROBES[kind] = kt.probe_build("march", edit[kind], WHO)
+    return _PROBES[kind]
+
+
+def layer_counts(call):
+    """K3's counts (COUNTS) in one `call` of the march through the count
+    probe, with the means a crossing and the shares of crossings with an
+    empty piece."""
+    lib, _ = probe_lib("counts")
+    sums = dict(zip(COUNTS, kt.probe_sums("march", lib, call, SLOTS)))
+    n = max(sums["crossings"], 1)
+    sums.update(
+        desc_empty_share=round(sums["desc_empty"] / n, 4),
+        asc_empty_share=round(sums["asc_empty"] / n, 4),
+        visited_a_crossing=round(sums["layers_visited"] / n, 3),
+        positive_a_crossing=round(sums["layers_positive"] / n, 3),
+        rows_a_locate=round(sums["locate_rows"] / max(sums["locates"], 1),
+                            3))
+    return sums
+
+
+_QUERY = r"""
+extern "C" int probe_occupancy(int tier, int* out) {
+  return tier == 0 ? track::occupancy(march_f32_kernel, 128, out)
+                   : track::occupancy(march_q_kernel, 128, out);
+}
+"""
+
+
+def occupancy(tier):
+    """{blocks_per_sm, registers, local_bytes, spill_store_bytes} of K3's
+    kernel of `tier` ("f32" or "q") from the occupancy probe's query and
+    its ptxas report (the same source and flags as the tree's build)."""
+    import ctypes
+    lib, log = probe_lib("occupancy")
+    out = (ctypes.c_int * 3)()
+    err = lib.probe_occupancy(0 if tier == "f32" else 1, out)
+    if err:
+        raise SystemExit(f"{WHO}: occupancy query failed ({err})")
+    cs = kt.chip_smoke()
+    spill = cs.spill_stores(cs.ptxas_lines(log, f"march_{tier}_kernel"))
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2], "spill_store_bytes": spill}
+
+
+def march_hashes(run, n, dev):
+    """{"frame", "cost"}: hashes of accum and fb after run(acc, fb, cost)
+    of accum_id 1 into a zeroed frame on the first n lanes, and of the
+    cost output of the same launch."""
+    import torch
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    acc, fb = alloc_frame(W, H, device=dev)
+    run(acc[:n], fb[:n], None)
+    a2, f2 = alloc_frame(W, H, device=dev)
+    cost = torch.zeros(W * H, dtype=torch.int32, device=dev)
+    run(a2[:n], f2[:n], cost)
+    torch.cuda.synchronize()
+    return {"frame": kt.digest(acc, fb), "cost": kt.digest(cost),
+            "frame_with_cost": kt.digest(a2, f2)}
 
 
 # ---------------------------------------------------------------------------
@@ -248,8 +396,14 @@ def march_q_times(cs, q, loc, bands, tf, lp, perm, n_active, fm, phases,
         out["bound_ms"], out["bound_by"] = tier.bound(
             "march_q", n_active, lambda c: q.test12[c, 11],
             scale=n_active / n)
+    out["hashes"] = march_hashes(
+        lambda a, f, c: march.march_q(q, loc, bands, tf, lps[1], pix, a, f,
+                                      width=W, height=H, finemap=fm, cost=c),
+        n_active, perm.device)
+    out["occupancy"] = occupancy("q")
     if phases:
         out["phases"] = phase_probe(cs, launch)
+        out["counts"] = layer_counts(launch)
     return out
 
 
@@ -305,6 +459,14 @@ def measure(root, phases):
             r.update(profiled(cs, lambda: (launch(), fb.cpu()),
                               ("march_f32_kernel",), "march_f32 R2B8"))
             r["host_reads"], r["wrapper_wall_ms"] = host_reads(launch)
+            r["hashes"] = march_hashes(
+                lambda a, f, c: march.march_f32(
+                    *tabs, cs.with_id(lp, 1), pix, a, f, width=W, height=H,
+                    cost=c), n, dev)
+            r["occupancy"] = occupancy("f32")
+            if phases:
+                r["phases"] = phase_probe(cs, launch)
+                r["counts"] = layer_counts(launch)
         r["ms"] = events_ms(launch, reps=20)
         res[name] = r
         del pl
@@ -358,7 +520,10 @@ def turns(trees, phases):
               f"{r2(lambda r: r['march_q_r2b9']['pass_median_ms'])}, kernel "
               f"{pick(lambda r: r['march_q_r2b9']['by_name'].get('march_q_kernel'))}"
               f", idle {r2(lambda r: r['march_q_r2b9']['idle_share'])}, "
-              f"host reads {pick(lambda r: r['march_q_r2b9']['host_reads'])}")
+              f"host reads {pick(lambda r: r['march_q_r2b9']['host_reads'])}"
+              f", occupancy "
+              f"{pick(lambda r: r['march_q_r2b9']['occupancy'])}, hashes "
+              f"{pick(lambda r: r['march_q_r2b9']['hashes'])}")
         for k in ("march_q", "march_f32"):
             print(f"time_scene_march summary {root}: {k} R2B8 ms "
                   f"{r2(lambda r: r['r2b8'][k]['ms'])}, steady launch "
@@ -366,7 +531,9 @@ def turns(trees, phases):
                   f", kernel "
                   f"{pick(lambda r: r['r2b8'][k]['by_name'].get(k + '_kernel'))}"
                   f", idle {r2(lambda r: r['r2b8'][k]['idle_share'])}"
-                  f", host reads {pick(lambda r: r['r2b8'][k]['host_reads'])}")
+                  f", host reads {pick(lambda r: r['r2b8'][k]['host_reads'])}"
+                  f", occupancy {pick(lambda r: r['r2b8'][k]['occupancy'])}"
+                  f", hashes {pick(lambda r: r['r2b8'][k]['hashes'])}")
 
 
 def main():
@@ -377,8 +544,8 @@ def main():
                     help="time two or more trees in turns, forth and back "
                          "(A, B, B, A)")
     ap.add_argument("--phases", action="store_true",
-                    help="K3-q's split by phase through an instrumented "
-                         "copy of csrc/march.cu")
+                    help="K3's split by phase and its layer and row "
+                         "counts through instrumented copies of csrc/")
     args = ap.parse_args()
     if args.turns:
         if len(args.turns) < 2:

@@ -1419,3 +1419,139 @@ def test_cuda_composite_matches_plain(dev, L):
         before["composite_mask"] + 3
     assert composite.launches["composite_finalize"] == \
         before["composite_finalize"] + 2
+
+
+def _march_view_lp(scene, view, size, dev):
+    """Launch params of a camera inside the shell (half-way up it, looking
+    along the horizon) or outside it at 1.6 shell tops with its view
+    centre tangent to the sphere half-way up the shell ("grazing"): their
+    rays cross columns on both sides of their apex, where both pieces of
+    a crossing's integral are non-empty and a crossing spans many layers
+    (the inside view's rays within ~4 degrees below its horizon, the
+    grazing view's rows whose impact parameter lies in the shell); at a
+    unit distance of 1e5 m most rays cross several columns."""
+    st = scene["st"]
+    r = 0.5 * float(st.spherical_bounds_lo[0] + st.spherical_bounds_hi[0])
+    cam = Camera()
+    if view == "inside":
+        org = np.array([r, 0.0, 0.0], np.float32)
+        cam.set_orientation(org, org + np.array([0.0, r, 0.0], np.float32),
+                            np.array([1, 0, 0], np.float32), 8.0)
+    else:
+        d = 1.6 * float(st.spherical_bounds_hi[0])
+        tangent = np.array([r * r / d, r * np.sqrt(1.0 - (r / d) ** 2),
+                            0.0], np.float32)
+        cam.set_orientation(np.array([d, 0.0, 0.0], np.float32), tangent,
+                            np.array([0, 0, 1], np.float32), 0.4)
+    return make_launch_params(cam.basis(size, size), st.world_bounds_lo,
+                              st.world_bounds_hi, unit_distance=1e5,
+                              device=dev)
+
+
+@pytest.mark.parametrize("view", ["inside", "grazing"])
+@pytest.mark.parametrize("tier", ["f32", "q"])
+def test_cuda_march_views_bit_equal_plain(scene, qscene, dev, tier, view):
+    """K3 from inside the shell and at grazing incidence, every pixel a
+    lane: accum, fb and the cost output bit-equal to the plain version's
+    (the integral visits only the layers whose length can be > 0; the f32
+    tier's locate reads its candidates in groups)."""
+    size = 96
+    lp = _march_view_lp(scene, view, size, dev)
+    pix = torch.arange(size * size, dtype=torch.int32, device=dev)
+    if tier == "f32":
+        tabs = (scene["packed"], scene["loc"], scene["bands"], lp)
+        kern = lambda *a, **k: march.march_f32(*tabs, *a, width=size,
+                                               height=size, **k)
+        ptier = fast._F32Tier(scene["packed"], scene["loc"])
+    else:
+        tabs = (qscene["q"], qscene["loc"], scene["bands"], scene["tf"], lp)
+        kern = lambda *a, **k: march.march_q(*tabs, *a, width=size,
+                                             height=size, **k)
+        ptier = fastq._QTier(qscene["q"], qscene["loc"], scene["tf"], None)
+    outs = []
+    for kernel in (True, False):
+        acc, fb = alloc_frame(size, size, device=dev)
+        cost = torch.full((size * size,), -1, dtype=torch.int32, device=dev)
+        if kernel:
+            kern(pix, acc, fb, cost=cost)
+        else:
+            march._march_frame_torch(ptier, scene["bands"], lp, pix, acc, fb,
+                                     size, size, cost)
+        torch.cuda.synchronize()
+        outs.append((acc, fb, cost))
+    for k, p in zip(*outs):
+        assert torch.equal(k, p)
+    acc, _, cost = outs[0]
+    assert int((cost > 1).sum()) > size * size // 4
+    assert int((acc[:, 3] > 0).sum()) > size * size // 4
+
+
+@pytest.mark.parametrize("L", [1, 255, 257, 2_073_601])
+def test_cuda_composite_finalize_lanes_match_plain(dev, L):
+    """K10's finalize in both modes at lane counts around its 256-thread
+    blocks: bit-equal to the plain version."""
+    x = _k10_inputs(dev, L, seed=L)
+    aid = torch.tensor(5, dtype=torch.int32, device=dev)
+    for mode in (composite.FIRST_HIT, composite.MEAN_FIN):
+        ak, fk = x["accum"].clone(), x["fb"].clone()
+        ap, fp = x["accum"].clone(), x["fb"].clone()
+        if mode == composite.FIRST_HIT:
+            composite.finalize_first_hit(x["ca"], x["t_min"], x["wrote"], ak,
+                                         fk, aid)
+            composite._finalize_torch(mode, x["ca"], ap, fp, aid,
+                                      t_min=x["t_min"], wrote=x["wrote"])
+        else:
+            composite.finalize_mean(x["total5"], ak, fk, aid)
+            composite._finalize_torch(mode, x["total5"], ap, fp, aid)
+        torch.cuda.synchronize()
+        assert torch.equal(ak, ap) and torch.equal(fk, fp)
+
+
+@pytest.mark.parametrize("what", ["total", "accum"])
+@pytest.mark.parametrize("mode", ["first_hit", "mean"])
+def test_cuda_composite_finalize_rows_off_16_bytes_match_plain(dev, mode,
+                                                                what):
+    """K10's finalize reads its rows as 4-byte floats: a `total` or `accum`
+    view that starts off a 16-byte boundary is taken, bit-equal to the
+    plain version; an accum_id that is not a () int32 tensor on the card
+    is refused before any launch."""
+    L = 300
+    x = _k10_inputs(dev, L)
+    width = 5 if mode == "mean" and what == "total" else 4
+    src = {"total": x["ca"] if mode == "first_hit" else x["total5"],
+           "accum": x["accum"]}
+    buf = torch.empty(L * width + 1, dtype=torch.float32, device=dev)
+    view = buf[1:].view(L, width)
+    view.copy_(src[what])
+    aid = torch.tensor(2, dtype=torch.int32, device=dev)
+
+    def run(total, accum, fb, kernel, accum_id=aid):
+        if mode == "first_hit" and kernel:
+            composite.finalize_first_hit(total, x["t_min"], x["wrote"],
+                                         accum, fb, accum_id)
+        elif mode == "first_hit":
+            composite._finalize_torch(composite.FIRST_HIT, total, accum, fb,
+                                      accum_id, t_min=x["t_min"],
+                                      wrote=x["wrote"])
+        elif kernel:
+            composite.finalize_mean(total, accum, fb, accum_id)
+        else:
+            composite._finalize_torch(composite.MEAN_FIN, total, accum, fb,
+                                      accum_id)
+
+    got = {"total": src["total"], "accum": x["accum"].clone()}
+    got[what] = view
+    fk, fp = x["fb"].clone(), x["fb"].clone()
+    ap = x["accum"].clone()
+    run(got["total"], got["accum"], fk, True)
+    run(src["total"], ap, fp, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got["accum"], ap) and torch.equal(fk, fp)
+    before = composite.launches["composite_finalize"]
+    for bad in (torch.tensor(2, dtype=torch.int64, device=dev),
+                torch.tensor(2, dtype=torch.int32),
+                torch.tensor([2], dtype=torch.int32, device=dev)):
+        with pytest.raises(ValueError, match="accum_id"):
+            run(src["total"], x["accum"].clone(), x["fb"].clone(), True,
+                accum_id=bad)
+    assert composite.launches["composite_finalize"] == before

@@ -215,6 +215,191 @@ def test_torch_integrate_column_past_num_layers_adds_nothing():
 
 
 # ---------------------------------------------------------------------------
+# (a') the kernel's layer ranges (csrc/march.cu `integrate`, `desc_top`,
+#      `asc_bottom`), emulated in f32 scalars
+# ---------------------------------------------------------------------------
+
+def _chord(h, od, oo):
+    """csrc/march.cu `half_chord` (and `_integrate_column`'s half_chord) in
+    f32: sqrt(max(od * od - oo + h * h, 0)), each operation rounded."""
+    return np.sqrt(np.maximum(od * od - oo + h * h, np.float32(0.0)))
+
+
+def _kernel_layers(h, kn, t0, t1, od, oo, search):
+    """The layers the kernel's integral visits, (descending piece's,
+    ascending piece's) in visiting order: an empty piece is skipped; the
+    descending piece starts at the count of ceilings j < kn - 1 with
+    -od - s(h_j) > t0 (binary search; without `search`, as the quantized
+    tier, at the top layer) and stops where -od - s(h_k) >= tm; the
+    ascending piece starts at the count of ceilings j < kn with
+    !(-od + s(h_j) > tm) (without `search` at layer 0) and stops where,
+    for k > 0, -od + s(h_{k-1}) >= t1."""
+    tm = min(max(-od, t0), t1)
+    s = lambda x: _chord(x, od, oo)
+    desc, asc = [], []
+    if tm > t0:
+        lo, hi = 0, kn - 1
+        while search and lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (mid + 1, hi) if -od - s(h[mid]) > t0 else (lo, mid)
+        for k in range((lo if search else kn - 1) if kn > 0 else -1, -1,
+                       -1):
+            if not -od - s(h[k]) < tm:
+                break
+            desc.append(k)
+    if t1 > tm:
+        lo, hi = 0, kn
+        while search and lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (mid + 1, hi) if not -od + s(h[mid]) > tm else (lo, mid)
+        for k in range(lo if search else 0, kn):
+            if k > 0 and not -od + s(h[k - 1]) < t1:
+                break
+            asc.append(k)
+    return desc, asc
+
+
+def _integrate_kept(prof, lm, h_bot, nl, t0, t1, od, oo, ud, colors,
+                    keep1, keep2):
+    """`_integrate_column`'s expressions for one lane with the lengths of
+    the layers outside keep1 (descending piece) and keep2 (ascending) set
+    to 0: (trans_mult, cr, cg, cb), and the lengths (len1, len2) before
+    that."""
+    kn = max(min(lm, int(nl[0])), 0)
+    hh, aa = prof[:, :kn], prof[:, lm:lm + kn]
+    hlo = torch.cat([h_bot[:, None], hh[:, :kn - 1]], dim=1)[:, :kn]
+    sig = aa / ud
+    tmx = torch.minimum(torch.maximum(-od, t0), t1)
+    odc = od[:, None]
+    chord = lambda x: torch.sqrt(torch.clamp(odc * odc - oo + x * x, min=0.0))
+    s_hi, s_lo = chord(hh), chord(hlo)
+    len1 = torch.clamp(torch.minimum(-odc - s_lo, tmx[:, None])
+                       - torch.maximum(-odc - s_hi, t0[:, None]), min=0.0)
+    len2 = torch.clamp(torch.minimum(-odc + s_hi, t1[:, None])
+                       - torch.maximum(-odc + s_lo, tmx[:, None]), min=0.0)
+    od1 = sig * torch.where(keep1[None, :kn], len1, 0.0)
+    od2 = sig * torch.where(keep2[None, :kn], len2, 0.0)
+    suf, sufs = torch.zeros(1), torch.zeros_like(od1)
+    for k in range(kn - 1, -1, -1):
+        suf = suf + od1[:, k]
+        sufs[:, k] = suf
+    c2, c2s = torch.zeros(1), torch.zeros_like(od2)
+    for k in range(kn):
+        c2 = c2 + od2[:, k]
+        c2s[:, k] = c2
+    w1 = torch.exp(-(sufs - od1)) * (1.0 - torch.exp(-od1))
+    w2 = torch.exp(-(suf[:, None] + c2s - od2)) * (1.0 - torch.exp(-od2))
+    rgb = torch.stack([c[:, :kn] for c in colors], dim=1)
+    p1, p2 = w1[:, None, :] * rgb, w2[:, None, :] * rgb
+    acc = torch.zeros((1, 3))
+    for k in range(kn - 1, -1, -1):
+        acc = acc + p1[:, :, k]
+    for k in range(kn):
+        acc = acc + p2[:, :, k]
+    return ((torch.exp(-(suf + c2)), acc[:, 0], acc[:, 1], acc[:, 2]),
+            (len1[0].numpy(), len2[0].numpy()))
+
+
+def _range_rays(seed):
+    """A column of 8 layer slots, 6 ceilings above h_bot = 1 (two equal: a
+    zero-thickness layer; the top at 2), +inf past them (nl < lm), and f32
+    rays (oo, od, t0, t1) of six kinds: from outside the shell
+    (`_layered_rays`' draw), grazing a ceiling or h_bot (impact parameter
+    within 2 ULP of it), from inside the shell (t0 = 0, both pieces where
+    the ray looks down), starting past their apex (tm == t0), ending
+    before it (tm == t1), and crossings cut to a short random [t0, t1]
+    inside the shell."""
+    f = np.float32
+    rng = np.random.default_rng(seed)
+    lm, nl = 8, 6
+    h = np.sort(rng.uniform(1.0, 2.0, nl)).astype(f)
+    h[3] = h[2]
+    h[-1] = f(2.0)
+    heights = np.concatenate([h, np.full(lm - nl, np.inf, f)])
+    rays = []
+
+    def shell_ray(o_r, cos_t, lo=None):
+        """oo, od and the shell segment [t0, t1] of a ray from radius o_r
+        at angle acos(cos_t) to the outward radial."""
+        oo, od = o_r * o_r, o_r * cos_t
+        disc_t = od * od - oo + 4.0
+        t_top = -od + np.sqrt(max(disc_t, 0.0))
+        t_in = -od - np.sqrt(max(disc_t, 0.0))
+        disc_b = od * od - oo + 1.0
+        t0 = max(t_in, 0.0) if lo is None else lo
+        t1 = -od - np.sqrt(disc_b) if disc_b > 0 and -od > 0 else t_top
+        return [f(oo), f(od), f(t0), f(t1)]
+
+    for _ in range(6):
+        d0, b = rng.uniform(2.5, 4.0), rng.uniform(0.0, 2.2)
+        rays.append(("outside", shell_ray(np.hypot(b, d0), -d0 /
+                                          np.hypot(b, d0))))
+        g = rng.choice(np.concatenate([[1.0], h]).astype(np.float64))
+        b = g * (1.0 + rng.integers(-2, 3) * 6e-8)
+        rays.append(("grazing", shell_ray(np.hypot(b, d0), -d0 /
+                                          np.hypot(b, d0))))
+        o_r = rng.uniform(1.05, 1.95)
+        rays.append(("inside", shell_ray(o_r, rng.uniform(-0.3, 0.1))))
+        rays.append(("past apex", shell_ray(o_r, rng.uniform(0.05, 1.0))))
+        oo, od, t0, t1 = shell_ray(np.hypot(b, d0), -d0 / np.hypot(b, d0))
+        rays.append(("before apex", [oo, od, t0,
+                                     f(t0 + rng.uniform(0.0, 1.0)
+                                       * max(-od - t0, 0.0))]))
+        t0 = f(rng.uniform(0.0, 0.5))
+        rays.append(("cut", shell_ray(o_r, rng.uniform(-1.0, 1.0), lo=t0)))
+        rays[-1][1][3] = f(min(rays[-1][1][3], t0 + rng.uniform(0.0, 0.4)))
+    return lm, nl, f(1.0), heights, rays
+
+
+@pytest.mark.parametrize("search", [True, False], ids=["f32", "q"])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_torch_integrate_layer_ranges_hold_every_layer(seed, search):
+    """The kernel's layer ranges (`_kernel_layers`; the f32 tier searches
+    a piece's start, the quantized tier walks from its end) hold every
+    layer whose length `_integrate_column` finds > 0 in each piece, and
+    integrating only those layers equals `_integrate_column` bit for bit:
+    on the seeded rays of `_layered_rays` and on `_range_rays` (grazing
+    rays, tm == t0, tm == t1, a zero-thickness layer, +inf-padded
+    ceilings past nl < lm)."""
+    lm6, h_bot6, h_edges, alphas6, colors6, rays6 = _layered_rays(seed)
+    lm, nl, h_bot, heights, rays = _range_rays(seed)
+    rng = np.random.default_rng(seed + 10)
+    cases = [(lm6, lm6, np.float32(h_bot6), h_edges[1:].astype(np.float32),
+              alphas6, colors6, ("layered", r)) for r in rays6]
+    alphas, colors = rng.uniform(0.0, 2.0, lm), rng.uniform(0.0, 1.0, (lm, 3))
+    cases += [(lm, nl, h_bot, heights, alphas, colors, r) for r in rays]
+    ud = np.float32(0.37)
+    seen = {"both": 0, "tm == t0": 0, "tm == t1": 0, "saved": 0}
+    for lm_, nl_, hb, h, a, c, (kind, ray) in cases:
+        oo, od, t0, t1 = (np.float32(v) for v in ray)
+        kn = min(nl_, lm_)
+        desc, asc = _kernel_layers(h, kn, t0, t1, od, oo, search)
+        prof = torch.from_numpy(np.concatenate([h, a]).astype(np.float32)
+                                )[None]
+        cols = tuple(torch.from_numpy(c[:, i].astype(np.float32))[None]
+                     for i in range(3))
+        keep1 = torch.zeros(lm_, dtype=torch.bool)
+        keep2 = torch.zeros(lm_, dtype=torch.bool)
+        keep1[desc], keep2[asc] = True, True
+        args = (prof, lm_, _f32([hb]).reshape(1),
+                torch.tensor([nl_], dtype=torch.int32), _f32(t0).reshape(1),
+                _f32(t1).reshape(1), _f32(od).reshape(1), _f32(oo), _f32(ud),
+                cols)
+        got, (len1, len2) = _integrate_kept(*args, keep1, keep2)
+        want = tm._integrate_column(*args)
+        assert set(np.flatnonzero(len1 > 0)) <= set(desc), (kind, ray)
+        assert set(np.flatnonzero(len2 > 0)) <= set(asc), (kind, ray)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (kind, ray)
+        tmv = min(max(-od, t0), t1)
+        seen["both"] += bool((len1 > 0).any() and (len2 > 0).any())
+        seen["tm == t0"] += bool(tmv == t0 and not desc)
+        seen["tm == t1"] += bool(tmv == t1 and not asc)
+        seen["saved"] += len(desc) + len(asc) < 2 * kn
+    assert all(v > 0 for v in seen.values()), seen
+
+
+# ---------------------------------------------------------------------------
 # (b) exits and gap skips
 # ---------------------------------------------------------------------------
 
