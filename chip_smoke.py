@@ -310,7 +310,7 @@ FINEMAP_TOL = 1e-4          # K3-q fine map on vs off (tests/test_march.py:366)
 FINEMAP_SHARE = 1e-3
 CU_SOURCES = ("track_f32", "track_q", "finemap", "march", "scene",
               "locator", "parity", "track_wedge", "uelems",
-              "composite", "majorant", "order")   # csrc/*.cu
+              "composite", "majorant", "order", "bake_q")   # csrc/*.cu
 R2B9_SUB, R2B9_LAYERS = 11, 16    # bench.py r2b9q_closeup / r2b9m_closeup
 R2B9_SPL, R2B9_LIMIT = 8, 64      # r2b9q: samples per launch, in all
 PREVIEW_W, PREVIEW_H = 480, 270   # bench.py's preview frame (W/4 x H/4)
@@ -727,36 +727,31 @@ def compare_cost(ck, cp, pix, label):
                              f"plain version")
 
 
-def bake_inputs(q, tf, dev):
-    """K5c-q's arguments: the normalized (256,) u8 alpha table of `tf`, and
-    a patch of 20 levels (-1 padded to 32) with their new u8 values."""
+def bake_inputs(q, tf):
+    """K5c-q's table: the normalized (256,) u8 alpha table of `tf`."""
     import torch
     from icon_rt_tpu_torch.models import qcells
     a_tab = qcells._classify_alpha_table(tf, q.value_lo, q.value_hi)
-    q_tab = torch.floor(a_tab / torch.clamp(a_tab.max(), min=1e-8)
-                        * 255.0).to(torch.uint8)
-    lev = torch.full((32,), -1, dtype=torch.int32, device=dev)
-    lev[:20] = torch.arange(100, 120, dtype=torch.int32, device=dev)
-    new = (torch.arange(32, device=dev) * 7 % 256).to(torch.uint8)
-    return q_tab, lev, new
+    return torch.floor(a_tab / torch.clamp(a_tab.max(), min=1e-8)
+                       * 255.0).to(torch.uint8)
 
 
 def check_bakes(q, tf, dev, label):
-    """K5c-q full lookup and <= 32-level patch against their plain versions
-    on the scene's value table; returns max abs err (0 when exact)."""
+    """K5c-q's lookup, into a new table and into a given one (out=), against
+    its plain version on the scene's value table; returns max abs err (0
+    when exact)."""
     import torch
     from icon_rt_tpu_torch.models import qcells
-    q_tab, lev, new = bake_inputs(q, tf, dev)
-    full_k = qcells.bake_lookup(q.value_q, q_tab)
-    full_p = qcells._bake_lookup_torch(q.value_q, q_tab)
-    patch_k = qcells.bake_patch(q.value_q, full_k, lev, new)
-    patch_p = qcells._bake_patch_torch(q.value_q, full_p, lev, new)
-    err = max(float((full_k.int() - full_p.int()).abs().max()),
-              float((patch_k.int() - patch_p.int()).abs().max()))
-    print(f"{label} K5c-q bake_lookup/bake_patch at {tuple(q.value_q.shape)}"
-          f": exact {torch.equal(full_k, full_p)} / "
-          f"{torch.equal(patch_k, patch_p)}")
-    if not (torch.equal(full_k, full_p) and torch.equal(patch_k, patch_p)):
+    q_tab = bake_inputs(q, tf)
+    want = qcells._bake_lookup_torch(q.value_q, q_tab)
+    forms = {"lookup": qcells.bake_lookup(q.value_q, q_tab),
+             "lookup out=": qcells.bake_lookup(
+                 q.value_q, q_tab, out=torch.empty_like(q.value_q))}
+    err = max(float((k.int() - want.int()).abs().max()) if k.numel() else 0.0
+              for k in forms.values())
+    same = {f: torch.equal(k, want) for f, k in forms.items()}
+    print(f"{label} K5c-q at {tuple(q.value_q.shape)}: exact {same}")
+    if not all(same.values()):
         raise AssertionError("K5c-q differs from its plain version")
     return err
 
@@ -1314,8 +1309,10 @@ def tf_edits(pl):
     """Three TF edits on the quantized main path, each timed from the edit
     to the next launch's fb on the host: an opacity-scale edit (through the
     TF editor's dirty flags), a curve edit that changes <= 32 of the 256
-    normalized alpha levels (K5c-q patch) and one that changes most of
-    them (K5c-q lookup)."""
+    normalized alpha levels (JAX patches those) and one that changes most
+    of them.  The app's get_q donates its table (models/qcells.py
+    `bake_alpha_q`): each curve edit runs K5c-q's lookup once, into
+    alpha_q's own storage."""
     import torch
     from icon_rt_tpu_torch.models import qcells
 
@@ -1328,40 +1325,43 @@ def tf_edits(pl):
         tab = torch.floor(a / torch.clamp(a.max(), min=1e-8) * 255.0)
         return int((tab.to(torch.uint8).cpu().numpy() != q.alpha_tab).sum())
 
-    def timed(label, edit, want):
-        before = dict(qcells.launches)
+    def timed(label, edit, bakes):
+        before = qcells.launches["bake_lookup"]
+        ptr = pl.scene["get_q"]()[0].alpha_q.data_ptr()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         edit()
         pl.launch()
         np.asarray(pl._last_fb.cpu())
         ms = (time.perf_counter() - t0) * 1e3
-        ran = {k: qcells.launches[k] - before[k] for k in before}
+        ran = qcells.launches["bake_lookup"] - before
+        same = pl.scene["get_q"]()[0].alpha_q.data_ptr() == ptr
         print(f"main q TF edit {label}: {ms:.3f} ms to the next launch's fb "
-              f"on the host; K5c-q launches {ran}")
-        if want and ran[want] != 1:
-            raise AssertionError(f"TF edit {label} did not run {want}")
+              f"on the host; K5c-q launches {ran}, alpha_q in place {same}")
+        if bakes and (ran != 1 or not same):
+            raise AssertionError(f"TF edit {label} did not run K5c-q once "
+                                 f"in place")
         return ms
 
     out = {"opacity": timed("opacity scale 1.0 -> 0.5",
-                            lambda: set_opacity(pl, 0.5), None)}
+                            lambda: set_opacity(pl, 0.5), False)}
     base = pl.transfunc.get_lut()
     narrow = None
     for k in range(base.shape[0] // 2, base.shape[0]):
         lut = base.copy()
         lut[k, 3] *= 0.5
-        if 0 < level_changes(lut) <= qcells.PATCH_LEVELS:
+        if 0 < level_changes(lut) <= 32:
             narrow = lut
             break
     if narrow is None:
         raise AssertionError("no single-entry curve edit changes <= 32 "
                              "alpha levels")
-    out["curve_patch"] = timed("curve, <= 32 levels",
-                               lambda: set_lut(pl, narrow), "bake_patch")
+    out["curve_narrow"] = timed("curve, <= 32 levels",
+                                lambda: set_lut(pl, narrow), True)
     wide = base.copy()
     wide[: base.shape[0] // 2, 3] = 0.0
     out["curve_full"] = timed("curve, lower half transparent",
-                              lambda: set_lut(pl, wide), "bake_lookup")
+                              lambda: set_lut(pl, wide), True)
     if not bool(torch.isfinite(pl.frame["accum"]).all()):
         raise AssertionError("accum not finite after the TF edits")
     return out
@@ -1607,22 +1607,22 @@ def time_q_kernels(pl, errs, counts):
 
     errs["bake_alpha_q"] = max(errs["bake_alpha_q"],
                                check_bakes(q, tf, dev, "time main shape"))
-    q_tab, lev, new = bake_inputs(q, tf, dev)
+    q_tab = bake_inputs(q, tf)
+    scratch = q.alpha_q.clone()
     kb = time_cuda(lambda: qcells.bake_lookup(q.value_q, q_tab), reps=20)
     pb = time_cuda(lambda: qcells._bake_lookup_torch(q.value_q, q_tab),
                    reps=5)
-    kp = time_cuda(lambda: qcells.bake_patch(q.value_q, q.alpha_q, lev,
-                                             new), reps=20)
-    pp = time_cuda(lambda: qcells._bake_patch_torch(q.value_q, q.alpha_q,
-                                                    lev, new), reps=3)
+    ko = time_cuda(lambda: qcells.bake_lookup(q.value_q, q_tab, out=scratch),
+                   reps=20)
     lib = time_cuda(lambda: q_tab[q.value_q.int()], reps=20)
-    print(f"time K5c-q bake_patch: kernel {kp:.4f} ms, plain {pp:.4f} ms")
+    print(f"time K5c-q bake_lookup out= {ko:.4f} ms; occupancy "
+          f"{qcells.bake_q_occupancy()}")
     # the lookup reads value_q and the 256-entry table, writes alpha_q; the
     # library call is the index tab[value_q] (with its cast to int32)
-    row("bake_alpha_q", "triton", "icon_rt_tpu_torch/models/qcells.py",
+    row("bake_alpha_q", "cuda", "icon_rt_tpu_torch/csrc/bake_q.cu",
         "icon_rt_tpu/models/qcells.py:266", kb, pb,
-        bound(2 * q.value_q.numel() + 256, q.value_q.numel()),
-        library_ms=lib, patch_ms=kp, patch_plain_ms=pp)
+        bound(2 * q.value_q.numel() + 256, 0), library_ms=lib,
+        lookup_out_ms=ko)
 
     errs["build_finemap"] = max(errs["build_finemap"], check_finemap(
         loc, q.test12, "time main shape"))
@@ -3200,29 +3200,50 @@ def scene_counts(lod=0):
             "max_opacity": accel.launches}
 
 
-def time_bakes_r2b9(q, tag):
-    """K5c-q's two passes over the R2B9 scene's (N, Lm) u8 value table, as
-    main r2b9q's TF edits run them, timed with CUDA events (after its
-    counts are read): the full lookup of the live alpha table and a patch
-    of PATCH_LEVELS levels, each beside its bound (bytes: the lookup reads
-    value_q and writes the new table, the patch reads value_q and alpha_q
-    and writes the new table)."""
+def bakes_r2b9(q, tag, errs, launches):
+    """K5c-q's lookup over the R2B9 scene's (N, Lm) u8 value table, after
+    main r2b9q's counts are read; returns its kernels-line row.  Checks,
+    each byte-equal: into a new table and into a given one (out=) against
+    each other and against the live alpha_q over the whole table, and
+    against the plain version on CHECK_LANES strided rows.  Times (CUDA
+    events): the lookup, out= (into a scratch table), the plain version
+    and the library call tab[value_q.int()]; bound: 2n bytes at 3.35
+    TB/s."""
     import torch
     from icon_rt_tpu_torch.models import qcells
-    dev = q.value_q.device
-    tab = torch.from_numpy(q.alpha_tab).to(dev)
-    lev = torch.arange(0, 256, 256 // qcells.PATCH_LEVELS,
-                       dtype=torch.int32, device=dev)
-    new = tab[lev.long()]
-    n = q.value_q.numel()
-    ms_l = time_cuda(lambda: qcells.bake_lookup(q.value_q, tab), reps=10)
-    ms_p = time_cuda(lambda: qcells.bake_patch(q.value_q, q.alpha_q, lev,
-                                               new), reps=10)
-    b_l, b_p = bound(2 * n, 0), bound(3 * n, 0)
-    print(f"{tag} K5c-q at {tuple(q.value_q.shape)} u8: bake_lookup "
-          f"{ms_l:.4f} ms (bound {b_l[0]:.4f} ms, {b_l[1]}), bake_patch of "
-          f"{qcells.PATCH_LEVELS} levels {ms_p:.4f} ms (bound {b_p[0]:.4f} "
-          f"ms, {b_p[1]}); CUDA events, 10 calls each")
+    vq = q.value_q
+    n, N = vq.numel(), vq.shape[0]
+    tab = torch.from_numpy(q.alpha_tab).to(vq.device)
+    rows = torch.arange(0, N, max(1, N // CHECK_LANES), device=vq.device)
+    got = qcells.bake_lookup(vq, tab)
+    scratch = torch.zeros_like(vq)
+    into = qcells.bake_lookup(vq, tab, out=scratch)
+    plain = qcells._bake_lookup_torch(vq[rows], tab)
+    same = {"out= = new table": into is scratch and torch.equal(into, got),
+            "new table = alpha_q": torch.equal(got, q.alpha_q),
+            "= plain (strided rows)": torch.equal(got[rows], plain)}
+    print(f"{tag} K5c-q check at {tuple(vq.shape)}: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: K5c-q's lookup differs")
+    errs["bake_alpha_q_r2b9"] = float((got[rows].int() - plain.int())
+                                      .abs().max())
+    del got, into, plain
+    ms_l = time_cuda(lambda: qcells.bake_lookup(vq, tab), reps=10)
+    ms_o = time_cuda(lambda: qcells.bake_lookup(vq, tab, out=scratch),
+                     reps=10)
+    ms_p = time_cuda(lambda: qcells._bake_lookup_torch(vq, tab), reps=2)
+    ms_lib = time_cuda(lambda: tab[vq.int()], reps=3)
+    del scratch
+    b_l = bound(2 * n, 0)
+    print(f"{tag} K5c-q at {tuple(vq.shape)} u8: bake_lookup {ms_l:.4f} ms, "
+          f"out= {ms_o:.4f} ms (bound {b_l[0]:.4f} ms, {b_l[1]}), plain "
+          f"{ms_p:.4f} ms, tab[value_q.int()] {ms_lib:.4f} ms; CUDA events")
+    row = []
+    kernel_row(row, {"bake_alpha_q_r2b9": launches}, errs,
+               "bake_alpha_q_r2b9", "cuda", "icon_rt_tpu_torch/csrc/bake_q.cu",
+               "icon_rt_tpu/models/qcells.py:266", ms_l, ms_p, b_l,
+               library_ms=ms_lib, lookup_out_ms=ms_o)
+    return row[0]
 
 
 def main_r2b9q(dev, errs, framing="closeup", rows=None):
@@ -3309,11 +3330,16 @@ def main_r2b9q(dev, errs, framing="closeup", rows=None):
     print(f"{tag} fps1 {fps1:.3f} (median of 3 samples=1 launches, "
           f"{[round(x * 1e3, 3) for x in t1s[1:]]} ms)")
 
-    def tf_edit(tf2, lp_, perm_, n_act_, w, h):
+    def tf_edit(tf2, lp_, perm_, n_act_, w, h, base=q, donate=False):
+        """(seconds from the edit to the next samples=1 frame's fb on the
+        host, K5c-q launches and levels changed, the edited table, the
+        edit's peak device memory above what was held, GiB)."""
         before = dict(qcells.launches)
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        q2 = bake_alpha_q(q, tf2)
+        q2 = bake_alpha_q(base, tf2, donate=donate)
         bands2 = update_band_majorants(bands, tf2.values, tf2.value_range)
         a2, f2 = alloc_frame(w, h, device=dev)
         render_frame_fast_q(q2, loc, bands2, tf2, lp_, a2, f2, width=w,
@@ -3321,33 +3347,63 @@ def main_r2b9q(dev, errs, framing="closeup", rows=None):
                             samples=1, finemap=fm)
         np.asarray(f2.cpu())
         dt = time.perf_counter() - t0
-        levels = int((q2.alpha_tab != q.alpha_tab).sum())
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        levels = int((q2.alpha_tab != base.alpha_tab).sum())
         return dt, dict({k: qcells.launches[k] - before[k] for k in before},
-                        levels=levels)
+                        levels=levels), q2, peak
 
+    peak_memory(f"{tag} before the TF edits")
     full = (lp, perm, n_active, W, H)
     tf_edit(gain_edit(tf, 0.95, 0.9), *full)
-    edit_s, ran_e = tf_edit(gain_edit(tf, 0.9, 0.8), *full)
+    edit_s, ran_e, _, _ = tf_edit(gain_edit(tf, 0.9, 0.8), *full)
     tf_edit(stroke_edit(tf, 0.7), *full)
-    stroke_s, ran_s = tf_edit(stroke_edit(tf, 0.5), *full)
+    stroke_s, ran_s, _, peak_s = tf_edit(stroke_edit(tf, 0.5), *full)
     lp_p, perm_p, n_p = r2b9_frame(stats, PREVIEW_W, PREVIEW_H, dev,
                                    framing)
     prev = (lp_p, perm_p, n_p, PREVIEW_W, PREVIEW_H)
     tf_edit(gain_edit(tf, 0.97, 0.95), *prev)
-    preview_s, ran_p = tf_edit(gain_edit(tf, 0.93, 0.85), *prev)
+    preview_s, ran_p, _, _ = tf_edit(gain_edit(tf, 0.93, 0.85), *prev)
     print(f"{tag} tf_edit_s {edit_s:.4f} (gain 0.9, opacity 0.8; K5c-q "
           f"launches and alpha levels changed {ran_e}), tf_stroke_s "
-          f"{stroke_s:.4f} ({ran_s}), tf_preview_s {preview_s:.4f} "
-          f"({PREVIEW_W}x{PREVIEW_H}; {ran_p}): each from the edit to the "
-          f"next samples=1 frame's fb on the host")
-    if not 0 < ran_s["levels"] <= qcells.PATCH_LEVELS:
-        raise AssertionError(f"{tag}: the stroke edit is not a <= "
-                             f"{qcells.PATCH_LEVELS}-level patch")
+          f"{stroke_s:.4f} ({ran_s}; peak {peak_s:.3f} GiB above the held), "
+          f"tf_preview_s {preview_s:.4f} ({PREVIEW_W}x{PREVIEW_H}; {ran_p}): "
+          f"each from one base, the edit to the next samples=1 frame's fb "
+          f"on the host")
+    # from one base the table is not donated: the lookup into a new table
+    if not (0 < ran_s["levels"] and ran_s["bake_lookup"] == 1):
+        raise AssertionError(f"{tag}: the stroke edit from one base is not "
+                             f"one lookup")
+    # the app's path: a chain of stroke edits, each donating the table
+    # before it (a copy of q's, so q stays as it was) to the lookup
+    qd = q._replace(alpha_q=q.alpha_q.clone())
+    ptr = qd.alpha_q.data_ptr()
+    chain = []
+    for g in (0.7, 0.5, 0.7, 0.5):
+        dt, ran, qd, peak = tf_edit(stroke_edit(tf, g), *full, base=qd,
+                                    donate=True)
+        chain.append((dt, ran, peak))
+    # the main path ends here: its counts leave out the checks' launches
     counts = dict(scene_counts(lod), chord_keys=order.launches,
                   track_q=fastq.launches)
     require_counts(tag, counts)
-    if framing == "closeup":
-        time_bakes_r2b9(q, tag)
+    print(f"{tag} donated chain of stroke edits: tf_stroke_s "
+          f"{[round(c[0], 4) for c in chain]}, K5c-q launches and levels "
+          f"{[c[1] for c in chain]}, peak "
+          f"{[round(c[2], 3) for c in chain]} GiB above the held")
+    for _, ran, _ in chain:
+        if ran["bake_lookup"] != 1 or ran["levels"] == 0:
+            raise AssertionError(f"{tag}: a donated stroke edit of "
+                                 f"{ran['levels']} levels did not run the "
+                                 f"lookup once")
+    if qd.alpha_q.data_ptr() != ptr:
+        raise AssertionError(f"{tag}: the donated chain moved alpha_q")
+    if not torch.equal(qd.alpha_q, qcells.bake_lookup(
+            q.value_q, torch.from_numpy(qd.alpha_tab).to(dev))):
+        raise AssertionError(f"{tag}: the donated chain's table differs from "
+                             f"the lookup of its normalized table")
+    del qd
+    if framing == "closeup" and rows is not None:
+        rows.append(bakes_r2b9(q, tag, errs, counts["bake_alpha_q"]))
 
     pix = perm[:CHECK_LANES].contiguous()
     for f in (fm, None):
@@ -4925,6 +4981,7 @@ def build_all():
     from icon_rt_tpu_torch.ops.composite import build_composite
     from icon_rt_tpu_torch.models.accel import build_majorant_kernel
     from icon_rt_tpu_torch.ops.order import build_order_kernel
+    from icon_rt_tpu_torch.models.qcells import build_bake_q
     from icon_rt_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(CU_SOURCES)) as ex:
@@ -4937,7 +4994,7 @@ def build_all():
                                               "track_wedge"),
                                           build_uelems, build_composite,
                                           build_majorant_kernel,
-                                          build_order_kernel)]:
+                                          build_order_kernel, build_bake_q)]:
             f.result()
     for name in CU_SOURCES:
         info = cuda_build.info(name)

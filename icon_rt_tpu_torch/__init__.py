@@ -10,7 +10,7 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
   K3     ops/march.py      march_f32, march_q        CUDA C++ (csrc/march.cu)
   K5a    ops/fast.py       classify_bake  Triton
   K5b    models/accel.py   max_opacity    CUDA C++ (csrc/majorant.cu)
-  K5c-q  models/qcells.py  bake_lookup, bake_patch   Triton
+  K5c-q  models/qcells.py  bake_lookup    CUDA C++ (csrc/bake_q.cu)
   K5c-f32 ops/fast.py      pack_alpha_scale_parts, apply_opacity_scale  Triton
   K6     ops/order.py      chord_keys     Triton
   K6b    ops/order.py      refine_keys    CUDA C++ (csrc/order.cu);

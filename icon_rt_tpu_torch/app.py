@@ -380,7 +380,9 @@ def build(argv):
                     struct["loc_q"][0], struct["q"].test12, factor=2,
                     cache_key=key)
         if struct["q_tf"] is not device["tf"]:
-            struct["q"] = bake_alpha_q(struct["q"], device["tf"])
+            # the old table is referenced nowhere else: donate it
+            struct["q"] = bake_alpha_q(struct["q"], device["tf"],
+                                       donate=True)
             struct["q_tf"] = device["tf"]
         return (struct["q"], *struct["loc_q"])
 

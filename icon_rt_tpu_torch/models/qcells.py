@@ -21,18 +21,21 @@ Lm trims the 32-layer padding to the next multiple of 8 >= the layer
 count.  A TF edit re-bakes only alpha_q, through a 256-entry table (one
 entry per value level); RGB is classified at shade time from the value.
 
-K5c-q (Triton): `bake_lookup` (out = tab[value_q]) and `bake_patch`
-(alpha_q rewritten where value_q hits one of <= 32 changed levels), each
-beside its plain version `_bake_lookup_torch` / `_bake_patch_torch`.  They
-replace the XLA-fused icon_rt_tpu/models/qcells.py `_bake_lookup` and
+K5c-q (CUDA C++, csrc/bake_q.cu): `bake_lookup` (out = tab[value_q], into
+a new table or in place), beside its plain version `_bake_lookup_torch`.
+It replaces the XLA-fused icon_rt_tpu/models/qcells.py `_bake_lookup` and
 `_bake_patch`, which avoided gathers with 256- or 32-way compare-select
-reduces because a TPU gather from a small table lowers to scalar loads.  On
-the H100 each is one pass over the u8 table (21 MB read, 21 MB written at
-subdiv 8 x 16 layers), bound by device-memory bandwidth: the 256-byte table
-is a cached gather, the patch 32 compare-selects per byte in registers.
+reduces because a TPU gather from a small table lowers to scalar loads.
+Since alpha_q == alpha_tab[value_q], JAX's patch of the changed levels
+equals the lookup of the new table; on the H100 the lookup is one pass
+bound by device-memory bytes (reads value_q, writes the table: 2n), where
+a patch into a new table moves 3n and an in-place patch, measured at R2B9,
+beat it only on edits of rare levels, which the app does not make (PERF.md
+§6).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -40,20 +43,15 @@ import numpy as np
 import torch
 
 from ..data.icfile import ICDataset, MAX_LAYERS
+from ..utils import cuda_build
 from .cells import _corner_xyz, _np_plane
 from .transfunc import Transfunc
 
 F = np.float32
 F32 = torch.float32
 
-#: K5c-q kernel launches (the wrappers count only Triton launches)
-launches = {"bake_lookup": 0, "bake_patch": 0}
-
-tl = None          # triton.language, bound on first launch
-_KERNELS = {}
-
-#: changed levels up to which a re-bake patches instead of re-looking-up
-PATCH_LEVELS = 32
+#: K5c-q kernel launches (the wrapper counts only CUDA launches)
+launches = {"bake_lookup": 0}
 
 
 class QuantizedCells(NamedTuple):
@@ -152,9 +150,12 @@ def quantize_cells(ds: ICDataset,
     test12[:, 10] = h_top
     test12[:, 11] = ds.num_layers.astype(F)
 
-    # per-layer CEILING heights h[1..lm] normalized to [h_bot, h_top]
+    # per-layer CEILING heights h[1..lm] normalized to [h_bot, h_top]; a
+    # dataset holds MAX_LAYERS - 1 ceilings, so at 25-31 layers (Lm 32) the
+    # last column is padding, masked to 65535 below with the others past nl
     span = np.maximum(h_top - h_bot, 1e-6).astype(F)
-    ceil_h = ds.height[:, 1:lm + 1].astype(F)  # (N, lm); garbage past nl
+    ceil_h = ds.height[:, 1:lm + 1].astype(F)  # (N, <= lm); garbage past nl
+    ceil_h = np.pad(ceil_h, ((0, 0), (0, lm - ceil_h.shape[1])))
     hf = np.clip(np.rint((ceil_h - h_bot[:, None]) / span[:, None] * 65535.0),
                  0, 65535).astype(np.uint16)
     k = np.arange(1, lm + 1)
@@ -202,137 +203,104 @@ def _classify_alpha_table(tf: Transfunc, value_lo, value_hi) -> torch.Tensor:
         * tf.opacity_scale.to(F32)
 
 
-def bake_alpha_q(q: QuantizedCells, tf: Transfunc) -> QuantizedCells:
+def bake_alpha_q(q: QuantizedCells, tf: Transfunc, *,
+                 donate: bool = False) -> QuantizedCells:
     """TF-edit hook of the quantized tier (the f32 path's full re-bake,
     ref: hostCode.cu:878-909): the 256-entry table, then
 
       * the normalized u8 table equals the one alpha_q was baked from:
         only alpha_max moves (alpha_q is already right);
-      * at most PATCH_LEVELS levels changed: `bake_patch` rewrites the
-        cells whose value hits one of them;
-      * otherwise `bake_lookup` re-bakes the whole table.
+      * otherwise `bake_lookup` re-bakes the whole table, into q.alpha_q
+        when `donate` (the caller gives up q.alpha_q, as the app's get_q
+        does), else into a new one.  By the invariant alpha_q ==
+        alpha_tab[value_q] it equals JAX's patch of the changed levels.
 
-    Floor quantization keeps every stored alpha <= the true alpha."""
+    Without `donate` q.alpha_q is never written (callers may edit again
+    from q).  Floor quantization keeps every stored alpha <= the true
+    alpha."""
     a_tab = _classify_alpha_table(tf, q.value_lo, q.value_hi)
     a_max = torch.clamp(torch.max(a_tab), min=1e-8)
     q_tab = torch.floor(a_tab / a_max * 255.0).to(torch.uint8)
     tab_host = q_tab.cpu().numpy()
     if q.alpha_tab is not None and np.array_equal(tab_host, q.alpha_tab):
         return q._replace(alpha_max=a_max)
-    if q.alpha_tab is not None:
-        changed = np.nonzero(tab_host != q.alpha_tab)[0]
-        if changed.size <= PATCH_LEVELS:
-            lev = np.full(PATCH_LEVELS, -1, np.int32)   # -1 never matches
-            lev[:changed.size] = changed
-            dev = q.value_q.device
-            alpha_q = bake_patch(
-                q.value_q, q.alpha_q, torch.from_numpy(lev).to(dev),
-                torch.from_numpy(tab_host[np.maximum(lev, 0)]).to(dev))
-            return q._replace(alpha_q=alpha_q, alpha_max=a_max,
-                              alpha_tab=tab_host)
-    return q._replace(alpha_q=bake_lookup(q.value_q, q_tab),
-                      alpha_max=a_max, alpha_tab=tab_host)
+    return q._replace(alpha_max=a_max, alpha_tab=tab_host,
+                      alpha_q=bake_lookup(q.value_q, q_tab,
+                                          out=q.alpha_q if donate else None))
 
 
 # ---------------------------------------------------------------------------
-# K5c-q: the u8 table passes
+# K5c-q: the u8 table pass
 # ---------------------------------------------------------------------------
+
+class _BakeParams(ctypes.Structure):
+    """Mirror of `BakeParams` in csrc/bake_q.cu (same field order)."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("vq", "tab", "out")] + [
+        ("n", ctypes.c_longlong)]
+
+
+def build_bake_q():
+    """Compile csrc/bake_q.cu for sm_90a (utils/cuda_build.py) and bind its
+    C entry points; returns the ctypes library."""
+    lib = cuda_build.build("bake_q")
+    lib.bake_lookup_launch.argtypes = [ctypes.POINTER(_BakeParams),
+                                       ctypes.c_void_p]
+    lib.bake_lookup_launch.restype = ctypes.c_int
+    lib.bake_q_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.bake_q_occupancy.restype = ctypes.c_int
+    return lib
+
+
+def bake_q_occupancy() -> dict:
+    """{'blocks_per_sm', 'registers', 'local_bytes'} of K5c-q's lookup at
+    its 256 threads a block."""
+    out = (ctypes.c_int * 3)()
+    cuda_build.check("bake_q_occupancy",
+                     build_bake_q().bake_q_occupancy(out))
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2]}
+
 
 def _bake_lookup_torch(vq, tab):
     """Plain K5c-q lookup: tab[vq] over the (N, Lm) u8 table."""
     return tab[vq.long()]
 
 
-def _bake_patch_torch(vq, aq_old, lev, new):
-    """Plain K5c-q patch: new[j] where vq == lev[j], else aq_old (lev is
-    -1 padded and its entries distinct)."""
-    hit = vq.to(torch.int32)[..., None] == lev
-    sel = torch.where(hit, new.to(torch.int32), 0).sum(-1).to(torch.uint8)
-    return torch.where(hit.any(-1), sel, aq_old)
-
-
-def _bake_lookup_kernel(vq_ptr, tab_ptr, out_ptr, n, BLOCK: tl.constexpr):
-    # int64 offsets: value_q has 1.34e9 entries at subdiv 11 x 16 layers
-    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    m = i < n
-    v = tl.load(vq_ptr + i, mask=m, other=0).to(tl.int32)
-    tl.store(out_ptr + i, tl.load(tab_ptr + v, mask=m), mask=m)
-
-
-def _bake_patch_kernel(vq_ptr, aq_ptr, lev_ptr, new_ptr, out_ptr, n,
-                       BLOCK: tl.constexpr, NLEV: tl.constexpr):
-    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    m = i < n
-    v = tl.load(vq_ptr + i, mask=m, other=0).to(tl.int32)
-    out = tl.load(aq_ptr + i, mask=m, other=0)
-    for j in tl.static_range(NLEV):
-        out = tl.where(v == tl.load(lev_ptr + j), tl.load(new_ptr + j), out)
-    tl.store(out_ptr + i, out, mask=m)
-
-
-def _kernel(name):
-    global tl
-    if name not in _KERNELS:
-        import triton
-        import triton.language as tl
-        fn = {"bake_lookup": _bake_lookup_kernel,
-              "bake_patch": _bake_patch_kernel}[name]
-        _KERNELS[name] = triton.jit(fn)
-    return _KERNELS[name]
-
-
-def _check_u8(fn, name, x, like):
+def _check_u8(name, x, like):
     if x.dtype != torch.uint8 or not x.is_contiguous() \
             or x.shape != like.shape or x.device != like.device:
-        raise ValueError(f"{fn}: {name} must be a contiguous uint8 tensor "
-                         f"of shape {tuple(like.shape)} on {like.device}")
+        raise ValueError(f"bake_lookup: {name} must be a contiguous uint8 "
+                         f"tensor of shape {tuple(like.shape)} on "
+                         f"{like.device}")
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        raise ValueError(f"bake_lookup: {name} must start on a 16-byte "
+                         f"boundary (the kernel moves 16 bytes a load)")
 
 
-def bake_lookup(vq, tab):
-    """K5c-q wrapper, full bake: tab[vq] for the (N, Lm) u8 value table and
-    a (256,) u8 table.  The Triton kernel runs for CUDA tensors, the plain
-    version for CPU tensors; anything else raises."""
-    if vq.dtype != torch.uint8 or not vq.is_contiguous():
-        raise ValueError("bake_lookup: vq must be a contiguous uint8 tensor")
+def bake_lookup(vq, tab, out=None):
+    """K5c-q wrapper: tab[vq] for the (N, Lm) u8 value table and a (256,)
+    u8 table, into a new table, or into `out` (a contiguous u8 tensor of
+    vq's shape, e.g. the alpha_q it replaces) when given.  CUDA tensors
+    launch csrc/bake_q.cu, CPU tensors run the plain version; anything
+    else raises."""
+    if vq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bake_lookup: unsupported device {vq.device}")
     if tab.dtype != torch.uint8 or tab.shape != (256,) \
             or tab.device != vq.device:
         raise ValueError("bake_lookup: tab must be (256,) uint8 on vq's "
                          "device")
+    _check_u8("vq", vq, vq)
+    if out is not None:
+        _check_u8("out", out, vq)
     if vq.device.type == "cpu":
-        return _bake_lookup_torch(vq, tab)
-    if vq.device.type != "cuda":
-        raise ValueError(f"bake_lookup: unsupported device {vq.device}")
-    out = torch.empty_like(vq)
-    n, block = vq.numel(), 2048
-    if n:
-        _kernel("bake_lookup")[(-(-n // block),)](vq, tab.contiguous(), out,
-                                                 n, BLOCK=block)
+        got = _bake_lookup_torch(vq, tab)
+        return got if out is None else out.copy_(got)
+    out = torch.empty_like(vq) if out is None else out
+    if vq.numel():
+        p = _BakeParams(vq=vq.data_ptr(), tab=tab.contiguous().data_ptr(),
+                        out=out.data_ptr(), n=vq.numel())
+        cuda_build.check("bake_lookup", build_bake_q().bake_lookup_launch(
+            ctypes.byref(p),
+            torch.cuda.current_stream(vq.device).cuda_stream))
         launches["bake_lookup"] += 1
-    return out
-
-
-def bake_patch(vq, aq_old, lev, new):
-    """K5c-q wrapper, patch: aq_old with new[j] wherever vq == lev[j], for
-    PATCH_LEVELS (-1 padded, distinct) i32 levels and their u8 values.
-    Returns a new table; aq_old stays valid (successive edits may start
-    from one base).  Triton for CUDA tensors, plain version for CPU ones."""
-    if vq.dtype != torch.uint8 or not vq.is_contiguous():
-        raise ValueError("bake_patch: vq must be a contiguous uint8 tensor")
-    _check_u8("bake_patch", "aq_old", aq_old, vq)
-    if lev.dtype != torch.int32 or lev.shape != (PATCH_LEVELS,) \
-            or new.dtype != torch.uint8 or new.shape != (PATCH_LEVELS,) \
-            or lev.device != vq.device or new.device != vq.device:
-        raise ValueError(f"bake_patch: lev ({PATCH_LEVELS},) int32 and new "
-                         f"({PATCH_LEVELS},) uint8 on vq's device")
-    if vq.device.type == "cpu":
-        return _bake_patch_torch(vq, aq_old, lev, new)
-    if vq.device.type != "cuda":
-        raise ValueError(f"bake_patch: unsupported device {vq.device}")
-    out = torch.empty_like(vq)
-    n, block = vq.numel(), 2048
-    if n:
-        _kernel("bake_patch")[(-(-n // block),)](
-            vq, aq_old, lev.contiguous(), new.contiguous(), out, n,
-            BLOCK=block, NLEV=PATCH_LEVELS)
-        launches["bake_patch"] += 1
     return out

@@ -1,5 +1,6 @@
 """PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2 (K1 and
-K2 also on ragged columns with rays grazing a ceiling), K5c-q,
+K2 also on ragged columns with rays grazing a ceiling), K5c-q (into a
+new table and in place, vector tails, zero size, the TF-edit dispatch),
 K7-fm (factors 1-3, cut edge tiles, a band locator), K3 (both tiers; K3-q
 after TF edits and its steady call without a host read), K5c-f32,
 K7-scene (lod 0 and the mip tier, whole and windows), K7-loc, K8 (and its raw
@@ -245,25 +246,87 @@ def test_cuda_build_finemap_band_locator_matches_plain(scene5, factor):
     _finemap_matches(loc_q, test12, factor)
 
 
-@pytest.mark.parametrize("patch", [False, True], ids=["lookup", "patch"])
-def test_cuda_bake_alpha_q_matches_plain(qscene, dev, patch):
-    """K5c-q: u8 tables exactly equal to the plain versions' (full lookup
-    over random tables; patch of 32 levels, 5 of them real)."""
+def _bake_forms(vq, aq, tab):
+    """{form: (kernel output, plain output)} of K5c-q's lookup on the same
+    inputs, into a new table and into a copy of aq (out=)."""
+    into = aq.clone()
+    out = {"lookup": (qcells.bake_lookup(vq, tab),
+                      qcells._bake_lookup_torch(vq, tab)),
+           "lookup_out": (qcells.bake_lookup(vq, tab, out=into),
+                          qcells._bake_lookup_torch(vq, tab))}
+    assert out["lookup_out"][0] is into
+    return out
+
+
+@pytest.mark.parametrize("form", ["lookup", "lookup_out"])
+def test_cuda_bake_alpha_q_matches_plain(qscene, dev, form):
+    """K5c-q (csrc/bake_q.cu): u8 tables exactly equal to the plain
+    version's on the scene's value table (a random table, into a new
+    table and into a given one), and the launch counted once a call."""
     rng = np.random.default_rng(1)
-    vq = qscene["q"].value_q
-    if patch:
-        lev = np.full(32, -1, np.int32)
-        lev[:5] = rng.choice(256, 5, replace=False)
-        args = (vq, qscene["q"].alpha_q, torch.from_numpy(lev).to(dev),
-                torch.from_numpy(rng.integers(0, 256, 32, dtype=np.uint8)
-                                 ).to(dev))
-        got, want = qcells.bake_patch(*args), qcells._bake_patch_torch(*args)
-    else:
-        tab = torch.from_numpy(rng.integers(0, 256, 256, dtype=np.uint8)
-                               ).to(dev)
-        got, want = qcells.bake_lookup(vq, tab), \
-            qcells._bake_lookup_torch(vq, tab)
+    q = qscene["q"]
+    tab = torch.from_numpy(rng.integers(0, 256, 256, dtype=np.uint8)).to(dev)
+    before = qcells.launches["bake_lookup"]
+    got, want = _bake_forms(q.value_q, q.alpha_q, tab)[form]
     assert torch.equal(got, want)
+    assert qcells.launches["bake_lookup"] - before == 2
+
+
+@pytest.mark.parametrize("donate", [False, True], ids=["base", "donated"])
+@pytest.mark.parametrize("edit", ["patch", "lookup"])
+def test_cuda_bake_alpha_q_edit_matches_cpu(scene, qscene, edit, donate):
+    """bake_alpha_q on the card after a TF edit (patch: one LUT alpha
+    halved, <= 32 levels changed; lookup: the lower half made
+    transparent) equals the same edit on CPU copies: one launch of the
+    lookup, into q.alpha_q's storage when donated (a copy here), else
+    into a new table that leaves q.alpha_q as it was."""
+    q = qscene["q"]._replace(alpha_q=qscene["q"].alpha_q.clone())
+    lut = scene["tf"].values.clone()
+    if edit == "patch":
+        lut[lut.shape[0] // 2, 3] *= 0.5
+    else:
+        lut[: lut.shape[0] // 2, 3] = 0.0
+    tf2 = scene["tf"]._replace(values=lut)
+    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+    want = qcells.bake_alpha_q(type(q)(*map(cpu, q)),
+                               type(tf2)(*map(cpu, tf2)))
+    keep = q.alpha_q.clone()
+    before = qcells.launches["bake_lookup"]
+    got = qcells.bake_alpha_q(q, tf2, donate=donate)
+    assert qcells.launches["bake_lookup"] - before == 1
+    changed = (got.alpha_tab != q.alpha_tab).sum()
+    assert (0 < changed <= 32) == (edit == "patch")
+    assert torch.equal(got.alpha_q.cpu(), want.alpha_q)
+    np.testing.assert_array_equal(got.alpha_tab, want.alpha_tab)
+    assert (got.alpha_q.data_ptr() == q.alpha_q.data_ptr()) == donate
+    if not donate:
+        assert torch.equal(q.alpha_q, keep)
+
+
+@pytest.mark.parametrize("rows,lm", [(0, 8), (1, 8), (3, 8), (1001, 8),
+                                     (257, 24), (4099, 16)])
+def test_cuda_bake_q_tails_match_plain(dev, rows, lm):
+    """K5c-q's lookup on random tables whose byte count leaves a tail past
+    the last 16-byte vector (rows x Lm a multiple of 8, not of 16), and at
+    zero size: byte-equal to the plain version, into a new table and in
+    place."""
+    rng = np.random.default_rng(rows * 7 + lm)
+    vq = torch.from_numpy(rng.integers(0, 256, (rows, lm), dtype=np.uint8)
+                          ).to(dev)
+    aq = torch.from_numpy(rng.integers(0, 256, (rows, lm), dtype=np.uint8)
+                          ).to(dev)
+    tab = torch.from_numpy(rng.integers(0, 256, 256, dtype=np.uint8)).to(dev)
+    for form, (got, want) in _bake_forms(vq, aq, tab).items():
+        assert got.shape == (rows, lm) and torch.equal(got, want), form
+
+
+def test_cuda_bake_q_refuses_unaligned(dev):
+    """The kernels move 16 bytes a load: a table that does not start on a
+    16-byte boundary is refused, not read."""
+    vq = torch.zeros(64 * 8 + 8, dtype=torch.uint8, device=dev)[8:]
+    tab = torch.zeros(256, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        qcells.bake_lookup(vq.view(64, 8), tab)
 
 
 @pytest.mark.parametrize("use_fm", [True, False],
