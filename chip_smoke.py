@@ -12,15 +12,16 @@ script exits non-zero without printing a result):
           (csrc/scene.cu), K7-loc (csrc/locator.cu), K8 and K9-p
           (csrc/parity.cu), K9-w (csrc/track_wedge.cu), K9-n
           (csrc/uelems.cu), K10 (csrc/composite.cu), K5b
-          (csrc/majorant.cu) and K6b refine_keys (csrc/order.cu), started
-          together,
-          and the first Triton compile of K5a, K6, K5c-q and K5c-f32,
+          (csrc/majorant.cu), K5c-q (csrc/bake_q.cu), K6 and K6b
+          refine_keys, refine_perm (csrc/order.cu), started together,
+          and the first Triton compile of K5a and K5c-f32,
           with their seconds and the ptxas register/spill lines
   check   every kernel against its plain PyTorch version on the card, at
           subdiv 5 x 16 layers, 256x256, closeup camera:
             K1  samples=4, both preserve_cache settings: fb identical on
                 >= 99.9% of pixels, accum max-abs-diff <= 1e-6
-            K5a <= 1 ULP    K5b exact    K6 keys <= 1 ULP, same n_covered
+            K5a <= 1 ULP    K5b exact    K6 keys <= 1 ULP (bit-equality
+                printed), the same coverage and covered count
   check q the quantized tier's kernels at the same shape:
             K2  samples=4, both preserve_cache settings, the fine map on
                 and off: fb identical on >= 99.9%, accum <= 1e-6
@@ -164,11 +165,15 @@ script exits non-zero without printing a result):
           between launches and once without; the unpermuted fb and accum,
           and every launch's cost, identical; both runs' launch times
           printed beside each other; K1's cost against its plain version;
-          K6b's kernels exact against their plain versions, timed beside
-          index_select and the torch.sort + index_select re-sort;
-          refine_keys and index_select also in turns, both as 20
+          K6b's kernels exact against their plain versions (refine_perm
+          with the sort's int64 and with int32 order, and equal to the
+          host refine_order), timed beside index_select and the
+          torch.sort + index_select re-sort; refine_keys and index_select,
+          refine_perm and index_select + cat also in turns, each as 20
           back-to-back calls (CUDA events: the host's launch rate) and as
-          device time (profiled windows of 10 calls)
+          device time (profiled windows of 10 calls); K6's device time
+          and pixel_order as a whole, from the keys to n_covered on the
+          host (20 calls on the host's clock)
   main ae, main accel sphere, main accel grid  the reference-parity
           raygens (K8, csrc/parity.cu) through the app (--raygen ae /
           accel, --accel-mode, the locator sampler) at subdiv 8 x 16,
@@ -584,13 +589,30 @@ class Scene:
         self.width, self.height = width, height
 
 
+def check_chord_keys(keys_k, n_k, keys_p, n_p, label):
+    """K6 against its plain version: the same coverage (finite keys) and
+    covered count, finite keys within 1 ULP; prints whether they are
+    bit-equal.  Returns the finite keys' max abs error."""
+    import torch
+    fin = torch.isfinite(keys_p)
+    u = ulp_diff(keys_k[fin], keys_p[fin])
+    err = float((keys_k[fin] - keys_p[fin]).abs().max()) if fin.any() else 0.0
+    print(f"{label}: max {u} ULP, bit-equal {torch.equal(keys_k, keys_p)}, "
+          f"covered count {int(n_k)} vs plain {int(n_p)} of {fin.numel()}")
+    if u > 1 or not torch.equal(n_k, n_p) or int(n_p) != int(fin.sum()) \
+            or not torch.equal(torch.isfinite(keys_k), fin):
+        raise AssertionError(f"{label}: K6 differs from its plain version")
+    return err
+
+
 def check_kernels(dev, sub=SMOKE_SUB, layers=SMOKE_LAYERS, size=SMOKE_W):
     """Each f32-tier kernel against its plain version on the same inputs.
     Returns ({kernel name: max_abs_err}, the Scene)."""
     import torch
     from icon_rt_tpu_torch.models.accel import compute_max_opacities_torch
     from icon_rt_tpu_torch.ops import fast
-    from icon_rt_tpu_torch.ops.order import _camera_vector, _chord_keys_torch
+    from icon_rt_tpu_torch.ops.order import (_camera, _chord_keys_torch,
+                                             chord_keys)
     from icon_rt_tpu_torch.ops.render import alloc_frame
 
     sc = Scene(sub, layers, size, size, dev)
@@ -615,21 +637,17 @@ def check_kernels(dev, sub=SMOKE_SUB, layers=SMOKE_LAYERS, size=SMOKE_W):
 
     st = sc.stats
     f32 = lambda v: torch.tensor(float(np.float32(v)), device=dev)
-    keys_p = _chord_keys_torch(_camera_vector(sc.lp),
-                               f32(st.spherical_bounds_lo[0]),
-                               f32(st.spherical_bounds_hi[0]), size, size)
-    from icon_rt_tpu_torch.ops.order import chord_keys
-    keys_k = chord_keys(_camera_vector(sc.lp), st.spherical_bounds_lo[0],
-                        st.spherical_bounds_hi[0], size, size)
-    n_cov_p = int(torch.isfinite(keys_p).sum())
-    fin = torch.isfinite(keys_p)
-    u = ulp_diff(keys_k[fin], keys_p[fin])
-    errs["chord_keys"] = float((keys_k[fin] - keys_p[fin]).abs().max())
-    print(f"check K6 chord_keys: max {u} ULP, n_covered {sc.n_cov} vs "
-          f"{n_cov_p}")
-    if u > 1 or n_cov_p != sc.n_cov or not torch.equal(
-            torch.isfinite(keys_k), fin):
-        raise AssertionError("K6 differs from its plain version")
+    keys_p, n_p = _chord_keys_torch(_camera(sc.lp),
+                                    f32(st.spherical_bounds_lo[0]),
+                                    f32(st.spherical_bounds_hi[0]), size,
+                                    size)
+    keys_k, n_k = chord_keys(_camera(sc.lp), st.spherical_bounds_lo[0],
+                             st.spherical_bounds_hi[0], size, size)
+    errs["chord_keys"] = check_chord_keys(keys_k, n_k, keys_p, n_p,
+                                          f"check K6 chord_keys {size}x{size}")
+    if int(n_k) != sc.n_cov:
+        raise AssertionError(f"K6's count {int(n_k)} is not pixel_order's "
+                             f"n_covered {sc.n_cov}")
 
     k1 = 0.0
     for preserve in (True, False):
@@ -1450,8 +1468,8 @@ def time_kernels(pl, errs, counts):
     from icon_rt_tpu_torch.models.accel import (compute_max_opacities_torch,
                                                 max_opacity)
     from icon_rt_tpu_torch.ops import fast
-    from icon_rt_tpu_torch.ops.order import (_camera_vector,
-                                             _chord_keys_torch, chord_keys)
+    from icon_rt_tpu_torch.ops.order import (_camera, _chord_keys_torch,
+                                             chord_keys)
     from icon_rt_tpu_torch.ops.render import alloc_frame
 
     s = pl.scene
@@ -1536,23 +1554,23 @@ def time_kernels(pl, errs, counts):
         "icon_rt_tpu/models/accel.py:201", km, pm,
         k5b_bound(bands.value_ranges.shape[0], tf.size))
 
-    cam = _camera_vector(lp)
+    cam = _camera(lp)
     r_in, r_out = stats.spherical_bounds_lo[0], stats.spherical_bounds_hi[0]
     f32 = lambda v: torch.tensor(float(np.float32(v)), device=dev)
-    kk = time_cuda(lambda: chord_keys(cam, r_in, r_out, W, H), reps=20)
+    keys = lambda: chord_keys(cam, r_in, r_out, W, H)
+    kk = time_cuda(keys, reps=20)
+    dk = device_ms(keys, 10, ("chord_keys_kernel",), "K6 chord_keys")
     pk = time_cuda(lambda: _chord_keys_torch(cam, f32(r_in), f32(r_out),
                                              W, H), reps=10)
-    keys_k = chord_keys(cam, r_in, r_out, W, H)
-    keys_p = _chord_keys_torch(cam, f32(r_in), f32(r_out), W, H)
-    fin = torch.isfinite(keys_p)
-    if not torch.equal(torch.isfinite(keys_k), fin) \
-            or ulp_diff(keys_k[fin], keys_p[fin]) > 1:
-        raise AssertionError("K6 disagrees with its plain version at 1080p")
-    errs["chord_keys"] = max(errs["chord_keys"],
-                             float((keys_k[fin] - keys_p[fin]).abs().max()))
-    # writes one f32 key per pixel; ~30 operations per pixel
-    row("chord_keys", "triton", "icon_rt_tpu_torch/ops/order.py",
-        "icon_rt_tpu/ops/order.py:23", kk, pk, bound(W * H * 4, W * H * 30))
+    errs["chord_keys"] = max(errs["chord_keys"], check_chord_keys(
+        *keys(), *_chord_keys_torch(cam, f32(r_in), f32(r_out), W, H),
+        f"time K6 chord_keys {W}x{H}"))
+    # writes one f32 key a pixel and the covered count, reads the camera's
+    # 12 floats; ~60 operations a pixel.  device_ms: the count's memset
+    # and the kernel, a call
+    row("chord_keys", "cuda", "icon_rt_tpu_torch/csrc/order.cu",
+        "icon_rt_tpu/ops/order.py:23", kk, pk,
+        bound(W * H * 4 + 4 + 48, W * H * 60), device_ms=dk)
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
     return rows
@@ -3728,17 +3746,32 @@ def order_refine(dev, errs):
     errs["track_f32"] = max(errs["track_f32"], compare_track_f32(
         tabs, lp, strided_lanes(perm, n_act), W, H, R2B9_SPL, tag))
 
+    # K6 as a camera move runs it: pixel_order from the keys to n_covered
+    # on the host (its one read ends each call)
+    r_in, r_out = stats.spherical_bounds_lo[0], stats.spherical_bounds_hi[0]
+    order.pixel_order(lp, r_in, r_out, W, H)
+    t1 = time.perf_counter()
+    for _ in range(20):
+        order.pixel_order(lp, r_in, r_out, W, H)
+    po_ms = (time.perf_counter() - t1) / 20 * 1e3
+    print(f"{tag} K6 pixel_order at {W}x{H} (keys, covered count, sort, "
+          f"n_covered on the host): {po_ms:.4f} ms a call, 20 calls")
+
     # K6b at these shapes: the f32 run's last re-sort
     p, inv, cost, acc, fb = last
     new = order.refine_order_device(p, n_act, cost)
     keys_k = order.refine_keys(p, n_act, cost)
-    srt = torch.sort(keys_k, stable=True).indices.to(torch.int32)
+    srt = torch.sort(keys_k, stable=True).indices       # int64, as it comes
     perm_k = order.refine_perm(p, n_act, srt)
     moved_k = order.repermute_device(acc, fb, new, inv)
     moved_p = order._repermute_torch(acc, fb, new, inv)
+    host = torch.from_numpy(order.refine_order(
+        p.cpu().numpy(), n_act, cost.cpu().numpy())).to(dev)
     exact = (torch.equal(keys_k, order._refine_keys_torch(p, n_act, cost)),
              torch.equal(perm_k, order._refine_perm_torch(p, n_act, srt))
-             and torch.equal(perm_k, new),
+             and torch.equal(perm_k, new) and torch.equal(perm_k, host)
+             and torch.equal(order.refine_perm(p, n_act,
+                                               srt.to(torch.int32)), perm_k),
              torch.equal(moved_k[0], moved_p[0])
              and torch.equal(moved_k[1], moved_p[1]))
     print(f"{tag} K6b refine_keys exact {exact[0]}, refine_perm exact "
@@ -3766,10 +3799,17 @@ def order_refine(dev, errs):
     keys = lambda: order.refine_keys(p, n_act, cost)
     keys_lib = lambda: cost.index_select(0, head)
     keys_ms, keys_lib_ms = time_turns(keys, keys_lib, reps=20)
+    perm = lambda: order.refine_perm(p, n_act, srt)
+    perm_lib = lambda: torch.cat([head.index_select(0, srt), tail])
+    perm_ms, perm_lib_ms = time_turns(perm, perm_lib, reps=20)
     dev_ms = {}
     for name, fn, need in (("keys", keys, ("refine_keys_kernel",)),
                            ("lib", keys_lib, ()), ("lib", keys_lib, ()),
-                           ("keys", keys, ("refine_keys_kernel",))):
+                           ("keys", keys, ("refine_keys_kernel",)),
+                           ("perm", perm, ("refine_perm_kernel",)),
+                           ("perm_lib", perm_lib, ()),
+                           ("perm_lib", perm_lib, ()),
+                           ("perm", perm, ("refine_perm_kernel",))):
         ms = device_ms(fn, 10, need, f"{tag} K6b {name}")
         dev_ms[name] = dev_ms.get(name, 0.0) + ms / 2
     t = dict(
@@ -3777,11 +3817,11 @@ def order_refine(dev, errs):
         keys_plain=time_cuda(lambda: order._refine_keys_torch(p, n_act,
                                                               cost), reps=20),
         keys_lib=keys_lib_ms, keys_lib_device=dev_ms["lib"],
-        perm=time_cuda(lambda: order.refine_perm(p, n_act, srt), reps=20),
+        perm=perm_ms, perm_device=dev_ms["perm"],
         perm_plain=time_cuda(lambda: order._refine_perm_torch(p, n_act, srt),
                              reps=20),
-        perm_lib=time_cuda(lambda: torch.cat([head.index_select(0, srt),
-                                              tail]), reps=20),
+        perm_lib=perm_lib_ms, perm_lib_device=dev_ms["perm_lib"],
+        pixel_order=po_ms,
         move=time_cuda(lambda: order.repermute_device(acc, fb, new, inv),
                        reps=20),
         move_plain=time_cuda(lambda: order._repermute_torch(acc, fb, new,
@@ -3797,7 +3837,10 @@ def order_refine(dev, errs):
           f"turns, 20 calls; device time a call {t['keys_device']:.4f}, "
           f"index_select's {t['keys_lib_device']:.4f}); "
           f"refine_perm {t['perm']:.4f} ms (plain {t['perm_plain']:.4f}, "
-          f"index_select + cat {t['perm_lib']:.4f}); repermute {t['move']:.4f} ms (plain {t['move_plain']:.4f}, "
+          f"index_select + cat {t['perm_lib']:.4f}; in turns, 20 calls; "
+          f"device time a call {t['perm_device']:.4f}, index_select + "
+          f"cat's {t['perm_lib_device']:.4f}); repermute {t['move']:.4f} ms "
+          f"(plain {t['move_plain']:.4f}, "
           f"index_select {t['move_lib']:.4f}); the whole re-sort "
           f"{t['resort']:.4f} ms (torch.sort + index_select "
           f"{t['resort_lib']:.4f})")
@@ -3819,9 +3862,10 @@ def lod_rows(t9l, t_o, errs, counts):
                                      "plain_pass2_ms", "cells", "lod")})
     n, lanes = t_o["n_active"], t_o["lanes"]
     # keys: perm and the gathered cost read, the key written, per covered
-    # lane; refine_perm: the order read per covered lane, perm read and the
-    # new perm written per lane; repermute: new_perm, inv_old, accum and fb
-    # read, accum and fb written, per lane (no arithmetic to speak of)
+    # lane; refine_perm: the sort's int64 order read per covered lane, perm
+    # read and the new perm written per lane; repermute: new_perm, inv_old,
+    # accum and fb read, accum and fb written, per lane (no arithmetic to
+    # speak of)
     kernel_row(rows, counts, errs, "refine_keys", "cuda",
                "icon_rt_tpu_torch/csrc/order.cu",
                "icon_rt_tpu/ops/order.py:109", t_o["keys"], t_o["keys_plain"],
@@ -3829,10 +3873,12 @@ def lod_rows(t9l, t_o, errs, counts):
                device_ms=t_o["keys_device"],
                library_device_ms=t_o["keys_lib_device"],
                resort_ms=t_o["resort"], resort_library_ms=t_o["resort_lib"])
-    kernel_row(rows, counts, errs, "refine_perm", "triton",
-               "icon_rt_tpu_torch/ops/order.py",
+    kernel_row(rows, counts, errs, "refine_perm", "cuda",
+               "icon_rt_tpu_torch/csrc/order.cu",
                "icon_rt_tpu/ops/order.py:109", t_o["perm"], t_o["perm_plain"],
-               bound(4 * n + 8 * lanes, 0), library_ms=t_o["perm_lib"])
+               bound(8 * n + 8 * lanes, 0), library_ms=t_o["perm_lib"],
+               device_ms=t_o["perm_device"],
+               library_device_ms=t_o["perm_lib_device"])
     kernel_row(rows, counts, errs, "repermute", "triton",
                "icon_rt_tpu_torch/ops/order.py",
                "icon_rt_tpu/ops/order.py:124", t_o["move"], t_o["move_plain"],
@@ -5104,6 +5150,8 @@ def main() -> int:
           f"r2b9qv {t2 - t1:.1f} s, order refine "
           f"{time.perf_counter() - t2:.1f} s")
     rows += lod_rows(t9l, t_o, errs, {**counts9v, **counts_o})
+    next(r for r in rows if r["name"] == "chord_keys")["pixel_order_ms"] = \
+        t_o["pixel_order"]
 
     # the reference-parity raygens (K8), every earlier table freed; the
     # plain versions' long loops come after every profile of the script

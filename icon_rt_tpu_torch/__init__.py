@@ -12,9 +12,9 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
   K5b    models/accel.py   max_opacity    CUDA C++ (csrc/majorant.cu)
   K5c-q  models/qcells.py  bake_lookup    CUDA C++ (csrc/bake_q.cu)
   K5c-f32 ops/fast.py      pack_alpha_scale_parts, apply_opacity_scale  Triton
-  K6     ops/order.py      chord_keys     Triton
-  K6b    ops/order.py      refine_keys    CUDA C++ (csrc/order.cu);
-                           refine_perm, repermute    Triton
+  K6     ops/order.py      chord_keys     CUDA C++ (csrc/order.cu)
+  K6b    ops/order.py      refine_keys, refine_perm  CUDA C++
+                           (csrc/order.cu); repermute  Triton
   K7-fm  models/finemap.py build_finemap  CUDA C++ (csrc/finemap.cu)
   K7-scene data/device_scene.py scene_ancestors, scene_pass1, scene_pass2
          CUDA C++ (csrc/scene.cu; with field_lod > 0 the value-space mip

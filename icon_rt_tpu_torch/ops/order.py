@@ -8,13 +8,16 @@ rendered alone.  The permutation depends only on the camera and the shell
 radii, so it is computed once per camera move; accumulation and
 framebuffer live in permuted order and are unpermuted at present time.
 
-K6 `chord_keys` (Triton) replaces the XLA-fused icon_rt_tpu/ops/order.py
-`_chord_keys`: one elementwise pass over W*H pixels, about 20 flops and two
-square roots per pixel, one f32 store.  On the H100 it is bound by its
-4-byte-per-pixel store and launch latency (8 MB at 1080p); the design keeps
-the 12 camera scalars in registers and computes pixel coordinates from the
-program id, so it reads nothing per pixel.  The sort that follows is
-`torch.sort(stable=True)`.
+K6 `chord_keys` (CUDA C++, csrc/order.cu) replaces the XLA-fused
+icon_rt_tpu/ops/order.py `_chord_keys` and the count of finite keys of its
+`pixel_order`: one elementwise pass over W*H pixels, about 60 operations
+and up to four square roots per pixel, one f32 store, and the covered
+count in the same pass (one atomicAdd a block).  Its bound is the
+4-byte-per-pixel store (8.3 MB at 1080p), but the IEEE roots make it
+issue-bound, so a pixel takes only the roots its key uses; it reads the
+camera's four (3,) vectors on the card, once a block, and nothing per
+pixel.  The sort that follows is `torch.sort(stable=True)`; `pixel_order`'s
+one host read is the count.
 
 K6b, the measured-cost re-sort (icon_rt_tpu/ops/order.py
 `refine_order_device` :109 and `repermute_device` :124), re-sorts the
@@ -23,14 +26,15 @@ covered prefix by the steps each lane took in the last launch
 new order.  Three kernels, all pure gathers with no reuse, so bound by
 their bytes: `refine_keys` (CUDA C++, csrc/order.cu) gathers
 cost_nat[perm[i]] for the covered prefix; `torch.sort(stable=True)` orders
-the keys, as K6; `refine_perm` (Triton) writes the new permutation,
-perm[order[i]] on the prefix and perm[i] on the tail; `repermute` (Triton)
-moves each lane's 16-byte accum row and 4-byte fb word in one launch, lane
-i reading the old lane inv_old[new_perm[i]] (JAX's scatter into natural
-order and gather out of it, in one step).  At 1080p these launches are a
-few tens of microseconds, about the launch latency, so a call's host work
-decides its time: `refine_keys` binds its C entry point through ctypes and
-does one check and one allocation a call.  The
+the keys, as K6; `refine_perm` (CUDA C++, csrc/order.cu) writes the new
+permutation, perm[order[i]] on the prefix and perm[i] on the tail, reading
+the sort's int64 indices as they come; `repermute` (Triton) moves each
+lane's 16-byte accum row and 4-byte fb word in one launch, lane i reading
+the old lane inv_old[new_perm[i]] (JAX's scatter into natural order and
+gather out of it, in one step).  At 1080p these launches are a few tens
+of microseconds, about the launch latency, so a call's host work decides
+its time: the CUDA C++ kernels bind their C entry points through ctypes,
+and each wrapper checks its inputs once and allocates its outputs.  The
 pixel's RNG stream is keyed by the pixel (track_common.cuh `init_lane`)
 and the column cache lives within one launch, so a re-sort between
 launches leaves the unpermuted image bit-identical.
@@ -50,10 +54,9 @@ launches = 0
 refine_launches = {"refine_keys": 0, "refine_perm": 0, "repermute": 0}
 
 tl = None          # triton.language, bound on first launch
-_KERNEL = None
-_K6B = {}
+_REPERMUTE = None
 _BLOCK = 1024
-_KEYS_LAUNCH = None  # csrc/order.cu refine_keys_launch, bound on first use
+_LIB = None        # csrc/order.cu with its entry points bound, on first use
 
 
 def _triton():
@@ -66,20 +69,29 @@ def _triton():
     return triton
 
 
+def _camera(lp):
+    """The camera of launch params `lp` as chord_keys takes it: (org,
+    dir00, du, dv), each a (3,) f32 tensor."""
+    return lp.cam_org, lp.cam_dir00, lp.cam_du, lp.cam_dv
+
+
 def _chord_keys_torch(cam, r_in, r_out, width: int, height: int):
-    """Plain-PyTorch K6.  cam: (12,) f32 = org | dir00 | du | dv;
-    r_in/r_out: () f32 tensors.  Returns (W*H,) f32 keys, +inf for misses."""
+    """Plain-PyTorch K6.  cam: (org, dir00, du, dv), (3,) f32 tensors;
+    r_in/r_out: () f32 tensors.  Returns ((W*H,) f32 keys, +inf for misses;
+    (1,) int32 count of finite keys)."""
+    org, dir00, du, dv = cam
+    dev = org.device
     total = width * height
-    ids = torch.arange(total, dtype=torch.int32, device=cam.device)
+    ids = torch.arange(total, dtype=torch.int32, device=dev)
     ys = torch.div(ids, width, rounding_mode="floor")
     xs = ids - ys * width
-    ox, oy, oz = cam[0], cam[1], cam[2]
+    ox, oy, oz = org[0], org[1], org[2]
     oo = ox * ox + oy * oy + oz * oz
     u = xs.to(torch.float32) + 1.0   # central ray (pixel + 0.5 + mean jitter)
     v = ys.to(torch.float32) + 1.0
-    dx = cam[3] + u * cam[6] + v * cam[9]
-    dy = cam[4] + u * cam[7] + v * cam[10]
-    dz = cam[5] + u * cam[8] + v * cam[11]
+    dx = dir00[0] + u * du[0] + v * dv[0]
+    dy = dir00[1] + u * du[1] + v * dv[1]
+    dz = dir00[2] + u * du[2] + v * dv[2]
     inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
     dx, dy, dz = dx * inv, dy * inv, dz * inv
     od = ox * dx + oy * dy + oz * dz
@@ -94,95 +106,75 @@ def _chord_keys_torch(cam, r_in, r_out, width: int, height: int):
     # conservative coverage: a jittered ray lands up to ~1.5 pixels from
     # the center, so classify against the outer radius inflated by a few
     # pixel footprints at the closest-approach distance
-    pix = torch.sqrt(cam[6] * cam[6] + cam[7] * cam[7] + cam[8] * cam[8]) \
-        + torch.sqrt(cam[9] * cam[9] + cam[10] * cam[10] + cam[11] * cam[11])
+    pix = torch.sqrt(du[0] * du[0] + du[1] * du[1] + du[2] * du[2]) \
+        + torch.sqrt(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2])
     margin = 4.0 * pix * torch.abs(od)
     rm = r_out + margin
     disc_m = od * od - oo + rm * rm
     covered = (disc_m > 0.0) & (-od + torch.sqrt(torch.clamp(disc_m, min=0.0))
                                 > 0.0)
-    zero = torch.zeros((), dtype=torch.float32, device=cam.device)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     length = torch.where(hit_o, c_o - torch.where(hit_i, c_i, zero), zero)
-    return torch.where(covered, length, float("inf"))
+    keys = torch.where(covered, length, float("inf"))
+    return keys, torch.isfinite(keys).sum().to(torch.int32).reshape(1)
 
 
-def _chord_keys_kernel(cam_ptr, out_ptr, total, width, r_in, r_out,
-                       BLOCK: tl.constexpr):
-    ids = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    msk = ids < total
-    ys = ids // width
-    xs = ids - ys * width
-    ox = tl.load(cam_ptr + 0)
-    oy = tl.load(cam_ptr + 1)
-    oz = tl.load(cam_ptr + 2)
-    oo = ox * ox + oy * oy + oz * oz
-    u = xs.to(tl.float32) + 1.0
-    v = ys.to(tl.float32) + 1.0
-    dx = tl.load(cam_ptr + 3) + u * tl.load(cam_ptr + 6) \
-        + v * tl.load(cam_ptr + 9)
-    dy = tl.load(cam_ptr + 4) + u * tl.load(cam_ptr + 7) \
-        + v * tl.load(cam_ptr + 10)
-    dz = tl.load(cam_ptr + 5) + u * tl.load(cam_ptr + 8) \
-        + v * tl.load(cam_ptr + 11)
-    inv = tl.math.div_rn(1.0, tl.sqrt_rn(dx * dx + dy * dy + dz * dz))
-    dx = dx * inv
-    dy = dy * inv
-    dz = dz * inv
-    od = ox * dx + oy * dy + oz * dz
-    disc_o = od * od - oo + r_out * r_out
-    sq_o = tl.sqrt_rn(tl.maximum(disc_o, 0.0))
-    hit_o = (disc_o > 0.0) & (-od + sq_o > 0.0)
-    disc_i = od * od - oo + r_in * r_in
-    sq_i = tl.sqrt_rn(tl.maximum(disc_i, 0.0))
-    hit_i = (disc_i > 0.0) & (-od + sq_i > 0.0)
-    du0 = tl.load(cam_ptr + 6)
-    du1 = tl.load(cam_ptr + 7)
-    du2 = tl.load(cam_ptr + 8)
-    dv0 = tl.load(cam_ptr + 9)
-    dv1 = tl.load(cam_ptr + 10)
-    dv2 = tl.load(cam_ptr + 11)
-    pix = tl.sqrt_rn(du0 * du0 + du1 * du1 + du2 * du2) \
-        + tl.sqrt_rn(dv0 * dv0 + dv1 * dv1 + dv2 * dv2)
-    margin = 4.0 * pix * tl.abs(od)
-    rm = r_out + margin
-    disc_m = od * od - oo + rm * rm
-    covered = (disc_m > 0.0) & (-od + tl.sqrt_rn(tl.maximum(disc_m, 0.0))
-                                > 0.0)
-    length = tl.where(hit_o, 2.0 * sq_o - tl.where(hit_i, 2.0 * sq_i, 0.0),
-                      0.0)
-    key = tl.where(covered, length, float("inf"))
-    tl.store(out_ptr + ids, key, mask=msk)
+def build_order_kernel():
+    """Compile csrc/order.cu for sm_90a and bind its entry points."""
+    lib = cuda_build.build("order")
+    p = ctypes.c_void_p
+    lib.chord_keys_launch.argtypes = [p] * 4 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+        p, p, p]
+    lib.refine_keys_launch.argtypes = [p] * 3 + [ctypes.c_longlong, p]
+    lib.refine_perm_launch.argtypes = [p, p, ctypes.c_int, p,
+                                       ctypes.c_longlong, ctypes.c_longlong,
+                                       p]
+    for fn in (lib.chord_keys_launch, lib.refine_keys_launch,
+               lib.refine_perm_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _order_lib():
+    global _LIB
+    if _LIB is None:
+        _LIB = build_order_kernel()
+    return _LIB
 
 
 def chord_keys(cam, r_in: float, r_out: float, width: int, height: int):
-    """K6 wrapper: the Triton kernel for a CUDA `cam`, the plain version for
-    a CPU one.  cam: contiguous (12,) f32 (org | dir00 | du | dv).
-    Returns (W*H,) f32 keys on cam's device."""
-    global launches, _KERNEL
-    if cam.dtype != torch.float32 or cam.shape != (12,) \
-            or not cam.is_contiguous():
-        raise ValueError("chord_keys: cam must be a contiguous (12,) float32")
-    r_in = float(np.float32(r_in))
-    r_out = float(np.float32(r_out))
-    if cam.device.type == "cpu":
+    """K6 wrapper: csrc/order.cu for a CUDA camera, the plain version for a
+    CPU one.  cam: (org, dir00, du, dv), contiguous (3,) f32 tensors on one
+    device (`_camera(lp)`); the radii are rounded to f32.  Returns ((W*H,)
+    f32 keys, +inf for misses; (1,) int32 count of finite keys), both on
+    cam's device."""
+    global launches
+    total = width * height
+    if len(cam) != 4 or not 0 < total < 2 ** 31 or width < 1:
+        raise ValueError("chord_keys: cam must be four (3,) tensors, "
+                         "0 < W*H < 2^31")
+    dev = cam[0].device
+    for v in cam:
+        if v.dtype != torch.float32 or v.shape != (3,) \
+                or not v.is_contiguous() or v.device != dev:
+            raise ValueError("chord_keys: cam must be four contiguous (3,) "
+                             "float32 tensors on one device")
+    if dev.type == "cpu":
         f32 = lambda r: torch.tensor(r, dtype=torch.float32)
         return _chord_keys_torch(cam, f32(r_in), f32(r_out), width, height)
-    if cam.device.type != "cuda":
-        raise ValueError(f"chord_keys: unsupported device {cam.device}")
-    if _KERNEL is None:
-        _KERNEL = _triton().jit(_chord_keys_kernel)
-    total = width * height
-    out = torch.empty(total, dtype=torch.float32, device=cam.device)
-    block = 1024
-    _KERNEL[(-(-total // block),)](cam, out, total, width, r_in, r_out,
-                                   BLOCK=block, enable_fp_fusion=False)
+    if dev.type != "cuda":
+        raise ValueError(f"chord_keys: unsupported device {dev}")
+    # two allocations: on the host they cost less than slicing and viewing
+    # one; the radii round to f32 in ctypes' c_float
+    keys = torch.empty(total, dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    cuda_build.check("chord_keys", _order_lib().chord_keys_launch(
+        cam[0].data_ptr(), cam[1].data_ptr(), cam[2].data_ptr(),
+        cam[3].data_ptr(), r_in, r_out, width, total, keys.data_ptr(),
+        count.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index)))
     launches += 1
-    return out
-
-
-def _camera_vector(lp) -> torch.Tensor:
-    return torch.cat([lp.cam_org, lp.cam_dir00, lp.cam_du,
-                      lp.cam_dv]).to(torch.float32).contiguous()
+    return keys, count
 
 
 def pixel_order(lp, r_in, r_out, width: int, height: int
@@ -194,10 +186,9 @@ def pixel_order(lp, r_in, r_out, width: int, height: int
     n_covered positions skips the all-background tail — those rays never
     write (the reference's early return, deviceCode.cu:294).  The
     permutation is an int32 tensor on lp's device."""
-    keys = chord_keys(_camera_vector(lp), r_in, r_out, width, height)
+    keys, n_covered = chord_keys(_camera(lp), r_in, r_out, width, height)
     perm = torch.sort(keys, stable=True).indices.to(torch.int32)
-    n_covered = int(torch.isfinite(keys).sum().item())
-    return perm, n_covered
+    return perm, int(n_covered.item())
 
 
 def inverse_order(perm):
@@ -239,16 +230,6 @@ def repermute(arr, old_perm, new_perm):
     return nat[np.asarray(new_perm)]
 
 
-def _refine_perm_kernel(perm_ptr, order_ptr, out_ptr, n_active, total,
-                        BLOCK: tl.constexpr):
-    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    msk = i < total
-    head = i < n_active
-    src = tl.where(head, tl.load(order_ptr + i, mask=head, other=0), i)
-    tl.store(out_ptr + i, tl.load(perm_ptr + src, mask=msk, other=0),
-             mask=msk)
-
-
 def _repermute_kernel(new_ptr, inv_ptr, acc_ptr, fb_ptr, acc_out, fb_out, n,
                       BLOCK: tl.constexpr):
     i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
@@ -260,14 +241,6 @@ def _repermute_kernel(new_ptr, inv_ptr, acc_ptr, fb_ptr, acc_out, fb_out, n,
     row = tl.load(acc_ptr + src[:, None] * 4 + ch[None, :], mask=m2)
     tl.store(acc_out + i[:, None] * 4 + ch[None, :], row, mask=m2)
     tl.store(fb_out + i, tl.load(fb_ptr + src, mask=msk), mask=msk)
-
-
-def _k6b(name: str):
-    if name not in _K6B:
-        fn = {"refine_perm": _refine_perm_kernel,
-              "repermute": _repermute_kernel}[name]
-        _K6B[name] = _triton().jit(fn)
-    return _K6B[name]
 
 
 def _check_perm(fn, name, x, n, device):
@@ -282,21 +255,11 @@ def _refine_keys_torch(perm, n_active: int, cost_nat):
     return cost_nat[perm[:n_active].long()]
 
 
-def build_order_kernel():
-    """Compile csrc/order.cu for sm_90a and bind its entry point."""
-    lib = cuda_build.build("order")
-    lib.refine_keys_launch.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_void_p]
-    lib.refine_keys_launch.restype = ctypes.c_int
-    return lib
-
-
 def refine_keys(perm, n_active: int, cost_nat):
     """K6b wrapper, the keys of the re-sort: (n_active,) int32
     cost_nat[perm[i]].  perm and cost_nat: contiguous (total,) int32 on one
     device, perm 16-byte aligned on the card.  A CUDA perm launches
     csrc/order.cu, a CPU one runs the plain version."""
-    global _KEYS_LAUNCH
     dev = perm.device
     if perm.dtype != torch.int32 or cost_nat.dtype != torch.int32 \
             or perm.dim() != 1 or cost_nat.shape != perm.shape \
@@ -312,9 +275,7 @@ def refine_keys(perm, n_active: int, cost_nat):
         raise ValueError(f"refine_keys: unsupported device {dev}")
     out = torch.empty(n_active, dtype=torch.int32, device=dev)
     if n_active:
-        if _KEYS_LAUNCH is None:
-            _KEYS_LAUNCH = build_order_kernel().refine_keys_launch
-        cuda_build.check("refine_keys", _KEYS_LAUNCH(
+        cuda_build.check("refine_keys", _order_lib().refine_keys_launch(
             perm.data_ptr(), cost_nat.data_ptr(), out.data_ptr(), n_active,
             torch._C._cuda_getCurrentRawStream(dev.index)))
         refine_launches["refine_keys"] += 1
@@ -329,23 +290,34 @@ def _refine_perm_torch(perm, n_active: int, order):
 def refine_perm(perm, n_active: int, order):
     """K6b wrapper, the re-sorted permutation: (total,) int32 with
     perm[order[i]] for i < n_active and perm[i] past it.  order: the
-    (n_active,) int32 sorting permutation of the covered prefix's keys.  A
-    CUDA perm launches the Triton kernel, a CPU one runs the plain
-    version."""
+    (n_active,) int64 (as torch.sort returns it) or int32 sorting
+    permutation of the covered prefix's keys.  perm and order contiguous
+    on one device, 16-byte aligned on the card.  A CUDA perm launches
+    csrc/order.cu, a CPU one runs the plain version."""
     dev = perm.device
     total = perm.shape[0]
-    _check_perm("refine_perm", "perm", perm, total, dev)
-    if not 0 <= n_active <= total:
-        raise ValueError("refine_perm: n_active outside [0, total]")
-    _check_perm("refine_perm", "order", order, n_active, dev)
+    if perm.dtype != torch.int32 or perm.dim() != 1 \
+            or not 0 <= n_active <= total \
+            or order.dtype not in (torch.int32, torch.int64) \
+            or order.shape != (n_active,) or order.device != dev \
+            or not (perm.is_contiguous() and order.is_contiguous()) \
+            or (dev.type == "cuda"
+                and (perm.data_ptr() % 16
+                     or n_active and order.data_ptr() % 16)):
+        raise ValueError("refine_perm: perm must be a contiguous (total,) "
+                         "int32 tensor and order a contiguous (n_active,) "
+                         "int32 or int64 one on its device (both 16-byte "
+                         "aligned on the card), 0 <= n_active <= total")
     if dev.type == "cpu":
         return _refine_perm_torch(perm, n_active, order)
     if dev.type != "cuda":
         raise ValueError(f"refine_perm: unsupported device {dev}")
     out = torch.empty_like(perm)
     if total:
-        _k6b("refine_perm")[(-(-total // _BLOCK),)](
-            perm, order, out, n_active, total, BLOCK=_BLOCK)
+        cuda_build.check("refine_perm", _order_lib().refine_perm_launch(
+            perm.data_ptr(), order.data_ptr(), order.dtype == torch.int64,
+            out.data_ptr(), n_active, total,
+            torch._C._cuda_getCurrentRawStream(dev.index)))
         refine_launches["refine_perm"] += 1
     return out
 
@@ -357,8 +329,8 @@ def refine_order_device(perm, n_active: int, cost_nat):
     `torch.sort(stable=True)`, K6b permutation); the tail untouched.
     Returns a new permutation on perm's device."""
     keys = refine_keys(perm, n_active, cost_nat)
-    order = torch.sort(keys, stable=True).indices.to(torch.int32)
-    return refine_perm(perm, n_active, order)
+    return refine_perm(perm, n_active,
+                       torch.sort(keys, stable=True).indices)
 
 
 def _repermute_torch(accum, fb, new_perm, inv_old):
@@ -373,6 +345,7 @@ def repermute_device(accum, fb, new_perm, inv_old):
     the order of a permutation whose inverse is inv_old (inverse_order of
     the old perm) -> new (accum, fb) in new_perm order.  CUDA tensors
     launch the Triton kernel, CPU tensors run the plain version."""
+    global _REPERMUTE
     dev = fb.device
     total = fb.shape[0]
     for name, x in (("new_perm", new_perm), ("inv_old", inv_old),
@@ -386,8 +359,10 @@ def repermute_device(accum, fb, new_perm, inv_old):
         return _repermute_torch(accum, fb, new_perm, inv_old)
     if dev.type != "cuda":
         raise ValueError(f"repermute_device: unsupported device {dev}")
+    if _REPERMUTE is None:
+        _REPERMUTE = _triton().jit(_repermute_kernel)
     acc_out, fb_out = torch.empty_like(accum), torch.empty_like(fb)
-    _k6b("repermute")[(-(-total // _BLOCK),)](
+    _REPERMUTE[(-(-total // _BLOCK),)](
         new_perm, inv_old, accum, fb, acc_out, fb_out, total, BLOCK=_BLOCK)
     refine_launches["repermute"] += 1
     return acc_out, fb_out

@@ -1,11 +1,13 @@
-"""PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6, K2 (K1 and
-K2 also on ragged columns with rays grazing a ceiling), K5c-q (into a
+"""PyTorch port, the kernels on the card: K1+K4, K5a, K5b, K6 (ragged
+sizes too), K2 (K1 and K2 also on ragged columns with rays grazing a
+ceiling), K5c-q (into a
 new table and in place, vector tails, zero size, the TF-edit dispatch),
 K7-fm (factors 1-3, cut edge tiles, a band locator), K3 (both tiers; K3-q
 after TF edits and its steady call without a host read), K5c-f32,
 K7-scene (lod 0 and the mip tier, whole and windows), K7-loc, K8 (and its raw
 mode; rays grazing the cells' shell top; its steady launch without a
-host read) and K6b, K1's, K2's and K3's cost output, K1's and
+host read) and K6b (refine_perm's prefix tails with int32 and int64
+order), K1's, K2's and K3's cost output, K1's and
 K2's raw mode (with rng_salt), the
 unstructured elements' K9-w, K9-p and K9-n, and the multi-device
 composites K10, against their plain PyTorch versions on the same CUDA
@@ -125,19 +127,64 @@ def test_cuda_max_opacity_matches_plain(scene, pscene, dev, size, kind):
             assert torch.equal(got, want)
 
 
-def test_cuda_chord_keys_match_plain(scene, dev):
-    """K6: same coverage, finite keys within 1 ULP."""
-    st, lp = scene["st"], scene["lp"]
-    cam = order._camera_vector(lp)
+def _chord_keys_both(cam, st, width, height, dev):
+    """K6 (csrc/order.cu) and its plain version on the same camera: ((keys,
+    count) of each), one launch counted."""
     r_in, r_out = st.spherical_bounds_lo[0], st.spherical_bounds_hi[0]
-    k = order.chord_keys(cam, r_in, r_out, 96, 96)
+    before = order.launches
+    got = order.chord_keys(cam, r_in, r_out, width, height)
+    assert order.launches == before + 1
     f32 = lambda r: torch.tensor(float(np.float32(r)), device=dev)
-    p = order._chord_keys_torch(cam, f32(r_in), f32(r_out), 96, 96)
+    want = order._chord_keys_torch(cam, f32(r_in), f32(r_out), width, height)
+    return got, want
+
+
+def _assert_keys_close(got, want):
+    """Same coverage, the same count, finite keys within 1 ULP."""
+    (k, n), (p, m) = got, want
     fin = torch.isfinite(p)
     assert torch.equal(torch.isfinite(k), fin)
+    assert n.dtype == torch.int32 and torch.equal(n, m)
+    assert int(n) == int(fin.sum())
     ik = k[fin].view(torch.int32).long()
     ip = p[fin].view(torch.int32).long()
-    assert int((ik - ip).abs().max()) <= 1
+    assert not fin.any() or int((ik - ip).abs().max()) <= 1
+
+
+def test_cuda_chord_keys_match_plain(scene, dev):
+    """K6: same coverage and covered count, finite keys within 1 ULP; the
+    count equals pixel_order's n_covered."""
+    st, lp = scene["st"], scene["lp"]
+    got, want = _chord_keys_both(order._camera(lp), st, 96, 96, dev)
+    _assert_keys_close(got, want)
+    assert int(got[1]) == scene["n_cov"] > 0
+
+
+#: K6's ragged sizes: W*H % 4 == 1 (97 x 33, 1 x 1, 45 x 29), 2 (46 x 29)
+#: and 3 (47 x 29) leave the last thread a tail of single pixels
+@pytest.mark.parametrize("width,height", [(97, 33), (1, 1), (45, 29),
+                                          (46, 29), (47, 29)])
+def test_cuda_chord_keys_ragged_match_plain(scene, dev, width, height):
+    """K6 at sizes whose pixel count is no multiple of its 4 pixels a
+    thread: coverage, count and keys as test_cuda_chord_keys_match_plain,
+    on a camera at 1.6 outer radii looking at the globe (one pixel: its
+    central ray's view of it)."""
+    st = scene["st"]
+    cam = Camera()
+    cam.set_aspect(width / height)
+    c = 0.5 * (st.world_bounds_lo + st.world_bounds_hi)
+    v = np.array([2.2, 0.4, 0.9], np.float32)
+    v /= np.linalg.norm(v)
+    cam.set_orientation(c + v * st.spherical_bounds_hi[0] * 1.6, c,
+                        np.array([0, 0, 1], np.float32), cam.fovy)
+    lp = make_launch_params(cam.basis(width, height), st.world_bounds_lo,
+                            st.world_bounds_hi, device=dev)
+    got, want = _chord_keys_both(order._camera(lp), st, width, height, dev)
+    assert got[0].shape == (width * height,)
+    _assert_keys_close(got, want)
+    assert order.pixel_order(lp, st.spherical_bounds_lo[0],
+                             st.spherical_bounds_hi[0], width,
+                             height)[1] == int(want[1])
 
 
 @pytest.mark.parametrize("preserve_cache", [True, False])
@@ -1005,6 +1052,30 @@ def test_cuda_refine_matches_plain(dev):
     assert torch.equal(a2, pa) and torch.equal(f2, pf)
     assert order.refine_launches == {k: v + (1 if k == "repermute" else 2)
                                      for k, v in before.items()}
+
+
+#: refine_perm's prefix sizes over 100,003 lanes (a ragged end):
+#: n_active % 4 == 0, 1, 2, 3, none and every lane
+REFINE_PERM_TOTAL = 100_003
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n_act", [4_000, 4_001, 4_002, 4_003, 0,
+                                   REFINE_PERM_TOTAL])
+def test_cuda_refine_perm_tails_match_plain(dev, n_act, dtype):
+    """K6b refine_perm (csrc/order.cu, 4 lanes a thread) where n_active
+    splits a vector at each offset, leaves no head or no tail, with int32
+    and int64 (torch.sort's) order: exact against the plain version, one
+    launch a call."""
+    rng = np.random.default_rng(n_act + 7)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    perm = t(rng.permutation(REFINE_PERM_TOTAL).astype(np.int32))
+    srt = t(rng.permutation(n_act)).to(dtype)
+    before = order.refine_launches["refine_perm"]
+    got = order.refine_perm(perm, n_act, srt)
+    assert order.refine_launches["refine_perm"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, order._refine_perm_torch(perm, n_act, srt))
 
 
 @pytest.mark.parametrize("n_act", [0, 1, 3, 4, 70_001])
