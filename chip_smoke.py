@@ -40,7 +40,12 @@ script exits non-zero without printing a result):
           the per-wedge constants bv (<= 1 ULP); K9-w samples=4, both
           preserve_cache settings (fb identical on >= 99.9%, accum <=
           1e-6); K9-n on 65,536 seeded points per element shape (pyramid,
-          wedge, hexahedron): inside flags and values bit-equal
+          wedge, hexahedron), and wedges at 2,073,600 points (one a 1080p
+          lane) and at 1, 127, 129 and 65,537 points into out= (also
+          with NaN scalars on the elements that do not contain their
+          point): inside flags (bool) and values bit-equal; the wedge
+          timed at both sizes (events, profiled kernel and device ms,
+          registers)
   check composite  K10 (csrc/composite.cu): its three masks and two
           finalizes against their plain versions on crafted inputs (ties
           of equal t, every slab +inf, lanes without a write) of 2,073,600
@@ -353,6 +358,10 @@ W7_SUB, W7_LAYERS, W7_W = 7, 16, 1024
 WEDGE_SHELL_COLUMNS = 256
 W7_LIMIT = {"sphere": 4, "ae": 2, "grid": 4}
 UELEMS_POINTS = 65536        # K9-n's check points per element shape
+#: K9-n's wedge points beyond them: one a 1080p lane (the size that fills
+#: the card), and ragged sizes around its blocks of 128 threads, into out=
+UELEMS_FRAME = 1920 * 1080
+UELEMS_RAGGED = (1, 127, 129, 65537)
 #: the JAX loops each K8 raygen replaces (the samplers' too: models/
 #: cells.py:170, models/locator.py:366)
 PARITY_REPLACES = {"ae": "icon_rt_tpu/ops/render.py:102",
@@ -424,9 +433,11 @@ PARITY_BYTES = {"lane": 36, "radial": 8, "planes": 48, "hit": 8,
 #: visited column 2 per layer of its find_layer; per Newton its set-up
 #: (the bounding box 36, the tolerance 6) and its end (the value 11, the
 #: box tests 8); per iteration the shape and derivative tables 17, the
-#: four vertex sums 4 x 3 x 11, the four determinants 4 x 14, three
-#: divisions, the update and the convergence tests 15
-NEWTON_OPS = {"col_layer": 2, "newton": 61, "iter": 223}
+#: four vertex sums 3 x (11 + 7 + 7 + 11) (the derivative columns without
+#: their constant-zero terms), the four determinants 4 x 14, three
+#: divisions, the update and the convergence tests 15.  K9-n's bounds
+#: take the wedge's counts for every shape.
+NEWTON_OPS = {"col_layer": 2, "newton": 61, "iter": 199}
 
 
 def nvidia_smi() -> str:
@@ -3984,9 +3995,66 @@ def uelems_inputs(nv, m, dev, seed):
     return tuple(torch.from_numpy(a).to(dev) for a in (P, V, S))
 
 
+def uelems_bound(nv, m, n_inside, iters):
+    """(ms, by) of K9-n on m points of nv vertices: each point's P and
+    vertices read and its flag and value written (12 + 12 nv + 5 bytes),
+    the scalars of a point inside read (4 nv bytes), against NEWTON_OPS
+    (the wedge's) for each Newton and each of the `iters` iterations the
+    plain version counted."""
+    return bound(m * (17 + 12 * nv) + 4 * nv * n_inside,
+                 m * NEWTON_OPS["newton"] + iters * NEWTON_OPS["iter"])
+
+
+def check_uelems(uelems, nv, m, dev, out=False):
+    """K9-n on `uelems_inputs(nv, m)` (into fresh out= tensors if `out`,
+    and then again with NaN scalars on every element that does not
+    contain its point, which the kernel must leave unread) against the
+    plain `newton`: flags (bool) and values bit-equal, or raises.
+    Returns (P, V, S, the plain run's inside count, iterations summed)."""
+    import torch
+    P, V, S = uelems_inputs(nv, m, dev, nv)
+    o = ((torch.empty(m, dtype=torch.bool, device=dev),
+          torch.empty(m, dtype=torch.float32, device=dev)) if out else None)
+    hk, vk = uelems.uelems_points(P, V, S, out=o)
+    hp, vp, it = uelems.newton(P, V, S, return_iters=True)
+    same = bool(hk.dtype == torch.bool and torch.equal(hk, hp)
+                and torch.equal(vk, vp)
+                and (o is None or (hk is o[0] and vk is o[1])))
+    if out:
+        hn, vn = uelems.uelems_points(
+            P, V, torch.where(hp[:, None], S, float("nan")), out=o)
+        same = same and bool(torch.equal(hn, hp) and torch.equal(vn, vp))
+    print(f"check w K9-n uelems_points nv={nv} on {m} points"
+          f"{' into out= (and NaN scalars outside)' if out else ''}: "
+          f"inside "
+          f"{float(hp.float().mean()):.4f}, flags and values "
+          f"{'bit-equal' if same else 'DIFFER'}; iterations mean "
+          f"{float(it.float().mean()):.2f}")
+    if not same:
+        raise AssertionError(f"K9-n nv={nv} on {m} points differs from its "
+                             f"plain version")
+    return P, V, S, int(hp.sum()), int(it.sum())
+
+
+def uelems_timing(uelems, P, V, S, n_in, iters, reps):
+    """K9-n's events ms (`reps` wrapper calls back to back), profiled
+    kernel and device ms a call (10 calls in a window) and bound on the
+    wedges P, V, S."""
+    nv, m = V.shape[1], P.shape[0]
+    call = lambda: uelems.uelems_points(P, V, S)
+    ms = time_cuda(call, reps=reps)
+    _, tl = profile_window(lambda: [call() for _ in range(10)],
+                           ("uelems_kernel",), f"K9-n {m} points")
+    return dict(ms=ms, kernel_ms=sum(t for n, _, t in tl
+                                     if "uelems_kernel" in n) / 10,
+                device_ms=sum(t for _, _, t in tl) / 10,
+                bnd=uelems_bound(nv, m, n_in, iters))
+
+
 def check_wedge(sc, dev):
     """`check w`: K5a over bv (<= 1 ULP), K9-w (samples=4, both
     preserve_cache settings) and K9-n (UELEMS_POINTS points per shape,
+    the wedge at UELEMS_FRAME and UELEMS_RAGGED points into out=,
     bit-equal) against their plain versions on the check scene.  Returns
     ({kernel: max abs err}, K9-n's timing row numbers)."""
     import torch
@@ -4012,27 +4080,30 @@ def check_wedge(sc, dev):
                                         sc.width, sc.height, 4, preserve,
                                         "check w")
         errs["track_wedge"] = max(errs["track_wedge"], err)
+    t1 = time.perf_counter()
+    n0 = uelems.launches["uelems_points"]
     timing = {}
     for nv in (5, 6, 8):
-        P, V, S = uelems_inputs(nv, UELEMS_POINTS, dev, nv)
-        hk, vk = uelems.uelems_points(P, V, S)
-        hp, vp, it = uelems.newton(P, V, S, return_iters=True)
-        same = bool(torch.equal(hk, hp) and torch.equal(vk, vp))
-        print(f"check w K9-n uelems_points nv={nv} on {UELEMS_POINTS} "
-              f"points: inside {float(hk.float().mean()):.4f}, flags and "
-              f"values {'bit-equal' if same else 'DIFFER'}; iterations "
-              f"mean {float(it.float().mean()):.2f}")
-        if not same:
-            raise AssertionError(f"K9-n nv={nv} differs from its plain "
-                                 f"version")
+        P, V, S, n_in, iters = check_uelems(uelems, nv, UELEMS_POINTS, dev)
         if nv == 6:      # the wedge, the element of the cuBQL path
-            ms = time_cuda(lambda: uelems.uelems_points(P, V, S), reps=20)
-            pms = time_cuda(lambda: uelems.newton(P, V, S), reps=3)
-            m = UELEMS_POINTS
-            timing = dict(ms=ms, plain_ms=pms, bnd=bound(
-                m * (4 * (3 + 4 * nv) + 5),
-                m * NEWTON_OPS["newton"] + int(it.sum())
-                * NEWTON_OPS["iter"]), points=m)
+            timing = uelems_timing(uelems, P, V, S, n_in, iters, 20)
+            timing["plain_ms"] = time_cuda(lambda: uelems.newton(P, V, S),
+                                           reps=3)
+    for m in (UELEMS_FRAME,) + UELEMS_RAGGED:
+        P, V, S, n_in, iters = check_uelems(uelems, 6, m, dev, out=True)
+        if m == UELEMS_FRAME:
+            big = uelems_timing(uelems, P, V, S, n_in, iters, 20)
+    timing.update({f"{k}_{UELEMS_FRAME}": v for k, v in big.items()},
+                  points=UELEMS_POINTS, **uelems.uelems_occupancy(6),
+                  check_launches=uelems.launches["uelems_points"] - n0)
+    print(f"check w K9-n {time.perf_counter() - t1:.1f} s: wedge "
+          f"{UELEMS_POINTS} points {timing['ms']:.4f} ms events, kernel "
+          f"{timing['kernel_ms']:.4f}, bound {timing['bnd'][0]:.4f} "
+          f"({timing['bnd'][1]}); {UELEMS_FRAME} points "
+          f"{big['ms']:.4f} ms events, kernel {big['kernel_ms']:.4f}, "
+          f"bound {big['bnd'][0]:.4f} ({big['bnd'][1]}); "
+          f"{timing['registers']} registers, {timing['blocks_per_sm']} "
+          f"blocks an SM; {timing['check_launches']} launches")
     errs["uelems_points"] = 0.0
     print(f"check w {time.perf_counter() - t0:.1f} s")
     return errs, timing
@@ -4371,6 +4442,9 @@ def wedge_rows(w_rows, p_rows, k9n, errs, counts):
                    "icon_rt_tpu/models/wedges.py:104", r.pop("ms"),
                    r.pop("plain_ms"), r.pop("bnd"), **r)
     r = dict(k9n)
+    bnd = r.pop(f"bnd_{UELEMS_FRAME}")
+    r.update({f"bound_ms_{UELEMS_FRAME}": bnd[0],
+              f"bound_by_{UELEMS_FRAME}": bnd[1]})
     kernel_row(rows, {"uelems_points": 0}, errs, "uelems_points", "cuda",
                "icon_rt_tpu_torch/csrc/uelems.cu",
                "icon_rt_tpu/ops/uelems.py:126", r.pop("ms"),

@@ -24,7 +24,9 @@ as kernels written by hand for NVIDIA Hopper (sm_90a):
   K9-w   ops/fast.py       track_wedge    CUDA C++ (csrc/track_wedge.cu)
   K9-p   ops/render.py     parity_track(sampler="wedge")  CUDA C++
          (csrc/parity.cu with the Newton of csrc/uelems.cuh)
-  K9-n   ops/uelems.py     uelems_points  CUDA C++ (csrc/uelems.cu)
+  K9-n   ops/uelems.py     uelems_points  CUDA C++ (csrc/uelems.cu: one
+         thread a point running the Newton of csrc/uelems.cuh; bool
+         flags, optional out=)
   K10    ops/composite.py  composite_mask, composite_finalize  CUDA C++
          (csrc/composite.cu: the multi-device composites)
 

@@ -198,16 +198,16 @@ __device__ __forceinline__ bool wedge_column(const ParityParams& p, int c,
     const int layer = base + d;
     if (layer >= nl) return false;    // the rest of the window is above
     const size_t w = static_cast<size_t>(w0 + layer);
-    float V[6][3], S[6];
+    float V[6][3];
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
 #pragma unroll
       for (int j = 0; j < 3; ++j)
         V[k][j] = __ldg(p.wverts + w * 18 + k * 3 + j);
-      S[k] = __ldg(p.wscalars + w * 6 + k);
     }
-    int iters;
-    if (uelems::newton<6>(px, py, pz, V, S, value, iters)) return true;
+    // the wedge's scalars are read only if it contains the point
+    if (uelems::newton<6>(px, py, pz, V, p.wscalars + w * 6, value))
+      return true;
   }
   return false;
 }

@@ -9,6 +9,14 @@
 // soon as the point converges or fails: the plain version's masked
 // iterations change nothing after that.
 //
+// What the loop keeps live: the element's vertices, the point, the
+// pcoords and the pcoords before the last update (3 floats, not the NV
+// weights of that iteration: the weights are evaluated from them once,
+// after the loop, with the same expressions, so they are the same bits).
+// The scalars S are read only for a point that is inside, so a caller
+// passes a pointer and an element that does not contain its point costs
+// no scalar read.
+//
 // Users: K9-n `uelems_points` (csrc/uelems.cu) and the wedge sampler of
 // K8 (csrc/parity.cu `sample<kWedge>`, K9-p).
 #pragma once
@@ -26,12 +34,15 @@ constexpr float kTolScale = static_cast<float>(1e-6);
 constexpr float kBoxLo = static_cast<float>(0.0 - 1e-6);
 constexpr float kBoxHi = static_cast<float>(1.0 + 1e-6);
 
-// Shape weights w and derivatives dr, ds, dt at parametric (r, s, t).
+// Shape weights w and derivatives dr, ds, dt at parametric (r, s, t);
+// kZeroR, kZeroS: the vertices whose r or s derivative is the constant 0,
+// kOneT: those whose t derivative is the constant 1 (bit k: vertex k).
 template <int NV>
 struct Shape;
 
 template <>
 struct Shape<6> {    // wedge: v0..v2 the bottom face (t = 0), v3..v5 the top
+  static constexpr unsigned kZeroR = 0x24, kZeroS = 0x12, kOneT = 0;
   static __device__ __forceinline__ void eval(float r, float s, float t,
                                               float w[6], float dr[6],
                                               float ds[6], float dt[6]) {
@@ -53,6 +64,7 @@ struct Shape<6> {    // wedge: v0..v2 the bottom face (t = 0), v3..v5 the top
 
 template <>
 struct Shape<5> {    // pyramid
+  static constexpr unsigned kZeroR = 0x10, kZeroS = 0x10, kOneT = 0x10;
   static __device__ __forceinline__ void eval(float r, float s, float t,
                                               float w[5], float dr[5],
                                               float ds[5], float dt[5]) {
@@ -71,6 +83,7 @@ struct Shape<5> {    // pyramid
 
 template <>
 struct Shape<8> {    // hexahedron
+  static constexpr unsigned kZeroR = 0, kZeroS = 0, kOneT = 0;
   static __device__ __forceinline__ void eval(float r, float s, float t,
                                               float w[8], float dr[8],
                                               float ds[8], float dt[8]) {
@@ -96,26 +109,38 @@ __device__ __forceinline__ float det3(const float a[3], const float b[3],
          a[2] * (b[0] * c[1] - b[1] * c[0]);
 }
 
-// sum_k V[k][j] * w[k] in vertex order, for j = 0..2.
-template <int NV>
+// sum_k V[k][j] * w[k] in vertex order, for j = 0..2, without the terms
+// whose weight is the constant 0 (bit k of ZERO) and with V[k][j] itself
+// where the weight is the constant 1 (bit k of ONE).  x + 0 * v is x and
+// 1 * v is v for every x other than a zero (whose sign the left-out term
+// could flip), so this is the full sum's value; the plain version leaves
+// out the same terms (ops/uelems.py `_ZERO`, `_ONE`).
+template <int NV, unsigned ZERO = 0, unsigned ONE = 0>
 __device__ __forceinline__ void vsum(const float V[][3], const float w[NV],
                                      float out[3]) {
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    float acc = w[0] * V[0][j];
+    float acc = 0.0f;
+    bool first = true;
 #pragma unroll
-    for (int k = 1; k < NV; ++k) acc = acc + w[k] * V[k][j];
+    for (int k = 0; k < NV; ++k) {
+      if ((ZERO >> k) & 1u) continue;
+      const float term = ((ONE >> k) & 1u) ? V[k][j] : w[k] * V[k][j];
+      acc = first ? term : acc + term;
+      first = false;
+    }
     out[j] = acc;
   }
 }
 
-// Point P in the element (V, S): true and the interpolated value (weights
-// of the last executed iteration) if the inversion converges inside the
-// parametric box; `iters` gets the iterations run.
+// Point P in the element V: true and the value interpolated from the
+// scalars at S (nv floats, read only for a point inside) with the weights
+// of the last executed iteration if the inversion converges inside the
+// parametric box; else false and 0.
 template <int NV>
 __device__ __forceinline__ bool newton(float px, float py, float pz,
-                                       const float V[][3], const float S[],
-                                       float& value, int& iters) {
+                                       const float V[][3], const float* S,
+                                       float& value) {
   float bbox[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
@@ -130,27 +155,22 @@ __device__ __forceinline__ bool newton(float px, float py, float pz,
   const float tol =
       (bbox[0] * bbox[0] + bbox[1] * bbox[1] + bbox[2] * bbox[2]) * kTolScale;
   const float P[3] = {px, py, pz};
-  float pc[3] = {0.5f, 0.5f, 0.5f};
-  float w[NV], dr[NV], ds[NV], dt[NV], w_last[NV];
-  Shape<NV>::eval(pc[0], pc[1], pc[2], w_last, dr, ds, dt);
+  float pc[3] = {0.5f, 0.5f, 0.5f}, last[3];
+  value = 0.0f;
   bool converged = false;
-  iters = 0;
   for (int it = 0; it < kMaxIteration; ++it) {
-    ++iters;
+    float w[NV], dr[NV], ds[NV], dt[NV];
     Shape<NV>::eval(pc[0], pc[1], pc[2], w, dr, ds, dt);
     float fcol[3], rcol[3], scol[3], tcol[3];
     vsum<NV>(V, w, fcol);
     fcol[0] = fcol[0] - P[0];
     fcol[1] = fcol[1] - P[1];
     fcol[2] = fcol[2] - P[2];
-    vsum<NV>(V, dr, rcol);
-    vsum<NV>(V, ds, scol);
-    vsum<NV>(V, dt, tcol);
+    vsum<NV, Shape<NV>::kZeroR>(V, dr, rcol);
+    vsum<NV, Shape<NV>::kZeroS>(V, ds, scol);
+    vsum<NV, 0, Shape<NV>::kOneT>(V, dt, tcol);
     const float d = det3(rcol, scol, tcol);
-    if (fabsf(d) < tol) {              // a singular Jacobian: failed
-      value = 0.0f;
-      return false;
-    }
+    if (fabsf(d) < tol) return false;  // a singular Jacobian: failed
     const float d_safe = fabsf(d) < kTiny ? 1.0f : d;
     const float step[3] = {det3(fcol, scol, tcol) / d_safe,
                            det3(rcol, fcol, tcol) / d_safe,
@@ -158,30 +178,29 @@ __device__ __forceinline__ bool newton(float px, float py, float pz,
     bool conv = true, div = false;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
+      last[j] = pc[j];
       pc[j] = pc[j] - step[j];
       conv = conv && fabsf(step[j]) < kConverged;
       div = div || fabsf(pc[j]) > kDiverged;
     }
-#pragma unroll
-    for (int k = 0; k < NV; ++k) w_last[k] = w[k];
     if (conv) {
       converged = true;
       break;
     }
-    if (div) {                         // diverged
-      value = 0.0f;
-      return false;
-    }
+    if (div) return false;             // diverged
   }
   bool inside = converged && Shape<NV>::extra(pc);
 #pragma unroll
   for (int j = 0; j < 3; ++j)
     inside = inside && pc[j] >= kBoxLo && pc[j] <= kBoxHi;
-  float v = w_last[0] * S[0];
+  if (!inside) return false;
+  float w[NV], dr[NV], ds[NV], dt[NV];
+  Shape<NV>::eval(last[0], last[1], last[2], w, dr, ds, dt);
+  float v = w[0] * __ldg(S);
 #pragma unroll
-  for (int k = 1; k < NV; ++k) v = v + w_last[k] * S[k];
-  value = inside ? v : 0.0f;
-  return inside;
+  for (int k = 1; k < NV; ++k) v = v + w[k] * __ldg(S + k);
+  value = v;
+  return true;
 }
 
 }  // namespace uelems

@@ -80,6 +80,14 @@ def _hex_tables(r, s, t, zero):
 
 
 _TABLES = {5: _pyramid_tables, 6: _wedge_tables, 8: _hex_tables}
+#: the vertices whose weight in the r and s derivative columns is the
+#: constant 0, and whose t derivative is the constant 1, by vertex count:
+#: the column sums leave the first out and take V itself for the second.
+#: x + 0 * v is x and 1 * v is v for every x other than a zero (whose sign
+#: the left-out term could flip), so the sums keep their values
+#: (csrc/uelems.cuh `vsum`, Shape's kZeroR, kZeroS, kOneT)
+_ZERO = {5: ((4,), (4,)), 6: ((2, 5), (1, 4)), 8: ((), ())}
+_ONE = {5: (4,), 6: (), 8: ()}
 
 
 def _det3(a, b, c):
@@ -92,12 +100,30 @@ def _det3(a, b, c):
             + a2 * (b0 * c1 - b1 * c0))
 
 
+def _vsum(V, w, zero=(), one=()):
+    """sum_k w[k] V[:, k] in vertex order ((M, 3)), without the vertices
+    in `zero` and with V itself for those in `one`."""
+    acc = None
+    for k in range(V.shape[1]):
+        if k in zero:
+            continue
+        term = V[:, k] if k in one else w[k][:, None] * V[:, k]
+        acc = term if acc is None else acc + term
+    return acc
+
+
 def newton(P, V, S, return_iters: bool = False):
     """Masked Newton inversion of M points in M elements: P (M, 3), V (M,
     nv, 3), S (M, nv) f32 (nv 5 pyramid, 6 wedge, 8 hex).  Returns (inside
     (M,) bool, value (M,) f32, 0 outside), with return_iters also the
     iterations each point ran (M,) int32.  All 10 iterations run masked
-    (no host sync), so a CUDA graph can capture the call."""
+    (no host sync), so a CUDA graph can capture the call.
+
+    As csrc/uelems.cuh: the loop carries the pcoords from before the last
+    accepted update, and the weights of that iteration are evaluated from
+    them once after it (the same expressions on the same inputs, so the
+    same bits); a point outside its element has value 0 whatever the
+    element's scalars (the kernels read them only for a point inside)."""
     nv = V.shape[1]
     tables = _TABLES[nv]
     M = P.shape[0]
@@ -106,7 +132,7 @@ def newton(P, V, S, return_iters: bool = False):
            + bbox[:, 2] * bbox[:, 2]) * TOL_SCALE
     zero = torch.zeros(M, dtype=F32, device=P.device)
     pc = torch.full((M, 3), 0.5, dtype=F32, device=P.device)
-    w_last = torch.stack(tables(pc[:, 0], pc[:, 1], pc[:, 2], zero)[0], 1)
+    last = pc
     converged = torch.zeros(M, dtype=torch.bool, device=P.device)
     failed = torch.zeros_like(converged)
     iters = torch.zeros(M, dtype=torch.int32, device=P.device)
@@ -114,12 +140,10 @@ def newton(P, V, S, return_iters: bool = False):
         active = ~(converged | failed)
         iters += active.to(torch.int32)
         w, dr, ds, dt = tables(pc[:, 0], pc[:, 1], pc[:, 2], zero)
-        wt = torch.stack([torch.stack(x, 1) for x in (w, dr, ds, dt)], 1)
-        cols = wt[:, :, 0, None] * V[:, None, 0, :]      # (M, 4, 3)
-        for k in range(1, nv):
-            cols = cols + wt[:, :, k, None] * V[:, None, k, :]
-        fcol = cols[:, 0] - P
-        rcol, scol, tcol = cols[:, 1], cols[:, 2], cols[:, 3]
+        fcol = _vsum(V, w) - P
+        rcol = _vsum(V, dr, zero=_ZERO[nv][0])
+        scol = _vsum(V, ds, zero=_ZERO[nv][1])
+        tcol = _vsum(V, dt, one=_ONE[nv])
         # d, then the three Cramer numerators, as one (M, 4) determinant
         dets = _det3(torch.stack([rcol, fcol, rcol, rcol], 1),
                      torch.stack([scol, scol, fcol, scol], 1),
@@ -132,17 +156,18 @@ def newton(P, V, S, return_iters: bool = False):
         pc_new = pc - step
         conv_now = ok & (torch.abs(step) < CONVERGED).all(dim=1)
         div_now = ok & ~conv_now & (torch.abs(pc_new) > DIVERGED).any(dim=1)
+        last = torch.where(ok[:, None], pc, last)
         pc = torch.where(ok[:, None], pc_new, pc)
-        w_last = torch.where(ok[:, None], wt[:, 0], w_last)
         converged = converged | conv_now
         failed = failed | fail_now | div_now
     in_box = ((pc >= BOX_LO) & (pc <= BOX_HI)).all(dim=1)
     inside = converged & ~failed & in_box
     if nv == 6:
         inside = inside & (pc[:, 0] + pc[:, 1] <= BOX_HI)
-    value = w_last[:, 0] * S[:, 0]
+    w_last = tables(last[:, 0], last[:, 1], last[:, 2], zero)[0]
+    value = w_last[0] * S[:, 0]
     for k in range(1, nv):
-        value = value + w_last[:, k] * S[:, k]
+        value = value + w_last[k] * S[:, k]
     value = torch.where(inside, value, 0.0)
     return (inside, value, iters) if return_iters else (inside, value)
 
@@ -176,27 +201,44 @@ def intersect_hex(P, V, S):
 
 def build_uelems():
     """Compile csrc/uelems.cu for sm_90a (utils/cuda_build.py) and bind its
-    C entry point; returns the ctypes library."""
+    C entry points; returns the ctypes library."""
     lib = cuda_build.build("uelems")
     lib.uelems_points_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.uelems_points_launch.restype = ctypes.c_int
+    lib.uelems_occupancy.argtypes = [ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.uelems_occupancy.restype = ctypes.c_int
     return lib
 
 
-def uelems_points(P, V, S):
+def uelems_occupancy(nv: int) -> dict:
+    """{'blocks_per_sm', 'registers', 'local_bytes', 'block'} of K9-n's
+    kernel of nv vertices: its resident blocks an SM, registers and local
+    bytes a thread, and its threads a block."""
+    out = (ctypes.c_int * 4)()
+    cuda_build.check("uelems_occupancy",
+                     build_uelems().uelems_occupancy(nv, out))
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2], "block": out[3]}
+
+
+def uelems_points(P, V, S, out=None):
     """K9-n wrapper: the intersector of V's vertex count (5 pyramid, 6
     wedge, 8 hex) on M points, one element each: P (M, 3), V (M, nv, 3),
-    S (M, nv) f32 -> (inside (M,) bool, value (M,) f32).  CUDA tensors
-    launch csrc/uelems.cu; CPU tensors run `newton`; anything else
-    raises.
+    S (M, nv) f32 -> (inside (M,) bool, value (M,) f32), written into
+    `out` = (inside, value) where given, so that repeated calls allocate
+    nothing.  CUDA tensors launch csrc/uelems.cu (one launch, nothing
+    else); CPU tensors run `newton`; anything else raises.
 
     Replaces the XLA-fused icon_rt_tpu/ops/uelems.py `intersect_wedge`
     :126, `intersect_pyramid` :133 and `intersect_hex` :138.  Kernel
-    design: one thread per point, the element's vertices and scalars in
-    registers, the Newton loop of csrc/uelems.cuh leaving at convergence
-    or failure (the plain version's masked iterations change nothing after
-    that); bound by the arithmetic of up to 10 iterations."""
+    design: one thread per point, the element's vertices in registers,
+    the Newton of csrc/uelems.cuh leaving at convergence or failure (the
+    plain version's masked iterations change nothing after that), the
+    scalars read only for a point inside, the flag written as a bool.
+    Bound on the card by the issue of the unfused Newton
+    (csrc/uelems.cu)."""
     from .fast import _check
     dev = P.device
     M = P.shape[0]
@@ -206,12 +248,23 @@ def uelems_points(P, V, S):
     _check("P", P, F32, (M, 3), dev, fn="uelems_points")
     _check("V", V, F32, (M, nv, 3), dev, fn="uelems_points")
     _check("S", S, F32, (M, nv), dev, fn="uelems_points")
+    if out is not None:
+        inside, value = out
+        _check("out inside", inside, torch.bool, (M,), dev,
+               fn="uelems_points")
+        _check("out value", value, F32, (M,), dev, fn="uelems_points")
     if dev.type == "cpu":
-        return newton(P, V, S)
+        got = newton(P, V, S)
+        if out is None:
+            return got
+        inside.copy_(got[0])
+        value.copy_(got[1])
+        return inside, value
     if dev.type != "cuda":
         raise ValueError(f"uelems_points: unsupported device {dev}")
-    inside = torch.empty(M, dtype=torch.uint8, device=dev)
-    value = torch.empty(M, dtype=F32, device=dev)
+    if out is None:
+        inside = torch.empty(M, dtype=torch.bool, device=dev)
+        value = torch.empty(M, dtype=F32, device=dev)
     if M:
         lib = build_uelems()
         cuda_build.check("uelems_points", lib.uelems_points_launch(
@@ -219,4 +272,4 @@ def uelems_points(P, V, S):
             value.data_ptr(), M, nv,
             torch.cuda.current_stream(dev).cuda_stream))
         launches["uelems_points"] += 1
-    return inside.bool(), value
+    return inside, value

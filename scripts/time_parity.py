@@ -182,7 +182,8 @@ PHASES = ("draw", "radius", "locate", "scan", "classify", "finalize")
 #: the wedge sampler's parts of the scan: (counter, name, regex) in
 #: wedge_column
 _WEDGE = [(12, "find_layer", r"const int base =[^;]*;"),
-          (13, "newton", r"if \(uelems::newton<6>\(([^;]*)\)\) return true;")]
+          (13, "newton",
+           r"if \(uelems::newton<6>\(([^;]*)\)\)\s*return true;")]
 
 
 def instrument(src):

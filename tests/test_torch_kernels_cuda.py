@@ -9,7 +9,8 @@ mode; rays grazing the cells' shell top; its steady launch without a
 host read) and K6b (refine_perm's prefix tails with int32 and int64
 order), K1's, K2's and K3's cost output, K1's and
 K2's raw mode (with rng_salt), the
-unstructured elements' K9-w, K9-p and K9-n, and the multi-device
+unstructured elements' K9-w, K9-p and K9-n (ragged sizes, out=,
+NaN scalars outside, 2,073,600 wedge points), and the multi-device
 composites K10, against their plain PyTorch versions on the same CUDA
 inputs.  Marked `cuda`: they
 skip where no GPU is present (CUDA and Triton kernels have no CPU mode).
@@ -1187,29 +1188,71 @@ def test_cuda_parity_wedge_matches_plain(pscene, raygen):
     assert int((fk != 0).sum()) > 0
 
 
-@pytest.mark.parametrize("nv", [5, 6, 8])
-def test_cuda_uelems_points_match_plain(dev, nv):
-    """K9-n: 65,536 seeded points on jittered unit elements of each shape;
-    inside flags and values bit-equal to the plain Newton."""
-    from icon_rt_tpu_torch.ops import uelems
+def _uelems_inputs(nv, m, dev, seed):
+    """m seeded points on jittered unit elements of nv vertices (as
+    chip_smoke.py's `uelems_inputs`)."""
     base = {5: [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0.5, 0.5, 1]],
             6: [[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 0, 1],
                 [0, 1, 1]],
             8: [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0, 0, 1],
                 [1, 0, 1], [1, 1, 1], [0, 1, 1]]}[nv]
-    rs = np.random.default_rng(nv)
-    m = 65536
+    rs = np.random.default_rng(seed)
     V = (np.asarray(base, np.float32)[None]
          + rs.normal(size=(m, nv, 3)) * 0.15).astype(np.float32)
     S = rs.random((m, nv)).astype(np.float32)
     P = (rs.normal(size=(m, 3)) * 0.5 + 0.45).astype(np.float32)
-    P, V, S = (torch.from_numpy(a).to(dev) for a in (P, V, S))
+    return tuple(torch.from_numpy(a).to(dev) for a in (P, V, S))
+
+
+@pytest.mark.parametrize("nv", [5, 6, 8])
+def test_cuda_uelems_points_match_plain(dev, nv):
+    """K9-n: 65,536 seeded points on jittered unit elements of each shape;
+    inside flags (bool) and values bit-equal to the plain Newton."""
+    from icon_rt_tpu_torch.ops import uelems
+    P, V, S = _uelems_inputs(nv, 65536, dev, nv)
     before = uelems.launches["uelems_points"]
     hk, vk = uelems.uelems_points(P, V, S)
     hp, vp = uelems.newton(P, V, S)
     assert uelems.launches["uelems_points"] == before + 1
+    assert hk.dtype == torch.bool
     assert torch.equal(hk, hp) and torch.equal(vk, vp)
     assert 0.05 < float(hk.float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("m", [1, 127, 129, 65537])
+@pytest.mark.parametrize("nv", [5, 6, 8])
+def test_cuda_uelems_points_ragged_out_match_plain(dev, nv, m):
+    """K9-n on ragged sizes around its blocks of 128 threads, into out=
+    tensors: flags (bool) and values bit-equal to the plain Newton, the
+    given tensors returned; then with NaN scalars on every element that
+    does not contain its point, which the kernel must leave unread: the
+    same bits as with the finite scalars."""
+    from icon_rt_tpu_torch.ops import uelems
+    P, V, S = _uelems_inputs(nv, m, dev, m + nv)
+    out = (torch.ones(m, dtype=torch.bool, device=dev),
+           torch.full((m,), float("nan"), device=dev))
+    hk, vk = uelems.uelems_points(P, V, S, out=out)
+    hp, vp = uelems.newton(P, V, S)
+    assert hk is out[0] and vk is out[1]
+    assert torch.equal(hk, hp) and torch.equal(vk, vp)
+    S_nan = torch.where(hp[:, None], S, float("nan"))
+    hn, vn = uelems.uelems_points(P, V, S_nan)
+    assert torch.equal(hn, hp) and torch.equal(vn, vp)
+
+
+def test_cuda_uelems_points_frame_wedges_match_plain(dev):
+    """K9-n on 2,073,600 wedge points (one a 1080p lane): bit-equal to
+    the plain Newton, into a new bool tensor and into out=."""
+    from icon_rt_tpu_torch.ops import uelems
+    m = 1920 * 1080
+    P, V, S = _uelems_inputs(6, m, dev, 6)
+    hp, vp = uelems.newton(P, V, S)
+    hk, vk = uelems.uelems_points(P, V, S)
+    assert hk.dtype == torch.bool
+    assert torch.equal(hk, hp) and torch.equal(vk, vp)
+    out = (torch.empty_like(hk), torch.empty_like(vk))
+    uelems.uelems_points(P, V, S, out=out)
+    assert torch.equal(out[0], hp) and torch.equal(out[1], vp)
 
 
 @pytest.mark.parametrize("salt", [0, 2])

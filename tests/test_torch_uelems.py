@@ -159,3 +159,97 @@ def test_torch_uelems_reject_other_vertex_counts(shape):
     with pytest.raises(ValueError, match=f"intersect_{shape}"):
         PORT_FN[shape](torch.from_numpy(P), torch.from_numpy(V),
                        torch.from_numpy(S))
+
+
+#: a hand-built wedge whose top face is shifted and tilted (so the shape
+#: map is not affine and Newton takes several iterations), its scalars,
+#: and a point inside it whose last step (~7.7e-5) is just under the
+#: convergence tolerance: the weights of the pcoords before that step and
+#: after it give values ~9e-4 apart
+TWISTED = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0],
+                    [0.3, -0.2, 1.0], [1.4, 0.3, 1.2], [-0.1, 1.3, 0.9]],
+                   np.float32)
+TWISTED_S = np.array([0, 2, 4, 6, 8, 10], np.float32)
+TWISTED_P = [0.7127, 0.3669, 0.1797]
+
+
+def _wedge_weights(pc):
+    r, s, t = pc
+    return np.array([(1 - r - s) * (1 - t), r * (1 - t), s * (1 - t),
+                     (1 - r - s) * t, r * t, s * t])
+
+
+def _newton_trace(p, V):
+    """The wedge Newton in float64: the pcoords before each iteration and
+    after the last, leaving at convergence as the f32 versions do."""
+    p, V = np.asarray(p, np.float64), V.astype(np.float64)
+    pc = np.full(3, 0.5)
+    pcs = [pc]
+    for _ in range(uelems.MAX_ITERATION):
+        r, s, t = pc
+        dr = [-1 + t, 1 - t, 0, -t, t, 0]
+        ds = [-1 + t, 0, 1 - t, -t, 0, t]
+        dt = [-1 + r + s, -r, -s, 1 - r - s, r, s]
+        J = np.stack([np.dot(d, V) for d in (dr, ds, dt)], 1)
+        step = np.linalg.solve(J, _wedge_weights(pc) @ V - p)
+        pc = pc - step
+        pcs.append(pc)
+        if (np.abs(step) < uelems.CONVERGED).all():
+            break
+    return pcs
+
+
+def test_torch_newton_takes_weights_of_last_iteration():
+    """The reference's quirk, pinned: a point that converges at iteration
+    k is interpolated with the weights of iteration k's pcoords before
+    its update, not of the pcoords the inside test reads; the JAX
+    package's intersect_wedge agrees."""
+    pcs = _newton_trace(TWISTED_P, TWISTED)
+    k = len(pcs) - 1
+    assert k == 3
+    pre = float(_wedge_weights(pcs[k - 1]) @ TWISTED_S)
+    post = float(_wedge_weights(pcs[k]) @ TWISTED_S)
+    assert abs(pre - post) > 5e-4
+    hit, val, it = uelems.newton(torch.tensor([TWISTED_P]),
+                                 torch.from_numpy(TWISTED)[None],
+                                 torch.from_numpy(TWISTED_S)[None],
+                                 return_iters=True)
+    assert bool(hit[0]) and int(it[0]) == k
+    assert abs(float(val[0]) - pre) <= 1e-5
+    jhit, jval = juelems.intersect_wedge(jnp.asarray(TWISTED_P, jnp.float32),
+                                         jnp.asarray(TWISTED),
+                                         jnp.asarray(TWISTED_S))
+    assert bool(jhit) and abs(float(jval) - float(val[0])) <= VALUE_TOL
+
+
+@pytest.mark.parametrize("shape", sorted(UNIT))
+def test_torch_newton_reads_scalars_only_inside(shape):
+    """S is read only for points inside their element: NaN scalars on
+    every element that does not contain its point leave value 0 there and
+    change nothing else, in the plain version and in K9-n's wrapper."""
+    P, V, S = (torch.from_numpy(a) for a in _elements(shape, 1000, 5))
+    hit, val = uelems.newton(P, V, S)
+    assert 0 < int(hit.sum()) < hit.numel()
+    S_nan = torch.where(hit[:, None], S, float("nan"))
+    for fn in (uelems.newton, uelems.uelems_points):
+        hit2, val2 = fn(P, V, S_nan)
+        assert torch.equal(hit2, hit) and torch.equal(val2, val)
+        assert (val2[~hit] == 0).all()
+
+
+def test_torch_uelems_points_bool_and_out():
+    """The wrapper returns a bool flag tensor, and with out= writes into
+    the given tensors and returns them; out= of another dtype or size
+    raises."""
+    P, V, S = (torch.from_numpy(a) for a in _elements("wedge", 300, 9))
+    hit, val = uelems.uelems_points(P, V, S)
+    assert hit.dtype == torch.bool and val.dtype == torch.float32
+    out = (torch.zeros(300, dtype=torch.bool), torch.full((300,), 7.0))
+    got = uelems.uelems_points(P, V, S, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    assert torch.equal(out[0], hit) and torch.equal(out[1], val)
+    with pytest.raises(ValueError, match="out inside"):
+        uelems.uelems_points(P, V, S, out=(torch.zeros(300, dtype=torch.uint8),
+                                           out[1]))
+    with pytest.raises(ValueError, match="out value"):
+        uelems.uelems_points(P, V, S, out=(out[0], torch.zeros(299)))
