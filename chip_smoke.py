@@ -62,6 +62,25 @@ script exits non-zero without printing a result):
           frame; then the same loop runs on to 128 samples, and the median
           and spread of the steady launches' wall time (fb copied to the
           host) give the end-to-end rate
+  main preview  --preview 4 on the main path's pipeline after `profile`
+          (and `main preview q` on main q's, before its TF edits): a camera
+          move and a reset, then the preview launch (K6 and K1, or K2 with
+          the fine map, one sample at 480x270 on K6's covered lanes): K1
+          (K2) against its plain version on those lanes, the presented
+          1920x1080 fb in constant 4x4 blocks and equal to the plain
+          version's frame upscaled, frame_id 0 after is_running() (fault
+          F2 of the JAX pipeline not copied), the next full-res launch
+          bit-equal to one without a preview; the preview launch's ms
+          (events, fb on the host), K6's and K1's (K2's) device time in a
+          profiled preview launch, a full-res one-sample launch's ms
+  main viewer  apps/viewer_torch.py `serve` on the same pipeline
+          (127.0.0.1, port 0, preview 4, sample limit 16 in launches of
+          8): the first frame, a TFE stroke, the Raygen toggle to ae and
+          back, a view drag; each reset's first frame a preview (ae: its
+          first launch) at X-Accum-Id 0, then frames to the sample limit;
+          the drag's converged frame bit-equal to a direct render of its
+          camera; per event the edit latency, the launch and PNG-encode ms,
+          fps and Mray/s; the phase's launch counts
   main w  the app with -mode 2 on the fast raygen (the wedge tier, K9-w)
           at the same scale and camera: 16 samples, 8 per launch, then on
           to 128; the counters of K9-w, K5a, K5b and K6 zeroed before the
@@ -93,6 +112,19 @@ script exits non-zero without printing a result):
           fine map (accum <= 1e-4)
   rmse_q  bench.py `_rmse_q_vs_f32` on the card: both marches through their
           kernels, subdiv 8 x 16, 480x270, value-quantized scene
+  main auto  --samples auto on the main path's scene and camera (f32,
+          sample limit 16): launches of 1, 1, then the pick clamped to the
+          limit; the probe read with the stream idle and at least a
+          one-sample K1 launch's device time; the probe's seconds, the
+          pick, the sequence and the covered share
+  main ic r2b7  scripts/e2e_netcdf_torch.py's DWD-layout NetCDF at
+          subdiv 7 x 16 levels (327,680 columns) in a temporary directory,
+          the port's convert_icon CLI, the .ic's columns and layers against
+          the HHL inputs, then the app on the .ic at 1080p, f32 and
+          --quantized (the fine map built, K7-loc, K7-fm): 8 samples, then
+          3 launches of 8; K1 and K2 against their plain versions on 4096
+          lanes strided over the covered prefix; the seconds of the write,
+          the convert, the read and the build, ms per launch, peak memory
   time    each kernel against its plain version at the main paths' shapes
           and launch arguments (same tolerances as `check`), both timed
           with CUDA events; beside them the least time the card could take
@@ -689,12 +721,12 @@ def check_kernels(dev, sub=SMOKE_SUB, layers=SMOKE_LAYERS, size=SMOKE_W):
 
 
 def compare_track_q(tabs, lp, pix, acc_n, width, height, samples,
-                    preserve, fm, label, cost=False):
+                    preserve, fm, label, cost=False, return_fb=False):
     """K2 and its plain version on the same lanes; returns (max abs err of
-    accum, the plain version's ms, its CountingTier), raises past the
-    tolerances (fb identical on >= 99.9%, accum <= ACCUM_TOL; with `cost`
-    the per-pixel step counts too: identical on >= 99.9% of the lanes, 0
-    on every other pixel)."""
+    accum, the plain version's ms, its CountingTier[, the plain version's
+    fb with return_fb]), raises past the tolerances (fb identical on >=
+    99.9%, accum <= ACCUM_TOL; with `cost` the per-pixel step counts too:
+    identical on >= 99.9% of the lanes, 0 on every other pixel)."""
     import torch
     from icon_rt_tpu_torch.ops import fast, fastq
     from icon_rt_tpu_torch.ops.render import alloc_frame
@@ -728,7 +760,7 @@ def compare_track_q(tabs, lp, pix, acc_n, width, height, samples,
         raise AssertionError("K2 disagrees with its plain version")
     if cost:
         compare_cost(ck, cp, pix, f"{label} K2 track_q")
-    return err, plain_ms, tier
+    return (err, plain_ms, tier, fp) if return_fb else (err, plain_ms, tier)
 
 
 def strided_lanes(perm, n_active):
@@ -1167,6 +1199,25 @@ def run_loop(pl, launch_ms):
             return
 
 
+def main_argv(dev, name, limit, samples):
+    """The app's arguments of the main paths: the synthetic subdiv 8 x 16
+    scene at 1920x1080, bench.py's closeup camera, `limit` samples in
+    launches of `samples` ("auto" too), the PNG <name>.png in OUT_DIR."""
+    from icon_rt_tpu_torch.data import synthetic
+    from icon_rt_tpu_torch.data.lod import frame_camera
+    from icon_rt_tpu_torch.models.cells import compute_stats
+    stats = compute_stats(synthetic.icosphere(MAIN_SUB, MAIN_LAYERS))
+    cam = frame_camera(stats, "closeup", MAIN_W, MAIN_H)
+    pose = [*cam.position, *cam.get_poi(), *cam.up_vector]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    return ["--device", dev.type, "--synthetic", f"{MAIN_SUB}:{MAIN_LAYERS}",
+            "--size", str(MAIN_W), str(MAIN_H), "--sample-limit", str(limit),
+            "--samples", str(samples),
+            "--camera", *[repr(float(v)) for v in pose],
+            "-fovy", repr(float(cam.get_fovy_degrees())),
+            "-o", os.path.join(OUT_DIR, name)]
+
+
 def main_path(dev, quantized=False, marching=False):
     """Run the app's main path (the f32 tier, or --quantized with the fine
     map built into an empty cache; with `marching` the --march path and its
@@ -1174,25 +1225,13 @@ def main_path(dev, quantized=False, marching=False):
     metrics)."""
     import torch
     from icon_rt_tpu_torch import app
-    from icon_rt_tpu_torch.data import synthetic
-    from icon_rt_tpu_torch.models.cells import compute_stats
-    from icon_rt_tpu_torch.data.lod import frame_camera
 
     tag = "main " + ("m" if marching else "") + ("q" if quantized else "")
     tag = tag.rstrip()
-    stats = compute_stats(synthetic.icosphere(MAIN_SUB, MAIN_LAYERS))
-    cam = frame_camera(stats, "closeup", MAIN_W, MAIN_H)
-    pose = [*cam.position, *cam.get_poi(), *cam.up_vector]
-    os.makedirs(OUT_DIR, exist_ok=True)
     name = "chip_smoke" + ("_m" if marching else "") \
         + ("_q" if quantized else "")
-    argv = ["--device", dev.type, "--synthetic",
-            f"{MAIN_SUB}:{MAIN_LAYERS}", "--size", str(MAIN_W), str(MAIN_H),
-            "--sample-limit", str(MARCH_LIMIT if marching else MAIN_LIMIT),
-            "--samples", str(MAIN_SPL),
-            "--camera", *[repr(float(v)) for v in pose],
-            "-fovy", repr(float(cam.get_fovy_degrees())),
-            "-o", os.path.join(OUT_DIR, name)]
+    argv = main_argv(dev, name, MARCH_LIMIT if marching else MAIN_LIMIT,
+                     MAIN_SPL)
     if quantized:
         argv.append("--quantized")
     if marching:
@@ -3618,10 +3657,12 @@ def scene_rows(t, errs, counts):
     return rows
 
 
-def compare_track_f32(tabs, lp, pix, width, height, samples, label):
+def compare_track_f32(tabs, lp, pix, width, height, samples, label,
+                      return_fb=False):
     """K1 with its cost output against the plain version on the same lanes
-    (8 samples, column cache kept): fb identical on >= 99.9%, accum <=
-    ACCUM_TOL, the step counts as compare_cost.  Returns the accum error."""
+    (column cache kept): fb identical on >= 99.9%, accum <= ACCUM_TOL, the
+    step counts as compare_cost.  Returns the accum error (and the plain
+    version's fb with return_fb)."""
     import torch
     from icon_rt_tpu_torch.ops import fast
     from icon_rt_tpu_torch.ops.render import alloc_frame
@@ -3647,7 +3688,7 @@ def compare_track_f32(tabs, lp, pix, width, height, samples, label):
     if same < 0.999 or not err <= ACCUM_TOL:
         raise AssertionError("K1 disagrees with its plain version")
     compare_cost(ck, cp, pix, f"{label} K1 track_f32")
-    return err
+    return (err, fp) if return_fb else err
 
 
 def resort_runs(render, perm, n_active, width, height, dev, label):
@@ -5087,6 +5128,544 @@ def main_mesh(dev, path, errs, work):
                         plain_lanes=CHECK_LANES, finalize_ms=ms_fin)
 
 
+# ---------------------------------------------------------------------------
+# The app's interactive front and data ingest: the preview tier, --samples
+# auto, the HTTP viewer, NetCDF -> convert_icon -> .ic at R2B7
+# ---------------------------------------------------------------------------
+
+PREVIEW_SCALE = 4           # --preview 4, the viewer's default
+PREVIEW_REPS = 10           # preview launches timed by events
+IC_SUB, IC_LEVELS = 7, 16   # scripts/e2e_netcdf.py's R2B7 x 16 levels
+IC_SPL = 8                  # main ic r2b7: 8 samples in one launch
+IC_STEADY = 3               # ... then 3 more launches of 8 timed
+
+
+def counters():
+    """{kernel: launches} of every counter of the port (dict counters by
+    key), as zero_counters clears them."""
+    from icon_rt_tpu_torch.data import device_scene
+    from icon_rt_tpu_torch.models import accel, finemap, locator, qcells
+    from icon_rt_tpu_torch.ops import (fast, fastq, march, order, render,
+                                       uelems)
+    out = {"max_opacity": accel.launches, "chord_keys": order.launches,
+           "track_q": fastq.launches, "build_finemap": finemap.launches}
+    for d in (fast.launches, qcells.launches, march.launches,
+              device_scene.launches, locator.launches, render.launches,
+              order.refine_launches, uelems.launches):
+        out.update(d)
+    return {k: v for k, v in out.items() if v}
+
+
+def events_ms(call):
+    """ms of `call()` by CUDA events, the device synchronized after it."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    call()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def turn_camera(cam, degrees):
+    """A camera move: the eye turned about the z axis through the point of
+    interest."""
+    a = np.deg2rad(degrees)
+    rot = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                    [0, 0, 1]], np.float32)
+    poi = np.asarray(cam.get_poi(), np.float32)
+    eye = rot @ (np.asarray(cam.position, np.float32) - poi) + poi
+    cam.set_orientation(eye, poi, np.asarray(cam.up_vector, np.float32),
+                        cam.fovy)
+
+
+def full_frame_launch(pl, lp, samples):
+    """One launch of the app's fast path at full res as after a reset: K6's
+    order, then K1 or K2 over the covered lanes into a new frame, the fb
+    copied to the host and unpermuted.  Returns the host fb."""
+    from icon_rt_tpu_torch.ops.fast import render_frame_fast
+    from icon_rt_tpu_torch.ops.fastq import render_frame_fast_q
+    from icon_rt_tpu_torch.ops.order import inverse_order, pixel_order
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    s = pl.scene
+    st = s["stats"]
+    perm, n = pixel_order(lp, st.spherical_bounds_lo[0],
+                          st.spherical_bounds_hi[0], MAIN_W, MAIN_H)
+    acc, fb = alloc_frame(MAIN_W, MAIN_H, device=lp.accum_id.device)
+    kw = dict(width=MAIN_W, height=MAIN_H, pixel_perm=perm, n_active=n,
+              samples=samples)
+    if s["cells"] is None:
+        q, loc, _ = s["get_q"]()
+        render_frame_fast_q(q, loc, s["get_bands"](), s["tf"](), lp, acc, fb,
+                            finemap=s["fm"](), **kw)
+    else:
+        render_frame_fast(s["cells"], s["get_packed"](), s["locator"],
+                          s["get_bands"](), lp, acc, fb, **kw)
+    return fb.cpu().numpy()[inverse_order(perm.cpu().numpy())]
+
+
+def main_preview(pl, errs, quantized=False):
+    """--preview 4 on a main path's pipeline (f32, or --quantized with the
+    fine map): after a camera move and a reset, the preview launch renders
+    one sample at 480x270 through K6 and K1 (K2) on K6's covered lanes; K1
+    (K2) held against its plain version on those lanes, the presented fb
+    (1920x1080, constant 4x4 blocks) equal to the plain version's frame
+    upscaled; frame_id still 0 after is_running() (fault F2 not copied);
+    the next full-res launch bit-equal to a launch of the same camera
+    without a preview.  Prints the preview launch's ms (events, the fb on
+    the host before the clock is read), the device time of K6 and K1 (K2)
+    within it, and a full-res one-sample launch's ms beside it.  Leaves the
+    pipeline's camera, sample limit and preview tier (off) as it found
+    them.  Returns the phase's launch counts."""
+    import torch
+    from icon_rt_tpu_torch.ops.order import inverse_order, pixel_order
+    tag = "main preview" + (" q" if quantized else "")
+    s, st = pl.scene, pl.scene["stats"]
+    sc = PREVIEW_SCALE
+    wp, hp = MAIN_W // sc, MAIN_H // sc
+    cam = s["camera"]
+    saved = {k: np.copy(v) for k, v in vars(cam).items()}, pl.sample_limit
+    pl.preview_scale, pl.sample_limit = sc, MAIN_LIMIT
+    turn_camera(cam, 10.0)
+    pl.reset_accumulation()
+    zero_counters()
+    torch.cuda.synchronize()
+    ms = events_ms(pl.launch)
+    counts = counters()
+    fb = pl._last_fb
+    if not isinstance(fb, np.ndarray) or fb.shape != (MAIN_W * MAIN_H,) \
+            or pl.samples_per_launch != 0 or pl.preview_pending:
+        raise AssertionError(f"{tag}: the launch after the reset is not a "
+                             f"preview")
+    blocks = fb.reshape(hp, sc, wp, sc)
+    if not (blocks == blocks[:, :1, :, :1]).all():
+        raise AssertionError(f"{tag}: the presented fb is not 4x4 blocks")
+    tracker = "track_q" if quantized else "track_f32"
+    if counts.get("chord_keys") != 1 or counts.get(tracker) != 1:
+        raise AssertionError(f"{tag}: the preview launched {counts}")
+    pl.is_running()
+    if pl.frame_id != 0:
+        raise AssertionError(f"{tag}: frame_id {pl.frame_id} after the "
+                             f"preview (fault F2)")
+
+    # the preview's inputs: its frame's lanes against the plain version
+    lp = launch_params_wh(pl, wp, hp)
+    perm, n = pixel_order(lp, st.spherical_bounds_lo[0],
+                          st.spherical_bounds_hi[0], wp, hp)
+    pix = perm[:n].contiguous()
+    if quantized:
+        q, loc, _ = s["get_q"]()
+        err, _, _, fp = compare_track_q(
+            (q, loc, s["get_bands"](), s["tf"]()), lp, pix, n, wp, hp, 1,
+            True, s["fm"](), tag, return_fb=True)
+    else:
+        err, fp = compare_track_f32(
+            (s["get_packed"](), s["locator"], s["get_bands"]()), lp, pix, wp,
+            hp, 1, tag, return_fb=True)
+    errs[tracker] = max(errs[tracker], err)
+    small = fp.cpu().numpy()[inverse_order(perm.cpu().numpy())]
+    plain = np.repeat(np.repeat(small.reshape(hp, wp), sc, axis=0), sc,
+                      axis=1).ravel()
+    same = float((plain == fb).mean())
+    print(f"{tag} presented {MAIN_W}x{MAIN_H} fb against the plain version's "
+          f"{wp}x{hp} frame upscaled: identical on {same:.6f} of the pixels; "
+          f"{n} covered lanes of {wp * hp}")
+    if same < 0.999:
+        raise AssertionError(f"{tag}: the preview differs from its plain "
+                             f"version")
+
+    # the next launch does frame 0's work, as a run without a preview
+    pl.launch()
+    after = pl.frame["fb"].clone()
+    pl.preview_scale = 0
+    pl.reset_accumulation()
+    pl.launch()
+    if not torch.equal(after, pl.frame["fb"]):
+        raise AssertionError(f"{tag}: the full-res launch after the preview "
+                             f"differs from one without a preview")
+    pl.preview_scale = sc
+
+    def preview():
+        pl.reset_accumulation()
+        pl.launch()
+
+    times = [events_ms(preview) for _ in range(PREVIEW_REPS)]
+    kernel = f"{tracker}_kernel"
+    wall, timeline = profile_window(preview, ("chord_keys_kernel", kernel),
+                                    tag)
+    dev_ms = {}
+    for name, _, t in timeline:
+        key = ("K6" if "chord_keys" in name else "K1/K2" if kernel in name
+               else "other")
+        dev_ms[key] = dev_ms.get(key, 0.0) + t
+    busy = sum(dev_ms.values())
+    lp_full = launch_params(pl)
+    full = [events_ms(lambda: full_frame_launch(pl, lp_full, 1))
+            for _ in range(PREVIEW_REPS)]
+    print(f"{tag} preview launch ms (events, fb on the host) median "
+          f"{np.median(times):.3f}, min {min(times):.3f}, max "
+          f"{max(times):.3f}; profiled wall {wall:.3f} ms: K6 chord_keys "
+          f"{dev_ms.get('K6', 0.0):.4f} ms, {kernel} "
+          f"{dev_ms.get('K1/K2', 0.0):.4f} ms, other device "
+          f"{dev_ms.get('other', 0.0):.4f} ms (the sort, copies), idle share "
+          f"{1 - busy / wall:.3f}; a full-res one-sample launch as after a "
+          f"reset (K6, {tracker} 1 sample, fb to the host, unpermuted) "
+          f"median {np.median(full):.3f} ms, min {min(full):.3f}")
+    print(f"{tag} launch counts {json.dumps(counts)} (the preview launch)")
+    vars(cam).update(saved[0])
+    pl.sample_limit, pl.preview_scale = saved[1], 0
+    pl.reset_accumulation()
+    return counts
+
+
+def http_get(url, timeout=120):
+    """(headers, body) of a GET, retrying the viewer's long-poll 204."""
+    import urllib.request
+    deadline = time.time() + timeout
+    while True:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            if r.status != 204 or time.time() > deadline:
+                return dict(r.headers), r.read()
+
+
+def http_post(url, obj):
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(obj).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status
+
+
+#: main viewer's events in order: (label, events posted, first frame a
+#: preview); the drag comes last, so its converged frame is compared with a
+#: direct render under the edited transfer function
+VIEWER_EVENTS = [
+    ("TFE stroke", [{"type": "tfe", "etype": e, "x": x, "y": 148,
+                     "button": 0}
+                    for e, x in [("down", 10)]
+                    + [("move", x) for x in range(20, 150, 10)]
+                    + [("up", 150)]], True),
+    ("Raygen ae", [{"type": "param", "name": "Raygen", "value": "ae"}],
+     False),
+    ("Raygen fast", [{"type": "param", "name": "Raygen", "value": "fast"}],
+     True),
+    ("view drag", [{"type": "view", "etype": e, "x": x, "y": y, "button": 0,
+                    "alt": False}
+                   for e, x, y in (("down", 960, 540), ("move", 1060, 560),
+                                   ("up", 1060, 560))], True),
+]
+
+
+def main_viewer(pl):
+    """apps/viewer_torch.serve on the main path's f32 pipeline (127.0.0.1,
+    port 0, preview 4 by default, sample limit 16 in launches of 8): the
+    first frame, then a TFE stroke, the Raygen toggle to ae and back to
+    fast, and a view drag, each posted while the viewer is idle.  Holds:
+    each reset's first frame is a preview (ae: its first launch) with
+    X-Accum-Id 0, the frames then advance to the sample limit, and the
+    converged frame after the drag equals a direct render (K6, two K1
+    launches of 8 samples) of the same camera, bit for bit.  Prints per
+    event the edit latency, the first frame's launch and PNG-encode ms, the
+    converged frame's, fps and Mray/s from /stats; the phase's launch
+    counts on a line of their own."""
+    import threading
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "apps"))
+    import viewer_torch
+    tag = "main viewer"
+    pl.sample_limit, pl.preview_scale = MAIN_LIMIT, 0
+    pl.reset_accumulation()
+    log, held = [], {}
+    present = pl.present_fn
+
+    def logged(fb, w, h):       # on serve's loop thread, the fb on the host
+        log.append((pl.frame_id, pl.samples_per_launch, pl.frame["natural"]))
+        held["fb"] = fb
+        present(fb, w, h)
+    pl.present_fn = logged
+    zero_counters()
+    st = viewer_torch.ViewerState()
+    th = threading.Thread(target=viewer_torch.serve, args=(pl,),
+                          kwargs=dict(port=0, host="127.0.0.1", state=st),
+                          daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+
+    def settled(fid):
+        """The log entries after frame fid once the run they start has
+        reached the sample limit and its last frame is published."""
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            new = log[fid + 1:]
+            if new and new[-1][0] + new[-1][1] >= MAIN_LIMIT \
+                    and st.frame_id == len(log) - 1:
+                return new
+            time.sleep(0.01)
+        raise AssertionError(f"{tag}: no run reached the sample limit after "
+                             f"frame {fid}: {log[fid + 1:]}")
+
+    try:
+        while not hasattr(st, "port"):
+            if time.perf_counter() - t0 > 120 or not th.is_alive():
+                raise AssertionError(f"{tag}: the server did not start")
+            time.sleep(0.01)
+        base = f"http://127.0.0.1:{st.port}"
+        heads, png = http_get(base + "/frame.png?since=-1")
+        first = settled(-1)
+        print(f"{tag} first frame {heads['X-Launch-Ms']} ms launch, "
+              f"{heads['X-Encode-Ms']} ms encode ({len(png)} B PNG); frames "
+              f"{first} (frame_id, samples, preview)")
+        if first != [(0, MAIN_SPL, False), (MAIN_SPL, MAIN_SPL, False)]:
+            raise AssertionError(f"{tag}: the first run is {first}")
+        for label, events, preview in VIEWER_EVENTS:
+            fid = len(log) - 1
+            got = {}
+            waiter = threading.Thread(target=lambda: got.update(
+                h=http_get(base + f"/frame.png?since={fid}")[0]))
+            waiter.start()
+            time.sleep(0.2)      # the long poll waits before the events
+            for ev in events:
+                http_post(base + "/event", ev)
+            waiter.join(120)
+            new = settled(fid)
+            h = got["h"]
+            full = [e for e in new if not e[2]]
+            want = [(k, MAIN_SPL if preview else 1, False)
+                    for k in range(0, MAIN_LIMIT,
+                                   MAIN_SPL if preview else 1)]
+            if int(h["X-Frame-Id"]) != fid + 1 or h["X-Accum-Id"] != "0" \
+                    or new[0] != ((0, 0, True) if preview else want[0]) \
+                    or full[-len(want):] != want:
+                raise AssertionError(f"{tag} {label}: frames {new}, first "
+                                     f"frame's headers {h}")
+            stats = json.loads(http_get(base + "/stats")[1])
+            print(f"{tag} {label}: edit latency {h['X-Edit-Latency-Ms']} ms "
+                  f"to the first frame ({'a preview' if preview else 'K8'},"
+                  f" X-Accum-Id {h['X-Accum-Id']}): launch "
+                  f"{h['X-Launch-Ms']} ms, PNG encode {h['X-Encode-Ms']} ms;"
+                  f" the converged frame: launch {stats['launch_ms']:.3f} ms,"
+                  f" encode {stats['encode_ms']:.3f} ms; {stats['fps']:.2f} "
+                  f"fps, {stats['mray']:.3f} Mray/s (/stats); {len(new)} "
+                  f"frames {[e[:2] for e in new]}")
+    finally:
+        st.stop = True
+        th.join(60)
+        pl.present_fn = present
+    counts = counters()
+    print(f"{tag} launch counts {json.dumps(counts)}")
+    for k in ("chord_keys", "track_f32", "classify_bake", "max_opacity",
+              "parity_ae_locator"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"{tag}: the viewer did not launch {k}")
+
+    # the drag's converged frame against a direct render, the server gone
+    from icon_rt_tpu_torch.ops.fast import render_frame_fast
+    from icon_rt_tpu_torch.ops.order import pixel_order
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    s, sts = pl.scene, pl.scene["stats"]
+    lp = launch_params(pl)
+    perm, n = pixel_order(lp, sts.spherical_bounds_lo[0],
+                          sts.spherical_bounds_hi[0], MAIN_W, MAIN_H)
+    acc, fb = alloc_frame(MAIN_W, MAIN_H, device=lp.accum_id.device)
+    for k in range(0, MAIN_LIMIT, MAIN_SPL):
+        render_frame_fast(s["cells"], s["get_packed"](), s["locator"],
+                          s["get_bands"](), with_id(lp, k), acc, fb,
+                          width=MAIN_W, height=MAIN_H, pixel_perm=perm,
+                          n_active=n, samples=MAIN_SPL)
+    direct = fb.cpu().numpy()
+    if not np.array_equal(direct, held["fb"]):
+        raise AssertionError(f"{tag}: the converged frame after the drag "
+                             f"differs from a direct render on "
+                             f"{int((direct != held['fb']).sum())} pixels")
+    print(f"{tag} the drag's converged frame equals a direct render of its "
+          f"camera ({MAIN_LIMIT} samples), bit for bit; the phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def main_auto(dev, errs):
+    """--samples auto on the main path's scene and camera (f32, sample limit
+    16): launches of 1, 1, then the pick clamped to the limit; the probe
+    (frame 1) is read once the card has finished (the stream idle when
+    auto_spp is called, and the probe at least the device time, profiled,
+    of a one-sample launch of the frame).  Prints the probe's seconds, the
+    pick, the spl sequence and the covered share."""
+    import torch
+    from icon_rt_tpu_torch import app
+    from icon_rt_tpu_torch.ops.fast import render_frame_fast
+    from icon_rt_tpu_torch.ops.render import alloc_frame
+    from icon_rt_tpu_torch.utils import autosize
+    tag = "main auto"
+    probes = []
+    pick = autosize.auto_spp
+
+    def recorded(probe_s, *a, **k):
+        probes.append((probe_s, torch.cuda.current_stream().query()))
+        return pick(probe_s, *a, **k)
+
+    zero_counters()
+    autosize.auto_spp = recorded
+    try:
+        t0 = time.perf_counter()
+        pl = app.build(main_argv(dev, "chip_smoke_auto", MAIN_LIMIT, "auto"))
+        build_s = time.perf_counter() - t0
+        seq, launch_ms = [], []
+        while True:
+            launch_ms.append(events_ms(lambda: (pl.launch(),
+                                                pl._last_fb.cpu())))
+            seq.append(pl.samples_per_launch)
+            if not pl.is_running():
+                break
+    finally:
+        autosize.auto_spp = pick
+    counts = counters()
+    spl = pl.scene["auto_spl"]()
+    want, left = [1, 1], MAIN_LIMIT - 2
+    while left:
+        want.append(min(spl, left))
+        left -= want[-1]
+    if len(probes) != 1 or seq != want:
+        raise AssertionError(f"{tag}: probes {probes}, launches {seq}, not "
+                             f"{want}")
+    probe_s, idle = probes[0]
+    s, frame = pl.scene, pl.frame
+    lp = with_id(launch_params(pl), 1)
+    acc, fb = alloc_frame(MAIN_W, MAIN_H, device=dev)
+    k1 = device_ms(lambda: render_frame_fast(
+        s["cells"], s["get_packed"](), s["locator"], s["get_bands"](), lp,
+        acc, fb, width=MAIN_W, height=MAIN_H, pixel_perm=frame["perm"],
+        n_active=frame["n_active"], samples=1), 5, ("track_f32_kernel",),
+        f"{tag} K1")
+    fbh = frame["fb"].cpu().numpy().view(np.uint32)
+    covered = float(((fbh >> 24) > 0).mean())
+    print(f"{tag} build {build_s:.3f} s; probe {probe_s:.6f} s (frame 1, "
+          f"read with the stream idle: {idle}; a one-sample launch of the "
+          f"frame {k1:.4f} ms of device time) -> {spl} samples a launch at "
+          f"AUTO_BUDGET_S {app.AUTO_BUDGET_S} s; launches {seq}, ms "
+          f"{[round(x, 3) for x in launch_ms]}; covered share "
+          f"{frame['n_active'] / (MAIN_W * MAIN_H):.4f} of the lanes, image "
+          f"{covered:.4f}")
+    if not idle or probe_s * 1e3 < k1:
+        raise AssertionError(f"{tag}: the probe ({probe_s * 1e3:.4f} ms) was "
+                             f"read before the card finished")
+    if counts.get("track_f32") != len(seq):
+        raise AssertionError(f"{tag}: {counts} in {len(seq)} launches")
+    print(f"{tag} launch counts {json.dumps(counts)}")
+    del pl
+    return counts
+
+
+def main_ic_r2b7(dev, errs):
+    """NetCDF -> convert_icon -> .ic at R2B7 (scripts/e2e_netcdf_torch.py:
+    327,680 columns x 16 levels, DWD layout, in a temporary directory), the
+    .ic's columns and layers held against the HHL inputs, then the app on
+    the .ic at 1080p (bench.py's closeup camera), f32 and --quantized with
+    the fine map built into an empty cache: 8 samples in one launch, then
+    3 launches of 8 timed; K1 and K2 against their plain versions on
+    CHECK_LANES lanes strided over the covered prefix.  Prints the seconds
+    of the write, the convert, the read and the build, ms per launch and
+    peak memory."""
+    import torch
+    from icon_rt_tpu_torch import app
+    from icon_rt_tpu_torch.data import bigscene, netcdf
+    from icon_rt_tpu_torch.data.icfile import read_ic
+    from icon_rt_tpu_torch.tools import convert_icon
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import e2e_netcdf_torch as e2e
+    tag = "main ic r2b7"
+    build_dir = os.path.join(ROOT, "icon_rt_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ic_", dir=build_dir)
+    cache = bigscene.CACHE_DIR
+    bigscene.CACHE_DIR = os.path.join(work, "scenes")
+    counts = {}
+    try:
+        t0 = time.perf_counter()
+        inputs = e2e.make_netcdf_inputs(work, IC_SUB, IC_LEVELS)
+        t1 = time.perf_counter()
+        out = os.path.join(work, "r2b7")
+        if convert_icon.main(e2e.convert_argv(inputs, out)) != 0:
+            raise AssertionError(f"{tag}: convert_icon failed")
+        t2 = time.perf_counter()
+        ds = read_ic(out + ".ic")
+        t3 = time.perf_counter()
+        ncell = netcdf.Dataset(inputs[2][0]).dimensions["cell"]
+        if ds.num_cells != ncell or ncell != 20 * 4 ** IC_SUB \
+                or not (ds.num_layers == len(inputs[2]) - 1).all():
+            raise AssertionError(f"{tag}: the .ic holds {ds.num_cells} "
+                                 f"columns of {set(ds.num_layers.tolist())} "
+                                 f"layers for {ncell} cells and "
+                                 f"{len(inputs[2])} HHL levels")
+        mb = sum(os.path.getsize(p) for p in
+                 [inputs[0], inputs[1], *inputs[2], *inputs[3]]) / 1e6
+        print(f"{tag} NetCDF write {t1 - t0:.3f} s ({mb:.1f} MB, "
+              f"{len(inputs[2])} HHL + {len(inputs[3])} data files), "
+              f"convert_icon {t2 - t1:.3f} s "
+              f"({os.path.getsize(out + '.ic') / 1e6:.1f} MB .ic), read_ic "
+              f"{t3 - t2:.3f} s: {ds.num_cells} columns of {IC_LEVELS} "
+              f"layers")
+        camera = e2e.camera_argv(ds, MAIN_W, MAIN_H)
+        for quantized in (False, True):
+            name = "chip_smoke_ic_r2b7" + ("q" if quantized else "")
+            argv = [out + ".ic", "--device", dev.type, "--size", str(MAIN_W),
+                    str(MAIN_H), "--sample-limit", str(IC_SPL), "--samples",
+                    str(IC_SPL), *camera, "-o", os.path.join(OUT_DIR, name)]
+            if quantized:
+                argv.append("--quantized")
+            label = tag + (" q" if quantized else "")
+            zero_counters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pl = app.build(argv)
+            build_s = time.perf_counter() - t0
+            launch_ms = []
+            run_loop(pl, launch_ms)
+            pl.sample_limit = IC_SPL * (1 + IC_STEADY)
+            run_loop(pl, launch_ms)
+            pl.present()
+            frame, s = pl.frame, pl.scene
+            fbh = frame["fb"].cpu().numpy().view(np.uint32)
+            covered = float(((fbh >> 24) > 0).mean())
+            c, _ = read_counters(quantized, False)
+            require_counts(label, c)
+            counts.update({f"{k} ({'q' if quantized else 'f32'})": v
+                           for k, v in c.items()})
+            pix = strided_lanes(frame["perm"], frame["n_active"])
+            lp = launch_params(pl)
+            if quantized:
+                q, loc, _ = s["get_q"]()
+                err, _, _ = compare_track_q(
+                    (q, loc, s["get_bands"](), s["tf"]()), lp, pix,
+                    pix.shape[0], MAIN_W, MAIN_H, IC_SPL, True, s["fm"](),
+                    f"{label} strided")
+                errs["track_q"] = max(errs["track_q"], err)
+            else:
+                errs["track_f32"] = max(errs["track_f32"], compare_track_f32(
+                    (s["get_packed"](), s["locator"], s["get_bands"]()), lp,
+                    pix, MAIN_W, MAIN_H, IC_SPL, f"{label} strided"))
+            steady = launch_ms[1:]
+            built = ("the quantized tables, K7-loc and K7-fm in the first "
+                     "launch" if quantized else "the f32 tables")
+            print(f"{label} app build {build_s:.3f} s (read_ic, {built}); "
+                  f"ms per launch of {IC_SPL} samples "
+                  f"{[round(x, 3) for x in launch_ms]} (the first also "
+                  f"bakes and orders the rays), steady median "
+                  f"{np.median(steady):.3f}; image covered {covered:.4f} "
+                  f"({frame['n_active']} covered lanes)")
+            peak_memory(label)
+            if covered < 0.5:
+                raise AssertionError(f"{label}: the image covers only "
+                                     f"{covered:.3f} of the frame")
+            del pl, frame, s
+            torch.cuda.empty_cache()
+    finally:
+        bigscene.CACHE_DIR = cache
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def build_all():
     """nvcc of every csrc/*.cu kernel, started together; prints seconds and
     the ptxas register/spill lines."""
@@ -5156,6 +5735,14 @@ def main() -> int:
     pl, counts, _ = main_path(dev)
     rows = time_kernels(pl, errs, counts)
     profile_launch(pl)
+    # the interactive front on the main path's pipeline: the preview tier,
+    # then the HTTP viewer
+    t0 = time.perf_counter()
+    front = {"main preview": main_preview(pl, errs)}
+    t1 = time.perf_counter()
+    front["main viewer"] = main_viewer(pl)
+    print(f"time main preview {t1 - t0:.1f} s, main viewer "
+          f"{time.perf_counter() - t1:.1f} s")
     del pl
     torch.cuda.empty_cache()
     peak_memory("main")
@@ -5173,6 +5760,10 @@ def main() -> int:
         pl_q, counts_q, _ = main_path(dev, quantized=True)
         rows += time_q_kernels(pl_q, errs, counts_q)
         profile_launch(pl_q, quantized=True)
+        # the preview before the TF edits, under the TF main preview has
+        t0 = time.perf_counter()
+        front["main preview q"] = main_preview(pl_q, errs, quantized=True)
+        print(f"time main preview q {time.perf_counter() - t0:.1f} s")
         tf_edits(pl_q)
         del pl_q
         torch.cuda.empty_cache()
@@ -5195,6 +5786,17 @@ def main() -> int:
     rmse_q(dev)
     torch.cuda.empty_cache()
     peak_memory("rmse_q")
+
+    # --samples auto, and real-data ingest at R2B7
+    t0 = time.perf_counter()
+    front["main auto"] = main_auto(dev, errs)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    front["main ic r2b7"] = main_ic_r2b7(dev, errs)
+    torch.cuda.empty_cache()
+    print(f"time main auto {t1 - t0:.1f} s, main ic r2b7 "
+          f"{time.perf_counter() - t1:.1f} s")
+    print(f"front launch counts {json.dumps(front)}")
 
     # the R2B9 headline scene, every earlier table freed
     t0 = time.perf_counter()

@@ -6,7 +6,13 @@ Same CLI as apps/icon_rt.py (ref: icon_rt/hostCode.cu:703-968):
   sampler), plus the common pipeline flags (--bgcolor --sample-limit --xf
   -win/--win/--size -fovy --camera), and:
   --synthetic SUBDIV[:LAYERS]  render a generated icosphere field (no .ic)
-  --samples N                  progressive samples per launch (default 8)
+  --samples N|auto             progressive samples per launch (default 8);
+                               auto: frames 0 and 1 render one sample,
+                               frame 1's wall time (the card synchronized)
+                               sizes every later launch to AUTO_BUDGET_S
+  --preview N                  the first frame after a reset renders one
+                               sample at 1/N resolution (K6, then K1 or K2)
+                               and is presented upscaled (0: off)
   -o PATH                      output PNG name (default icon_rt.png)
   --device DEV                 torch device (default cuda; cpu runs the
                                kernels' plain PyTorch versions)
@@ -38,9 +44,8 @@ reference-parity raygens (K8; K9-p with the wedge sampler) on the f32
 cells.  An opacity-scale edit of
 the f32 tier re-bakes only the alpha half (K5c-f32).  The UI parameters
 "Raygen", "Accel mode", "Sampler mode" (2: the wedge sampler) and "Use
-naive accel" switch the path at run time and reset accumulation; "Use naive accel" off renders the
-accel raygen as AE.  Flags that select anything else raise
-NotImplementedError naming the ROADMAP item that will port them.
+naive accel" switch the path at run time and reset accumulation; "Use
+naive accel" off renders the accel raygen as AE.
 
 Batch behavior matches the reference: renders --sample-limit progressive
 frames, writes the PNG, prints FPS.
@@ -49,21 +54,13 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 
 import numpy as np
 
-#: flags and values this port does not render yet -> the ROADMAP item
-_NOT_PORTED = {
-    ("--preview", None): "ROADMAP Queue 1 item 2 (preview tier)",
-    ("--samples", "auto"): "ROADMAP Queue 1 item 2 (auto samples)",
-}
-
-
-def _not_ported(flag, value=None):
-    item = _NOT_PORTED.get((flag, value)) or _NOT_PORTED.get((flag, None))
-    shown = flag if value is None else f"{flag} {value}"
-    raise NotImplementedError(f"{shown} is not ported to icon_rt_tpu_torch "
-                              f"yet: {item}")
+#: --samples auto: the wall budget of one launch, the interactive launch
+#: limit (PERF.md §2), since the viewer applies events only between launches
+AUTO_BUDGET_S = 0.033
 
 
 def _choice(flag, value, options):
@@ -79,7 +76,7 @@ def parse_app_args(argv):
         "synthetic": None, "out": "icon_rt", "bands": 64,
         "samples": 8, "device": "cuda", "quantized": False,
         "finemap": True, "march": False, "mode": 1, "raygen": "fast",
-        "accel_mode": "sphere", "sampler": "locator",
+        "accel_mode": "sphere", "sampler": "locator", "preview": 0,
     }
     i = 0
     while i < len(argv):
@@ -125,11 +122,11 @@ def parse_app_args(argv):
         elif a == "--march":
             cfg["march"] = True
         elif a == "--preview":
-            _not_ported(a)
+            cfg["preview"] = max(0, int(argv[i + 1])); i += 1
         elif a == "--samples":
-            if argv[i + 1] == "auto":
-                _not_ported("--samples", "auto")
-            cfg["samples"] = max(1, int(argv[i + 1])); i += 1
+            v = argv[i + 1]
+            cfg["samples"] = "auto" if v == "auto" else max(1, int(v))
+            i += 1
         elif a == "--device":
             cfg["device"] = argv[i + 1]; i += 1
         i += 1
@@ -170,7 +167,7 @@ def build(argv):
     cfg = parse_app_args(argv)
     dev = _device(cfg["device"])
 
-    import time
+    import torch
 
     from .data import icfile, synthetic
     from .models.accel import (build_grid_accel, build_shell_accel,
@@ -192,6 +189,7 @@ def build(argv):
     from .ops.render import (alloc_frame, make_launch_params,
                              render_frame_accel, render_frame_ae)
     from .pipeline.pipeline import Pipeline, TransfuncState
+    from .utils import autosize
 
     # -- dataset (ref: hostCode.cu:717-808) ---------------------------------
     if cfg["synthetic"] is not None:
@@ -230,6 +228,9 @@ def build(argv):
 
     pl = Pipeline(argv, name=cfg["out"])
     pl.set_frame(512, 512)
+    # the preview tier (off in batch mode unless --preview N; the viewer
+    # turns it on): the first frame after a reset at 1/N resolution
+    pl.preview_scale = cfg["preview"]
 
     cam = Camera()
     cam.set_aspect(pl.width / pl.height)
@@ -354,7 +355,6 @@ def build(argv):
         u8 alpha table re-bakes (K5c-q) only when the device TF changed.
         The bands stay those of the unquantized dataset (get_bands), as in
         the JAX app.  Returns (q, locator, k_cap)."""
-        import torch
         from .data.bigscene import build_finemap_cached
         from .models.locator import bin_locator
         from .models.qcells import (bake_alpha_q, quantize_cells,
@@ -452,8 +452,40 @@ def build(argv):
     on_tf_update(pl.transfunc, 0)
 
     W, H = pl.width, pl.height
-    frame = {"perm": None, "inv": None, "n_active": None, "raygen": None}
+    frame = {"perm": None, "inv": None, "n_active": None, "raygen": None,
+             "natural": False}
     frame["accum"], frame["fb"] = alloc_frame(W, H, device=dev)
+    r_in, r_out = stats.spherical_bounds_lo[0], stats.spherical_bounds_hi[0]
+
+    def render_preview():
+        """The preview tier (apps/icon_rt.py:420-457): one sample at
+        (W/N, H/N) through K6 and K1 (K2 with --quantized) on exactly K6's
+        covered lanes, unpermuted and upscaled on the host; returns the
+        natural-order (H*W,) host fb.  samples_per_launch 0: the full-res
+        sample 0 renders on the next launch."""
+        pl.preview_pending = False
+        pl.samples_per_launch = 0
+        sc = pl.preview_scale
+        Wp, Hp = W // sc, H // sc
+        lp = make_launch_params(
+            cam.basis(Wp, Hp), stats.world_bounds_lo, stats.world_bounds_hi,
+            ambient_color=(1.0, 1.0, 1.0), ambient_radiance=1.0,
+            unit_distance=state["unit_distance"], accum_id=0, device=dev)
+        p, n_cov = pixel_order(lp, r_in, r_out, Wp, Hp)
+        acc, fb = alloc_frame(Wp, Hp, device=dev)
+        kw = dict(width=Wp, height=Hp, pixel_perm=p, n_active=n_cov,
+                  samples=1)
+        if cfg["quantized"]:
+            q, loc_q, _ = get_q()
+            render_frame_fast_q(q, loc_q, get_bands(), device["tf"], lp, acc,
+                                fb, finemap=struct["fm"], **kw)
+        else:
+            render_frame_fast(cells, get_packed(), locator, get_bands(), lp,
+                              acc, fb, **kw)
+        small = fb.cpu().numpy()[inverse_order(p.cpu().numpy())]
+        frame["natural"] = True
+        return np.repeat(np.repeat(small.reshape(Hp, Wp), sc, axis=0),
+                         sc, axis=1).ravel()
 
     def render(frame_id):
         raygen = state["raygen"]
@@ -463,11 +495,23 @@ def build(argv):
         sampler = "wedge" if state["mode"] == 2 else (
             cfg["sampler"] if cfg.get("sampler_explicit") else "locator")
         # samples per launch, clamped so batch mode honors --sample-limit;
-        # the parity raygens render one sample per launch (the oracle)
-        want = cfg["samples"] if raygen == "fast" else 1
+        # the parity raygens render one sample per launch (the oracle).
+        # --samples auto: frames 0 and 1 render one sample, frame 1 (the
+        # probe) sizes every later launch (apps/icon_rt.py:401-414)
+        auto = cfg["samples"] == "auto" and raygen == "fast"
+        want = 1 if raygen != "fast" else (
+            state.get("auto_spl", 1) if auto else cfg["samples"])
         spl = max(1, min(want, pl.sample_limit - frame_id
                          if not pl.interactive else want))
         pl.samples_per_launch = spl
+        probe = auto and "auto_spl" not in state and frame_id >= 1
+        t_probe = time.perf_counter() if probe else None
+        if (pl.preview_pending and raygen == "fast"
+                and (sampler != "wedge" or cfg["quantized"])
+                and pl.preview_scale > 1 and W % pl.preview_scale == 0
+                and H % pl.preview_scale == 0):
+            return render_preview()
+        frame["natural"] = False
         if frame_id == 0:
             frame["accum"], frame["fb"] = alloc_frame(W, H, device=dev)
             # mode changes reset accumulation, so the buffer's layout
@@ -493,8 +537,7 @@ def build(argv):
             return frame["fb"]
         if frame["perm"] is None or frame_id == 0:
             # re-sort rays by expected cost on camera change (K6)
-            p, n_cov = pixel_order(lp, stats.spherical_bounds_lo[0],
-                                   stats.spherical_bounds_hi[0], W, H)
+            p, n_cov = pixel_order(lp, r_in, r_out, W, H)
             frame["inv"] = inverse_order(p).cpu().numpy()
             frame["perm"] = p
             frame["n_active"] = n_cov
@@ -535,13 +578,23 @@ def build(argv):
                               frame["accum"], frame["fb"], width=W,
                               height=H, pixel_perm=frame["perm"],
                               n_active=frame["n_active"], samples=spl)
+        if probe:
+            # the probe's clock is read once the card has finished: launches
+            # are asynchronous, and the enqueue alone would pick 64
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            state["auto_spl"] = autosize.auto_spp(
+                time.perf_counter() - t_probe, budget_s=AUTO_BUDGET_S)
+            print(f"# auto samples/launch: {state['auto_spl']}",
+                  file=sys.stderr, flush=True)
         return frame["fb"]
 
     pl.set_render_fn(render)
 
     def present_fn(fb, w, h):
         # the fast path renders in ray-sorted order; unpermute on the host
-        if frame["raygen"] == "fast":
+        # (a preview frame arrives in natural order, upscaled)
+        if frame["raygen"] == "fast" and not frame["natural"]:
             fb = fb[frame["inv"]]
         pl.write_frame(fb)
     pl.present_fn = present_fn
@@ -554,5 +607,6 @@ def build(argv):
                 "unit_distance": lambda: state["unit_distance"],
                 "get_f32": get_f32, "get_accel": get_accel,
                 "get_wedges": get_wedges, "get_bands_wedge": get_bands_wedge,
-                "get_packed_wedge": get_packed_wedge, "timings": timings}
+                "get_packed_wedge": get_packed_wedge, "timings": timings,
+                "auto_spl": lambda: state.get("auto_spl")}
     return pl

@@ -21,8 +21,14 @@ Instead of the reference's OWL name->pointer launch-params registry
 (ref: pipeline.cu:357-411), the app supplies a render callback that builds
 the current LaunchParams itself.
 
-The preview tier of the JAX pipeline (`preview_scale`, `preview_pending`)
-is not ported yet; `samples_per_launch` advances `frame_id` as there.
+The preview tier (`preview_scale`, `preview_pending`) is the JAX
+pipeline's.  `is_running` advances `frame_id` by the samples the last
+launch rendered, once, and not over a reset since that launch: a preview
+launch (samples_per_launch 0) leaves `frame_id` at 0, so the next launch
+does frame 0's work (a new accumulator, the rays re-sorted).  The JAX
+pipeline advances by max(1, samples_per_launch) on every call
+(icon_rt_tpu/pipeline/pipeline.py:236-244), which skips that work after a
+preview and, in its viewer's loop, after any reset.
 """
 from __future__ import annotations
 
@@ -98,6 +104,16 @@ class Pipeline:
         #: raygen renders several per launch, ops/fast.py `samples=`); the
         #: render fn sets it per call
         self.samples_per_launch = 1
+        #: preview tier: when > 1, the first launch after an accumulation
+        #: reset (camera, TF, uiParam) may render at (width // scale,
+        #: height // scale) and present that frame upscaled; the render fn
+        #: checks `preview_pending`, clears it and sets samples_per_launch
+        #: to 0, so the full-res sample 0 renders on the next launch
+        self.preview_scale = 0
+        self.preview_pending = False
+        #: samples the last launch accumulated that is_running has yet to
+        #: count (0 after a reset)
+        self._rendered = 0
         self.running = False
         self._started = False
         self.avg_t = 0.0
@@ -225,15 +241,16 @@ class Pipeline:
     # -- frame loop ----------------------------------------------------------
     def reset_accumulation(self):
         self.frame_id = 0
+        self.preview_pending = self.preview_scale > 1
+        self._rendered = 0
 
     def is_running(self) -> bool:
         if not self._started:
             return False
-        reset = self._harvest_tfe()
-        if reset:
-            self.frame_id = 0
-        else:
-            self.frame_id += max(1, int(self.samples_per_launch))
+        if self._harvest_tfe():
+            self.reset_accumulation()
+        self.frame_id += self._rendered
+        self._rendered = 0
         # batch mode renders exactly sample_limit progressive frames with
         # accum ids 0..sample_limit-1 (the reference's double-increment on
         # the first launch makes it render sampleLimit-2 frames and skip
@@ -278,6 +295,7 @@ class Pipeline:
         t0 = time.perf_counter()
         if self.frame_id < self.sample_limit:
             self._last_fb = self.render_fn(self.frame_id)
+            self._rendered = max(0, int(self.samples_per_launch))
         dt = time.perf_counter() - t0
         self.avg_t = 0.8 * self.avg_t + 0.2 * dt if self.avg_t > 0 else dt
 

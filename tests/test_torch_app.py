@@ -1,6 +1,7 @@
 """PyTorch port, the application: icon_rt_tpu_torch.app against
 apps/icon_rt.py on the same arguments, its runtime mode toggles against
-tests/test_toggles.py's contract, and the flags it does not port."""
+tests/test_toggles.py's contract, and its parse of every flag of the JAX
+app."""
 import os
 import sys
 
@@ -54,10 +55,67 @@ def test_torch_app_build_runs_and_counts_frames(tmp_path):
     assert os.path.exists(str(tmp_path / "x.png"))
 
 
+class _Clock:
+    """A `time` module whose perf_counter advances 1e-4 s a call: both
+    apps' --samples auto probes then pick 64 (the port's 33 ms budget and
+    JAX's 40 s alike), clamped to --sample-limit."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 1e-4
+        return self.t
+
+
 @pytest.mark.parametrize("flags", [["--preview", "4"], ["--samples", "auto"]])
-def test_torch_app_out_of_slice_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        app.build(["--device", "cpu", *ARGS, *flags])
+def test_torch_app_out_of_slice_flags_raise(tmp_path, monkeypatch, flags):
+    """The two flags that raised NotImplementedError until the preview tier
+    and --samples auto were ported now render through the batch loop:
+    --preview 4 (no reset in a batch run, so no preview frame: one launch
+    of 4 samples) and --samples auto (launches of 1, 1 and 2 samples, the
+    probe clocks pinned); the PNG agrees with the JAX app's within
+    FB_MISMATCH_BOUND."""
+    monkeypatch.setattr(app, "time", _Clock())
+    monkeypatch.setattr(icon_rt, "time", _Clock())
+    out_t, out_j = str(tmp_path / "t"), str(tmp_path / "j")
+    pl = app.build(["--device", "cpu", *ARGS, *flags, "-o", out_t])
+    assert _run_loop(pl) == (1 if flags[0] == "--preview" else 3)
+    pl.present()
+    assert icon_rt.main([*ARGS, *flags, "-o", out_j]) == 0
+    img_t, img_j = read_png(out_t + ".png"), read_png(out_j + ".png")
+    differ = (img_t != img_j).any(axis=-1)
+    assert differ.sum() <= FB_MISMATCH_BOUND, differ.sum()
+    assert (img_t[..., :3] != img_t[0, 0, :3]).any(axis=-1).sum() > 50
+
+
+#: a value for every flag apps/icon_rt.py parses (its own and its
+#: pipeline's), in the form it takes
+FLAG_VALUES = {
+    "--num-cells": ["40"], "--lat-range": ["-30:30"],
+    "--lon-range": ["-90:90"], "-mode": ["2"], "--synthetic": ["2:4"],
+    "--raygen": ["ae"], "--accel-mode": ["grid"], "--sampler": ["brute"],
+    "-o": ["x.png"], "--quantized": [], "--finemap": [], "--march": [],
+    "--preview": ["4"], "--no-finemap": [], "--samples": ["auto"],
+}
+
+
+def test_torch_app_parses_every_jax_flag():
+    """Every flag string of apps/icon_rt.py's parse_app_args is parsed by
+    the port's app without NotImplementedError, into the values JAX parses
+    (`--samples 3` and `--preview -2` too); the port has no _NOT_PORTED."""
+    import re
+    with open(icon_rt.__file__) as f:
+        src = f.read()
+    body = src[src.index("def parse_app_args"):src.index("def main")]
+    flags = set(re.findall(r'a == "(-[^"]+)"', body))
+    assert flags == set(FLAG_VALUES), flags ^ set(FLAG_VALUES)
+    assert not hasattr(app, "_NOT_PORTED")
+    argvs = [[f, *v] for f, v in FLAG_VALUES.items()]
+    argvs += [["--samples", "3"], ["--preview", "-2"], ["scene.ic"]]
+    for argv in argvs:
+        got, want = app.parse_app_args(argv), icon_rt.parse_app_args(argv)
+        assert {k: got[k] for k in want} == want, argv
 
 
 #: the AE raygen's wedge case: PARITY_ARGS's camera, frame and samples on

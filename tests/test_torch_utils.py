@@ -103,7 +103,11 @@ def test_torch_port_never_imports_jax(tmp_path):
     points; the multi-device modules, parallel/ and data/animation.py, by
     name too, a one-process animation through them) and run tiny renders
     through the app, the Woodcock tracker, the march and the fast wedge
-    tier (-mode 2); neither jax nor icon_rt_tpu may load."""
+    tier (-mode 2), the preview tier and --samples auto; the front ends and
+    ingest by name too -- apps/viewer_torch.py serving two frames,
+    apps/interactive_demo_torch.py's session, scripts/e2e_netcdf_torch.py
+    from NetCDF through the port's convert_icon to a PNG); neither jax nor
+    icon_rt_tpu may load."""
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -139,10 +143,26 @@ got = ranks.animate_job(0, 1, None, torch.device('cpu'), inputs=functools.partia
     samples_per_frame=1, mesh=False)
 assert got['frames'][0].shape == (256,)
 from icon_rt_tpu_torch import app
-for extra, out in (([], 'x'), (['--march'], 'm'), (['-mode', '2'], 'w')):
+for extra, out in (([], 'x'), (['--march'], 'm'), (['-mode', '2'], 'w'),
+                   (['--preview', '4', '--samples', 'auto'], 'p')):
     assert app.main(['--device', 'cpu', '--synthetic', '1:2', '--size', '16',
                      '16', '--sample-limit', '2', *extra,
                      '-o', {str(tmp_path)!r} + '/' + out]) == 0
+import icon_rt_tpu_torch.data.netcdf
+import icon_rt_tpu_torch.tools.convert_icon
+import icon_rt_tpu_torch.utils.autosize
+sys.path[:0] = [{ROOT!r} + '/apps', {ROOT!r} + '/scripts']
+import e2e_netcdf_torch, interactive_demo_torch, viewer_torch
+assert e2e_netcdf_torch.main(['--subdiv', '1', '--levels', '2', '--size',
+                              '16', '16', '--sample-limit', '1', '--device',
+                              'cpu', '-o', {str(tmp_path)!r} + '/e']) == 0
+assert interactive_demo_torch.main(['--synthetic', '1:2', '--size', '16',
+                                    '--device', 'cpu',
+                                    '-o', {str(tmp_path)!r} + '/demo']) == 0
+pl = app.build(['--device', 'cpu', '--synthetic', '1:2', '--size', '16',
+                '16'])
+st = viewer_torch.serve(pl, port=0, max_frames=2)
+assert st.frame_id == 1 and st.png[1:4] == b'PNG'
 bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')
        or m == 'icon_rt_tpu' or m.startswith('icon_rt_tpu.')]
 assert not bad, bad
@@ -157,3 +177,6 @@ print('CLEAN')
     assert os.path.exists(tmp_path / "x.png")
     assert os.path.exists(tmp_path / "m.png")
     assert os.path.exists(tmp_path / "w.png")
+    assert os.path.exists(tmp_path / "p.png")
+    assert os.path.exists(tmp_path / "e.png")
+    assert len(os.listdir(tmp_path / "demo")) == 7
